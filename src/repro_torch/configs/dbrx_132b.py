@@ -1,0 +1,16 @@
+"""DBRX 132B — fine-grained MoE, 16 experts top-4. [hf:databricks/dbrx-base; unverified]"""
+from repro_torch.config import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="dbrx-132b",
+    family="moe",
+    num_layers=40,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=10752,
+    vocab_size=100352,
+    head_dim=128,
+    moe=MoEConfig(num_experts=16, num_experts_per_tok=4),
+    source="hf:databricks/dbrx-base",
+)

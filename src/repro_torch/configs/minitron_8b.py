@@ -1,0 +1,16 @@
+"""Minitron-8B — width-pruned Nemotron-4. [arXiv:2407.14679; hf]"""
+from repro_torch.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-8b",
+    family="dense",
+    num_layers=32,
+    d_model=4096,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=16384,
+    vocab_size=256000,
+    head_dim=128,
+    activation="gelu",   # nemotron uses squared-relu; gelu family stand-in
+    source="arXiv:2407.14679; hf:nvidia/Minitron-8B-Base",
+)
