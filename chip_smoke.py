@@ -36,7 +36,12 @@ SRC = ROOT / "src"
 OUT_DIR = ROOT / "chiprun_out"
 
 ARCH = "qwen2-0.5b"
-TOL = dict(atol=3e-2, rtol=3e-2)      # bf16 outputs: ~2^-8 relative rounding
+TOL = dict(atol=3e-2, rtol=3e-2)      # GEMMs: outputs ~1, bf16 ~2^-8 relative
+# attention: per output row (one head's D values), max |error| must stay
+# under ATTN_REL x the row's RMS. bf16 output rounding is 2^-8 of an element
+# (about 0.01 x RMS at the row's largest element); dropping one 32-key chunk
+# of a 1024-long decode row moves the row by several times the limit.
+ATTN_REL = 0.1
 LOGITS_TOL = 0.25                     # max |Δlogits|, bf16 through 24 layers
 REPS = 25
 
@@ -139,15 +144,26 @@ def kernel_phase(torch, timer, rows, log):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(
             torch.bfloat16)
 
+    def gemm_close(got, want):
+        return (torch.allclose(got.float(), want.float(), **TOL),
+                f"tol atol={TOL['atol']} rtol={TOL['rtol']}")
+
+    def attn_close(got, want):
+        err = (got.float() - want.float()).abs().amax(-1)
+        rms = want.float().pow(2).mean(-1).sqrt()
+        ratio = (err / rms.clamp_min(1e-30)).max().item()
+        return (bool((err <= ATTN_REL * rms).all()),
+                f"tol per row {ATTN_REL} x RMS(row); worst {ratio:.4f} x RMS")
+
     def record(name, case, got, want, kern, plain, lib, nbytes, flops,
-               primary):
+               primary, close):
         err = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), **TOL)
+        ok, tol = close(got, want)
         b_ms, b_by = bound_ms(nbytes, flops, spec)
         k_ms, p_ms = timer.ms(kern), timer.ms(plain)
         l_ms = timer.ms(lib) if lib is not None else None
         line = (f"kernel {name:30s} {case:34s} max_abs_err={err:.3e} "
-                f"(tol atol={TOL['atol']} rtol={TOL['rtol']}) "
+                f"({tol}) "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"library_ms={'n/a' if l_ms is None else f'{l_ms:.4f}'} "
                 f"bound_ms={b_ms:.4f} ({b_by}) "
@@ -178,7 +194,8 @@ def kernel_phase(torch, timer, rows, log):
             record(name, case, fn(xx, w), plain(xx, w),
                    lambda: fn(xx, w), lambda: plain(xx, w),
                    lambda: torch.matmul(xx, w),
-                   2 * (m * k + k * n + m * n), 2 * m * k * n, primary)
+                   2 * (m * k + k * n + m * n), 2 * m * k * n, primary,
+                   gemm_close)
 
     # -- decode attention (B=4 slots, max_seq 1024, ragged) ----------------
     b, s_max = 4, 1024
@@ -218,13 +235,13 @@ def kernel_phase(torch, timer, rows, log):
                        q, kt, vt, lengths, phi=phi.phi),
                    lambda: da.decode_attention_unified_max_plain(
                        q, kt, vt, lengths, phi=phi.phi),
-                   lib, attn_bytes, attn_flops, True)
+                   lib, attn_bytes, attn_flops, True, attn_close)
         want_sync = da.decode_attention_sync_plain(q, kt, vt, lengths)
         record("decode_attention_sync", tag,
                da.decode_attention_sync(q, kt, vt, lengths), want_sync,
                lambda: da.decode_attention_sync(q, kt, vt, lengths),
                lambda: da.decode_attention_sync_plain(q, kt, vt, lengths),
-               lib, attn_bytes, attn_flops, not overflow)
+               lib, attn_bytes, attn_flops, not overflow, attn_close)
         # the front door: unified-max, then the flag-gated recompute
         got = ops.attention_decode(q, kc, vc, lengths, phi_cfg=phi,
                                    plan=DEFAULT_PLAN)
@@ -232,10 +249,10 @@ def kernel_phase(torch, timer, rows, log):
               f"decode overflow flag wrong for {tag}")
         ref = want_sync if overflow else want
         err = (got.float() - ref.float()).abs().max().item()
+        ok, tol = attn_close(got, ref)
         log(f"kernel ops.attention_decode {tag}: recompute="
-            f"{overflow} max_abs_err={err:.3e}")
-        check(torch.allclose(got.float(), ref.float(), **TOL),
-              f"ops.attention_decode {tag} disagrees")
+            f"{overflow} max_abs_err={err:.3e} ({tol})")
+        check(ok, f"ops.attention_decode {tag} disagrees")
 
     # -- flash prefill (B=2, causal, Sq=Sk in {64, 512}) ---------------------
     for sq, scale_q in ((64, 1.0), (512, 1.0), (512, 20.0)):
@@ -267,21 +284,21 @@ def kernel_phase(torch, timer, rows, log):
                                                         phi=phi.phi),
                    lambda: fp.flash_prefill_unified_max_plain(q, k, v,
                                                               phi=phi.phi),
-                   lib, pf_bytes, pf_flops, sq == 512)
+                   lib, pf_bytes, pf_flops, sq == 512, attn_close)
         want_sync = fp.flash_prefill_sync_plain(q, k, v)
         record("flash_prefill_sync", tag, fp.flash_prefill_sync(q, k, v),
                want_sync, lambda: fp.flash_prefill_sync(q, k, v),
                lambda: fp.flash_prefill_sync_plain(q, k, v), lib, pf_bytes,
-               pf_flops, sq == 512 and not overflow)
+               pf_flops, sq == 512 and not overflow, attn_close)
         got = ops.attention_prefill(q, k, v, phi_cfg=phi, plan=DEFAULT_PLAN)
         check(bool((stat > phi.band[1]).any()) == overflow,
               f"prefill overflow flag wrong for {tag}")
         ref = want_sync if overflow else want
         err = (got.float() - ref.float()).abs().max().item()
+        ok, tol = attn_close(got, ref)
         log(f"kernel ops.attention_prefill {tag}: recompute={overflow} "
-            f"max_abs_err={err:.3e}")
-        check(torch.allclose(got.float(), ref.float(), **TOL),
-              f"ops.attention_prefill {tag} disagrees")
+            f"max_abs_err={err:.3e} ({tol})")
+        check(ok, f"ops.attention_prefill {tag} disagrees")
 
 
 # ---------------------------------------------------------------------------
@@ -353,9 +370,13 @@ def serve_phase(torch, cfg, params, requests, log, launches):
 
 
 def profile_phase(torch, cfg, params, requests, log):
-    """Where a decode tick's time goes: torch.profiler over 8 steady
-    ticks at 4 slots — device busy time (sum of kernel times) against
-    the host's wall time per tick, and the costliest device kernels."""
+    """Where a decode tick's time goes at 4 slots: 8 steady ticks timed
+    on the host clock without the profiler, then 8 more under
+    torch.profiler for the device busy time (sum of kernel times) and
+    the costliest device kernels. The idle share is given against both
+    walls: the profiled window's own (busy and wall from one window, the
+    wall inflated by the profiler) and the unprofiled window's (adjacent
+    ticks of the same engine, the wall a serving user sees)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import Engine
@@ -366,8 +387,13 @@ def profile_phase(torch, cfg, params, requests, log):
         eng.submit(p, SamplingParams(max_new_tokens=40))
     for _ in range(3):
         eng.step()                      # admission + prefill + warm ticks
-    torch.cuda.synchronize()
     n = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / n
     for fn in counters().values():
         fn.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
@@ -390,9 +416,11 @@ def profile_phase(torch, cfg, params, requests, log):
         log("profile slots=4 decode: device time not measured (the "
             "profiler reported none)")
         return
-    log(f"profile slots=4 decode ({n} ticks): wall {1e3 * wall:.3f} "
-        f"ms/tick, device busy {busy_us / 1e3:.3f} ms/tick, device idle "
-        f"{100 * (1 - busy_us / 1e6 / wall):.1f}%")
+    log(f"profile slots=4 decode ({n} ticks each window): device busy "
+        f"{busy_us / 1e3:.3f} ms/tick; profiled wall {1e3 * wall:.3f} "
+        f"ms/tick, device idle {100 * (1 - busy_us / 1e6 / wall):.1f}%; "
+        f"unprofiled wall {1e3 * plain_wall:.3f} ms/tick, device idle "
+        f"{100 * (1 - busy_us / 1e6 / plain_wall):.1f}%")
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         log(f"profile   {e.self_device_time_total / n / 1e3:8.4f} ms/tick "

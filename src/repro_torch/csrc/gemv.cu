@@ -21,6 +21,9 @@
 //     One warp per output column: lanes read K with 16-byte loads and
 //     the column's dot products finish with a warp-shuffle reduction.
 //     Reading the view in place avoids a 272 MB copy per decode tick.
+// Both paths load only whole 16-byte vectors: the contiguous axis is a
+// multiple of 8 and every row is 16-byte aligned (the wrapper raises
+// otherwise, as the flat GEMM's does).
 #include "common.cuh"
 
 using namespace repro;
@@ -49,7 +52,7 @@ __global__ void __launch_bounds__(kThreads)
 gemv_kn_kernel(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ w,
                __nv_bfloat16* __restrict__ out, int M, int K, int N,
-               long long ldx, long long ldw, int vec) {
+               long long ldx, long long ldw) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
   float* red = reinterpret_cast<float*>(
@@ -66,24 +69,18 @@ gemv_kn_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
 
-  const bool full = vec && (n0 + 8 <= N);
-  for (int k = kg; k < K; k += kKGroups) {
-    float wv[8];
-    const __nv_bfloat16* row = w + k * ldw;
-    if (full) {
-      uint4 u = __ldg(reinterpret_cast<const uint4*>(row + n0));
-      unpack8(u, wv);
-    } else {
+  // N % 8 == 0, so a thread's 8 columns lie wholly inside or past N
+  if (n0 < N) {
+    for (int k = kg; k < K; k += kKGroups) {
+      float wv[8];
+      unpack8(__ldg(reinterpret_cast<const uint4*>(w + k * ldw + n0)), wv);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        wv[j] = (n0 + j < N) ? bf2f(row[n0 + j]) : 0.f;
-    }
+      for (int m = 0; m < kMaxM; ++m) {
+        if (m < M) {
+          float xv = bf2f(xs[m * K + k]);
 #pragma unroll
-    for (int m = 0; m < kMaxM; ++m) {
-      if (m < M) {
-        float xv = bf2f(xs[m * K + k]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
+          for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
+        }
       }
     }
   }
@@ -125,7 +122,7 @@ __global__ void __launch_bounds__(kThreads)
 gemv_nk_kernel(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ w,
                __nv_bfloat16* __restrict__ out, int M, int K, int N,
-               long long ldx, long long ldw, int vec) {
+               long long ldx, long long ldw) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
   stage_x(x, xs, M, K, ldx);
@@ -139,27 +136,17 @@ gemv_nk_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
   for (int m = 0; m < kMaxM; ++m) acc[m] = 0.f;
 
-  if (vec) {
-    // K % 8 == 0 and every row 16-byte aligned (checked by the wrapper)
-    for (int k0 = lane * 8; k0 < K; k0 += 32 * 8) {
-      float wv[8];
-      unpack8(__ldg(reinterpret_cast<const uint4*>(col + k0)), wv);
+  for (int k0 = lane * 8; k0 < K; k0 += 32 * 8) {
+    float wv[8];
+    unpack8(__ldg(reinterpret_cast<const uint4*>(col + k0)), wv);
 #pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          float xv[8];
-          unpack8(*reinterpret_cast<const uint4*>(xs + m * K + k0), xv);
+    for (int m = 0; m < kMaxM; ++m) {
+      if (m < M) {
+        float xv[8];
+        unpack8(*reinterpret_cast<const uint4*>(xs + m * K + k0), xv);
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[m] = fmaf(xv[j], wv[j], acc[m]);
-        }
+        for (int j = 0; j < 8; ++j) acc[m] = fmaf(xv[j], wv[j], acc[m]);
       }
-    }
-  } else {
-    for (int k = lane; k < K; k += 32) {
-      float wv = bf2f(col[k]);
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m)
-        if (m < M) acc[m] = fmaf(bf2f(xs[m * K + k]), wv, acc[m]);
     }
   }
 #pragma unroll
@@ -176,10 +163,11 @@ REPRO_ERROR_STRING_FN
 
 // out (M, N) row-major bf16 = x (M, K; row stride ldx) @ W.
 // w_kn = 1: W[k, n] at w[k*ldw + n]; w_kn = 0: W[k, n] at w[n*ldw + k].
-// vec = 1 promises 16-byte aligned rows of W and x and K (or N) % 8 == 0.
+// Needs K % 8 == 0 (and N % 8 == 0 for w_kn = 1) with 16-byte aligned rows
+// of W and x; the wrapper checks this.
 REPRO_EXPORT int gemv_bf16(const void* x, const void* w, void* out, int M,
                            int K, int N, long long ldx, long long ldw,
-                           int w_kn, int vec, void* stream) {
+                           int w_kn, void* stream) {
   if (M < 1 || M > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t xs_bytes = ((static_cast<size_t>(M) * K * 2 + 15) / 16) * 16;
@@ -193,13 +181,13 @@ REPRO_EXPORT int gemv_bf16(const void* x, const void* w, void* out, int M,
     if (e != cudaSuccess) return static_cast<int>(e);
     dim3 grid((N + kColsPerBlock - 1) / kColsPerBlock);
     gemv_kn_kernel<<<grid, kThreads, smem, st>>>(xp, wp, op, M, K, N, ldx,
-                                                 ldw, vec);
+                                                 ldw);
   } else {
     cudaError_t e = allow_smem(gemv_nk_kernel, xs_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
     dim3 grid((N + kWarps - 1) / kWarps);
     gemv_nk_kernel<<<grid, kThreads, xs_bytes, st>>>(xp, wp, op, M, K, N,
-                                                     ldx, ldw, vec);
+                                                     ldx, ldw);
   }
   return static_cast<int>(cudaGetLastError());
 }

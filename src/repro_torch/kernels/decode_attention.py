@@ -129,7 +129,8 @@ def decode_attention_unified_max(q, k_cache, v_cache, lengths, *,
                                  block_k: int = DEFAULT_BLOCK_K):
     """T1 decode attention. Returns ``(out (B,HQ,D), stat (B,HK))`` with
     ``stat`` the max of ``s − φ`` over valid positions (the overflow
-    statistic the recompute fallback tests)."""
+    statistic the recompute fallback tests). ``block_k`` shapes only the
+    plain version on CPU tensors; the kernel does not take it."""
     if not q.is_cuda:
         return decode_attention_unified_max_plain(
             q, k_cache, v_cache, lengths, phi=phi, scale=scale,
@@ -162,6 +163,7 @@ def decode_attention_sync(q, k_cache, v_cache, lengths, *,
     recompute: the result replaces ``out`` where ``flag`` is set and
     ``out`` is returned untouched otherwise. On the card the kernel reads
     the flag at entry, so the decision never leaves the device.
+    ``block_k`` shapes only the plain version on CPU tensors.
     """
     if (out is None) != (flag is None):
         raise ValueError("pass both out= and flag=, or neither")

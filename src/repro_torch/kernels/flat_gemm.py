@@ -11,7 +11,7 @@ the H100: a block covers ``BN`` output columns and up to 64 token rows
 and streams K in ``BK`` tiles through two shared-memory stages. Larger
 BN reuses each staged x tile over more columns; smaller BN gives more
 blocks to spread over the SMs. The budget is the shared memory a block
-may claim.
+may claim, counted for the weight layout that is launched.
 """
 from __future__ import annotations
 
@@ -43,7 +43,8 @@ def smem_bytes(bn: int, bk: int, *, w_kn: bool = False,
     return 2 * (x_tile + w_tile) * dtype_bytes
 
 
-def pick_bn(m: int, n: int, k: int, *, dtype_bytes: int = 2,
+def pick_bn(m: int, n: int, k: int, *, w_kn: bool = True,
+            dtype_bytes: int = 2,
             spec: hardware.HardwareSpec = hardware.DEFAULT) -> int:
     """Eq. 5 on the H100: the widest BN whose grid still gives every SM
     a block (more x-tile reuse at no cost in parallelism); when no BN
@@ -51,13 +52,14 @@ def pick_bn(m: int, n: int, k: int, *, dtype_bytes: int = 2,
     for a double-buffered K tile in shared memory."""
     m_blocks = -(-max(m, 1) // BLOCK_M)
     fits = [bn for bn in BN_CHOICES
-            if smem_bytes(bn, BK_CHOICES[0], w_kn=True,
+            if smem_bytes(bn, BK_CHOICES[0], w_kn=w_kn,
                           dtype_bytes=dtype_bytes) <= spec.smem_per_block]
     filling = [bn for bn in fits if -(-n // bn) * m_blocks >= spec.num_sms]
     return max(filling) if filling else min(fits)
 
 
-def pick_bk(m: int, bn: int, k: int, *, dtype_bytes: int = 2,
+def pick_bk(m: int, bn: int, k: int, *, w_kn: bool = True,
+            dtype_bytes: int = 2,
             spec: hardware.HardwareSpec = hardware.DEFAULT) -> int:
     """The deepest K tile (fewer pipeline steps per block) whose two
     stages fit the shared-memory budget and that does not overshoot K."""
@@ -65,7 +67,7 @@ def pick_bk(m: int, bn: int, k: int, *, dtype_bytes: int = 2,
     for bk in BK_CHOICES:
         if bk > round_up(k, BK_CHOICES[0]):
             break
-        if smem_bytes(bn, bk, w_kn=True,
+        if smem_bytes(bn, bk, w_kn=w_kn,
                       dtype_bytes=dtype_bytes) <= spec.smem_per_block:
             best = bk
     return best
@@ -99,8 +101,8 @@ def flat_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             "flat_gemm kernel needs K (and N for a (K, N) weight) to be a "
             "multiple of 8 with 16-byte aligned rows")
     m_pad = round_up(m, 8)
-    bn = pick_bn(m_pad, n, k)
-    bk = pick_bk(m_pad, bn, k)
+    bn = pick_bn(m_pad, n, k, w_kn=kn)
+    bk = pick_bk(m_pad, bn, k, w_kn=kn)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("flat_gemm", _SIG)
     code = lib.flat_gemm_bf16(_build.ptr(x), _build.ptr(w), _build.ptr(out),

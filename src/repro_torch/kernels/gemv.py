@@ -21,7 +21,7 @@ MAX_M = 4
 
 _SIG = {"gemv_bf16": [_build.VP, _build.VP, _build.VP, _build.I32,
                       _build.I32, _build.I32, _build.I64, _build.I64,
-                      _build.I32, _build.I32, _build.VP]}
+                      _build.I32, _build.VP]}
 
 
 def gemv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -67,11 +67,14 @@ def gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.stride(1) != 1:
         x = x.contiguous()
     kn, ldw = weight_layout(w)
+    if not vector_ok(x, w, kn, ldw):
+        raise ValueError(
+            "gemv kernel needs K (and N for a (K, N) weight) to be a "
+            "multiple of 8 with 16-byte aligned rows")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("gemv", _SIG)
     code = lib.gemv_bf16(_build.ptr(x), _build.ptr(w), _build.ptr(out), m, k,
-                         n, x.stride(0), ldw, int(kn),
-                         int(vector_ok(x, w, kn, ldw)), _build.stream_of(x))
+                         n, x.stride(0), ldw, int(kn), _build.stream_of(x))
     _build.check(lib, "gemv_bf16", code)
     gemv.launches += 1
     return out

@@ -120,6 +120,8 @@ def attention_decode(q, k_cache, v_cache, lengths, *,
 
     kt = k_cache.transpose(1, 2)          # views: (B, HK, S, D)
     vt = v_cache.transpose(1, 2)
+    # block_k reaches only the plain versions (CPU tensors), which walk
+    # the cache in the TPU kernel's tiles; the CUDA kernel ignores it
     if not unified:
         return decode_attention_sync(q, kt, vt, lengths, block_k=dp.block_k)
     out, stat = decode_attention_unified_max(

@@ -85,16 +85,22 @@ def test_pick_bn_bk_on_h100():
     assert pick_bn(128, 8192, 896, spec=spec) == 64
     for m, n, k in [(8, 896, 896), (64, 4864, 4864), (8, 152064, 896),
                     (8, 100, 40)]:
-        bn = pick_bn(m, n, k, spec=spec)
-        bk = pick_bk(m, bn, k, spec=spec)
-        assert bk <= max(32, -(-k // 32) * 32)
-        assert smem_bytes(bn, bk, w_kn=True) <= spec.smem_per_block
-        assert smem_bytes(bn, bk, w_kn=False) <= spec.smem_per_block
+        for w_kn in (True, False):
+            bn = pick_bn(m, n, k, w_kn=w_kn, spec=spec)
+            bk = pick_bk(m, bn, k, w_kn=w_kn, spec=spec)
+            assert bk <= max(32, -(-k // 32) * 32)
+            assert smem_bytes(bn, bk, w_kn=w_kn) <= spec.smem_per_block
     assert pick_bk(8, 32, 896, spec=spec) == 128
     assert pick_bk(8, 32, 40, spec=spec) == 64
     # a card with a small shared-memory budget gets shallower K tiles
     tiny = hardware.HardwareSpec(**{**spec.__dict__, "smem_per_block": 40_000})
     assert pick_bk(8, 128, 4096, spec=tiny) < pick_bk(8, 128, 4096, spec=spec)
+    # the budget is counted for the layout launched: at BN = 128 a 64-deep
+    # K tile fits 54 000 bytes as (K, N) rows (53 248) but not as (N, K)
+    # rows (55 296)
+    edge = hardware.HardwareSpec(**{**spec.__dict__, "smem_per_block": 54_000})
+    assert pick_bk(8, 128, 4096, w_kn=True, spec=edge) == 64
+    assert pick_bk(8, 128, 4096, w_kn=False, spec=edge) == 32
 
 
 @pytest.mark.parametrize("m,want", [(1, Impl.GEMV), (2, Impl.GEMV),
