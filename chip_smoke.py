@@ -9,12 +9,20 @@
    plus inputs scaled so that some s − φ > 40 (forcing the overflow
    recompute); times kernel, plain version and one library call with CUDA
    events (median of 25, L2 flushed before each launch) beside the
-   card's least possible time (``bound_ms``).
+   card's least possible time (``bound_ms``). The paged kernels read the
+   same KV laid into shuffled pages of a larger pool: paged decode must be
+   bitwise the dense decode kernel, and neither paged kernel may change
+   its output when every pool row it must not read holds NaN.
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
-   greedy, in three engine runs — 4 slots with chunked prefill, 1 slot,
-   and ``prefill_chunk=0`` (flash prefill) — with every kernel's launch
-   counter set to 0 just before and read just after each run.
-4. Checks the logits of the first prefill and decode step against the
+   greedy, with every kernel's launch counter set to 0 just before and
+   read just after each run: A 4 slots with chunked prefill, B 1 slot,
+   C ``prefill_chunk=0`` (flash prefill) on the dense cache; on the paged
+   pool D (dense gather, tokens equal to A's), E (fused chunk kernel,
+   prefix sharing over a 128-token header), E′ (E without sharing, tokens
+   equal to E's) and F (E on an overcommitted pool: preemptions, every
+   request finishing, the pool empty after).
+4. Checks the logits of the first prefill and decode step (and, on the
+   paged pool, of a chunk that reads resident pages) against the
    ``"torch"`` plan (plain reference math) on the card, and counts the
    greedy tokens on which the two plans agree.
 5. Prints the card's name and power limit, one JSON line describing every
@@ -53,6 +61,12 @@ REPLACES = {
     "decode_attention_sync": "src/repro/kernels/decode_attention.py:487",
     "flash_prefill_unified_max": "src/repro/kernels/flash_prefill.py:134",
     "flash_prefill_sync": "src/repro/kernels/flash_prefill.py:134",
+    "paged_decode_attention_unified_max":
+        "src/repro/kernels/decode_attention.py:289",
+    "paged_decode_attention_sync": "src/repro/kernels/decode_attention.py:422",
+    "paged_chunk_attention_unified_max":
+        "src/repro/kernels/chunk_attention.py:235",
+    "paged_chunk_attention_sync": "src/repro/kernels/chunk_attention.py:294",
 }
 SOURCES = {
     "gemv": "src/repro_torch/csrc/gemv.cu",
@@ -61,7 +75,14 @@ SOURCES = {
     "decode_attention_sync": "src/repro_torch/csrc/decode_attention.cu",
     "flash_prefill_unified_max": "src/repro_torch/csrc/flash_prefill.cu",
     "flash_prefill_sync": "src/repro_torch/csrc/flash_prefill.cu",
+    "paged_decode_attention_unified_max":
+        "src/repro_torch/csrc/decode_attention.cu",
+    "paged_decode_attention_sync": "src/repro_torch/csrc/decode_attention.cu",
+    "paged_chunk_attention_unified_max":
+        "src/repro_torch/csrc/chunk_attention.cu",
+    "paged_chunk_attention_sync": "src/repro_torch/csrc/chunk_attention.cu",
 }
+PAGE = 64                             # page size of every paged run
 
 
 class SmokeFailure(RuntimeError):
@@ -120,11 +141,57 @@ def bound_ms(nbytes, flops, spec):
 # ---------------------------------------------------------------------------
 
 
+def paged_layout(torch, gen, caches, n_valid, spare=8):
+    """Lay dense (B, S, HK, D) caches into pools of shuffled PAGE-row
+    pages, ``spare`` more than the rows need; every pool row that holds
+    no valid position keeps random data. Returns the pools, the (B, S //
+    PAGE) int32 block tables (sentinel NP past each row's pages) and the
+    (NP, PAGE) mask of rows that hold a position below ``n_valid[b]``."""
+    b, s = caches[0].shape[:2]
+    dev = caches[0].device
+    need = [-(-int(n) // PAGE) for n in n_valid.tolist()]
+    num_pages = sum(need) + spare
+    perm = torch.randperm(num_pages, generator=gen, device=dev)
+    bt = torch.full((b, s // PAGE), num_pages, dtype=torch.int32, device=dev)
+    pools = [torch.randn((num_pages, PAGE) + tuple(c.shape[2:]),
+                         generator=gen, device=dev).to(c.dtype)
+             for c in caches]
+    live = torch.zeros((num_pages, PAGE), dtype=torch.bool, device=dev)
+    lo = 0
+    for i, n in enumerate(need):
+        pages = perm[lo:lo + n]
+        lo += n
+        bt[i, :n] = pages.int()
+        for pool, cache in zip(pools, caches):
+            pool[pages] = cache[i, :n * PAGE].reshape(n, PAGE,
+                                                      *cache.shape[2:])
+        live[pages] = (torch.arange(n * PAGE, device=dev)
+                       < int(n_valid[i])).reshape(n, PAGE)
+    return pools, bt, live
+
+
+def same_bits(torch, *pairs):
+    """Every (a, b) pair holds the same bits (NaN and inf included, which
+    an overflowing unified-max output may legitimately hold)."""
+    return all(a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        for a, b in pairs)
+
+
+def poisoned(torch, pools, live):
+    """The pools with NaN in every row that holds no valid position: a
+    kernel that reads only what holds data gives the same bits on both."""
+    keep = live[:, :, None, None]
+    return [torch.where(keep, p, torch.full_like(p, float("nan")))
+            for p in pools]
+
+
 def kernel_phase(torch, timer, rows, log):
     import torch.nn.functional as F
 
     from repro_torch import hardware
     from repro_torch.core.plan import DEFAULT_PLAN
+    from repro_torch.kernels import chunk_attention as ca
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import ops
@@ -213,6 +280,13 @@ def kernel_phase(torch, timer, rows, log):
     attn_bytes = 2 * (2 * b * hq * hd + 2 * n_valid * hk * hd) + 4 * b * hk
     attn_flops = 4 * n_valid * hq * hd
     phi = cfg.softmax_phi
+    # rows 5-6: the same KV in shuffled pages of a larger pool; the
+    # kernel also reads each row's block table once
+    (kp, vp), bt, live = paged_layout(torch, gen, (kc, vc), lengths)
+    kpn, vpn = poisoned(torch, (kp, vp), live)
+    paged_bytes = attn_bytes + 4 * bt.numel()
+    log(f"paged decode pool: {kp.shape[0]} pages of {PAGE}, tables "
+        f"{tuple(bt.shape)}")
     for scale_q, tag in ((1.0, "B=4 S=1024 ragged"),
                          (20.0, "B=4 S=1024 ragged, s-phi>40")):
         q = randn(b, hq, hd, scale=scale_q)
@@ -253,6 +327,52 @@ def kernel_phase(torch, timer, rows, log):
         log(f"kernel ops.attention_decode {tag}: recompute="
             f"{overflow} max_abs_err={err:.3e} ({tol})")
         check(ok, f"ops.attention_decode {tag} disagrees")
+
+        # paged decode: one kernel body with the dense one, so bitwise
+        ptag = tag.replace("ragged", f"PS={PAGE} ragged shuffled")
+        pout, pstat = da.paged_decode_attention_unified_max(
+            q, kp, vp, bt, lengths, phi=phi.phi)
+        psync = da.paged_decode_attention_sync(q, kp, vp, bt, lengths)
+        same = same_bits(torch, (pout, out), (pstat, stat), (
+            psync, da.decode_attention_sync(q, kt, vt, lengths)))
+        clean = same_bits(
+            torch, (da.paged_decode_attention_unified_max(
+                q, kpn, vpn, bt, lengths, phi=phi.phi)[0], pout),
+            (da.paged_decode_attention_sync(q, kpn, vpn, bt, lengths),
+             psync))
+        log(f"kernel paged_decode_attention {ptag}: bitwise equal to the "
+            f"dense kernel {same}; unchanged with NaN in unread pool rows "
+            f"{clean}")
+        check(same, f"paged decode {ptag}: not bitwise the dense kernel")
+        check(clean, f"paged decode {ptag}: reads pool rows past lengths")
+        pwant, pwant_stat = da.paged_decode_attention_unified_max_plain(
+            q, kp, vp, bt, lengths, phi=phi.phi)
+        check((pstat - pwant_stat).abs().max().item()
+              <= 1e-2 * max(1.0, pwant_stat.abs().max().item()),
+              "paged decode unified-max stat disagrees")
+        if not overflow:
+            record("paged_decode_attention_unified_max", ptag, pout, pwant,
+                   lambda: da.paged_decode_attention_unified_max(
+                       q, kp, vp, bt, lengths, phi=phi.phi),
+                   lambda: da.paged_decode_attention_unified_max_plain(
+                       q, kp, vp, bt, lengths, phi=phi.phi),
+                   lib, paged_bytes, attn_flops, True, attn_close)
+        pwant_sync = da.paged_decode_attention_sync_plain(q, kp, vp, bt,
+                                                          lengths)
+        record("paged_decode_attention_sync", ptag, psync, pwant_sync,
+               lambda: da.paged_decode_attention_sync(q, kp, vp, bt,
+                                                      lengths),
+               lambda: da.paged_decode_attention_sync_plain(q, kp, vp, bt,
+                                                            lengths),
+               lib, paged_bytes, attn_flops, not overflow, attn_close)
+        got = ops.attention_decode_paged(q, kp, vp, bt, lengths,
+                                         phi_cfg=phi, plan=DEFAULT_PLAN)
+        ref = pwant_sync if overflow else pwant
+        err = (got.float() - ref.float()).abs().max().item()
+        ok, tol = attn_close(got, ref)
+        log(f"kernel ops.attention_decode_paged {ptag}: recompute="
+            f"{overflow} max_abs_err={err:.3e} ({tol})")
+        check(ok, f"ops.attention_decode_paged {ptag} disagrees")
 
     # -- flash prefill (B=2, causal, Sq=Sk in {64, 512}) ---------------------
     for sq, scale_q in ((64, 1.0), (512, 1.0), (512, 20.0)):
@@ -300,6 +420,73 @@ def kernel_phase(torch, timer, rows, log):
             f"max_abs_err={err:.3e} ({tol})")
         check(ok, f"ops.attention_prefill {tag} disagrees")
 
+    # -- fused paged chunk attention (rows 9-10): B=4, C=64 ----------------
+    c = 64
+    before = torch.tensor([960, 453, 0, 128], dtype=torch.int32, device=dev)
+    kd, vd = randn(b, s_max, hk, hd), randn(b, s_max, hk, hd)
+    (kp, vp), bt, live = paged_layout(torch, gen, (kd, vd), before + c)
+    kpn, vpn = poisoned(torch, (kp, vp), live)
+    # library yardstick: SDPA over the pre-gathered dense view (the gather
+    # itself not timed), GQA-expanded, with the chunk's causal mask
+    ke = kd.transpose(1, 2).repeat_interleave(hq // hk, dim=1)
+    ve = vd.transpose(1, 2).repeat_interleave(hq // hk, dim=1)
+    qpos = before[:, None] + torch.arange(c, device=dev)[None, :]
+    mask = (torch.arange(s_max, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]                   # (B,1,C,S)
+    pairs = int(c * before.sum().item() + b * c * (c + 1) // 2)
+    ch_bytes = (2 * (2 * b * c * hq * hd + 2 * int((before + c).sum())
+                     * hk * hd) + 4 * b * hk + 4 * bt.numel() + 4 * b)
+    ch_flops = 4 * pairs * hq * hd
+    for scale_q in (1.0, 20.0):
+        overflow = scale_q > 1.0
+        tag = (f"B=4 C={c} PS={PAGE} lengths 960/453/0/128"
+               + (", s-phi>40" if overflow else ""))
+        q = randn(b, c, hq, hd, scale=scale_q)
+        qe = q.transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(qe, ke, ve,
+                                                     attn_mask=mask)
+        out, stat = ca.paged_chunk_attention_unified_max(q, kp, vp, bt,
+                                                         before, phi=phi.phi)
+        want, want_stat = ca.paged_chunk_attention_unified_max_plain(
+            q, kp, vp, bt, before, phi=phi.phi)
+        serr = (stat - want_stat).abs().max().item()
+        log(f"kernel paged_chunk_attention_unified_max stat max_abs_err="
+            f"{serr:.3e} max_stat={stat.max().item():.2f}")
+        check(serr <= 1e-2 * max(1.0, want_stat.abs().max().item()),
+              "paged chunk unified-max stat disagrees")
+        sync = ca.paged_chunk_attention_sync(q, kp, vp, bt, before)
+        clean = same_bits(
+            torch, (ca.paged_chunk_attention_unified_max(
+                q, kpn, vpn, bt, before, phi=phi.phi)[0], out),
+            (ca.paged_chunk_attention_sync(q, kpn, vpn, bt, before), sync))
+        log(f"kernel paged_chunk_attention {tag}: unchanged with NaN in "
+            f"unread pool rows {clean}")
+        check(clean, f"paged chunk {tag}: reads pool rows past the chunk")
+        if not overflow:
+            record("paged_chunk_attention_unified_max", tag, out, want,
+                   lambda: ca.paged_chunk_attention_unified_max(
+                       q, kp, vp, bt, before, phi=phi.phi),
+                   lambda: ca.paged_chunk_attention_unified_max_plain(
+                       q, kp, vp, bt, before, phi=phi.phi),
+                   lib, ch_bytes, ch_flops, True, attn_close)
+        want_sync = ca.paged_chunk_attention_sync_plain(q, kp, vp, bt,
+                                                        before)
+        record("paged_chunk_attention_sync", tag, sync, want_sync,
+               lambda: ca.paged_chunk_attention_sync(q, kp, vp, bt, before),
+               lambda: ca.paged_chunk_attention_sync_plain(q, kp, vp, bt,
+                                                           before),
+               lib, ch_bytes, ch_flops, not overflow, attn_close)
+        got = ops.attention_chunk_paged(q, kp, vp, bt, before, phi_cfg=phi,
+                                        plan=DEFAULT_PLAN)
+        check(bool((stat > phi.band[1]).any()) == overflow,
+              f"chunk overflow flag wrong for {tag}")
+        ref = want_sync if overflow else want
+        err = (got.float() - ref.float()).abs().max().item()
+        ok, tol = attn_close(got, ref)
+        log(f"kernel ops.attention_chunk_paged {tag}: recompute={overflow} "
+            f"max_abs_err={err:.3e} ({tol})")
+        check(ok, f"ops.attention_chunk_paged {tag} disagrees")
+
 
 # ---------------------------------------------------------------------------
 # phase 3-4: serving and logits
@@ -307,6 +494,7 @@ def kernel_phase(torch, timer, rows, log):
 
 
 def counters():
+    from repro_torch.kernels import chunk_attention as ca
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import flat_gemm as fg
@@ -315,27 +503,75 @@ def counters():
             "decode_attention_unified_max": da.decode_attention_unified_max,
             "decode_attention_sync": da.decode_attention_sync,
             "flash_prefill_unified_max": fp.flash_prefill_unified_max,
-            "flash_prefill_sync": fp.flash_prefill_sync}
+            "flash_prefill_sync": fp.flash_prefill_sync,
+            "paged_decode_attention_unified_max":
+                da.paged_decode_attention_unified_max,
+            "paged_decode_attention_sync": da.paged_decode_attention_sync,
+            "paged_chunk_attention_unified_max":
+                ca.paged_chunk_attention_unified_max,
+            "paged_chunk_attention_sync": ca.paged_chunk_attention_sync}
 
 
-def serve_phase(torch, cfg, params, requests, log, launches):
+HEADER = 128          # shared system-prompt tokens of runs E, E' and F
+SHARED_NEW = 96       # > one page of growth past admission's headroom
+F_PAGES = 16          # run F's pool: one preemption at these lengths
+
+
+def shared_requests(np, cfg, seed, n=8):
+    """Requests that all start with one HEADER-token prompt: tail lengths
+    are drawn first, so they do not depend on the vocabulary size."""
+    from repro_torch.serving.request import SamplingParams
+    rng = np.random.default_rng(seed + 1)
+    tails = rng.integers(8, 173, size=n)
+    header = rng.integers(1, cfg.vocab_size, size=HEADER)
+    sp = SamplingParams(max_new_tokens=SHARED_NEW)
+    return [(np.concatenate([header, rng.integers(
+        1, cfg.vocab_size, size=int(t))]).astype(np.int32), sp)
+        for t in tails]
+
+
+def serve_runs():
+    """(tag, engine kwargs, request set, kernels that must launch) of every
+    serve run."""
+    from repro_torch.core.plan import make_plan
+    paged = dict(cache_kind="paged", page_size=PAGE)
+    attn = ("paged_decode_attention_unified_max",
+            "paged_decode_attention_sync")
+    fused = attn + ("paged_chunk_attention_unified_max",
+                    "paged_chunk_attention_sync")
+    return [
+        ("A slots=4 chunked prefill", dict(num_slots=4), "plain",
+         ("flat_gemm", "decode_attention_unified_max",
+          "decode_attention_sync")),
+        ("B slots=1 chunked prefill", dict(num_slots=1), "plain",
+         ("gemv", "flat_gemm", "decode_attention_unified_max")),
+        ("C slots=4 prefill_chunk=0", dict(num_slots=4, prefill_chunk=0),
+         "plain", ("flat_gemm", "flash_prefill_unified_max",
+                   "flash_prefill_sync")),
+        ("D slots=4 paged gather", dict(num_slots=4, plan=make_plan(
+            "cuda", gather_chunk="dense"), **paged), "plain",
+         ("flat_gemm",) + attn),
+        ("E slots=4 paged fused sharing", dict(
+            num_slots=4, prefix_sharing=True, **paged), "shared", fused),
+        ("E' slots=4 paged fused", dict(num_slots=4, **paged), "shared",
+         fused),
+        (f"F slots=4 paged fused sharing num_pages={F_PAGES}", dict(
+            num_slots=4, prefix_sharing=True, num_pages=F_PAGES, **paged),
+         "shared", fused),
+    ]
+
+
+def serve_phase(torch, cfg, params, request_sets, log, launches):
     from repro_torch.serving.engine import Engine
 
     # warm-up (allocator, library handles) so the first timed run is not
     # charged for one-time set-up; its launches are not counted
     Engine(cfg, params, num_slots=4, max_seq=1024, device="cuda").run(
-        requests[:2])
+        request_sets["plain"][:2])
 
-    runs = [("slots=4 chunked prefill", dict(num_slots=4),
-             ("flat_gemm", "decode_attention_unified_max",
-              "decode_attention_sync")),
-            ("slots=1 chunked prefill", dict(num_slots=1),
-             ("gemv", "flat_gemm", "decode_attention_unified_max")),
-            ("slots=4 prefill_chunk=0", dict(num_slots=4, prefill_chunk=0),
-             ("flat_gemm", "flash_prefill_unified_max",
-              "flash_prefill_sync"))]
-    outputs = {}
-    for tag, kw, expect in runs:
+    outputs, engines = {}, {}
+    for tag, kw, which, expect in serve_runs():
+        requests = request_sets[which]
         eng = Engine(cfg, params, max_seq=1024, device="cuda", **kw)
         for fn in counters().values():
             fn.launches = 0
@@ -350,11 +586,18 @@ def serve_phase(torch, cfg, params, requests, log, launches):
             launches[n] = launches.get(n, 0) + c
         total = sum(len(v) for v in out.values())
         st = eng.stats
+        paged = ""
+        if eng.pool is not None:
+            paged = (f"; pool {eng.pool.num_pages} pages, peak "
+                     f"{st.peak_pages_used}, preemptions {st.preemptions}, "
+                     f"shared prefix pages {st.shared_prefix_pages}, saved "
+                     f"prefill tokens {st.saved_prefill_tokens}, COW forks "
+                     f"{st.cow_forks}")
         log(f"serve {tag}: {len(out)} requests, {total} tokens in "
             f"{dt:.3f}s = {total / dt:.1f} tok/s; {eng.ticks} decode ticks "
             f"at {1e3 * st.decode_seconds / max(eng.ticks, 1):.3f} ms/tick; "
             f"prefill {st.prefill_seconds:.3f}s; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB{paged}; "
             f"launches {json.dumps(counts)}")
         for rid, toks in out.items():
             check(len(toks) == requests[rid][1].max_new_tokens,
@@ -365,7 +608,26 @@ def serve_phase(torch, cfg, params, requests, log, launches):
                   f"{tag}: request {rid} finished early")
         for n in expect:
             check(counts[n] > 0, f"{tag}: kernel {n} was never launched")
-        outputs[tag] = out
+        outputs[tag.split()[0]] = out
+        engines[tag.split()[0]] = eng
+    # the paged contracts: dense = paged, sharing on = off, and a clean
+    # pool after preemption
+    check(outputs["D"] == outputs["A"], "run D's tokens differ from A's")
+    check(engines["E"].stats.shared_prefix_pages > 0,
+          "run E shared no prefix page")
+    check(outputs["E"] == outputs["E'"], "run E's tokens differ from E′'s")
+    f = engines["F"]
+    check(f.stats.preemptions > 0, "run F preempted nothing")
+    f.slots.check()
+    check(f.pool.used_pages == 0, f"run F left {f.pool.used_pages} pages "
+          "allocated")
+    same = sum(sum(1 for a, b in zip(outputs["E"][r], outputs["F"][r])
+                   if a == b) for r in outputs["E"])
+    total = sum(len(v) for v in outputs["E"].values())
+    log(f"serve paged contracts: D == A tokens; E shared "
+        f"{engines['E'].stats.shared_prefix_pages} prefix pages, E == E′ "
+        f"tokens; F {f.stats.preemptions} preemptions, slots.check() ok, "
+        f"pool empty after; F agrees with E on {same}/{total} tokens")
     return outputs
 
 
@@ -484,6 +746,54 @@ def logits_phase(torch, cfg, params, requests, log, cuda_tokens):
         f"positions agree, {prefix}/{total} before the first divergence")
 
 
+def paged_logits_phase(torch, cfg, params, shared, log):
+    """The paged pool's logits, ``"cuda"`` plan (fused chunk kernel, paged
+    decode kernel) against the ``"torch"`` plan (gather + reference math):
+    a first chunk, a second chunk that reads the first one's resident
+    pages, and the first decode step."""
+    from repro_torch.core.plan import DEFAULT_PLAN, make_plan
+    from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import PagedLayout
+    from repro_torch.models.layers import LayerCtx
+
+    api = get_model(cfg)
+    c, b, nb = 64, 4, 1024 // PAGE
+    num_pages = b * nb
+    perm = torch.randperm(num_pages,
+                          generator=torch.Generator().manual_seed(0))
+    bt = perm.reshape(b, nb).to(device="cuda", dtype=torch.int32)
+    toks = torch.stack([torch.as_tensor(p[:2 * c]) for p, _ in shared[:b]])
+    toks = toks.to(device="cuda", dtype=torch.int32)
+    full = torch.full((b,), c, dtype=torch.int32, device="cuda")
+    results = {}
+    for name, plan in (("cuda", DEFAULT_PLAN), ("torch", make_plan("torch"))):
+        ctx = LayerCtx(cfg, plan)
+        cache = api.init_cache(PagedLayout(num_pages, PAGE), device="cuda")
+        with torch.no_grad():
+            _, cache = api.prefill_chunk(ctx, params, toks[:, :c], full,
+                                         cache, full * 0, block_tables=bt)
+            l2, cache = api.prefill_chunk(ctx, params, toks[:, c:], full,
+                                          cache, full, block_tables=bt)
+            nxt = (results["cuda"][0] if name == "torch" else l2)[
+                :, :cfg.vocab_size].argmax(-1)
+            l3, _ = api.decode_step(ctx, params, nxt.int(), cache, 2 * full,
+                                    block_tables=bt)
+        results[name] = (l2, l3)
+    worst = 0.0
+    for i, what in enumerate(("second chunk over resident pages",
+                              "first decode step")):
+        a = results["cuda"][i][:, :cfg.vocab_size].float()
+        r = results["torch"][i][:, :cfg.vocab_size].float()
+        err = (a - r).abs().max().item()
+        worst = max(worst, err)
+        log(f"logits paged {what}: cuda plan vs torch plan max_abs_err="
+            f"{err:.4f} (tol {LOGITS_TOL}; logit range "
+            f"{r.abs().max().item():.2f}); argmax agree "
+            f"{(a.argmax(-1) == r.argmax(-1)).sum().item()}/{b}")
+    check(worst <= LOGITS_TOL,
+          f"paged logits differ by {worst} > {LOGITS_TOL}")
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -540,11 +850,15 @@ def main(argv=None) -> int:
     requests = [(rng.integers(1, cfg.vocab_size, size=int(n)).astype(
         np.int32), sp) for n in rng.integers(32, 301, size=8)]
     log("prompt lengths: " + str([len(p) for p, _ in requests]))
+    shared = shared_requests(np, cfg, args.seed)
+    log("shared-header prompt lengths: " + str([len(p) for p, _ in shared]))
     launches = {}
-    outputs = serve_phase(torch, cfg, params, requests, log, launches)
+    outputs = serve_phase(torch, cfg, params,
+                          {"plain": requests, "shared": shared}, log,
+                          launches)
     profile_phase(torch, cfg, params, requests, log)
-    logits_phase(torch, cfg, params, requests, log,
-                 outputs["slots=4 chunked prefill"])
+    logits_phase(torch, cfg, params, requests, log, outputs["A"])
+    paged_logits_phase(torch, cfg, params, shared, log)
 
     for name in REPLACES:
         check(launches.get(name, 0) > 0,

@@ -2,7 +2,8 @@
 
 Every implementation decision (GEMM routing by M, decode softmax scheme
 and ``block_k``, the overflow-recompute branch, the prefill chunking
-threshold, fused-FFN on/off, the decode-layer granularity) lives in one
+threshold, fused-FFN on/off, the paged-KV knobs, the decode-layer
+granularity) lives in one
 frozen record that ``ops.*``, ``LayerCtx`` and ``Engine`` take as their
 single ``plan=`` operand. Plans choose *which* implementation runs, never
 the math.
@@ -26,6 +27,9 @@ from repro_torch.core import dispatch
 
 BACKENDS = ("torch", "cuda")
 SCHEMES = ("sync", "unified_max")
+GATHER_MODES = ("dense", "fused")  # chunk-path page access discipline
+GROUP_MODES = ("off", "grouped")   # decode-path shared-prefix discipline
+KV_DTYPES = ("bf16", "int8", "fp8")  # paged KV page storage precision
 FUSION_MODES = ("split", "fused", "looped")  # decode-layer stage granularity
 
 
@@ -122,6 +126,53 @@ class FusedFFNPlan:
 
 
 @dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """Block-paged KV path: softmax scheme and recompute for paged decode
+    and chunk attention, and the chunked-prefill page-access discipline.
+
+    ``gather_chunk`` names how chunked prefill reads resident KV:
+
+      * ``"dense"`` — gather the full ``(B, NB*PS)`` per-sequence view
+        per layer per chunk step and run the reference chunk math.
+      * ``"fused"`` — the fused chunk kernel (``kernels/chunk_attention``)
+        reads K/V pages in place through the block tables, which the
+        engine bounds to a power-of-two count of resident pages.
+
+    ``fused_threshold`` is the prompt length from which a wave runs the
+    fused discipline; ``chunk_block`` is the prefill chunk size
+    ``Engine(prefill_chunk=None)`` adopts (it must divide the page size
+    for prefix sharing). The defaults are the chunk decision of the JAX
+    package's tuned plans (``plans/qwen2-0.5b-tpu-v5e.json``).
+    ``decode_group="grouped"`` (slice 3), ``kv_dtype`` other than
+    ``"bf16"`` (slice 4) and ``swap_threshold`` (tiers, slice 6) are
+    accepted here so that plans keep the JAX schema; the engine refuses
+    the first two until their slices land.
+    """
+
+    backend: str = "cuda"
+    scheme: str = "unified_max"
+    fallback: bool = True
+    gather_chunk: str = "fused"
+    fused_threshold: int = 64
+    chunk_block: int = 64
+    decode_group: str = "off"
+    group_threshold: int = 2
+    swap_threshold: int = 1
+    kv_dtype: str = "bf16"
+
+    def __post_init__(self):
+        _check(self.backend, BACKENDS, "paged.backend")
+        _check(self.scheme, SCHEMES, "paged.scheme")
+        _check(self.gather_chunk, GATHER_MODES, "paged.gather_chunk")
+        _check_pos(self.fused_threshold, "paged.fused_threshold")
+        _check_pos(self.chunk_block, "paged.chunk_block")
+        _check(self.decode_group, GROUP_MODES, "paged.decode_group")
+        _check_pos(self.group_threshold, "paged.group_threshold")
+        _check_pos(self.swap_threshold, "paged.swap_threshold")
+        _check(self.kv_dtype, KV_DTYPES, "paged.kv_dtype")
+
+
+@dataclasses.dataclass(frozen=True)
 class DecodeFusionPlan:
     """Decode-layer granularity. Only ``"split"`` (one op per stage) is
     ported; ``"fused"``/``"looped"`` come with the decode-fusion slice."""
@@ -142,6 +193,7 @@ class ExecutionPlan:
     attention_prefill: AttentionPrefillPlan = dataclasses.field(
         default_factory=AttentionPrefillPlan)
     fused_ffn: FusedFFNPlan = dataclasses.field(default_factory=FusedFFNPlan)
+    paged: PagedPlan = dataclasses.field(default_factory=PagedPlan)
     decode_fusion: DecodeFusionPlan = dataclasses.field(
         default_factory=DecodeFusionPlan)
 
@@ -149,12 +201,16 @@ class ExecutionPlan:
 DEFAULT_PLAN = ExecutionPlan()
 
 
-def make_plan(backend: str = "cuda") -> ExecutionPlan:
-    """The untuned plan with every op on ``backend``."""
+def make_plan(backend: str = "cuda", *, gather_chunk: str = "fused",
+              fused_threshold: int = 64) -> ExecutionPlan:
+    """The untuned plan with every op on ``backend``; ``gather_chunk`` and
+    ``fused_threshold`` pin the paged chunk discipline."""
     return ExecutionPlan(
         matmul=MatmulPlan(backend=backend),
         attention_decode=AttentionDecodePlan(backend=backend),
         attention_prefill=AttentionPrefillPlan(backend=backend),
         fused_ffn=FusedFFNPlan(backend=backend),
+        paged=PagedPlan(backend=backend, gather_chunk=gather_chunk,
+                        fused_threshold=fused_threshold),
         decode_fusion=DecodeFusionPlan(backend=backend),
     )

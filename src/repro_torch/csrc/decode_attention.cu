@@ -1,9 +1,11 @@
-// T1 — GQA decode attention over the dense KV cache, in both softmax
-// schemes (paper §3).
+// T1 — GQA decode attention over the dense KV cache or the block-paged
+// pool, in both softmax schemes (paper §3).
 //
 // Replaces: src/repro/kernels/decode_attention.py::
-//   decode_attention_unified_max (_decode_kernel) and
-//   decode_attention_sync (_decode_kernel_sync).
+//   decode_attention_unified_max (_decode_kernel),
+//   decode_attention_sync (_decode_kernel_sync),
+//   paged_decode_attention_unified_max (_paged_decode_kernel) and
+//   paged_decode_attention_sync (_paged_decode_kernel_sync).
 //
 // Bound on H100: device-memory bytes. One new token per sequence reads
 // every valid K and V row once (2 * len * HK * D * 2 bytes) for only
@@ -28,6 +30,16 @@
 // Positions >= lengths[b] are masked. The grid is small at decode batch
 // sizes (B * HK blocks on 132 SMs); split-KV across blocks, where T1's
 // merge-by-addition pays off most, is left to a later kernel.
+//
+// Dense and paged share one kernel body, templated on how it addresses
+// key j of (sequence b, kv head h): DenseKV reads b*sb + j*ss + h*sh;
+// PagedKV reads page bt[b, j / PS] (clamped to the pool: unassigned
+// table entries hold the sentinel NP) at row j % PS. Both walk the same
+// 32-key warp chunks and do the same arithmetic in the same order, so the
+// paged kernel is bitwise equal to the dense one on the same KV laid into
+// any pages. The TPU kernel's per-page grid steps become a per-key table
+// lookup: a page is never read past lengths[b], so a fully masked page
+// costs nothing.
 #include "common.cuh"
 
 using namespace repro;
@@ -37,15 +49,36 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kMaxG = 16;
 
-template <int D, bool UNIFIED>
+// Element offset of key j's head-h row in a (B, S, HK, D) dense cache
+// (any strides with a contiguous head_dim).
+struct DenseKV {
+  long long sb, ss, sh;
+  __device__ __forceinline__ long long row(int b, int h, int j) const {
+    return b * sb + j * ss + h * sh;
+  }
+};
+
+// Element offset of key j's head-h row in an (NP, PS, HK, D) page pool
+// read through block tables bt (B, NB).
+struct PagedKV {
+  const int* bt;
+  int nb, ps, np;
+  long long sp, ss, sh;
+  __device__ __forceinline__ long long row(int b, int h, int j) const {
+    int page = __ldg(bt + static_cast<long long>(b) * nb + j / ps);
+    page = page < 0 ? 0 : (page >= np ? np - 1 : page);
+    return page * sp + (j % ps) * ss + h * sh;
+  }
+};
+
+template <int D, bool UNIFIED, typename KV>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
               const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
               float* __restrict__ stat, const bool* __restrict__ flag, int HK,
-              int G, int S, long long sb, long long ss, long long sh,
-              float scale, float phi) {
+              int G, int S, KV addr, float scale, float phi) {
   if (!UNIFIED && flag != nullptr && !*flag) return;
   constexpr int DL = D / 32;                    // output columns per lane
   __shared__ float q_s[kMaxG][D];
@@ -65,8 +98,6 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
 
   int len = lengths[b];
   len = len < 0 ? 0 : (len > S ? S : len);
-  const __nv_bfloat16* kb = k + b * sb + h * sh;
-  const __nv_bfloat16* vb = v + b * sb + h * sh;
 
   float acc[kMaxG][DL], den[kMaxG], m_run[kMaxG];
 #pragma unroll
@@ -85,7 +116,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
     if (valid) {
-      const __nv_bfloat16* kr = kb + j * ss;
+      const __nv_bfloat16* kr = k + addr.row(b, h, j);
 #pragma unroll
       for (int d0 = 0; d0 < D; d0 += 8) {
         float kv[8];
@@ -130,7 +161,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
     for (int jj = 0; jj < nvalid; ++jj) {
-      const __nv_bfloat16* vr = vb + (c * 32 + jj) * ss + lane * DL;
+      const __nv_bfloat16* vr = v + addr.row(b, h, c * 32 + jj) + lane * DL;
       float vv[DL];
 #pragma unroll
       for (int i = 0; i < DL; ++i) vv[i] = bf2f(vr[i]);
@@ -204,11 +235,10 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool UNIFIED>
+template <bool UNIFIED, typename KV>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* stat, const void* flag, int B, int HK, int G,
-           int S, int D, long long sb, long long ss, long long sh,
-           float scale, float phi, cudaStream_t st) {
+           int S, int D, KV addr, float scale, float phi, cudaStream_t st) {
   if (G < 1 || G > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(B, HK);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
@@ -220,21 +250,26 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const auto* fp = static_cast<const bool*>(flag);
   switch (D) {
     case 32:
-      decode_kernel<32, UNIFIED><<<grid, kWarps * 32, 0, st>>>(
-          qp, kp, vp, lp, op, sp, fp, HK, G, S, sb, ss, sh, scale, phi);
+      decode_kernel<32, UNIFIED, KV><<<grid, kWarps * 32, 0, st>>>(
+          qp, kp, vp, lp, op, sp, fp, HK, G, S, addr, scale, phi);
       break;
     case 64:
-      decode_kernel<64, UNIFIED><<<grid, kWarps * 32, 0, st>>>(
-          qp, kp, vp, lp, op, sp, fp, HK, G, S, sb, ss, sh, scale, phi);
+      decode_kernel<64, UNIFIED, KV><<<grid, kWarps * 32, 0, st>>>(
+          qp, kp, vp, lp, op, sp, fp, HK, G, S, addr, scale, phi);
       break;
     case 128:
-      decode_kernel<128, UNIFIED><<<grid, kWarps * 32, 0, st>>>(
-          qp, kp, vp, lp, op, sp, fp, HK, G, S, sb, ss, sh, scale, phi);
+      decode_kernel<128, UNIFIED, KV><<<grid, kWarps * 32, 0, st>>>(
+          qp, kp, vp, lp, op, sp, fp, HK, G, S, addr, scale, phi);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+PagedKV paged(const void* bt, int NB, int PS, int NP, long long sp,
+              long long ss, long long sh) {
+  return PagedKV{static_cast<const int*>(bt), NB, PS, NP, sp, ss, sh};
 }
 
 }  // namespace
@@ -249,7 +284,7 @@ REPRO_EXPORT int decode_attention_unified_max_bf16(
     void* out, void* stat, int B, int HK, int G, int S, int D, long long sb,
     long long ss, long long sh, float scale, float phi, void* stream) {
   return launch<true>(q, k, v, lengths, out, stat, nullptr, B, HK, G, S, D,
-                      sb, ss, sh, scale, phi,
+                      DenseKV{sb, ss, sh}, scale, phi,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -260,6 +295,29 @@ REPRO_EXPORT int decode_attention_sync_bf16(
     void* out, const void* flag, int B, int HK, int G, int S, int D,
     long long sb, long long ss, long long sh, float scale, void* stream) {
   return launch<false>(q, k, v, lengths, out, nullptr, flag, B, HK, G, S, D,
-                       sb, ss, sh, scale, 0.f,
+                       DenseKV{sb, ss, sh}, scale, 0.f,
                        static_cast<cudaStream_t>(stream));
+}
+
+// Paged: k/v pools (NP, PS, HK, D), element (p, r, h, d) at
+// p*sp + r*ss + h*sh + d; bt (B, NB) int32 contiguous; lengths (B,) are
+// clamped to NB * PS. Outputs as the dense entries.
+REPRO_EXPORT int paged_decode_attention_unified_max_bf16(
+    const void* q, const void* k, const void* v, const void* bt,
+    const void* lengths, void* out, void* stat, int B, int HK, int G,
+    int NB, int PS, int NP, int D, long long sp, long long ss, long long sh,
+    float scale, float phi, void* stream) {
+  return launch<true>(q, k, v, lengths, out, stat, nullptr, B, HK, G,
+                      NB * PS, D, paged(bt, NB, PS, NP, sp, ss, sh), scale,
+                      phi, static_cast<cudaStream_t>(stream));
+}
+
+REPRO_EXPORT int paged_decode_attention_sync_bf16(
+    const void* q, const void* k, const void* v, const void* bt,
+    const void* lengths, void* out, const void* flag, int B, int HK, int G,
+    int NB, int PS, int NP, int D, long long sp, long long ss, long long sh,
+    float scale, void* stream) {
+  return launch<false>(q, k, v, lengths, out, nullptr, flag, B, HK, G,
+                       NB * PS, D, paged(bt, NB, PS, NP, sp, ss, sh), scale,
+                       0.f, static_cast<cudaStream_t>(stream));
 }

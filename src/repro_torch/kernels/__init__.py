@@ -4,8 +4,11 @@ its plain PyTorch version and a launch counter.
 Modules:
   * gemv             — ImplA CUDA-core GEMV (csrc/gemv.cu)
   * flat_gemm        — T2 flat GEMM, M padded to 8 (csrc/flat_gemm.cu)
-  * decode_attention — T1 decode attention, unified-max and sync
+  * decode_attention — T1 decode attention over the dense cache or the
+                       paged pool, unified-max and sync
                        (csrc/decode_attention.cu)
+  * chunk_attention  — fused paged chunk-prefill attention, both schemes
+                       (csrc/chunk_attention.cu)
   * flash_prefill    — causal / windowed prefill attention, both schemes
                        (csrc/flash_prefill.cu)
   * merge            — the softmax-merge algebra of the plain versions

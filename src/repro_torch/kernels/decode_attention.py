@@ -1,21 +1,27 @@
-"""T1 — GQA decode attention over the dense KV cache
-(kernel: ``csrc/decode_attention.cu``).
+"""T1 — GQA decode attention over the dense KV cache or the block-paged
+pool (kernel: ``csrc/decode_attention.cu``).
 
-Replaces ``repro/kernels/decode_attention.py::decode_attention_unified_max``
-and ``::decode_attention_sync``. Inputs keep the JAX kernels' layout —
+Replaces ``repro/kernels/decode_attention.py::decode_attention_unified_max``,
+``::decode_attention_sync``, ``::paged_decode_attention_unified_max`` and
+``::paged_decode_attention_sync``. Dense inputs keep the JAX kernels' layout —
 q ``(B, HQ, D)``, caches ``(B, HK, S, D)``, lengths ``(B,)`` — but the
 caches may be any strided view whose head_dim is contiguous: the model
 passes ``cache.transpose(1, 2)`` of its ``(B, S, HK, D)`` slot cache and
 the kernel reads it in place, where the reference transposes (and, in
-eager PyTorch, would copy) the whole cache per layer per tick.
+eager PyTorch, would copy) the whole cache per layer per tick. The paged
+entries take pools ``(NP, PS, HK, D)`` and block tables ``(B, NB)``
+int32 whose unassigned entries hold the sentinel ``NP``; every table
+entry read is clamped to the pool. Dense and paged run one CUDA kernel
+body, so on the same KV the paged result is bitwise the dense one.
 
 On a CUDA tensor each wrapper launches its kernel (grid (B, HK), one
 block per sequence and kv head; see the source's header); on a CPU
 tensor it runs the plain version, which walks the cache in ``block_k``
 tiles through :mod:`repro_torch.kernels.merge` exactly like the TPU
-kernel's grid. ``block_k`` only shapes that emulation: the CUDA kernel
-walks 32-key warp chunks and its result does not depend on it. Each
-wrapper counts its launches in ``.launches``.
+kernel's grid (the paged plain versions walk one page per step, as the
+TPU kernel's grid does). ``block_k`` only shapes that emulation: the
+CUDA kernel walks 32-key warp chunks and its result does not depend on
+it. Each wrapper counts its launches in ``.launches``.
 """
 from __future__ import annotations
 
@@ -27,12 +33,18 @@ DEFAULT_BLOCK_K = 512
 
 _COMMON = [_build.VP] * 4                     # q, k, v, lengths
 _DIMS = [_build.I32] * 5 + [_build.I64] * 3   # B, HK, G, S, D, sb, ss, sh
+# B, HK, G, NB, PS, NP, D, sp, ss, sh
+_PDIMS = [_build.I32] * 7 + [_build.I64] * 3
 _SIG = {
     "decode_attention_unified_max_bf16":
         _COMMON + [_build.VP, _build.VP] + _DIMS
         + [_build.F32, _build.F32, _build.VP],
     "decode_attention_sync_bf16":
         _COMMON + [_build.VP, _build.VP] + _DIMS + [_build.F32, _build.VP],
+    "paged_decode_attention_unified_max_bf16":
+        [_build.VP] * 7 + _PDIMS + [_build.F32, _build.F32, _build.VP],
+    "paged_decode_attention_sync_bf16":
+        [_build.VP] * 7 + _PDIMS + [_build.F32, _build.VP],
 }
 
 
@@ -191,5 +203,167 @@ def decode_attention_sync(q, k_cache, v_cache, lengths, *,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Paged (block-table) entries
+# ---------------------------------------------------------------------------
+
+
+def _pages(q, k_pool, v_pool, block_tables, lengths, scale):
+    """Yield per-page (scores (B,HK,G,PS) f32, v (B,HK,PS,D), valid), one
+    logical page of every row's table per step (the TPU grid's page
+    axis); sentinel entries clamp to the pool's last page."""
+    b, hq, d = q.shape
+    num_pages, ps, hk, _ = k_pool.shape
+    qg = q.reshape(b, hk, hq // hk, d).float() * scale
+    bt = block_tables.to(q.device).long().clamp(0, num_pages - 1)
+    lengths = lengths.to(q.device)
+    for i in range(bt.shape[1]):
+        kt = k_pool[bt[:, i]].float().permute(0, 2, 1, 3)   # (B,HK,PS,D)
+        s = torch.matmul(qg, kt.transpose(-1, -2))           # (B,HK,G,PS)
+        offs = i * ps + torch.arange(ps, device=q.device)
+        valid = (offs[None, :] < lengths[:, None])[:, None, None, :]
+        yield s, v_pool[bt[:, i]].permute(0, 2, 1, 3), valid.expand_as(s)
+
+
+def paged_decode_attention_unified_max_plain(q, k_pool, v_pool,
+                                             block_tables, lengths, *,
+                                             phi: float = 0.0,
+                                             scale: float | None = None):
+    """Plain version: ``(out (B,HQ,D), stat (B,HK) = max(s − φ))``."""
+    b, hq, d = q.shape
+    hk = k_pool.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    acc = torch.zeros((b, hk, hq // hk, d), dtype=torch.float32,
+                      device=q.device)
+    den = torch.zeros((b, hk, hq // hk, 1), dtype=torch.float32,
+                      device=q.device)
+    msc = torch.full((b, hk), float("-inf"), device=q.device)
+    for s, v, valid in _pages(q, k_pool, v_pool, block_tables, lengths,
+                              scale):
+        acc, den, msc = merge.unified_accumulate(acc, den, msc, s - phi, v,
+                                                 valid)
+    out = merge.finalize(acc, den, guard_zero=True)
+    return out.reshape(b, hq, d).to(q.dtype), msc
+
+
+def paged_decode_attention_sync_plain(q, k_pool, v_pool, block_tables,
+                                      lengths, *,
+                                      scale: float | None = None):
+    """Plain version of the online-max scheme: ``out (B, HQ, D)``."""
+    b, hq, d = q.shape
+    hk = k_pool.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    acc = torch.zeros((b, hk, hq // hk, d), dtype=torch.float32,
+                      device=q.device)
+    den = torch.zeros((b, hk, hq // hk, 1), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((b, hk, hq // hk, 1), float("-inf"), device=q.device)
+    for s, v, valid in _pages(q, k_pool, v_pool, block_tables, lengths,
+                              scale):
+        s = torch.where(valid, s, torch.full_like(s, float("-inf")))
+        acc, den, m = merge.sync_accumulate(acc, den, m, s, v)
+    out = merge.finalize(acc, den, guard_zero=True)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def check_paged_inputs(what, q, k_pool, v_pool, block_tables, lengths):
+    """Validate pool / table operands for a paged kernel; returns the
+    contiguous int32 (block_tables, lengths) on q's device."""
+    num_pages, ps, hk, d = k_pool.shape
+    if k_pool.shape != v_pool.shape or q.shape[-1] != d \
+            or q.shape[-2] % hk or block_tables.dim() != 2 \
+            or block_tables.shape[0] != q.shape[0]:
+        raise ValueError(f"{what} shapes q {tuple(q.shape)} pools "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)} "
+                         f"tables {tuple(block_tables.shape)}")
+    for t in (q, k_pool, v_pool):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what} kernel takes bf16, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{what} inputs on different devices")
+    if k_pool.stride() != v_pool.stride() or k_pool.stride(3) != 1 \
+            or q.stride(-1) != 1:
+        raise ValueError(f"{what} kernel needs k and v pools with equal "
+                         "strides and a contiguous head_dim")
+    if any(s % 8 for s in k_pool.stride()[:3]) \
+            or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs 16-byte aligned pool rows")
+    if d not in (32, 64, 128):
+        raise ValueError(f"{what} kernel takes head_dim 32/64/128, got {d}")
+    if block_tables.shape[1] < 1:
+        raise ValueError(f"{what} kernel needs at least one table column")
+    return (block_tables.to(device=q.device, dtype=torch.int32).contiguous(),
+            lengths.to(device=q.device, dtype=torch.int32).contiguous())
+
+
+def _paged_dims(q, k_pool, bt):
+    b, hq, d = q.shape
+    num_pages, ps, hk, _ = k_pool.shape
+    sp, ss, sh, _ = k_pool.stride()
+    return [b, hk, hq // hk, bt.shape[1], ps, num_pages, d, sp, ss, sh]
+
+
+def paged_decode_attention_unified_max(q, k_pool, v_pool, block_tables,
+                                       lengths, *, phi: float = 0.0,
+                                       scale: float | None = None):
+    """T1 decode attention over a paged pool: ``(out (B,HQ,D), stat
+    (B,HK))`` as :func:`decode_attention_unified_max`."""
+    if not q.is_cuda:
+        return paged_decode_attention_unified_max_plain(
+            q, k_pool, v_pool, block_tables, lengths, phi=phi, scale=scale)
+    bt, lens = check_paged_inputs("paged decode attention", q, k_pool,
+                                  v_pool, block_tables, lengths)
+    q = q.contiguous()
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    out = torch.empty_like(q)
+    stat = torch.empty((q.shape[0], k_pool.shape[2]), dtype=torch.float32,
+                       device=q.device)
+    lib = _build.load("decode_attention", _SIG)
+    entry = "paged_decode_attention_unified_max_bf16"
+    code = getattr(lib, entry)(
+        _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+        _build.ptr(bt), _build.ptr(lens), _build.ptr(out), _build.ptr(stat),
+        *_paged_dims(q, k_pool, bt), scale, phi, _build.stream_of(q))
+    _build.check(lib, entry, code)
+    paged_decode_attention_unified_max.launches += 1
+    return out, stat
+
+
+def paged_decode_attention_sync(q, k_pool, v_pool, block_tables, lengths, *,
+                                scale: float | None = None,
+                                out: torch.Tensor | None = None,
+                                flag: torch.Tensor | None = None):
+    """Online-max paged decode attention; ``out``/``flag`` make it the
+    overflow recompute, as in :func:`decode_attention_sync`."""
+    if (out is None) != (flag is None):
+        raise ValueError("pass both out= and flag=, or neither")
+    if not q.is_cuda:
+        res = paged_decode_attention_sync_plain(
+            q, k_pool, v_pool, block_tables, lengths, scale=scale)
+        return res if out is None else torch.where(flag, res, out)
+    bt, lens = check_paged_inputs("paged decode attention", q, k_pool,
+                                  v_pool, block_tables, lengths)
+    q = q.contiguous()
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if out is None:
+        out = torch.empty_like(q)
+    elif out.shape != q.shape or not out.is_contiguous() \
+            or out.dtype != q.dtype:
+        raise ValueError("paged_decode_attention_sync: out must be a "
+                         "contiguous (B, HQ, D) tensor of q's dtype")
+    lib = _build.load("decode_attention", _SIG)
+    entry = "paged_decode_attention_sync_bf16"
+    code = getattr(lib, entry)(
+        _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+        _build.ptr(bt), _build.ptr(lens), _build.ptr(out),
+        _build.ptr(flag) if flag is not None else None,
+        *_paged_dims(q, k_pool, bt), scale, _build.stream_of(q))
+    _build.check(lib, entry, code)
+    paged_decode_attention_sync.launches += 1
+    return out
+
+
 decode_attention_unified_max.launches = 0
 decode_attention_sync.launches = 0
+paged_decode_attention_unified_max.launches = 0
+paged_decode_attention_sync.launches = 0

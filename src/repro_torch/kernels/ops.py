@@ -22,9 +22,15 @@ from repro_torch.config import SoftmaxPhiConfig
 from repro_torch.core.dispatch import Impl
 from repro_torch.core.plan import DEFAULT_PLAN, ExecutionPlan
 from repro_torch.kernels import ref
+from repro_torch.kernels.chunk_attention import (
+    paged_chunk_attention_sync,
+    paged_chunk_attention_unified_max,
+)
 from repro_torch.kernels.decode_attention import (
     decode_attention_sync,
     decode_attention_unified_max,
+    paged_decode_attention_sync,
+    paged_decode_attention_unified_max,
 )
 from repro_torch.kernels.flash_prefill import (
     flash_prefill_sync,
@@ -148,3 +154,67 @@ def attention_chunk(q, k_cache, v_cache, lengths, *,
         return out
     safe = ref.attention_chunk_ref(q, k_cache, v_cache, lengths, phi=None)
     return torch.where(_overflow(stat, phi_cfg), safe, out)
+
+
+def attention_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
+                           phi_cfg: SoftmaxPhiConfig = SoftmaxPhiConfig(),
+                           plan: Optional[ExecutionPlan] = None
+                           ) -> torch.Tensor:
+    """Decode attention over a block-paged pool (q (B,HQ,D), pools (NP,
+    PS, HK, D), block_tables (B, NB)), governed by the plan's ``paged``
+    entry. On ``"cuda"`` the paged kernels read each row's pages in place
+    (T1, then the flag-gated recompute); on ``"torch"`` the pages are
+    gathered into a dense view for the reference math — bitwise the
+    dense path's when ``NB * PS`` equals the dense ``max_seq``."""
+    pp = (plan or DEFAULT_PLAN).paged
+    unified = _unified(phi_cfg, pp.scheme)
+    if pp.backend != "cuda":
+        if not unified:
+            return ref.attention_decode_paged_ref(q, k_pool, v_pool,
+                                                  block_tables, lengths)
+        out, stat = ref.attention_decode_paged_unified_max_ref(
+            q, k_pool, v_pool, block_tables, lengths, phi=phi_cfg.phi)
+        if not pp.fallback:
+            return out
+        safe = ref.attention_decode_paged_ref(q, k_pool, v_pool,
+                                              block_tables, lengths)
+        return torch.where(_overflow(stat, phi_cfg), safe, out)
+
+    if not unified:
+        return paged_decode_attention_sync(q, k_pool, v_pool, block_tables,
+                                           lengths)
+    out, stat = paged_decode_attention_unified_max(
+        q, k_pool, v_pool, block_tables, lengths, phi=phi_cfg.phi)
+    if not pp.fallback:
+        return out
+    return paged_decode_attention_sync(q, k_pool, v_pool, block_tables,
+                                       lengths, out=out,
+                                       flag=_overflow(stat, phi_cfg))
+
+
+def attention_chunk_paged(q, k_pool, v_pool, block_tables, lengths, *,
+                          phi_cfg: SoftmaxPhiConfig = SoftmaxPhiConfig(),
+                          plan: Optional[ExecutionPlan] = None
+                          ) -> torch.Tensor:
+    """Paged twin of :func:`attention_chunk` (lengths before the chunk;
+    the chunk's KV already in the pool), governed by the plan's ``paged``
+    entry. ``gather_chunk="fused"`` on ``"cuda"`` runs the fused chunk
+    kernels over the pool in place, with the scheme and recompute of
+    ``plan.paged``; every other combination gathers the given tables
+    into a dense view and runs :func:`attention_chunk`, as the JAX
+    package does."""
+    pp = (plan or DEFAULT_PLAN).paged
+    if pp.backend == "cuda" and pp.gather_chunk == "fused":
+        if not _unified(phi_cfg, pp.scheme):
+            return paged_chunk_attention_sync(q, k_pool, v_pool,
+                                              block_tables, lengths)
+        out, stat = paged_chunk_attention_unified_max(
+            q, k_pool, v_pool, block_tables, lengths, phi=phi_cfg.phi)
+        if not pp.fallback:
+            return out
+        return paged_chunk_attention_sync(q, k_pool, v_pool, block_tables,
+                                          lengths, out=out,
+                                          flag=_overflow(stat, phi_cfg))
+    k = ref.gather_paged_kv(k_pool, block_tables)
+    v = ref.gather_paged_kv(v_pool, block_tables)
+    return attention_chunk(q, k, v, lengths, phi_cfg=phi_cfg, plan=plan)

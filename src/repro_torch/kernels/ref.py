@@ -6,6 +6,8 @@ Shapes follow the JAX package's conventions:
   * decode attention:   q = (batch, q_heads, head_dim),
                         k,v = (batch, kv_len, kv_heads, head_dim)
   * chunk attention:    q = (batch, chunk, q_heads, head_dim), caches as decode
+  * paged attention:    pools = (num_pages, page_size, kv_heads, head_dim),
+                        block_tables = (batch, pages_per_seq) int32
   * flat gemm / gemv:   x = (M, K), w = (K, N)
 All softmax math runs in float32; outputs come back in q's dtype.
 """
@@ -183,6 +185,44 @@ def attention_chunk_unified_max_ref(q, k_cache, v_cache, lengths, *,
                                     scale: float | None = None):
     """T1 chunk-attention oracle returning ``(out, stat)``."""
     return _chunk_attention(q, k_cache, v_cache, lengths, phi, scale)
+
+
+# ---------------------------------------------------------------------------
+# Paged (block-table) attention oracles
+# ---------------------------------------------------------------------------
+
+
+def gather_paged_kv(pool: torch.Tensor,
+                    block_tables: torch.Tensor) -> torch.Tensor:
+    """The dense per-sequence view of a paged KV pool.
+
+    pool: (NP, PS, HK, D); block_tables: (B, NB) int32. Returns (B, NB*PS,
+    HK, D). Unassigned entries hold the sentinel ``NP`` and are clamped to
+    a real page, as the JAX package's ``mode="clip"`` take does; whatever
+    that page holds is masked off by the caller's lengths."""
+    b, nb = block_tables.shape
+    idx = block_tables.long().clamp(0, pool.shape[0] - 1).reshape(-1)
+    return pool[idx].reshape(b, nb * pool.shape[1], *pool.shape[2:])
+
+
+def attention_decode_paged_ref(q, k_pool, v_pool, block_tables, lengths, *,
+                               scale: float | None = None) -> torch.Tensor:
+    """Safe decode attention over a paged cache: the gathered view through
+    :func:`attention_decode_ref` — bitwise the dense result whenever
+    ``NB * PS`` equals the dense ``max_seq``."""
+    k = gather_paged_kv(k_pool, block_tables)
+    v = gather_paged_kv(v_pool, block_tables)
+    return attention_decode_ref(q, k, v, lengths, scale=scale)
+
+
+def attention_decode_paged_unified_max_ref(q, k_pool, v_pool, block_tables,
+                                           lengths, *, phi: float,
+                                           scale: float | None = None):
+    """T1 oracle over a paged cache: ``(out, stat (B,))``."""
+    k = gather_paged_kv(k_pool, block_tables)
+    v = gather_paged_kv(v_pool, block_tables)
+    return attention_decode_unified_max_ref(q, k, v, lengths, phi=phi,
+                                            scale=scale)
 
 
 # ---------------------------------------------------------------------------

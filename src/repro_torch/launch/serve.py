@@ -1,5 +1,5 @@
 """End-to-end serving CLI (continuous batching over synthetic requests)
-for the port, on the dense slot cache.
+for the port, on the dense slot cache or the block-paged pool.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 8 --slots 4 --max-seq 1024 --max-new 32 --prompt-len 128
@@ -9,6 +9,15 @@ the kernels' plain versions on the CPU (use ``--smoke`` there). Weights
 are random, drawn from ``--seed`` with the JAX package's init
 distributions. ``--prefill-chunk 0`` prefills each admission wave in one
 padded call through flash prefill attention instead of 64-token chunks.
+
+``--cache-kind paged`` serves from a shared pool of ``--page-size``
+pages through block tables; ``--num-pages`` or ``--overcommit`` below 1
+shrinks the pool so that lazy page growth preempts. ``--prefix-sharing``
+maps identical page-aligned prompt prefixes onto refcounted
+copy-on-write pages (``--shared-prefix N`` prepends N identical tokens to
+every prompt), and ``--gather-chunk dense|fused`` picks how chunked
+prefill reads the pool. The ``req N:`` lines do not change with any of
+these.
 """
 import argparse
 import sys
@@ -28,7 +37,33 @@ def _parse(argv=None):
     ap.add_argument("--prompt-len", type=int, default=48)
     ap.add_argument("--prefill-chunk", type=int, default=64,
                     help="chunked-prefill chunk size; 0 = one padded "
-                         "prefill call per admission wave")
+                         "prefill call per admission wave (dense cache)")
+    ap.add_argument("--cache-kind", choices=["dense", "paged"],
+                    default="dense",
+                    help="dense slot cache or block-paged pool")
+    ap.add_argument("--page-size", type=int, default=64)
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="exact pool size in pages (default: the worst-case "
+                         "slots*max_seq footprint scaled by --overcommit)")
+    ap.add_argument("--overcommit", type=float, default=1.0,
+                    help="fraction of the worst-case page footprint to "
+                         "provision; below 1 lazy growth preempts")
+    ap.add_argument("--scheduler", default="fcfs",
+                    choices=["fcfs", "sjf", "pagefair"],
+                    help="admission/preemption policy")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="map identical page-aligned prompt prefixes onto "
+                         "shared refcounted pages (copy-on-write; paged "
+                         "cache only)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many identical tokens to every "
+                         "synthetic prompt")
+    ap.add_argument("--gather-chunk", choices=["dense", "fused"],
+                    default=None,
+                    help="override the plan's chunked-prefill page access: "
+                         "'dense' gathers the full (B, NB*PS) KV view per "
+                         "chunk step, 'fused' runs the fused chunk kernel "
+                         "over the pool in place")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -37,12 +72,16 @@ def _parse(argv=None):
 
 def main(argv=None) -> int:
     args = _parse(argv)
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch import configs
+    from repro_torch.core.plan import DEFAULT_PLAN
     from repro_torch.device import resolve
     from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import pages_for
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import SamplingParams
 
@@ -53,15 +92,28 @@ def main(argv=None) -> int:
     api = get_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init_params(gen, device=dev)
+    plan = None
+    if args.gather_chunk is not None:
+        plan = dataclasses.replace(DEFAULT_PLAN, paged=dataclasses.replace(
+            DEFAULT_PLAN.paged, gather_chunk=args.gather_chunk))
+    num_pages = args.num_pages
+    if num_pages is None and args.cache_kind == "paged":
+        worst = args.slots * pages_for(args.max_seq, args.page_size)
+        num_pages = max(int(worst * args.overcommit), 1)
     eng = Engine(cfg, params, num_slots=args.slots, max_seq=args.max_seq,
-                 prefill_chunk=args.prefill_chunk, seed=args.seed,
+                 cache_kind=args.cache_kind, page_size=args.page_size,
+                 num_pages=num_pages, prefill_chunk=args.prefill_chunk,
+                 prefix_sharing=args.prefix_sharing,
+                 scheduler=args.scheduler, plan=plan, seed=args.seed,
                  device=dev)
     rng = np.random.default_rng(args.seed)
     sp = SamplingParams(max_new_tokens=args.max_new,
                         temperature=args.temperature)
-    reqs = [(rng.integers(1, cfg.vocab_size,
-                          size=args.prompt_len).astype(np.int32), sp)
-            for _ in range(args.requests)]
+    header = rng.integers(1, cfg.vocab_size,
+                          size=args.shared_prefix).astype(np.int32)
+    reqs = [(np.concatenate([header, rng.integers(
+        1, cfg.vocab_size, size=args.prompt_len).astype(np.int32)]), sp)
+        for _ in range(args.requests)]
 
     t0 = time.perf_counter()
     out = eng.run(reqs)
@@ -69,10 +121,18 @@ def main(argv=None) -> int:
     total = sum(len(v) for v in out.values())
     st = eng.stats
     tick_ms = 1e3 * st.decode_seconds / max(eng.ticks, 1)
-    print(f"served {len(out)} requests, {total} tokens in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s, {eng.ticks} decode ticks, "
-          f"{tick_ms:.2f} ms/tick, prefill {st.prefill_seconds:.2f}s, "
-          f"{eng.scheduler.name} scheduler, device={dev})")
+    line = (f"served {len(out)} requests, {total} tokens in {dt:.2f}s "
+            f"({total / dt:.1f} tok/s, {eng.ticks} decode ticks, "
+            f"{tick_ms:.2f} ms/tick, prefill {st.prefill_seconds:.2f}s, "
+            f"{eng.scheduler.name} scheduler, device={dev}")
+    if eng.pool is not None:
+        line += (f", {st.preemptions} preemptions, peak pages "
+                 f"{st.peak_pages_used}/{eng.pool.num_pages}")
+    if args.prefix_sharing:
+        line += (f", {st.shared_prefix_pages} shared pages, "
+                 f"{st.saved_prefill_tokens} prefill tokens saved, "
+                 f"{st.cow_forks} COW forks")
+    print(line + ")")
     for rid in sorted(out)[:4]:
         print(f"  req {rid}: {out[rid]} [{eng.finish_reason(rid)}]")
     return 0

@@ -22,17 +22,22 @@ _LATER = {
 
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
-    """One cache-agnostic surface per family (dense slot cache in this
-    slice; ``supports_paged`` turns on with the paged slice)."""
+    """One cache-agnostic surface per family: ``decode_step`` and
+    ``prefill_chunk`` take an optional ``block_tables`` operand (``None``
+    = dense slot addressing, a (B, NB) tensor = the block-paged pool);
+    ``supports_paged`` says whether the family's KV admits a
+    :class:`~repro_torch.models.kvlayout.PagedLayout`."""
 
     cfg: ModelConfig
     init_params: Callable         # (generator=None, device="cuda")
     prefill: Callable             # (ctx, params, tokens, lengths, cache)
-    decode_step: Callable         # (ctx, params, tokens, cache, lengths, *)
+    decode_step: Callable
+    #   (ctx, params, tokens, cache, lengths, *, block_tables=None, **)
     init_cache: Callable          # (layout, device="cuda")
     supports_paged: bool = False
     prefill_chunk: Optional[Callable] = None
-    #   (ctx, params, tokens, chunk_lens, cache, lengths)
+    #   (ctx, params, tokens, chunk_lens, cache, lengths, *,
+    #    block_tables=None)
 
     @property
     def supports_chunked_prefill(self) -> bool:
@@ -59,5 +64,6 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         decode_step=mod.decode_step,
         init_cache=lambda layout, device="cuda": mod.init_cache(
             cfg, layout, device=device),
+        supports_paged=True,
         prefill_chunk=mod.prefill_chunk,
     )

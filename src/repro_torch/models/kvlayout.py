@@ -1,10 +1,24 @@
 """KV-storage layouts: the cache-surface descriptor shared by the model
-API and the serving engine. This slice ports the dense slot layout; the
-block-paged layout comes with the paged slice."""
+API and the serving engine.
+
+  * :class:`DenseLayout` — the slot cache ``(L, num_slots, max_seq, HK,
+    Dh)``; position ``p`` of slot ``s`` lives at ``(s, p)``.
+  * :class:`PagedLayout` — a block-paged pool ``(L, num_pages, page_size,
+    HK, Dh)`` shared by every sequence; position ``p`` of slot ``s`` lives
+    at ``(block_tables[s, p // page_size], p % page_size)``. The model
+    steps take the engine's block tables as an optional ``block_tables``
+    operand and pick the paged addressing when it is present.
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple, Union
+
+
+def pages_for(positions: int, page_size: int) -> int:
+    """Pages needed to store ``positions`` KV entries (the one page
+    ceil-div, shared by the allocator and the engine's pool sizing)."""
+    return -(-max(positions, 0) // page_size)
 
 
 def pow2_bucket(n: int, lo: int = 1, hi: Union[int, None] = None) -> int:
@@ -30,3 +44,28 @@ class DenseLayout:
     def kv_shape(self, num_layers: int, kv_heads: int,
                  head_dim: int) -> Tuple[int, int, int, int, int]:
         return (num_layers, self.num_slots, self.max_seq, kv_heads, head_dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedLayout:
+    """Block-paged KV storage: a shared pool of fixed-size pages addressed
+    through per-sequence block tables. ``kv_dtype`` other than ``"bf16"``
+    (quantized pages) comes with slice 4 of the port."""
+
+    num_pages: int
+    page_size: int
+    kv_dtype: str = "bf16"
+
+    kind = "paged"
+    is_paged = True
+
+    def kv_shape(self, num_layers: int, kv_heads: int,
+                 head_dim: int) -> Tuple[int, int, int, int, int]:
+        return (num_layers, self.num_pages, self.page_size, kv_heads,
+                head_dim)
+
+    def pages_for(self, positions: int) -> int:
+        return pages_for(positions, self.page_size)
+
+
+KVLayout = Union[DenseLayout, PagedLayout]

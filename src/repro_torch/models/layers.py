@@ -8,7 +8,8 @@ leading L axis by the model constructors). Every GEMM goes through
 The decode layer keeps the JAX package's four stage boundaries (ingest →
 attend → epilogue → mlp); only the ``"split"`` granularity — one op per
 stage — is ported, the fused and looped ones come with the decode-fusion
-slice.
+slice. KV appends update the dense cache or the paged pool in place
+through one sync-free masked write (:class:`KVWrite`).
 """
 from __future__ import annotations
 
@@ -177,18 +178,78 @@ def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
     cache.index_put_((rows, lengths.long()), new.to(cache.dtype))
 
 
-def _scatter_kv_chunk(cache: torch.Tensor, new: torch.Tensor,
-                      lengths: torch.Tensor,
-                      chunk_lens: torch.Tensor) -> None:
-    """cache (B, S, H, D) <- new (B, C, H, D): row b writes its first
-    ``chunk_lens[b]`` entries at ``lengths[b] + i``, in place; the rest
-    (padding, spectator rows) are dropped."""
-    b, c = new.shape[:2]
+@dataclasses.dataclass(frozen=True)
+class KVWrite:
+    """Where one step's new KV entries land, as flat row ids into a
+    layer's KV storage viewed as ``(N, HK, Dh)`` rows. The same for every
+    layer of a step, so the model computes it once per step.
+
+    Dropped entries (chunk padding, spectator rows, sentinel pages) must
+    write nothing, and without a host sync: :meth:`put` folds them into
+    the index instead. A dropped entry rewrites the first kept entry's
+    row with that entry's own value, or, when no entry is kept, its own
+    row's current value; every row named twice thus receives one value,
+    and ``index_put_``'s unspecified order among duplicates cannot
+    matter.
+    """
+
+    target: torch.Tensor    # (M,) int64 row ids, inside the storage
+    keep: torch.Tensor      # (M,) bool
+    first: torch.Tensor     # (1,) int64, first kept entry (0 if none)
+    some: torch.Tensor      # (1,) bool, any entry kept
+
+    @classmethod
+    def build(cls, target, keep, n_rows: int) -> "KVWrite":
+        # (1,)-shaped selectors, never 0-dim ones: indexing with a 0-dim
+        # device tensor would read it back to the host
+        target = target.reshape(-1).clamp(0, n_rows - 1)
+        keep = keep.reshape(-1)
+        first = torch.argmax(keep.to(torch.uint8), dim=0, keepdim=True)
+        some = keep.index_select(0, first)
+        target = torch.where(keep, target, torch.where(
+            some, target.index_select(0, first), target))
+        return cls(target, keep, first, some)
+
+    def put(self, store: torch.Tensor, new: torch.Tensor) -> None:
+        """store (..., HK, Dh) contiguous <- new (B, C, HK, Dh), in place."""
+        rows = store.view(-1, *store.shape[-2:])
+        vals = new.reshape(-1, *rows.shape[1:]).to(rows.dtype)
+        vals = torch.where(self.keep[:, None, None], vals, torch.where(
+            self.some[:, None, None], vals.index_select(0, self.first),
+            rows[self.target]))
+        rows.index_put_((self.target,), vals)
+
+
+def dense_chunk_write(cache: torch.Tensor, lengths: torch.Tensor,
+                      chunk_lens: torch.Tensor, c: int) -> KVWrite:
+    """Chunk entries into a dense (B, S, HK, Dh) layer cache: row b's
+    entry i lands at position ``lengths[b] + i`` while ``i <
+    chunk_lens[b]``; the rest are dropped."""
+    b, s = cache.shape[:2]
     ar = torch.arange(c, device=cache.device)
-    keep = ar[None, :] < chunk_lens[:, None]
-    rows = torch.arange(b, device=cache.device)[:, None].expand(b, c)
     pos = lengths[:, None].long() + ar[None, :]
-    cache.index_put_((rows[keep], pos[keep]), new[keep].to(cache.dtype))
+    keep = ar[None, :] < chunk_lens[:, None]
+    rows = torch.arange(b, device=cache.device)[:, None] * s \
+        + pos.clamp(0, s - 1)
+    return KVWrite.build(rows, keep, b * s)
+
+
+def paged_chunk_write(pool: torch.Tensor, block_tables: torch.Tensor,
+                      lengths: torch.Tensor, chunk_lens: torch.Tensor,
+                      c: int) -> KVWrite:
+    """Chunk entries into an (NP, PS, HK, Dh) layer pool: logical position
+    ``lengths[b] + i`` lands at page ``block_tables[b, pos // PS]``, row
+    ``pos % PS``. Entries past a row's ``chunk_lens`` and entries whose
+    table entry is the unassigned sentinel ``NP`` (empty slots) are
+    dropped, as the JAX package's out-of-bounds ``mode="drop"`` scatter
+    drops them."""
+    num_pages, ps = pool.shape[:2]
+    ar = torch.arange(c, device=pool.device)
+    pos = lengths[:, None].long() + ar[None, :]
+    page = (pos // ps).clamp(0, block_tables.shape[1] - 1)
+    phys = torch.gather(block_tables.long(), 1, page)
+    keep = (ar[None, :] < chunk_lens[:, None]) & (phys < num_pages)
+    return KVWrite.build(phys * ps + pos % ps, keep, num_pages * ps)
 
 
 def decode_attend(ctx: LayerCtx, q, k, v, cache_k, cache_v, lengths):
@@ -213,19 +274,38 @@ def decode_mlp(ctx: LayerCtx, norm_p: Params, p: Params, x):
 
 
 def attention_chunk_block(ctx: LayerCtx, p: Params, x, cache_k, cache_v,
-                          lengths, chunk_lens):
-    """Chunked-prefill step: C prompt tokens append to the dense slot
-    cache (in place) and attend causally to prefix + chunk.
+                          lengths, write: KVWrite, block_tables=None):
+    """Chunked-prefill step: C prompt tokens append in place (through the
+    step's ``write``) to the dense slot cache or, with ``block_tables``,
+    to the page pool, and attend causally to prefix + chunk.
     x: (B, C, D) -> (B, C, D)."""
     cfg = ctx.cfg
     b, c, _ = x.shape
     positions = lengths[:, None] + torch.arange(c, device=x.device)[None, :]
     q, k, v = attention_qkv(ctx, p, x, positions)
-    _scatter_kv_chunk(cache_k, k, lengths, chunk_lens)
-    _scatter_kv_chunk(cache_v, v, lengths, chunk_lens)
-    o = ops.attention_chunk(q, cache_k, cache_v, lengths,
-                            phi_cfg=ctx.phi_cfg, plan=ctx.plan)
+    write.put(cache_k, k)
+    write.put(cache_v, v)
+    if block_tables is None:
+        o = ops.attention_chunk(q, cache_k, cache_v, lengths,
+                                phi_cfg=ctx.phi_cfg, plan=ctx.plan)
+    else:
+        o = ops.attention_chunk_paged(q, cache_k, cache_v, block_tables,
+                                      lengths, phi_cfg=ctx.phi_cfg,
+                                      plan=ctx.plan)
     return ctx.matmul(o.reshape(b, c, cfg.q_dim), p["wo"])
+
+
+def decode_attend_paged(ctx: LayerCtx, q, k, v, pool_k, pool_v,
+                        block_tables, lengths, write: KVWrite):
+    """Stage B (paged layout): append this token's KV through the block
+    tables (``write`` drops empty slots' sentinel entries), attend over
+    the page pool. Returns o (B, 1, HQ*Dh)."""
+    write.put(pool_k, k)
+    write.put(pool_v, v)
+    o = ops.attention_decode_paged(q[:, 0], pool_k, pool_v, block_tables,
+                                   lengths + 1, phi_cfg=ctx.phi_cfg,
+                                   plan=ctx.plan)
+    return o.reshape(q.shape[0], 1, ctx.cfg.q_dim)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@ is not ported).
 
 Layer params and the KV cache are stacked on a leading L axis; a Python
 loop over per-layer views replaces the JAX package's ``lax.scan``. KV
-writes update the cache in place.
+writes update the cache in place. The cache is either the dense slot
+cache or the block-paged pool (:mod:`repro_torch.models.kvlayout`);
+``decode_step`` and ``prefill_chunk`` take the engine's block tables as
+``block_tables`` and address the pool through them when given.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from repro_torch.device import resolve
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import stack
-from repro_torch.models.kvlayout import DenseLayout
+from repro_torch.models.kvlayout import KVLayout
 from repro_torch.models.layers import LayerCtx, Params
 
 
@@ -47,9 +50,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     }
 
 
-def init_cache(cfg: ModelConfig, layout: DenseLayout, dtype=None,
+def init_cache(cfg: ModelConfig, layout: KVLayout, dtype=None,
                device="cuda") -> dict:
-    """The dense (L, B, S, HK, Dh) slot cache, zero-filled."""
+    """KV storage for a layout, zero-filled: the dense (L, B, S, HK, Dh)
+    slot cache or the (L, NP, PS, HK, Dh) page pool."""
+    if getattr(layout, "kv_dtype", "bf16") != "bf16":
+        raise NotImplementedError(
+            f"kv_dtype {layout.kv_dtype!r} (quantized pages) comes with "
+            "slice 4 (precision) of the port; use 'bf16'")
     shape = layout.kv_shape(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim)
     dtype = dtype or L.adt(cfg)
     dev = resolve(device)
@@ -63,22 +71,29 @@ def init_cache(cfg: ModelConfig, layout: DenseLayout, dtype=None,
 
 
 def decode_block(ctx: LayerCtx, p: Params, x, position, cache_i: dict,
-                 lengths):
-    """One-token decode block over the dense slot cache (split stages:
-    ingest → attend → epilogue → mlp)."""
+                 lengths, block_tables=None, write=None):
+    """One-token decode block (split stages: ingest → attend → epilogue →
+    mlp) over the dense slot cache, or over the page pool when
+    ``block_tables`` is given (``write``: the step's KV placement)."""
     q, k, v = L.decode_ingest(ctx, p["attn_norm"], p["attn"], x, position)
-    o = L.decode_attend(ctx, q, k, v, cache_i["k"], cache_i["v"], lengths)
+    if block_tables is None:
+        o = L.decode_attend(ctx, q, k, v, cache_i["k"], cache_i["v"],
+                            lengths)
+    else:
+        o = L.decode_attend_paged(ctx, q, k, v, cache_i["k"], cache_i["v"],
+                                  block_tables, lengths, write)
     x = L.decode_epilogue(ctx, p["attn"], o, x)
     return L.decode_mlp(ctx, p["mlp_norm"], p["mlp"], x)
 
 
 def chunk_block(ctx: LayerCtx, p: Params, x, cache_i: dict, lengths,
-                chunk_lens):
-    """Chunked-prefill block (decode-shaped path)."""
+                write, block_tables=None):
+    """Chunked-prefill block (decode-shaped path) over either layout."""
     cfg = ctx.cfg
     h = L.norm(cfg, p["attn_norm"], x)
     x = x + L.attention_chunk_block(ctx, p["attn"], h, cache_i["k"],
-                                    cache_i["v"], lengths, chunk_lens)
+                                    cache_i["v"], lengths, write,
+                                    block_tables)
     h = L.norm(cfg, p["mlp_norm"], x)
     return x + L.mlp_block(ctx, p["mlp"], h)
 
@@ -128,31 +143,43 @@ def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict):
 
 
 def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
-                *, positions=None):
+                *, block_tables=None, positions=None):
     """One decode step. tokens (B,) -> logits (B, Vp); the cache is
-    updated in place and returned. ``positions`` defaults to
-    ``lengths``."""
+    updated in place and returned. With ``block_tables`` (B, NB) the
+    cache leaves are page pools; empty slots (all-sentinel table rows)
+    write nothing. ``positions`` defaults to ``lengths``."""
     x = L.embed(ctx, params, tokens[:, None])          # (B, 1, D)
     position = lengths if positions is None else positions
+    write = None
+    if block_tables is not None:
+        write = L.paged_chunk_write(cache["k"][0], block_tables, lengths,
+                                    torch.ones_like(lengths), 1)
     x, cache = stack.run_stack_cached(
         params["layers"], x, cache,
         lambda p_i, xx, c_i: decode_block(ctx, p_i, xx, position, c_i,
-                                          lengths))
+                                          lengths, block_tables, write))
     x = L.norm(ctx.cfg, params["final_norm"], x)
     return L.lm_logits(ctx, params, x)[:, 0], cache
 
 
 def prefill_chunk(ctx: LayerCtx, params: Params, tokens, chunk_lens,
-                  cache: dict, lengths):
+                  cache: dict, lengths, *, block_tables=None):
     """One prompt chunk for a whole (possibly ragged) batch: row b consumes
     its first ``chunk_lens[b]`` tokens at positions ``lengths[b]...``;
     rows with ``chunk_lens[b] == 0`` are spectators. Returns per-row
-    logits at each row's last chunk position and the cache."""
+    logits at each row's last chunk position and the cache. Like
+    :func:`decode_step`, ``block_tables`` selects the paged layout."""
     x = L.embed(ctx, params, tokens)                   # (B, C, D)
+    c = tokens.shape[1]
+    if block_tables is None:
+        write = L.dense_chunk_write(cache["k"][0], lengths, chunk_lens, c)
+    else:
+        write = L.paged_chunk_write(cache["k"][0], block_tables, lengths,
+                                    chunk_lens, c)
     x, cache = stack.run_stack_cached(
         params["layers"], x, cache,
-        lambda p_i, xx, c_i: chunk_block(ctx, p_i, xx, c_i, lengths,
-                                         chunk_lens))
+        lambda p_i, xx, c_i: chunk_block(ctx, p_i, xx, c_i, lengths, write,
+                                         block_tables))
     x = L.norm(ctx.cfg, params["final_norm"], x)
     logits = L.lm_logits(ctx, params, _last_rows(x, chunk_lens))[:, 0]
     return logits, cache

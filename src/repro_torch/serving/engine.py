@@ -1,8 +1,9 @@
-"""Streaming continuous-batching engine over the dense slot cache.
+"""Streaming continuous-batching engine over the dense slot cache or the
+block-paged pool.
 
 The port of the JAX package's ``serving/engine.py`` for
-``cache_kind="dense"`` (the block-paged pool, prefix sharing and the
-tiered KV store come with later slices):
+``cache_kind="dense"`` and ``cache_kind="paged"`` (the tiered KV store,
+grouped decode and quantized pages come with later slices):
 
   * **Request lifecycle.** Each submission is a
     :class:`~repro_torch.serving.request.RequestState` walking WAITING →
@@ -19,6 +20,24 @@ tiered KV store come with later slices):
   * **Decode.** Every tick runs the whole slot batch (continuous
     batching), so decode GEMMs see M = num_slots — the regime the paper's
     T2/T3 target. KV appends update the cache in place.
+  * **Lazy pages + preemption** (paged). Admission reserves pages only
+    for the tokens about to be prefilled; each decode tick grows tables
+    page by page. When the (possibly overcommitted) pool runs dry, the
+    scheduler names a victim: its pages are freed and it is re-queued,
+    and re-admission re-prefills ``prompt + generated`` through fresh
+    block tables.
+  * **Prefix sharing + copy-on-write** (paged, ``prefix_sharing=True``).
+    Admission maps a prompt's page-aligned prefix onto resident pages
+    through a :class:`~repro_torch.serving.prefix.PrefixIndex` and
+    prefills only the rest; the first write into a shared page forks it
+    (fresh page, device page copy, table patch). Chunk boundaries stay on
+    the share-less grid, so greedy tokens do not change with sharing.
+  * **Chunk discipline** (paged). With ``plan.paged.gather_chunk ==
+    "fused"`` chunk attention reads the pool in place (the fused chunk
+    kernel on the ``"cuda"`` backend), and a wave whose longest prompt
+    reaches ``fused_threshold`` hands it block tables cut to a
+    power-of-two bound of resident pages; ``"dense"`` gathers a dense
+    view of the full tables for the reference chunk math.
   * **One dispatch surface.** Every kernel decision rides in the single
     ``plan=`` operand; plans change which kernel runs, never the tokens.
 
@@ -38,10 +57,13 @@ from repro_torch.config import ModelConfig
 from repro_torch.core.plan import DEFAULT_PLAN, ExecutionPlan
 from repro_torch.device import resolve
 from repro_torch.models.api import get_model
-from repro_torch.models.kvlayout import DenseLayout, pow2_bucket
+from repro_torch.models.kvlayout import (DenseLayout, KVLayout, PagedLayout,
+                                         pages_for, pow2_bucket)
 from repro_torch.models.layers import LayerCtx
 from repro_torch.models.stack import tree_leaves
+from repro_torch.serving.blockpool import BlockPool, PagedSlotManager
 from repro_torch.serving.kvcache import SlotManager
+from repro_torch.serving.prefix import PrefixIndex
 from repro_torch.serving.request import (FinishReason, Phase, RequestState,
                                          SamplingParams, TokenEvent)
 from repro_torch.serving.sampling import mask_vocab, sample
@@ -49,6 +71,7 @@ from repro_torch.serving.scheduler import Scheduler, get_scheduler
 
 PROMPT_BUCKET = 64
 DEFAULT_PREFILL_CHUNK = 64
+DEFAULT_PAGE_SIZE = 64
 
 PromptLike = Union[np.ndarray, Sequence[int]]
 
@@ -64,6 +87,14 @@ class EngineStats:
     aborted: int = 0
     prefill_seconds: float = 0.0
     decode_seconds: float = 0.0
+    # paged cache (all zero for cache_kind="dense")
+    preemptions: int = 0
+    peak_pages_used: int = 0
+    shared_prefix_pages: int = 0     # page mappings served by refcount
+    #                                  bumps instead of fresh allocations
+    saved_prefill_tokens: int = 0    # prompt positions admission skipped
+    #                                  because their KV was resident
+    cow_forks: int = 0               # shared pages privatized by a write
 
 
 def request_seed(seed: int, rid: int) -> int:
@@ -80,17 +111,16 @@ class Engine:
         num_slots: int = 8,
         max_seq: int = 2048,
         cache_kind: str = "dense",
-        prefill_chunk: int = DEFAULT_PREFILL_CHUNK,
+        page_size: int = DEFAULT_PAGE_SIZE,
+        num_pages: Optional[int] = None,
+        prefill_chunk: Optional[int] = DEFAULT_PREFILL_CHUNK,
+        prefix_sharing: bool = False,
         scheduler: Union[str, Scheduler] = "fcfs",
         plan: Optional[ExecutionPlan] = None,
         seed: int = 0,
         device="cuda",
     ):
         self.device = resolve(device)
-        if cache_kind != "dense":
-            raise NotImplementedError(
-                f"cache_kind={cache_kind!r} comes with slice 2 (paged KV) "
-                "of the port; use cache_kind='dense'")
         leaf = tree_leaves(params)[0]
         if leaf.device != self.device:
             raise ValueError(f"params live on {leaf.device}, engine on "
@@ -103,11 +133,56 @@ class Engine:
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.scheduler = get_scheduler(scheduler)
+        # prefill_chunk=None adopts the plan's chunk size
+        if prefill_chunk is None:
+            prefill_chunk = self.plan.paged.chunk_block
         self.prefill_chunk = (
             prefill_chunk if self.api.supports_chunked_prefill else 0)
+        self.layout: KVLayout
+        self.prefix: Optional[PrefixIndex] = None
+        self.pool: Optional[BlockPool] = None
+        if cache_kind == "dense":
+            if prefix_sharing:
+                raise ValueError("prefix_sharing needs refcounted pages; "
+                                 "use cache_kind='paged'")
+            self.layout = DenseLayout(num_slots, max_seq)
+            self.slots: SlotManager = SlotManager(num_slots, max_seq)
+        elif cache_kind == "paged":
+            pp = self.plan.paged
+            if pp.decode_group != "off":
+                raise NotImplementedError(
+                    f"decode_group={pp.decode_group!r} comes with slice 3 "
+                    "(grouped prefix decode) of the port; use 'off'")
+            if pp.kv_dtype != "bf16":
+                raise NotImplementedError(
+                    f"kv_dtype={pp.kv_dtype!r} comes with slice 4 "
+                    "(precision) of the port; use 'bf16'")
+            if not self.api.supports_paged:
+                raise ValueError(f"family {cfg.family!r} has no paged-KV "
+                                 "path; use cache_kind='dense'")
+            if not self.prefill_chunk:
+                raise ValueError("cache_kind='paged' requires chunked "
+                                 "prefill (prefill_chunk > 0)")
+            if prefix_sharing and page_size % self.prefill_chunk:
+                # shared prefixes are page-aligned; keeping every chunk
+                # boundary on the share-less run's grid is what keeps the
+                # tokens identical, and that needs chunk | page_size
+                raise ValueError(
+                    f"prefix_sharing requires page_size ({page_size}) to "
+                    f"be a multiple of prefill_chunk ({self.prefill_chunk})")
+            # default pool: the dense cache's KV bytes; smaller overcommits
+            # (lazy growth then preempts on a dry pool)
+            self.pool = BlockPool(
+                num_pages if num_pages is not None
+                else num_slots * pages_for(max_seq, page_size), page_size)
+            self.layout = PagedLayout(self.pool.num_pages, page_size)
+            if prefix_sharing:
+                self.prefix = PrefixIndex(page_size)
+            self.slots = PagedSlotManager(num_slots, max_seq, self.pool,
+                                          prefix_index=self.prefix)
+        else:
+            raise ValueError(f"unknown cache_kind {cache_kind!r}")
         self.cache_kind = cache_kind
-        self.layout = DenseLayout(num_slots, max_seq)
-        self.slots = SlotManager(num_slots, max_seq)
         self.cache = self.api.init_cache(self.layout, device=self.device)
 
         self.seed = seed
@@ -132,6 +207,12 @@ class Engine:
         if worst > self.max_seq:
             raise ValueError(
                 f"request needs {worst} positions > max_seq {self.max_seq}")
+        if self.pool is not None and (
+                pages_for(worst, self.pool.page_size) > self.pool.num_pages):
+            raise ValueError(
+                f"request needs {pages_for(worst, self.pool.page_size)} "
+                f"pages > pool size {self.pool.num_pages} "
+                f"(page_size {self.pool.page_size})")
         if rid is None:
             while self._next_rid in self.requests:
                 self._next_rid += 1
@@ -171,8 +252,8 @@ class Engine:
             self.step()
 
     def abort(self, rid: int) -> bool:
-        """Cancel a request in any phase; frees its slot at once. Returns
-        False if unknown or already finished."""
+        """Cancel a request in any phase; frees its slot (and pages) at
+        once. Returns False if unknown or already finished."""
         state = self.requests.get(rid)
         if state is None or state.finished:
             return False
@@ -229,16 +310,23 @@ class Engine:
     # -- admission ---------------------------------------------------------------
 
     def _admit(self) -> list[TokenEvent]:
-        """Offer slots to waiting requests in the scheduler's order and
-        prefill the admitted wave in one batch."""
+        """Offer slots (and prefill pages) to waiting requests in the
+        scheduler's order and prefill the admitted wave in one batch.
+
+        With prefix sharing, a request whose match includes pages
+        promised by an earlier request of the same wave gets a later
+        prefill level; the wave then prefills level by level, so shared
+        pages are written before any sharer attends over them."""
         if not self.waiting:
             return []
         admitted: list[tuple[int, RequestState]] = []
+        levels: dict[int, int] = {}
         for state in self.scheduler.admission_order(self.waiting):
             toks = state.prefill_tokens()
             idx = self.slots.try_assign(
                 state.rid, len(toks),
-                max(state.params.max_new_tokens - state.generated, 1))
+                max(state.params.max_new_tokens - state.generated, 1),
+                tokens=toks if self.prefix is not None else None)
             if idx is None:
                 if not self.scheduler.allow_skip:
                     break      # head-of-line blocking (FCFS no-starvation)
@@ -248,32 +336,108 @@ class Engine:
             self.by_slot[idx] = state
             admitted.append((idx, state))
             self.stats.admitted += 1
+            levels[idx] = 0
+            if self.prefix is not None:
+                slot = self.slots.slots[idx]
+                levels[idx] = slot.prefill_level
+                # the COW-fork destination is private, not shared
+                state.shared_len = slot.shared_len - (
+                    self.pool.page_size if slot.pending_fork else 0)
+                self.stats.shared_prefix_pages += (
+                    state.shared_len // self.pool.page_size)
+                self.stats.saved_prefill_tokens += \
+                    self._chunk_start(idx, len(toks))
         if not admitted:
             return []
         self.waiting = [s for s in self.waiting if s.slot is None]
+        self._note_page_pressure()
+        if self.prefix is not None:
+            self._apply_pending_forks(admitted)
         if self.prefill_chunk:
-            return self._prefill_chunked(admitted)
+            events: list[TokenEvent] = []
+            for lv in sorted(set(levels.values())):
+                events += self._prefill_chunked(
+                    [(i, s) for i, s in admitted if levels[i] == lv])
+            return events
         return self._prefill_batched(admitted)
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """COW fork on the device: page ``dst`` of every layer's K and V
+        pool becomes a copy of page ``src``, before anything writes it."""
+        for name in ("k", "v"):
+            self.cache[name][:, dst] = self.cache[name][:, src]
+        self.stats.cow_forks += 1
+
+    def _apply_pending_forks(
+            self, admitted: list[tuple[int, RequestState]]) -> None:
+        """The page copies admission promised: a fully covered prompt
+        forked its last shared page so the final-chunk re-run (which
+        recovers the last-token logits) writes a private copy. Sources
+        are committed pages, so copying before this wave's prefill is
+        safe."""
+        for idx, _state in admitted:
+            slot = self.slots.slots[idx]
+            if slot.pending_fork:
+                self._copy_page(*slot.pending_fork)
+                slot.pending_fork = None
+
+    def _chunk_start(self, idx: int, n_prefill: int) -> int:
+        """First position slot ``idx``'s chunked prefill must process: the
+        shared prefix is skipped, except that the final prompt token must
+        run (its logits seed decode), floored to the chunk grid so every
+        chunk boundary matches a share-less run (the re-run positions
+        rewrite byte-identical KV, into the COW fork when they fall in a
+        shared page)."""
+        start = getattr(self.slots.slots[idx], "prefill_start", 0)
+        if start <= 0:
+            return 0
+        start = min(start, max(n_prefill - 1, 0))
+        return (start // self.prefill_chunk) * self.prefill_chunk
 
     def _i32(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr, np.int32)).to(
             self.device)
 
+    def _chunk_tables(self, fused: bool, hi: int):
+        """Block-table operand for one chunk step. In the fused mode the
+        tables are cut to a power-of-two page bound covering ``hi`` (the
+        wave's highest position written or read this step), so chunk
+        attention walks only resident pages; pages past the bound hold
+        only causally masked positions of the wave's rows, so the cut
+        changes no result the engine keeps (spectators' rows are
+        dropped)."""
+        bt = self.slots.block_tables(self.device)
+        if bt is None or not fused:
+            return bt
+        full = self.slots.max_pages_per_seq
+        bound = pow2_bucket(pages_for(hi, self.pool.page_size), hi=full)
+        if bound >= full:
+            return bt
+        return bt[:, :bound].contiguous()
+
     def _prefill_chunked(
             self, items: list[tuple[int, RequestState]]) -> list[TokenEvent]:
         """Stream all admitted prompts through the chunk-append path, one
         ``(num_slots, chunk)`` call per step; other slots are spectators
-        (``chunk_lens == 0`` — nothing written)."""
+        (``chunk_lens == 0`` — nothing written). A re-admitted (preempted)
+        request prefills ``prompt + generated``, from its first unshared
+        chunk boundary when the prefix index still maps its prefix."""
         c = self.prefill_chunk
         seqs = {idx: state.prefill_tokens() for idx, state in items}
-        progress = {idx: 0 for idx, _ in items}
+        progress = {idx: self._chunk_start(idx, len(seqs[idx]))
+                    for idx, _ in items}
         plens = {idx: max(len(seqs[idx]), 1) for idx, _ in items}
+        pp = self.plan.paged
+        fused = (self.pool is not None and pp.gather_chunk == "fused"
+                 and max(plens.values()) >= pp.fused_threshold)
         final_logits: dict[int, torch.Tensor] = {}
-        n_steps = max(-(-plens[idx] // c) for idx, _ in items)
+        n_steps = max(-(-(plens[idx] - progress[idx]) // c)
+                      for idx, _ in items)
         for _ in range(n_steps):
             tokens = np.zeros((self.num_slots, c), np.int32)
             chunk_lens = np.zeros((self.num_slots,), np.int32)
             lengths = self.slots.lengths()
+            hi = 0
             for idx, _state in items:
                 done = progress[idx]
                 cl = min(plens[idx] - done, c)
@@ -284,14 +448,20 @@ class Engine:
                     tokens[idx, :avail] = seqs[idx][done:done + avail]
                 chunk_lens[idx] = cl          # p=0 feeds one pad token
                 lengths[idx] = done           # prefill progress, not final P
+                hi = max(hi, done + cl)
             logits, self.cache = self.api.prefill_chunk(
                 self.ctx, self.params, self._i32(tokens),
-                self._i32(chunk_lens), self.cache, self._i32(lengths))
+                self._i32(chunk_lens), self.cache, self._i32(lengths),
+                block_tables=self._chunk_tables(fused, hi))
             for idx, _state in items:
                 if chunk_lens[idx]:
                     progress[idx] += int(chunk_lens[idx])
                     if progress[idx] == plens[idx]:
                         final_logits[idx] = logits[idx:idx + 1]
+        for idx, _state in items:
+            # the full prompt pages now hold real KV: later arrivals (and
+            # later levels of this wave) may map them
+            self.slots.commit_prefix(idx, seqs[idx])
         return self._first_tokens(items, final_logits)
 
     def _prefill_batched(
@@ -333,18 +503,85 @@ class Engine:
 
     # -- decode ----------------------------------------------------------------
 
+    def _grow_or_preempt(self) -> None:
+        """Lazy page growth (and COW forks) for every resident sequence:
+        a decode tick writes position ``length``, so slot ``i`` must cover
+        ``length + 1``, and a shared page holding that position is forked
+        before the write. When the pool is dry the scheduler names a
+        victim — possibly the growing sequence itself — whose refs are
+        dropped and whose state goes back to the queue."""
+        for idx, state in list(self.by_slot.items()):
+            if self.by_slot.get(idx) is not state:
+                continue                      # became a victim this tick
+            while True:
+                length = self.slots.slots[idx].length
+                forks = None
+                if self.slots.ensure(idx, length + 1):
+                    forks = self.slots.fork_for_write(
+                        idx, length, length + 1)
+                if forks is not None:
+                    for src, dst in forks:
+                        self._copy_page(src, dst)
+                    break
+                self._refresh_shared_lens()
+                victim = self.scheduler.pick_victim(
+                    list(self.by_slot.values()))
+                if victim is None or (victim is state
+                                      and len(self.by_slot) == 1):
+                    # admission's whole-footprint bound makes a lone
+                    # sequence always satisfiable — defensive only
+                    raise RuntimeError(
+                        "page pool exhausted with no preemptable victim")
+                self._preempt(victim)
+                if victim is state:
+                    break                     # evicted itself; skip growth
+        self._note_page_pressure()
+
     def _decode_tick(self) -> list[TokenEvent]:
+        self._grow_or_preempt()
+        if not self.by_slot:
+            return []
         tokens = np.zeros((self.num_slots,), np.int32)
         for idx, state in self.by_slot.items():
             tokens[idx] = state.tokens[-1]
         logits, self.cache = self.api.decode_step(
             self.ctx, self.params, self._i32(tokens), self.cache,
-            self.slots.lengths_device(self.device))
+            self.slots.lengths_device(self.device),
+            block_tables=self.slots.block_tables(self.device))
         rows = list(self.by_slot)
         toks = self._sample(
             [(logits[idx:idx + 1], self.by_slot[idx]) for idx in rows])
         return [self._emit(idx, self.by_slot[idx], tok)
                 for idx, tok in zip(rows, toks)]
+
+    def _preempt(self, state: RequestState) -> None:
+        idx = state.slot
+        self.by_slot.pop(idx, None)
+        self.slots.release(idx)
+        state.phase = Phase.PREEMPTED
+        state.slot = None
+        state.shared_len = 0          # recomputed if re-admission re-maps
+        state.preemptions += 1
+        self.stats.preemptions += 1
+        self.waiting.append(state)
+
+    def _refresh_shared_lens(self) -> None:
+        """Recompute every resident's ``shared_len`` from live refcounts
+        right before the scheduler ranks victims: sharing drifts after
+        admission, and ``exclusive_len`` must mean the pages an eviction
+        reclaims now."""
+        if self.prefix is None:
+            return
+        ps = self.pool.page_size
+        for idx, state in self.by_slot.items():
+            state.shared_len = ps * sum(
+                1 for p in self.slots.slots[idx].pages
+                if self.pool.refcount(p) > 1)
+
+    def _note_page_pressure(self) -> None:
+        if self.pool is not None:
+            self.stats.peak_pages_used = max(
+                self.stats.peak_pages_used, self.pool.used_pages)
 
     # -- bookkeeping -----------------------------------------------------------
 

@@ -18,6 +18,7 @@ from repro.models.api import get_model as jget_model
 from repro.serving.engine import Engine as JEngine
 from repro.serving.request import SamplingParams as JSamplingParams
 from repro_torch import configs as tconfigs
+from repro_torch.core.plan import make_plan
 from repro_torch.models.api import get_model as tget_model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serving.engine import Engine
@@ -147,8 +148,14 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
     params = tget_model(cfg).init_params(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(cfg, params)
-    with pytest.raises(NotImplementedError, match="paged"):
-        Engine(cfg, params, cache_kind="paged", device="cpu")
+    # paged KV serves; its later slices' modes refuse by name
+    paged = make_plan("cuda").paged
+    for over, slice_no in ((dict(decode_group="grouped"), "slice 3"),
+                           (dict(kv_dtype="int8"), "slice 4")):
+        plan = dataclasses.replace(
+            make_plan("cuda"), paged=dataclasses.replace(paged, **over))
+        with pytest.raises(NotImplementedError, match=slice_no):
+            Engine(cfg, params, cache_kind="paged", plan=plan, device="cpu")
 
 
 def test_serve_cli_runs_on_cpu(capsys):

@@ -1,0 +1,274 @@
+"""The port's paged attention kernels (rows 5, 6, 9 and 10 of the kernel
+table) on CPU tensors — their plain versions — against the JAX package's
+Pallas kernels run the way its own tests run them (``interpret=True``), on
+the same numpy inputs; the ``ops`` front doors on both backends against
+the JAX front doors, overflow recompute included; and the paged oracles.
+
+Tolerances: TOL["float32"] for f32 inputs (same math, other summation
+order: the plain versions walk one page per step as the TPU grid does);
+TOL["bfloat16"] for bf16 inputs (bf16 rounds at other points in the two
+frameworks). The CUDA kernels are held to these plain versions on the
+card by ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import TOL
+from repro.config import SoftmaxPhiConfig as JSoftmaxPhiConfig
+from repro.core.plan import make_plan as jmake_plan
+from repro.kernels import chunk_attention as jca
+from repro.kernels import decode_attention as jda
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.config import SoftmaxPhiConfig
+from repro_torch.core.plan import make_plan
+from repro_torch.kernels import chunk_attention as tca
+from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref
+
+_JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a: np.ndarray, dtype: str = "float32"):
+    """The same values as a JAX array and a torch CPU tensor of ``dtype``
+    (rounded once on the JAX side, then carried over bit for bit)."""
+    j = jnp.asarray(a, jnp.float32).astype(_JDT[dtype])
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(_TDT[dtype])
+    return j, t
+
+
+def _ints(a):
+    a = np.asarray(a, np.int32)
+    return jnp.asarray(a), torch.from_numpy(a.copy())
+
+
+def _close(got: torch.Tensor, want, dtype: str = "float32"):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               **TOL[dtype])
+
+
+def _pool_fixture(rng, *, b, hk, d, ps, nb, pages_per_row, dtype,
+                  spare=3):
+    """Pools of random pages (every row finite, so the plain versions'
+    zero weights on masked keys stay exact zeros), shuffled tables with
+    the sentinel NP past each row's pages; a row with 0 pages is an empty
+    slot whose whole table is the sentinel."""
+    num_pages = sum(pages_per_row) + spare
+    kp = _pair(rng.normal(size=(num_pages, ps, hk, d)), dtype)
+    vp = _pair(rng.normal(size=(num_pages, ps, hk, d)), dtype)
+    perm = rng.permutation(num_pages)
+    bt = np.full((b, nb), num_pages, np.int32)
+    lo = 0
+    for i, n in enumerate(pages_per_row):
+        bt[i, :n] = perm[lo:lo + n]
+        lo += n
+    return kp, vp, _ints(bt)
+
+
+# ---------------------------------------------------------------------------
+# Rows 5-6: paged decode attention
+# ---------------------------------------------------------------------------
+
+
+# per page size: ragged lengths with a partial last page, a row ending on
+# a page boundary, a one-page row, and an empty slot (sentinel table,
+# length 1: the engine decodes free slots at new_len 1)
+_DECODE = {16: ([53, 32, 7, 1], [4, 2, 1, 0], 4),
+           64: ([150, 128, 7, 1], [3, 2, 1, 0], 3)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ps", [16, 64])
+def test_paged_decode_matches_pallas(ps, dtype):
+    lengths, pages, nb = _DECODE[ps]
+    b, hq, hk, d = 4, 8, 2, 32
+    rng = np.random.default_rng(ps)
+    jq, tq = _pair(rng.normal(size=(b, hq, d)), dtype)
+    (jk, tk), (jv, tv), (jbt, tbt) = _pool_fixture(
+        rng, b=b, hk=hk, d=d, ps=ps, nb=nb, pages_per_row=pages,
+        dtype=dtype)
+    jl, tl = _ints(lengths)
+
+    want, want_stat = jda.paged_decode_attention_unified_max(
+        jq, jk, jv, jbt, jl, phi=0.25, interpret=True)
+    got, stat = tda.paged_decode_attention_unified_max(tq, tk, tv, tbt, tl,
+                                                       phi=0.25)
+    _close(got, want, dtype)
+    _close(stat, want_stat, dtype)
+    want = jda.paged_decode_attention_sync(jq, jk, jv, jbt, jl,
+                                           interpret=True)
+    _close(tda.paged_decode_attention_sync(tq, tk, tv, tbt, tl), want, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rows 9-10: fused paged chunk attention
+# ---------------------------------------------------------------------------
+
+
+def _chunk_case(ps, c):
+    """Lengths before the chunk: a partial last page, an empty prefix (the
+    chunk is the whole sequence), a chunk that straddles a page boundary
+    mid-page, and a spectator row (sentinel table, nothing before it)."""
+    lengths = [37, 0, 3 * ps - c + 5, 0]
+    pages = [-(-(n + c) // ps) for n in lengths[:3]] + [0]
+    return lengths, pages, max(pages) + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ps", [16, 64])
+def test_paged_chunk_matches_pallas(ps, dtype):
+    b, c, hq, hk, d = 4, 8, 8, 2, 32
+    lengths, pages, nb = _chunk_case(ps, c)
+    rng = np.random.default_rng(100 + ps)
+    jq, tq = _pair(rng.normal(size=(b, c, hq, d)), dtype)
+    (jk, tk), (jv, tv), (jbt, tbt) = _pool_fixture(
+        rng, b=b, hk=hk, d=d, ps=ps, nb=nb, pages_per_row=pages,
+        dtype=dtype)
+    jl, tl = _ints(lengths)
+
+    want, want_stat = jca.paged_chunk_attention_unified_max(
+        jq, jk, jv, jbt, jl, phi=0.5, interpret=True)
+    got, stat = tca.paged_chunk_attention_unified_max(tq, tk, tv, tbt, tl,
+                                                      phi=0.5)
+    assert got.shape == (b, c, hq, d) and stat.shape == (b, hk)
+    _close(got, want, dtype)
+    _close(stat, want_stat, dtype)
+    want = jca.paged_chunk_attention_sync(jq, jk, jv, jbt, jl,
+                                          interpret=True)
+    _close(tca.paged_chunk_attention_sync(tq, tk, tv, tbt, tl), want, dtype)
+
+
+@pytest.mark.parametrize("fn,shape", [
+    (tda.paged_decode_attention_sync, (3, 4, 16)),
+    (tca.paged_chunk_attention_sync, (3, 5, 4, 16)),
+], ids=["decode", "chunk"])
+def test_paged_sync_recompute_flag_selects_output(fn, shape):
+    """``out``/``flag`` form: untouched when the flag is clear, replaced
+    by the online-max result when it is set."""
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    (_, kp), (_, vp), (_, bt) = _pool_fixture(
+        rng, b=3, hk=2, d=16, ps=8, nb=3, pages_per_row=[3, 1, 0],
+        dtype="float32")
+    lens = torch.tensor([19, 3, 1], dtype=torch.int32)
+    sync = fn(q, kp, vp, bt, lens)
+    prev = torch.full_like(sync, 7.0)
+    assert torch.equal(fn(q, kp, vp, bt, lens, out=prev,
+                          flag=torch.tensor(False)), prev)
+    assert torch.equal(fn(q, kp, vp, bt, lens, out=prev,
+                          flag=torch.tensor(True)), sync)
+    with pytest.raises(ValueError, match="both"):
+        fn(q, kp, vp, bt, lens, out=prev)
+
+
+# ---------------------------------------------------------------------------
+# Front doors (both backends, overflow recompute) and oracles
+# ---------------------------------------------------------------------------
+
+
+def _front_fixture(q_shape, q_scale, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=q_shape) * q_scale
+    kv = _pool_fixture(rng, b=2, hk=2, d=32, ps=16, nb=4,
+                       pages_per_row=[4, 2], dtype="float32")
+    return _pair(q), kv
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 40.0], ids=["in_band", "overflow"])
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_attention_decode_paged_front_door_matches_jax(backend, q_scale):
+    """``"cuda"`` runs the paged kernels (plain versions here) as JAX's
+    ``"pallas"`` runs its own; ``"torch"`` gathers for the reference math
+    as ``"xla"`` does. Logits 40x the unit scale cross φ's band, so both
+    sides return the recomputed online-max result."""
+    (jq, tq), ((jk, tk), (jv, tv), (jbt, tbt)) = _front_fixture(
+        (2, 4, 32), q_scale, 5)
+    jl, tl = _ints([61, 20])
+    jplan = jmake_plan("pallas" if backend == "cuda" else "xla")
+    want = jops.attention_decode_paged(jq, jk, jv, jbt, jl,
+                                       phi_cfg=JSoftmaxPhiConfig(),
+                                       plan=jplan)
+    got = ops.attention_decode_paged(tq, tk, tv, tbt, tl,
+                                     phi_cfg=SoftmaxPhiConfig(),
+                                     plan=make_plan(backend))
+    assert torch.isfinite(got).all()
+    _close(got, want)
+    if q_scale > 1:
+        _, stat = tda.paged_decode_attention_unified_max(tq, tk, tv, tbt, tl)
+        assert (stat > SoftmaxPhiConfig().band[1]).any()
+
+
+@pytest.mark.parametrize("gather_chunk", ["fused", "dense"])
+@pytest.mark.parametrize("q_scale", [1.0, 40.0], ids=["in_band", "overflow"])
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_attention_chunk_paged_front_door_matches_jax(backend, q_scale,
+                                                      gather_chunk):
+    (jq, tq), ((jk, tk), (jv, tv), (jbt, tbt)) = _front_fixture(
+        (2, 8, 4, 32), q_scale, 6)
+    jl, tl = _ints([40, 9])
+    jplan = jmake_plan("pallas" if backend == "cuda" else "xla",
+                       gather_chunk=gather_chunk)
+    want = jops.attention_chunk_paged(jq, jk, jv, jbt, jl,
+                                      phi_cfg=JSoftmaxPhiConfig(),
+                                      plan=jplan)
+    got = ops.attention_chunk_paged(
+        tq, tk, tv, tbt, tl, phi_cfg=SoftmaxPhiConfig(),
+        plan=make_plan(backend, gather_chunk=gather_chunk))
+    assert torch.isfinite(got).all()
+    _close(got, want)
+
+
+@pytest.mark.parametrize("oracle", ["gather", "decode", "decode_unified"])
+def test_paged_oracles_match_jax(oracle):
+    (jq, tq), ((jk, tk), (jv, tv), (jbt, tbt)) = _front_fixture(
+        (2, 4, 32), 1.0, 7)
+    jl, tl = _ints([50, 17])
+    if oracle == "gather":
+        _close(ref.gather_paged_kv(tk, tbt), jref.gather_paged_kv(jk, jbt))
+    elif oracle == "decode":
+        _close(ref.attention_decode_paged_ref(tq, tk, tv, tbt, tl),
+               jref.attention_decode_paged_ref(jq, jk, jv, jbt, jl))
+    else:
+        out, stat = ref.attention_decode_paged_unified_max_ref(
+            tq, tk, tv, tbt, tl, phi=0.5)
+        jout, jstat = jref.attention_decode_paged_unified_max_ref(
+            jq, jk, jv, jbt, jl, phi=0.5)
+        _close(out, jout)
+        _close(stat, jstat)
+
+
+def test_paged_wrappers_check_inputs_and_count_only_launches():
+    """The operand check a CUDA launch runs first rejects what the kernels
+    do not take; CPU tensors run the plain versions without touching the
+    build or the launch counters."""
+    q = torch.zeros(2, 4, 32, dtype=torch.bfloat16)
+    pool = torch.zeros(6, 16, 2, 32, dtype=torch.bfloat16)
+    bt = torch.zeros(2, 3, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    tbt, tlens = tda.check_paged_inputs("t", q, pool, pool, bt, lens)
+    assert tbt.dtype == tlens.dtype == torch.int32
+    with pytest.raises(TypeError, match="bf16"):
+        tda.check_paged_inputs("t", q.float(), pool, pool, bt, lens)
+    with pytest.raises(ValueError, match="shapes"):
+        tda.check_paged_inputs("t", q, pool, pool[:, :8], bt, lens)
+    with pytest.raises(ValueError, match="head_dim 32/64/128"):
+        tda.check_paged_inputs("t", q[..., :16], pool[..., :16],
+                               pool[..., :16], bt, lens)
+    with pytest.raises(ValueError, match="shapes"):
+        tda.check_paged_inputs("t", q, pool, pool, bt[:1], lens)
+    counters = (tda.paged_decode_attention_unified_max,
+                tda.paged_decode_attention_sync,
+                tca.paged_chunk_attention_unified_max,
+                tca.paged_chunk_attention_sync)
+    before = [f.launches for f in counters]
+    tda.paged_decode_attention_unified_max(q, pool, pool, bt, lens)
+    tda.paged_decode_attention_sync(q, pool, pool, bt, lens)
+    qc = torch.zeros(2, 3, 4, 32, dtype=torch.bfloat16)
+    tca.paged_chunk_attention_unified_max(qc, pool, pool, bt, lens)
+    tca.paged_chunk_attention_sync(qc, pool, pool, bt, lens)
+    assert [f.launches for f in counters] == before
