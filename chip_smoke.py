@@ -12,19 +12,24 @@
    card's least possible time (``bound_ms``). The paged kernels read the
    same KV laid into shuffled pages of a larger pool: paged decode must be
    bitwise the dense decode kernel, and neither paged kernel may change
-   its output when every pool row it must not read holds NaN.
+   its output when every pool row it must not read holds NaN. The
+   grouped decode kernels read one shared prefix for four rows: bitwise
+   the paged decode kernel on the same pool, and NaN-clean likewise.
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
    greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
    C ``prefill_chunk=0`` (flash prefill) on the dense cache; on the paged
    pool D (dense gather, tokens equal to A's), E (fused chunk kernel,
    prefix sharing over a 128-token header), E′ (E without sharing, tokens
-   equal to E's) and F (E on an overcommitted pool: preemptions, every
-   request finishing, the pool empty after).
+   equal to E's), F (E on an overcommitted pool: preemptions, every
+   request finishing, the pool empty after), G (E with grouped decode:
+   tokens equal to E's) and H (G with the fused FFN-up: the JAX
+   package's tuned serving plan; tokens counted against E's).
 4. Checks the logits of the first prefill and decode step (and, on the
-   paged pool, of a chunk that reads resident pages) against the
-   ``"torch"`` plan (plain reference math) on the card, and counts the
-   greedy tokens on which the two plans agree.
+   paged pool, of a chunk that reads resident pages, and of run H's plan
+   over a shared prefix with grouped decode) against the ``"torch"``
+   plan (plain reference math) on the card, and counts the greedy tokens
+   on which the two plans agree.
 5. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -67,6 +72,9 @@ REPLACES = {
     "paged_chunk_attention_unified_max":
         "src/repro/kernels/chunk_attention.py:235",
     "paged_chunk_attention_sync": "src/repro/kernels/chunk_attention.py:294",
+    "fused_ffn_up": "src/repro/kernels/fused_ffn.py:78",
+    "grouped_paged_decode_attention_unified_max":
+        "src/repro/kernels/group_attention.py:199",
 }
 SOURCES = {
     "gemv": "src/repro_torch/csrc/gemv.cu",
@@ -81,6 +89,9 @@ SOURCES = {
     "paged_chunk_attention_unified_max":
         "src/repro_torch/csrc/chunk_attention.cu",
     "paged_chunk_attention_sync": "src/repro_torch/csrc/chunk_attention.cu",
+    "fused_ffn_up": "src/repro_torch/csrc/fused_ffn.cu",
+    "grouped_paged_decode_attention_unified_max":
+        "src/repro_torch/csrc/group_attention.cu",
 }
 PAGE = 64                             # page size of every paged run
 
@@ -194,9 +205,12 @@ def kernel_phase(torch, timer, rows, log):
     from repro_torch.kernels import chunk_attention as ca
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import group_attention as ga
     from repro_torch.kernels import ops
     from repro_torch.kernels.flat_gemm import flat_gemm, flat_gemm_plain
     from repro_torch.kernels.gemv import gemv, gemv_plain
+    from repro_torch.kernels.ref import gather_paged_kv
     from repro_torch import configs
 
     spec = hardware.DEFAULT
@@ -263,6 +277,25 @@ def kernel_phase(torch, timer, rows, log):
                    lambda: torch.matmul(xx, w),
                    2 * (m * k + k * n + m * n), 2 * m * k * n, primary,
                    gemm_close)
+
+    # -- fused FFN-up (row 8) at a decode tick's and a chunk step's M ------
+    # (4 slots; 4 rows x 64-token chunks)
+    for m in (4, 256):
+        x = randn(m, d)
+        wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
+        record("fused_ffn_up", f"M={m} K={d} N={f} swiglu",
+               ff.fused_ffn_up(x, wg, wu), ff.fused_ffn_up_plain(x, wg, wu),
+               lambda: ff.fused_ffn_up(x, wg, wu),
+               lambda: ff.fused_ffn_up_plain(x, wg, wu),
+               lambda: F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu),
+               2 * (m * d + 2 * d * f + m * f), 4 * m * d * f, m == 4,
+               gemm_close)
+        got = ff.fused_ffn_up(x, wg, wu, activation="geglu")
+        ok, tol = gemm_close(got, ff.fused_ffn_up_plain(
+            x, wg, wu, activation="geglu"))
+        log(f"kernel fused_ffn_up M={m} geglu: {'ok' if ok else 'MISMATCH'}"
+            f" ({tol})")
+        check(ok, f"fused_ffn_up M={m} geglu disagrees")
 
     # -- decode attention (B=4 slots, max_seq 1024, ragged) ----------------
     b, s_max = 4, 1024
@@ -373,6 +406,123 @@ def kernel_phase(torch, timer, rows, log):
         log(f"kernel ops.attention_decode_paged {ptag}: recompute="
             f"{overflow} max_abs_err={err:.3e} ({tol})")
         check(ok, f"ops.attention_decode_paged {ptag} disagrees")
+
+    # -- grouped prefix-shared decode (row 11): four rows share one
+    # 512-token (8-page) prefix, tails to 1024/800/600/520 ------------------
+    glens = torch.tensor([1024, 800, 600, 520], dtype=torch.int32,
+                         device=dev)
+    plen = 512
+    npre = plen // PAGE
+    own = [-(-int(n) // PAGE) - npre for n in glens.tolist()]
+    num_pages = npre + sum(own) + 8
+    perm = torch.randperm(num_pages, generator=gen, device=dev)
+    kp, vp = (randn(num_pages, PAGE, hk, hd) for _ in range(2))
+    bt = torch.full((b, s_max // PAGE), num_pages, dtype=torch.int32,
+                    device=dev)
+    live = torch.zeros((num_pages, PAGE), dtype=torch.bool, device=dev)
+    pre = perm[:npre].int()
+    live[pre.long()] = True
+    lo = npre
+    for i, n in enumerate(own):
+        pages = perm[lo:lo + n]
+        lo += n
+        bt[i, :npre] = pre
+        bt[i, npre:npre + n] = pages.int()
+        live[pages] = (npre * PAGE + torch.arange(n * PAGE, device=dev)
+                       < int(glens[i])).reshape(n, PAGE)
+    kpn, vpn = poisoned(torch, (kp, vp), live)
+
+    def i32(*vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    groups = ga.DecodeGroups(
+        tables=pre[None], n_pages=i32(npre), g_prefix_len=i32(plen),
+        num_members=i32(b), member_rows=i32(*range(b))[None],
+        gid=i32(*[0] * b), member=i32(*range(b)), prefix_len=i32(*[plen] * b))
+    kd = gather_paged_kv(kp, bt).transpose(1, 2)
+    vd = gather_paged_kv(vp, bt).transpose(1, 2)
+    ke = kd.repeat_interleave(hq // hk, dim=1)
+    ve = vd.repeat_interleave(hq // hk, dim=1)
+    gmask = (torch.arange(s_max, device=dev)[None, :] < glens[:, None])[
+        :, None, None, :]
+    n_keys = int(glens.sum())
+    n_read = plen + int((glens - plen).sum())      # the prefix once
+    tables_bytes = 4 * (bt.numel() + sum(t.numel() for t in groups))
+    g_bytes = (2 * (2 * b * hq * hd + 2 * n_read * hk * hd) + 4 * b * hk
+               + tables_bytes)
+    p_bytes = (2 * (2 * b * hq * hd + 2 * n_keys * hk * hd) + 4 * b * hk
+               + 4 * bt.numel())
+    g_flops = 4 * n_keys * hq * hd
+    log(f"grouped decode pool: {num_pages} pages of {PAGE}, one "
+        f"{plen}-token prefix shared by {b} rows; bytes to move "
+        f"{g_bytes} grouped vs {p_bytes} ungrouped")
+    for scale_q, tag in ((1.0, "B=4 PS=64 prefix 512, 1024/800/600/520"),
+                         (20.0, "B=4 PS=64 prefix 512, s-phi>40")):
+        overflow = scale_q > 1.0
+        q = randn(b, hq, hd, scale=scale_q)
+        q4 = q[:, :, None, :]
+        lib = lambda: F.scaled_dot_product_attention(q4, ke, ve,
+                                                     attn_mask=gmask)
+        gout, gstat = ga.grouped_paged_decode_attention_unified_max(
+            q, kp, vp, bt, glens, groups, phi=phi.phi)
+        pout, pstat = da.paged_decode_attention_unified_max(
+            q, kp, vp, bt, glens, phi=phi.phi)
+        same = same_bits(torch, (gout, pout), (gstat, pstat))
+        clean = same_bits(torch, (ga.grouped_paged_decode_attention_unified_max(
+            q, kpn, vpn, bt, glens, groups, phi=phi.phi)[0], gout))
+        log(f"kernel grouped_paged_decode_attention {tag}: out and stat "
+            f"bitwise equal to the paged decode kernel {same}; unchanged "
+            f"with NaN in unread pool rows {clean}")
+        check(same, f"grouped decode {tag}: not bitwise the paged kernel")
+        check(clean, f"grouped decode {tag}: reads pool rows it must not")
+        want, want_stat = \
+            ga.grouped_paged_decode_attention_unified_max_plain(
+                q, kp, vp, bt, glens, groups, phi=phi.phi)
+        check((gstat - want_stat).abs().max().item()
+              <= 1e-2 * max(1.0, want_stat.abs().max().item()),
+              "grouped decode unified-max stat disagrees")
+        check(bool((gstat > phi.band[1]).any()) == overflow,
+              f"grouped decode overflow flag wrong for {tag}")
+        if not overflow:
+            # each stage against its plain version on the same inputs
+            parts = ga.group_prefix_partials(q, kp, vp, groups, phi=phi.phi)
+            wparts = ga.group_prefix_plain(q, kp, vp, groups, phi=phi.phi)
+            errs = [((a - w).abs().max() / w.abs().max()).item()
+                    for a, w in zip(parts[:2], wparts[:2])]
+            serr = torch.where(torch.isfinite(wparts[2]),
+                               parts[2] - wparts[2], 0.0).abs().max().item()
+            tail = ga.group_tail_merge(q, kp, vp, bt, glens, groups, *parts,
+                                       phi=phi.phi)[0]
+            ok, tol = attn_close(tail, ga.group_tail_plain(
+                q, kp, vp, bt, glens, groups, *parts, phi=phi.phi)[0])
+            log(f"kernel grouped stages {tag}: stage 1 num/den max error "
+                f"{errs[0]:.2e}/{errs[1]:.2e} of the largest value, stat "
+                f"{serr:.2e}; stage 2 on the same partials "
+                f"{'ok' if ok else 'MISMATCH'} ({tol})")
+            check(max(errs) <= 1e-4 and serr <= 1e-3,
+                  f"grouped stage 1 {tag} disagrees")
+            check(ok, f"grouped stage 2 {tag} disagrees")
+            record("grouped_paged_decode_attention_unified_max", tag, gout,
+                   want, lambda: ga.grouped_paged_decode_attention_unified_max(
+                       q, kp, vp, bt, glens, groups, phi=phi.phi),
+                   lambda: ga.grouped_paged_decode_attention_unified_max_plain(
+                       q, kp, vp, bt, glens, groups, phi=phi.phi),
+                   lib, g_bytes, g_flops, True, attn_close)
+            p_ms = timer.ms(lambda: da.paged_decode_attention_unified_max(
+                q, kp, vp, bt, glens, phi=phi.phi))
+            pb_ms, _ = bound_ms(p_bytes, g_flops, spec)
+            log(f"kernel paged_decode_attention_unified_max {tag} (the same "
+                f"input ungrouped): kernel_ms={p_ms:.4f} "
+                f"bound_ms={pb_ms:.4f}")
+        got = ops.attention_decode_paged(q, kp, vp, bt, glens, phi_cfg=phi,
+                                         plan=DEFAULT_PLAN, groups=groups)
+        ref_out = (da.paged_decode_attention_sync_plain(q, kp, vp, bt, glens)
+                   if overflow else want)
+        err = (got.float() - ref_out.float()).abs().max().item()
+        ok, tol = attn_close(got, ref_out)
+        log(f"kernel ops.attention_decode_paged grouped {tag}: recompute="
+            f"{overflow} max_abs_err={err:.3e} ({tol})")
+        check(ok, f"ops.attention_decode_paged grouped {tag} disagrees")
 
     # -- flash prefill (B=2, causal, Sq=Sk in {64, 512}) ---------------------
     for sq, scale_q in ((64, 1.0), (512, 1.0), (512, 20.0)):
@@ -498,7 +648,11 @@ def counters():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import flat_gemm as fg
+    from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import gemv as gv
+    from repro_torch.kernels import group_attention as ga
+    # the grouped entry counts stage 1; stage 2 is logged beside it and
+    # must launch as often
     return {"gemv": gv.gemv, "flat_gemm": fg.flat_gemm,
             "decode_attention_unified_max": da.decode_attention_unified_max,
             "decode_attention_sync": da.decode_attention_sync,
@@ -509,7 +663,11 @@ def counters():
             "paged_decode_attention_sync": da.paged_decode_attention_sync,
             "paged_chunk_attention_unified_max":
                 ca.paged_chunk_attention_unified_max,
-            "paged_chunk_attention_sync": ca.paged_chunk_attention_sync}
+            "paged_chunk_attention_sync": ca.paged_chunk_attention_sync,
+            "fused_ffn_up": ff.fused_ffn_up,
+            "grouped_paged_decode_attention_unified_max":
+                ga.group_prefix_partials,
+            "grouped_decode_stage2": ga.group_tail_merge}
 
 
 HEADER = 128          # shared system-prompt tokens of runs E, E' and F
@@ -530,6 +688,13 @@ def shared_requests(np, cfg, seed, n=8):
         for t in tails]
 
 
+def tuned_plan():
+    """Run H's plan: the JAX package's tuned serving plan on the kernel
+    backend (grouped decode, fused FFN-up)."""
+    from repro_torch.core.plan import make_plan
+    return make_plan("cuda", decode_group="grouped")
+
+
 def serve_runs():
     """(tag, engine kwargs, request set, kernels that must launch) of every
     serve run."""
@@ -539,6 +704,13 @@ def serve_runs():
             "paged_decode_attention_sync")
     fused = attn + ("paged_chunk_attention_unified_max",
                     "paged_chunk_attention_sync")
+    # every decode tick of G and H finds a group, so the ungrouped T1
+    # kernel need not launch there
+    grouped = ("paged_decode_attention_sync",
+               "paged_chunk_attention_unified_max",
+               "paged_chunk_attention_sync",
+               "grouped_paged_decode_attention_unified_max",
+               "grouped_decode_stage2")
     return [
         ("A slots=4 chunked prefill", dict(num_slots=4), "plain",
          ("flat_gemm", "decode_attention_unified_max",
@@ -549,7 +721,8 @@ def serve_runs():
          "plain", ("flat_gemm", "flash_prefill_unified_max",
                    "flash_prefill_sync")),
         ("D slots=4 paged gather", dict(num_slots=4, plan=make_plan(
-            "cuda", gather_chunk="dense"), **paged), "plain",
+            "cuda", gather_chunk="dense", fused_ffn=False), **paged),
+         "plain",
          ("flat_gemm",) + attn),
         ("E slots=4 paged fused sharing", dict(
             num_slots=4, prefix_sharing=True, **paged), "shared", fused),
@@ -558,6 +731,13 @@ def serve_runs():
         (f"F slots=4 paged fused sharing num_pages={F_PAGES}", dict(
             num_slots=4, prefix_sharing=True, num_pages=F_PAGES, **paged),
          "shared", fused),
+        ("G slots=4 paged fused sharing grouped decode", dict(
+            num_slots=4, prefix_sharing=True, plan=make_plan(
+                "cuda", decode_group="grouped", fused_ffn=False), **paged),
+         "shared", grouped),
+        ("H slots=4 paged fused sharing grouped decode fused FFN-up", dict(
+            num_slots=4, prefix_sharing=True, plan=tuned_plan(), **paged),
+         "shared", grouped + ("fused_ffn_up",)),
     ]
 
 
@@ -592,7 +772,9 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
                      f"{st.peak_pages_used}, preemptions {st.preemptions}, "
                      f"shared prefix pages {st.shared_prefix_pages}, saved "
                      f"prefill tokens {st.saved_prefill_tokens}, COW forks "
-                     f"{st.cow_forks}")
+                     f"{st.cow_forks}, grouped decodes "
+                     f"{st.grouped_requests}, prefix KV bytes saved "
+                     f"{st.prefix_kv_bytes_saved}")
         log(f"serve {tag}: {len(out)} requests, {total} tokens in "
             f"{dt:.3f}s = {total / dt:.1f} tok/s; {eng.ticks} decode ticks "
             f"at {1e3 * st.decode_seconds / max(eng.ticks, 1):.3f} ms/tick; "
@@ -608,6 +790,9 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
                   f"{tag}: request {rid} finished early")
         for n in expect:
             check(counts[n] > 0, f"{tag}: kernel {n} was never launched")
+        check(counts["grouped_decode_stage2"] == counts[
+            "grouped_paged_decode_attention_unified_max"],
+            f"{tag}: the grouped stages launched unequally")
         outputs[tag.split()[0]] = out
         engines[tag.split()[0]] = eng
     # the paged contracts: dense = paged, sharing on = off, and a clean
@@ -621,34 +806,56 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
     f.slots.check()
     check(f.pool.used_pages == 0, f"run F left {f.pool.used_pages} pages "
           "allocated")
-    same = sum(sum(1 for a, b in zip(outputs["E"][r], outputs["F"][r])
-                   if a == b) for r in outputs["E"])
+    def agree(a, b):
+        return sum(sum(1 for x, y in zip(outputs[a][r], outputs[b][r])
+                       if x == y) for r in outputs[a])
+
     total = sum(len(v) for v in outputs["E"].values())
     log(f"serve paged contracts: D == A tokens; E shared "
         f"{engines['E'].stats.shared_prefix_pages} prefix pages, E == E′ "
         f"tokens; F {f.stats.preemptions} preemptions, slots.check() ok, "
-        f"pool empty after; F agrees with E on {same}/{total} tokens")
+        f"pool empty after; F agrees with E on {agree('E', 'F')}/{total} "
+        f"tokens")
+    g = engines["G"].stats
+    check(outputs["G"] == outputs["E"], "run G's tokens differ from E's")
+    check(g.grouped_requests > 0 and g.prefix_kv_bytes_saved > 0,
+          "run G grouped no decode")
+    log(f"serve grouped contracts: G == E tokens with {g.grouped_requests} "
+        f"grouped decodes, {g.prefix_kv_bytes_saved} prefix KV bytes saved; "
+        f"H (fused FFN-up) agrees with E on {agree('E', 'H')}/{total} "
+        f"tokens")
     return outputs
 
 
-def profile_phase(torch, cfg, params, requests, log):
+def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
+                  **engine_kw):
     """Where a decode tick's time goes at 4 slots: 8 steady ticks timed
     on the host clock without the profiler, then 8 more under
     torch.profiler for the device busy time (sum of kernel times) and
     the costliest device kernels. The idle share is given against both
     walls: the profiled window's own (busy and wall from one window, the
     wall inflated by the profiler) and the unprofiled window's (adjacent
-    ticks of the same engine, the wall a serving user sees)."""
+    ticks of the same engine, the wall a serving user sees). The
+    admission step before the window (one prefill wave and one tick)
+    reports its kernel launches too."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import SamplingParams
 
-    eng = Engine(cfg, params, num_slots=4, max_seq=1024, device="cuda")
+    eng = Engine(cfg, params, num_slots=4, max_seq=1024, device="cuda",
+                 **engine_kw)
     for p, _ in requests[:4]:
         eng.submit(p, SamplingParams(max_new_tokens=40))
-    for _ in range(3):
-        eng.step()                      # admission + prefill + warm ticks
+    for fn in counters().values():
+        fn.launches = 0
+    eng.step()                          # admission + prefill + one tick
+    first = {name: fn.launches for name, fn in counters().items()
+             if fn.launches}
+    log(f"profile {tag}: launches of the admission step (prefill wave "
+        f"and one decode tick) {json.dumps(first)}")
+    for _ in range(2):
+        eng.step()                      # warm ticks
     n = 8
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -665,8 +872,9 @@ def profile_phase(torch, cfg, params, requests, log):
             eng.step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n
-    per_tick = {name: fn.launches / n for name, fn in counters().items()}
-    log(f"profile slots=4 decode: kernel launches per tick "
+    per_tick = {name: fn.launches / n for name, fn in counters().items()
+                if fn.launches}
+    log(f"profile {tag} decode: kernel launches per tick "
         f"{json.dumps(per_tick)}")
     # device-side events only (the aten ops that launched them carry the
     # same time again as their own "self device" time)
@@ -675,10 +883,10 @@ def profile_phase(torch, cfg, params, requests, log):
            and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in evs) / n
     if busy_us == 0:
-        log("profile slots=4 decode: device time not measured (the "
+        log(f"profile {tag} decode: device time not measured (the "
             "profiler reported none)")
         return
-    log(f"profile slots=4 decode ({n} ticks each window): device busy "
+    log(f"profile {tag} decode ({n} ticks each window): device busy "
         f"{busy_us / 1e3:.3f} ms/tick; profiled wall {1e3 * wall:.3f} "
         f"ms/tick, device idle {100 * (1 - busy_us / 1e6 / wall):.1f}%; "
         f"unprofiled wall {1e3 * plain_wall:.3f} ms/tick, device idle "
@@ -687,7 +895,9 @@ def profile_phase(torch, cfg, params, requests, log):
     for e in top:
         log(f"profile   {e.self_device_time_total / n / 1e3:8.4f} ms/tick "
             f"{e.count // n:5d} calls/tick  {e.key[:90]}")
-    (OUT_DIR / "decode_profile.txt").write_text(prof.key_averages().table(
+    name = "decode_profile.txt" if tag == "slots=4" else \
+        f"decode_profile_{tag.split()[0]}.txt"
+    (OUT_DIR / name).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
 
 
@@ -747,11 +957,17 @@ def logits_phase(torch, cfg, params, requests, log, cuda_tokens):
 
 
 def paged_logits_phase(torch, cfg, params, shared, log):
-    """The paged pool's logits, ``"cuda"`` plan (fused chunk kernel, paged
-    decode kernel) against the ``"torch"`` plan (gather + reference math):
-    a first chunk, a second chunk that reads the first one's resident
-    pages, and the first decode step."""
+    """The paged pool's logits against the ``"torch"`` plan (gather +
+    reference math): a second chunk that reads the first one's resident
+    pages, and the first decode step. Twice: the ``"cuda"`` default plan
+    (fused chunk kernel, paged decode kernel) over private tables, and
+    run H's plan (grouped decode, fused FFN-up) with all four rows'
+    tables leading with the same two pages: row 0 prefills them (the
+    others are spectators), then every row decodes one token of its own
+    through one group."""
     from repro_torch.core.plan import DEFAULT_PLAN, make_plan
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import group_attention as ga
     from repro_torch.models.api import get_model
     from repro_torch.models.kvlayout import PagedLayout
     from repro_torch.models.layers import LayerCtx
@@ -761,37 +977,72 @@ def paged_logits_phase(torch, cfg, params, shared, log):
     num_pages = b * nb
     perm = torch.randperm(num_pages,
                           generator=torch.Generator().manual_seed(0))
-    bt = perm.reshape(b, nb).to(device="cuda", dtype=torch.int32)
+    private = perm.reshape(b, nb).to(device="cuda", dtype=torch.int32)
+    shared_bt = private.clone()
+    shared_bt[:, :2] = private[0, :2]
+
+    def i32(*vals):
+        return torch.tensor(vals, dtype=torch.int32, device="cuda")
+
+    groups = ga.DecodeGroups(
+        tables=private[:1, :2].contiguous(), n_pages=i32(2),
+        g_prefix_len=i32(2 * c), num_members=i32(b),
+        member_rows=i32(*range(b))[None], gid=i32(*[0] * b),
+        member=i32(*range(b)), prefix_len=i32(*[2 * c] * b))
     toks = torch.stack([torch.as_tensor(p[:2 * c]) for p, _ in shared[:b]])
     toks = toks.to(device="cuda", dtype=torch.int32)
     full = torch.full((b,), c, dtype=torch.int32, device="cuda")
-    results = {}
-    for name, plan in (("cuda", DEFAULT_PLAN), ("torch", make_plan("torch"))):
-        ctx = LayerCtx(cfg, plan)
-        cache = api.init_cache(PagedLayout(num_pages, PAGE), device="cuda")
-        with torch.no_grad():
-            _, cache = api.prefill_chunk(ctx, params, toks[:, :c], full,
-                                         cache, full * 0, block_tables=bt)
-            l2, cache = api.prefill_chunk(ctx, params, toks[:, c:], full,
-                                          cache, full, block_tables=bt)
-            nxt = (results["cuda"][0] if name == "torch" else l2)[
-                :, :cfg.vocab_size].argmax(-1)
-            l3, _ = api.decode_step(ctx, params, nxt.int(), cache, 2 * full,
-                                    block_tables=bt)
-        results[name] = (l2, l3)
-    worst = 0.0
-    for i, what in enumerate(("second chunk over resident pages",
-                              "first decode step")):
-        a = results["cuda"][i][:, :cfg.vocab_size].float()
-        r = results["torch"][i][:, :cfg.vocab_size].float()
-        err = (a - r).abs().max().item()
-        worst = max(worst, err)
-        log(f"logits paged {what}: cuda plan vs torch plan max_abs_err="
-            f"{err:.4f} (tol {LOGITS_TOL}; logit range "
-            f"{r.abs().max().item():.2f}); argmax agree "
-            f"{(a.argmax(-1) == r.argmax(-1)).sum().item()}/{b}")
-    check(worst <= LOGITS_TOL,
-          f"paged logits differ by {worst} > {LOGITS_TOL}")
+    row0 = torch.tensor([c, 0, 0, 0], dtype=torch.int32, device="cuda")
+    cases = (
+        ("paged", (DEFAULT_PLAN, make_plan("torch")), private, full, None),
+        ("grouped fused-FFN", (tuned_plan(), make_plan(
+            "torch", decode_group="grouped", fused_ffn=True)), shared_bt,
+         row0, groups),
+    )
+    for what, plans, bt, chunk_lens, grp in cases:
+        results = {}
+        for name, plan in zip(("cuda", "torch"), plans):
+            ctx = LayerCtx(cfg, plan)
+            cache = api.init_cache(PagedLayout(num_pages, PAGE),
+                                   device="cuda")
+            ff.fused_ffn_up.launches = 0
+            with torch.no_grad():
+                _, cache = api.prefill_chunk(ctx, params, toks[:, :c],
+                                             chunk_lens, cache, full * 0,
+                                             block_tables=bt)
+                chunk_ffn = ff.fused_ffn_up.launches
+                l2, cache = api.prefill_chunk(ctx, params, toks[:, c:],
+                                              chunk_lens, cache, full,
+                                              block_tables=bt)
+                nxt = (results["cuda"][0] if name == "torch" else l2)[
+                    :, :cfg.vocab_size].argmax(-1)
+                if grp is not None:
+                    # every row continues the same prefix with a token
+                    # of its own
+                    nxt = nxt[0] + torch.arange(b, device="cuda")
+                l3, _ = api.decode_step(ctx, params, nxt.int(), cache,
+                                        2 * full, block_tables=bt,
+                                        decode_groups=grp)
+            results[name] = (l2, l3)
+            if name == "cuda" and plan.fused_ffn.fused:
+                log(f"logits {what}: fused_ffn_up launches per chunk step "
+                    f"{chunk_ffn}")
+        rows = (slice(0, 1), slice(None)) if grp is not None else \
+            (slice(None), slice(None))
+        worst = 0.0
+        for i, step in enumerate(("second chunk over resident pages",
+                                  "first decode step")):
+            a = results["cuda"][i][rows[i], :cfg.vocab_size].float()
+            r = results["torch"][i][rows[i], :cfg.vocab_size].float()
+            err = (a - r).abs().max().item()
+            worst = max(worst, err)
+            log(f"logits {what} {step}: cuda plan vs torch plan "
+                f"max_abs_err={err:.4f} (tol {LOGITS_TOL}; logit range "
+                f"{r.abs().max().item():.2f}); argmax agree "
+                f"{(a.argmax(-1) == r.argmax(-1)).sum().item()}/"
+                f"{a.shape[0]}")
+        check(worst <= LOGITS_TOL,
+              f"{what} logits differ by {worst} > {LOGITS_TOL}")
 
 
 # ---------------------------------------------------------------------------
@@ -857,6 +1108,10 @@ def main(argv=None) -> int:
                           {"plain": requests, "shared": shared}, log,
                           launches)
     profile_phase(torch, cfg, params, requests, log)
+    profile_phase(torch, cfg, params, shared, log,
+                  tag="H slots=4 paged sharing grouped fused-FFN",
+                  cache_kind="paged", page_size=PAGE, prefix_sharing=True,
+                  plan=tuned_plan())
     logits_phase(torch, cfg, params, requests, log, outputs["A"])
     paged_logits_phase(torch, cfg, params, shared, log)
 

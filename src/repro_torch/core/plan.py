@@ -21,7 +21,7 @@ The offline tuning flow and JSON save/load come with a later slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.core import dispatch
 
@@ -115,8 +115,10 @@ class AttentionPrefillPlan:
 
 @dataclasses.dataclass(frozen=True)
 class FusedFFNPlan:
-    """Gate+up epilogue fusion. ``fused=True`` needs the fused FFN kernel,
-    which a later slice of the port brings."""
+    """Gate+up epilogue fusion: ``fused=True`` routes every gated
+    ``mlp_block`` through ``ops.fused_ffn`` (the fused FFN-up kernel on
+    ``"cuda"``). Off by default, as in the JAX package; ``make_plan``
+    turns it on for the kernel backend."""
 
     backend: str = "cuda"
     fused: bool = False
@@ -143,10 +145,13 @@ class PagedPlan:
     ``Engine(prefill_chunk=None)`` adopts (it must divide the page size
     for prefix sharing). The defaults are the chunk decision of the JAX
     package's tuned plans (``plans/qwen2-0.5b-tpu-v5e.json``).
-    ``decode_group="grouped"`` (slice 3), ``kv_dtype`` other than
-    ``"bf16"`` (slice 4) and ``swap_threshold`` (tiers, slice 6) are
-    accepted here so that plans keep the JAX schema; the engine refuses
-    the first two until their slices land.
+    ``decode_group="grouped"`` reads each shared-prefix group's pages
+    once per (group, kv head) at decode (the two-stage grouped kernels);
+    a group is formed only when ``members * prefix_pages >=
+    group_threshold``. ``kv_dtype`` other than ``"bf16"`` (slice 4) and
+    ``swap_threshold`` (tiers, slice 6) are accepted here so that plans
+    keep the JAX schema; the engine refuses the first until its slice
+    lands.
     """
 
     backend: str = "cuda"
@@ -201,16 +206,25 @@ class ExecutionPlan:
 DEFAULT_PLAN = ExecutionPlan()
 
 
-def make_plan(backend: str = "cuda", *, gather_chunk: str = "fused",
-              fused_threshold: int = 64) -> ExecutionPlan:
-    """The untuned plan with every op on ``backend``; ``gather_chunk`` and
-    ``fused_threshold`` pin the paged chunk discipline."""
+def make_plan(backend: str = "cuda", *, fused_ffn: Optional[bool] = None,
+              gather_chunk: str = "fused", fused_threshold: int = 64,
+              decode_group: str = "off",
+              group_threshold: int = 2) -> ExecutionPlan:
+    """The untuned plan with every op on ``backend``. ``fused_ffn=None``
+    fuses the FFN-up on the kernel backend (``"cuda"``) only, as the JAX
+    package does for ``"pallas"``; ``gather_chunk`` and
+    ``fused_threshold`` pin the paged chunk discipline, ``decode_group``
+    and ``group_threshold`` the shared-prefix decode grouping."""
+    if fused_ffn is None:
+        fused_ffn = backend == "cuda"
     return ExecutionPlan(
         matmul=MatmulPlan(backend=backend),
         attention_decode=AttentionDecodePlan(backend=backend),
         attention_prefill=AttentionPrefillPlan(backend=backend),
-        fused_ffn=FusedFFNPlan(backend=backend),
+        fused_ffn=FusedFFNPlan(backend=backend, fused=fused_ffn),
         paged=PagedPlan(backend=backend, gather_chunk=gather_chunk,
-                        fused_threshold=fused_threshold),
+                        fused_threshold=fused_threshold,
+                        decode_group=decode_group,
+                        group_threshold=group_threshold),
         decode_fusion=DecodeFusionPlan(backend=backend),
     )

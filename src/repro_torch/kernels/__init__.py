@@ -4,9 +4,13 @@ its plain PyTorch version and a launch counter.
 Modules:
   * gemv             — ImplA CUDA-core GEMV (csrc/gemv.cu)
   * flat_gemm        — T2 flat GEMM, M padded to 8 (csrc/flat_gemm.cu)
+  * fused_ffn        — fused FFN-up act(x@Wg) * (x@Wu), two weight streams
+                       and an activation epilogue (csrc/fused_ffn.cu)
   * decode_attention — T1 decode attention over the dense cache or the
                        paged pool, unified-max and sync
                        (csrc/decode_attention.cu)
+  * group_attention  — grouped prefix-shared decode attention, two stages
+                       (csrc/group_attention.cu)
   * chunk_attention  — fused paged chunk-prefill attention, both schemes
                        (csrc/chunk_attention.cu)
   * flash_prefill    — causal / windowed prefill attention, both schemes

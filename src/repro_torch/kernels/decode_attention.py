@@ -266,16 +266,13 @@ def paged_decode_attention_sync_plain(q, k_pool, v_pool, block_tables,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-def check_paged_inputs(what, q, k_pool, v_pool, block_tables, lengths):
-    """Validate pool / table operands for a paged kernel; returns the
-    contiguous int32 (block_tables, lengths) on q's device."""
+def check_pools(what, q, k_pool, v_pool):
+    """Validate q and the (NP, PS, HK, D) pools for a paged kernel."""
     num_pages, ps, hk, d = k_pool.shape
     if k_pool.shape != v_pool.shape or q.shape[-1] != d \
-            or q.shape[-2] % hk or block_tables.dim() != 2 \
-            or block_tables.shape[0] != q.shape[0]:
+            or q.shape[-2] % hk:
         raise ValueError(f"{what} shapes q {tuple(q.shape)} pools "
-                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)} "
-                         f"tables {tuple(block_tables.shape)}")
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
     for t in (q, k_pool, v_pool):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{what} kernel takes bf16, got {t.dtype}")
@@ -290,6 +287,15 @@ def check_paged_inputs(what, q, k_pool, v_pool, block_tables, lengths):
         raise ValueError(f"{what} kernel needs 16-byte aligned pool rows")
     if d not in (32, 64, 128):
         raise ValueError(f"{what} kernel takes head_dim 32/64/128, got {d}")
+
+
+def check_paged_inputs(what, q, k_pool, v_pool, block_tables, lengths):
+    """Validate pool / table operands for a paged kernel; returns the
+    contiguous int32 (block_tables, lengths) on q's device."""
+    check_pools(what, q, k_pool, v_pool)
+    if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
+        raise ValueError(f"{what} shapes q {tuple(q.shape)} tables "
+                         f"{tuple(block_tables.shape)}")
     if block_tables.shape[1] < 1:
         raise ValueError(f"{what} kernel needs at least one table column")
     return (block_tables.to(device=q.device, dtype=torch.int32).contiguous(),

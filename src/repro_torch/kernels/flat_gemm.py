@@ -35,16 +35,17 @@ def round_up(x: int, m: int) -> int:
 
 
 def smem_bytes(bn: int, bk: int, *, w_kn: bool = False,
-               dtype_bytes: int = 2) -> int:
+               dtype_bytes: int = 2, streams: int = 1) -> int:
     """Shared memory of one launch: two stages of the x tile
-    (BLOCK_M x BK) and the W tile, rows padded by 8 elements."""
+    (BLOCK_M x BK) and ``streams`` W tiles (two for the fused FFN-up's
+    gate and up), rows padded by 8 elements."""
     x_tile = BLOCK_M * (bk + 8)
     w_tile = bk * (bn + 8) if w_kn else bn * (bk + 8)
-    return 2 * (x_tile + w_tile) * dtype_bytes
+    return 2 * (x_tile + streams * w_tile) * dtype_bytes
 
 
 def pick_bn(m: int, n: int, k: int, *, w_kn: bool = True,
-            dtype_bytes: int = 2,
+            dtype_bytes: int = 2, streams: int = 1,
             spec: hardware.HardwareSpec = hardware.DEFAULT) -> int:
     """Eq. 5 on the H100: the widest BN whose grid still gives every SM
     a block (more x-tile reuse at no cost in parallelism); when no BN
@@ -53,13 +54,14 @@ def pick_bn(m: int, n: int, k: int, *, w_kn: bool = True,
     m_blocks = -(-max(m, 1) // BLOCK_M)
     fits = [bn for bn in BN_CHOICES
             if smem_bytes(bn, BK_CHOICES[0], w_kn=w_kn,
-                          dtype_bytes=dtype_bytes) <= spec.smem_per_block]
+                          dtype_bytes=dtype_bytes,
+                          streams=streams) <= spec.smem_per_block]
     filling = [bn for bn in fits if -(-n // bn) * m_blocks >= spec.num_sms]
     return max(filling) if filling else min(fits)
 
 
 def pick_bk(m: int, bn: int, k: int, *, w_kn: bool = True,
-            dtype_bytes: int = 2,
+            dtype_bytes: int = 2, streams: int = 1,
             spec: hardware.HardwareSpec = hardware.DEFAULT) -> int:
     """The deepest K tile (fewer pipeline steps per block) whose two
     stages fit the shared-memory budget and that does not overshoot K."""
@@ -67,8 +69,8 @@ def pick_bk(m: int, bn: int, k: int, *, w_kn: bool = True,
     for bk in BK_CHOICES:
         if bk > round_up(k, BK_CHOICES[0]):
             break
-        if smem_bytes(bn, bk, w_kn=w_kn,
-                      dtype_bytes=dtype_bytes) <= spec.smem_per_block:
+        if smem_bytes(bn, bk, w_kn=w_kn, dtype_bytes=dtype_bytes,
+                      streams=streams) <= spec.smem_per_block:
             best = bk
     return best
 

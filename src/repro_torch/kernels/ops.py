@@ -37,7 +37,12 @@ from repro_torch.kernels.flash_prefill import (
     flash_prefill_unified_max,
 )
 from repro_torch.kernels.flat_gemm import flat_gemm
+from repro_torch.kernels.fused_ffn import fused_ffn_up
 from repro_torch.kernels.gemv import gemv
+from repro_torch.kernels.group_attention import (
+    DecodeGroups,
+    grouped_paged_decode_attention_unified_max,
+)
 
 
 def _unified(phi_cfg: SoftmaxPhiConfig, scheme: str) -> bool:
@@ -71,6 +76,22 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     else:
         out = flat_gemm(x2, w)
     return out.reshape(*lead, n)
+
+
+def fused_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
+              activation: str = "swiglu",
+              plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+    """``act(x @ w_gate) * (x @ w_up)`` for x (..., K): the fused FFN-up
+    kernel when the plan's ``fused_ffn`` entry is fused on ``"cuda"``,
+    the reference math otherwise."""
+    fp = (plan or DEFAULT_PLAN).fused_ffn
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if fp.fused and fp.backend == "cuda":
+        out = fused_ffn_up(x2, w_gate, w_up, activation=activation)
+    else:
+        out = ref.fused_ffn_up_ref(x2, w_gate, w_up, activation=activation)
+    return out.reshape(*lead, w_gate.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -158,33 +179,51 @@ def attention_chunk(q, k_cache, v_cache, lengths, *,
 
 def attention_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
                            phi_cfg: SoftmaxPhiConfig = SoftmaxPhiConfig(),
-                           plan: Optional[ExecutionPlan] = None
+                           plan: Optional[ExecutionPlan] = None,
+                           groups: Optional[DecodeGroups] = None
                            ) -> torch.Tensor:
     """Decode attention over a block-paged pool (q (B,HQ,D), pools (NP,
     PS, HK, D), block_tables (B, NB)), governed by the plan's ``paged``
     entry. On ``"cuda"`` the paged kernels read each row's pages in place
     (T1, then the flag-gated recompute); on ``"torch"`` the pages are
     gathered into a dense view for the reference math — bitwise the
-    dense path's when ``NB * PS`` equals the dense ``max_seq``."""
+    dense path's when ``NB * PS`` equals the dense ``max_seq``.
+
+    ``groups`` (a :class:`~repro_torch.kernels.group_attention.
+    DecodeGroups`) selects the prefix-shared grouped path: on ``"cuda"``
+    with the unified scheme the two-stage grouped kernels read each
+    group's shared pages once; the sync scheme and the overflow
+    recompute run the ungrouped sync kernel, which is exact. On
+    ``"torch"`` the dense view is gathered through the group plan, so
+    grouped and ungrouped results are bitwise equal."""
     pp = (plan or DEFAULT_PLAN).paged
     unified = _unified(phi_cfg, pp.scheme)
     if pp.backend != "cuda":
+        args = (q, k_pool, v_pool, block_tables, lengths)
+        if groups is None:
+            safe_ref = ref.attention_decode_paged_ref
+            fast_ref = ref.attention_decode_paged_unified_max_ref
+        else:
+            args += (groups,)
+            safe_ref = ref.attention_decode_grouped_ref
+            fast_ref = ref.attention_decode_grouped_unified_max_ref
         if not unified:
-            return ref.attention_decode_paged_ref(q, k_pool, v_pool,
-                                                  block_tables, lengths)
-        out, stat = ref.attention_decode_paged_unified_max_ref(
-            q, k_pool, v_pool, block_tables, lengths, phi=phi_cfg.phi)
+            return safe_ref(*args)
+        out, stat = fast_ref(*args, phi=phi_cfg.phi)
         if not pp.fallback:
             return out
-        safe = ref.attention_decode_paged_ref(q, k_pool, v_pool,
-                                              block_tables, lengths)
-        return torch.where(_overflow(stat, phi_cfg), safe, out)
+        return torch.where(_overflow(stat, phi_cfg), safe_ref(*args), out)
 
     if not unified:
         return paged_decode_attention_sync(q, k_pool, v_pool, block_tables,
                                            lengths)
-    out, stat = paged_decode_attention_unified_max(
-        q, k_pool, v_pool, block_tables, lengths, phi=phi_cfg.phi)
+    if groups is None:
+        out, stat = paged_decode_attention_unified_max(
+            q, k_pool, v_pool, block_tables, lengths, phi=phi_cfg.phi)
+    else:
+        out, stat = grouped_paged_decode_attention_unified_max(
+            q, k_pool, v_pool, block_tables, lengths, groups,
+            phi=phi_cfg.phi)
     if not pp.fallback:
         return out
     return paged_decode_attention_sync(q, k_pool, v_pool, block_tables,

@@ -226,6 +226,58 @@ def attention_decode_paged_unified_max_ref(q, k_pool, v_pool, block_tables,
 
 
 # ---------------------------------------------------------------------------
+# Grouped (prefix-shared) decode oracles
+# ---------------------------------------------------------------------------
+
+
+def gather_grouped_kv(pool: torch.Tensor, block_tables: torch.Tensor,
+                      groups) -> torch.Tensor:
+    """The dense per-sequence KV view reconstructed *through* the group
+    plan (``groups``: a :class:`~repro_torch.kernels.group_attention.
+    DecodeGroups`). Row b's positions below ``prefix_len[b]`` come from
+    its group's table, the rest from its own table: the two stages'
+    data sources. A grouped row's table leads with its group's pages, so
+    the view is elementwise equal to :func:`gather_paged_kv`, while the
+    group operands decide what is read."""
+    b, nb = block_tables.shape
+    ps = pool.shape[1]
+    ng, lp = groups.tables.shape
+    width = nb * ps
+    tail = gather_paged_kv(pool, block_tables)           # (B, NB*PS, ...)
+    gkv = gather_paged_kv(pool, groups.tables)           # (NG, LP*PS, ...)
+    if lp * ps < width:
+        pad = gkv.new_zeros((ng, width - lp * ps, *gkv.shape[2:]))
+        gkv = torch.cat([gkv, pad], dim=1)
+    else:
+        gkv = gkv[:, :width]
+    pref = gkv[groups.gid.long().clamp(0, ng - 1)]
+    pos = torch.arange(width, device=pool.device)
+    use_pref = (pos[None, :, None, None]
+                < groups.prefix_len.to(pool.device)[:, None, None, None])
+    return torch.where(use_pref, pref, tail)
+
+
+def attention_decode_grouped_ref(q, k_pool, v_pool, block_tables, lengths,
+                                 groups, *,
+                                 scale: float | None = None) -> torch.Tensor:
+    """Safe grouped decode oracle: the grouped gather feeds the same
+    dense math, so grouped == ungrouped bitwise."""
+    k = gather_grouped_kv(k_pool, block_tables, groups)
+    v = gather_grouped_kv(v_pool, block_tables, groups)
+    return attention_decode_ref(q, k, v, lengths, scale=scale)
+
+
+def attention_decode_grouped_unified_max_ref(q, k_pool, v_pool, block_tables,
+                                             lengths, groups, *, phi: float,
+                                             scale: float | None = None):
+    """T1 grouped decode oracle: ``(out, stat (B,))``."""
+    k = gather_grouped_kv(k_pool, block_tables, groups)
+    v = gather_grouped_kv(v_pool, block_tables, groups)
+    return attention_decode_unified_max_ref(q, k, v, lengths, phi=phi,
+                                            scale=scale)
+
+
+# ---------------------------------------------------------------------------
 # GEMM oracles
 # ---------------------------------------------------------------------------
 
@@ -240,6 +292,25 @@ def gemv_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Same math as :func:`flat_gemm_ref`; kept separate as the ImplA
     oracle."""
     return flat_gemm_ref(x, w)
+
+
+def ffn_activation(g: torch.Tensor, activation: str) -> torch.Tensor:
+    """The gated FFN's nonlinearity: silu for swiglu, tanh-approximate
+    gelu (``jax.nn.gelu``'s default) for geglu."""
+    if activation == "swiglu":
+        return torch.nn.functional.silu(g)
+    return torch.nn.functional.gelu(g, approximate="tanh")
+
+
+def fused_ffn_up_ref(x: torch.Tensor, w_gate: torch.Tensor,
+                     w_up: torch.Tensor, *,
+                     activation: str = "swiglu") -> torch.Tensor:
+    """Oracle of the fused FFN-up: ``act(x @ w_gate) * (x @ w_up)`` with
+    the activation on the unrounded f32 products and one rounding to x's
+    dtype at the end."""
+    g = torch.matmul(x.float(), w_gate.float())
+    u = torch.matmul(x.float(), w_up.float())
+    return (ffn_activation(g, activation) * u).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

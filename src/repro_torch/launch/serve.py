@@ -16,8 +16,10 @@ shrinks the pool so that lazy page growth preempts. ``--prefix-sharing``
 maps identical page-aligned prompt prefixes onto refcounted
 copy-on-write pages (``--shared-prefix N`` prepends N identical tokens to
 every prompt), and ``--gather-chunk dense|fused`` picks how chunked
-prefill reads the pool. The ``req N:`` lines do not change with any of
-these.
+prefill reads the pool. ``--decode-group grouped`` (with
+``--prefix-sharing``) reads each shared prefix once per group of slots at
+decode; the summary then counts grouped decodes and the prefix KV bytes
+saved. The ``req N:`` lines do not change with any of these.
 """
 import argparse
 import sys
@@ -64,6 +66,11 @@ def _parse(argv=None):
                          "'dense' gathers the full (B, NB*PS) KV view per "
                          "chunk step, 'fused' runs the fused chunk kernel "
                          "over the pool in place")
+    ap.add_argument("--decode-group", choices=["off", "grouped"],
+                    default=None,
+                    help="override the plan's decode discipline: 'grouped' "
+                         "reads each shared prefix once per group of slots "
+                         "(paged cache with --prefix-sharing)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -93,9 +100,12 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init_params(gen, device=dev)
     plan = None
-    if args.gather_chunk is not None:
+    over = {k: v for k, v in (("gather_chunk", args.gather_chunk),
+                              ("decode_group", args.decode_group))
+            if v is not None}
+    if over:
         plan = dataclasses.replace(DEFAULT_PLAN, paged=dataclasses.replace(
-            DEFAULT_PLAN.paged, gather_chunk=args.gather_chunk))
+            DEFAULT_PLAN.paged, **over))
     num_pages = args.num_pages
     if num_pages is None and args.cache_kind == "paged":
         worst = args.slots * pages_for(args.max_seq, args.page_size)
@@ -132,6 +142,9 @@ def main(argv=None) -> int:
         line += (f", {st.shared_prefix_pages} shared pages, "
                  f"{st.saved_prefill_tokens} prefill tokens saved, "
                  f"{st.cow_forks} COW forks")
+    if st.grouped_requests:
+        line += (f", {st.grouped_requests} grouped decodes, "
+                 f"{st.prefix_kv_bytes_saved} prefix KV bytes saved")
     print(line + ")")
     for rid in sorted(out)[:4]:
         print(f"  req {rid}: {out[rid]} [{eng.finish_reason(rid)}]")

@@ -32,7 +32,8 @@ class ModelApi:
     init_params: Callable         # (generator=None, device="cuda")
     prefill: Callable             # (ctx, params, tokens, lengths, cache)
     decode_step: Callable
-    #   (ctx, params, tokens, cache, lengths, *, block_tables=None, **)
+    #   (ctx, params, tokens, cache, lengths, *, block_tables=None,
+    #    decode_groups=None, positions=None)
     init_cache: Callable          # (layout, device="cuda")
     supports_paged: bool = False
     prefill_chunk: Optional[Callable] = None

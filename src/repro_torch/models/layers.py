@@ -2,8 +2,9 @@
 
 Plain functions over params dicts of tensors (layer params stacked on a
 leading L axis by the model constructors). Every GEMM goes through
-:func:`repro_torch.kernels.ops.matmul` and every attention through the
-``ops`` front doors, so the plan decides which kernel runs.
+:func:`repro_torch.kernels.ops.matmul` (the gated FFN's gate and up
+through ``ops.fused_ffn`` when the plan fuses them) and every attention
+through the ``ops`` front doors, so the plan decides which kernel runs.
 
 The decode layer keeps the JAX package's four stage boundaries (ingest →
 attend → epilogue → mlp); only the ``"split"`` granularity — one op per
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig, SoftmaxPhiConfig
 from repro_torch.core.plan import DEFAULT_PLAN, ExecutionPlan
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ffn_activation
 from repro_torch.kernels.ref import rmsnorm_ref as rmsnorm
 from repro_torch.kernels.ref import rope_ref as rope
 
@@ -55,10 +57,6 @@ class LayerCtx:
                 "decode_fusion granularity "
                 f"{self.plan.decode_fusion.granularity!r} comes with the "
                 "decode-fusion slice of the port; use 'split'")
-        if self.plan.fused_ffn.fused:
-            raise NotImplementedError(
-                "the fused FFN kernel comes with a later slice of the "
-                "port; use fused_ffn.fused=False")
 
     @property
     def phi_cfg(self) -> SoftmaxPhiConfig:
@@ -296,15 +294,17 @@ def attention_chunk_block(ctx: LayerCtx, p: Params, x, cache_k, cache_v,
 
 
 def decode_attend_paged(ctx: LayerCtx, q, k, v, pool_k, pool_v,
-                        block_tables, lengths, write: KVWrite):
+                        block_tables, lengths, write: KVWrite, *,
+                        decode_groups=None):
     """Stage B (paged layout): append this token's KV through the block
     tables (``write`` drops empty slots' sentinel entries), attend over
-    the page pool. Returns o (B, 1, HQ*Dh)."""
+    the page pool, through the shared-prefix grouped path when
+    ``decode_groups`` is given. Returns o (B, 1, HQ*Dh)."""
     write.put(pool_k, k)
     write.put(pool_v, v)
     o = ops.attention_decode_paged(q[:, 0], pool_k, pool_v, block_tables,
                                    lengths + 1, phi_cfg=ctx.phi_cfg,
-                                   plan=ctx.plan)
+                                   plan=ctx.plan, groups=decode_groups)
     return o.reshape(q.shape[0], 1, ctx.cfg.q_dim)
 
 
@@ -315,11 +315,15 @@ def decode_attend_paged(ctx: LayerCtx, q, k, v, pool_k, pool_v,
 
 def mlp_block(ctx: LayerCtx, p: Params, x: torch.Tensor) -> torch.Tensor:
     cfg = ctx.cfg
-    if cfg.activation in ("swiglu", "geglu"):
+    if cfg.activation in ("swiglu", "geglu") and ctx.plan.fused_ffn.fused:
+        # one kernel for gate + up + activation: the (M, F) gate and up
+        # tensors never reach device memory
+        h = ops.fused_ffn(x, p["w_gate"], p["w_up"],
+                          activation=cfg.activation, plan=ctx.plan)
+    elif cfg.activation in ("swiglu", "geglu"):
         g = ctx.matmul(x, p["w_gate"])
         u = ctx.matmul(x, p["w_up"])
-        act = F.silu(g) if cfg.activation == "swiglu" else _gelu(g)
-        h = act * u
+        h = ffn_activation(g, cfg.activation) * u
     else:
         h = _gelu(ctx.matmul(x, p["w_up"]))
     return ctx.matmul(h, p["w_down"])

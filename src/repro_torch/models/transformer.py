@@ -71,17 +71,19 @@ def init_cache(cfg: ModelConfig, layout: KVLayout, dtype=None,
 
 
 def decode_block(ctx: LayerCtx, p: Params, x, position, cache_i: dict,
-                 lengths, block_tables=None, write=None):
+                 lengths, block_tables=None, write=None, decode_groups=None):
     """One-token decode block (split stages: ingest → attend → epilogue →
     mlp) over the dense slot cache, or over the page pool when
-    ``block_tables`` is given (``write``: the step's KV placement)."""
+    ``block_tables`` is given (``write``: the step's KV placement;
+    ``decode_groups``: the shared-prefix group plan's operands)."""
     q, k, v = L.decode_ingest(ctx, p["attn_norm"], p["attn"], x, position)
     if block_tables is None:
         o = L.decode_attend(ctx, q, k, v, cache_i["k"], cache_i["v"],
                             lengths)
     else:
         o = L.decode_attend_paged(ctx, q, k, v, cache_i["k"], cache_i["v"],
-                                  block_tables, lengths, write)
+                                  block_tables, lengths, write,
+                                  decode_groups=decode_groups)
     x = L.decode_epilogue(ctx, p["attn"], o, x)
     return L.decode_mlp(ctx, p["mlp_norm"], p["mlp"], x)
 
@@ -143,11 +145,17 @@ def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict):
 
 
 def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
-                *, block_tables=None, positions=None):
+                *, block_tables=None, decode_groups=None, positions=None):
     """One decode step. tokens (B,) -> logits (B, Vp); the cache is
     updated in place and returned. With ``block_tables`` (B, NB) the
     cache leaves are page pools; empty slots (all-sentinel table rows)
-    write nothing. ``positions`` defaults to ``lengths``."""
+    write nothing. ``decode_groups`` (paged only, a
+    :class:`~repro_torch.kernels.group_attention.DecodeGroups`) reads
+    each shared prefix once per group. ``positions`` defaults to
+    ``lengths``."""
+    if decode_groups is not None and block_tables is None:
+        raise ValueError("decode_groups needs the paged layout "
+                         "(block_tables)")
     x = L.embed(ctx, params, tokens[:, None])          # (B, 1, D)
     position = lengths if positions is None else positions
     write = None
@@ -157,7 +165,8 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
     x, cache = stack.run_stack_cached(
         params["layers"], x, cache,
         lambda p_i, xx, c_i: decode_block(ctx, p_i, xx, position, c_i,
-                                          lengths, block_tables, write))
+                                          lengths, block_tables, write,
+                                          decode_groups))
     x = L.norm(ctx.cfg, params["final_norm"], x)
     return L.lm_logits(ctx, params, x)[:, 0], cache
 

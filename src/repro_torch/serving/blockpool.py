@@ -42,10 +42,13 @@ can thus be overcommitted; when :meth:`ensure` reports it dry, the
 engine's scheduler preempts a victim (refs dropped, request re-queued),
 and the block tables make re-admission relocation-free.
 
-The JAX package's tiered session cache (``retain_session`` /
-``reclaim_session``) comes with the tiers slice of the port, and its
-decode-group plan (``GroupPlan``, ``group_plan``) with the grouped-decode
-slice.
+Grouped decode reads each shared prefix once per group: the manager's
+:meth:`PagedSlotManager.group_plan` turns the refcount-derived groups of
+:func:`~repro_torch.serving.prefix.shared_prefix_groups` into a
+:class:`GroupPlan`, cached under the block tables' dirty discipline with
+its device operands. The JAX package's tiered session cache
+(``retain_session`` / ``reclaim_session``) comes with the tiers slice of
+the port.
 """
 from __future__ import annotations
 
@@ -55,9 +58,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.kvlayout import pages_for
+from repro_torch.kernels.group_attention import DecodeGroups
+from repro_torch.models.kvlayout import pages_for, pow2_bucket
 from repro_torch.serving.kvcache import Slot, SlotManager
-from repro_torch.serving.prefix import PrefixIndex
+from repro_torch.serving.prefix import PrefixIndex, shared_prefix_groups
 
 
 class BlockPool:
@@ -143,6 +147,43 @@ class BlockPool:
 
 
 @dataclasses.dataclass
+class GroupPlan:
+    """One decode tick's shared-prefix grouping, host side.
+
+    Built by :meth:`PagedSlotManager.group_plan`, with every dimension
+    power-of-two bucketed (groups NG, prefix pages LP, members M). Padding
+    groups carry zero counts; padding table entries hold the pool's
+    sentinel ``num_pages`` and padding member rows the sentinel ``B``;
+    solo rows have ``gid == NG`` and ``prefix_len == 0``.
+    :meth:`operands` uploads the arrays once per device and keeps them,
+    so a steady tick (same plan) uploads nothing.
+    """
+
+    gid: np.ndarray            # (B,)  group id per slot row; NG = solo
+    member: np.ndarray         # (B,)  rank within the group; 0 for solo
+    prefix_len: np.ndarray     # (B,)  shared positions; 0 = solo
+    tables: np.ndarray         # (NG, LP) physical pages of each prefix
+    n_pages: np.ndarray        # (NG,) live prefix pages per group
+    g_prefix_len: np.ndarray   # (NG,) shared positions per group
+    num_members: np.ndarray    # (NG,) live members per group
+    member_rows: np.ndarray    # (NG, M) slot row of each member; B = pad
+    n_grouped: int             # rows covered by some group
+    pages_deduped: int         # sum over groups of (members - 1) * pages
+    _operands: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def operands(self, device) -> DecodeGroups:
+        dev = torch.device(device)
+        ops = self._operands.get(dev)
+        if ops is None:
+            ops = DecodeGroups(*(torch.from_numpy(a).to(dev) for a in (
+                self.tables, self.n_pages, self.g_prefix_len,
+                self.num_members, self.member_rows, self.gid, self.member,
+                self.prefix_len)))
+            self._operands[dev] = ops
+        return ops
+
+
+@dataclasses.dataclass
 class PagedSlot(Slot):
     pages: list = dataclasses.field(default_factory=list)
     # prefix-sharing admission metadata (all zero when sharing is off)
@@ -178,6 +219,10 @@ class PagedSlotManager(SlotManager):
         # the device; rebuilt only when a table changed
         self._bt_cache: Optional[torch.Tensor] = None
         self._bt_dirty = True
+        # the group plan is a function of the tables and refcounts, so
+        # every event that dirties the tables dirties it too
+        self._gp_cache: Optional[tuple] = None
+        self._gp_dirty = True
         super().__init__(num_slots, max_seq)
 
     def _empty_slot(self) -> PagedSlot:
@@ -189,6 +234,7 @@ class PagedSlotManager(SlotManager):
                                  tokens=tokens)
         if idx is not None:
             self._bt_dirty = True
+            self._gp_dirty = True
             if self.prefix is not None and tokens is not None:
                 # promise this slot's full prompt pages to later arrivals
                 # (pending at its wave level until its prefill commits)
@@ -264,6 +310,7 @@ class PagedSlotManager(SlotManager):
             return False
         s.pages.extend(got)
         self._bt_dirty = True
+        self._gp_dirty = True
         return True
 
     def fork_for_write(self, idx: int, start: int, end: int):
@@ -294,6 +341,7 @@ class PagedSlotManager(SlotManager):
             s.pages[pi] = dst
             out.append((src, dst))
         self._bt_dirty = True
+        self._gp_dirty = True
         return out
 
     def commit_prefix(self, idx: int, tokens) -> None:
@@ -309,6 +357,7 @@ class PagedSlotManager(SlotManager):
                 if self.prefix is not None:
                     self.prefix.drop_page(page)
             self._bt_dirty = True
+            self._gp_dirty = True
         super().release(idx)
 
     def block_tables(self, device) -> torch.Tensor:
@@ -325,6 +374,66 @@ class PagedSlotManager(SlotManager):
             self._bt_cache = torch.from_numpy(bt).to(device)
             self._bt_dirty = False
         return self._bt_cache
+
+    def group_plan(self, threshold: int = 2) -> Optional[GroupPlan]:
+        """This tick's shared-prefix grouping, or None when no group is
+        worth dispatching; cached until some table or refcount changes,
+        so a steady tick reuses one plan and its device operands.
+
+        A group is kept only with >= 2 members whose deduplicated work
+        ``members * prefix_pages`` reaches ``threshold`` (the plan's
+        ``group_threshold``). A member must already hold its whole shared
+        prefix (``length >= prefix_len``); a resident still prefilling is
+        left solo rather than read past its valid KV.
+        """
+        if not self._gp_dirty and self._gp_cache is not None \
+                and self._gp_cache[0] == threshold:
+            return self._gp_cache[1]
+        plan = self._build_group_plan(threshold)
+        self._gp_cache = (threshold, plan)
+        self._gp_dirty = False
+        return plan
+
+    def _build_group_plan(self, threshold: int) -> Optional[GroupPlan]:
+        ps = self.pool.page_size
+        kept = []
+        for key, members in shared_prefix_groups(self.slots,
+                                                 self.pool.refcount):
+            plen = len(key) * ps
+            live = [i for i in members if self.slots[i].length >= plen]
+            if len(live) >= 2 and len(live) * len(key) >= threshold:
+                kept.append((key, live))
+        if not kept:
+            return None
+        b = len(self.slots)
+        ng = pow2_bucket(len(kept))
+        lp = pow2_bucket(max(len(k) for k, _ in kept),
+                         hi=self.max_pages_per_seq)
+        m = pow2_bucket(max(len(ms) for _, ms in kept), hi=b)
+        tables = np.full((ng, lp), self.pool.num_pages, np.int32)
+        n_pages = np.zeros(ng, np.int32)
+        g_prefix_len = np.zeros(ng, np.int32)
+        num_members = np.zeros(ng, np.int32)
+        member_rows = np.full((ng, m), b, np.int32)
+        gid = np.full(b, ng, np.int32)          # NG = solo sentinel
+        member = np.zeros(b, np.int32)
+        prefix_len = np.zeros(b, np.int32)
+        n_grouped = pages_deduped = 0
+        for g, (key, live) in enumerate(kept):
+            tables[g, :len(key)] = key
+            n_pages[g] = len(key)
+            g_prefix_len[g] = len(key) * ps
+            num_members[g] = len(live)
+            member_rows[g, :len(live)] = live
+            for r, i in enumerate(live):
+                gid[i], member[i], prefix_len[i] = g, r, len(key) * ps
+            n_grouped += len(live)
+            pages_deduped += (len(live) - 1) * len(key)
+        return GroupPlan(gid=gid, member=member, prefix_len=prefix_len,
+                         tables=tables, n_pages=n_pages,
+                         g_prefix_len=g_prefix_len,
+                         num_members=num_members, member_rows=member_rows,
+                         n_grouped=n_grouped, pages_deduped=pages_deduped)
 
     def check(self) -> None:
         """Cross-structure invariants: pool conservation, and refcounts

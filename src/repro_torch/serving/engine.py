@@ -2,8 +2,8 @@
 block-paged pool.
 
 The port of the JAX package's ``serving/engine.py`` for
-``cache_kind="dense"`` and ``cache_kind="paged"`` (the tiered KV store,
-grouped decode and quantized pages come with later slices):
+``cache_kind="dense"`` and ``cache_kind="paged"`` (the tiered KV store
+and quantized pages come with later slices):
 
   * **Request lifecycle.** Each submission is a
     :class:`~repro_torch.serving.request.RequestState` walking WAITING →
@@ -38,6 +38,12 @@ grouped decode and quantized pages come with later slices):
     reaches ``fused_threshold`` hands it block tables cut to a
     power-of-two bound of resident pages; ``"dense"`` gathers a dense
     view of the full tables for the reference chunk math.
+  * **Grouped decode** (paged + sharing, ``plan.paged.decode_group ==
+    "grouped"``). Each tick the slot manager's cached group plan names
+    the slots whose tables lead with the same shared pages; decode
+    attention reads each such prefix once per group and merges each
+    row's private tail (the two-stage grouped kernels on ``"cuda"``).
+    Tokens do not change.
   * **One dispatch surface.** Every kernel decision rides in the single
     ``plan=`` operand; plans change which kernel runs, never the tokens.
 
@@ -95,6 +101,11 @@ class EngineStats:
     saved_prefill_tokens: int = 0    # prompt positions admission skipped
     #                                  because their KV was resident
     cow_forks: int = 0               # shared pages privatized by a write
+    # grouped decode (plan.paged.decode_group == "grouped")
+    grouped_requests: int = 0        # decode-row ticks served through a
+    #                                  shared-prefix group
+    prefix_kv_bytes_saved: int = 0   # prefix KV bytes read once per group
+    #                                  instead of once per member
 
 
 def request_seed(seed: int, rid: int) -> int:
@@ -149,10 +160,6 @@ class Engine:
             self.slots: SlotManager = SlotManager(num_slots, max_seq)
         elif cache_kind == "paged":
             pp = self.plan.paged
-            if pp.decode_group != "off":
-                raise NotImplementedError(
-                    f"decode_group={pp.decode_group!r} comes with slice 3 "
-                    "(grouped prefix decode) of the port; use 'off'")
             if pp.kv_dtype != "bf16":
                 raise NotImplementedError(
                     f"kv_dtype={pp.kv_dtype!r} comes with slice 4 "
@@ -184,6 +191,15 @@ class Engine:
             raise ValueError(f"unknown cache_kind {cache_kind!r}")
         self.cache_kind = cache_kind
         self.cache = self.api.init_cache(self.layout, device=self.device)
+        # grouped decode reads shared prefixes once per group; groups
+        # exist only where prefix sharing maps pages onto several slots
+        self._group_decode = (cache_kind == "paged" and prefix_sharing
+                              and self.plan.paged.decode_group == "grouped")
+        # one page's K+V slab across all layers: the unit of the grouped
+        # decode's bytes-saved count
+        self._kv_bytes_per_page = (
+            sum(t.nbytes for t in self.cache.values())
+            // self.pool.num_pages) if cache_kind == "paged" else 0
 
         self.seed = seed
         self.requests: dict[int, RequestState] = {}
@@ -544,10 +560,18 @@ class Engine:
         tokens = np.zeros((self.num_slots,), np.int32)
         for idx, state in self.by_slot.items():
             tokens[idx] = state.tokens[-1]
+        gplan = self.slots.group_plan(
+            self.plan.paged.group_threshold) if self._group_decode else None
         logits, self.cache = self.api.decode_step(
             self.ctx, self.params, self._i32(tokens), self.cache,
             self.slots.lengths_device(self.device),
-            block_tables=self.slots.block_tables(self.device))
+            block_tables=self.slots.block_tables(self.device),
+            decode_groups=(gplan.operands(self.device)
+                           if gplan is not None else None))
+        if gplan is not None:
+            self.stats.grouped_requests += gplan.n_grouped
+            self.stats.prefix_kv_bytes_saved += (
+                gplan.pages_deduped * self._kv_bytes_per_page)
         rows = list(self.by_slot)
         toks = self._sample(
             [(logits[idx:idx + 1], self.by_slot[idx]) for idx in rows])

@@ -27,9 +27,10 @@ Lifecycle contract (enforced by :meth:`check`):
     the page returns to the free list, so a key never resolves to a
     recycled page.
 
+At decode time :func:`shared_prefix_groups` groups resident slots by the
+physical pages of their shared prefix (refcounts alone, no index lookup).
 The JAX package's tier methods (demotion/promotion of entries to a host
-store) come with the tiers slice of the port, and its decode-group
-enumeration (``shared_prefix_groups``) with the grouped-decode slice.
+store) come with the tiers slice of the port.
 """
 from __future__ import annotations
 
@@ -179,3 +180,47 @@ class PrefixIndex:
             assert self._by_page.get(e.page) == key, \
                 "page -> key back-pointer broken"
             assert e.page in live_pages, f"index maps to freed page {e.page}"
+
+
+# -- decode-time group enumeration -------------------------------------------
+
+
+def shared_prefix_groups(slots, refcount):
+    """Group resident slots by the physical pages of their shared prefix.
+
+    A slot's group key is the **maximal leading run** of its block table
+    whose pages have ``refcount(page) > 1``: the prefix positions whose KV
+    is deduplicated with at least one other owner. Two slots share a
+    group iff those runs are the same page list (same pages, same
+    order), hence byte-identical prefix KV; runs of different lengths
+    give different keys (a group has one prefix length).
+
+    Deriving the key from refcounts keeps the plan right across the page
+    lifecycle: a COW fork replaces the writer's page (its run shortens
+    and it leaves the group), a release that frees a page ends every
+    former sharer's run there, and re-admission after preemption re-maps
+    the prefix and rejoins.
+
+    ``slots`` is any sequence with ``.free`` and ``.pages``; ``refcount``
+    maps page id -> owner count. Returns ``[(key, member_indices)]`` for
+    every key with >= 2 members, in first-seen slot order.
+    """
+    runs: Dict[tuple, List[int]] = {}
+    order: List[tuple] = []
+    for i, s in enumerate(slots):
+        if s.free or not s.pages:
+            continue
+        n = 0
+        for p in s.pages:
+            if refcount(p) > 1:
+                n += 1
+            else:
+                break
+        if not n:
+            continue
+        key = tuple(s.pages[:n])
+        if key not in runs:
+            runs[key] = []
+            order.append(key)
+        runs[key].append(i)
+    return [(k, runs[k]) for k in order if len(runs[k]) >= 2]

@@ -148,14 +148,21 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
     params = tget_model(cfg).init_params(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(cfg, params)
-    # paged KV serves; its later slices' modes refuse by name
-    paged = make_plan("cuda").paged
-    for over, slice_no in ((dict(decode_group="grouped"), "slice 3"),
-                           (dict(kv_dtype="int8"), "slice 4")):
-        plan = dataclasses.replace(
-            make_plan("cuda"), paged=dataclasses.replace(paged, **over))
-        with pytest.raises(NotImplementedError, match=slice_no):
-            Engine(cfg, params, cache_kind="paged", plan=plan, device="cpu")
+    # paged KV serves, grouped decode included; quantized pages (a later
+    # slice) refuse by name
+    plan = make_plan("cuda", decode_group="grouped")
+    eng = Engine(cfg, params, cache_kind="paged", prefix_sharing=True,
+                 page_size=16, prefill_chunk=16, num_slots=2, max_seq=64,
+                 plan=plan, device="cpu")
+    header = list(range(1, 33))
+    out = eng.run([(header + [40 + i], SamplingParams(max_new_tokens=3))
+                   for i in range(2)])
+    assert all(len(t) == 3 for t in out.values())
+    assert eng.stats.grouped_requests > 0
+    plan = dataclasses.replace(plan, paged=dataclasses.replace(
+        plan.paged, kv_dtype="int8"))
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        Engine(cfg, params, cache_kind="paged", plan=plan, device="cpu")
 
 
 def test_serve_cli_runs_on_cpu(capsys):

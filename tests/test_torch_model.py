@@ -104,7 +104,7 @@ def test_prefill_chunk_then_decode_step_logits(dtype, backend):
     jcfg, tcfg, jp, host = _model(dtype)
     japi, tapi = jget_model(jcfg), tget_model(tcfg)
     jctx = JLayerCtx(cfg=jcfg)
-    tctx = LayerCtx(cfg=tcfg, plan=make_plan(backend))
+    tctx = LayerCtx(cfg=tcfg, plan=make_plan(backend, fused_ffn=False))
     tp = params_from_numpy(host, device="cpu")
     rng = np.random.default_rng(1)
     b, c, s_max = 2, 16, 48
@@ -147,7 +147,7 @@ def test_prefill_logits(dtype, backend):
     jl, jcache = japi.prefill(JLayerCtx(cfg=jcfg), jp, jnp.asarray(tokens),
                               jnp.asarray(lengths),
                               japi.init_cache(JDenseLayout(b, s_max)))
-    tl, tcache = tapi.prefill(LayerCtx(cfg=tcfg, plan=make_plan(backend)),
+    tl, tcache = tapi.prefill(LayerCtx(cfg=tcfg, plan=make_plan(backend, fused_ffn=False)),
                               tp, torch.from_numpy(tokens),
                               torch.from_numpy(lengths),
                               tapi.init_cache(DenseLayout(b, s_max),

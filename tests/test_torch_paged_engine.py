@@ -93,7 +93,7 @@ def test_paged_engine_matches_reference(ref_model, workload, mode, sharing):
                      for p, m in zip(prompts, w["budgets"])])
     teng = Engine(tcfg, tparams, cache_kind="paged", prefix_sharing=sharing,
                   plan=make_plan("cuda", gather_chunk=mode,
-                                 fused_threshold=1),
+                                 fused_threshold=1, fused_ffn=False),
                   device="cpu", **w["kw"])
     got = teng.run([(p, SamplingParams(max_new_tokens=m))
                     for p, m in zip(prompts, w["budgets"])])
