@@ -24,12 +24,24 @@
    equal to E's), F (E on an overcommitted pool: preemptions, every
    request finishing, the pool empty after), G (E with grouped decode:
    tokens equal to E's) and H (G with the fused FFN-up: the JAX
-   package's tuned serving plan; tokens counted against E's).
+   package's tuned serving plan; tokens counted against E's); then the
+   decode-fusion runs: I (A with the fused stage kernels), J (A looped:
+   the decode step replayed as one CUDA graph per tick, tokens equal to
+   I's), K (H looped, the tuned plan in full; tokens counted against
+   H's), K′ (K's plan with the fused stages, eager: tokens equal to K's)
+   and L / L′ (K / K′ on traffic with two headers and varied lengths,
+   whose group bucket changes back and forth: L captures several graphs
+   in one pool and replays them in turn, not in capture order; tokens
+   equal to L′'s), with the graphs' replays credited to the launch
+   counters.
 4. Checks the logits of the first prefill and decode step (and, on the
-   paged pool, of a chunk that reads resident pages, and of run H's plan
-   over a shared prefix with grouped decode) against the ``"torch"``
-   plan (plain reference math) on the card, and counts the greedy tokens
-   on which the two plans agree.
+   paged pool, of a chunk that reads resident pages, and of runs H's and
+   K's plans over a shared prefix with grouped decode) against the
+   ``"torch"`` plan (plain reference math) on the card, and counts the
+   greedy tokens on which the two plans agree; checks that a looped
+   step's graph replay gives bitwise the eager fused step's logits and
+   KV writes, on the dense cache and on the paged pool with grouped
+   decode; profiles the decode tick of A, H, J and K.
 5. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -75,6 +87,9 @@ REPLACES = {
     "fused_ffn_up": "src/repro/kernels/fused_ffn.py:78",
     "grouped_paged_decode_attention_unified_max":
         "src/repro/kernels/group_attention.py:199",
+    "decode_ingest_fused": "src/repro/kernels/decode_fuse.py:138",
+    "oproj_residual_fused": "src/repro/kernels/decode_fuse.py:299",
+    "ffn_norm_fused": "src/repro/kernels/decode_fuse.py:412",
 }
 SOURCES = {
     "gemv": "src/repro_torch/csrc/gemv.cu",
@@ -92,6 +107,9 @@ SOURCES = {
     "fused_ffn_up": "src/repro_torch/csrc/fused_ffn.cu",
     "grouped_paged_decode_attention_unified_max":
         "src/repro_torch/csrc/group_attention.cu",
+    "decode_ingest_fused": "src/repro_torch/csrc/decode_fuse.cu",
+    "oproj_residual_fused": "src/repro_torch/csrc/decode_fuse.cu",
+    "ffn_norm_fused": "src/repro_torch/csrc/decode_fuse.cu",
 }
 PAGE = 64                             # page size of every paged run
 
@@ -204,6 +222,7 @@ def kernel_phase(torch, timer, rows, log):
     from repro_torch.core.plan import DEFAULT_PLAN
     from repro_torch.kernels import chunk_attention as ca
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import decode_fuse as dfu
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import fused_ffn as ff
     from repro_torch.kernels import group_attention as ga
@@ -296,6 +315,80 @@ def kernel_phase(torch, timer, rows, log):
         log(f"kernel fused_ffn_up M={m} geglu: {'ok' if ok else 'MISMATCH'}"
             f" ({tol})")
         check(ok, f"fused_ffn_up M={m} geglu disagrees")
+
+    # -- fused decode stages (rows 12-14) at a decode tick's M (4 slots)
+    # and at 1 slot ---------------------------------------------------------
+    nq, nk = hq * hd, hk * hd
+    wq, wk, wv = (randn(d, n, scale=d ** -0.5) for n in (nq, nk, nk))
+    bq, bkb, bv = (randn(n) for n in (nq, nk, nk))
+    nscale = (torch.rand(d, generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+    wo, wd = randn(nq, d, scale=nq ** -0.5), randn(f, d, scale=f ** -0.5)
+    wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
+    # library yardsticks: one GEMM over the concatenated QKV weight (the
+    # copy made once, outside the timing), rope as torch ops
+    wqkv, bqkv = torch.cat([wq, wk, wv], 1), torch.cat([bq, bkb, bv])
+    half = hd // 2
+    inv_freq = cfg.rope_theta ** (
+        -torch.arange(half, device=dev, dtype=torch.float32) / half)
+    ikw = dict(num_heads=hq, num_kv_heads=hk, head_dim=hd,
+               rope_theta=cfg.rope_theta, bq=bq, bk=bkb, bv=bv)
+
+    def lib_ingest(x, pos):
+        h = F.rms_norm(x, (d,), nscale, eps=1e-6)
+        qkv = torch.addmm(bqkv, h, wqkv).view(x.shape[0], -1, hd)
+        ang = pos.float()[:, None, None] * inv_freq
+        c, s = ang.cos(), ang.sin()
+        x1, x2 = qkv[:, :hq + hk, :half], qkv[:, :hq + hk, half:]
+        rot = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1)
+        return rot.to(qkv.dtype), qkv[:, hq + hk:]
+
+    def lib_ffn(x):
+        h = F.rms_norm(x, (d,), nscale, eps=1e-6)
+        return F.silu(torch.matmul(h, wg)) * torch.matmul(h, wu)
+
+    for m in (4, 1):
+        x = randn(m, d)
+        pos = torch.randint(0, 1024, (m,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        n_all = nq + 2 * nk
+        record("decode_ingest_fused",
+               f"M={m} K={d} N={nq}+{nk}+{nk} bias rope",
+               torch.cat(dfu.decode_ingest_fused(x, nscale, wq, wk, wv, pos,
+                                                 **ikw), 1),
+               torch.cat(dfu.decode_ingest_plain(x, nscale, wq, wk, wv, pos,
+                                                 **ikw), 1),
+               lambda: dfu.decode_ingest_fused(x, nscale, wq, wk, wv, pos,
+                                               **ikw),
+               lambda: dfu.decode_ingest_plain(x, nscale, wq, wk, wv, pos,
+                                               **ikw),
+               lambda: lib_ingest(x, pos),
+               2 * (m * d + d + d * n_all + n_all + m * n_all) + 4 * m,
+               2 * m * d * n_all, m == 4, gemm_close)
+        for k, w, tag in ((nq, wo, "o_proj"), (f, wd, "down")):
+            o, res = randn(m, k), randn(m, d)
+            record("oproj_residual_fused", f"M={m} K={k} N={d} {tag}",
+                   dfu.oproj_residual_fused(o, w, res),
+                   dfu.oproj_residual_plain(o, w, res),
+                   lambda: dfu.oproj_residual_fused(o, w, res),
+                   lambda: dfu.oproj_residual_plain(o, w, res),
+                   lambda: torch.addmm(res, o, w),
+                   2 * (m * k + k * d + 2 * m * d), 2 * m * k * d,
+                   m == 4 and tag == "down", gemm_close)
+        record("ffn_norm_fused", f"M={m} K={d} N={f} swiglu",
+               dfu.ffn_norm_fused(x, nscale, wg, wu),
+               dfu.ffn_norm_plain(x, nscale, wg, wu),
+               lambda: dfu.ffn_norm_fused(x, nscale, wg, wu),
+               lambda: dfu.ffn_norm_plain(x, nscale, wg, wu),
+               lambda: lib_ffn(x),
+               2 * (m * d + d + 2 * d * f + m * f), 4 * m * d * f, m == 4,
+               gemm_close)
+        got = dfu.ffn_norm_fused(x, nscale, wg, wu, activation="geglu")
+        ok, tol = gemm_close(got, dfu.ffn_norm_plain(
+            x, nscale, wg, wu, activation="geglu"))
+        log(f"kernel ffn_norm_fused M={m} geglu: {'ok' if ok else 'MISMATCH'}"
+            f" ({tol})")
+        check(ok, f"ffn_norm_fused M={m} geglu disagrees")
 
     # -- decode attention (B=4 slots, max_seq 1024, ragged) ----------------
     b, s_max = 4, 1024
@@ -643,34 +736,51 @@ def kernel_phase(torch, timer, rows, log):
 # ---------------------------------------------------------------------------
 
 
+# the two grouped stages under their names in REPLACES (the JAX entry is
+# stage 1; stage 2 is logged beside it and must launch as often)
+COUNTER_NAMES = {"group_prefix_partials":
+                 "grouped_paged_decode_attention_unified_max",
+                 "group_tail_merge": "grouped_decode_stage2"}
+
+
 def counters():
-    from repro_torch.kernels import chunk_attention as ca
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_prefill as fp
-    from repro_torch.kernels import flat_gemm as fg
-    from repro_torch.kernels import fused_ffn as ff
-    from repro_torch.kernels import gemv as gv
-    from repro_torch.kernels import group_attention as ga
-    # the grouped entry counts stage 1; stage 2 is logged beside it and
-    # must launch as often
-    return {"gemv": gv.gemv, "flat_gemm": fg.flat_gemm,
-            "decode_attention_unified_max": da.decode_attention_unified_max,
-            "decode_attention_sync": da.decode_attention_sync,
-            "flash_prefill_unified_max": fp.flash_prefill_unified_max,
-            "flash_prefill_sync": fp.flash_prefill_sync,
-            "paged_decode_attention_unified_max":
-                da.paged_decode_attention_unified_max,
-            "paged_decode_attention_sync": da.paged_decode_attention_sync,
-            "paged_chunk_attention_unified_max":
-                ca.paged_chunk_attention_unified_max,
-            "paged_chunk_attention_sync": ca.paged_chunk_attention_sync,
-            "fused_ffn_up": ff.fused_ffn_up,
-            "grouped_paged_decode_attention_unified_max":
-                ga.group_prefix_partials,
-            "grouped_decode_stage2": ga.group_tail_merge}
+    """Every kernel wrapper's launch counter, by its name in REPLACES.
+    Built from ``ops.LAUNCH_COUNTERS``, the registry that CUDA-graph
+    replays credit, so no counter read here can miss the replays."""
+    from repro_torch.kernels.ops import LAUNCH_COUNTERS
+    return {COUNTER_NAMES.get(fn.__name__, fn.__name__): fn
+            for fn in LAUNCH_COUNTERS}
 
 
-HEADER = 128          # shared system-prompt tokens of runs E, E' and F
+def trace_replays(lp):
+    """Record, for every graph replay of the LoopedDecode ``lp``, which
+    graph ran: its index in capture order (a capture is replayed at
+    once). Returns the list it fills."""
+    order, seq = [], []
+    run = lp.run
+
+    def traced(step, inputs, anchors):
+        n = lp.replays
+        out = run(step, inputs, anchors)
+        if lp.replays > n:
+            i = next((i for i, o in enumerate(order) if o is out), None)
+            if i is None:
+                i = len(order)
+                order.append(out)
+            seq.append(i)
+        return out
+
+    lp.run = traced
+    return seq
+
+
+def returns(seq) -> int:
+    """Replays that went back to a graph captured before the one just
+    replayed."""
+    return sum(1 for a, b in zip(seq, seq[1:]) if b < a)
+
+
+HEADER = 128          # shared system-prompt tokens of runs E to H, K and L
 SHARED_NEW = 96       # > one page of growth past admission's headroom
 F_PAGES = 16          # run F's pool: one preemption at these lengths
 
@@ -688,11 +798,38 @@ def shared_requests(np, cfg, seed, n=8):
         for t in tails]
 
 
+def mixed_requests(np, cfg, seed, n=24):
+    """Runs L and L': two HEADER-token system prompts taken in turn, and
+    8 to 40 new tokens per request. As requests come and go the slots
+    hold two groups of two, one group of three or four, or one of two,
+    so the grouped plan's (NG, LP, M) bucket changes back and forth and
+    the looped engine replays several graphs in turn."""
+    from repro_torch.serving.request import SamplingParams
+    rng = np.random.default_rng(seed + 2)
+    tails = rng.integers(8, 173, size=n)
+    news = rng.integers(8, 41, size=n)
+    headers = [rng.integers(1, cfg.vocab_size, size=HEADER)
+               for _ in range(2)]
+    return [(np.concatenate([headers[i % 2], rng.integers(
+        1, cfg.vocab_size, size=int(t))]).astype(np.int32),
+        SamplingParams(max_new_tokens=int(m)))
+        for i, (t, m) in enumerate(zip(tails, news))]
+
+
 def tuned_plan():
     """Run H's plan: the JAX package's tuned serving plan on the kernel
     backend (grouped decode, fused FFN-up)."""
     from repro_torch.core.plan import make_plan
     return make_plan("cuda", decode_group="grouped")
+
+
+def looped_plan(granularity="looped"):
+    """Run K's plan: run H's with the looped decode granularity (fused
+    stage kernels, the decode step replayed as one CUDA graph); with
+    ``"fused"``, its eager twin (runs K' and L')."""
+    from repro_torch.core.plan import make_plan
+    return make_plan("cuda", decode_group="grouped",
+                     decode_fusion=granularity)
 
 
 def serve_runs():
@@ -711,6 +848,12 @@ def serve_runs():
                "paged_chunk_attention_sync",
                "grouped_paged_decode_attention_unified_max",
                "grouped_decode_stage2")
+    # the fused decode stages: ingest, o_proj + residual, ffn_norm, and
+    # the down projection through oproj_residual again
+    stages = ("decode_ingest_fused", "oproj_residual_fused",
+              "ffn_norm_fused")
+    dense_fused = ("flat_gemm", "decode_attention_unified_max",
+                   "decode_attention_sync") + stages
     return [
         ("A slots=4 chunked prefill", dict(num_slots=4), "plain",
          ("flat_gemm", "decode_attention_unified_max",
@@ -738,6 +881,22 @@ def serve_runs():
         ("H slots=4 paged fused sharing grouped decode fused FFN-up", dict(
             num_slots=4, prefix_sharing=True, plan=tuned_plan(), **paged),
          "shared", grouped + ("fused_ffn_up",)),
+        ("I slots=4 chunked prefill fused stages", dict(
+            num_slots=4, decode_fusion="fused"), "plain", dense_fused),
+        ("J slots=4 chunked prefill looped", dict(
+            num_slots=4, decode_fusion="looped"), "plain", dense_fused),
+        ("K slots=4 paged fused sharing grouped decode fused FFN-up looped",
+         dict(num_slots=4, prefix_sharing=True, plan=looped_plan(), **paged),
+         "shared", grouped + ("fused_ffn_up",) + stages),
+        ("K' slots=4 K's plan with the fused stages, eager", dict(
+            num_slots=4, prefix_sharing=True, plan=looped_plan("fused"),
+            **paged), "shared", grouped + ("fused_ffn_up",) + stages),
+        ("L slots=4 K's plan, two headers, varied lengths", dict(
+            num_slots=4, prefix_sharing=True, plan=looped_plan(), **paged),
+         "mixed", grouped + ("fused_ffn_up",) + stages),
+        ("L' slots=4 L with the fused stages, eager", dict(
+            num_slots=4, prefix_sharing=True, plan=looped_plan("fused"),
+            **paged), "mixed", grouped + ("fused_ffn_up",) + stages),
     ]
 
 
@@ -749,10 +908,12 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
     Engine(cfg, params, num_slots=4, max_seq=1024, device="cuda").run(
         request_sets["plain"][:2])
 
-    outputs, engines = {}, {}
+    outputs, engines, replayed = {}, {}, {}
     for tag, kw, which, expect in serve_runs():
         requests = request_sets[which]
         eng = Engine(cfg, params, max_seq=1024, device="cuda", **kw)
+        if eng.ctx.graphs is not None:
+            replayed[tag.split()[0]] = trace_replays(eng.ctx.graphs)
         for fn in counters().values():
             fn.launches = 0
         torch.cuda.synchronize()
@@ -775,12 +936,26 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
                      f"{st.cow_forks}, grouped decodes "
                      f"{st.grouped_requests}, prefix KV bytes saved "
                      f"{st.prefix_kv_bytes_saved}")
+        graphs = ""
+        if eng.ctx.graphs is not None:
+            lp = eng.ctx.graphs
+            seq = replayed[tag.split()[0]]
+            graphs = (f"; graphs: {st.graph_captures} captured, "
+                      f"{st.graph_replays} replays, {lp.eager_ticks} eager "
+                      f"first ticks, {returns(seq)} replays back to an "
+                      "earlier-captured graph")
+            check(st.graph_replays == eng.ticks - lp.eager_ticks,
+                  f"{tag}: {st.graph_replays} replays in {eng.ticks} ticks "
+                  f"with {lp.eager_ticks} eager first ticks")
+            check(0 < st.graph_captures <= lp.eager_ticks,
+                  f"{tag}: {st.graph_captures} graphs for "
+                  f"{lp.eager_ticks} keys")
         log(f"serve {tag}: {len(out)} requests, {total} tokens in "
             f"{dt:.3f}s = {total / dt:.1f} tok/s; {eng.ticks} decode ticks "
             f"at {1e3 * st.decode_seconds / max(eng.ticks, 1):.3f} ms/tick; "
             f"prefill {st.prefill_seconds:.3f}s; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB{paged}; "
-            f"launches {json.dumps(counts)}")
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB{paged}"
+            f"{graphs}; launches {json.dumps(counts)}")
         for rid, toks in out.items():
             check(len(toks) == requests[rid][1].max_new_tokens,
                   f"{tag}: request {rid} produced {len(toks)} tokens")
@@ -824,6 +999,26 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
         f"grouped decodes, {g.prefix_kv_bytes_saved} prefix KV bytes saved; "
         f"H (fused FFN-up) agrees with E on {agree('E', 'H')}/{total} "
         f"tokens")
+    check(outputs["J"] == outputs["I"], "run J's tokens differ from I's")
+    k = engines["K"].stats
+    check(k.grouped_requests > 0, "run K grouped no decode")
+    check(outputs["K"] == outputs["K'"], "run K's tokens differ from K′'s")
+    # L: several graphs in one shared pool, replayed in turn, not in
+    # capture order, and still token for token its eager twin
+    el = engines["L"].stats
+    back = returns(replayed["L"])
+    check(outputs["L"] == outputs["L'"], "run L's tokens differ from L′'s")
+    check(el.graph_captures >= 2, f"run L captured {el.graph_captures} "
+          "graph(s); its traffic should change the group bucket")
+    check(back > 0, "run L never went back to an earlier-captured graph")
+    plain_total = sum(len(v) for v in outputs["A"].values())
+    log(f"serve fusion contracts: J == I tokens; I (fused stages) agrees "
+        f"with A on {agree('A', 'I')}/{plain_total} tokens; K == K′ "
+        f"tokens; K (looped, {k.graph_replays} replays) agrees with H on "
+        f"{agree('H', 'K')}/{total} tokens, {k.grouped_requests} grouped "
+        f"decodes; L == L′ tokens ({sum(len(v) for v in outputs['L'].values())}"
+        f") with {el.graph_captures} graphs in one pool, "
+        f"{back} replays back to an earlier-captured graph")
     return outputs
 
 
@@ -874,8 +1069,12 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
         wall = (time.perf_counter() - t0) / n
     per_tick = {name: fn.launches / n for name, fn in counters().items()
                 if fn.launches}
+    graphs = ""
+    if eng.ctx.graphs is not None:
+        graphs = (f" (graphs after the window: {eng.stats.graph_captures} "
+                  f"captured, {eng.stats.graph_replays} replays)")
     log(f"profile {tag} decode: kernel launches per tick "
-        f"{json.dumps(per_tick)}")
+        f"{json.dumps(per_tick)}{graphs}")
     # device-side events only (the aten ops that launched them carry the
     # same time again as their own "self device" time)
     evs = [e for e in prof.key_averages()
@@ -917,6 +1116,10 @@ def logits_phase(torch, cfg, params, requests, log, cuda_tokens):
         toks[i] = torch.as_tensor(p[:c], device="cuda")
     chunk_lens = torch.full((4,), c, dtype=torch.int32, device="cuda")
     zeros = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    # the fused decode stages against the "torch" plan with the same knobs
+    fused_plans = {"cuda": make_plan("cuda", decode_fusion="fused"),
+                   "torch": make_plan("torch", fused_ffn=True,
+                                      decode_fusion="fused")}
     results = {}
     for name, plan in (("cuda", DEFAULT_PLAN), ("torch", torch_plan)):
         ctx = LayerCtx(cfg, plan)
@@ -926,14 +1129,19 @@ def logits_phase(torch, cfg, params, requests, log, cuda_tokens):
                                           cache, zeros)
             nxt = results["cuda"][0][:, :cfg.vocab_size].argmax(-1) \
                 if name == "torch" else l1[:, :cfg.vocab_size].argmax(-1)
+            cache_f = {k: v.clone() for k, v in cache.items()}
             l2, cache = api.decode_step(ctx, params, nxt.int(), cache,
                                         chunk_lens)
+            l2f, _ = api.decode_step(LayerCtx(cfg, fused_plans[name]),
+                                     params, nxt.int(), cache_f, chunk_lens)
+            del cache_f
             cache2 = api.init_cache(DenseLayout(4, 64), device="cuda")
             l3, _ = api.prefill(ctx, params, toks, chunk_lens, cache2)
-        results[name] = (l1, l2, l3)
+        results[name] = (l1, l2, l3, l2f)
     worst = 0.0
     for i, what in enumerate(("first prefill chunk", "first decode step",
-                              "one-shot prefill")):
+                              "one-shot prefill",
+                              "first decode step, fused stages")):
         a = results["cuda"][i][:, :cfg.vocab_size].float()
         b = results["torch"][i][:, :cfg.vocab_size].float()
         err = (a - b).abs().max().item()
@@ -956,26 +1164,14 @@ def logits_phase(torch, cfg, params, requests, log, cuda_tokens):
         f"positions agree, {prefix}/{total} before the first divergence")
 
 
-def paged_logits_phase(torch, cfg, params, shared, log):
-    """The paged pool's logits against the ``"torch"`` plan (gather +
-    reference math): a second chunk that reads the first one's resident
-    pages, and the first decode step. Twice: the ``"cuda"`` default plan
-    (fused chunk kernel, paged decode kernel) over private tables, and
-    run H's plan (grouped decode, fused FFN-up) with all four rows'
-    tables leading with the same two pages: row 0 prefills them (the
-    others are spectators), then every row decodes one token of its own
-    through one group."""
-    from repro_torch.core.plan import DEFAULT_PLAN, make_plan
-    from repro_torch.kernels import fused_ffn as ff
+def shared_pool_operands(torch, shared, c=64, b=4):
+    """Block tables over a (b · 1024 / PAGE)-page pool: private tables of
+    shuffled pages, the same tables with every row leading with row 0's
+    first two pages, the one-group ``DecodeGroups`` of that shared
+    2c-token prefix, and the first 2c tokens of b shared-header prompts."""
     from repro_torch.kernels import group_attention as ga
-    from repro_torch.models.api import get_model
-    from repro_torch.models.kvlayout import PagedLayout
-    from repro_torch.models.layers import LayerCtx
-
-    api = get_model(cfg)
-    c, b, nb = 64, 4, 1024 // PAGE
-    num_pages = b * nb
-    perm = torch.randperm(num_pages,
+    nb = 1024 // PAGE
+    perm = torch.randperm(b * nb,
                           generator=torch.Generator().manual_seed(0))
     private = perm.reshape(b, nb).to(device="cuda", dtype=torch.int32)
     shared_bt = private.clone()
@@ -990,7 +1186,102 @@ def paged_logits_phase(torch, cfg, params, shared, log):
         member_rows=i32(*range(b))[None], gid=i32(*[0] * b),
         member=i32(*range(b)), prefix_len=i32(*[2 * c] * b))
     toks = torch.stack([torch.as_tensor(p[:2 * c]) for p, _ in shared[:b]])
-    toks = toks.to(device="cuda", dtype=torch.int32)
+    return private, shared_bt, groups, toks.to(device="cuda",
+                                                dtype=torch.int32)
+
+
+def graph_phase(torch, cfg, params, shared, log):
+    """A looped step's CUDA graph against the eager fused step. From
+    identical cache states the same decode step runs eagerly under
+    ``"fused"`` and, under ``"looped"``, as the key's eager first call,
+    the capture (with other tokens and lengths, from the same state) and
+    a replay with the checked inputs: the replay's logits and the whole
+    cache (every KV row the step wrote) must hold the eager step's bits.
+    On the dense cache, and on the paged pool with grouped decode over a
+    shared 128-token prefix."""
+    from repro_torch.core.plan import make_plan
+    from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import DenseLayout, PagedLayout
+    from repro_torch.models.layers import LayerCtx
+
+    api = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b = 4
+    dense = api.init_cache(DenseLayout(b, 1024), device="cuda")
+    for t in dense.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    lens = torch.tensor([1000, 517, 64, 3], dtype=torch.int32,
+                        device="cuda")
+    cases = [("dense", dense, lens, {}, {})]
+    private, shared_bt, groups, toks = shared_pool_operands(torch, shared)
+    pool = api.init_cache(PagedLayout(private.numel(), PAGE), device="cuda")
+    c = toks.shape[1] // 2
+    row0 = torch.tensor([c, 0, 0, 0], dtype=torch.int32, device="cuda")
+    ctx = LayerCtx(cfg, make_plan("cuda", decode_group="grouped"))
+    with torch.no_grad():
+        for i in range(2):
+            _, pool = api.prefill_chunk(
+                ctx, params, toks[:, i * c:(i + 1) * c], row0, pool,
+                torch.full((b,), i * c, dtype=torch.int32, device="cuda"),
+                block_tables=shared_bt)
+    cases.append(("paged grouped", pool,
+                  torch.full((b,), 2 * c, dtype=torch.int32, device="cuda"),
+                  dict(block_tables=shared_bt, decode_groups=groups),
+                  dict(decode_group="grouped")))
+    for what, cache0, lengths, kw, plan_kw in cases:
+        tokens = [torch.randint(1, cfg.vocab_size, (b,), generator=gen,
+                                device="cuda", dtype=torch.int32)
+                  for _ in range(3)]
+        fused = LayerCtx(cfg, make_plan("cuda", decode_fusion="fused",
+                                        **plan_kw))
+        looped = LayerCtx(cfg, make_plan("cuda", decode_fusion="looped",
+                                         **plan_kw))
+        with torch.no_grad():
+            want_cache = {k: v.clone() for k, v in cache0.items()}
+            want, _ = api.decode_step(fused, params, tokens[0], want_cache,
+                                      lengths, **kw)
+            cache = {k: v.clone() for k, v in cache0.items()}
+            # eager first call, capture + replay, replay: each from the
+            # same state, the first two with other inputs
+            for toks_i, lens_i in ((tokens[1], lengths + 2),
+                                   (tokens[2], lengths + 1),
+                                   (tokens[0], lengths)):
+                for k in cache:
+                    cache[k].copy_(cache0[k])
+                got, _ = api.decode_step(looped, params, toks_i, cache,
+                                         lens_i, **kw)
+            torch.cuda.synchronize()
+        lp = looped.graphs
+        same = same_bits(torch, (got, want),
+                         *((cache[k], want_cache[k]) for k in cache))
+        log(f"graph {what}: looped replay (after {lp.eager_ticks} eager "
+            f"call, {lp.captures} capture, {lp.replays} replays) bitwise "
+            f"the eager fused step: logits and KV {same}")
+        check((lp.eager_ticks, lp.captures, lp.replays) == (1, 1, 2),
+              f"graph {what}: the calls did not go eager, capture, replay")
+        check(same, f"graph {what}: the replay differs from the eager step")
+
+
+def paged_logits_phase(torch, cfg, params, shared, log):
+    """The paged pool's logits against the ``"torch"`` plan (gather +
+    reference math): a second chunk that reads the first one's resident
+    pages, and the first decode step. Three times: the ``"cuda"`` default
+    plan (fused chunk kernel, paged decode kernel) over private tables,
+    and runs H's and K's plans (grouped decode, fused FFN-up; K's with
+    the fused stages, its first decode step eager) with all four rows'
+    tables leading with the same two pages: row 0 prefills them (the
+    others are spectators), then every row decodes one token of its own
+    through one group."""
+    from repro_torch.core.plan import DEFAULT_PLAN, make_plan
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import PagedLayout
+    from repro_torch.models.layers import LayerCtx
+
+    api = get_model(cfg)
+    c, b = 64, 4
+    private, shared_bt, groups, toks = shared_pool_operands(torch, shared)
+    num_pages = private.numel()
     full = torch.full((b,), c, dtype=torch.int32, device="cuda")
     row0 = torch.tensor([c, 0, 0, 0], dtype=torch.int32, device="cuda")
     cases = (
@@ -998,6 +1289,9 @@ def paged_logits_phase(torch, cfg, params, shared, log):
         ("grouped fused-FFN", (tuned_plan(), make_plan(
             "torch", decode_group="grouped", fused_ffn=True)), shared_bt,
          row0, groups),
+        ("K's plan (looped)", (looped_plan(), make_plan(
+            "torch", decode_group="grouped", fused_ffn=True,
+            decode_fusion="looped")), shared_bt, row0, groups),
     )
     for what, plans, bt, chunk_lens, grp in cases:
         results = {}
@@ -1103,15 +1397,27 @@ def main(argv=None) -> int:
     log("prompt lengths: " + str([len(p) for p, _ in requests]))
     shared = shared_requests(np, cfg, args.seed)
     log("shared-header prompt lengths: " + str([len(p) for p, _ in shared]))
+    mixed = mixed_requests(np, cfg, args.seed)
+    log("two-header prompt lengths / new tokens: " + str(
+        [(len(p), s.max_new_tokens) for p, s in mixed]))
+    check(set(REPLACES) <= set(counters()),
+          "a kernel of REPLACES has no counter in ops.LAUNCH_COUNTERS")
     launches = {}
     outputs = serve_phase(torch, cfg, params,
-                          {"plain": requests, "shared": shared}, log,
-                          launches)
+                          {"plain": requests, "shared": shared,
+                           "mixed": mixed}, log, launches)
     profile_phase(torch, cfg, params, requests, log)
     profile_phase(torch, cfg, params, shared, log,
                   tag="H slots=4 paged sharing grouped fused-FFN",
                   cache_kind="paged", page_size=PAGE, prefix_sharing=True,
                   plan=tuned_plan())
+    profile_phase(torch, cfg, params, requests, log,
+                  tag="J slots=4 looped", decode_fusion="looped")
+    profile_phase(torch, cfg, params, shared, log,
+                  tag="K slots=4 paged sharing grouped fused-FFN looped",
+                  cache_kind="paged", page_size=PAGE, prefix_sharing=True,
+                  plan=looped_plan())
+    graph_phase(torch, cfg, params, shared, log)
     logits_phase(torch, cfg, params, requests, log, outputs["A"])
     paged_logits_phase(torch, cfg, params, shared, log)
 

@@ -179,8 +179,39 @@ class PagedPlan:
 
 @dataclasses.dataclass(frozen=True)
 class DecodeFusionPlan:
-    """Decode-layer granularity. Only ``"split"`` (one op per stage) is
-    ported; ``"fused"``/``"looped"`` come with the decode-fusion slice."""
+    """Decode-layer fusion granularity: how much of the per-layer decode
+    chain one launch claims (:data:`FUSION_MODES`).
+
+      * ``"split"`` — the op chain: every stage (norm, QKV GEMMs, bias,
+        rope, KV write, attention, o_proj, residual, FFN) is its own
+        launch, the depth a Python loop over per-layer views. The
+        reference path.
+      * ``"fused"`` — the memory-bound seams collapse into the fused
+        stage kernels: ``ops.decode_ingest`` (norm → QKV → bias → rope),
+        ``ops.oproj_residual`` (GEMM into the residual stream, serving
+        both the o_proj and the FFN down projection) and
+        ``ops.ffn_norm`` (norm → gate/up → activation), four launches
+        per layer in place of the split chain's GEMMs and elementwise
+        ops. The depth stays a Python loop.
+      * ``"looped"`` — the ``fused`` per-layer math with the whole
+        decode step (embed, every layer with its KV writes and
+        attention, the final norm, the lm_head) captured once into a
+        CUDA graph and replayed each tick
+        (:class:`repro_torch.models.stack.LoopedDecode`): one host
+        dispatch per tick, the port's counterpart of the JAX package's
+        single ``lax.scan``. On CPU tensors there is no graph and the
+        fused path runs eagerly.
+
+    On ``"cuda"`` the stage kernels (``kernels/decode_fuse``) run; they
+    accumulate the GEMMs over K tiles in f32, so they agree with the
+    split chain to bf16 rounding, not bitwise. On ``"torch"`` the fused
+    granularities call the stage oracles (``ref.decode_ingest_ref`` /
+    ``ref.oproj_residual_ref`` / ``ref.ffn_norm_ref``), which compose
+    exactly the split chain's expressions in the same order, so split,
+    fused and looped give bitwise equal logits. On the card looped is
+    bitwise fused: the same kernels on the same inputs in the same
+    order, and no kernel of the port uses atomics.
+    """
 
     backend: str = "cuda"
     granularity: str = "split"
@@ -209,12 +240,14 @@ DEFAULT_PLAN = ExecutionPlan()
 def make_plan(backend: str = "cuda", *, fused_ffn: Optional[bool] = None,
               gather_chunk: str = "fused", fused_threshold: int = 64,
               decode_group: str = "off",
-              group_threshold: int = 2) -> ExecutionPlan:
+              group_threshold: int = 2,
+              decode_fusion: str = "split") -> ExecutionPlan:
     """The untuned plan with every op on ``backend``. ``fused_ffn=None``
     fuses the FFN-up on the kernel backend (``"cuda"``) only, as the JAX
     package does for ``"pallas"``; ``gather_chunk`` and
     ``fused_threshold`` pin the paged chunk discipline, ``decode_group``
-    and ``group_threshold`` the shared-prefix decode grouping."""
+    and ``group_threshold`` the shared-prefix decode grouping, and
+    ``decode_fusion`` the decode-layer granularity."""
     if fused_ffn is None:
         fused_ffn = backend == "cuda"
     return ExecutionPlan(
@@ -226,5 +259,6 @@ def make_plan(backend: str = "cuda", *, fused_ffn: Optional[bool] = None,
                         fused_threshold=fused_threshold,
                         decode_group=decode_group,
                         group_threshold=group_threshold),
-        decode_fusion=DecodeFusionPlan(backend=backend),
+        decode_fusion=DecodeFusionPlan(backend=backend,
+                                       granularity=decode_fusion),
     )

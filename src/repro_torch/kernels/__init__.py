@@ -3,9 +3,15 @@ its plain PyTorch version and a launch counter.
 
 Modules:
   * gemv             — ImplA CUDA-core GEMV (csrc/gemv.cu)
-  * flat_gemm        — T2 flat GEMM, M padded to 8 (csrc/flat_gemm.cu)
+  * flat_gemm        — T2 flat GEMM, M padded to 8 (csrc/flat_gemm.cu, the
+                       kernel in csrc/flat_stream.cuh)
   * fused_ffn        — fused FFN-up act(x@Wg) * (x@Wu), two weight streams
-                       and an activation epilogue (csrc/fused_ffn.cu)
+                       and an activation epilogue (csrc/fused_ffn.cu, the
+                       mainloop in csrc/flat_stream.cuh)
+  * decode_fuse      — the fused decode stages: rmsnorm → QKV → bias → rope,
+                       resid + o@Wo (o_proj and down), rmsnorm → gate/up →
+                       act (csrc/decode_fuse.cu; o_proj is flat_gemm's
+                       kernel with a residual epilogue)
   * decode_attention — T1 decode attention over the dense cache or the
                        paged pool, unified-max and sync
                        (csrc/decode_attention.cu)
@@ -16,7 +22,8 @@ Modules:
   * flash_prefill    — causal / windowed prefill attention, both schemes
                        (csrc/flash_prefill.cu)
   * merge            — the softmax-merge algebra of the plain versions
-  * ops              — plan-dispatched front doors
+  * ops              — plan-dispatched front doors, and LAUNCH_COUNTERS
+                       (every wrapper that counts its launches)
   * ref              — plain PyTorch reference math (the "torch" backend)
   * _build           — nvcc build + ctypes loading of csrc/*.cu
 """

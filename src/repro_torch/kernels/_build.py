@@ -3,10 +3,10 @@
 Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with :mod:`ctypes` (no PyTorch headers, so a
 build takes seconds, not minutes). Libraries land in ``build/`` beside
-the package, named by a hash of the source, the shared header and the
-flags, so an edited source rebuilds and an unchanged one is reused. The
-first :func:`load` builds every missing library at once, one ``nvcc``
-process per source, all started together.
+the package, named by a hash of the source, the shared ``*.cuh`` headers
+and the flags, so an edited source rebuilds and an unchanged one is
+reused. The first :func:`load` builds every missing library at once, one
+``nvcc`` process per source, all started together.
 
 Calling conventions the kernel wrappers rely on: every pointer and the
 stream are ``c_void_p``; every C entry returns ``cudaGetLastError()``
@@ -27,7 +27,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("gemv", "flat_gemm", "decode_attention", "flash_prefill",
-           "chunk_attention", "fused_ffn", "group_attention")
+           "chunk_attention", "fused_ffn", "group_attention", "decode_fuse")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -57,7 +57,7 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

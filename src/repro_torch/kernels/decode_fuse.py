@@ -1,0 +1,300 @@
+"""Fused decode-layer stages — the three seams of ``DecodeFusionPlan``
+(kernels: ``csrc/decode_fuse.cu``).
+
+Replaces ``repro/kernels/decode_fuse.py``:
+
+  * :func:`decode_ingest_fused` (``decode_ingest_fused``) — rmsnorm → x ·
+    [Wq Wk Wv] → bias → rope in one launch. One block per head of the q,
+    k and v streams; each block normalises the rows into shared memory
+    itself.
+  * :func:`oproj_residual_fused` (``oproj_residual_fused``) — ``resid +
+    o @ wo``: flat_gemm's kernel (``csrc/flat_stream.cuh``) with the
+    residual add in its epilogue; it serves the o_proj and the FFN down
+    projection.
+  * :func:`ffn_norm_fused` (``ffn_norm_fused``) — rmsnorm → x · Wg, x · Wu
+    → act(g) · u on the f32 accumulators: the fused FFN-up kernel
+    (``csrc/flat_stream.cuh``) with the rmsnorm prologue.
+
+On a CUDA tensor each wrapper launches its kernel and counts the launch
+in ``.launches``; on a CPU tensor it runs its plain version, which walks
+the kernel's K tiles with f32 accumulation and rounds where the kernel
+rounds. The kernels round where the split chain rounds (normed x to the
+activation dtype, each GEMM output, the bias add, rope once), so they
+agree with the ``"torch"`` oracles in ``ref.py`` to bf16 rounding.
+
+The resident-row kernels (ingest, ffn_norm) hold ``mt`` token rows per
+block: the smallest multiple of 8 covering M, at most 64, halved until
+the rows and two weight stages fit a block's shared memory; M is tiled
+over the grid's second axis.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import hardware
+from repro_torch.kernels import _build
+from repro_torch.kernels.flat_gemm import (BK_CHOICES, BLOCK_M, pick_bk,
+                                           pick_bn, round_up)
+from repro_torch.kernels.fused_ffn import ACTIVATIONS
+from repro_torch.kernels.gemv import vector_ok, weight_layout
+from repro_torch.kernels.ref import ffn_activation, rmsnorm_ref, rope_ref
+
+HEAD_TILES = (32, 64, 128)     # head_dim the ingest kernel takes
+
+# one library, loaded once with every entry's argument types
+_SIG = {"decode_ingest_bf16": [_build.VP] * 12 + [_build.I32] * 4
+        + [_build.I64] + [_build.I32] * 4 + [_build.F32, _build.F32,
+                                             _build.VP],
+        "oproj_residual_bf16": [_build.VP] * 4 + [_build.I32] * 3
+        + [_build.I64] * 2 + [_build.I32] * 2 + [_build.VP],
+        "ffn_norm_bf16": [_build.VP] * 5 + [_build.I32] * 3 + [_build.I64]
+        + [_build.I32] * 4 + [_build.F32, _build.VP]}
+
+
+def resident_smem(mt: int, k: int, bn: int, bk: int, streams: int) -> int:
+    """Shared memory of a resident-row launch: two stages of ``streams``
+    (BK, BN + 8) weight tiles and ``mt`` normed rows of the K tiles
+    (pitch round_up(K, BK) + 8), bf16."""
+    return 2 * (2 * streams * bk * (bn + 8) + mt * (round_up(k, bk) + 8))
+
+
+def resident_tiles(m: int, k: int, bn: int, streams: int, *,
+                   spec: hardware.HardwareSpec = hardware.DEFAULT
+                   ) -> tuple[int, int]:
+    """(mt, BK) of a resident-row launch: the deepest K tile that does not
+    overshoot K and fits beside ``mt`` rows, halving ``mt`` from
+    min(64, round_up(M, 8)) while none fits."""
+    mt = min(BLOCK_M, round_up(max(m, 1), 8))
+    while True:
+        fits = [bk for bk in BK_CHOICES
+                if bk <= round_up(k, BK_CHOICES[0])
+                and resident_smem(mt, k, bn, bk, streams)
+                <= spec.smem_per_block]
+        if fits:
+            return mt, max(fits)
+        if mt == 8:
+            raise ValueError(f"K={k} rows do not fit a block's shared "
+                             "memory beside two weight stages")
+        mt //= 2
+
+
+def ffn_norm_tiles(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """(BN, BK, mt) of an ffn_norm launch: flat_gemm's BN for two weight
+    streams, then the resident-row tiles."""
+    bn = pick_bn(round_up(max(m, 1), 8), n, k, streams=2)
+    mt, bk = resident_tiles(m, k, bn, 2)
+    return bn, bk, mt
+
+
+def oproj_tiles(m: int, k: int, n: int) -> tuple[int, int]:
+    """(BN, BK) of an oproj_residual launch: flat_gemm's pickers."""
+    m_pad = round_up(max(m, 1), 8)
+    bn = pick_bn(m_pad, n, k)
+    return bn, pick_bk(m_pad, bn, k)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _ktiles(x: torch.Tensor, w: torch.Tensor, bk: int) -> torch.Tensor:
+    """x @ w accumulated in f32 over the kernel's K tiles."""
+    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for lo in range(0, x.shape[1], bk):
+        acc += x[:, lo:lo + bk].float() @ w[lo:lo + bk].float()
+    return acc
+
+
+def decode_ingest_plain(x, norm_scale, wq, wk, wv, positions, *,
+                        num_heads: int, num_kv_heads: int, head_dim: int,
+                        rope_theta: float = 1e4, eps: float = 1e-6,
+                        use_rope: bool = True, bq=None, bk=None, bv=None):
+    """Plain version: normed rows rounded to x's dtype, each stream's K
+    tiles accumulated in f32 and rounded, the bias added (rounded), rope
+    on q and k in f32 (one rounding)."""
+    m, d = x.shape
+    _, bkt = resident_tiles(m, d, head_dim, 1)
+    xn = rmsnorm_ref(x, norm_scale, eps)
+    outs = []
+    for w, b, heads, rot in ((wq, bq, num_heads, use_rope),
+                             (wk, bk, num_kv_heads, use_rope),
+                             (wv, bv, num_kv_heads, False)):
+        t = _ktiles(xn, w, bkt).to(x.dtype)
+        if b is not None:
+            t = t + b
+        if rot:
+            t = rope_ref(t.reshape(m, heads, head_dim), positions,
+                         rope_theta).reshape(m, heads * head_dim)
+        outs.append(t)
+    return tuple(outs)
+
+
+def oproj_residual_plain(o, wo, resid):
+    """Plain version: the K tiles in f32, rounded to o's dtype, added to
+    the residual (one rounding)."""
+    m, k = o.shape
+    _, bk = oproj_tiles(m, k, wo.shape[1])
+    return resid + _ktiles(o, wo, bk).to(o.dtype)
+
+
+def ffn_norm_plain(x, norm_scale, w_gate, w_up, *,
+                   activation: str = "swiglu", eps: float = 1e-6):
+    """Plain version: normed rows rounded to x's dtype, both streams' K
+    tiles in f32, the activation on the f32 sums, one rounding."""
+    m, k = x.shape
+    _, bk, _ = ffn_norm_tiles(m, k, w_gate.shape[1])
+    xn = rmsnorm_ref(x, norm_scale, eps)
+    g = _ktiles(xn, w_gate, bk)
+    u = _ktiles(xn, w_up, bk)
+    return (ffn_activation(g, activation) * u).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_bf16(what: str, dev, *tensors) -> None:
+    for t in tensors:
+        if t is None:
+            continue
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what} kernel takes bf16, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{what}: inputs on different devices")
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x if x.stride(1) == 1 else x.contiguous()
+
+
+def _check_weight(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    kn, ldw = weight_layout(w)
+    if not kn or ldw != w.shape[1] or not vector_ok(x, w, kn, ldw):
+        raise ValueError(
+            f"{what} kernel needs contiguous (K, N) weights with K and N "
+            "multiples of 8 and 16-byte aligned rows")
+
+
+def _check_scale(what: str, x: torch.Tensor, scale: torch.Tensor) -> None:
+    if scale.shape != (x.shape[1],) or scale.stride(0) != 1 \
+            or scale.data_ptr() % 16:
+        raise ValueError(f"{what}: norm scale must be a contiguous, 16-byte "
+                         f"aligned ({x.shape[1]},) vector")
+
+
+def decode_ingest_fused(x, norm_scale, wq, wk, wv, positions, *,
+                        num_heads: int, num_kv_heads: int, head_dim: int,
+                        rope_theta: float = 1e4, eps: float = 1e-6,
+                        use_rope: bool = True, bq=None, bk=None, bv=None):
+    """x (M, D), norm_scale (D,), wq (D, HQ·Dh), wk / wv (D, HK·Dh),
+    positions (M,) -> q (M, HQ·Dh), k / v (M, HK·Dh) in x's dtype (the
+    caller owns the head reshape). Absent biases read as zero."""
+    m, d = x.shape
+    nq, nk = wq.shape[1], wk.shape[1]
+    if (nq != num_heads * head_dim or nk != num_kv_heads * head_dim
+            or wq.shape[0] != d or wk.shape != (d, nk) or wv.shape != (d, nk)
+            or positions.shape != (m,)):
+        raise ValueError(
+            f"decode_ingest: x {tuple(x.shape)} wq {tuple(wq.shape)} wk "
+            f"{tuple(wk.shape)} wv {tuple(wv.shape)} positions "
+            f"{tuple(positions.shape)} for {num_heads}/{num_kv_heads} heads "
+            f"of {head_dim}")
+    if (bq is None) != (bk is None) or (bq is None) != (bv is None):
+        raise ValueError("decode_ingest: the q, k and v biases come "
+                         "together")
+    if not x.is_cuda:
+        return decode_ingest_plain(
+            x, norm_scale, wq, wk, wv, positions, num_heads=num_heads,
+            num_kv_heads=num_kv_heads, head_dim=head_dim,
+            rope_theta=rope_theta, eps=eps, use_rope=use_rope, bq=bq, bk=bk,
+            bv=bv)
+    if head_dim not in HEAD_TILES:
+        raise ValueError(f"decode_ingest kernel takes head_dim in "
+                         f"{HEAD_TILES}, got {head_dim}")
+    _check_bf16("decode_ingest", x.device, x, norm_scale, wq, wk, wv, bq, bk,
+                bv)
+    x = _rows(x)
+    for w in (wq, wk, wv):
+        _check_weight("decode_ingest", x, w)
+    _check_scale("decode_ingest", x, norm_scale)
+    biases = [b if b is None else b.contiguous() for b in (bq, bk, bv)]
+    pos = positions.to(device=x.device, dtype=torch.int32).contiguous()
+    mt, bkt = resident_tiles(m, d, head_dim, 1)
+    q = torch.empty((m, nq), dtype=x.dtype, device=x.device)
+    k = torch.empty((m, nk), dtype=x.dtype, device=x.device)
+    v = torch.empty((m, nk), dtype=x.dtype, device=x.device)
+    lib = _build.load("decode_fuse", _SIG)
+    code = lib.decode_ingest_bf16(
+        _build.ptr(x), _build.ptr(norm_scale), _build.ptr(wq), _build.ptr(wk),
+        _build.ptr(wv),
+        *(_build.VP(None) if b is None else _build.ptr(b) for b in biases),
+        _build.ptr(pos), _build.ptr(q), _build.ptr(k), _build.ptr(v),
+        m, d, nq, nk, x.stride(0), head_dim, bkt, mt, int(use_rope),
+        rope_theta, eps, _build.stream_of(x))
+    _build.check(lib, "decode_ingest_bf16", code)
+    decode_ingest_fused.launches += 1
+    return q, k, v
+
+
+def oproj_residual_fused(o, wo, resid):
+    """o (M, Q), wo (Q, D), resid (M, D) -> resid + o @ wo, (M, D) in
+    resid's dtype."""
+    m, k = o.shape
+    n = wo.shape[1]
+    if wo.shape[0] != k or resid.shape != (m, n):
+        raise ValueError(f"oproj_residual: o {tuple(o.shape)} wo "
+                         f"{tuple(wo.shape)} resid {tuple(resid.shape)}")
+    if not o.is_cuda:
+        return oproj_residual_plain(o, wo, resid)
+    _check_bf16("oproj_residual", o.device, o, wo, resid)
+    o, resid = _rows(o), _rows(resid)
+    _check_weight("oproj_residual", o, wo)
+    bn, bk = oproj_tiles(m, k, n)
+    out = torch.empty((m, n), dtype=resid.dtype, device=o.device)
+    lib = _build.load("decode_fuse", _SIG)
+    code = lib.oproj_residual_bf16(
+        _build.ptr(o), _build.ptr(wo), _build.ptr(resid), _build.ptr(out),
+        m, k, n, o.stride(0), resid.stride(0), bn, bk, _build.stream_of(o))
+    _build.check(lib, "oproj_residual_bf16", code)
+    oproj_residual_fused.launches += 1
+    return out
+
+
+def ffn_norm_fused(x, norm_scale, w_gate, w_up, *,
+                   activation: str = "swiglu", eps: float = 1e-6):
+    """x (M, D), norm_scale (D,), w_gate / w_up (D, F) -> act(xn @ w_gate)
+    * (xn @ w_up), (M, F) in x's dtype, xn = rmsnorm(x)."""
+    m, d = x.shape
+    if w_gate.shape != w_up.shape or w_gate.shape[0] != d:
+        raise ValueError(f"ffn_norm: x {tuple(x.shape)} w_gate "
+                         f"{tuple(w_gate.shape)} w_up {tuple(w_up.shape)}")
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"ffn_norm: activation must be one of "
+                         f"{ACTIVATIONS}, got {activation!r}")
+    if not x.is_cuda:
+        return ffn_norm_plain(x, norm_scale, w_gate, w_up,
+                              activation=activation, eps=eps)
+    _check_bf16("ffn_norm", x.device, x, norm_scale, w_gate, w_up)
+    x = _rows(x)
+    for w in (w_gate, w_up):
+        _check_weight("ffn_norm", x, w)
+    _check_scale("ffn_norm", x, norm_scale)
+    n = w_gate.shape[1]
+    bn, bk, mt = ffn_norm_tiles(m, d, n)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = _build.load("decode_fuse", _SIG)
+    code = lib.ffn_norm_bf16(
+        _build.ptr(x), _build.ptr(norm_scale), _build.ptr(w_gate),
+        _build.ptr(w_up), _build.ptr(out), m, d, n, x.stride(0),
+        int(activation == "geglu"), bn, bk, mt, eps, _build.stream_of(x))
+    _build.check(lib, "ffn_norm_bf16", code)
+    ffn_norm_fused.launches += 1
+    return out
+
+
+decode_ingest_fused.launches = 0
+oproj_residual_fused.launches = 0
+ffn_norm_fused.launches = 0

@@ -26,6 +26,11 @@ from repro_torch.kernels.chunk_attention import (
     paged_chunk_attention_sync,
     paged_chunk_attention_unified_max,
 )
+from repro_torch.kernels.decode_fuse import (
+    decode_ingest_fused,
+    ffn_norm_fused,
+    oproj_residual_fused,
+)
 from repro_torch.kernels.decode_attention import (
     decode_attention_sync,
     decode_attention_unified_max,
@@ -41,7 +46,20 @@ from repro_torch.kernels.fused_ffn import fused_ffn_up
 from repro_torch.kernels.gemv import gemv
 from repro_torch.kernels.group_attention import (
     DecodeGroups,
+    group_prefix_partials,
+    group_tail_merge,
     grouped_paged_decode_attention_unified_max,
+)
+
+# every kernel wrapper that counts its launches in ``.launches`` (a CUDA
+# graph replay runs none of them, so the replay credits them instead)
+LAUNCH_COUNTERS = (
+    gemv, flat_gemm, fused_ffn_up, decode_ingest_fused,
+    oproj_residual_fused, ffn_norm_fused, decode_attention_unified_max,
+    decode_attention_sync, paged_decode_attention_unified_max,
+    paged_decode_attention_sync, group_prefix_partials, group_tail_merge,
+    flash_prefill_unified_max, flash_prefill_sync,
+    paged_chunk_attention_unified_max, paged_chunk_attention_sync,
 )
 
 
@@ -92,6 +110,68 @@ def fused_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     else:
         out = ref.fused_ffn_up_ref(x2, w_gate, w_up, activation=activation)
     return out.reshape(*lead, w_gate.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Decode-fusion stage front doors
+# ---------------------------------------------------------------------------
+
+
+def decode_ingest(x, norm_scale, wq, wk, wv, positions, *, num_heads: int,
+                  num_kv_heads: int, head_dim: int, rope_theta: float = 1e4,
+                  eps: float = 1e-6, use_rope: bool = True, bq=None, bk=None,
+                  bv=None, plan: Optional[ExecutionPlan] = None):
+    """Fused decode ingest: rmsnorm → QKV → bias → rope in one seam. x
+    (B, 1, D), positions (B,) -> q (B, 1, HQ, Dh), k / v (B, 1, HK, Dh).
+    The ingest kernel on ``"cuda"`` (plan.decode_fusion), the oracle
+    that composes the split chain's expressions on ``"torch"``."""
+    fp = (plan or DEFAULT_PLAN).decode_fusion
+    kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads,
+              head_dim=head_dim, rope_theta=rope_theta, eps=eps,
+              use_rope=use_rope, bq=bq, bk=bk, bv=bv)
+    if fp.backend != "cuda":
+        return ref.decode_ingest_ref(x, norm_scale, wq, wk, wv, positions,
+                                     **kw)
+    b, s, d = x.shape
+    q, k, v = decode_ingest_fused(x.reshape(b * s, d), norm_scale, wq, wk,
+                                  wv, positions, **kw)
+    return (q.reshape(b, s, num_heads, head_dim),
+            k.reshape(b, s, num_kv_heads, head_dim),
+            v.reshape(b, s, num_kv_heads, head_dim))
+
+
+def oproj_residual(o, wo, resid, *,
+                   plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+    """``resid + o @ wo`` (o (B, S, Q), resid (B, S, D)) with the residual
+    add in the GEMM's epilogue on ``"cuda"``; the split composition on
+    ``"torch"``. Serves the o_proj and the FFN down projection."""
+    fp = (plan or DEFAULT_PLAN).decode_fusion
+    if fp.backend != "cuda":
+        return ref.oproj_residual_ref(o, wo, resid)
+    b, s, qd = o.shape
+    out = oproj_residual_fused(o.reshape(b * s, qd), wo,
+                               resid.reshape(b * s, -1))
+    return out.reshape(resid.shape)
+
+
+def ffn_norm(x, norm_scale, w_gate, w_up, *, activation: str = "swiglu",
+             eps: float = 1e-6,
+             plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
+    """Fused MLP ingest: rmsnorm → gate/up → act(g)·u, x (B, S, D) ->
+    (B, S, F). The ffn_norm kernel on ``"cuda"``; on ``"torch"`` the
+    oracle composes whichever split chain the plan's ``fused_ffn`` knob
+    selects, so the fused granularities stay bitwise split. Feed the
+    result to :func:`oproj_residual` with ``w_down`` for the whole
+    seam."""
+    p = plan or DEFAULT_PLAN
+    if p.decode_fusion.backend != "cuda":
+        return ref.ffn_norm_ref(x, norm_scale, w_gate, w_up,
+                                activation=activation, eps=eps,
+                                fused=p.fused_ffn.fused)
+    b, s, d = x.shape
+    out = ffn_norm_fused(x.reshape(b * s, d), norm_scale, w_gate, w_up,
+                         activation=activation, eps=eps)
+    return out.reshape(b, s, -1)
 
 
 # ---------------------------------------------------------------------------

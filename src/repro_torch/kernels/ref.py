@@ -339,3 +339,63 @@ def rope_ref(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode-fusion stage oracles (expression copies of the split chain)
+# ---------------------------------------------------------------------------
+
+
+def decode_ingest_ref(x, norm_scale, wq, wk, wv, positions, *,
+                      num_heads: int, num_kv_heads: int, head_dim: int,
+                      rope_theta: float = 1e4, eps: float = 1e-6,
+                      use_rope: bool = True, bq=None, bk=None, bv=None):
+    """Oracle of the fused decode ingest: rmsnorm → QKV → bias → rope,
+    composed of exactly the split chain's expressions in the same order
+    (norm, three GEMMs flattened to (B·S, D) and reshaped back, bias
+    add, head reshape, rope on q and k), so the fused granularities are
+    bitwise split on the ``"torch"`` backend. x (B, 1, D), positions
+    (B,); returns q (B, 1, HQ, Dh), k / v (B, 1, HK, Dh)."""
+    b, s, d = x.shape
+    h = rmsnorm_ref(x, norm_scale, eps)
+    h2 = h.reshape(b * s, d)
+    q = flat_gemm_ref(h2, wq).reshape(b, s, wq.shape[-1])
+    k = flat_gemm_ref(h2, wk).reshape(b, s, wk.shape[-1])
+    v = flat_gemm_ref(h2, wv).reshape(b, s, wv.shape[-1])
+    if bq is not None:
+        q, k, v = q + bq, k + bk, v + bv
+    q = q.reshape(b, s, num_heads, head_dim)
+    k = k.reshape(b, s, num_kv_heads, head_dim)
+    v = v.reshape(b, s, num_kv_heads, head_dim)
+    if use_rope:
+        pos = positions[:, None]
+        q = rope_ref(q, pos, rope_theta)
+        k = rope_ref(k, pos, rope_theta)
+    return q, k, v
+
+
+def oproj_residual_ref(o, wo, resid):
+    """Oracle of the fused attention epilogue ``resid + o @ wo``: the
+    split chain's GEMM (flattened, reshaped back) and residual add.
+    o (B, S, Q), wo (Q, D), resid (B, S, D)."""
+    b, s, qd = o.shape
+    return resid + flat_gemm_ref(o.reshape(b * s, qd), wo).reshape(
+        b, s, wo.shape[-1])
+
+
+def ffn_norm_ref(x, norm_scale, w_gate, w_up, *, activation: str = "swiglu",
+                 eps: float = 1e-6, fused: bool = True):
+    """Oracle of the fused MLP ingest: rmsnorm → gate/up → act(g)·u.
+    ``fused`` mirrors whichever split chain the plan's ``fused_ffn``
+    knob selects: :func:`fused_ffn_up_ref` (activation on the f32
+    products) or two GEMMs rounded to the activation dtype before the
+    activation. x (B, S, D); returns (B, S, F)."""
+    b, s, d = x.shape
+    f = w_gate.shape[-1]
+    h = rmsnorm_ref(x, norm_scale, eps)
+    if fused:
+        return fused_ffn_up_ref(h.reshape(b * s, d), w_gate, w_up,
+                                activation=activation).reshape(b, s, f)
+    g = flat_gemm_ref(h.reshape(b * s, d), w_gate).reshape(b, s, f)
+    u = flat_gemm_ref(h.reshape(b * s, d), w_up).reshape(b, s, f)
+    return ffn_activation(g, activation) * u

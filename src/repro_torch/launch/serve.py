@@ -20,6 +20,13 @@ prefill reads the pool. ``--decode-group grouped`` (with
 ``--prefix-sharing``) reads each shared prefix once per group of slots at
 decode; the summary then counts grouped decodes and the prefix KV bytes
 saved. The ``req N:`` lines do not change with any of these.
+
+``--decode-fusion split|fused|looped`` overrides the plan's decode-layer
+granularity: ``fused`` runs each layer as four fused stage kernels,
+``looped`` replays the whole decode step as one CUDA graph on the card
+(on the CPU it runs the fused path eagerly). The summary reports
+``fusion=<granularity>`` and, under looped, ``graphs=<captures>/
+<replays>``.
 """
 import argparse
 import sys
@@ -71,6 +78,12 @@ def _parse(argv=None):
                     help="override the plan's decode discipline: 'grouped' "
                          "reads each shared prefix once per group of slots "
                          "(paged cache with --prefix-sharing)")
+    ap.add_argument("--decode-fusion", choices=["split", "fused", "looped"],
+                    default=None,
+                    help="override the plan's decode-layer granularity: "
+                         "'fused' = four fused stage kernels per layer, "
+                         "'looped' = the fused step replayed as one CUDA "
+                         "graph per tick")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -114,7 +127,8 @@ def main(argv=None) -> int:
                  cache_kind=args.cache_kind, page_size=args.page_size,
                  num_pages=num_pages, prefill_chunk=args.prefill_chunk,
                  prefix_sharing=args.prefix_sharing,
-                 scheduler=args.scheduler, plan=plan, seed=args.seed,
+                 scheduler=args.scheduler, plan=plan,
+                 decode_fusion=args.decode_fusion, seed=args.seed,
                  device=dev)
     rng = np.random.default_rng(args.seed)
     sp = SamplingParams(max_new_tokens=args.max_new,
@@ -134,7 +148,10 @@ def main(argv=None) -> int:
     line = (f"served {len(out)} requests, {total} tokens in {dt:.2f}s "
             f"({total / dt:.1f} tok/s, {eng.ticks} decode ticks, "
             f"{tick_ms:.2f} ms/tick, prefill {st.prefill_seconds:.2f}s, "
-            f"{eng.scheduler.name} scheduler, device={dev}")
+            f"{eng.scheduler.name} scheduler, device={dev}, "
+            f"fusion={eng.decode_fusion}")
+    if eng.decode_fusion == "looped":
+        line += f", graphs={st.graph_captures}/{st.graph_replays}"
     if eng.pool is not None:
         line += (f", {st.preemptions} preemptions, peak pages "
                  f"{st.peak_pages_used}/{eng.pool.num_pages}")

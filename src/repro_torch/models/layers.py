@@ -6,15 +6,29 @@ leading L axis by the model constructors). Every GEMM goes through
 through ``ops.fused_ffn`` when the plan fuses them) and every attention
 through the ``ops`` front doors, so the plan decides which kernel runs.
 
-The decode layer keeps the JAX package's four stage boundaries (ingest →
-attend → epilogue → mlp); only the ``"split"`` granularity — one op per
-stage — is ported, the fused and looped ones come with the decode-fusion
-slice. KV appends update the dense cache or the paged pool in place
-through one sync-free masked write (:class:`KVWrite`).
+The decode layer keeps the JAX package's four stage boundaries, which a
+fusion backend can claim (``DecodeFusionPlan.granularity``):
+
+  A. ingest   — norm → QKV → bias → rope         (:func:`decode_ingest`)
+  B. attend   — KV write → decode attention      (:func:`decode_attend`,
+                :func:`decode_attend_paged`)
+  C. epilogue — o_proj → residual add            (:func:`decode_epilogue`)
+  D. mlp      — norm → gate/up → act → down → residual (:func:`decode_mlp`)
+
+``"split"`` composes each stage from the op chain; ``"fused"`` and
+``"looped"`` send the A, C and D seams through ``ops.decode_ingest`` /
+``ops.oproj_residual`` / ``ops.ffn_norm`` (one kernel per seam on
+``"cuda"``, the oracles that compose the split chain's expressions on
+``"torch"``); ``"looped"`` also replays the whole decode step as one CUDA
+graph (:class:`~repro_torch.models.stack.LoopedDecode`, kept on the
+context). Stage B keeps its own plan-governed dispatch. KV appends update
+the dense cache or the paged pool in place through one sync-free masked
+write (:class:`KVWrite`).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ffn_activation
 from repro_torch.kernels.ref import rmsnorm_ref as rmsnorm
 from repro_torch.kernels.ref import rope_ref as rope
+from repro_torch.models.stack import LoopedDecode
 
 Params = dict
 
@@ -46,17 +61,24 @@ def adt(cfg: ModelConfig) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class LayerCtx:
-    """Per-call context threaded through every layer."""
+    """Per-call context threaded through every layer. Under the
+    ``"looped"`` granularity it makes and carries the decode step's CUDA
+    graphs (``graphs``), so every step run through one context shares
+    them, and no other plan can replay them."""
 
     cfg: ModelConfig
     plan: ExecutionPlan = DEFAULT_PLAN
+    graphs: Optional[LoopedDecode] = dataclasses.field(
+        default=None, init=False, compare=False, repr=False)
 
     def __post_init__(self):
-        if self.plan.decode_fusion.granularity != "split":
-            raise NotImplementedError(
-                "decode_fusion granularity "
-                f"{self.plan.decode_fusion.granularity!r} comes with the "
-                "decode-fusion slice of the port; use 'split'")
+        if self.plan.decode_fusion.granularity == "looped":
+            object.__setattr__(self, "graphs", LoopedDecode())
+
+    @property
+    def fused(self) -> bool:
+        """The decode stages go through the fused seams."""
+        return self.plan.decode_fusion.granularity != "split"
 
     @property
     def phi_cfg(self) -> SoftmaxPhiConfig:
@@ -163,8 +185,17 @@ def attention_qkv(ctx: LayerCtx, p: Params, x: torch.Tensor,
 
 def decode_ingest(ctx: LayerCtx, norm_p: Params, p: Params, x: torch.Tensor,
                   position: torch.Tensor):
-    """Stage A: norm → QKV → bias → rope. x: (B, 1, D); position (B,)."""
-    h = norm(ctx.cfg, norm_p, x)
+    """Stage A: norm → QKV → bias → rope. x: (B, 1, D); position (B,).
+    Returns q (B, 1, HQ, Dh), k / v (B, 1, HK, Dh). The fused seam
+    claims rmsnorm models only; others keep the split composition."""
+    cfg = ctx.cfg
+    if ctx.fused and cfg.norm == "rmsnorm":
+        return ops.decode_ingest(
+            x, norm_p["scale"], p["wq"], p["wk"], p["wv"], position,
+            num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+            head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+            bq=p.get("bq"), bk=p.get("bk"), bv=p.get("bv"), plan=ctx.plan)
+    h = norm(cfg, norm_p, x)
     return attention_qkv(ctx, p, h, position[:, None])
 
 
@@ -261,13 +292,25 @@ def decode_attend(ctx: LayerCtx, q, k, v, cache_k, cache_v, lengths):
 
 
 def decode_epilogue(ctx: LayerCtx, p: Params, o, resid):
-    """Stage C: ``resid + o @ wo``."""
+    """Stage C: ``resid + o @ wo``, one fused launch when claimed."""
+    if ctx.fused:
+        return ops.oproj_residual(o, p["wo"], resid, plan=ctx.plan)
     return resid + ctx.matmul(o, p["wo"])
 
 
 def decode_mlp(ctx: LayerCtx, norm_p: Params, p: Params, x):
-    """Stage D: norm → gate/up → act → down → residual."""
-    h = norm(ctx.cfg, norm_p, x)
+    """Stage D: norm → gate/up → act → down → residual. When claimed, two
+    fused launches: ``ops.ffn_norm`` (the norm inside the gate/up pair)
+    and ``ops.oproj_residual`` reused for ``x + h @ w_down``. The seam
+    claims rmsnorm models with a gated (swiglu / geglu) FFN only; others
+    keep the split composition."""
+    cfg = ctx.cfg
+    if (ctx.fused and cfg.norm == "rmsnorm"
+            and cfg.activation in ("swiglu", "geglu")):
+        h = ops.ffn_norm(x, norm_p["scale"], p["w_gate"], p["w_up"],
+                         activation=cfg.activation, plan=ctx.plan)
+        return ops.oproj_residual(h, p["w_down"], x, plan=ctx.plan)
+    h = norm(cfg, norm_p, x)
     return x + mlp_block(ctx, p, h)
 
 

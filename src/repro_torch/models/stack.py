@@ -1,9 +1,13 @@
 """Layer-stack plumbing. Layer params (and the KV cache) are stacked on a
 leading L axis, as in the JAX package; where it runs ``lax.scan`` the
 port runs a Python loop over per-layer views (``a[i]`` slices — no
-copies, and in-place cache writes land in the stacked tensor)."""
+copies, and in-place cache writes land in the stacked tensor). Where the
+JAX package's ``"looped"`` decode granularity runs the whole depth as one
+``lax.scan`` dispatch, the port replays one CUDA graph of the whole
+decode step (:class:`LoopedDecode`)."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 
@@ -36,3 +40,120 @@ def run_stack_cached(layers_params, x, cache, block_fn: Callable):
     for p_i, c_i in zip(unstack(layers_params), unstack(cache)):
         x = block_fn(p_i, x, c_i)
     return x, cache
+
+
+def _signature(inputs: dict) -> tuple:
+    """Static shape signature of a step's inputs: each tensor's shape and
+    dtype, a tuple of tensors (a ``DecodeGroups``) entry by entry."""
+    def sig(v):
+        if v is None:
+            return None
+        if isinstance(v, tuple):
+            return tuple(sig(t) for t in v)
+        return (tuple(v.shape), v.dtype)
+    return tuple((name, sig(v)) for name, v in sorted(inputs.items()))
+
+
+def _clone(v):
+    if v is None:
+        return None
+    if isinstance(v, tuple):
+        return type(v)(*(t.clone() for t in v))
+    return v.clone()
+
+
+def _copy_into(dst, src) -> None:
+    if dst is None:
+        return
+    if isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            d.copy_(s)
+    else:
+        dst.copy_(src)
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: object           # torch.cuda.CUDAGraph (or a test's stand-in)
+    static: dict            # the captured step's input buffers
+    out: object             # its static output (the logits)
+    launches: list          # each counter's launches per replay
+
+
+class LoopedDecode:
+    """The ``"looped"`` decode granularity on the card: a whole decode
+    step (embed, every layer with its KV writes and attention, the final
+    norm, the lm_head) captured into one ``torch.cuda.CUDAGraph`` per
+    static shape key and replayed each tick — the port's counterpart of
+    the JAX package's single ``lax.scan`` dispatch over the stacked depth.
+
+    The key is the inputs' shapes and dtypes (tokens, lengths, positions,
+    block tables, each ``DecodeGroups`` operand) plus ``anchors``, the
+    addresses of the params and cache the step reads and writes in place.
+    The first tick of a key runs eagerly: the same kernels, so the same
+    bits, and every kernel library is loaded before any capture. The next
+    tick copies its inputs into static buffers, captures and replays;
+    every later tick copies and replays. All graphs share one memory
+    pool. The logits come back in the graph's static output, which the
+    next replay of that graph overwrites. A capture error is raised, never
+    answered with an eager tick.
+
+    A replay runs no Python wrapper, so the kernels' ``.launches``
+    counters would stop at capture: the capture keeps the counters'
+    increase as the graph's launch vector (and takes it back, since a
+    capture launches nothing), and every replay adds it.
+    """
+
+    def __init__(self, counters=None):
+        if counters is None:
+            from repro_torch.kernels.ops import LAUNCH_COUNTERS
+            counters = LAUNCH_COUNTERS
+        self.counters = tuple(counters)
+        self._pool = None           # the graphs' shared memory pool
+        self._graphs: dict = {}
+        self._eager: set = set()
+        self.eager_ticks = 0        # one per key: its first tick
+        self.captures = 0
+        self.replays = 0
+
+    def run(self, step: Callable, inputs: dict, anchors: tuple):
+        """``step(**inputs)``, eagerly on a key's first tick and by graph
+        replay after."""
+        key = (_signature(inputs), anchors)
+        entry = self._graphs.get(key)
+        if entry is None:
+            if key not in self._eager:
+                self._eager.add(key)
+                self.eager_ticks += 1
+                return step(**inputs)
+            entry = self._capture(step, inputs)
+            self._graphs[key] = entry
+        else:
+            for name, buf in entry.static.items():
+                _copy_into(buf, inputs[name])
+        entry.graph.replay()
+        self.replays += 1
+        for fn, n in zip(self.counters, entry.launches):
+            fn.launches += n
+        return entry.out
+
+    def _capture(self, step: Callable, inputs: dict) -> _Graph:
+        static = {name: _clone(v) for name, v in inputs.items()}
+        before = [fn.launches for fn in self.counters]
+        graph, out = self._record(step, static)
+        launches = [fn.launches - n for fn, n in zip(self.counters, before)]
+        for fn, n in zip(self.counters, before):
+            fn.launches = n
+        self.captures += 1
+        return _Graph(graph, static, out, launches)
+
+    def _record(self, step: Callable, static: dict):
+        """Capture ``step(**static)`` into a CUDA graph in the shared
+        pool; returns (graph, static output)."""
+        import torch
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            out = step(**static)
+        return graph, out

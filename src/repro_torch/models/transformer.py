@@ -7,10 +7,13 @@ loop over per-layer views replaces the JAX package's ``lax.scan``. KV
 writes update the cache in place. The cache is either the dense slot
 cache or the block-paged pool (:mod:`repro_torch.models.kvlayout`);
 ``decode_step`` and ``prefill_chunk`` take the engine's block tables as
-``block_tables`` and address the pool through them when given.
+``block_tables`` and address the pool through them when given. Under
+the ``"looped"`` decode granularity on the card, ``decode_step`` replays
+one CUDA graph of the whole step (:class:`stack.LoopedDecode`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -72,10 +75,11 @@ def init_cache(cfg: ModelConfig, layout: KVLayout, dtype=None,
 
 def decode_block(ctx: LayerCtx, p: Params, x, position, cache_i: dict,
                  lengths, block_tables=None, write=None, decode_groups=None):
-    """One-token decode block (split stages: ingest → attend → epilogue →
-    mlp) over the dense slot cache, or over the page pool when
-    ``block_tables`` is given (``write``: the step's KV placement;
-    ``decode_groups``: the shared-prefix group plan's operands)."""
+    """One-token decode block (stages: ingest → attend → epilogue → mlp,
+    split or fused as the plan says) over the dense slot cache, or over
+    the page pool when ``block_tables`` is given (``write``: the step's KV
+    placement; ``decode_groups``: the shared-prefix group plan's
+    operands)."""
     q, k, v = L.decode_ingest(ctx, p["attn_norm"], p["attn"], x, position)
     if block_tables is None:
         o = L.decode_attend(ctx, q, k, v, cache_i["k"], cache_i["v"],
@@ -152,10 +156,29 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
     write nothing. ``decode_groups`` (paged only, a
     :class:`~repro_torch.kernels.group_attention.DecodeGroups`) reads
     each shared prefix once per group. ``positions`` defaults to
-    ``lengths``."""
+    ``lengths``.
+
+    Under the ``"looped"`` granularity on CUDA tensors the step runs
+    through the context's :class:`~repro_torch.models.stack.LoopedDecode`:
+    eagerly on a shape key's first call, by CUDA-graph replay after, so
+    the returned logits live in the graph's static buffer until its next
+    replay. On CPU tensors looped runs the fused path eagerly."""
     if decode_groups is not None and block_tables is None:
         raise ValueError("decode_groups needs the paged layout "
                          "(block_tables)")
+    inputs = dict(tokens=tokens, lengths=lengths, block_tables=block_tables,
+                  decode_groups=decode_groups, positions=positions)
+    step = functools.partial(_decode_step, ctx, params, cache)
+    if ctx.graphs is not None and tokens.is_cuda:
+        anchors = tuple(t.data_ptr() for t in stack.tree_leaves(params)
+                        + stack.tree_leaves(cache))
+        return ctx.graphs.run(step, inputs, anchors), cache
+    return step(**inputs), cache
+
+
+def _decode_step(ctx: LayerCtx, params: Params, cache: dict, *, tokens,
+                 lengths, block_tables, decode_groups, positions):
+    """The decode step's work (eager): logits (B, Vp)."""
     x = L.embed(ctx, params, tokens[:, None])          # (B, 1, D)
     position = lengths if positions is None else positions
     write = None
@@ -168,7 +191,7 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
                                           lengths, block_tables, write,
                                           decode_groups))
     x = L.norm(ctx.cfg, params["final_norm"], x)
-    return L.lm_logits(ctx, params, x)[:, 0], cache
+    return L.lm_logits(ctx, params, x)[:, 0]
 
 
 def prefill_chunk(ctx: LayerCtx, params: Params, tokens, chunk_lens,

@@ -44,6 +44,15 @@ and quantized pages come with later slices):
     attention reads each such prefix once per group and merges each
     row's private tail (the two-stage grouped kernels on ``"cuda"``).
     Tokens do not change.
+  * **Decode fusion** (``decode_fusion=`` or the plan's
+    ``decode_fusion.granularity``). ``"fused"`` runs each decode layer as
+    four fused stage launches; ``"looped"`` replays the whole decode step
+    as one CUDA graph per static shape key (one for the dense cache and
+    for the ungrouped pool, one per power-of-two group bucket of grouped
+    decode), all in one memory pool. A key's first tick runs eagerly and
+    the next one captures; ``EngineStats.graph_captures`` /
+    ``graph_replays`` count them. On the CPU looped runs the fused path
+    eagerly.
   * **One dispatch surface.** Every kernel decision rides in the single
     ``plan=`` operand; plans change which kernel runs, never the tokens.
 
@@ -60,7 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.plan import DEFAULT_PLAN, ExecutionPlan
+from repro_torch.core.plan import DEFAULT_PLAN, FUSION_MODES, ExecutionPlan
 from repro_torch.device import resolve
 from repro_torch.models.api import get_model
 from repro_torch.models.kvlayout import (DenseLayout, KVLayout, PagedLayout,
@@ -106,6 +115,9 @@ class EngineStats:
     #                                  shared-prefix group
     prefix_kv_bytes_saved: int = 0   # prefix KV bytes read once per group
     #                                  instead of once per member
+    # looped decode (decode_fusion == "looped" on the card)
+    graph_captures: int = 0          # decode-step CUDA graphs captured
+    graph_replays: int = 0           # decode ticks served by a replay
 
 
 def request_seed(seed: int, rid: int) -> int:
@@ -128,6 +140,7 @@ class Engine:
         prefix_sharing: bool = False,
         scheduler: Union[str, Scheduler] = "fcfs",
         plan: Optional[ExecutionPlan] = None,
+        decode_fusion: Optional[str] = None,
         seed: int = 0,
         device="cuda",
     ):
@@ -139,6 +152,16 @@ class Engine:
         self.cfg = cfg
         self.api = get_model(cfg)
         self.plan = plan if plan is not None else DEFAULT_PLAN
+        # decode-layer granularity: the explicit argument wins over the
+        # plan's knob, and lands in the plan, which the layers read
+        if decode_fusion is not None:
+            if decode_fusion not in FUSION_MODES:
+                raise ValueError(f"decode_fusion {decode_fusion!r} not in "
+                                 f"{FUSION_MODES}")
+            self.plan = dataclasses.replace(
+                self.plan, decode_fusion=dataclasses.replace(
+                    self.plan.decode_fusion, granularity=decode_fusion))
+        self.decode_fusion = self.plan.decode_fusion.granularity
         self.ctx = LayerCtx(cfg=cfg, plan=self.plan)
         self.params = params
         self.num_slots = num_slots
@@ -568,6 +591,9 @@ class Engine:
             block_tables=self.slots.block_tables(self.device),
             decode_groups=(gplan.operands(self.device)
                            if gplan is not None else None))
+        if self.ctx.graphs is not None:
+            self.stats.graph_captures = self.ctx.graphs.captures
+            self.stats.graph_replays = self.ctx.graphs.replays
         if gplan is not None:
             self.stats.grouped_requests += gplan.n_grouped
             self.stats.prefix_kv_bytes_saved += (

@@ -159,11 +159,6 @@ def test_prefill_logits(dtype, backend):
 def test_unported_families_and_modes_raise():
     with pytest.raises(NotImplementedError, match="slice 7"):
         tget_model(tconfigs.smoke(tconfigs.get("dbrx-132b")))
-    _, tcfg = _cfgs("float32")
-    from repro_torch.core.plan import DecodeFusionPlan, ExecutionPlan
-    with pytest.raises(NotImplementedError, match="decode-fusion"):
-        LayerCtx(cfg=tcfg, plan=ExecutionPlan(
-            decode_fusion=DecodeFusionPlan(granularity="looped")))
 
 
 def test_init_params_draws_reference_distributions():
