@@ -14,7 +14,13 @@
    bitwise the dense decode kernel, and neither paged kernel may change
    its output when every pool row it must not read holds NaN. The
    grouped decode kernels read one shared prefix for four rows: bitwise
-   the paged decode kernel on the same pool, and NaN-clean likewise.
+   the paged decode kernel on the same pool, and NaN-clean likewise. The
+   quantized variants of the GEMM kernels (rows 1, 2, 8 and 12-14 with
+   int8 and fp8 codes and f32 per-output-channel steps) are held to their
+   plain versions at the layer GEMMs' shapes, timed beside the library
+   chain (codes cast to bf16, the GEMM, the step) and the bf16 kernel on
+   the same shape; a full-width weight quantized on the card must match
+   the CPU's codes and steps bitwise.
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
    greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
@@ -33,7 +39,12 @@
    whose group bucket changes back and forth: L captures several graphs
    in one pool and replays them in turn, not in capture order; tokens
    equal to L′'s), with the graphs' replays credited to the launch
-   counters.
+   counters; then quantized weights, with fewer new tokens: M (A with
+   int8 weights), N (B with int8), O (J with fp8), O′ (its eager fused
+   twin, tokens equal to O's) and P (K's plan with int8). Every run's
+   decode ticks must read exactly the stored GEMM weight bytes of its
+   precision, a quantized run must launch the quantized variants and no
+   bf16 layer-GEMM kernel, and a bf16 run no quantized variant.
 4. Checks the logits of the first prefill and decode step (and, on the
    paged pool, of a chunk that reads resident pages, and of runs H's and
    K's plans over a shared prefix with grouped decode) against the
@@ -41,7 +52,11 @@
    greedy tokens on which the two plans agree; checks that a looped
    step's graph replay gives bitwise the eager fused step's logits and
    KV writes, on the dense cache and on the paged pool with grouped
-   decode; profiles the decode tick of A, H, J and K.
+   decode; checks int8 and fp8 weights' logits against the "torch" plan
+   with the same quantized params (default plan, fused stages, H's plan)
+   and, on the "torch" plan, against the bf16 logits within the JAX
+   package's guard (``quant.logits_guard_tol``); profiles the decode tick
+   of A, H, J, K, M and O.
 5. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -49,6 +64,7 @@ Exits non-zero, printing no result line, without CUDA, outside the repo,
 or when any check fails. Long output goes to ``chiprun_out/``.
 """
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -90,6 +106,13 @@ REPLACES = {
     "decode_ingest_fused": "src/repro/kernels/decode_fuse.py:138",
     "oproj_residual_fused": "src/repro/kernels/decode_fuse.py:299",
     "ffn_norm_fused": "src/repro/kernels/decode_fuse.py:412",
+    # the quantized bodies (int8 / fp8 weights, one counter each)
+    "gemv_quant": "src/repro/kernels/gemv.py:41",
+    "flat_gemm_quant": "src/repro/kernels/flat_gemm.py:94",
+    "fused_ffn_up_quant": "src/repro/kernels/fused_ffn.py:37",
+    "decode_ingest_fused_quant": "src/repro/kernels/decode_fuse.py:67",
+    "oproj_residual_fused_quant": "src/repro/kernels/decode_fuse.py:267",
+    "ffn_norm_fused_quant": "src/repro/kernels/decode_fuse.py:362",
 }
 SOURCES = {
     "gemv": "src/repro_torch/csrc/gemv.cu",
@@ -110,8 +133,19 @@ SOURCES = {
     "decode_ingest_fused": "src/repro_torch/csrc/decode_fuse.cu",
     "oproj_residual_fused": "src/repro_torch/csrc/decode_fuse.cu",
     "ffn_norm_fused": "src/repro_torch/csrc/decode_fuse.cu",
+    "gemv_quant": "src/repro_torch/csrc/gemv.cu",
+    "flat_gemm_quant": "src/repro_torch/csrc/flat_gemm.cu",
+    "fused_ffn_up_quant": "src/repro_torch/csrc/fused_ffn.cu",
+    "decode_ingest_fused_quant": "src/repro_torch/csrc/decode_fuse.cu",
+    "oproj_residual_fused_quant": "src/repro_torch/csrc/decode_fuse.cu",
+    "ffn_norm_fused_quant": "src/repro_torch/csrc/decode_fuse.cu",
 }
 PAGE = 64                             # page size of every paged run
+# one decode tick's stored GEMM weight stream of qwen2-0.5b, 24 layers of
+# wq, wk, wv, wo, w_gate, w_up, w_down: 357,826,560 weights at 2 bytes
+# (bf16), or at 1 byte plus 12,672 f32 steps per layer (int8, fp8)
+WEIGHT_BYTES_PER_TICK = {"bf16": 715_653_120, "int8": 359_043_072,
+                         "fp8": 359_043_072}
 
 
 class SmokeFailure(RuntimeError):
@@ -229,7 +263,9 @@ def kernel_phase(torch, timer, rows, log):
     from repro_torch.kernels import ops
     from repro_torch.kernels.flat_gemm import flat_gemm, flat_gemm_plain
     from repro_torch.kernels.gemv import gemv, gemv_plain
+    from repro_torch.kernels import quant
     from repro_torch.kernels.ref import gather_paged_kv
+    from repro_torch.models import wquant
     from repro_torch import configs
 
     spec = hardware.DEFAULT
@@ -256,25 +292,34 @@ def kernel_phase(torch, timer, rows, log):
                 f"tol per row {ATTN_REL} x RMS(row); worst {ratio:.4f} x RMS")
 
     def record(name, case, got, want, kern, plain, lib, nbytes, flops,
-               primary, close):
+               primary, close, twin=None, slot=None):
+        """Check and time one kernel case; ``twin`` times the bf16 kernel
+        on the same shape beside a quantized variant, and ``slot`` keeps
+        a primary case under that key of the row (the fp8 codes beside
+        the int8 ones)."""
         err = (got.float() - want.float()).abs().max().item()
         ok, tol = close(got, want)
         b_ms, b_by = bound_ms(nbytes, flops, spec)
         k_ms, p_ms = timer.ms(kern), timer.ms(plain)
         l_ms = timer.ms(lib) if lib is not None else None
+        t_ms = timer.ms(twin) if twin is not None else None
         line = (f"kernel {name:30s} {case:34s} max_abs_err={err:.3e} "
                 f"({tol}) "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"library_ms={'n/a' if l_ms is None else f'{l_ms:.4f}'} "
                 f"bound_ms={b_ms:.4f} ({b_by}) "
-                f"{'ok' if ok else 'MISMATCH'}")
+                + ("" if t_ms is None else f"bf16_kernel_ms={t_ms:.4f} ")
+                + f"{'ok' if ok else 'MISMATCH'}")
         log(line)
         check(ok, f"{name} {case}: kernel disagrees with its plain version")
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if primary:
-            row.update(case=case, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                       bound_ms=b_ms, bound_by=b_by)
+            target = row if slot is None else row.setdefault(slot, {})
+            target.update(case=case, ms=k_ms, plain_ms=p_ms,
+                          library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+            if t_ms is not None:
+                target["bf16_ms"] = t_ms
 
     # -- GEMMs at the decode path's [K, N] shapes --------------------------
     shapes = [(d, d), (d, hk * hd), (d, f), (f, d)]
@@ -389,6 +434,143 @@ def kernel_phase(torch, timer, rows, log):
         log(f"kernel ffn_norm_fused M={m} geglu: {'ok' if ok else 'MISMATCH'}"
             f" ({tol})")
         check(ok, f"ffn_norm_fused M={m} geglu disagrees")
+
+    # -- quantized weights: rows 1, 2, 8 and 12-14 with int8 / fp8 codes,
+    # at the layer GEMMs' shapes (the tied head never quantizes) ----------
+    def q_bytes(m, k, n):
+        """x, the codes, the steps and the output, each moved once."""
+        return 2 * m * k + k * n + 4 * n + 2 * m * n
+
+    bf = torch.bfloat16
+    for qs in (quant.INT8, quant.FP8):
+        slot = None if qs.is_int else "fp8"
+
+        def Q(w):
+            q = wquant.quantize_weight(w, qs)
+            return q["codes"], q["scale"]
+
+        def qrec(name, case, got, want, kern, plain, lib, twin, nbytes,
+                 flops, primary):
+            record(name, f"{qs.name} {case}", got, want, kern, plain, lib,
+                   nbytes, flops, primary, gemm_close, twin=twin, slot=slot)
+
+        for m, name, fn in ((1, "gemv_quant", gemv),
+                            (4, "flat_gemm_quant", flat_gemm),
+                            (64, "flat_gemm_quant", flat_gemm)):
+            x = randn(m, max(d, f))
+            for k, n in shapes:
+                xx = x[:, :k].contiguous()
+                w = randn(k, n, scale=k ** -0.5)
+                c, sc = Q(w)
+                qrec(name, f"M={m} K={k} N={n}",
+                     fn(xx, c, w_scale=sc), gemv_plain(xx, c, w_scale=sc),
+                     lambda: fn(xx, c, w_scale=sc),
+                     lambda: gemv_plain(xx, c, w_scale=sc),
+                     lambda: (torch.matmul(xx, c.to(bf)) * sc).to(bf),
+                     lambda: fn(xx, w), q_bytes(m, k, n), 2 * m * k * n,
+                     m <= 4 and (k, n) == (f, d))
+        for m in (4, 256):
+            x = randn(m, d)
+            gw, uw = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
+            (cg, sg), (cu, su) = Q(gw), Q(uw)
+            kw = dict(wg_scale=sg, wu_scale=su)
+            qrec("fused_ffn_up_quant", f"M={m} K={d} N={f} swiglu",
+                 ff.fused_ffn_up(x, cg, cu, **kw),
+                 ff.fused_ffn_up_plain(x, cg, cu, **kw),
+                 lambda: ff.fused_ffn_up(x, cg, cu, **kw),
+                 lambda: ff.fused_ffn_up_plain(x, cg, cu, **kw),
+                 lambda: (F.silu(torch.matmul(x, cg.to(bf)) * sg)
+                          * (torch.matmul(x, cu.to(bf)) * su)).to(bf),
+                 lambda: ff.fused_ffn_up(x, gw, uw),
+                 2 * m * d + 2 * q_bytes(0, d, f) + 2 * m * f,
+                 4 * m * d * f, m == 4)
+            got = ff.fused_ffn_up(x, cg, cu, activation="geglu", **kw)
+            ok, tol = gemm_close(got, ff.fused_ffn_up_plain(
+                x, cg, cu, activation="geglu", **kw))
+            log(f"kernel fused_ffn_up_quant {qs.name} M={m} geglu: "
+                f"{'ok' if ok else 'MISMATCH'} ({tol})")
+            check(ok, f"fused_ffn_up_quant {qs.name} M={m} geglu disagrees")
+        (cq, sq), (ck, sk), (cv, sv) = Q(wq), Q(wk), Q(wv)
+        (cgn, sgn), (cun, sun) = Q(wg), Q(wu)
+        (co, so), (cd, sd) = Q(wo), Q(wd)
+        qkw = dict(ikw, wq_scale=sq, wk_scale=sk, wv_scale=sv)
+        cqkv, sqkv = torch.cat([cq, ck, cv], 1), torch.cat([sq, sk, sv])
+
+        def lib_ingest_q(x, pos):
+            h = F.rms_norm(x, (d,), nscale, eps=1e-6)
+            qkv = ((torch.matmul(h, cqkv.to(bf)) * sqkv).to(bf) + bqkv).view(
+                x.shape[0], -1, hd)
+            ang = pos.float()[:, None, None] * inv_freq
+            c, s = ang.cos(), ang.sin()
+            x1, x2 = qkv[:, :hq + hk, :half], qkv[:, :hq + hk, half:]
+            rot = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1)
+            return rot.to(qkv.dtype), qkv[:, hq + hk:]
+
+        def lib_ffn_q(x):
+            h = F.rms_norm(x, (d,), nscale, eps=1e-6)
+            return (F.silu(torch.matmul(h, cgn.to(bf)) * sgn)
+                    * (torch.matmul(h, cun.to(bf)) * sun)).to(bf)
+
+        for m in (4, 1):
+            x = randn(m, d)
+            pos = torch.randint(0, 1024, (m,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            n_all = nq + 2 * nk
+            qrec("decode_ingest_fused_quant",
+                 f"M={m} K={d} N={nq}+{nk}+{nk} bias rope",
+                 torch.cat(dfu.decode_ingest_fused(x, nscale, cq, ck, cv, pos,
+                                                   **qkw), 1),
+                 torch.cat(dfu.decode_ingest_plain(x, nscale, cq, ck, cv, pos,
+                                                   **qkw), 1),
+                 lambda: dfu.decode_ingest_fused(x, nscale, cq, ck, cv, pos,
+                                                 **qkw),
+                 lambda: dfu.decode_ingest_plain(x, nscale, cq, ck, cv, pos,
+                                                 **qkw),
+                 lambda: lib_ingest_q(x, pos),
+                 lambda: dfu.decode_ingest_fused(x, nscale, wq, wk, wv, pos,
+                                                 **ikw),
+                 q_bytes(m, d, n_all) + 2 * (d + n_all) + 4 * m,
+                 2 * m * d * n_all, m == 4)
+            for k, c, sc, w, tag in ((nq, co, so, wo, "o_proj"),
+                                     (f, cd, sd, wd, "down")):
+                o, res = randn(m, k), randn(m, d)
+                qrec("oproj_residual_fused_quant", f"M={m} K={k} N={d} {tag}",
+                     dfu.oproj_residual_fused(o, c, res, w_scale=sc),
+                     dfu.oproj_residual_plain(o, c, res, w_scale=sc),
+                     lambda: dfu.oproj_residual_fused(o, c, res, w_scale=sc),
+                     lambda: dfu.oproj_residual_plain(o, c, res, w_scale=sc),
+                     lambda: res + (torch.matmul(o, c.to(bf)) * sc).to(bf),
+                     lambda: dfu.oproj_residual_fused(o, w, res),
+                     q_bytes(m, k, d) + 2 * m * d, 2 * m * k * d,
+                     m == 4 and tag == "down")
+            fkw = dict(wg_scale=sgn, wu_scale=sun)
+            qrec("ffn_norm_fused_quant", f"M={m} K={d} N={f} swiglu",
+                 dfu.ffn_norm_fused(x, nscale, cgn, cun, **fkw),
+                 dfu.ffn_norm_plain(x, nscale, cgn, cun, **fkw),
+                 lambda: dfu.ffn_norm_fused(x, nscale, cgn, cun, **fkw),
+                 lambda: dfu.ffn_norm_plain(x, nscale, cgn, cun, **fkw),
+                 lambda: lib_ffn_q(x),
+                 lambda: dfu.ffn_norm_fused(x, nscale, wg, wu),
+                 2 * m * d + 2 * d + 2 * q_bytes(0, d, f) + 2 * m * f,
+                 4 * m * d * f, m == 4)
+            got = dfu.ffn_norm_fused(x, nscale, cgn, cun, activation="geglu",
+                                     **fkw)
+            ok, tol = gemm_close(got, dfu.ffn_norm_plain(
+                x, nscale, cgn, cun, activation="geglu", **fkw))
+            log(f"kernel ffn_norm_fused_quant {qs.name} M={m} geglu: "
+                f"{'ok' if ok else 'MISMATCH'} ({tol})")
+            check(ok, f"ffn_norm_fused_quant {qs.name} M={m} geglu disagrees")
+        # quantize-at-load on the card: bitwise the CPU's codes and steps
+        on_card = wquant.quantize_weight(wd, qs)
+        on_cpu = wquant.quantize_weight(wd.cpu(), qs)
+        same = {key: same_bits(torch, (on_card[key].cpu(), on_cpu[key]))
+                for key in ("codes", "scale")}
+        log(f"wquant {qs.name}: a full-width ({f}, {d}) weight quantized on "
+            f"the card bitwise the CPU's: codes {same['codes']}, steps "
+            f"{same['scale']}")
+        same = all(same.values())
+        check(same, f"wquant {qs.name}: the card's codes differ from the "
+              "CPU's")
 
     # -- decode attention (B=4 slots, max_seq 1024, ragged) ----------------
     b, s_max = 4, 1024
@@ -854,6 +1036,8 @@ def serve_runs():
               "ffn_norm_fused")
     dense_fused = ("flat_gemm", "decode_attention_unified_max",
                    "decode_attention_sync") + stages
+    # quantized weights: every layer GEMM through a quantized variant
+    q_stages = tuple(n + "_quant" for n in stages)
     return [
         ("A slots=4 chunked prefill", dict(num_slots=4), "plain",
          ("flat_gemm", "decode_attention_unified_max",
@@ -897,6 +1081,22 @@ def serve_runs():
         ("L' slots=4 L with the fused stages, eager", dict(
             num_slots=4, prefix_sharing=True, plan=looped_plan("fused"),
             **paged), "mixed", grouped + ("fused_ffn_up",) + stages),
+        ("M slots=4 chunked prefill int8 weights", dict(
+            num_slots=4, weight_dtype="int8"), "plain16",
+         ("flat_gemm_quant", "decode_attention_unified_max")),
+        ("N slots=1 chunked prefill int8 weights", dict(
+            num_slots=1, weight_dtype="int8"), "plain16",
+         ("gemv_quant", "flat_gemm_quant")),
+        ("O slots=4 looped fp8 weights", dict(
+            num_slots=4, decode_fusion="looped", weight_dtype="fp8"),
+         "plain16", q_stages),
+        ("O' slots=4 O with the fused stages, eager", dict(
+            num_slots=4, decode_fusion="fused", weight_dtype="fp8"),
+         "plain16", q_stages),
+        ("P slots=4 K's plan int8 weights", dict(
+            num_slots=4, prefix_sharing=True, plan=looped_plan(),
+            weight_dtype="int8", **paged), "shared32",
+         grouped + ("fused_ffn_up_quant",) + q_stages),
     ]
 
 
@@ -950,12 +1150,35 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
             check(0 < st.graph_captures <= lp.eager_ticks,
                   f"{tag}: {st.graph_captures} graphs for "
                   f"{lp.eager_ticks} keys")
+        digest = hashlib.sha256(json.dumps(
+            sorted(out.items())).encode()).hexdigest()[:16]
         log(f"serve {tag}: {len(out)} requests, {total} tokens in "
             f"{dt:.3f}s = {total / dt:.1f} tok/s; {eng.ticks} decode ticks "
             f"at {1e3 * st.decode_seconds / max(eng.ticks, 1):.3f} ms/tick; "
             f"prefill {st.prefill_seconds:.3f}s; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB{paged}"
-            f"{graphs}; launches {json.dumps(counts)}")
+            f"{graphs}; weights {eng.weight_dtype}, "
+            f"{st.weight_bytes_decode_read} decode weight bytes read; "
+            f"tokens sha256 {digest}; launches {json.dumps(counts)}")
+        # the stored weight stream per decode tick, at the launched width
+        # (a tick that preemption left with no row reads none)
+        per_tick = WEIGHT_BYTES_PER_TICK[eng.weight_dtype]
+        read = st.weight_bytes_decode_read
+        check(read == eng.ticks * per_tick if not st.preemptions else
+              read % per_tick == 0 and read <= eng.ticks * per_tick,
+              f"{tag}: {read} weight bytes in {eng.ticks} ticks")
+        # a quantized run launches no bf16 layer-GEMM kernel (its codes
+        # are never dequantized ahead of one) and a bf16 run no quantized
+        # variant; only the LM head (tied, bf16) uses gemv / flat_gemm
+        if eng.weight_dtype == "bf16":
+            idle = [n for n in counts if n.endswith("_quant")]
+        else:
+            idle = [n[:-len("_quant")] for n in counts
+                    if n.endswith("_quant")
+                    and n not in ("gemv_quant", "flat_gemm_quant")]
+        for n in idle:
+            check(counts[n] == 0, f"{tag}: kernel {n} launched {counts[n]} "
+                  "times")
         for rid, toks in out.items():
             check(len(toks) == requests[rid][1].max_new_tokens,
                   f"{tag}: request {rid} produced {len(toks)} tokens")
@@ -985,6 +1208,12 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
         return sum(sum(1 for x, y in zip(outputs[a][r], outputs[b][r])
                        if x == y) for r in outputs[a])
 
+    def agree16(a, b):
+        """Positions where b's tokens (a shorter run of the same requests)
+        match a's."""
+        return sum(sum(1 for x, y in zip(outputs[a][r], outputs[b][r])
+                       if x == y) for r in outputs[b])
+
     total = sum(len(v) for v in outputs["E"].values())
     log(f"serve paged contracts: D == A tokens; E shared "
         f"{engines['E'].stats.shared_prefix_pages} prefix pages, E == E′ "
@@ -1011,6 +1240,17 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
     check(el.graph_captures >= 2, f"run L captured {el.graph_captures} "
           "graph(s); its traffic should change the group bucket")
     check(back > 0, "run L never went back to an earlier-captured graph")
+    check(outputs["O"] == outputs["O'"], "run O's tokens differ from O′'s")
+    plain16 = sum(len(v) for v in outputs["M"].values())
+    log(f"serve quantized-weight contracts: O == O′ tokens "
+        f"({sum(len(v) for v in outputs['O'].values())}); weight bytes per "
+        f"decode tick {WEIGHT_BYTES_PER_TICK['int8']} (int8, fp8) against "
+        f"{WEIGHT_BYTES_PER_TICK['bf16']} (bf16); M (int8) agrees with A "
+        f"on the first 16 tokens of each request at "
+        f"{agree16('A', 'M')}/{plain16} positions, O (fp8) with J at "
+        f"{agree16('J', 'O')}/{plain16}; P (int8, "
+        f"{engines['P'].stats.graph_replays} replays) with K at "
+        f"{agree16('K', 'P')}/{sum(len(v) for v in outputs['P'].values())}")
     plain_total = sum(len(v) for v in outputs["A"].values())
     log(f"serve fusion contracts: J == I tokens; I (fused stages) agrees "
         f"with A on {agree('A', 'I')}/{plain_total} tokens; K == K′ "
@@ -1339,6 +1579,74 @@ def paged_logits_phase(torch, cfg, params, shared, log):
               f"{what} logits differ by {worst} > {LOGITS_TOL}")
 
 
+def quant_logits_phase(torch, cfg, params, requests, log):
+    """Quantized weights against the ``"torch"`` plan: for int8 and fp8,
+    the params quantized once on the card; a prefill chunk and the first
+    decode step under the default plan (quantized flat GEMM at decode,
+    the XLA-dot expression at the 256-row chunk), the fused stages and
+    run H's plan (the quantized fused FFN-up at the chunk), each within
+    LOGITS_TOL of the ``"torch"`` plan with the same knobs and params.
+    On the ``"torch"`` plan, the quantized logits within the JAX
+    package's guard, logits_guard_tol(spec) x max(|logits|, 1), of the
+    bf16 logits."""
+    from repro_torch.core.plan import DEFAULT_PLAN, make_plan
+    from repro_torch.kernels import quant
+    from repro_torch.models import wquant
+    from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import DenseLayout
+    from repro_torch.models.layers import LayerCtx
+
+    api = get_model(cfg)
+    c = 64
+    toks = torch.zeros((4, c), dtype=torch.int32, device="cuda")
+    for i, (p, _) in enumerate(requests[:4]):
+        toks[i] = torch.as_tensor(p[:c], device="cuda")
+    lens = torch.full((4,), c, dtype=torch.int32, device="cuda")
+    zeros = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    nxt = toks[:, 0].contiguous()       # one teacher-forced next token
+
+    def run(plan, p):
+        ctx = LayerCtx(cfg, plan)
+        cache = api.init_cache(DenseLayout(4, 1024), device="cuda")
+        with torch.no_grad():
+            l1, cache = api.prefill_chunk(ctx, p, toks, lens, cache, zeros)
+            l2, _ = api.decode_step(ctx, p, nxt, cache, lens)
+        return [t[:, :cfg.vocab_size].float() for t in (l1, l2)]
+
+    bf16 = run(make_plan("torch"), params)
+    plans = (("default plan", DEFAULT_PLAN, make_plan("torch")),
+             ("fused stages", make_plan("cuda", decode_fusion="fused"),
+              make_plan("torch", fused_ffn=True, decode_fusion="fused")),
+             ("H's plan (fused FFN-up)", tuned_plan(),
+              make_plan("torch", fused_ffn=True)))
+    for qs in (quant.INT8, quant.FP8):
+        qp = wquant.quantize_params(params, qs)
+        for what, cuda_plan, torch_plan in plans:
+            got, want = run(cuda_plan, qp), run(torch_plan, qp)
+            for step, a, b in zip(("prefill chunk", "first decode step"),
+                                  got, want):
+                err = (a - b).abs().max().item()
+                log(f"logits {qs.name} weights, {what}, {step}: cuda plan vs "
+                    f"torch plan max_abs_err={err:.4f} (tol {LOGITS_TOL}); "
+                    f"argmax agree "
+                    f"{(a.argmax(-1) == b.argmax(-1)).sum().item()}/4")
+                check(err <= LOGITS_TOL, f"{qs.name} {what} {step} logits "
+                      f"differ by {err} > {LOGITS_TOL}")
+            if what == "default plan":
+                for step, a, b in zip(("prefill chunk",
+                                       "first decode step"), want, bf16):
+                    tol = quant.logits_guard_tol(qs) * max(
+                        b.abs().max().item(), 1.0)
+                    err = (a - b).abs().max().item()
+                    log(f"logits guard {qs.name}, {step}: torch plan "
+                        f"quantized vs bf16 max_abs_err={err:.4f} (guard "
+                        f"{tol:.4f}); argmax agree "
+                        f"{(a.argmax(-1) == b.argmax(-1)).sum().item()}/4")
+                    check(err <= tol, f"{qs.name} {step}: quantized logits "
+                          f"leave the guard ({err} > {tol})")
+        del qp
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1402,10 +1710,16 @@ def main(argv=None) -> int:
         [(len(p), s.max_new_tokens) for p, s in mixed]))
     check(set(REPLACES) <= set(counters()),
           "a kernel of REPLACES has no counter in ops.LAUNCH_COUNTERS")
+    # the quantized-weight runs serve the same requests with fewer tokens
+    sp16 = SamplingParams(max_new_tokens=16)
+    sp32 = SamplingParams(max_new_tokens=32)
     launches = {}
     outputs = serve_phase(torch, cfg, params,
                           {"plain": requests, "shared": shared,
-                           "mixed": mixed}, log, launches)
+                           "mixed": mixed,
+                           "plain16": [(p, sp16) for p, _ in requests],
+                           "shared32": [(p, sp32) for p, _ in shared]},
+                          log, launches)
     profile_phase(torch, cfg, params, requests, log)
     profile_phase(torch, cfg, params, shared, log,
                   tag="H slots=4 paged sharing grouped fused-FFN",
@@ -1417,9 +1731,15 @@ def main(argv=None) -> int:
                   tag="K slots=4 paged sharing grouped fused-FFN looped",
                   cache_kind="paged", page_size=PAGE, prefix_sharing=True,
                   plan=looped_plan())
+    profile_phase(torch, cfg, params, requests, log,
+                  tag="M slots=4 int8 weights", weight_dtype="int8")
+    profile_phase(torch, cfg, params, requests, log,
+                  tag="O slots=4 looped fp8 weights", decode_fusion="looped",
+                  weight_dtype="fp8")
     graph_phase(torch, cfg, params, shared, log)
     logits_phase(torch, cfg, params, requests, log, outputs["A"])
     paged_logits_phase(torch, cfg, params, shared, log)
+    quant_logits_phase(torch, cfg, params, requests, log)
 
     for name in REPLACES:
         check(launches.get(name, 0) > 0,
@@ -1434,7 +1754,8 @@ def main(argv=None) -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["case"]})
+            "shape": r["case"],
+            **{key: r[key] for key in ("bf16_ms", "fp8") if key in r}})
     (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -30,6 +30,7 @@ SCHEMES = ("sync", "unified_max")
 GATHER_MODES = ("dense", "fused")  # chunk-path page access discipline
 GROUP_MODES = ("off", "grouped")   # decode-path shared-prefix discipline
 KV_DTYPES = ("bf16", "int8", "fp8")  # paged KV page storage precision
+WEIGHT_DTYPES = ("bf16", "int8", "fp8")  # GEMM weight storage precision
 FUSION_MODES = ("split", "fused", "looped")  # decode-layer stage granularity
 
 
@@ -50,16 +51,25 @@ def _check_pos(value: int, what: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class MatmulPlan:
     """GEMM routing: tuned [K, N] inflection entries plus the default
-    ladder for unseen shapes (GEMV only at M <= 2, cuBLAS from M = 128)."""
+    ladder for unseen shapes (GEMV only at M <= 2, cuBLAS from M = 128).
+
+    ``weight_dtype`` is the GEMM weight storage precision
+    (:data:`WEIGHT_DTYPES`): ``"int8"`` / ``"fp8"`` make the engine
+    quantize every layer GEMM weight at load into 1-byte codes with one
+    f32 step per output channel (``models/wquant.py``), which the kernels
+    apply on their f32 accumulators. The kernels key off the quantized
+    leaf itself, not this knob; ``"bf16"`` is the bitwise path."""
 
     backend: str = "cuda"
     default_m1: int = 3
     default_m2: int = 128
+    weight_dtype: str = "bf16"
     entries: Dict[Tuple[int, int], dispatch.DispatchEntry] = \
         dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         _check(self.backend, BACKENDS, "matmul.backend")
+        _check(self.weight_dtype, WEIGHT_DTYPES, "matmul.weight_dtype")
         _check_pos(self.default_m1, "matmul.default_m1")
         _check_pos(self.default_m2, "matmul.default_m2")
         if self.default_m2 < self.default_m1:
@@ -241,17 +251,27 @@ def make_plan(backend: str = "cuda", *, fused_ffn: Optional[bool] = None,
               gather_chunk: str = "fused", fused_threshold: int = 64,
               decode_group: str = "off",
               group_threshold: int = 2,
-              decode_fusion: str = "split") -> ExecutionPlan:
+              decode_fusion: str = "split",
+              weight_dtype: Optional[str] = "bf16") -> ExecutionPlan:
     """The untuned plan with every op on ``backend``. ``fused_ffn=None``
     fuses the FFN-up on the kernel backend (``"cuda"``) only, as the JAX
     package does for ``"pallas"``; ``gather_chunk`` and
     ``fused_threshold`` pin the paged chunk discipline, ``decode_group``
-    and ``group_threshold`` the shared-prefix decode grouping, and
-    ``decode_fusion`` the decode-layer granularity."""
+    and ``group_threshold`` the shared-prefix decode grouping,
+    ``decode_fusion`` the decode-layer granularity and ``weight_dtype``
+    the GEMM weight precision. ``weight_dtype=None`` (the JAX package's
+    cost-model pick, ``dispatch.find_weight_dtype``) is refused: the cost
+    models wait with item 2 of slice 1's remainder in ROADMAP.md."""
+    if weight_dtype is None:
+        raise PlanError(
+            "weight_dtype=None asks dispatch.find_weight_dtype's cost model "
+            "to pick the precision; the port's cost models are not ported "
+            "yet (ROADMAP.md, slice 1's remainder, item 2): pass one of "
+            f"{WEIGHT_DTYPES}")
     if fused_ffn is None:
         fused_ffn = backend == "cuda"
     return ExecutionPlan(
-        matmul=MatmulPlan(backend=backend),
+        matmul=MatmulPlan(backend=backend, weight_dtype=weight_dtype),
         attention_decode=AttentionDecodePlan(backend=backend),
         attention_prefill=AttentionPrefillPlan(backend=backend),
         fused_ffn=FusedFFNPlan(backend=backend, fused=fused_ffn),

@@ -7,6 +7,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,6 +34,39 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+
+// Quantized weights (models/wquant.py) arrive as 1-byte codes: int8
+// (|code| <= 127) or fp8 e4m3 (|code| <= 448). Both become floats, and
+// bf16 values, exactly: int8 fits bf16's 8-bit significand, and e4m3's
+// 3 mantissa bits and its 2^-9 .. 448 range fit bf16's. encode() never
+// writes -128 or the e4m3 NaN, so neither is handled here.
+template <typename CT>
+__device__ __forceinline__ float code_to_float(unsigned char b);
+
+template <>
+__device__ __forceinline__ float code_to_float<int8_t>(unsigned char b) {
+  return static_cast<float>(static_cast<signed char>(b));
+}
+
+template <>
+__device__ __forceinline__ float code_to_float<__nv_fp8_e4m3>(
+    unsigned char b) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(b, __NV_E4M3)));
+}
+
+// A code's value as bf16 bits (exact), for the bf16 MMA.
+template <typename CT>
+__device__ __forceinline__ uint16_t code_bits(unsigned char b) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(code_to_float<CT>(b)));
+}
+
+// Unpack the 16 codes held in one 16-byte vector into floats.
+template <typename CT>
+__device__ __forceinline__ void unpack16(const uint4& u, float* out) {
+  const unsigned char* b = reinterpret_cast<const unsigned char*>(&u);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = code_to_float<CT>(b[i]);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

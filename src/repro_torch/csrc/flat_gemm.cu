@@ -1,7 +1,8 @@
 // T2 — flat GEMM: (M, K) x (K, N) with M padded only to 8 (paper §4).
 //
-// Replaces: src/repro/kernels/flat_gemm.py::flat_gemm (_flat_gemm_kernel),
-// the TPU MXU kernel with a double-buffered K grid.
+// Replaces: src/repro/kernels/flat_gemm.py::flat_gemm (_flat_gemm_kernel,
+// and _flat_gemm_quant_kernel for int8 / fp8 weights), the TPU MXU kernel
+// with a double-buffered K grid.
 //
 // Bound on H100: device-memory bytes for the decode shapes. With M <= 64
 // token rows the work is 2*M*K*N FLOPs over ~K*N*2 weight bytes, i.e.
@@ -25,6 +26,8 @@
 //   * BN and BK come from pick_bn/pick_bk (kernels/flat_gemm.py): the
 //     paper's Eq. 5 trade of parallel blocks against x-tile reuse,
 //     budgeted on the SM count and shared memory.
+// Quantized weights halve the bytes: the codes stream at 1 byte and the
+// per-output-channel step multiplies the f32 accumulator in the epilogue.
 // The kernel itself is flat_stream.cuh's gemm_kernel (one weight stream,
 // no residual); its mainloop is the one every streamed-weight kernel of
 // the port shares, and decode_fuse.cu's oproj_residual is the same
@@ -44,8 +47,22 @@ REPRO_EXPORT int flat_gemm_bf16(const void* x, const void* w, void* out,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (w_kn)
-    return flat::dispatch_gemm<true>(bn, bk, x, w, nullptr, out, M, K, N,
-                                     ldx, ldw, 0, st);
-  return flat::dispatch_gemm<false>(bn, bk, x, w, nullptr, out, M, K, N,
-                                    ldx, ldw, 0, st);
+    return flat::dispatch_gemm<true, __nv_bfloat16>(
+        bn, bk, x, w, nullptr, nullptr, out, M, K, N, ldx, ldw, 0, st);
+  return flat::dispatch_gemm<false, __nv_bfloat16>(
+      bn, bk, x, w, nullptr, nullptr, out, M, K, N, ldx, ldw, 0, st);
+}
+
+// Quantized weights (replaces _flat_gemm_quant_kernel): out (M, N) bf16 =
+// bf16((x @ codes) * scale), codes (K, N) row-major int8 (fp8 = 0) or e4m3
+// (fp8 = 1), leading dimension ldw, scale (N,) f32. The codes stream at 1
+// byte (16 per cp.async) and become bf16 exactly in the fragment loads.
+// Needs K % 8 == 0, N % 16 == 0 and 16-byte aligned rows.
+REPRO_EXPORT int flat_gemm_q8(const void* x, const void* w,
+                              const void* scale, void* out, int M, int K,
+                              int N, long long ldx, long long ldw, int bn,
+                              int bk, int fp8, void* stream) {
+  return flat::dispatch_gemm_q8<>(fp8, bn, bk, x, w, scale, nullptr, out, M,
+                                K, N, ldx, ldw, 0,
+                                static_cast<cudaStream_t>(stream));
 }

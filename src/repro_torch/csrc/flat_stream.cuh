@@ -20,6 +20,15 @@
 //     normalised and rounded to bf16, into shared memory once before the
 //     loop, and every weight tile reads them in place. The rows are the
 //     same in every block because the reduction order is fixed.
+//   * The weight element type WT is bf16, or a 1-byte code (int8_t,
+//     __nv_fp8_e4m3) of a quantized weight in the "KN" layout: the codes
+//     stream at their stored width (16 per cp.async chunk), w_frag turns
+//     each into its exact bf16 value for the unchanged bf16 MMA, and the
+//     kernels multiply the f32 accumulators by the per-output-channel
+//     step in their epilogues, before the first rounding (the JAX
+//     package's quantized bodies: dot on codes cast to the activation
+//     dtype, f32 accumulation, acc * step). The bf16 instantiations keep
+//     their layout, loads and MMA order, so they keep their bits.
 #pragma once
 
 #include "common.cuh"
@@ -29,16 +38,26 @@ namespace flat {
 
 constexpr int kMT = 64;  // token rows per block at most (8 n8 tiles)
 
-template <int BN, int BK, int S, bool XRES, bool KN = true>
+template <typename WT>
+constexpr bool kIsCode = sizeof(WT) == 1;   // a quantized weight's codes
+
+// One pipeline stage: the streamed x tile (bf16, absent when x is
+// resident), then S weight tiles. Every row is padded by 16 bytes (8 bf16
+// or 16 codes), which keeps each row start 16-byte aligned.
+template <int BN, int BK, int S, bool XRES, bool KN = true,
+          typename WT = __nv_bfloat16>
 struct Tile {
+  static_assert(KN || !kIsCode<WT>, "codes come in the (K, N) layout only");
   static constexpr int kThreads = BN / 16 * 32;
   static constexpr int kXPitch = BK + 8;                // streamed xs[m][k]
   static constexpr int kWRows = KN ? BK : BN;
-  static constexpr int kWPitch = KN ? BN + 8 : BK + 8;  // ws[k][n] / ws[n][k]
-  static constexpr int kXElems = XRES ? 0 : kMT * kXPitch;
-  static constexpr int kWElems = kWRows * kWPitch;
-  static constexpr int kStageElems = kXElems + S * kWElems;
-  static constexpr size_t kStagesBytes = 2 * kStageElems * 2;
+  // ws[k][n] / ws[n][k] row pitch in bytes
+  static constexpr int kWPitchBytes =
+      (KN ? BN : BK) * static_cast<int>(sizeof(WT)) + 16;
+  static constexpr int kXBytes = XRES ? 0 : kMT * kXPitch * 2;
+  static constexpr int kWBytes = kWRows * kWPitchBytes;
+  static constexpr int kStageBytes = kXBytes + S * kWBytes;
+  static constexpr size_t kStagesBytes = 2 * static_cast<size_t>(kStageBytes);
 };
 
 // Row pitch of the resident rows: K rounded up to whole BK tiles, plus 8
@@ -48,34 +67,40 @@ __host__ __device__ inline int resident_pitch(int K, int BK) {
 }
 
 // The S weight streams of one block.
-template <int S>
+template <int S, typename WT = __nv_bfloat16>
 struct Streams {
-  const __nv_bfloat16* w[S];
+  const WT* w[S];
 };
 
-template <int BN, int BK, int NT, bool KN>
-__device__ __forceinline__ void load_w(__nv_bfloat16* ws,
-                                       const __nv_bfloat16* __restrict__ w,
-                                       int K, int N, long long ldw, int n0,
+// One BK x BN weight tile into ws (row pitch kWPitchBytes), 16 bytes per
+// cp.async: 8 bf16 or 16 codes. Chunks past K or N are zero-filled, so N
+// must be a multiple of 16 / sizeof(WT).
+template <int BN, int BK, int NT, bool KN, typename WT>
+__device__ __forceinline__ void load_w(unsigned char* ws,
+                                       const WT* __restrict__ w, int K,
+                                       int N, long long ldw, int n0,
                                        int k0) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(WT));
   if constexpr (KN) {
-    constexpr int kPitch = BN + 8;
-    constexpr int kChunks = BK * (BN / 8);
+    constexpr int kPitch = BN * static_cast<int>(sizeof(WT)) + 16;
+    constexpr int kCpr = BN / kVec;   // copies per row
+    constexpr int kChunks = BK * kCpr;
     for (int c = threadIdx.x; c < kChunks; c += NT) {
-      const int r = c / (BN / 8), cc = c % (BN / 8);
-      const int gk = k0 + r, gn = n0 + cc * 8;
+      const int r = c / kCpr, cc = c % kCpr;
+      const int gk = k0 + r, gn = n0 + cc * kVec;
       const bool ok = gk < K && gn < N;
-      cp_async16(ws + r * kPitch + cc * 8,
+      cp_async16(ws + r * kPitch + cc * 16,
                  ok ? w + static_cast<long long>(gk) * ldw + gn : w, ok);
     }
   } else {
-    constexpr int kPitch = BK + 8;
-    constexpr int kChunks = BN * (BK / 8);
+    constexpr int kPitch = BK * static_cast<int>(sizeof(WT)) + 16;
+    constexpr int kCpr = BK / kVec;
+    constexpr int kChunks = BN * kCpr;
     for (int c = threadIdx.x; c < kChunks; c += NT) {
-      const int r = c / (BK / 8), cc = c % (BK / 8);
-      const int gn = n0 + r, gk = k0 + cc * 8;
+      const int r = c / kCpr, cc = c % kCpr;
+      const int gn = n0 + r, gk = k0 + cc * kVec;
       const bool ok = gn < N && gk < K;
-      cp_async16(ws + r * kPitch + cc * 8,
+      cp_async16(ws + r * kPitch + cc * 16,
                  ok ? w + static_cast<long long>(gn) * ldw + gk : w, ok);
     }
   }
@@ -97,11 +122,19 @@ __device__ __forceinline__ void load_x(__nv_bfloat16* xs,
 }
 
 // A fragment of W^T (16 columns n of this warp x 16 k), from ws[k][n]
-// (KN) or ws[n][k].
-template <int BN, int BK, bool KN>
-__device__ __forceinline__ void w_frag(const uint16_t* ws16, int kk, int wn,
-                                       int g, int t, uint32_t* a) {
-  if constexpr (KN) {
+// (KN) or ws[n][k]; codes become their exact bf16 values.
+template <int BN, int BK, bool KN, typename WT>
+__device__ __forceinline__ void w_frag(const unsigned char* ws, int kk,
+                                       int wn, int g, int t, uint32_t* a) {
+  const uint16_t* ws16 = reinterpret_cast<const uint16_t*>(ws);
+  if constexpr (kIsCode<WT>) {
+    constexpr int P = BN + 16;
+    const unsigned char* r0 = ws + (kk + 2 * t) * P + wn + g;
+    a[0] = pack2(code_bits<WT>(r0[0]), code_bits<WT>(r0[P]));
+    a[1] = pack2(code_bits<WT>(r0[8]), code_bits<WT>(r0[P + 8]));
+    a[2] = pack2(code_bits<WT>(r0[8 * P]), code_bits<WT>(r0[9 * P]));
+    a[3] = pack2(code_bits<WT>(r0[8 * P + 8]), code_bits<WT>(r0[9 * P + 8]));
+  } else if constexpr (KN) {
     constexpr int P = BN + 8;
     const int ka = kk + 2 * t, na = wn + g;
     a[0] = pack2(ws16[ka * P + na], ws16[(ka + 1) * P + na]);
@@ -175,13 +208,14 @@ __device__ __forceinline__ void norm_rows(
 // the caller may reuse the stages and xn at once.
 // C^T fragment: acc[s][j][0..1] at (n = g, m = j*8 + 2t, +1),
 // acc[s][j][2..3] at (n = g + 8, same m).
-template <int BN, int BK, int S, bool XRES, bool KN = true>
+template <int BN, int BK, int S, bool XRES, bool KN = true,
+          typename WT = __nv_bfloat16>
 __device__ __forceinline__ void mainloop(
-    __nv_bfloat16* stages, const __nv_bfloat16* xn, int xn_pitch,
+    unsigned char* stages, const __nv_bfloat16* xn, int xn_pitch,
     const __nv_bfloat16* __restrict__ x, long long ldx,
-    const Streams<S>& ws, long long ldw, int M, int K, int N, int m0,
+    const Streams<S, WT>& ws, long long ldw, int M, int K, int N, int m0,
     int n0, int nt, float (&acc)[S][8][4]) {
-  using T = Tile<BN, BK, S, XRES, KN>;
+  using T = Tile<BN, BK, S, XRES, KN, WT>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int wn = warp * 16;  // this warp's 16 columns
@@ -192,12 +226,14 @@ __device__ __forceinline__ void mainloop(
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[s][j][i] = 0.f;
 
-  auto load_stage = [&](__nv_bfloat16* stage, int k0) {
-    if constexpr (!XRES) load_x<BK, T::kThreads>(stage, x, M, K, ldx, m0, k0);
+  auto load_stage = [&](unsigned char* stage, int k0) {
+    if constexpr (!XRES)
+      load_x<BK, T::kThreads>(reinterpret_cast<__nv_bfloat16*>(stage), x, M,
+                              K, ldx, m0, k0);
 #pragma unroll
     for (int s = 0; s < S; ++s)
-      load_w<BN, BK, T::kThreads, KN>(stage + T::kXElems + s * T::kWElems,
-                                      ws.w[s], K, N, ldw, n0, k0);
+      load_w<BN, BK, T::kThreads, KN, WT>(stage + T::kXBytes + s * T::kWBytes,
+                                          ws.w[s], K, N, ldw, n0, k0);
   };
 
   const int n_kt = (K + BK - 1) / BK;
@@ -205,24 +241,23 @@ __device__ __forceinline__ void mainloop(
   cp_async_commit();
   for (int kt = 0; kt < n_kt; ++kt) {
     if (kt + 1 < n_kt)
-      load_stage(stages + ((kt + 1) & 1) * T::kStageElems, (kt + 1) * BK);
+      load_stage(stages + ((kt + 1) & 1) * T::kStageBytes, (kt + 1) * BK);
     cp_async_commit();  // possibly empty: keeps the group count uniform
     cp_async_wait1();   // tile kt has landed
     __syncthreads();
 
-    const __nv_bfloat16* stage = stages + (kt & 1) * T::kStageElems;
+    const unsigned char* stage = stages + (kt & 1) * T::kStageBytes;
     const uint16_t* xs16 =
         XRES ? reinterpret_cast<const uint16_t*>(xn) + kt * BK
              : reinterpret_cast<const uint16_t*>(stage);
     const int xp = XRES ? xn_pitch : T::kXPitch;
-    const uint16_t* w16 =
-        reinterpret_cast<const uint16_t*>(stage + T::kXElems);
+    const unsigned char* wsb = stage + T::kXBytes;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       uint32_t a[S][4];
 #pragma unroll
       for (int s = 0; s < S; ++s)
-        w_frag<BN, BK, KN>(w16 + s * T::kWElems, kk, wn, g, t, a[s]);
+        w_frag<BN, BK, KN, WT>(wsb + s * T::kWBytes, kk, wn, g, t, a[s]);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         if (j < nt) {
@@ -244,25 +279,26 @@ __device__ __forceinline__ void mainloop(
 // instantiates it without one (resid = nullptr), decode_fuse.cu's
 // oproj_residual with one. The accumulator rounds to bf16 before the add,
 // so the residual form writes bf16(resid + bf16(x @ W)), as
-// `resid + matmul(o, wo)` does.
+// `resid + matmul(o, wo)` does. With codes (WT 1 byte) the step scale[n]
+// multiplies the accumulator first: bf16(acc * step), and with a
+// residual bf16(resid + bf16(acc * step)); bf16 weights take no scale.
 // ---------------------------------------------------------------------------
 
-template <int BN, int BK, bool KN>
+template <int BN, int BK, bool KN, typename WT>
 __global__ void __launch_bounds__(BN / 16 * 32)
-gemm_kernel(const __nv_bfloat16* __restrict__ x,
-            const __nv_bfloat16* __restrict__ w,
+gemm_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
+            const float* __restrict__ scale,
             const __nv_bfloat16* __restrict__ resid,
             __nv_bfloat16* __restrict__ out, int M, int K, int N,
             long long ldx, long long ldw, long long ldr) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * kMT;
   const int nt = min(8, (M - m0 + 7) / 8);  // live n8 token tiles
   float acc[1][8][4];
-  mainloop<BN, BK, 1, false, KN>(stages, nullptr, 0, x, ldx,
-                                 Streams<1>{{w}}, ldw, M, K, N, m0, n0, nt,
-                                 acc);
+  mainloop<BN, BK, 1, false, KN, WT>(smem, nullptr, 0, x, ldx,
+                                     Streams<1, WT>{{w}}, ldw, M, K, N, m0,
+                                     n0, nt, acc);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
@@ -274,6 +310,7 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
         const int n = n0 + warp * 16 + g + (i >> 1) * 8;
         if (m < M && n < N) {
           float v = acc[0][j][i];
+          if constexpr (kIsCode<WT>) v *= scale[n];
           if (resid != nullptr) v = bf2f(resid[m * ldr + n]) + bf2f(f2bf(v));
           out[static_cast<long long>(m) * N + n] = f2bf(v);
         }
@@ -282,31 +319,32 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <int BN, int BK, bool KN>
-int launch_gemm(const void* x, const void* w, const void* resid, void* out,
-                int M, int K, int N, long long ldx, long long ldw,
-                long long ldr, cudaStream_t st) {
-  using T = Tile<BN, BK, 1, false, KN>;
-  cudaError_t e = allow_smem(gemm_kernel<BN, BK, KN>, T::kStagesBytes);
+template <int BN, int BK, bool KN, typename WT>
+int launch_gemm(const void* x, const void* w, const void* scale,
+                const void* resid, void* out, int M, int K, int N,
+                long long ldx, long long ldw, long long ldr,
+                cudaStream_t st) {
+  using T = Tile<BN, BK, 1, false, KN, WT>;
+  cudaError_t e = allow_smem(gemm_kernel<BN, BK, KN, WT>, T::kStagesBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   using B = __nv_bfloat16;
   dim3 grid((N + BN - 1) / BN, (M + kMT - 1) / kMT);
-  gemm_kernel<BN, BK, KN><<<grid, T::kThreads, T::kStagesBytes, st>>>(
-      static_cast<const B*>(x), static_cast<const B*>(w),
-      static_cast<const B*>(resid), static_cast<B*>(out), M, K, N, ldx, ldw,
-      ldr);
+  gemm_kernel<BN, BK, KN, WT><<<grid, T::kThreads, T::kStagesBytes, st>>>(
+      static_cast<const B*>(x), static_cast<const WT*>(w),
+      static_cast<const float*>(scale), static_cast<const B*>(resid),
+      static_cast<B*>(out), M, K, N, ldx, ldw, ldr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool KN>
+template <bool KN, typename WT>
 int dispatch_gemm(int bn, int bk, const void* x, const void* w,
-                  const void* resid, void* out, int M, int K, int N,
-                  long long ldx, long long ldw, long long ldr,
+                  const void* scale, const void* resid, void* out, int M,
+                  int K, int N, long long ldx, long long ldw, long long ldr,
                   cudaStream_t st) {
-#define REPRO_FG_CASE(BN_, BK_)                                       \
-  if (bn == BN_ && bk == BK_)                                         \
-    return launch_gemm<BN_, BK_, KN>(x, w, resid, out, M, K, N, ldx,  \
-                                     ldw, ldr, st);
+#define REPRO_FG_CASE(BN_, BK_)                                             \
+  if (bn == BN_ && bk == BK_)                                               \
+    return launch_gemm<BN_, BK_, KN, WT>(x, w, scale, resid, out, M, K, N,  \
+                                         ldx, ldw, ldr, st);
   REPRO_FG_CASE(32, 32)
   REPRO_FG_CASE(32, 64)
   REPRO_FG_CASE(32, 128)
@@ -320,11 +358,28 @@ int dispatch_gemm(int bn, int bk, const void* x, const void* w,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The quantized flat GEMM's entry: codes int8 (fp8 = 0) or e4m3 (fp8 = 1)
+// in the (K, N) layout, steps (N,) f32, optional residual. A template, so
+// that only the sources that call it compile its kernels.
+template <bool KN = true>
+int dispatch_gemm_q8(int fp8, int bn, int bk, const void* x,
+                            const void* w, const void* scale,
+                            const void* resid, void* out, int M, int K,
+                            int N, long long ldx, long long ldw,
+                            long long ldr, cudaStream_t st) {
+  if (fp8)
+    return dispatch_gemm<KN, __nv_fp8_e4m3>(bn, bk, x, w, scale, resid, out,
+                                            M, K, N, ldx, ldw, ldr, st);
+  return dispatch_gemm<KN, int8_t>(bn, bk, x, w, scale, resid, out, M, K, N,
+                                   ldx, ldw, ldr, st);
+}
+
 // ---------------------------------------------------------------------------
 // The fused FFN-up, h = act(x @ Wg) * (x @ Wu), with the activation on the
 // unrounded f32 accumulators and one rounding: fused_ffn.cu instantiates
 // it with x streamed (NORM = false), decode_fuse.cu's ffn_norm with the
-// rmsnorm prologue and x resident (NORM = true).
+// rmsnorm prologue and x resident (NORM = true). With codes the steps sg[n]
+// and su[n] multiply the accumulators before the activation.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float activate(float g, bool gelu) {
@@ -336,18 +391,17 @@ __device__ __forceinline__ float activate(float g, bool gelu) {
   return g / (1.f + expf(-g));
 }
 
-template <int BN, int BK, bool NORM>
+template <int BN, int BK, bool NORM, typename WT>
 __global__ void __launch_bounds__(BN / 16 * 32)
 ffn_up_kernel(const __nv_bfloat16* __restrict__ x,
               const __nv_bfloat16* __restrict__ scale,
-              const __nv_bfloat16* __restrict__ wg,
-              const __nv_bfloat16* __restrict__ wu,
+              const WT* __restrict__ wg, const WT* __restrict__ wu,
+              const float* __restrict__ sg, const float* __restrict__ su,
               __nv_bfloat16* __restrict__ out, int M, int K, int N,
               long long ldx, int mt, bool gelu, float eps) {
-  using T = Tile<BN, BK, 2, NORM>;
+  using T = Tile<BN, BK, 2, NORM, true, WT>;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* xn = stages + 2 * T::kStageElems;
+  __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(smem + T::kStagesBytes);
   const int xn_pitch = resident_pitch(K, BK);
 
   const int n0 = blockIdx.x * BN;
@@ -358,9 +412,9 @@ ffn_up_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
   }
   float acc[2][8][4];
-  mainloop<BN, BK, 2, NORM>(stages, xn, xn_pitch, x, ldx,
-                            Streams<2>{{wg, wu}}, N, M, K, N, m0, n0, nt,
-                            acc);
+  mainloop<BN, BK, 2, NORM, true, WT>(smem, xn, xn_pitch, x, ldx,
+                                      Streams<2, WT>{{wg, wu}}, N, M, K, N,
+                                      m0, n0, nt, acc);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
@@ -370,44 +424,52 @@ ffn_up_kernel(const __nv_bfloat16* __restrict__ x,
       for (int i = 0; i < 4; ++i) {
         const int m = m0 + j * 8 + 2 * t + (i & 1);
         const int n = n0 + warp * 16 + g + (i >> 1) * 8;
-        if (m < M && n < N)
+        if (m < M && n < N) {
+          float gv = acc[0][j][i], uv = acc[1][j][i];
+          if constexpr (kIsCode<WT>) {
+            gv *= sg[n];
+            uv *= su[n];
+          }
           out[static_cast<long long>(m) * N + n] =
-              f2bf(activate(acc[0][j][i], gelu) * acc[1][j][i]);
+              f2bf(activate(gv, gelu) * uv);
+        }
       }
     }
   }
 }
 
-template <int BN, int BK, bool NORM>
+template <int BN, int BK, bool NORM, typename WT>
 int launch_ffn_up(const void* x, const void* scale, const void* wg,
-                  const void* wu, void* out, int M, int K, int N,
-                  long long ldx, int mt, bool gelu, float eps,
-                  cudaStream_t st) {
-  using T = Tile<BN, BK, 2, NORM>;
+                  const void* wu, const void* sg, const void* su, void* out,
+                  int M, int K, int N, long long ldx, int mt, bool gelu,
+                  float eps, cudaStream_t st) {
+  using T = Tile<BN, BK, 2, NORM, true, WT>;
   const size_t smem =
       T::kStagesBytes +
       (NORM ? static_cast<size_t>(mt) * resident_pitch(K, BK) * 2 : 0);
-  cudaError_t e = allow_smem(ffn_up_kernel<BN, BK, NORM>, smem);
+  cudaError_t e = allow_smem(ffn_up_kernel<BN, BK, NORM, WT>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((N + BN - 1) / BN, (M + mt - 1) / mt);
-  ffn_up_kernel<BN, BK, NORM><<<grid, T::kThreads, smem, st>>>(
+  ffn_up_kernel<BN, BK, NORM, WT><<<grid, T::kThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(scale),
-      static_cast<const __nv_bfloat16*>(wg),
-      static_cast<const __nv_bfloat16*>(wu),
-      static_cast<__nv_bfloat16*>(out), M, K, N, ldx, mt, gelu, eps);
+      static_cast<const __nv_bfloat16*>(scale), static_cast<const WT*>(wg),
+      static_cast<const WT*>(wu), static_cast<const float*>(sg),
+      static_cast<const float*>(su), static_cast<__nv_bfloat16*>(out), M, K,
+      N, ldx, mt, gelu, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool NORM>
+template <bool NORM, typename WT>
 int dispatch_ffn_up(int bn, int bk, const void* x, const void* scale,
-                    const void* wg, const void* wu, void* out, int M, int K,
-                    int N, long long ldx, int mt, bool gelu, float eps,
+                    const void* wg, const void* wu, const void* sg,
+                    const void* su, void* out, int M, int K, int N,
+                    long long ldx, int mt, bool gelu, float eps,
                     cudaStream_t st) {
 #define REPRO_FF_CASE(BN_, BK_)                                           \
   if (bn == BN_ && bk == BK_)                                             \
-    return launch_ffn_up<BN_, BK_, NORM>(x, scale, wg, wu, out, M, K, N,  \
-                                         ldx, mt, gelu, eps, st);
+    return launch_ffn_up<BN_, BK_, NORM, WT>(x, scale, wg, wu, sg, su,    \
+                                             out, M, K, N, ldx, mt, gelu, \
+                                             eps, st);
   REPRO_FF_CASE(32, 32)
   REPRO_FF_CASE(32, 64)
   REPRO_FF_CASE(32, 128)
@@ -419,6 +481,22 @@ int dispatch_ffn_up(int bn, int bk, const void* x, const void* scale,
   REPRO_FF_CASE(128, 128)
 #undef REPRO_FF_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The quantized fused FFN-up's entry: two code streams of one type, int8
+// (fp8 = 0) or e4m3 (fp8 = 1), and their (N,) f32 steps.
+template <bool NORM>
+int dispatch_ffn_up_q8(int fp8, int bn, int bk, const void* x,
+                       const void* scale, const void* wg, const void* wu,
+                       const void* sg, const void* su, void* out, int M,
+                       int K, int N, long long ldx, int mt, bool gelu,
+                       float eps, cudaStream_t st) {
+  if (fp8)
+    return dispatch_ffn_up<NORM, __nv_fp8_e4m3>(bn, bk, x, scale, wg, wu,
+                                                sg, su, out, M, K, N, ldx,
+                                                mt, gelu, eps, st);
+  return dispatch_ffn_up<NORM, int8_t>(bn, bk, x, scale, wg, wu, sg, su,
+                                       out, M, K, N, ldx, mt, gelu, eps, st);
 }
 
 }  // namespace flat

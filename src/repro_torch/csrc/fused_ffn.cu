@@ -1,9 +1,9 @@
 // T2 extension — fused FFN-up: h = act(x @ Wg) * (x @ Wu) in one kernel.
 //
 // Replaces: src/repro/kernels/fused_ffn.py::fused_ffn_up
-// (_fused_ffn_kernel), the TPU kernel whose two K-stream pipelines share
-// one x tile and whose epilogue applies the activation to the f32
-// accumulators before the only write.
+// (_fused_ffn_kernel, both its bf16 and its quantized branch), the TPU
+// kernel whose two K-stream pipelines share one x tile and whose epilogue
+// applies the activation to the f32 accumulators before the only write.
 //
 // Bound on H100: device-memory bytes at decode and chunk shapes. The two
 // weight streams (2 * K * N * 2 bytes) dominate; for M <= 256 token rows
@@ -26,7 +26,9 @@
 //     stage, double-buffered with cp.async (2 stages).
 //   * Epilogue: act(g) * u on the f32 accumulators (silu, or the tanh
 //     gelu), rounded once to bf16; only h is written.
-//   * Weights are row-major (K, N), as the model stores w_gate / w_up.
+//   * Weights are row-major (K, N), as the model stores w_gate / w_up:
+//     bf16, or 1-byte codes (int8 / e4m3) streamed at their width, with
+//     the per-output-channel steps applied before the activation.
 #include "flat_stream.cuh"
 
 using namespace repro;
@@ -41,7 +43,21 @@ REPRO_EXPORT int fused_ffn_up_bf16(const void* x, const void* wg,
                                    const void* wu, void* out, int M, int K,
                                    int N, long long ldx, int gelu, int bn,
                                    int bk, void* stream) {
-  return flat::dispatch_ffn_up<false>(
-      bn, bk, x, nullptr, wg, wu, out, M, K, N, ldx, flat::kMT, gelu != 0,
-      0.f, static_cast<cudaStream_t>(stream));
+  return flat::dispatch_ffn_up<false, __nv_bfloat16>(
+      bn, bk, x, nullptr, wg, wu, nullptr, nullptr, out, M, K, N, ldx,
+      flat::kMT, gelu != 0, 0.f, static_cast<cudaStream_t>(stream));
+}
+
+// Quantized weights (the quantized branch of _fused_ffn_kernel): Wg / Wu
+// are (K, N) row-major codes, int8 (fp8 = 0) or e4m3 (fp8 = 1), with (N,)
+// f32 steps sg / su applied to the accumulators before the activation.
+// Needs K % 8 == 0, N % 16 == 0 and 16-byte aligned rows.
+REPRO_EXPORT int fused_ffn_up_q8(const void* x, const void* wg,
+                                 const void* wu, const void* sg,
+                                 const void* su, void* out, int M, int K,
+                                 int N, long long ldx, int gelu, int bn,
+                                 int bk, int fp8, void* stream) {
+  return flat::dispatch_ffn_up_q8<false>(
+      fp8, bn, bk, x, nullptr, wg, wu, sg, su, out, M, K, N, ldx, flat::kMT,
+      gelu != 0, 0.f, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
 // ImplA — FastGEMV on CUDA cores for M <= 4 token rows (paper §5).
 //
-// Replaces: src/repro/kernels/gemv.py::gemv (_gemv_kernel), the TPU
-// VPU broadcast-multiply-reduce GEMV.
+// Replaces: src/repro/kernels/gemv.py::gemv (_gemv_kernel, and
+// _gemv_quant_kernel for int8 / fp8 weights), the TPU VPU
+// broadcast-multiply-reduce GEMV.
 //
 // Bound on H100: device-memory bytes. The work is M*K*N FMAs over K*N
 // weight bytes — at M <= 4 that is <= 4 FLOP/byte, far below the ~295
@@ -21,9 +22,18 @@
 //     One warp per output column: lanes read K with 16-byte loads and
 //     the column's dot products finish with a warp-shuffle reduction.
 //     Reading the view in place avoids a 272 MB copy per decode tick.
-// Both paths load only whole 16-byte vectors: the contiguous axis is a
-// multiple of 8 and every row is 16-byte aligned (the wrapper raises
-// otherwise, as the flat GEMM's does).
+//   * "KN" with quantized weights (models/wquant.py): W is (K, N) int8 or
+//     fp8 e4m3 codes with one f32 step per column. A 16-byte load now
+//     carries 16 codes, so each thread owns 16 adjacent columns and 4
+//     threads cover a block's 64 (64 k-groups): the block still reads 64
+//     columns of every row, at half the bytes. Each code becomes a float
+//     exactly, the FMAs run against the staged x in f32, and the step
+//     multiplies the reduced f32 sum before the one bf16 rounding (the
+//     reference's acc * scale). Quantized leaves are always (K, N) and
+//     the tied head never quantizes, so "NK" has no quantized variant.
+// Every path loads only whole 16-byte vectors: the contiguous axis is a
+// multiple of 8 (16 for codes) and every row is 16-byte aligned (the
+// wrapper raises otherwise, as the flat GEMM's does).
 #include "common.cuh"
 
 using namespace repro;
@@ -36,6 +46,9 @@ constexpr int kColThreads = 8;                       // KN: threads along N
 constexpr int kKGroups = kThreads / kColThreads;     // KN: 32 k-groups
 constexpr int kColsPerBlock = kColThreads * 8;       // KN: 64 columns
 constexpr int kWarps = kThreads / 32;
+constexpr int kQColThreads = 4;                      // KN codes: 16 each
+constexpr int kQKGroups = kThreads / kQColThreads;   // KN codes: 64
+static_assert(kQColThreads * 16 == kColsPerBlock, "one block, 64 columns");
 
 // Stage x (M x K, row stride ldx) into shared memory as bf16 (M*K dense).
 __device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
@@ -157,6 +170,96 @@ gemv_nk_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+template <typename CT>
+__global__ void __launch_bounds__(kThreads)
+gemv_kn_q8_kernel(const __nv_bfloat16* __restrict__ x,
+                  const unsigned char* __restrict__ w,
+                  const float* __restrict__ scale,
+                  __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                  long long ldx, long long ldw) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* red = reinterpret_cast<float*>(
+      smem + ((static_cast<size_t>(M) * K * 2 + 15) / 16) * 16);
+  stage_x(x, xs, M, K, ldx);
+
+  const int ct = threadIdx.x % kQColThreads;
+  const int kg = threadIdx.x / kQColThreads;
+  const int n0 = blockIdx.x * kColsPerBlock + ct * 16;
+
+  float acc[kMaxM][16];
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
+
+  // N % 16 == 0, so a thread's 16 columns lie wholly inside or past N
+  if (n0 < N) {
+    for (int k = kg; k < K; k += kQKGroups) {
+      float wv[16];
+      unpack16<CT>(__ldg(reinterpret_cast<const uint4*>(w + k * ldw + n0)),
+                   wv);
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) {
+        if (m < M) {
+          float xv = bf2f(xs[m * K + k]);
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
+        }
+      }
+    }
+  }
+
+  // the 8 k-groups of one warp sit 4 lanes apart
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float v = acc[m][j];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[m][j] = v;
+    }
+  }
+  const int lane = threadIdx.x % 32;
+  if (lane < kQColThreads) {
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        red[(warp * kMaxM + m) * kColsPerBlock + ct * 16 + j] = acc[m][j];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < M * kColsPerBlock; t += blockDim.x) {
+    const int m = t / kColsPerBlock, c = t % kColsPerBlock;
+    const int n = blockIdx.x * kColsPerBlock + c;
+    if (n < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < kWarps; ++wi)
+        s += red[(wi * kMaxM + m) * kColsPerBlock + c];
+      out[static_cast<long long>(m) * N + n] = f2bf(s * scale[n]);
+    }
+  }
+}
+
+template <typename CT>
+int launch_gemv_q8(const void* x, const void* w, const void* scale,
+                   void* out, int M, int K, int N, long long ldx,
+                   long long ldw, cudaStream_t st) {
+  const size_t smem = ((static_cast<size_t>(M) * K * 2 + 15) / 16) * 16 +
+                      static_cast<size_t>(kWarps) * kMaxM * kColsPerBlock * 4;
+  cudaError_t e = allow_smem(gemv_kn_q8_kernel<CT>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((N + kColsPerBlock - 1) / kColsPerBlock);
+  gemv_kn_q8_kernel<CT><<<grid, kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const unsigned char*>(w), static_cast<const float*>(scale),
+      static_cast<__nv_bfloat16*>(out), M, K, N, ldx, ldw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 REPRO_ERROR_STRING_FN
@@ -190,4 +293,19 @@ REPRO_EXPORT int gemv_bf16(const void* x, const void* w, void* out, int M,
                                                      ldx, ldw);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Quantized weights: out (M, N) bf16 = bf16((x @ codes) * scale), codes
+// (K, N) row-major int8 (fp8 = 0) or e4m3 (fp8 = 1), leading dimension ldw,
+// scale (N,) f32. Needs K % 8 == 0, N % 16 == 0 and ldw % 16 == 0 with
+// 16-byte aligned rows of the codes and x.
+REPRO_EXPORT int gemv_q8(const void* x, const void* w, const void* scale,
+                         void* out, int M, int K, int N, long long ldx,
+                         long long ldw, int fp8, void* stream) {
+  if (M < 1 || M > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fp8)
+    return launch_gemv_q8<__nv_fp8_e4m3>(x, w, scale, out, M, K, N, ldx, ldw,
+                                         st);
+  return launch_gemv_q8<int8_t>(x, w, scale, out, M, K, N, ldx, ldw, st);
 }

@@ -120,6 +120,20 @@ def check(lib: ctypes.CDLL, entry: str, code: int) -> None:
         raise KernelLaunchError(f"{entry}: CUDA error {code} ({msg})")
 
 
+class LaunchCounter:
+    """A kernel variant's launch count, kept apart from its wrapper's own
+    ``.launches`` (the quantized variants count here, so that a run shows
+    which variant it launched). Named like a wrapper, so that
+    ``ops.LAUNCH_COUNTERS`` and the graph replays treat both alike."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+    def __repr__(self) -> str:
+        return f"LaunchCounter({self.__name__!r}, launches={self.launches})"
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

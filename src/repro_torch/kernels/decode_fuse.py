@@ -26,6 +26,15 @@ The resident-row kernels (ingest, ffn_norm) hold ``mt`` token rows per
 block: the smallest multiple of 8 covering M, at most 64, halved until
 the rows and two weight stages fit a block's shared memory; M is tiled
 over the grid's second axis.
+
+Quantized weights (``{"codes", "scale"}`` leaves, ``models/wquant.py``)
+reach each wrapper as int8 / fp8 codes with (N,) f32 steps
+(``wq_scale`` …, ``w_scale``, ``wg_scale`` / ``wu_scale``): the same
+kernels, instantiated for 1-byte codes, stream them at their width and
+apply the steps on the f32 accumulators where the JAX package's quantized
+bodies do (before the rounding, the bias and rope; before the rounding
+and the residual add; before the activation). Their launches count in
+the ``*_quant`` counters, apart from the bf16 kernels'.
 """
 from __future__ import annotations
 
@@ -35,8 +44,8 @@ from repro_torch import hardware
 from repro_torch.kernels import _build
 from repro_torch.kernels.flat_gemm import (BK_CHOICES, BLOCK_M, pick_bk,
                                            pick_bn, round_up)
-from repro_torch.kernels.fused_ffn import ACTIVATIONS
-from repro_torch.kernels.gemv import vector_ok, weight_layout
+from repro_torch.kernels.fused_ffn import ACTIVATIONS, scale_pair
+from repro_torch.kernels.gemv import check_codes, vector_ok, weight_layout
 from repro_torch.kernels.ref import ffn_activation, rmsnorm_ref, rope_ref
 
 HEAD_TILES = (32, 64, 128)     # head_dim the ingest kernel takes
@@ -48,17 +57,33 @@ _SIG = {"decode_ingest_bf16": [_build.VP] * 12 + [_build.I32] * 4
         "oproj_residual_bf16": [_build.VP] * 4 + [_build.I32] * 3
         + [_build.I64] * 2 + [_build.I32] * 2 + [_build.VP],
         "ffn_norm_bf16": [_build.VP] * 5 + [_build.I32] * 3 + [_build.I64]
-        + [_build.I32] * 4 + [_build.F32, _build.VP]}
+        + [_build.I32] * 4 + [_build.F32, _build.VP],
+        "decode_ingest_q8": [_build.VP] * 15 + [_build.I32] * 4
+        + [_build.I64] + [_build.I32] * 4 + [_build.F32, _build.F32,
+                                             _build.I32, _build.VP],
+        "oproj_residual_q8": [_build.VP] * 5 + [_build.I32] * 3
+        + [_build.I64] * 2 + [_build.I32] * 3 + [_build.VP],
+        "ffn_norm_q8": [_build.VP] * 7 + [_build.I32] * 3 + [_build.I64]
+        + [_build.I32] * 4 + [_build.F32, _build.I32, _build.VP]}
+
+decode_ingest_fused_quant = _build.LaunchCounter("decode_ingest_fused_quant")
+oproj_residual_fused_quant = _build.LaunchCounter(
+    "oproj_residual_fused_quant")
+ffn_norm_fused_quant = _build.LaunchCounter("ffn_norm_fused_quant")
 
 
-def resident_smem(mt: int, k: int, bn: int, bk: int, streams: int) -> int:
+def resident_smem(mt: int, k: int, bn: int, bk: int, streams: int,
+                  w_bytes: int = 2) -> int:
     """Shared memory of a resident-row launch: two stages of ``streams``
-    (BK, BN + 8) weight tiles and ``mt`` normed rows of the K tiles
-    (pitch round_up(K, BK) + 8), bf16."""
-    return 2 * (2 * streams * bk * (bn + 8) + mt * (round_up(k, bk) + 8))
+    (BK, BN) weight tiles of ``w_bytes``-byte elements, rows padded by 16
+    bytes, and ``mt`` bf16 normed rows of the K tiles (pitch
+    round_up(K, BK) + 8)."""
+    return (2 * streams * bk * (bn * w_bytes + 16)
+            + 2 * mt * (round_up(k, bk) + 8))
 
 
 def resident_tiles(m: int, k: int, bn: int, streams: int, *,
+                   w_bytes: int = 2,
                    spec: hardware.HardwareSpec = hardware.DEFAULT
                    ) -> tuple[int, int]:
     """(mt, BK) of a resident-row launch: the deepest K tile that does not
@@ -68,7 +93,7 @@ def resident_tiles(m: int, k: int, bn: int, streams: int, *,
     while True:
         fits = [bk for bk in BK_CHOICES
                 if bk <= round_up(k, BK_CHOICES[0])
-                and resident_smem(mt, k, bn, bk, streams)
+                and resident_smem(mt, k, bn, bk, streams, w_bytes)
                 <= spec.smem_per_block]
         if fits:
             return mt, max(fits)
@@ -78,19 +103,20 @@ def resident_tiles(m: int, k: int, bn: int, streams: int, *,
         mt //= 2
 
 
-def ffn_norm_tiles(m: int, k: int, n: int) -> tuple[int, int, int]:
+def ffn_norm_tiles(m: int, k: int, n: int,
+                   w_bytes: int = 2) -> tuple[int, int, int]:
     """(BN, BK, mt) of an ffn_norm launch: flat_gemm's BN for two weight
     streams, then the resident-row tiles."""
-    bn = pick_bn(round_up(max(m, 1), 8), n, k, streams=2)
-    mt, bk = resident_tiles(m, k, bn, 2)
+    bn = pick_bn(round_up(max(m, 1), 8), n, k, w_bytes=w_bytes, streams=2)
+    mt, bk = resident_tiles(m, k, bn, 2, w_bytes=w_bytes)
     return bn, bk, mt
 
 
-def oproj_tiles(m: int, k: int, n: int) -> tuple[int, int]:
+def oproj_tiles(m: int, k: int, n: int, w_bytes: int = 2) -> tuple[int, int]:
     """(BN, BK) of an oproj_residual launch: flat_gemm's pickers."""
     m_pad = round_up(max(m, 1), 8)
-    bn = pick_bn(m_pad, n, k)
-    return bn, pick_bk(m_pad, bn, k)
+    bn = pick_bn(m_pad, n, k, w_bytes=w_bytes)
+    return bn, pick_bk(m_pad, bn, k, w_bytes=w_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -98,30 +124,42 @@ def oproj_tiles(m: int, k: int, n: int) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 
 
-def _ktiles(x: torch.Tensor, w: torch.Tensor, bk: int) -> torch.Tensor:
-    """x @ w accumulated in f32 over the kernel's K tiles."""
+def _ktiles(x: torch.Tensor, w: torch.Tensor, bk: int,
+            scale: torch.Tensor | None = None) -> torch.Tensor:
+    """x @ w accumulated in f32 over the kernel's K tiles (codes cast to
+    f32 tile by tile, exactly), times the per-column step if given."""
     acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
                       device=x.device)
     for lo in range(0, x.shape[1], bk):
         acc += x[:, lo:lo + bk].float() @ w[lo:lo + bk].float()
-    return acc
+    return acc if scale is None else acc * scale.float()
+
+
+def _qkv_scales(wq_scale, wk_scale, wv_scale) -> tuple:
+    scales = (wq_scale, wk_scale, wv_scale)
+    if len({s is None for s in scales}) != 1:
+        raise ValueError("decode_ingest: the q, k and v weights quantize "
+                         "together (all three steps or none)")
+    return scales
 
 
 def decode_ingest_plain(x, norm_scale, wq, wk, wv, positions, *,
                         num_heads: int, num_kv_heads: int, head_dim: int,
                         rope_theta: float = 1e4, eps: float = 1e-6,
-                        use_rope: bool = True, bq=None, bk=None, bv=None):
+                        use_rope: bool = True, bq=None, bk=None, bv=None,
+                        wq_scale=None, wk_scale=None, wv_scale=None):
     """Plain version: normed rows rounded to x's dtype, each stream's K
-    tiles accumulated in f32 and rounded, the bias added (rounded), rope
-    on q and k in f32 (one rounding)."""
+    tiles accumulated in f32, times its step if quantized, and rounded,
+    the bias added (rounded), rope on q and k in f32 (one rounding)."""
     m, d = x.shape
-    _, bkt = resident_tiles(m, d, head_dim, 1)
+    _, bkt = resident_tiles(m, d, head_dim, 1, w_bytes=wq.element_size())
     xn = rmsnorm_ref(x, norm_scale, eps)
+    scales = _qkv_scales(wq_scale, wk_scale, wv_scale)
     outs = []
-    for w, b, heads, rot in ((wq, bq, num_heads, use_rope),
-                             (wk, bk, num_kv_heads, use_rope),
-                             (wv, bv, num_kv_heads, False)):
-        t = _ktiles(xn, w, bkt).to(x.dtype)
+    for w, sc, b, heads, rot in ((wq, scales[0], bq, num_heads, use_rope),
+                                 (wk, scales[1], bk, num_kv_heads, use_rope),
+                                 (wv, scales[2], bv, num_kv_heads, False)):
+        t = _ktiles(xn, w, bkt, sc).to(x.dtype)
         if b is not None:
             t = t + b
         if rot:
@@ -131,23 +169,26 @@ def decode_ingest_plain(x, norm_scale, wq, wk, wv, positions, *,
     return tuple(outs)
 
 
-def oproj_residual_plain(o, wo, resid):
-    """Plain version: the K tiles in f32, rounded to o's dtype, added to
-    the residual (one rounding)."""
+def oproj_residual_plain(o, wo, resid, *, w_scale=None):
+    """Plain version: the K tiles in f32, times the step if quantized,
+    rounded to o's dtype, added to the residual (one rounding)."""
     m, k = o.shape
-    _, bk = oproj_tiles(m, k, wo.shape[1])
-    return resid + _ktiles(o, wo, bk).to(o.dtype)
+    _, bk = oproj_tiles(m, k, wo.shape[1], wo.element_size())
+    return resid + _ktiles(o, wo, bk, w_scale).to(o.dtype)
 
 
 def ffn_norm_plain(x, norm_scale, w_gate, w_up, *,
-                   activation: str = "swiglu", eps: float = 1e-6):
+                   activation: str = "swiglu", eps: float = 1e-6,
+                   wg_scale=None, wu_scale=None):
     """Plain version: normed rows rounded to x's dtype, both streams' K
-    tiles in f32, the activation on the f32 sums, one rounding."""
+    tiles in f32, times their steps if quantized, the activation on the
+    f32 sums, one rounding."""
     m, k = x.shape
-    _, bk, _ = ffn_norm_tiles(m, k, w_gate.shape[1])
+    _, bk, _ = ffn_norm_tiles(m, k, w_gate.shape[1], w_gate.element_size())
+    scale_pair("ffn_norm", wg_scale, wu_scale)
     xn = rmsnorm_ref(x, norm_scale, eps)
-    g = _ktiles(xn, w_gate, bk)
-    u = _ktiles(xn, w_up, bk)
+    g = _ktiles(xn, w_gate, bk, wg_scale)
+    u = _ktiles(xn, w_up, bk, wu_scale)
     return (ffn_activation(g, activation) * u).to(x.dtype)
 
 
@@ -170,12 +211,30 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(1) == 1 else x.contiguous()
 
 
-def _check_weight(what: str, x: torch.Tensor, w: torch.Tensor) -> None:
-    kn, ldw = weight_layout(w)
-    if not kn or ldw != w.shape[1] or not vector_ok(x, w, kn, ldw):
-        raise ValueError(
-            f"{what} kernel needs contiguous (K, N) weights with K and N "
-            "multiples of 8 and 16-byte aligned rows")
+def _check_weights(what: str, x: torch.Tensor, weights, scales) -> int:
+    """Validate a launch's weights: all bf16 with no steps, or all codes
+    of one dtype with their (N,) f32 steps, each contiguous (K, N) with
+    aligned rows. Returns the C entries' ``fp8`` flag (-1 for bf16)."""
+    flags = set()
+    for w, sc in zip(weights, scales):
+        if w.device != x.device:
+            raise ValueError(f"{what}: inputs on different devices")
+        if sc is None:
+            if w.dtype != torch.bfloat16:
+                raise TypeError(f"{what} kernel takes bf16 weights (or "
+                                f"codes with steps), got {w.dtype}")
+            flags.add(-1)
+        else:
+            flags.add(check_codes(what, w, sc))
+        kn, ldw = weight_layout(w)
+        if not kn or ldw != w.shape[1] or not vector_ok(x, w, kn, ldw):
+            raise ValueError(
+                f"{what} kernel needs contiguous (K, N) weights with K a "
+                "multiple of 8, N a multiple of 8 (16 for codes) and "
+                "16-byte aligned rows")
+    if len(flags) != 1:
+        raise TypeError(f"{what}: the weights of one launch share one dtype")
+    return flags.pop()
 
 
 def _check_scale(what: str, x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -188,10 +247,12 @@ def _check_scale(what: str, x: torch.Tensor, scale: torch.Tensor) -> None:
 def decode_ingest_fused(x, norm_scale, wq, wk, wv, positions, *,
                         num_heads: int, num_kv_heads: int, head_dim: int,
                         rope_theta: float = 1e4, eps: float = 1e-6,
-                        use_rope: bool = True, bq=None, bk=None, bv=None):
+                        use_rope: bool = True, bq=None, bk=None, bv=None,
+                        wq_scale=None, wk_scale=None, wv_scale=None):
     """x (M, D), norm_scale (D,), wq (D, HQ·Dh), wk / wv (D, HK·Dh),
     positions (M,) -> q (M, HQ·Dh), k / v (M, HK·Dh) in x's dtype (the
-    caller owns the head reshape). Absent biases read as zero."""
+    caller owns the head reshape). Absent biases read as zero; with the
+    steps ``w*_scale`` the weights hold codes."""
     m, d = x.shape
     nq, nk = wq.shape[1], wk.shape[1]
     if (nq != num_heads * head_dim or nk != num_kv_heads * head_dim
@@ -205,56 +266,73 @@ def decode_ingest_fused(x, norm_scale, wq, wk, wv, positions, *,
     if (bq is None) != (bk is None) or (bq is None) != (bv is None):
         raise ValueError("decode_ingest: the q, k and v biases come "
                          "together")
+    scales = _qkv_scales(wq_scale, wk_scale, wv_scale)
     if not x.is_cuda:
         return decode_ingest_plain(
             x, norm_scale, wq, wk, wv, positions, num_heads=num_heads,
             num_kv_heads=num_kv_heads, head_dim=head_dim,
             rope_theta=rope_theta, eps=eps, use_rope=use_rope, bq=bq, bk=bk,
-            bv=bv)
+            bv=bv, wq_scale=wq_scale, wk_scale=wk_scale, wv_scale=wv_scale)
     if head_dim not in HEAD_TILES:
         raise ValueError(f"decode_ingest kernel takes head_dim in "
                          f"{HEAD_TILES}, got {head_dim}")
-    _check_bf16("decode_ingest", x.device, x, norm_scale, wq, wk, wv, bq, bk,
-                bv)
+    _check_bf16("decode_ingest", x.device, x, norm_scale, bq, bk, bv)
     x = _rows(x)
-    for w in (wq, wk, wv):
-        _check_weight("decode_ingest", x, w)
+    fp8 = _check_weights("decode_ingest", x, (wq, wk, wv), scales)
     _check_scale("decode_ingest", x, norm_scale)
     biases = [b if b is None else b.contiguous() for b in (bq, bk, bv)]
     pos = positions.to(device=x.device, dtype=torch.int32).contiguous()
-    mt, bkt = resident_tiles(m, d, head_dim, 1)
+    mt, bkt = resident_tiles(m, d, head_dim, 1, w_bytes=wq.element_size())
     q = torch.empty((m, nq), dtype=x.dtype, device=x.device)
     k = torch.empty((m, nk), dtype=x.dtype, device=x.device)
     v = torch.empty((m, nk), dtype=x.dtype, device=x.device)
     lib = _build.load("decode_fuse", _SIG)
+    weights = (_build.ptr(wq), _build.ptr(wk), _build.ptr(wv))
+    tail = (*(_build.VP(None) if b is None else _build.ptr(b)
+              for b in biases),
+            _build.ptr(pos), _build.ptr(q), _build.ptr(k), _build.ptr(v),
+            m, d, nq, nk, x.stride(0), head_dim, bkt, mt, int(use_rope),
+            rope_theta, eps)
+    if fp8 >= 0:
+        code = lib.decode_ingest_q8(
+            _build.ptr(x), _build.ptr(norm_scale), *weights,
+            *(_build.ptr(sc) for sc in scales), *tail, fp8,
+            _build.stream_of(x))
+        _build.check(lib, "decode_ingest_q8", code)
+        decode_ingest_fused_quant.launches += 1
+        return q, k, v
     code = lib.decode_ingest_bf16(
-        _build.ptr(x), _build.ptr(norm_scale), _build.ptr(wq), _build.ptr(wk),
-        _build.ptr(wv),
-        *(_build.VP(None) if b is None else _build.ptr(b) for b in biases),
-        _build.ptr(pos), _build.ptr(q), _build.ptr(k), _build.ptr(v),
-        m, d, nq, nk, x.stride(0), head_dim, bkt, mt, int(use_rope),
-        rope_theta, eps, _build.stream_of(x))
+        _build.ptr(x), _build.ptr(norm_scale), *weights, *tail,
+        _build.stream_of(x))
     _build.check(lib, "decode_ingest_bf16", code)
     decode_ingest_fused.launches += 1
     return q, k, v
 
 
-def oproj_residual_fused(o, wo, resid):
+def oproj_residual_fused(o, wo, resid, *, w_scale=None):
     """o (M, Q), wo (Q, D), resid (M, D) -> resid + o @ wo, (M, D) in
-    resid's dtype."""
+    resid's dtype; with the step ``w_scale`` ``wo`` holds codes."""
     m, k = o.shape
     n = wo.shape[1]
     if wo.shape[0] != k or resid.shape != (m, n):
         raise ValueError(f"oproj_residual: o {tuple(o.shape)} wo "
                          f"{tuple(wo.shape)} resid {tuple(resid.shape)}")
     if not o.is_cuda:
-        return oproj_residual_plain(o, wo, resid)
-    _check_bf16("oproj_residual", o.device, o, wo, resid)
+        return oproj_residual_plain(o, wo, resid, w_scale=w_scale)
+    _check_bf16("oproj_residual", o.device, o, resid)
     o, resid = _rows(o), _rows(resid)
-    _check_weight("oproj_residual", o, wo)
-    bn, bk = oproj_tiles(m, k, n)
+    fp8 = _check_weights("oproj_residual", o, (wo,), (w_scale,))
+    bn, bk = oproj_tiles(m, k, n, wo.element_size())
     out = torch.empty((m, n), dtype=resid.dtype, device=o.device)
     lib = _build.load("decode_fuse", _SIG)
+    if fp8 >= 0:
+        code = lib.oproj_residual_q8(
+            _build.ptr(o), _build.ptr(wo), _build.ptr(w_scale),
+            _build.ptr(resid), _build.ptr(out), m, k, n, o.stride(0),
+            resid.stride(0), bn, bk, fp8, _build.stream_of(o))
+        _build.check(lib, "oproj_residual_q8", code)
+        oproj_residual_fused_quant.launches += 1
+        return out
     code = lib.oproj_residual_bf16(
         _build.ptr(o), _build.ptr(wo), _build.ptr(resid), _build.ptr(out),
         m, k, n, o.stride(0), resid.stride(0), bn, bk, _build.stream_of(o))
@@ -264,9 +342,11 @@ def oproj_residual_fused(o, wo, resid):
 
 
 def ffn_norm_fused(x, norm_scale, w_gate, w_up, *,
-                   activation: str = "swiglu", eps: float = 1e-6):
+                   activation: str = "swiglu", eps: float = 1e-6,
+                   wg_scale=None, wu_scale=None):
     """x (M, D), norm_scale (D,), w_gate / w_up (D, F) -> act(xn @ w_gate)
-    * (xn @ w_up), (M, F) in x's dtype, xn = rmsnorm(x)."""
+    * (xn @ w_up), (M, F) in x's dtype, xn = rmsnorm(x); with the steps
+    the weights hold codes."""
     m, d = x.shape
     if w_gate.shape != w_up.shape or w_gate.shape[0] != d:
         raise ValueError(f"ffn_norm: x {tuple(x.shape)} w_gate "
@@ -274,22 +354,33 @@ def ffn_norm_fused(x, norm_scale, w_gate, w_up, *,
     if activation not in ACTIVATIONS:
         raise ValueError(f"ffn_norm: activation must be one of "
                          f"{ACTIVATIONS}, got {activation!r}")
+    scale_pair("ffn_norm", wg_scale, wu_scale)
     if not x.is_cuda:
         return ffn_norm_plain(x, norm_scale, w_gate, w_up,
-                              activation=activation, eps=eps)
-    _check_bf16("ffn_norm", x.device, x, norm_scale, w_gate, w_up)
+                              activation=activation, eps=eps,
+                              wg_scale=wg_scale, wu_scale=wu_scale)
+    _check_bf16("ffn_norm", x.device, x, norm_scale)
     x = _rows(x)
-    for w in (w_gate, w_up):
-        _check_weight("ffn_norm", x, w)
+    fp8 = _check_weights("ffn_norm", x, (w_gate, w_up), (wg_scale, wu_scale))
     _check_scale("ffn_norm", x, norm_scale)
     n = w_gate.shape[1]
-    bn, bk, mt = ffn_norm_tiles(m, d, n)
+    bn, bk, mt = ffn_norm_tiles(m, d, n, w_gate.element_size())
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("decode_fuse", _SIG)
+    gelu = int(activation == "geglu")
+    if fp8 >= 0:
+        code = lib.ffn_norm_q8(
+            _build.ptr(x), _build.ptr(norm_scale), _build.ptr(w_gate),
+            _build.ptr(w_up), _build.ptr(wg_scale), _build.ptr(wu_scale),
+            _build.ptr(out), m, d, n, x.stride(0), gelu, bn, bk, mt, eps,
+            fp8, _build.stream_of(x))
+        _build.check(lib, "ffn_norm_q8", code)
+        ffn_norm_fused_quant.launches += 1
+        return out
     code = lib.ffn_norm_bf16(
         _build.ptr(x), _build.ptr(norm_scale), _build.ptr(w_gate),
-        _build.ptr(w_up), _build.ptr(out), m, d, n, x.stride(0),
-        int(activation == "geglu"), bn, bk, mt, eps, _build.stream_of(x))
+        _build.ptr(w_up), _build.ptr(out), m, d, n, x.stride(0), gelu, bn,
+        bk, mt, eps, _build.stream_of(x))
     _build.check(lib, "ffn_norm_bf16", code)
     ffn_norm_fused.launches += 1
     return out

@@ -4,12 +4,19 @@ Replaces ``repro/kernels/gemv.py::gemv``. On a CUDA tensor the wrapper
 launches the CUDA-core GEMV (bound: the weight bytes over device-memory
 bandwidth; see the source's header for the design); on a CPU tensor it
 runs :func:`gemv_plain`, the same arithmetic (bf16 products accumulated
-in f32, rounded once to x's dtype). ``gemv.launches`` counts kernel
-launches.
+in f32, rounded once to x's dtype). ``gemv.launches`` counts the bf16
+kernel's launches.
 
 The weight may be a row-major (K, N) tensor or the transposed view of a
 row-major (N, K) tensor (the tied LM head ``embedding.T``); the kernel
 reads either layout in place, chosen from the strides.
+
+``w_scale`` ((N,) f32, one step per output channel) marks ``w`` as the
+int8 / fp8 codes of a quantized weight (``models/wquant.py``): the
+quantized kernel (``_gemv_quant_kernel``'s port) streams the codes at 1
+byte and multiplies the f32 sum by the step before the one rounding, and
+:data:`gemv_quant` counts its launches. Codes come in the (K, N) layout
+only: a quantized (N, K) view raises.
 """
 from __future__ import annotations
 
@@ -19,14 +26,42 @@ from repro_torch.kernels import _build
 
 MAX_M = 4
 
+# a quantized weight's code dtypes -> the C entries' ``fp8`` flag
+CODE_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
 _SIG = {"gemv_bf16": [_build.VP, _build.VP, _build.VP, _build.I32,
                       _build.I32, _build.I32, _build.I64, _build.I64,
-                      _build.I32, _build.VP]}
+                      _build.I32, _build.VP],
+        "gemv_q8": [_build.VP] * 4 + [_build.I32] * 3 + [_build.I64] * 2
+        + [_build.I32, _build.VP]}
+
+gemv_quant = _build.LaunchCounter("gemv_quant")
 
 
-def gemv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: f32 accumulation, result in x's dtype."""
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+def gemv_plain(x: torch.Tensor, w: torch.Tensor, *,
+               w_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch version: f32 accumulation, result in x's dtype; with
+    ``w_scale`` the codes cast to f32 (exact) and the step multiplies the
+    f32 sum before the rounding."""
+    acc = torch.matmul(x.float(), w.float())
+    if w_scale is not None:
+        acc = acc * w_scale.float()
+    return acc.to(x.dtype)
+
+
+def check_codes(what: str, w: torch.Tensor, w_scale: torch.Tensor) -> int:
+    """Validate a quantized weight's codes ``w`` (K, N) and steps
+    ``w_scale`` (N,) for a kernel; returns the C entries' ``fp8`` flag."""
+    if w.dtype not in CODE_DTYPES:
+        raise TypeError(f"{what}: quantized weights are int8 or "
+                        f"float8_e4m3fn codes, got {w.dtype}")
+    if (w_scale.dtype != torch.float32 or w_scale.shape != (w.shape[1],)
+            or w_scale.stride(0) != 1 or w_scale.device != w.device):
+        raise ValueError(f"{what}: the steps must be a contiguous "
+                         f"({w.shape[1]},) f32 vector on the weight's "
+                         f"device, got {tuple(w_scale.shape)} "
+                         f"{w_scale.dtype}")
+    return CODE_DTYPES[w.dtype]
 
 
 def weight_layout(w: torch.Tensor) -> tuple[bool, int]:
@@ -43,36 +78,55 @@ def weight_layout(w: torch.Tensor) -> tuple[bool, int]:
 
 def vector_ok(x: torch.Tensor, w: torch.Tensor, kn: bool, ldw: int) -> bool:
     """True when every row the kernel reads is 16-byte aligned and whole
-    16-byte vectors cover the contiguous axis."""
+    16-byte vectors (8 bf16, 16 codes) cover the contiguous axis."""
     inner = w.shape[1] if kn else w.shape[0]
-    return (inner % 8 == 0 and ldw % 8 == 0 and x.shape[1] % 8 == 0
+    per = 16 // w.element_size()
+    return (inner % per == 0 and ldw % per == 0 and x.shape[1] % 8 == 0
             and x.stride(0) % 8 == 0 and w.data_ptr() % 16 == 0
             and x.data_ptr() % 16 == 0)
 
 
-def gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ w (K, N) -> (M, N) in x's dtype, M <= 4."""
+def gemv(x: torch.Tensor, w: torch.Tensor, *,
+         w_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """x (M, K) @ w (K, N) -> (M, N) in x's dtype, M <= 4; with
+    ``w_scale`` ``w`` holds codes and the result is (x @ codes) * step."""
     m, k = x.shape
     k2, n = w.shape
     if k != k2:
         raise ValueError(f"gemv: x {tuple(x.shape)} vs w {tuple(w.shape)}")
     if not x.is_cuda:
-        return gemv_plain(x, w)
+        return gemv_plain(x, w, w_scale=w_scale)
     if not 1 <= m <= MAX_M:
         raise ValueError(f"gemv kernel takes 1..{MAX_M} rows, got {m}")
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"gemv kernel takes bf16, got {x.dtype}/{w.dtype}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"gemv kernel takes bf16 x, got {x.dtype}")
+    if w_scale is None and w.dtype != torch.bfloat16:
+        raise TypeError(f"gemv kernel takes bf16 weights (or codes with "
+                        f"w_scale), got {w.dtype}")
     if w.device != x.device:
         raise ValueError("gemv: x and w on different devices")
     if x.stride(1) != 1:
         x = x.contiguous()
     kn, ldw = weight_layout(w)
-    if not vector_ok(x, w, kn, ldw):
+    if w_scale is not None:
+        fp8 = check_codes("gemv", w, w_scale)
+        if not kn or not vector_ok(x, w, kn, ldw):
+            raise ValueError(
+                "quantized gemv kernel needs (K, N) codes with N a multiple "
+                "of 16, K a multiple of 8 and 16-byte aligned rows")
+    elif not vector_ok(x, w, kn, ldw):
         raise ValueError(
             "gemv kernel needs K (and N for a (K, N) weight) to be a "
             "multiple of 8 with 16-byte aligned rows")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("gemv", _SIG)
+    if w_scale is not None:
+        code = lib.gemv_q8(_build.ptr(x), _build.ptr(w), _build.ptr(w_scale),
+                           _build.ptr(out), m, k, n, x.stride(0), ldw, fp8,
+                           _build.stream_of(x))
+        _build.check(lib, "gemv_q8", code)
+        gemv_quant.launches += 1
+        return out
     code = lib.gemv_bf16(_build.ptr(x), _build.ptr(w), _build.ptr(out), m, k,
                          n, x.stride(0), ldw, int(kn), _build.stream_of(x))
     _build.check(lib, "gemv_bf16", code)

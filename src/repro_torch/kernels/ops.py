@@ -6,6 +6,11 @@ the ``"cuda"`` backend). On ``"cuda"`` the kernel wrappers run — their
 kernels on CUDA tensors, their plain versions on CPU tensors; on
 ``"torch"`` the reference math in :mod:`repro_torch.kernels.ref` runs.
 
+A GEMM weight is a tensor or, quantized, the ``{"codes", "scale"}`` dict
+of ``models/wquant.py``; :func:`_wparts` splits it, and the dict is the
+one signal that sends the codes and steps into the kernels' quantized
+variants (model call sites never change).
+
 The JAX package's ``lax.cond`` overflow recompute becomes a device-side
 flag here: ``flag = (stat > band_hi).any()`` stays on the card, and the
 sync kernel reads it at entry and returns at once unless it is set, so
@@ -28,8 +33,11 @@ from repro_torch.kernels.chunk_attention import (
 )
 from repro_torch.kernels.decode_fuse import (
     decode_ingest_fused,
+    decode_ingest_fused_quant,
     ffn_norm_fused,
+    ffn_norm_fused_quant,
     oproj_residual_fused,
+    oproj_residual_fused_quant,
 )
 from repro_torch.kernels.decode_attention import (
     decode_attention_sync,
@@ -41,9 +49,9 @@ from repro_torch.kernels.flash_prefill import (
     flash_prefill_sync,
     flash_prefill_unified_max,
 )
-from repro_torch.kernels.flat_gemm import flat_gemm
-from repro_torch.kernels.fused_ffn import fused_ffn_up
-from repro_torch.kernels.gemv import gemv
+from repro_torch.kernels.flat_gemm import flat_gemm, flat_gemm_quant
+from repro_torch.kernels.fused_ffn import fused_ffn_up, fused_ffn_up_quant
+from repro_torch.kernels.gemv import gemv, gemv_quant
 from repro_torch.kernels.group_attention import (
     DecodeGroups,
     group_prefix_partials,
@@ -51,8 +59,9 @@ from repro_torch.kernels.group_attention import (
     grouped_paged_decode_attention_unified_max,
 )
 
-# every kernel wrapper that counts its launches in ``.launches`` (a CUDA
-# graph replay runs none of them, so the replay credits them instead)
+# every kernel wrapper that counts its launches in ``.launches``, and the
+# quantized variants' counters (a CUDA graph replay runs none of them, so
+# the replay credits them instead)
 LAUNCH_COUNTERS = (
     gemv, flat_gemm, fused_ffn_up, decode_ingest_fused,
     oproj_residual_fused, ffn_norm_fused, decode_attention_unified_max,
@@ -60,6 +69,9 @@ LAUNCH_COUNTERS = (
     paged_decode_attention_sync, group_prefix_partials, group_tail_merge,
     flash_prefill_unified_max, flash_prefill_sync,
     paged_chunk_attention_unified_max, paged_chunk_attention_sync,
+    gemv_quant, flat_gemm_quant, fused_ffn_up_quant,
+    decode_ingest_fused_quant, oproj_residual_fused_quant,
+    ffn_norm_fused_quant,
 )
 
 
@@ -73,42 +85,60 @@ def _overflow(stat: torch.Tensor, phi_cfg: SoftmaxPhiConfig) -> torch.Tensor:
     return (stat > phi_cfg.band[1]).any()
 
 
+def _wparts(w):
+    """A GEMM weight operand as ``(tensor, per-output-channel steps or
+    None)``: a quantized leaf (``{"codes", "scale"}``) gives its codes and
+    steps, a tensor itself and None."""
+    if isinstance(w, dict):
+        return w["codes"], w["scale"]
+    return w, None
+
+
 # ---------------------------------------------------------------------------
 # GEMM front door (T3)
 # ---------------------------------------------------------------------------
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor, *,
+def matmul(x: torch.Tensor, w, *,
            plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
-    """Plan-dispatched GEMM. x: (..., K), w: (K, N) — row-major or the
-    transposed view of a row-major (N, K) tensor."""
+    """Plan-dispatched GEMM. x: (..., K), w: (K, N) — row-major, the
+    transposed view of a row-major (N, K) tensor, or a quantized
+    ``{"codes", "scale"}`` leaf."""
     mp = (plan or DEFAULT_PLAN).matmul
+    w, w_scale = _wparts(w)
     lead = x.shape[:-1]
     k, n = x.shape[-1], w.shape[-1]
     x2 = x.reshape(-1, k)
     impl = mp.pick(x2.shape[0], k, n)
     if mp.backend != "cuda" or impl is Impl.XLA_DOT:
-        out = ref.flat_gemm_ref(x2, w)
-    elif impl is Impl.GEMV:
-        out = gemv(x2, w)
+        # the library GEMM; with codes the reference's own XLA-dot
+        # expression (codes cast to x's dtype, f32 accumulation, times the
+        # step), which the JAX package computes outside any Pallas kernel
+        # too, so this is the quantized path at M >= 128, not a fallback
+        out = ref.flat_gemm_ref(x2, w, w_scale=w_scale)
     else:
-        out = flat_gemm(x2, w)
+        # bf16 weights keep the unchanged two-operand call
+        qkw = {} if w_scale is None else {"w_scale": w_scale}
+        kernel = gemv if impl is Impl.GEMV else flat_gemm
+        out = kernel(x2, w, **qkw)
     return out.reshape(*lead, n)
 
 
-def fused_ffn(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
-              activation: str = "swiglu",
+def fused_ffn(x: torch.Tensor, w_gate, w_up, *, activation: str = "swiglu",
               plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
     """``act(x @ w_gate) * (x @ w_up)`` for x (..., K): the fused FFN-up
     kernel when the plan's ``fused_ffn`` entry is fused on ``"cuda"``,
-    the reference math otherwise."""
+    the reference math otherwise. Weights as :func:`matmul` takes them."""
     fp = (plan or DEFAULT_PLAN).fused_ffn
+    w_gate, wg_scale = _wparts(w_gate)
+    w_up, wu_scale = _wparts(w_up)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    kw = dict(activation=activation, wg_scale=wg_scale, wu_scale=wu_scale)
     if fp.fused and fp.backend == "cuda":
-        out = fused_ffn_up(x2, w_gate, w_up, activation=activation)
+        out = fused_ffn_up(x2, w_gate, w_up, **kw)
     else:
-        out = ref.fused_ffn_up_ref(x2, w_gate, w_up, activation=activation)
+        out = ref.fused_ffn_up_ref(x2, w_gate, w_up, **kw)
     return out.reshape(*lead, w_gate.shape[-1])
 
 
@@ -124,11 +154,16 @@ def decode_ingest(x, norm_scale, wq, wk, wv, positions, *, num_heads: int,
     """Fused decode ingest: rmsnorm → QKV → bias → rope in one seam. x
     (B, 1, D), positions (B,) -> q (B, 1, HQ, Dh), k / v (B, 1, HK, Dh).
     The ingest kernel on ``"cuda"`` (plan.decode_fusion), the oracle
-    that composes the split chain's expressions on ``"torch"``."""
+    that composes the split chain's expressions on ``"torch"``. Weights
+    as :func:`matmul` takes them."""
     fp = (plan or DEFAULT_PLAN).decode_fusion
+    wq, wq_scale = _wparts(wq)
+    wk, wk_scale = _wparts(wk)
+    wv, wv_scale = _wparts(wv)
     kw = dict(num_heads=num_heads, num_kv_heads=num_kv_heads,
               head_dim=head_dim, rope_theta=rope_theta, eps=eps,
-              use_rope=use_rope, bq=bq, bk=bk, bv=bv)
+              use_rope=use_rope, bq=bq, bk=bk, bv=bv, wq_scale=wq_scale,
+              wk_scale=wk_scale, wv_scale=wv_scale)
     if fp.backend != "cuda":
         return ref.decode_ingest_ref(x, norm_scale, wq, wk, wv, positions,
                                      **kw)
@@ -144,13 +179,15 @@ def oproj_residual(o, wo, resid, *,
                    plan: Optional[ExecutionPlan] = None) -> torch.Tensor:
     """``resid + o @ wo`` (o (B, S, Q), resid (B, S, D)) with the residual
     add in the GEMM's epilogue on ``"cuda"``; the split composition on
-    ``"torch"``. Serves the o_proj and the FFN down projection."""
+    ``"torch"``. Serves the o_proj and the FFN down projection. ``wo`` as
+    :func:`matmul` takes it."""
     fp = (plan or DEFAULT_PLAN).decode_fusion
+    wo, w_scale = _wparts(wo)
     if fp.backend != "cuda":
-        return ref.oproj_residual_ref(o, wo, resid)
+        return ref.oproj_residual_ref(o, wo, resid, w_scale=w_scale)
     b, s, qd = o.shape
     out = oproj_residual_fused(o.reshape(b * s, qd), wo,
-                               resid.reshape(b * s, -1))
+                               resid.reshape(b * s, -1), w_scale=w_scale)
     return out.reshape(resid.shape)
 
 
@@ -162,15 +199,18 @@ def ffn_norm(x, norm_scale, w_gate, w_up, *, activation: str = "swiglu",
     oracle composes whichever split chain the plan's ``fused_ffn`` knob
     selects, so the fused granularities stay bitwise split. Feed the
     result to :func:`oproj_residual` with ``w_down`` for the whole
-    seam."""
+    seam. Weights as :func:`matmul` takes them."""
     p = plan or DEFAULT_PLAN
+    w_gate, wg_scale = _wparts(w_gate)
+    w_up, wu_scale = _wparts(w_up)
+    kw = dict(activation=activation, eps=eps, wg_scale=wg_scale,
+              wu_scale=wu_scale)
     if p.decode_fusion.backend != "cuda":
         return ref.ffn_norm_ref(x, norm_scale, w_gate, w_up,
-                                activation=activation, eps=eps,
-                                fused=p.fused_ffn.fused)
+                                fused=p.fused_ffn.fused, **kw)
     b, s, d = x.shape
     out = ffn_norm_fused(x.reshape(b * s, d), norm_scale, w_gate, w_up,
-                         activation=activation, eps=eps)
+                         **kw)
     return out.reshape(b, s, -1)
 
 

@@ -282,16 +282,28 @@ def attention_decode_grouped_unified_max_ref(q, k_pool, v_pool, block_tables,
 # ---------------------------------------------------------------------------
 
 
-def flat_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def flat_gemm_ref(x: torch.Tensor, w: torch.Tensor, *,
+                  w_scale: torch.Tensor | None = None) -> torch.Tensor:
     """(M, K) @ (K, N), result in x.dtype — the library GEMM (ImplC).
-    cuBLAS and the CPU BLAS both accumulate bf16 products in f32."""
-    return torch.matmul(x, w.to(x.dtype))
+    cuBLAS and the CPU BLAS both accumulate bf16 products in f32.
+
+    ``w_scale`` ((N,) f32 per-output-channel steps, ``models/wquant.py``)
+    marks ``w`` as int8 / fp8 codes: the product runs on the codes cast
+    to x's dtype (exact: int8 ±127 and every e4m3 value are bf16 values),
+    accumulated in f32, the step multiplies the f32 accumulator and the
+    result rounds once. ``w_scale=None`` is the unchanged expression (the
+    bitwise bf16 path)."""
+    if w_scale is None:
+        return torch.matmul(x, w.to(x.dtype))
+    acc = torch.matmul(x.float(), w.to(x.dtype).float())
+    return (acc * w_scale.float()).to(x.dtype)
 
 
-def gemv_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def gemv_ref(x: torch.Tensor, w: torch.Tensor, *,
+             w_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Same math as :func:`flat_gemm_ref`; kept separate as the ImplA
     oracle."""
-    return flat_gemm_ref(x, w)
+    return flat_gemm_ref(x, w, w_scale=w_scale)
 
 
 def ffn_activation(g: torch.Tensor, activation: str) -> torch.Tensor:
@@ -303,13 +315,19 @@ def ffn_activation(g: torch.Tensor, activation: str) -> torch.Tensor:
 
 
 def fused_ffn_up_ref(x: torch.Tensor, w_gate: torch.Tensor,
-                     w_up: torch.Tensor, *,
-                     activation: str = "swiglu") -> torch.Tensor:
+                     w_up: torch.Tensor, *, activation: str = "swiglu",
+                     wg_scale: torch.Tensor | None = None,
+                     wu_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Oracle of the fused FFN-up: ``act(x @ w_gate) * (x @ w_up)`` with
     the activation on the unrounded f32 products and one rounding to x's
-    dtype at the end."""
+    dtype at the end. Per-output-channel weight steps (``wg_scale`` /
+    ``wu_scale``) apply on the f32 products before the activation."""
     g = torch.matmul(x.float(), w_gate.float())
+    if wg_scale is not None:
+        g = g * wg_scale.float()
     u = torch.matmul(x.float(), w_up.float())
+    if wu_scale is not None:
+        u = u * wu_scale.float()
     return (ffn_activation(g, activation) * u).to(x.dtype)
 
 
@@ -349,19 +367,22 @@ def rope_ref(x: torch.Tensor, positions: torch.Tensor,
 def decode_ingest_ref(x, norm_scale, wq, wk, wv, positions, *,
                       num_heads: int, num_kv_heads: int, head_dim: int,
                       rope_theta: float = 1e4, eps: float = 1e-6,
-                      use_rope: bool = True, bq=None, bk=None, bv=None):
+                      use_rope: bool = True, bq=None, bk=None, bv=None,
+                      wq_scale=None, wk_scale=None, wv_scale=None):
     """Oracle of the fused decode ingest: rmsnorm → QKV → bias → rope,
     composed of exactly the split chain's expressions in the same order
     (norm, three GEMMs flattened to (B·S, D) and reshaped back, bias
     add, head reshape, rope on q and k), so the fused granularities are
-    bitwise split on the ``"torch"`` backend. x (B, 1, D), positions
-    (B,); returns q (B, 1, HQ, Dh), k / v (B, 1, HK, Dh)."""
+    bitwise split on the ``"torch"`` backend. Weight steps (``w*_scale``)
+    apply on the f32 accumulators before the rounding and the bias add.
+    x (B, 1, D), positions (B,); returns q (B, 1, HQ, Dh), k / v
+    (B, 1, HK, Dh)."""
     b, s, d = x.shape
     h = rmsnorm_ref(x, norm_scale, eps)
     h2 = h.reshape(b * s, d)
-    q = flat_gemm_ref(h2, wq).reshape(b, s, wq.shape[-1])
-    k = flat_gemm_ref(h2, wk).reshape(b, s, wk.shape[-1])
-    v = flat_gemm_ref(h2, wv).reshape(b, s, wv.shape[-1])
+    q = flat_gemm_ref(h2, wq, w_scale=wq_scale).reshape(b, s, wq.shape[-1])
+    k = flat_gemm_ref(h2, wk, w_scale=wk_scale).reshape(b, s, wk.shape[-1])
+    v = flat_gemm_ref(h2, wv, w_scale=wv_scale).reshape(b, s, wv.shape[-1])
     if bq is not None:
         q, k, v = q + bq, k + bk, v + bv
     q = q.reshape(b, s, num_heads, head_dim)
@@ -374,28 +395,34 @@ def decode_ingest_ref(x, norm_scale, wq, wk, wv, positions, *,
     return q, k, v
 
 
-def oproj_residual_ref(o, wo, resid):
+def oproj_residual_ref(o, wo, resid, *, w_scale=None):
     """Oracle of the fused attention epilogue ``resid + o @ wo``: the
-    split chain's GEMM (flattened, reshaped back) and residual add.
-    o (B, S, Q), wo (Q, D), resid (B, S, D)."""
+    split chain's GEMM (flattened, reshaped back) and residual add; the
+    weight step (``w_scale``) applies on the f32 accumulator before the
+    rounding and the add. o (B, S, Q), wo (Q, D), resid (B, S, D)."""
     b, s, qd = o.shape
-    return resid + flat_gemm_ref(o.reshape(b * s, qd), wo).reshape(
-        b, s, wo.shape[-1])
+    return resid + flat_gemm_ref(o.reshape(b * s, qd), wo,
+                                 w_scale=w_scale).reshape(b, s, wo.shape[-1])
 
 
 def ffn_norm_ref(x, norm_scale, w_gate, w_up, *, activation: str = "swiglu",
-                 eps: float = 1e-6, fused: bool = True):
+                 eps: float = 1e-6, fused: bool = True, wg_scale=None,
+                 wu_scale=None):
     """Oracle of the fused MLP ingest: rmsnorm → gate/up → act(g)·u.
     ``fused`` mirrors whichever split chain the plan's ``fused_ffn``
     knob selects: :func:`fused_ffn_up_ref` (activation on the f32
     products) or two GEMMs rounded to the activation dtype before the
-    activation. x (B, S, D); returns (B, S, F)."""
+    activation. Weight steps (``wg_scale`` / ``wu_scale``) apply where
+    those chains apply them. x (B, S, D); returns (B, S, F)."""
     b, s, d = x.shape
     f = w_gate.shape[-1]
     h = rmsnorm_ref(x, norm_scale, eps)
     if fused:
         return fused_ffn_up_ref(h.reshape(b * s, d), w_gate, w_up,
-                                activation=activation).reshape(b, s, f)
-    g = flat_gemm_ref(h.reshape(b * s, d), w_gate).reshape(b, s, f)
-    u = flat_gemm_ref(h.reshape(b * s, d), w_up).reshape(b, s, f)
+                                activation=activation, wg_scale=wg_scale,
+                                wu_scale=wu_scale).reshape(b, s, f)
+    g = flat_gemm_ref(h.reshape(b * s, d), w_gate,
+                      w_scale=wg_scale).reshape(b, s, f)
+    u = flat_gemm_ref(h.reshape(b * s, d), w_up,
+                      w_scale=wu_scale).reshape(b, s, f)
     return ffn_activation(g, activation) * u

@@ -21,6 +21,14 @@ prefill reads the pool. ``--decode-group grouped`` (with
 decode; the summary then counts grouped decodes and the prefix KV bytes
 saved. The ``req N:`` lines do not change with any of these.
 
+``--weight-dtype bf16|int8|fp8`` stores every layer GEMM weight as int8
+or fp8 codes with one f32 step per output channel, quantized once at
+load; the GEMM kernels stream the codes and scale their f32 accumulators.
+The summary's ``weights=`` segment gives the stored weight bytes per
+decode tick and the total the decode ticks read. The accuracy contract of
+int8 / fp8 is the logits guard (``quant.logits_guard_tol``), not bitwise
+tokens against bf16; ``bf16`` (the default) keeps every ``req N:`` line.
+
 ``--decode-fusion split|fused|looped`` overrides the plan's decode-layer
 granularity: ``fused`` runs each layer as four fused stage kernels,
 ``looped`` replays the whole decode step as one CUDA graph on the card
@@ -84,6 +92,11 @@ def _parse(argv=None):
                          "'fused' = four fused stage kernels per layer, "
                          "'looped' = the fused step replayed as one CUDA "
                          "graph per tick")
+    ap.add_argument("--weight-dtype", choices=["bf16", "int8", "fp8"],
+                    default=None,
+                    help="GEMM weight storage: int8 / fp8 codes with one "
+                         "f32 step per output channel, quantized at load "
+                         "(default: the plan's matmul.weight_dtype, bf16)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -128,8 +141,8 @@ def main(argv=None) -> int:
                  num_pages=num_pages, prefill_chunk=args.prefill_chunk,
                  prefix_sharing=args.prefix_sharing,
                  scheduler=args.scheduler, plan=plan,
-                 decode_fusion=args.decode_fusion, seed=args.seed,
-                 device=dev)
+                 decode_fusion=args.decode_fusion,
+                 weight_dtype=args.weight_dtype, seed=args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
     sp = SamplingParams(max_new_tokens=args.max_new,
                         temperature=args.temperature)
@@ -149,7 +162,9 @@ def main(argv=None) -> int:
             f"({total / dt:.1f} tok/s, {eng.ticks} decode ticks, "
             f"{tick_ms:.2f} ms/tick, prefill {st.prefill_seconds:.2f}s, "
             f"{eng.scheduler.name} scheduler, device={dev}, "
-            f"fusion={eng.decode_fusion}")
+            f"fusion={eng.decode_fusion}, weights={eng.weight_dtype} "
+            f"({eng._weight_bytes_per_tick} B/tick, "
+            f"{st.weight_bytes_decode_read} decode weight bytes read)")
     if eng.decode_fusion == "looped":
         line += f", graphs={st.graph_captures}/{st.graph_replays}"
     if eng.pool is not None:

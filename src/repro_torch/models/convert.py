@@ -3,8 +3,10 @@
 :func:`params_from_numpy` takes the reference's param tree as a nested
 dict of numpy arrays (``jax.device_get`` of ``init_params``) and returns
 the port's tree leaf by leaf under the same names and shapes — both keep
-layer params stacked on a leading L axis. bfloat16 leaves (numpy's
-``ml_dtypes`` bfloat16) are reinterpreted bit for bit.
+layer params stacked on a leading L axis. bfloat16 and float8_e4m3fn
+leaves (numpy's ``ml_dtypes`` types, which torch cannot read) are
+reinterpreted bit for bit, so a quantized weight's ``{"codes", "scale"}``
+dict converts through the same recursion with its codes unchanged.
 """
 from __future__ import annotations
 
@@ -14,11 +16,17 @@ import torch
 from repro_torch.device import resolve
 
 
+# ml_dtypes leaves: (bit container, torch dtype)
+_BITCAST = {"bfloat16": (np.uint16, torch.bfloat16),
+            "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def _leaf(a, device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
+    if a.dtype.name in _BITCAST:
+        bits, dtype = _BITCAST[a.dtype.name]
+        t = torch.from_numpy(np.ascontiguousarray(a).view(bits).copy())
+        return t.view(dtype).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 

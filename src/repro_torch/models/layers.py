@@ -24,6 +24,12 @@ graph (:class:`~repro_torch.models.stack.LoopedDecode`, kept on the
 context). Stage B keeps its own plan-governed dispatch. KV appends update
 the dense cache or the paged pool in place through one sync-free masked
 write (:class:`KVWrite`).
+
+A GEMM weight leaf (``wq`` … ``w_down``) is a tensor or, under a quantized
+``weight_dtype``, the ``{"codes", "scale"}`` dict of ``models/wquant.py``.
+Nothing here reads a weight's shape, dtype or transpose: every GEMM goes
+through an ``ops`` front door, which takes either form, and the looped
+graph reads the codes and steps in place like any other param.
 """
 from __future__ import annotations
 
@@ -86,7 +92,7 @@ class LayerCtx:
             return SoftmaxPhiConfig(enabled=False)
         return self.cfg.softmax_phi
 
-    def matmul(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def matmul(self, x: torch.Tensor, w) -> torch.Tensor:
         return ops.matmul(x, w, plan=self.plan)
 
 

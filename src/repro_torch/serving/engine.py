@@ -3,7 +3,7 @@ block-paged pool.
 
 The port of the JAX package's ``serving/engine.py`` for
 ``cache_kind="dense"`` and ``cache_kind="paged"`` (the tiered KV store
-and quantized pages come with later slices):
+and quantized KV pages come with later slices):
 
   * **Request lifecycle.** Each submission is a
     :class:`~repro_torch.serving.request.RequestState` walking WAITING →
@@ -53,8 +53,17 @@ and quantized pages come with later slices):
     the next one captures; ``EngineStats.graph_captures`` /
     ``graph_replays`` count them. On the CPU looped runs the fused path
     eagerly.
+  * **Quantized weights** (``weight_dtype=`` or the plan's
+    ``matmul.weight_dtype``). ``"int8"`` / ``"fp8"`` quantize every layer
+    GEMM weight once at load into 1-byte codes with one f32 step per
+    output channel; the GEMM kernels stream the codes and scale their f32
+    accumulators. ``EngineStats.weight_bytes_decode_read`` counts the
+    stored weight bytes the decode ticks read. The accuracy contract is
+    the logits guard (``quant.logits_guard_tol``), not bitwise tokens;
+    ``"bf16"`` keeps every kernel and token.
   * **One dispatch surface.** Every kernel decision rides in the single
-    ``plan=`` operand; plans change which kernel runs, never the tokens.
+    ``plan=`` operand; plans change which kernel runs, never the tokens
+    (the weight precision changes them within the logits guard).
 
 Entry points run on the card unless ``device`` says otherwise; asking for
 CUDA where there is none raises.
@@ -69,8 +78,11 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.plan import DEFAULT_PLAN, FUSION_MODES, ExecutionPlan
+from repro_torch.core.plan import (DEFAULT_PLAN, FUSION_MODES, WEIGHT_DTYPES,
+                                   ExecutionPlan)
 from repro_torch.device import resolve
+from repro_torch.kernels import quant
+from repro_torch.models import wquant
 from repro_torch.models.api import get_model
 from repro_torch.models.kvlayout import (DenseLayout, KVLayout, PagedLayout,
                                          pages_for, pow2_bucket)
@@ -118,6 +130,13 @@ class EngineStats:
     # looped decode (decode_fusion == "looped" on the card)
     graph_captures: int = 0          # decode-step CUDA graphs captured
     graph_replays: int = 0           # decode ticks served by a replay
+    # GEMM weights (bf16-sized unless weight_dtype != "bf16")
+    weight_bytes_decode_read: int = 0  # cumulative GEMM weight bytes the
+    #                                  decode ticks streamed: every layer's
+    #                                  projection leaves once per tick,
+    #                                  codes and steps at stored width
+    #                                  (embedding / lm_head excluded: not
+    #                                  per-layer streams)
 
 
 def request_seed(seed: int, rid: int) -> int:
@@ -141,6 +160,7 @@ class Engine:
         scheduler: Union[str, Scheduler] = "fcfs",
         plan: Optional[ExecutionPlan] = None,
         decode_fusion: Optional[str] = None,
+        weight_dtype: Optional[str] = None,
         seed: int = 0,
         device="cuda",
     ):
@@ -162,8 +182,29 @@ class Engine:
                 self.plan, decode_fusion=dataclasses.replace(
                     self.plan.decode_fusion, granularity=decode_fusion))
         self.decode_fusion = self.plan.decode_fusion.granularity
+        # GEMM weight precision: the explicit argument wins over the plan's
+        # matmul.weight_dtype and lands in the plan; the kernels themselves
+        # key off the quantized leaves, not the knob
+        if weight_dtype is None:
+            weight_dtype = self.plan.matmul.weight_dtype
+        if weight_dtype not in WEIGHT_DTYPES:
+            raise ValueError(f"weight_dtype {weight_dtype!r} not in "
+                             f"{WEIGHT_DTYPES}")
+        if weight_dtype != self.plan.matmul.weight_dtype:
+            self.plan = dataclasses.replace(
+                self.plan, matmul=dataclasses.replace(
+                    self.plan.matmul, weight_dtype=weight_dtype))
+        self.weight_dtype = weight_dtype
         self.ctx = LayerCtx(cfg=cfg, plan=self.plan)
+        # quantize at load, once, on the params' device: every GEMM weight
+        # leaf becomes int8 / fp8 codes with one f32 step per output
+        # channel; bf16 leaves the tree untouched (the bitwise path)
+        if weight_dtype != "bf16":
+            params = wquant.quantize_params(params,
+                                            quant.spec_for(weight_dtype))
         self.params = params
+        # one decode tick's GEMM weight stream at stored width
+        self._weight_bytes_per_tick = wquant.gemm_weight_bytes(params)
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.scheduler = get_scheduler(scheduler)
@@ -591,6 +632,7 @@ class Engine:
             block_tables=self.slots.block_tables(self.device),
             decode_groups=(gplan.operands(self.device)
                            if gplan is not None else None))
+        self.stats.weight_bytes_decode_read += self._weight_bytes_per_tick
         if self.ctx.graphs is not None:
             self.stats.graph_captures = self.ctx.graphs.captures
             self.stats.graph_replays = self.ctx.graphs.replays
