@@ -20,7 +20,14 @@
    plain versions at the layer GEMMs' shapes, timed beside the library
    chain (codes cast to bf16, the GEMM, the step) and the bf16 kernel on
    the same shape; a full-width weight quantized on the card must match
-   the CPU's codes and steps bitwise.
+   the CPU's codes and steps bitwise. The quantized KV bodies (rows 5,
+   6, 9, 10 and both stages of 11 on int8 and fp8 pages, one f32 step per
+   page and kv head) are held to their plain versions on the bf16 rows'
+   inputs quantized page by page, timed beside their bf16 twins and the
+   library chain (dequantize to bf16, then SDPA); the grouped pair must be
+   bitwise quantized row 5, NaN steps on unread pages (and, fp8, NaN codes
+   in unread rows) must change nothing, and the KV scatter run on the card
+   must give the CPU's codes and steps bitwise.
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
    greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
@@ -41,10 +48,14 @@
    equal to L′'s), with the graphs' replays credited to the launch
    counters; then quantized weights, with fewer new tokens: M (A with
    int8 weights), N (B with int8), O (J with fp8), O′ (its eager fused
-   twin, tokens equal to O's) and P (K's plan with int8). Every run's
-   decode ticks must read exactly the stored GEMM weight bytes of its
-   precision, a quantized run must launch the quantized variants and no
-   bf16 layer-GEMM kernel, and a bf16 run no quantized variant.
+   twin, tokens equal to O's) and P (K's plan with int8); then quantized
+   KV pages: Q (E with int8 pages), Q′ (E′ with int8, tokens equal to
+   Q's), R (G with int8, tokens equal to Q's), S (K with fp8 pages) and S′
+   (its eager fused twin, tokens equal to S's). Every run's decode ticks
+   must read exactly the stored GEMM weight bytes of its precision, and a
+   paged run exactly its resident pages' stored KV bytes; a quantized run
+   must launch the quantized variants and no bf16 layer-GEMM kernel (KV:
+   no bf16 attention body), and a bf16 run no quantized variant.
 4. Checks the logits of the first prefill and decode step (and, on the
    paged pool, of a chunk that reads resident pages, and of runs H's and
    K's plans over a shared prefix with grouped decode) against the
@@ -52,11 +63,12 @@
    greedy tokens on which the two plans agree; checks that a looped
    step's graph replay gives bitwise the eager fused step's logits and
    KV writes, on the dense cache and on the paged pool with grouped
-   decode; checks int8 and fp8 weights' logits against the "torch" plan
-   with the same quantized params (default plan, fused stages, H's plan)
-   and, on the "torch" plan, against the bf16 logits within the JAX
-   package's guard (``quant.logits_guard_tol``); profiles the decode tick
-   of A, H, J, K, M and O.
+   decode (bf16 pages and int8 ones); checks int8 and fp8 weights' logits
+   against the "torch" plan with the same quantized params (default plan,
+   fused stages, H's plan) and, on the "torch" plan, against the bf16
+   logits within the JAX package's guard (``quant.logits_guard_tol``);
+   does the same for int8 and fp8 KV pages on the paged cases; profiles
+   the decode tick of A, H, J, K, M, O and S.
 5. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -113,6 +125,18 @@ REPLACES = {
     "decode_ingest_fused_quant": "src/repro/kernels/decode_fuse.py:67",
     "oproj_residual_fused_quant": "src/repro/kernels/decode_fuse.py:267",
     "ffn_norm_fused_quant": "src/repro/kernels/decode_fuse.py:362",
+    # the quantized KV bodies (int8 / fp8 pages, one counter each)
+    "paged_decode_attention_unified_max_quant":
+        "src/repro/kernels/decode_attention.py:226",
+    "paged_decode_attention_sync_quant":
+        "src/repro/kernels/decode_attention.py:369",
+    "paged_chunk_attention_unified_max_quant":
+        "src/repro/kernels/chunk_attention.py:57",
+    "paged_chunk_attention_sync_quant":
+        "src/repro/kernels/chunk_attention.py:119",
+    "grouped_paged_decode_attention_unified_max_quant":
+        "src/repro/kernels/group_attention.py:60",
+    "grouped_decode_stage2_quant": "src/repro/kernels/group_attention.py:129",
 }
 SOURCES = {
     "gemv": "src/repro_torch/csrc/gemv.cu",
@@ -139,6 +163,17 @@ SOURCES = {
     "decode_ingest_fused_quant": "src/repro_torch/csrc/decode_fuse.cu",
     "oproj_residual_fused_quant": "src/repro_torch/csrc/decode_fuse.cu",
     "ffn_norm_fused_quant": "src/repro_torch/csrc/decode_fuse.cu",
+    "paged_decode_attention_unified_max_quant":
+        "src/repro_torch/csrc/decode_attention.cu",
+    "paged_decode_attention_sync_quant":
+        "src/repro_torch/csrc/decode_attention.cu",
+    "paged_chunk_attention_unified_max_quant":
+        "src/repro_torch/csrc/chunk_attention.cu",
+    "paged_chunk_attention_sync_quant":
+        "src/repro_torch/csrc/chunk_attention.cu",
+    "grouped_paged_decode_attention_unified_max_quant":
+        "src/repro_torch/csrc/group_attention.cu",
+    "grouped_decode_stage2_quant": "src/repro_torch/csrc/group_attention.cu",
 }
 PAGE = 64                             # page size of every paged run
 # one decode tick's stored GEMM weight stream of qwen2-0.5b, 24 layers of
@@ -146,6 +181,26 @@ PAGE = 64                             # page size of every paged run
 # (bf16), or at 1 byte plus 12,672 f32 steps per layer (int8, fp8)
 WEIGHT_BYTES_PER_TICK = {"bf16": 715_653_120, "int8": 359_043_072,
                          "fp8": 359_043_072}
+# one 64-row page's K+V slab of qwen2-0.5b across its 24 layers: 2 x 64 x
+# 2 kv heads x 64 dims per layer at 2 bytes (bf16), or at 1 byte plus 2 x
+# 2 f32 steps per layer (int8, fp8)
+KV_PAGE_BYTES = {"bf16": 786_432, "int8": 393_600, "fp8": 393_600}
+# the attention kernels of the bf16 and of the quantized KV bodies, by
+# counter name: a quantized-KV run must launch none of the first
+BF16_ATTENTION = ("decode_attention_unified_max", "decode_attention_sync",
+                  "paged_decode_attention_unified_max",
+                  "paged_decode_attention_sync",
+                  "paged_chunk_attention_unified_max",
+                  "paged_chunk_attention_sync",
+                  "grouped_paged_decode_attention_unified_max",
+                  "grouped_decode_stage2", "flash_prefill_unified_max",
+                  "flash_prefill_sync")
+KV_QUANT = ("paged_decode_attention_unified_max_quant",
+            "paged_decode_attention_sync_quant",
+            "paged_chunk_attention_unified_max_quant",
+            "paged_chunk_attention_sync_quant",
+            "grouped_paged_decode_attention_unified_max_quant",
+            "grouped_decode_stage2_quant")
 
 
 class SmokeFailure(RuntimeError):
@@ -687,33 +742,10 @@ def kernel_phase(torch, timer, rows, log):
     glens = torch.tensor([1024, 800, 600, 520], dtype=torch.int32,
                          device=dev)
     plen = 512
-    npre = plen // PAGE
-    own = [-(-int(n) // PAGE) - npre for n in glens.tolist()]
-    num_pages = npre + sum(own) + 8
-    perm = torch.randperm(num_pages, generator=gen, device=dev)
-    kp, vp = (randn(num_pages, PAGE, hk, hd) for _ in range(2))
-    bt = torch.full((b, s_max // PAGE), num_pages, dtype=torch.int32,
-                    device=dev)
-    live = torch.zeros((num_pages, PAGE), dtype=torch.bool, device=dev)
-    pre = perm[:npre].int()
-    live[pre.long()] = True
-    lo = npre
-    for i, n in enumerate(own):
-        pages = perm[lo:lo + n]
-        lo += n
-        bt[i, :npre] = pre
-        bt[i, npre:npre + n] = pages.int()
-        live[pages] = (npre * PAGE + torch.arange(n * PAGE, device=dev)
-                       < int(glens[i])).reshape(n, PAGE)
+    kp, vp, bt, live, groups = grouped_layout(torch, gen, randn, glens, plen,
+                                              s_max, hk, hd)
+    num_pages = kp.shape[0]
     kpn, vpn = poisoned(torch, (kp, vp), live)
-
-    def i32(*vals):
-        return torch.tensor(vals, dtype=torch.int32, device=dev)
-
-    groups = ga.DecodeGroups(
-        tables=pre[None], n_pages=i32(npre), g_prefix_len=i32(plen),
-        num_members=i32(b), member_rows=i32(*range(b))[None],
-        gid=i32(*[0] * b), member=i32(*range(b)), prefix_len=i32(*[plen] * b))
     kd = gather_paged_kv(kp, bt).transpose(1, 2)
     vd = gather_paged_kv(vp, bt).transpose(1, 2)
     ke = kd.repeat_interleave(hq // hk, dim=1)
@@ -912,6 +944,341 @@ def kernel_phase(torch, timer, rows, log):
             f"max_abs_err={err:.3e} ({tol})")
         check(ok, f"ops.attention_chunk_paged {tag} disagrees")
 
+    kv_quant_kernels(torch, cfg, gen, randn, record, attn_close, log)
+
+
+def grouped_layout(torch, gen, randn, glens, plen, s_max, hk, hd):
+    """Row 11's pool: every row's table leads with one shared ``plen``-
+    token prefix (shuffled pages of a pool 8 pages larger than needed),
+    then its own pages to ``glens[b]``. Returns the bf16 pools, the
+    tables, the (NP, PAGE) mask of rows that hold a position some row
+    reads, and the one-group ``DecodeGroups``."""
+    from repro_torch.kernels import group_attention as ga
+    b, dev = glens.shape[0], glens.device
+    npre = plen // PAGE
+    own = [-(-int(n) // PAGE) - npre for n in glens.tolist()]
+    num_pages = npre + sum(own) + 8
+    perm = torch.randperm(num_pages, generator=gen, device=dev)
+    kp, vp = (randn(num_pages, PAGE, hk, hd) for _ in range(2))
+    bt = torch.full((b, s_max // PAGE), num_pages, dtype=torch.int32,
+                    device=dev)
+    live = torch.zeros((num_pages, PAGE), dtype=torch.bool, device=dev)
+    pre = perm[:npre].int()
+    live[pre.long()] = True
+    lo = npre
+    for i, n in enumerate(own):
+        pages = perm[lo:lo + n]
+        lo += n
+        bt[i, :npre] = pre
+        bt[i, npre:npre + n] = pages.int()
+        live[pages] = (npre * PAGE + torch.arange(n * PAGE, device=dev)
+                       < int(glens[i])).reshape(n, PAGE)
+
+    def i32(*vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    groups = ga.DecodeGroups(
+        tables=pre[None], n_pages=i32(npre), g_prefix_len=i32(plen),
+        num_members=i32(b), member_rows=i32(*range(b))[None],
+        gid=i32(*[0] * b), member=i32(*range(b)), prefix_len=i32(*[plen] * b))
+    return kp, vp, bt, live, groups
+
+
+def kv_quant_kernels(torch, cfg, gen, randn, record, attn_close, log):
+    """Rows 5, 6, 9, 10 and both stages of 11 on int8 / fp8 KV pages: the
+    bf16 rows' full-width inputs quantized page by page with
+    ``kvquant.quantize_pages``. Each quantized body against its plain
+    version (within ATTN_REL of each row's RMS), timed beside its bf16
+    twin on the same shape, the plain version and the library chain
+    (dequantize to bf16, then SDPA over a pre-gathered view); the grouped
+    pair bitwise quantized row 5; NaN in the steps of every page a kernel
+    must not read, and for fp8 the NaN code in every pool row that holds
+    no position it reads, changes nothing; the scatter run on the card
+    gives the CPU's codes and steps bitwise."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.plan import DEFAULT_PLAN
+    from repro_torch.kernels import chunk_attention as ca
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import group_attention as ga
+    from repro_torch.kernels import ops, quant
+    from repro_torch.kernels.ref import gather_paged_kv
+    from repro_torch.serving import kvquant
+
+    hd, hq, hk = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    g = hq // hk
+    dev, bf = "cuda", torch.bfloat16
+    phi = cfg.softmax_phi
+    b, s_max = 4, 1024
+
+    def quantize(pools, qs):
+        return [kvquant.quantize_pages(p, qs) for p in pools]
+
+    def poison(qs, qpools, live):
+        """NaN steps on every page with no live row; for fp8 also the NaN
+        code (0x7f) in every row that is not live."""
+        read = live.any(dim=1)[:, None]
+        out = []
+        for codes, steps in qpools:
+            steps = torch.where(read, steps, torch.full_like(
+                steps, float("nan")))
+            if not qs.is_int:
+                c8 = codes.view(torch.uint8)
+                codes = torch.where(live[:, :, None, None], c8,
+                                    torch.full_like(c8, 0x7F)).view(
+                                        codes.dtype)
+            out.append((codes, steps))
+        return out
+
+    def expanded(codes, steps, bt):
+        """Codes gathered through the tables and GQA-expanded to (B, HQ,
+        S, D), with their per-position steps (B, HQ, S, 1): the library
+        chain's pre-gathered view (made once, outside the timing)."""
+        c = gather_paged_kv(codes.view(torch.uint8), bt).view(
+            codes.dtype).transpose(1, 2)
+        st = steps[bt.long().clamp(max=codes.shape[0] - 1)]   # (B, NB, HK)
+        st = st.repeat_interleave(PAGE, dim=1).transpose(1, 2)[..., None]
+        return (c.repeat_interleave(g, dim=1), st.repeat_interleave(g, dim=1))
+
+    def dequant(view):
+        return (view[0].float() * view[1]).to(bf)
+
+    def q_bytes(n_rows, n_pages, n_q, extra):
+        """q and out once each (bf16), K and V codes of every row read,
+        the steps of every page read, plus ``extra``."""
+        return 4 * n_q * hq * hd + 2 * n_rows * hk * hd + 8 * n_pages * hk \
+            + extra
+
+    # -- rows 5-6: decode over a shuffled pool (row 3's shapes) ------------
+    lengths = torch.tensor([1024, 517, 64, 3], dtype=torch.int32, device=dev)
+    (kp, vp), bt, live = paged_layout(
+        torch, gen, (randn(b, s_max, hk, hd), randn(b, s_max, hk, hd)),
+        lengths)
+    n_valid = int(lengths.sum())
+    n_pages = sum(-(-int(n) // PAGE) for n in lengths.tolist())
+    dec_bytes = q_bytes(n_valid, n_pages, b, 4 * b * hk + 4 * bt.numel())
+    dec_flops = 4 * n_valid * hq * hd
+    mask = (torch.arange(s_max, device=dev)[None, :] < lengths[:, None])[
+        :, None, None, :]
+    q = randn(b, hq, hd)
+    q4 = q[:, :, None, :]
+    for qs in (quant.INT8, quant.FP8):
+        slot = None if qs.is_int else "fp8"
+        (kc, ks), (vc, vs) = quantize((kp, vp), qs)
+        (kcn, ksn), (vcn, vsn) = poison(qs, ((kc, ks), (vc, vs)), live)
+        kw = dict(k_scale=ks, v_scale=vs)
+        kview, vview = expanded(kc, ks, bt), expanded(vc, vs, bt)
+        lib = lambda: F.scaled_dot_product_attention(
+            q4, dequant(kview), dequant(vview), attn_mask=mask)
+        tag = f"{qs.name} B=4 S=1024 PS={PAGE} ragged shuffled"
+        out, stat = da.paged_decode_attention_unified_max(
+            q, kc, vc, bt, lengths, phi=phi.phi, **kw)
+        want, want_stat = da.paged_decode_attention_unified_max_plain(
+            q, kc, vc, bt, lengths, phi=phi.phi, **kw)
+        check((stat - want_stat).abs().max().item()
+              <= 1e-2 * max(1.0, want_stat.abs().max().item()),
+              f"quantized paged decode {qs.name}: stat disagrees")
+        sync = da.paged_decode_attention_sync(q, kc, vc, bt, lengths, **kw)
+        clean = same_bits(
+            torch, (da.paged_decode_attention_unified_max(
+                q, kcn, vcn, bt, lengths, phi=phi.phi, k_scale=ksn,
+                v_scale=vsn)[0], out),
+            (da.paged_decode_attention_sync(q, kcn, vcn, bt, lengths,
+                                            k_scale=ksn, v_scale=vsn), sync))
+        log(f"kernel paged_decode_attention {tag}: unchanged with NaN steps "
+            f"on unread pages{'' if qs.is_int else ' and NaN codes in unread rows'}"
+            f" {clean}")
+        check(clean, f"quantized paged decode {tag}: reads what it must not")
+        record("paged_decode_attention_unified_max_quant", tag, out, want,
+               lambda: da.paged_decode_attention_unified_max(
+                   q, kc, vc, bt, lengths, phi=phi.phi, **kw),
+               lambda: da.paged_decode_attention_unified_max_plain(
+                   q, kc, vc, bt, lengths, phi=phi.phi, **kw),
+               lib, dec_bytes, dec_flops, True, attn_close,
+               twin=lambda: da.paged_decode_attention_unified_max(
+                   q, kp, vp, bt, lengths, phi=phi.phi), slot=slot)
+        record("paged_decode_attention_sync_quant", tag, sync,
+               da.paged_decode_attention_sync_plain(q, kc, vc, bt, lengths,
+                                                    **kw),
+               lambda: da.paged_decode_attention_sync(q, kc, vc, bt, lengths,
+                                                      **kw),
+               lambda: da.paged_decode_attention_sync_plain(
+                   q, kc, vc, bt, lengths, **kw),
+               lib, dec_bytes, dec_flops, True, attn_close,
+               twin=lambda: da.paged_decode_attention_sync(q, kp, vp, bt,
+                                                           lengths),
+               slot=slot)
+        # the front door with the recompute forced: s - phi > 40
+        qo = q * 20.0
+        got = ops.attention_decode_paged(qo, kc, vc, bt, lengths,
+                                         phi_cfg=phi, plan=DEFAULT_PLAN, **kw)
+        ok, tol = attn_close(got, da.paged_decode_attention_sync_plain(
+            qo, kc, vc, bt, lengths, **kw))
+        log(f"kernel ops.attention_decode_paged {tag}, s-phi>40: recompute "
+            f"{'ok' if ok else 'MISMATCH'} ({tol})")
+        check(ok, f"quantized ops.attention_decode_paged {tag} recompute")
+
+    # -- row 11: four rows share one 512-token prefix (row 11's shapes) ----
+    glens = torch.tensor([1024, 800, 600, 520], dtype=torch.int32,
+                         device=dev)
+    plen = 512
+    kp, vp, bt, live, groups = grouped_layout(torch, gen, randn, glens, plen,
+                                              s_max, hk, hd)
+    n_keys = int(glens.sum())
+    n_tail = n_keys - b * plen
+    tail_pages = sum(-(-int(n) // PAGE) - plen // PAGE
+                     for n in glens.tolist())
+    tables = 4 * (bt.numel() + sum(t.numel() for t in groups))
+    g_bytes = q_bytes(plen + n_tail, plen // PAGE + tail_pages, b,
+                      4 * b * hk + tables)
+    mg = b * g
+    parts_bytes = 4 * hk * 4 * mg * (hd + 2)       # num, den, stat (f32)
+    t_bytes = q_bytes(n_tail, tail_pages, b,
+                      parts_bytes + 4 * b * hk + 4 * bt.numel() + 4 * 3 * b)
+    gmask = (torch.arange(s_max, device=dev)[None, :] < glens[:, None])[
+        :, None, None, :]
+    for qs in (quant.INT8, quant.FP8):
+        slot = None if qs.is_int else "fp8"
+        (kc, ks), (vc, vs) = quantize((kp, vp), qs)
+        (kcn, ksn), (vcn, vsn) = poison(qs, ((kc, ks), (vc, vs)), live)
+        kw = dict(phi=phi.phi, k_scale=ks, v_scale=vs)
+        kview, vview = expanded(kc, ks, bt), expanded(vc, vs, bt)
+        lib = lambda: F.scaled_dot_product_attention(
+            q4, dequant(kview), dequant(vview), attn_mask=gmask)
+        tag = f"{qs.name} B=4 PS={PAGE} prefix 512, 1024/800/600/520"
+        gout, gstat = ga.grouped_paged_decode_attention_unified_max(
+            q, kc, vc, bt, glens, groups, **kw)
+        pout, pstat = da.paged_decode_attention_unified_max(
+            q, kc, vc, bt, glens, **kw)
+        same = same_bits(torch, (gout, pout), (gstat, pstat))
+        clean = same_bits(torch, (ga.grouped_paged_decode_attention_unified_max(
+            q, kcn, vcn, bt, glens, groups, phi=phi.phi, k_scale=ksn,
+            v_scale=vsn)[0], gout))
+        log(f"kernel grouped_paged_decode_attention {tag}: out and stat "
+            f"bitwise the quantized paged decode kernel {same}; unchanged "
+            f"with NaN where it must not read {clean}")
+        check(same, f"quantized grouped decode {tag}: not bitwise row 5")
+        check(clean, f"quantized grouped decode {tag}: reads what it must "
+              "not")
+        want = ga.grouped_paged_decode_attention_unified_max_plain(
+            q, kc, vc, bt, glens, groups, **kw)[0]
+        record("grouped_paged_decode_attention_unified_max_quant", tag, gout,
+               want, lambda: ga.grouped_paged_decode_attention_unified_max(
+                   q, kc, vc, bt, glens, groups, **kw),
+               lambda: ga.grouped_paged_decode_attention_unified_max_plain(
+                   q, kc, vc, bt, glens, groups, **kw),
+               lib, g_bytes, 4 * n_keys * hq * hd, True, attn_close,
+               twin=lambda: ga.grouped_paged_decode_attention_unified_max(
+                   q, kp, vp, bt, glens, groups, phi=phi.phi), slot=slot)
+        # stage 2 alone, on stage 1's partials
+        parts = ga.group_prefix_partials(q, kc, vc, groups, **kw)
+        bparts = ga.group_prefix_partials(q, kp, vp, groups, phi=phi.phi)
+        record("grouped_decode_stage2_quant", tag + ", stage 2",
+               ga.group_tail_merge(q, kc, vc, bt, glens, groups, *parts,
+                                   **kw)[0],
+               ga.group_tail_plain(q, kc, vc, bt, glens, groups, *parts,
+                                   **kw)[0],
+               lambda: ga.group_tail_merge(q, kc, vc, bt, glens, groups,
+                                           *parts, **kw),
+               lambda: ga.group_tail_plain(q, kc, vc, bt, glens, groups,
+                                           *parts, **kw),
+               None, t_bytes, 4 * n_tail * hq * hd, True, attn_close,
+               twin=lambda: ga.group_tail_merge(q, kp, vp, bt, glens, groups,
+                                                *bparts, phi=phi.phi),
+               slot=slot)
+
+    # -- rows 9-10: a 64-token chunk over the pool (row 9's shapes) --------
+    c = 64
+    before = torch.tensor([960, 453, 0, 128], dtype=torch.int32, device=dev)
+    (kp, vp), bt, live = paged_layout(
+        torch, gen, (randn(b, s_max, hk, hd), randn(b, s_max, hk, hd)),
+        before + c)
+    qpos = before[:, None] + torch.arange(c, device=dev)[None, :]
+    cmask = (torch.arange(s_max, device=dev)[None, None, :]
+             <= qpos[:, :, None])[:, None]                   # (B,1,C,S)
+    pairs = int(c * before.sum().item() + b * c * (c + 1) // 2)
+    n_rows = int((before + c).sum())
+    ch_pages = sum(-(-int(n) // PAGE) for n in (before + c).tolist())
+    ch_bytes = q_bytes(n_rows, ch_pages, b * c,
+                       4 * b * hk + 4 * bt.numel() + 4 * b)
+    qc = randn(b, c, hq, hd)
+    qe = qc.transpose(1, 2)
+    for qs in (quant.INT8, quant.FP8):
+        slot = None if qs.is_int else "fp8"
+        (kc, ks), (vc, vs) = quantize((kp, vp), qs)
+        (kcn, ksn), (vcn, vsn) = poison(qs, ((kc, ks), (vc, vs)), live)
+        kw = dict(k_scale=ks, v_scale=vs)
+        kview, vview = expanded(kc, ks, bt), expanded(vc, vs, bt)
+        lib = lambda: F.scaled_dot_product_attention(
+            qe, dequant(kview), dequant(vview), attn_mask=cmask)
+        tag = f"{qs.name} B=4 C={c} PS={PAGE} lengths 960/453/0/128"
+        out, stat = ca.paged_chunk_attention_unified_max(
+            qc, kc, vc, bt, before, phi=phi.phi, **kw)
+        want, want_stat = ca.paged_chunk_attention_unified_max_plain(
+            qc, kc, vc, bt, before, phi=phi.phi, **kw)
+        check((stat - want_stat).abs().max().item()
+              <= 1e-2 * max(1.0, want_stat.abs().max().item()),
+              f"quantized paged chunk {qs.name}: stat disagrees")
+        sync = ca.paged_chunk_attention_sync(qc, kc, vc, bt, before, **kw)
+        clean = same_bits(
+            torch, (ca.paged_chunk_attention_unified_max(
+                qc, kcn, vcn, bt, before, phi=phi.phi, k_scale=ksn,
+                v_scale=vsn)[0], out),
+            (ca.paged_chunk_attention_sync(qc, kcn, vcn, bt, before,
+                                           k_scale=ksn, v_scale=vsn), sync))
+        log(f"kernel paged_chunk_attention {tag}: unchanged with NaN where "
+            f"it must not read {clean}")
+        check(clean, f"quantized paged chunk {tag}: reads what it must not")
+        record("paged_chunk_attention_unified_max_quant", tag, out, want,
+               lambda: ca.paged_chunk_attention_unified_max(
+                   qc, kc, vc, bt, before, phi=phi.phi, **kw),
+               lambda: ca.paged_chunk_attention_unified_max_plain(
+                   qc, kc, vc, bt, before, phi=phi.phi, **kw),
+               lib, ch_bytes, 4 * pairs * hq * hd, True, attn_close,
+               twin=lambda: ca.paged_chunk_attention_unified_max(
+                   qc, kp, vp, bt, before, phi=phi.phi), slot=slot)
+        record("paged_chunk_attention_sync_quant", tag, sync,
+               ca.paged_chunk_attention_sync_plain(qc, kc, vc, bt, before,
+                                                   **kw),
+               lambda: ca.paged_chunk_attention_sync(qc, kc, vc, bt, before,
+                                                     **kw),
+               lambda: ca.paged_chunk_attention_sync_plain(
+                   qc, kc, vc, bt, before, **kw),
+               lib, ch_bytes, 4 * pairs * hq * hd, True, attn_close,
+               twin=lambda: ca.paged_chunk_attention_sync(qc, kp, vp, bt,
+                                                          before),
+               slot=slot)
+
+    # -- the scatter on the card: the CPU's codes and steps, bitwise ----------
+    # a dirty pool (a loud earlier tenant), then a ragged 64-token chunk
+    # (spectator, sentinel page, mid-page start: rescale, page entries),
+    # then a decode append of one token per row
+    for qs in (quant.INT8, quant.FP8):
+        num_pages = 40
+        codes, steps = kvquant.quantize_pages(
+            randn(num_pages, PAGE, hk, hd, scale=30.0), qs)
+        bt = torch.randperm(num_pages, generator=gen, device=dev)[
+            :b * 8].reshape(b, 8).int()
+        bt[3, 1:] = num_pages
+        writes = [(randn(b, c, hk, hd), [100, 0, 37, 50], [64, 0, 64, 40]),
+                  (randn(b, 1, hk, hd), [164, 0, 101, 90], [1, 1, 1, 1])]
+        card = (codes.clone(), steps.clone())
+        host = (codes.cpu(), steps.cpu())
+        for new, lens, clens in writes:
+            for (cd, st), where in ((card, dev), (host, "cpu")):
+                kvquant.scatter_chunk_quantized(
+                    cd, st, new.to(where), bt.to(where),
+                    torch.tensor(lens, dtype=torch.int32, device=where),
+                    torch.tensor(clens, dtype=torch.int32, device=where), qs)
+        same = {what: same_bits(torch, (a.cpu(), h)) for what, a, h in (
+            ("codes", card[0], host[0]), ("steps", card[1], host[1]))}
+        log(f"kvquant {qs.name}: the scatter on the card (a 64-token ragged "
+            f"chunk over a dirty {num_pages}-page pool, then a decode "
+            f"append) bitwise the CPU's: codes {same['codes']}, steps "
+            f"{same['steps']}")
+        check(all(same.values()), f"kvquant {qs.name}: the card's scatter "
+              "differs from the CPU's")
+
 
 # ---------------------------------------------------------------------------
 # phase 3-4: serving and logits
@@ -922,7 +1289,10 @@ def kernel_phase(torch, timer, rows, log):
 # stage 1; stage 2 is logged beside it and must launch as often)
 COUNTER_NAMES = {"group_prefix_partials":
                  "grouped_paged_decode_attention_unified_max",
-                 "group_tail_merge": "grouped_decode_stage2"}
+                 "group_tail_merge": "grouped_decode_stage2",
+                 "group_prefix_partials_quant":
+                 "grouped_paged_decode_attention_unified_max_quant",
+                 "group_tail_merge_quant": "grouped_decode_stage2_quant"}
 
 
 def counters():
@@ -1038,6 +1408,13 @@ def serve_runs():
                    "decode_attention_sync") + stages
     # quantized weights: every layer GEMM through a quantized variant
     q_stages = tuple(n + "_quant" for n in stages)
+    # quantized KV pages: every attention through a quantized body
+    q_fused = tuple(n + "_quant" for n in fused)
+    q_grouped = ("paged_decode_attention_sync_quant",
+                 "paged_chunk_attention_unified_max_quant",
+                 "paged_chunk_attention_sync_quant",
+                 "grouped_paged_decode_attention_unified_max_quant",
+                 "grouped_decode_stage2_quant")
     return [
         ("A slots=4 chunked prefill", dict(num_slots=4), "plain",
          ("flat_gemm", "decode_attention_unified_max",
@@ -1097,7 +1474,41 @@ def serve_runs():
             num_slots=4, prefix_sharing=True, plan=looped_plan(),
             weight_dtype="int8", **paged), "shared32",
          grouped + ("fused_ffn_up_quant",) + q_stages),
+        ("Q slots=4 E with int8 KV pages", dict(
+            num_slots=4, prefix_sharing=True, kv_dtype="int8", **paged),
+         "shared", q_fused),
+        ("Q' slots=4 E' with int8 KV pages", dict(
+            num_slots=4, kv_dtype="int8", **paged), "shared", q_fused),
+        ("R slots=4 G with int8 KV pages", dict(
+            num_slots=4, prefix_sharing=True, kv_dtype="int8",
+            plan=make_plan("cuda", decode_group="grouped", fused_ffn=False),
+            **paged), "shared", q_grouped),
+        ("S slots=4 K with fp8 KV pages", dict(
+            num_slots=4, prefix_sharing=True, kv_dtype="fp8",
+            plan=looped_plan(), **paged), "shared",
+         q_grouped + ("fused_ffn_up",) + stages),
+        ("S' slots=4 S with the fused stages, eager", dict(
+            num_slots=4, prefix_sharing=True, kv_dtype="fp8",
+            plan=looped_plan("fused"), **paged), "shared",
+         q_grouped + ("fused_ffn_up",) + stages),
     ]
+
+
+def count_pages_read(eng):
+    """Count, beside the engine's own counter, the pages every decode
+    tick's resident rows hold when the step runs (the pages decode
+    attention reads). Returns a one-element list it fills."""
+    import dataclasses
+    total = [0]
+    step = eng.api.decode_step
+
+    def counted(*args, **kw):
+        total[0] += sum(len(eng.slots.slots[i].pages) for i in eng.by_slot)
+        return step(*args, **kw)
+
+    if eng.pool is not None:
+        eng.api = dataclasses.replace(eng.api, decode_step=counted)
+    return total
 
 
 def serve_phase(torch, cfg, params, request_sets, log, launches):
@@ -1114,6 +1525,7 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
         eng = Engine(cfg, params, max_seq=1024, device="cuda", **kw)
         if eng.ctx.graphs is not None:
             replayed[tag.split()[0]] = trace_replays(eng.ctx.graphs)
+        pages_read = count_pages_read(eng)
         for fn in counters().values():
             fn.launches = 0
         torch.cuda.synchronize()
@@ -1159,6 +1571,8 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB{paged}"
             f"{graphs}; weights {eng.weight_dtype}, "
             f"{st.weight_bytes_decode_read} decode weight bytes read; "
+            f"kv {eng.kv_dtype}, {st.kv_page_bytes} B/page, "
+            f"{st.kv_bytes_decode_read} decode KV bytes read; "
             f"tokens sha256 {digest}; launches {json.dumps(counts)}")
         # the stored weight stream per decode tick, at the launched width
         # (a tick that preemption left with no row reads none)
@@ -1171,14 +1585,26 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
         # are never dequantized ahead of one) and a bf16 run no quantized
         # variant; only the LM head (tied, bf16) uses gemv / flat_gemm
         if eng.weight_dtype == "bf16":
-            idle = [n for n in counts if n.endswith("_quant")]
+            idle = [n for n in counts if n.endswith("_quant")
+                    and n not in KV_QUANT]
         else:
             idle = [n[:-len("_quant")] for n in counts
-                    if n.endswith("_quant")
+                    if n.endswith("_quant") and n not in KV_QUANT
                     and n not in ("gemv_quant", "flat_gemm_quant")]
+        # a quantized-KV run launches no bf16 attention body (its codes
+        # are never dequantized ahead of one), a bf16 run no quantized one
+        idle += list(KV_QUANT if eng.kv_dtype == "bf16" else BF16_ATTENTION)
         for n in idle:
             check(counts[n] == 0, f"{tag}: kernel {n} launched {counts[n]} "
                   "times")
+        if eng.pool is not None:
+            # every decode tick reads each resident page's stored slab
+            page = KV_PAGE_BYTES[eng.kv_dtype]
+            check(st.kv_page_bytes == page, f"{tag}: {st.kv_page_bytes} "
+                  f"B per page, not {page}")
+            check(st.kv_bytes_decode_read == pages_read[0] * page > 0,
+                  f"{tag}: {st.kv_bytes_decode_read} decode KV bytes for "
+                  f"{pages_read[0]} pages read")
         for rid, toks in out.items():
             check(len(toks) == requests[rid][1].max_new_tokens,
                   f"{tag}: request {rid} produced {len(toks)} tokens")
@@ -1188,9 +1614,10 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
                   f"{tag}: request {rid} finished early")
         for n in expect:
             check(counts[n] > 0, f"{tag}: kernel {n} was never launched")
-        check(counts["grouped_decode_stage2"] == counts[
-            "grouped_paged_decode_attention_unified_max"],
-            f"{tag}: the grouped stages launched unequally")
+        for q in ("", "_quant"):
+            check(counts["grouped_decode_stage2" + q] == counts[
+                "grouped_paged_decode_attention_unified_max" + q],
+                f"{tag}: the grouped stages launched unequally")
         outputs[tag.split()[0]] = out
         engines[tag.split()[0]] = eng
     # the paged contracts: dense = paged, sharing on = off, and a clean
@@ -1251,6 +1678,24 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
         f"{agree16('J', 'O')}/{plain16}; P (int8, "
         f"{engines['P'].stats.graph_replays} replays) with K at "
         f"{agree16('K', 'P')}/{sum(len(v) for v in outputs['P'].values())}")
+    # quantized KV pages: the codes are a pure function of the write
+    # history, so sharing, grouping and the looped graph keep the tokens
+    check(outputs["Q"] == outputs["Q'"], "run Q's tokens differ from Q′'s")
+    check(outputs["R"] == outputs["Q"], "run R's tokens differ from Q's")
+    check(outputs["S"] == outputs["S'"], "run S's tokens differ from S′'s")
+    check(engines["R"].stats.grouped_requests > 0
+          and engines["S"].stats.grouped_requests > 0,
+          "runs R and S grouped no decode")
+    log(f"serve quantized-KV contracts: Q == Q′ == R tokens ({total}), "
+        f"S == S′ tokens; KV bytes per page {KV_PAGE_BYTES['int8']} (int8, "
+        f"fp8) against {KV_PAGE_BYTES['bf16']} (bf16); decode KV bytes "
+        f"read E {engines['E'].stats.kv_bytes_decode_read}, Q "
+        f"{engines['Q'].stats.kv_bytes_decode_read}, K "
+        f"{engines['K'].stats.kv_bytes_decode_read}, S "
+        f"{engines['S'].stats.kv_bytes_decode_read}; Q (int8) agrees with "
+        f"E on {agree('E', 'Q')}/{total} tokens, S (fp8, "
+        f"{engines['S'].stats.graph_replays} replays) with K on "
+        f"{agree('K', 'S')}/{total}")
     plain_total = sum(len(v) for v in outputs["A"].values())
     log(f"serve fusion contracts: J == I tokens; I (fused stages) agrees "
         f"with A on {agree('A', 'I')}/{plain_total} tokens; K == K′ "
@@ -1438,7 +1883,8 @@ def graph_phase(torch, cfg, params, shared, log):
     a replay with the checked inputs: the replay's logits and the whole
     cache (every KV row the step wrote) must hold the eager step's bits.
     On the dense cache, and on the paged pool with grouped decode over a
-    shared 128-token prefix."""
+    shared 128-token prefix, with bf16 pages and with int8 ones (codes and
+    steps included)."""
     from repro_torch.core.plan import make_plan
     from repro_torch.models.api import get_model
     from repro_torch.models.kvlayout import DenseLayout, PagedLayout
@@ -1454,20 +1900,28 @@ def graph_phase(torch, cfg, params, shared, log):
                         device="cuda")
     cases = [("dense", dense, lens, {}, {})]
     private, shared_bt, groups, toks = shared_pool_operands(torch, shared)
-    pool = api.init_cache(PagedLayout(private.numel(), PAGE), device="cuda")
     c = toks.shape[1] // 2
     row0 = torch.tensor([c, 0, 0, 0], dtype=torch.int32, device="cuda")
     ctx = LayerCtx(cfg, make_plan("cuda", decode_group="grouped"))
-    with torch.no_grad():
-        for i in range(2):
-            _, pool = api.prefill_chunk(
-                ctx, params, toks[:, i * c:(i + 1) * c], row0, pool,
-                torch.full((b,), i * c, dtype=torch.int32, device="cuda"),
-                block_tables=shared_bt)
-    cases.append(("paged grouped", pool,
-                  torch.full((b,), 2 * c, dtype=torch.int32, device="cuda"),
-                  dict(block_tables=shared_bt, decode_groups=groups),
-                  dict(decode_group="grouped")))
+    # the bf16 pool, and an int8 one: the replay must also write the codes
+    # and steps of the quantized scatter bit for bit
+    for kv_dtype in ("bf16", "int8"):
+        pool = api.init_cache(PagedLayout(private.numel(), PAGE, kv_dtype),
+                              device="cuda")
+        with torch.no_grad():
+            for i in range(2):
+                _, pool = api.prefill_chunk(
+                    ctx, params, toks[:, i * c:(i + 1) * c], row0, pool,
+                    torch.full((b,), i * c, dtype=torch.int32,
+                               device="cuda"),
+                    block_tables=shared_bt)
+        what = "paged grouped" + ("" if kv_dtype == "bf16" else
+                                  f" {kv_dtype} KV pages")
+        cases.append((what, pool,
+                      torch.full((b,), 2 * c, dtype=torch.int32,
+                                 device="cuda"),
+                      dict(block_tables=shared_bt, decode_groups=groups),
+                      dict(decode_group="grouped")))
     for what, cache0, lengths, kw, plan_kw in cases:
         tokens = [torch.randint(1, cfg.vocab_size, (b,), generator=gen,
                                 device="cuda", dtype=torch.int32)
@@ -1502,7 +1956,7 @@ def graph_phase(torch, cfg, params, shared, log):
         check(same, f"graph {what}: the replay differs from the eager step")
 
 
-def paged_logits_phase(torch, cfg, params, shared, log):
+def paged_logits_phase(torch, cfg, params, shared, log, kv_dtype="bf16"):
     """The paged pool's logits against the ``"torch"`` plan (gather +
     reference math): a second chunk that reads the first one's resident
     pages, and the first decode step. Three times: the ``"cuda"`` default
@@ -1511,7 +1965,9 @@ def paged_logits_phase(torch, cfg, params, shared, log):
     the fused stages, its first decode step eager) with all four rows'
     tables leading with the same two pages: row 0 prefills them (the
     others are spectators), then every row decodes one token of its own
-    through one group."""
+    through one group. ``kv_dtype`` is the pool's page precision (both
+    plans); returns the ``"torch"`` plan's logits per case, the rows
+    compared, (second chunk, first decode step)."""
     from repro_torch.core.plan import DEFAULT_PLAN, make_plan
     from repro_torch.kernels import fused_ffn as ff
     from repro_torch.models.api import get_model
@@ -1524,6 +1980,7 @@ def paged_logits_phase(torch, cfg, params, shared, log):
     num_pages = private.numel()
     full = torch.full((b,), c, dtype=torch.int32, device="cuda")
     row0 = torch.tensor([c, 0, 0, 0], dtype=torch.int32, device="cuda")
+    out = {}
     cases = (
         ("paged", (DEFAULT_PLAN, make_plan("torch")), private, full, None),
         ("grouped fused-FFN", (tuned_plan(), make_plan(
@@ -1537,7 +1994,7 @@ def paged_logits_phase(torch, cfg, params, shared, log):
         results = {}
         for name, plan in zip(("cuda", "torch"), plans):
             ctx = LayerCtx(cfg, plan)
-            cache = api.init_cache(PagedLayout(num_pages, PAGE),
+            cache = api.init_cache(PagedLayout(num_pages, PAGE, kv_dtype),
                                    device="cuda")
             ff.fused_ffn_up.launches = 0
             with torch.no_grad():
@@ -1564,19 +2021,49 @@ def paged_logits_phase(torch, cfg, params, shared, log):
         rows = (slice(0, 1), slice(None)) if grp is not None else \
             (slice(None), slice(None))
         worst = 0.0
+        kv = "" if kv_dtype == "bf16" else f" {kv_dtype} KV pages"
         for i, step in enumerate(("second chunk over resident pages",
                                   "first decode step")):
             a = results["cuda"][i][rows[i], :cfg.vocab_size].float()
             r = results["torch"][i][rows[i], :cfg.vocab_size].float()
             err = (a - r).abs().max().item()
             worst = max(worst, err)
-            log(f"logits {what} {step}: cuda plan vs torch plan "
+            log(f"logits {what}{kv} {step}: cuda plan vs torch plan "
                 f"max_abs_err={err:.4f} (tol {LOGITS_TOL}; logit range "
                 f"{r.abs().max().item():.2f}); argmax agree "
                 f"{(a.argmax(-1) == r.argmax(-1)).sum().item()}/"
                 f"{a.shape[0]}")
         check(worst <= LOGITS_TOL,
-              f"{what} logits differ by {worst} > {LOGITS_TOL}")
+              f"{what}{kv} logits differ by {worst} > {LOGITS_TOL}")
+        out[what] = [results["torch"][i][rows[i], :cfg.vocab_size].float()
+                     for i in range(2)]
+    return out
+
+
+def kv_quant_logits_phase(torch, cfg, params, shared, log, bf16):
+    """int8 and fp8 KV pages on the shared requests: the ``"cuda"`` plans
+    within LOGITS_TOL of the ``"torch"`` plan with the same pages
+    (:func:`paged_logits_phase`), and the ``"torch"`` plan's quantized
+    logits within the JAX package's guard, logits_guard_tol(spec) x
+    max(|logits|, 1), of its bf16 logits (``bf16``, that phase's result
+    on bf16 pages)."""
+    from repro_torch.kernels import quant
+    for qs in (quant.INT8, quant.FP8):
+        got = paged_logits_phase(torch, cfg, params, shared, log,
+                                 kv_dtype=qs.name)
+        for what, steps in got.items():
+            for step, a, b in zip(("second chunk", "first decode step"),
+                                  steps, bf16[what]):
+                tol = quant.logits_guard_tol(qs) * max(
+                    b.abs().max().item(), 1.0)
+                err = (a - b).abs().max().item()
+                log(f"logits guard {qs.name} KV pages, {what}, {step}: torch "
+                    f"plan quantized vs bf16 max_abs_err={err:.4f} (guard "
+                    f"{tol:.4f}); argmax agree "
+                    f"{(a.argmax(-1) == b.argmax(-1)).sum().item()}/"
+                    f"{a.shape[0]}")
+                check(err <= tol, f"{qs.name} KV pages {what} {step}: "
+                      f"logits leave the guard ({err} > {tol})")
 
 
 def quant_logits_phase(torch, cfg, params, requests, log):
@@ -1736,10 +2223,15 @@ def main(argv=None) -> int:
     profile_phase(torch, cfg, params, requests, log,
                   tag="O slots=4 looped fp8 weights", decode_fusion="looped",
                   weight_dtype="fp8")
+    profile_phase(torch, cfg, params, shared, log,
+                  tag="S slots=4 paged sharing grouped looped fp8 KV pages",
+                  cache_kind="paged", page_size=PAGE, prefix_sharing=True,
+                  plan=looped_plan(), kv_dtype="fp8")
     graph_phase(torch, cfg, params, shared, log)
     logits_phase(torch, cfg, params, requests, log, outputs["A"])
-    paged_logits_phase(torch, cfg, params, shared, log)
+    bf16_paged = paged_logits_phase(torch, cfg, params, shared, log)
     quant_logits_phase(torch, cfg, params, requests, log)
+    kv_quant_logits_phase(torch, cfg, params, shared, log, bf16_paged)
 
     for name in REPLACES:
         check(launches.get(name, 0) > 0,

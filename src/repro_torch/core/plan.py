@@ -158,10 +158,12 @@ class PagedPlan:
     ``decode_group="grouped"`` reads each shared-prefix group's pages
     once per (group, kv head) at decode (the two-stage grouped kernels);
     a group is formed only when ``members * prefix_pages >=
-    group_threshold``. ``kv_dtype`` other than ``"bf16"`` (slice 4) and
-    ``swap_threshold`` (tiers, slice 6) are accepted here so that plans
-    keep the JAX schema; the engine refuses the first until its slice
-    lands.
+    group_threshold``. ``kv_dtype`` is the pages' storage precision a
+    paged engine adopts unless ``Engine(kv_dtype=)`` says otherwise:
+    ``"bf16"`` values, or ``"int8"`` / ``"fp8"`` codes with one f32 step
+    per (page, kv head), read by the paged kernels' quantized bodies.
+    ``swap_threshold`` (tiers, slice 6) is accepted so that plans keep the
+    JAX schema; nothing reads it yet.
     """
 
     backend: str = "cuda"
@@ -252,14 +254,16 @@ def make_plan(backend: str = "cuda", *, fused_ffn: Optional[bool] = None,
               decode_group: str = "off",
               group_threshold: int = 2,
               decode_fusion: str = "split",
-              weight_dtype: Optional[str] = "bf16") -> ExecutionPlan:
+              weight_dtype: Optional[str] = "bf16",
+              kv_dtype: str = "bf16") -> ExecutionPlan:
     """The untuned plan with every op on ``backend``. ``fused_ffn=None``
     fuses the FFN-up on the kernel backend (``"cuda"``) only, as the JAX
     package does for ``"pallas"``; ``gather_chunk`` and
     ``fused_threshold`` pin the paged chunk discipline, ``decode_group``
     and ``group_threshold`` the shared-prefix decode grouping,
-    ``decode_fusion`` the decode-layer granularity and ``weight_dtype``
-    the GEMM weight precision. ``weight_dtype=None`` (the JAX package's
+    ``decode_fusion`` the decode-layer granularity, ``weight_dtype``
+    the GEMM weight precision and ``kv_dtype`` the KV page precision of
+    paged engines. ``weight_dtype=None`` (the JAX package's
     cost-model pick, ``dispatch.find_weight_dtype``) is refused: the cost
     models wait with item 2 of slice 1's remainder in ROADMAP.md."""
     if weight_dtype is None:
@@ -278,7 +282,8 @@ def make_plan(backend: str = "cuda", *, fused_ffn: Optional[bool] = None,
         paged=PagedPlan(backend=backend, gather_chunk=gather_chunk,
                         fused_threshold=fused_threshold,
                         decode_group=decode_group,
-                        group_threshold=group_threshold),
+                        group_threshold=group_threshold,
+                        kv_dtype=kv_dtype),
         decode_fusion=DecodeFusionPlan(backend=backend,
                                        granularity=decode_fusion),
     )

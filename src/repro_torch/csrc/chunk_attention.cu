@@ -34,6 +34,14 @@
 // A row's P·V loop stops at its own causal frontier, so no value row past
 // it is ever multiplied, even by a zero weight. Rows with no valid key
 // come out as zeros.
+//
+// Quantized pools (int8 / fp8 e4m3 codes; the quantized=True bodies of
+// src/repro/kernels/chunk_attention.py's _paged_chunk_kernel and
+// _paged_chunk_kernel_sync) run the same body templated on the element
+// type: at the start of each key tile one thread per key loads that key's
+// K and V steps (one per page and kv head) into shared memory, and the
+// staging loop turns every code into code * step in f32, so the tiles the
+// block computes on hold the JAX kernel's dequantized values.
 #include "common.cuh"
 
 using namespace repro;
@@ -51,11 +59,11 @@ constexpr size_t smem_bytes() {
          (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
 }
 
-template <int D, bool UNIFIED>
+template <int D, bool UNIFIED, typename T>
 __global__ void __launch_bounds__(kThreads)
-chunk_kernel(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v,
+chunk_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const float* __restrict__ k_step,
+             const float* __restrict__ v_step,
              const int* __restrict__ bt, const int* __restrict__ lengths,
              __nv_bfloat16* __restrict__ out, float* __restrict__ stat_part,
              const bool* __restrict__ flag, int C, int HQ, int G, int NB,
@@ -63,7 +71,9 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q,
              long long sp, long long ss, long long sh, float scale,
              float phi) {
   if (!UNIFIED && flag != nullptr && !*flag) return;
+  using E = KVElem<T>;
   extern __shared__ float sm[];
+  __shared__ float kst_s[kBK], vst_s[kBK];  // the tile's steps (codes only)
   float* q_s = sm;                          // [kBQ][D + 1]
   float* k_s = q_s + kBQ * (D + 1);         // [kBK][D + 1]
   float* v_s = k_s + kBK * (D + 1);         // [kBK][D]
@@ -100,6 +110,17 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int kv0 = 0; kv0 < hi; kv0 += kBK) {
     __syncthreads();               // previous tile fully consumed
+    if constexpr (E::kCodes) {
+      const int key = kv0 + threadIdx.x;
+      if (threadIdx.x < kBK && key < hi) {
+        int page = __ldg(btb + key / PS);
+        page = page < 0 ? 0 : (page >= NP ? NP - 1 : page);
+        const long long at = static_cast<long long>(page) * (HQ / G) + kvh;
+        kst_s[threadIdx.x] = __ldg(k_step + at);
+        vst_s[threadIdx.x] = __ldg(v_step + at);
+      }
+      __syncthreads();
+    }
     for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
       const int c = i / D, d = i % D;
       const int key = kv0 + c;
@@ -108,8 +129,13 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q,
         int page = __ldg(btb + key / PS);
         page = page < 0 ? 0 : (page >= NP ? NP - 1 : page);
         const long long off = page * sp + (key % PS) * ss + kvh * sh + d;
-        kv = bf2f(k[off]);
-        vv = bf2f(v[off]);
+        float kst = 1.f, vst = 1.f;
+        if constexpr (E::kCodes) {
+          kst = kst_s[c];
+          vst = vst_s[c];
+        }
+        kv = E::one(k + off, kst);
+        vv = E::one(v + off, vst);
       }
       k_s[c * (D + 1) + d] = kv;
       v_s[c * D + d] = vv;
@@ -193,7 +219,7 @@ chunk_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 struct Args {
-  const void *q, *k, *v, *bt, *lengths;
+  const void *q, *k, *v, *k_step, *v_step, *bt, *lengths;
   void *out, *stat_part;
   const void* flag;
   int B, C, HQ, HK, NB, PS, NP;
@@ -201,16 +227,16 @@ struct Args {
   float scale, phi;
 };
 
-template <int D, bool UNIFIED>
+template <int D, bool UNIFIED, typename T>
 int launch_d(const Args& a, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t e = allow_smem(chunk_kernel<D, UNIFIED>, smem);
+  cudaError_t e = allow_smem(chunk_kernel<D, UNIFIED, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.C + kBQ - 1) / kBQ, a.HQ, a.B);
-  chunk_kernel<D, UNIFIED><<<grid, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const int*>(a.bt),
+  chunk_kernel<D, UNIFIED, T><<<grid, kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.k_step),
+      static_cast<const float*>(a.v_step), static_cast<const int*>(a.bt),
       static_cast<const int*>(a.lengths), static_cast<__nv_bfloat16*>(a.out),
       static_cast<float*>(a.stat_part), static_cast<const bool*>(a.flag),
       a.C, a.HQ, a.HQ / a.HK, a.NB, a.PS, a.NP, a.qsb, a.qss, a.qsh, a.sp,
@@ -218,21 +244,28 @@ int launch_d(const Args& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool UNIFIED>
+template <bool UNIFIED, typename T = __nv_bfloat16>
 int launch(const Args& a, int D, cudaStream_t st) {
   if (a.HK < 1 || a.HQ % a.HK || a.C < 1 || a.NB < 1 || a.PS < 1 ||
       a.NP < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 32:
-      return launch_d<32, UNIFIED>(a, st);
+      return launch_d<32, UNIFIED, T>(a, st);
     case 64:
-      return launch_d<64, UNIFIED>(a, st);
+      return launch_d<64, UNIFIED, T>(a, st);
     case 128:
-      return launch_d<128, UNIFIED>(a, st);
+      return launch_d<128, UNIFIED, T>(a, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The quantized entries' code type: int8 (fp8 == 0) or fp8 e4m3.
+template <bool UNIFIED>
+int launch_q8(const Args& a, int D, int fp8, cudaStream_t st) {
+  return fp8 ? launch<UNIFIED, __nv_fp8_e4m3>(a, D, st)
+             : launch<UNIFIED, int8_t>(a, D, st);
 }
 
 }  // namespace
@@ -250,9 +283,9 @@ REPRO_EXPORT int paged_chunk_attention_unified_max_bf16(
     int HK, int NB, int PS, int NP, int D, long long qsb, long long qss,
     long long qsh, long long sp, long long ss, long long sh, float scale,
     float phi, void* stream) {
-  const Args a{q,  k,  v,   bt,  lengths, out, stat_part, nullptr, B,     C,
-               HQ, HK, NB,  PS,  NP,      qsb, qss,       qsh,     sp,    ss,
-               sh, scale, phi};
+  const Args a{q,   k,   v,   nullptr, nullptr, bt, lengths, out,
+               stat_part, nullptr, B, C, HQ, HK, NB, PS, NP, qsb, qss, qsh,
+               sp, ss, sh, scale, phi};
   return launch<true>(a, D, static_cast<cudaStream_t>(stream));
 }
 
@@ -264,7 +297,36 @@ REPRO_EXPORT int paged_chunk_attention_sync_bf16(
     int HK, int NB, int PS, int NP, int D, long long qsb, long long qss,
     long long qsh, long long sp, long long ss, long long sh, float scale,
     void* stream) {
-  const Args a{q,  k,  v,  bt, lengths, out, nullptr, flag, B,  C,  HQ, HK,
-               NB, PS, NP, qsb, qss,    qsh, sp,      ss,   sh, scale, 0.f};
+  const Args a{q,  k,  v,  nullptr, nullptr, bt, lengths, out, nullptr, flag,
+               B,  C,  HQ, HK,      NB,      PS, NP,      qsb, qss,     qsh,
+               sp, ss, sh, scale,   0.f};
   return launch<false>(a, D, static_cast<cudaStream_t>(stream));
+}
+
+// Quantized pools: k/v hold 1-byte codes (int8, or fp8 e4m3 when fp8 != 0)
+// with the same element strides; k_step / v_step are (NP, HK) f32
+// contiguous, one step per (page, kv head). Otherwise as the bf16 entries.
+REPRO_EXPORT int paged_chunk_attention_unified_max_q8(
+    const void* q, const void* k, const void* v, const void* k_step,
+    const void* v_step, const void* bt, const void* lengths, void* out,
+    void* stat_part, int B, int C, int HQ, int HK, int NB, int PS, int NP,
+    int D, long long qsb, long long qss, long long qsh, long long sp,
+    long long ss, long long sh, float scale, float phi, int fp8,
+    void* stream) {
+  const Args a{q,   k,   v,   k_step, v_step, bt, lengths, out,
+               stat_part, nullptr, B, C, HQ, HK, NB, PS, NP, qsb, qss, qsh,
+               sp, ss, sh, scale, phi};
+  return launch_q8<true>(a, D, fp8, static_cast<cudaStream_t>(stream));
+}
+
+REPRO_EXPORT int paged_chunk_attention_sync_q8(
+    const void* q, const void* k, const void* v, const void* k_step,
+    const void* v_step, const void* bt, const void* lengths, void* out,
+    const void* flag, int B, int C, int HQ, int HK, int NB, int PS, int NP,
+    int D, long long qsb, long long qss, long long qsh, long long sp,
+    long long ss, long long sh, float scale, int fp8, void* stream) {
+  const Args a{q,  k,  v,  k_step, v_step, bt, lengths, out, nullptr, flag,
+               B,  C,  HQ, HK,     NB,     PS, NP,      qsb, qss,     qsh,
+               sp, ss, sh, scale,  0.f};
+  return launch_q8<false>(a, D, fp8, static_cast<cudaStream_t>(stream));
 }

@@ -69,6 +69,42 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* out) {
   for (int i = 0; i < 16; ++i) out[i] = code_to_float<CT>(b[i]);
 }
 
+// Elements of a K/V page pool: bf16 values, or 1-byte codes (int8, fp8
+// e4m3) of a quantized pool, whose value is code * step in f32 with one
+// step per (page, kv head) (the JAX kernels' codes.astype(f32) * step).
+// `load` reads kVec elements with one 16-byte load (8 bf16, 16 codes);
+// `one` reads a single element. bf16 ignores the step, so its
+// arithmetic is the unquantized kernels' to the bit.
+template <typename T>
+struct KVElem {
+  static constexpr bool kCodes = true;
+  static constexpr int kVec = 16;
+  __device__ __forceinline__ static void load(const T* p, float step,
+                                              float* out) {
+    unpack16<T>(__ldg(reinterpret_cast<const uint4*>(p)), out);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) out[i] *= step;
+  }
+  __device__ __forceinline__ static float one(const T* p, float step) {
+    return code_to_float<T>(*reinterpret_cast<const unsigned char*>(p)) *
+           step;
+  }
+};
+
+template <>
+struct KVElem<__nv_bfloat16> {
+  static constexpr bool kCodes = false;
+  static constexpr int kVec = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float,
+                                              float* out) {
+    unpack8(__ldg(reinterpret_cast<const uint4*>(p)), out);
+  }
+  __device__ __forceinline__ static float one(const __nv_bfloat16* p,
+                                              float) {
+    return bf2f(*p);
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

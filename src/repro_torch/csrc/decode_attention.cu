@@ -40,6 +40,17 @@
 // any pages. The TPU kernel's per-page grid steps become a per-key table
 // lookup: a page is never read past lengths[b], so a fully masked page
 // costs nothing.
+//
+// Quantized pools (int8 / fp8 e4m3 codes, src/repro/kernels/
+// decode_attention.py's quantized=True bodies of _paged_decode_kernel and
+// _paged_decode_kernel_sync) run the same body templated on the element
+// type: each K and V element becomes code * step[page, kv head] in f32
+// before the score dot and the P.V product, as in the JAX kernel. A row
+// is 1 byte per element, so one 16-byte load carries 16 codes of a K row;
+// the step of a K row is loaded with it (lanes on one page share the
+// address), and the P.V loop reloads the V step only where a new page
+// starts. Bound: the same bytes argument at half the K/V bytes, plus
+// 4 bytes per (page, kv head) of steps.
 #include "common.cuh"
 
 using namespace repro;
@@ -59,27 +70,31 @@ struct DenseKV {
 };
 
 // Element offset of key j's head-h row in an (NP, PS, HK, D) page pool
-// read through block tables bt (B, NB).
+// read through block tables bt (B, NB); page() is the clamped physical
+// page, which also indexes a quantized pool's (NP, HK) steps.
 struct PagedKV {
   const int* bt;
   int nb, ps, np;
   long long sp, ss, sh;
+  __device__ __forceinline__ int page(int b, int j) const {
+    const int p = __ldg(bt + static_cast<long long>(b) * nb + j / ps);
+    return p < 0 ? 0 : (p >= np ? np - 1 : p);
+  }
   __device__ __forceinline__ long long row(int b, int h, int j) const {
-    int page = __ldg(bt + static_cast<long long>(b) * nb + j / ps);
-    page = page < 0 ? 0 : (page >= np ? np - 1 : page);
-    return page * sp + (j % ps) * ss + h * sh;
+    return page(b, j) * sp + (j % ps) * ss + h * sh;
   }
 };
 
-template <int D, bool UNIFIED, typename KV>
+template <int D, bool UNIFIED, typename KV, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-decode_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
+decode_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ k_step,
+              const float* __restrict__ v_step,
               const int* __restrict__ lengths, __nv_bfloat16* __restrict__ out,
               float* __restrict__ stat, const bool* __restrict__ flag, int HK,
               int G, int S, KV addr, float scale, float phi) {
   if (!UNIFIED && flag != nullptr && !*flag) return;
+  using E = KVElem<T>;
   constexpr int DL = D / 32;                    // output columns per lane
   __shared__ float q_s[kMaxG][D];
   __shared__ float ebuf[kWarps][kMaxG][32];
@@ -116,16 +131,20 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
     if (valid) {
-      const __nv_bfloat16* kr = k + addr.row(b, h, j);
+      const T* kr = k + addr.row(b, h, j);
+      float kst = 1.f;
+      if constexpr (E::kCodes)
+        kst = __ldg(k_step + static_cast<long long>(addr.page(b, j)) * HK + h);
 #pragma unroll
-      for (int d0 = 0; d0 < D; d0 += 8) {
-        float kv[8];
-        unpack8(__ldg(reinterpret_cast<const uint4*>(kr + d0)), kv);
+      for (int d0 = 0; d0 < D; d0 += E::kVec) {
+        float kv[E::kVec];
+        E::load(kr + d0, kst, kv);
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g) {
           if (g < G) {
 #pragma unroll
-            for (int i = 0; i < 8; ++i) s[g] = fmaf(q_s[g][d0 + i], kv[i], s[g]);
+            for (int i = 0; i < E::kVec; ++i)
+              s[g] = fmaf(q_s[g][d0 + i], kv[i], s[g]);
           }
         }
       }
@@ -160,11 +179,21 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
         for (int i = 0; i < DL; ++i) acc[g][i] *= rescale[g];
       }
     }
+    float vst = 1.f;
+    int vst_end = 0;                 // the V step holds for keys < vst_end
     for (int jj = 0; jj < nvalid; ++jj) {
-      const __nv_bfloat16* vr = v + addr.row(b, h, c * 32 + jj) + lane * DL;
+      const int key = c * 32 + jj;
+      const T* vr = v + addr.row(b, h, key) + lane * DL;
+      if constexpr (E::kCodes) {
+        if (key >= vst_end) {
+          vst = __ldg(v_step + static_cast<long long>(addr.page(b, key)) * HK +
+                      h);
+          vst_end = (key / addr.ps + 1) * addr.ps;
+        }
+      }
       float vv[DL];
 #pragma unroll
-      for (int i = 0; i < DL; ++i) vv[i] = bf2f(vr[i]);
+      for (int i = 0; i < DL; ++i) vv[i] = E::one(vr + i, vst);
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g < G) {
@@ -235,36 +264,55 @@ decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool UNIFIED, typename KV>
-int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* out, void* stat, const void* flag, int B, int HK, int G,
-           int S, int D, KV addr, float scale, float phi, cudaStream_t st) {
+template <bool UNIFIED, typename KV, typename T = __nv_bfloat16>
+int launch(const void* q, const void* k, const void* v, const void* k_step,
+           const void* v_step, const void* lengths, void* out, void* stat,
+           const void* flag, int B, int HK, int G, int S, int D, KV addr,
+           float scale, float phi, cudaStream_t st) {
   if (G < 1 || G > kMaxG) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(B, HK);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  const auto* kp = static_cast<const T*>(k);
+  const auto* vp = static_cast<const T*>(v);
+  const auto* ksp = static_cast<const float*>(k_step);
+  const auto* vsp = static_cast<const float*>(v_step);
   const auto* lp = static_cast<const int*>(lengths);
   auto* op = static_cast<__nv_bfloat16*>(out);
   auto* sp = static_cast<float*>(stat);
   const auto* fp = static_cast<const bool*>(flag);
   switch (D) {
     case 32:
-      decode_kernel<32, UNIFIED, KV><<<grid, kWarps * 32, 0, st>>>(
-          qp, kp, vp, lp, op, sp, fp, HK, G, S, addr, scale, phi);
+      decode_kernel<32, UNIFIED, KV, T><<<grid, kWarps * 32, 0, st>>>(
+          qp, kp, vp, ksp, vsp, lp, op, sp, fp, HK, G, S, addr, scale, phi);
       break;
     case 64:
-      decode_kernel<64, UNIFIED, KV><<<grid, kWarps * 32, 0, st>>>(
-          qp, kp, vp, lp, op, sp, fp, HK, G, S, addr, scale, phi);
+      decode_kernel<64, UNIFIED, KV, T><<<grid, kWarps * 32, 0, st>>>(
+          qp, kp, vp, ksp, vsp, lp, op, sp, fp, HK, G, S, addr, scale, phi);
       break;
     case 128:
-      decode_kernel<128, UNIFIED, KV><<<grid, kWarps * 32, 0, st>>>(
-          qp, kp, vp, lp, op, sp, fp, HK, G, S, addr, scale, phi);
+      decode_kernel<128, UNIFIED, KV, T><<<grid, kWarps * 32, 0, st>>>(
+          qp, kp, vp, ksp, vsp, lp, op, sp, fp, HK, G, S, addr, scale, phi);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The quantized entries' code type: int8 (fp8 == 0) or fp8 e4m3.
+template <bool UNIFIED>
+int launch_q8(const void* q, const void* k, const void* v, const void* k_step,
+              const void* v_step, const void* lengths, void* out, void* stat,
+              const void* flag, int B, int HK, int G, int S, int D,
+              PagedKV addr, float scale, float phi, int fp8,
+              cudaStream_t st) {
+  if (fp8)
+    return launch<UNIFIED, PagedKV, __nv_fp8_e4m3>(
+        q, k, v, k_step, v_step, lengths, out, stat, flag, B, HK, G, S, D,
+        addr, scale, phi, st);
+  return launch<UNIFIED, PagedKV, int8_t>(q, k, v, k_step, v_step, lengths,
+                                          out, stat, flag, B, HK, G, S, D,
+                                          addr, scale, phi, st);
 }
 
 PagedKV paged(const void* bt, int NB, int PS, int NP, long long sp,
@@ -283,8 +331,8 @@ REPRO_EXPORT int decode_attention_unified_max_bf16(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, void* stat, int B, int HK, int G, int S, int D, long long sb,
     long long ss, long long sh, float scale, float phi, void* stream) {
-  return launch<true>(q, k, v, lengths, out, stat, nullptr, B, HK, G, S, D,
-                      DenseKV{sb, ss, sh}, scale, phi,
+  return launch<true>(q, k, v, nullptr, nullptr, lengths, out, stat, nullptr,
+                      B, HK, G, S, D, DenseKV{sb, ss, sh}, scale, phi,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -294,8 +342,8 @@ REPRO_EXPORT int decode_attention_sync_bf16(
     const void* q, const void* k, const void* v, const void* lengths,
     void* out, const void* flag, int B, int HK, int G, int S, int D,
     long long sb, long long ss, long long sh, float scale, void* stream) {
-  return launch<false>(q, k, v, lengths, out, nullptr, flag, B, HK, G, S, D,
-                       DenseKV{sb, ss, sh}, scale, 0.f,
+  return launch<false>(q, k, v, nullptr, nullptr, lengths, out, nullptr, flag,
+                       B, HK, G, S, D, DenseKV{sb, ss, sh}, scale, 0.f,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -307,9 +355,9 @@ REPRO_EXPORT int paged_decode_attention_unified_max_bf16(
     const void* lengths, void* out, void* stat, int B, int HK, int G,
     int NB, int PS, int NP, int D, long long sp, long long ss, long long sh,
     float scale, float phi, void* stream) {
-  return launch<true>(q, k, v, lengths, out, stat, nullptr, B, HK, G,
-                      NB * PS, D, paged(bt, NB, PS, NP, sp, ss, sh), scale,
-                      phi, static_cast<cudaStream_t>(stream));
+  return launch<true>(q, k, v, nullptr, nullptr, lengths, out, stat, nullptr,
+                      B, HK, G, NB * PS, D, paged(bt, NB, PS, NP, sp, ss, sh),
+                      scale, phi, static_cast<cudaStream_t>(stream));
 }
 
 REPRO_EXPORT int paged_decode_attention_sync_bf16(
@@ -317,7 +365,35 @@ REPRO_EXPORT int paged_decode_attention_sync_bf16(
     const void* lengths, void* out, const void* flag, int B, int HK, int G,
     int NB, int PS, int NP, int D, long long sp, long long ss, long long sh,
     float scale, void* stream) {
-  return launch<false>(q, k, v, lengths, out, nullptr, flag, B, HK, G,
-                       NB * PS, D, paged(bt, NB, PS, NP, sp, ss, sh), scale,
-                       0.f, static_cast<cudaStream_t>(stream));
+  return launch<false>(q, k, v, nullptr, nullptr, lengths, out, nullptr, flag,
+                       B, HK, G, NB * PS, D,
+                       paged(bt, NB, PS, NP, sp, ss, sh), scale, 0.f,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// Quantized pools: k/v hold 1-byte codes (int8, or fp8 e4m3 when fp8 != 0)
+// with the same element strides; k_step / v_step are (NP, HK) f32
+// contiguous, one step per (page, kv head). Otherwise as the bf16 entries.
+REPRO_EXPORT int paged_decode_attention_unified_max_q8(
+    const void* q, const void* k, const void* v, const void* k_step,
+    const void* v_step, const void* bt, const void* lengths, void* out,
+    void* stat, int B, int HK, int G, int NB, int PS, int NP, int D,
+    long long sp, long long ss, long long sh, float scale, float phi, int fp8,
+    void* stream) {
+  return launch_q8<true>(q, k, v, k_step, v_step, lengths, out, stat,
+                         nullptr, B, HK, G, NB * PS, D,
+                         paged(bt, NB, PS, NP, sp, ss, sh), scale, phi, fp8,
+                         static_cast<cudaStream_t>(stream));
+}
+
+REPRO_EXPORT int paged_decode_attention_sync_q8(
+    const void* q, const void* k, const void* v, const void* k_step,
+    const void* v_step, const void* bt, const void* lengths, void* out,
+    const void* flag, int B, int HK, int G, int NB, int PS, int NP, int D,
+    long long sp, long long ss, long long sh, float scale, int fp8,
+    void* stream) {
+  return launch_q8<false>(q, k, v, k_step, v_step, lengths, out, nullptr,
+                          flag, B, HK, G, NB * PS, D,
+                          paged(bt, NB, PS, NP, sp, ss, sh), scale, 0.f, fp8,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -36,6 +36,14 @@
 // JAX kernel reports the group-wide max; the overflow flag is the same).
 // Table entries are clamped to the pool (sentinel NP), member rows to the
 // batch (sentinel B); padding rows of stage 1 get the empty partial.
+//
+// Quantized pools (int8 / fp8 e4m3 codes; the quantized=True bodies of
+// src/repro/kernels/group_attention.py's _group_prefix_kernel and
+// _tail_merge_kernel): both stages are templated on the element type and
+// dequantize exactly as row 5's quantized body does (code * step in f32
+// before the dot and the P.V product, the K step per key, the V step
+// reloaded where a page starts), so the pair stays bitwise row 5 on the
+// same quantized pool.
 #include "common.cuh"
 
 using namespace repro;
@@ -51,22 +59,32 @@ struct Pages {
   const int* bt;
   int nb, ps, np;
   long long sp, ss, sh;
-  __device__ __forceinline__ long long row(int r, int h, int j) const {
-    int page = __ldg(bt + static_cast<long long>(r) * nb + j / ps);
-    page = page < 0 ? 0 : (page >= np ? np - 1 : page);
-    return page * sp + (j % ps) * ss + h * sh;
+  __device__ __forceinline__ int page(int r, int j) const {
+    const int p = __ldg(bt + static_cast<long long>(r) * nb + j / ps);
+    return p < 0 ? 0 : (p >= np ? np - 1 : p);
   }
+  __device__ __forceinline__ long long row(int r, int h, int j) const {
+    return page(r, j) * sp + (j % ps) * ss + h * sh;
+  }
+};
+
+// A quantized pool's (NP, HK) steps (null for bf16 pools).
+struct Steps {
+  const float* k;
+  const float* v;
+  int hk;
 };
 
 // One warp's share of keys [lo, hi) of table row r, kv head h, against
 // query rows q_s[0, nrows): row 5's unified-max chunk walk, expression
 // for expression. msc[g] is the running max of s − φ of row g.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void walk(
-    float (*q_s)[D], int nrows, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const Pages& addr, int r, int h,
+    float (*q_s)[D], int nrows, const T* __restrict__ k,
+    const T* __restrict__ v, const Steps& st, const Pages& addr, int r, int h,
     int lo, int hi, float phi, float (*ebuf)[32], float (&acc)[kRows][D / 32],
     float (&den)[kRows], float (&msc)[kRows]) {
+  using E = KVElem<T>;
   constexpr int DL = D / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int c0 = lo / 32;
@@ -78,16 +96,20 @@ __device__ __forceinline__ void walk(
 #pragma unroll
     for (int g = 0; g < kRows; ++g) s[g] = 0.f;
     if (valid) {
-      const __nv_bfloat16* kr = k + addr.row(r, h, j);
+      const T* kr = k + addr.row(r, h, j);
+      float kst = 1.f;
+      if constexpr (E::kCodes)
+        kst = __ldg(st.k + static_cast<long long>(addr.page(r, j)) * st.hk + h);
 #pragma unroll
-      for (int d0 = 0; d0 < D; d0 += 8) {
-        float kv[8];
-        unpack8(__ldg(reinterpret_cast<const uint4*>(kr + d0)), kv);
+      for (int d0 = 0; d0 < D; d0 += E::kVec) {
+        float kv[E::kVec];
+        E::load(kr + d0, kst, kv);
 #pragma unroll
         for (int g = 0; g < kRows; ++g) {
           if (g < nrows) {
 #pragma unroll
-            for (int i = 0; i < 8; ++i) s[g] = fmaf(q_s[g][d0 + i], kv[i], s[g]);
+            for (int i = 0; i < E::kVec; ++i)
+              s[g] = fmaf(q_s[g][d0 + i], kv[i], s[g]);
           }
         }
       }
@@ -103,11 +125,21 @@ __device__ __forceinline__ void walk(
     }
     __syncwarp();
     const int jlo = max(0, lo - c * 32), jhi = min(32, hi - c * 32);
+    float vst = 1.f;
+    int vst_end = 0;                 // the V step holds for keys < vst_end
     for (int jj = jlo; jj < jhi; ++jj) {
-      const __nv_bfloat16* vr = v + addr.row(r, h, c * 32 + jj) + lane * DL;
+      const int key = c * 32 + jj;
+      const T* vr = v + addr.row(r, h, key) + lane * DL;
+      if constexpr (E::kCodes) {
+        if (key >= vst_end) {
+          vst = __ldg(st.v + static_cast<long long>(addr.page(r, key)) * st.hk +
+                      h);
+          vst_end = (key / addr.ps + 1) * addr.ps;
+        }
+      }
       float vv[DL];
 #pragma unroll
-      for (int i = 0; i < DL; ++i) vv[i] = bf2f(vr[i]);
+      for (int i = 0; i < DL; ++i) vv[i] = E::one(vr + i, vst);
 #pragma unroll
       for (int g = 0; g < kRows; ++g) {
         if (g < nrows) {
@@ -136,12 +168,11 @@ __device__ __forceinline__ void clear(float (&acc)[kRows][D / 32],
 }
 
 // Stage 1. num (NG, HK, 4, MG, D), den / stat (NG, HK, 4, MG) f32.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 group_prefix_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const int* __restrict__ g_prefix_len,
+                    const T* __restrict__ k, const T* __restrict__ v,
+                    Steps st, const int* __restrict__ g_prefix_len,
                     const int* __restrict__ num_members,
                     const int* __restrict__ member_rows,
                     float* __restrict__ num, float* __restrict__ den_out,
@@ -173,8 +204,8 @@ group_prefix_kernel(const __nv_bfloat16* __restrict__ q,
   float acc[kRows][DL], den[kRows], msc[kRows];
   clear<D>(acc, den, msc);
   if (nrows > 0)
-    walk<D>(q_s, nrows, k, v, addr, grp, h, 0, plen, phi, ebuf[warp], acc,
-            den, msc);
+    walk<D, T>(q_s, nrows, k, v, st, addr, grp, h, 0, plen, phi, ebuf[warp],
+               acc, den, msc);
 
 #pragma unroll
   for (int g = 0; g < kRows; ++g) {
@@ -195,11 +226,10 @@ group_prefix_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // Stage 2. out (B, HQ, D) bf16, stat_out (B, HK) f32.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 group_tail_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
+                  const T* __restrict__ k, const T* __restrict__ v, Steps st,
                   const int* __restrict__ lengths, const int* __restrict__ gid,
                   const int* __restrict__ member,
                   const int* __restrict__ prefix_len,
@@ -251,8 +281,8 @@ group_tail_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  walk<D>(q_s, G, k, v, addr, b, h, plen, len, phi, ebuf[warp], acc, den,
-          msc);
+  walk<D, T>(q_s, G, k, v, st, addr, b, h, plen, len, phi, ebuf[warp], acc,
+             den, msc);
 
   // row 5's merge of the warp partials into warp 0, then finalize
   float m = -INFINITY;
@@ -321,6 +351,60 @@ REPRO_ERROR_STRING_FN
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
+namespace {
+
+template <typename T>
+int prefix(const void* q, const void* k, const void* v, Steps st,
+           const void* tables, const void* g_prefix_len,
+           const void* num_members, const void* member_rows, void* num,
+           void* den, void* stat, int B, int HK, int G, int NG, int LP, int M,
+           int PS, int NP, int D, long long sp, long long ss, long long sh,
+           float scale, float phi, void* stream) {
+  if (NG < 1 || M < 1 || G < 1) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(NG, HK, (M * G + kRows - 1) / kRows);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const Pages addr = pages(tables, LP, PS, NP, sp, ss, sh);
+#define REPRO_GA_PREFIX(DD)                                                  \
+  group_prefix_kernel<DD, T><<<grid, kWarps * 32, 0, cs>>>(                  \
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),        \
+      static_cast<const T*>(v), st, static_cast<const int*>(g_prefix_len),   \
+      static_cast<const int*>(num_members),                                  \
+      static_cast<const int*>(member_rows), static_cast<float*>(num),        \
+      static_cast<float*>(den), static_cast<float*>(stat), B, HK, G, M,      \
+      addr, scale, phi)
+  REPRO_GA_DISPATCH(REPRO_GA_PREFIX)
+#undef REPRO_GA_PREFIX
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int tail(const void* q, const void* k, const void* v, Steps st,
+         const void* bt, const void* lengths, const void* gid,
+         const void* member, const void* prefix_len, const void* num,
+         const void* den, const void* stat, void* out, void* stat_out, int B,
+         int HK, int G, int NB, int PS, int NP, int NG, int MG, int D,
+         long long sp, long long ss, long long sh, float scale, float phi,
+         void* stream) {
+  if (G < 1 || G > kRows) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(B, HK);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const Pages addr = pages(bt, NB, PS, NP, sp, ss, sh);
+#define REPRO_GA_TAIL(DD)                                                    \
+  group_tail_kernel<DD, T><<<grid, kWarps * 32, 0, cs>>>(                    \
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),        \
+      static_cast<const T*>(v), st, static_cast<const int*>(lengths),        \
+      static_cast<const int*>(gid), static_cast<const int*>(member),         \
+      static_cast<const int*>(prefix_len), static_cast<const float*>(num),   \
+      static_cast<const float*>(den), static_cast<const float*>(stat),       \
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(stat_out), HK, G, \
+      NG, MG, addr, scale, phi)
+  REPRO_GA_DISPATCH(REPRO_GA_TAIL)
+#undef REPRO_GA_TAIL
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // Stage 1. q (B, HQ, D) contiguous; pools (NP, PS, HK, D) with element
 // (p, r, h, d) at p*sp + r*ss + h*sh + d; tables (NG, LP), g_prefix_len /
 // num_members (NG,), member_rows (NG, M) int32; outputs as the kernel's.
@@ -331,23 +415,10 @@ REPRO_EXPORT int group_prefix_bf16(
     int HK, int G, int NG, int LP, int M, int PS, int NP, int D,
     long long sp, long long ss, long long sh, float scale, float phi,
     void* stream) {
-  if (NG < 1 || M < 1 || G < 1) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(NG, HK, (M * G + kRows - 1) / kRows);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Pages addr = pages(tables, LP, PS, NP, sp, ss, sh);
-#define REPRO_GA_PREFIX(DD)                                                  \
-  group_prefix_kernel<DD><<<grid, kWarps * 32, 0, st>>>(                     \
-      static_cast<const __nv_bfloat16*>(q),                                  \
-      static_cast<const __nv_bfloat16*>(k),                                  \
-      static_cast<const __nv_bfloat16*>(v),                                  \
-      static_cast<const int*>(g_prefix_len),                                 \
-      static_cast<const int*>(num_members),                                  \
-      static_cast<const int*>(member_rows), static_cast<float*>(num),        \
-      static_cast<float*>(den), static_cast<float*>(stat), B, HK, G, M,      \
-      addr, scale, phi)
-  REPRO_GA_DISPATCH(REPRO_GA_PREFIX)
-#undef REPRO_GA_PREFIX
-  return static_cast<int>(cudaGetLastError());
+  return prefix<__nv_bfloat16>(q, k, v, Steps{nullptr, nullptr, HK}, tables,
+                               g_prefix_len, num_members, member_rows, num,
+                               den, stat, B, HK, G, NG, LP, M, PS, NP, D, sp,
+                               ss, sh, scale, phi, stream);
 }
 
 // Stage 2. bt (B, NB), lengths / gid / member / prefix_len (B,) int32;
@@ -360,21 +431,42 @@ REPRO_EXPORT int group_tail_bf16(
     const void* stat, void* out, void* stat_out, int B, int HK, int G,
     int NB, int PS, int NP, int NG, int MG, int D, long long sp,
     long long ss, long long sh, float scale, float phi, void* stream) {
-  if (G < 1 || G > kRows) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(B, HK);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Pages addr = pages(bt, NB, PS, NP, sp, ss, sh);
-#define REPRO_GA_TAIL(DD)                                                    \
-  group_tail_kernel<DD><<<grid, kWarps * 32, 0, st>>>(                       \
-      static_cast<const __nv_bfloat16*>(q),                                  \
-      static_cast<const __nv_bfloat16*>(k),                                  \
-      static_cast<const __nv_bfloat16*>(v),                                  \
-      static_cast<const int*>(lengths), static_cast<const int*>(gid),        \
-      static_cast<const int*>(member), static_cast<const int*>(prefix_len),  \
-      static_cast<const float*>(num), static_cast<const float*>(den),        \
-      static_cast<const float*>(stat), static_cast<__nv_bfloat16*>(out),     \
-      static_cast<float*>(stat_out), HK, G, NG, MG, addr, scale, phi)
-  REPRO_GA_DISPATCH(REPRO_GA_TAIL)
-#undef REPRO_GA_TAIL
-  return static_cast<int>(cudaGetLastError());
+  return tail<__nv_bfloat16>(q, k, v, Steps{nullptr, nullptr, HK}, bt,
+                             lengths, gid, member, prefix_len, num, den, stat,
+                             out, stat_out, B, HK, G, NB, PS, NP, NG, MG, D,
+                             sp, ss, sh, scale, phi, stream);
+}
+
+// Quantized pools: k/v hold 1-byte codes (int8, or fp8 e4m3 when fp8 != 0)
+// with the same element strides; k_step / v_step are (NP, HK) f32
+// contiguous. Otherwise as the bf16 entries.
+REPRO_EXPORT int group_prefix_q8(
+    const void* q, const void* k, const void* v, const void* k_step,
+    const void* v_step, const void* tables, const void* g_prefix_len,
+    const void* num_members, const void* member_rows, void* num, void* den,
+    void* stat, int B, int HK, int G, int NG, int LP, int M, int PS, int NP,
+    int D, long long sp, long long ss, long long sh, float scale, float phi,
+    int fp8, void* stream) {
+  const Steps st{static_cast<const float*>(k_step),
+                 static_cast<const float*>(v_step), HK};
+  auto run = fp8 ? &prefix<__nv_fp8_e4m3> : &prefix<int8_t>;
+  return run(q, k, v, st, tables, g_prefix_len, num_members, member_rows,
+             num, den, stat, B, HK, G, NG, LP, M, PS, NP, D, sp, ss, sh,
+             scale, phi, stream);
+}
+
+REPRO_EXPORT int group_tail_q8(
+    const void* q, const void* k, const void* v, const void* k_step,
+    const void* v_step, const void* bt, const void* lengths, const void* gid,
+    const void* member, const void* prefix_len, const void* num,
+    const void* den, const void* stat, void* out, void* stat_out, int B,
+    int HK, int G, int NB, int PS, int NP, int NG, int MG, int D,
+    long long sp, long long ss, long long sh, float scale, float phi, int fp8,
+    void* stream) {
+  const Steps st{static_cast<const float*>(k_step),
+                 static_cast<const float*>(v_step), HK};
+  auto run = fp8 ? &tail<__nv_fp8_e4m3> : &tail<int8_t>;
+  return run(q, k, v, st, bt, lengths, gid, member, prefix_len, num, den,
+             stat, out, stat_out, B, HK, G, NB, PS, NP, NG, MG, D, sp, ss, sh,
+             scale, phi, stream);
 }

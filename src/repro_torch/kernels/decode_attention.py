@@ -22,12 +22,21 @@ kernel's grid (the paged plain versions walk one page per step, as the
 TPU kernel's grid does). ``block_k`` only shapes that emulation: the
 CUDA kernel walks 32-key warp chunks and its result does not depend on
 it. Each wrapper counts its launches in ``.launches``.
+
+The paged entries also take a quantized pool: int8 or float8_e4m3fn codes
+with ``k_scale`` / ``v_scale``, the (NP, HK) f32 step of every (page, kv
+head). On a CUDA tensor they launch the kernels' quantized bodies, which
+turn each element into ``code * step`` in f32 as they read it, and count
+those launches in :data:`paged_decode_attention_unified_max_quant` /
+:data:`paged_decode_attention_sync_quant`; the plain versions dequantize
+each gathered page with the same expression. The steps are the only
+signal: codes without them, or steps beside bf16 pools, raise.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, merge
+from repro_torch.kernels import _build, merge, quant, ref
 
 DEFAULT_BLOCK_K = 512
 
@@ -45,7 +54,19 @@ _SIG = {
         [_build.VP] * 7 + _PDIMS + [_build.F32, _build.F32, _build.VP],
     "paged_decode_attention_sync_bf16":
         [_build.VP] * 7 + _PDIMS + [_build.F32, _build.VP],
+    # + k_step, v_step pointers and the code-type flag (1 = fp8)
+    "paged_decode_attention_unified_max_q8":
+        [_build.VP] * 9 + _PDIMS
+        + [_build.F32, _build.F32, _build.I32, _build.VP],
+    "paged_decode_attention_sync_q8":
+        [_build.VP] * 9 + _PDIMS + [_build.F32, _build.I32, _build.VP],
 }
+
+# the quantized bodies' launches, apart from the bf16 kernels'
+paged_decode_attention_unified_max_quant = _build.LaunchCounter(
+    "paged_decode_attention_unified_max_quant")
+paged_decode_attention_sync_quant = _build.LaunchCounter(
+    "paged_decode_attention_sync_quant")
 
 
 def _blocks(q, k_cache, v_cache, lengths, scale, block_k):
@@ -208,27 +229,43 @@ def decode_attention_sync(q, k_cache, v_cache, lengths, *,
 # ---------------------------------------------------------------------------
 
 
-def _pages(q, k_pool, v_pool, block_tables, lengths, scale):
+def page_values(pool, pages, steps=None):
+    """The pool's pages ``pages`` (B,) as (B, PS, HK, D): values of a bf16
+    pool, or a quantized pool's codes dequantized as the kernels do
+    (:func:`ref.dequantize_pool_ref` on the gathered pages)."""
+    if steps is None:
+        return pool[pages]
+    # gather the bytes: 1-byte codes move as uint8 on every device
+    codes = pool.view(torch.uint8)[pages].view(pool.dtype)
+    return ref.dequantize_pool_ref(codes, steps[pages])
+
+
+def _pages(q, k_pool, v_pool, block_tables, lengths, scale, k_scale=None,
+           v_scale=None):
     """Yield per-page (scores (B,HK,G,PS) f32, v (B,HK,PS,D), valid), one
     logical page of every row's table per step (the TPU grid's page
-    axis); sentinel entries clamp to the pool's last page."""
+    axis); sentinel entries clamp to the pool's last page. Quantized
+    pages are dequantized as they are read."""
     b, hq, d = q.shape
     num_pages, ps, hk, _ = k_pool.shape
     qg = q.reshape(b, hk, hq // hk, d).float() * scale
     bt = block_tables.to(q.device).long().clamp(0, num_pages - 1)
     lengths = lengths.to(q.device)
     for i in range(bt.shape[1]):
-        kt = k_pool[bt[:, i]].float().permute(0, 2, 1, 3)   # (B,HK,PS,D)
+        kt = page_values(k_pool, bt[:, i], k_scale).float().permute(
+            0, 2, 1, 3)                                       # (B,HK,PS,D)
         s = torch.matmul(qg, kt.transpose(-1, -2))           # (B,HK,G,PS)
         offs = i * ps + torch.arange(ps, device=q.device)
         valid = (offs[None, :] < lengths[:, None])[:, None, None, :]
-        yield s, v_pool[bt[:, i]].permute(0, 2, 1, 3), valid.expand_as(s)
+        yield (s, page_values(v_pool, bt[:, i], v_scale).permute(0, 2, 1, 3),
+               valid.expand_as(s))
 
 
 def paged_decode_attention_unified_max_plain(q, k_pool, v_pool,
                                              block_tables, lengths, *,
                                              phi: float = 0.0,
-                                             scale: float | None = None):
+                                             scale: float | None = None,
+                                             k_scale=None, v_scale=None):
     """Plain version: ``(out (B,HQ,D), stat (B,HK) = max(s − φ))``."""
     b, hq, d = q.shape
     hk = k_pool.shape[2]
@@ -239,7 +276,7 @@ def paged_decode_attention_unified_max_plain(q, k_pool, v_pool,
                       device=q.device)
     msc = torch.full((b, hk), float("-inf"), device=q.device)
     for s, v, valid in _pages(q, k_pool, v_pool, block_tables, lengths,
-                              scale):
+                              scale, k_scale, v_scale):
         acc, den, msc = merge.unified_accumulate(acc, den, msc, s - phi, v,
                                                  valid)
     out = merge.finalize(acc, den, guard_zero=True)
@@ -248,7 +285,8 @@ def paged_decode_attention_unified_max_plain(q, k_pool, v_pool,
 
 def paged_decode_attention_sync_plain(q, k_pool, v_pool, block_tables,
                                       lengths, *,
-                                      scale: float | None = None):
+                                      scale: float | None = None,
+                                      k_scale=None, v_scale=None):
     """Plain version of the online-max scheme: ``out (B, HQ, D)``."""
     b, hq, d = q.shape
     hk = k_pool.shape[2]
@@ -259,40 +297,71 @@ def paged_decode_attention_sync_plain(q, k_pool, v_pool, block_tables,
                       device=q.device)
     m = torch.full((b, hk, hq // hk, 1), float("-inf"), device=q.device)
     for s, v, valid in _pages(q, k_pool, v_pool, block_tables, lengths,
-                              scale):
+                              scale, k_scale, v_scale):
         s = torch.where(valid, s, torch.full_like(s, float("-inf")))
         acc, den, m = merge.sync_accumulate(acc, den, m, s, v)
     out = merge.finalize(acc, den, guard_zero=True)
     return out.reshape(b, hq, d).to(q.dtype)
 
 
-def check_pools(what, q, k_pool, v_pool):
-    """Validate q and the (NP, PS, HK, D) pools for a paged kernel."""
+def code_flag(k_pool, k_scale):
+    """The quantized C entries' code-type flag of a checked pool: None
+    for bf16 values (the bf16 entries), 0 for int8 codes, 1 for fp8."""
+    if k_scale is None:
+        return None
+    return int(not quant.spec_for_dtype(k_pool.dtype).is_int)
+
+
+def check_pools(what, q, k_pool, v_pool, k_scale=None, v_scale=None):
+    """Validate q and the (NP, PS, HK, D) pools for a paged kernel: bf16
+    pools, or 1-byte code pools with their (NP, HK) f32 steps."""
     num_pages, ps, hk, d = k_pool.shape
     if k_pool.shape != v_pool.shape or q.shape[-1] != d \
             or q.shape[-2] % hk:
         raise ValueError(f"{what} shapes q {tuple(q.shape)} pools "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
-    for t in (q, k_pool, v_pool):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what} kernel takes bf16, got {t.dtype}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{what}: pass both k_scale and v_scale, or "
+                         "neither")
+    spec = quant.spec_for_dtype(k_pool.dtype)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{what} kernel takes bf16 q, got {q.dtype}")
+    if k_scale is None:
+        if k_pool.dtype != torch.bfloat16 or v_pool.dtype != torch.bfloat16:
+            raise TypeError(f"{what} kernel takes bf16 pools (or codes with "
+                            f"k_scale / v_scale), got {k_pool.dtype}")
+    else:
+        if spec is None or v_pool.dtype != k_pool.dtype:
+            raise TypeError(f"{what} kernel with steps takes int8 / "
+                            f"float8_e4m3fn code pools, got {k_pool.dtype} / "
+                            f"{v_pool.dtype}")
+        for t in (k_scale, v_scale):
+            if t.shape != (num_pages, hk) or t.dtype != torch.float32 \
+                    or not t.is_contiguous() or t.device != q.device:
+                raise ValueError(f"{what}: steps must be contiguous f32 "
+                                 f"(NP, HK) = {(num_pages, hk)} tensors on "
+                                 f"q's device, got {tuple(t.shape)} "
+                                 f"{t.dtype}")
+    for t in (k_pool, v_pool):
         if t.device != q.device:
             raise ValueError(f"{what} inputs on different devices")
     if k_pool.stride() != v_pool.stride() or k_pool.stride(3) != 1 \
             or q.stride(-1) != 1:
         raise ValueError(f"{what} kernel needs k and v pools with equal "
                          "strides and a contiguous head_dim")
-    if any(s % 8 for s in k_pool.stride()[:3]) \
+    vec = 16 // k_pool.element_size()       # elements per 16-byte load
+    if any(s % vec for s in k_pool.stride()[:3]) \
             or k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError(f"{what} kernel needs 16-byte aligned pool rows")
     if d not in (32, 64, 128):
         raise ValueError(f"{what} kernel takes head_dim 32/64/128, got {d}")
 
 
-def check_paged_inputs(what, q, k_pool, v_pool, block_tables, lengths):
+def check_paged_inputs(what, q, k_pool, v_pool, block_tables, lengths,
+                       k_scale=None, v_scale=None):
     """Validate pool / table operands for a paged kernel; returns the
     contiguous int32 (block_tables, lengths) on q's device."""
-    check_pools(what, q, k_pool, v_pool)
+    check_pools(what, q, k_pool, v_pool, k_scale, v_scale)
     if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
         raise ValueError(f"{what} shapes q {tuple(q.shape)} tables "
                          f"{tuple(block_tables.shape)}")
@@ -311,25 +380,41 @@ def _paged_dims(q, k_pool, bt):
 
 def paged_decode_attention_unified_max(q, k_pool, v_pool, block_tables,
                                        lengths, *, phi: float = 0.0,
-                                       scale: float | None = None):
+                                       scale: float | None = None,
+                                       k_scale=None, v_scale=None):
     """T1 decode attention over a paged pool: ``(out (B,HQ,D), stat
-    (B,HK))`` as :func:`decode_attention_unified_max`."""
+    (B,HK))`` as :func:`decode_attention_unified_max`. With ``k_scale``
+    / ``v_scale`` the pools hold codes (the quantized body)."""
     if not q.is_cuda:
         return paged_decode_attention_unified_max_plain(
-            q, k_pool, v_pool, block_tables, lengths, phi=phi, scale=scale)
+            q, k_pool, v_pool, block_tables, lengths, phi=phi, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
     bt, lens = check_paged_inputs("paged decode attention", q, k_pool,
-                                  v_pool, block_tables, lengths)
+                                  v_pool, block_tables, lengths, k_scale,
+                                  v_scale)
+    fp8 = code_flag(k_pool, k_scale)
     q = q.contiguous()
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     out = torch.empty_like(q)
     stat = torch.empty((q.shape[0], k_pool.shape[2]), dtype=torch.float32,
                        device=q.device)
     lib = _build.load("decode_attention", _SIG)
+    dims = _paged_dims(q, k_pool, bt)
+    if fp8 is not None:
+        entry = "paged_decode_attention_unified_max_q8"
+        code = getattr(lib, entry)(
+            _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(bt),
+            _build.ptr(lens), _build.ptr(out), _build.ptr(stat), *dims,
+            scale, phi, fp8, _build.stream_of(q))
+        _build.check(lib, entry, code)
+        paged_decode_attention_unified_max_quant.launches += 1
+        return out, stat
     entry = "paged_decode_attention_unified_max_bf16"
     code = getattr(lib, entry)(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
         _build.ptr(bt), _build.ptr(lens), _build.ptr(out), _build.ptr(stat),
-        *_paged_dims(q, k_pool, bt), scale, phi, _build.stream_of(q))
+        *dims, scale, phi, _build.stream_of(q))
     _build.check(lib, entry, code)
     paged_decode_attention_unified_max.launches += 1
     return out, stat
@@ -338,17 +423,22 @@ def paged_decode_attention_unified_max(q, k_pool, v_pool, block_tables,
 def paged_decode_attention_sync(q, k_pool, v_pool, block_tables, lengths, *,
                                 scale: float | None = None,
                                 out: torch.Tensor | None = None,
-                                flag: torch.Tensor | None = None):
+                                flag: torch.Tensor | None = None,
+                                k_scale=None, v_scale=None):
     """Online-max paged decode attention; ``out``/``flag`` make it the
-    overflow recompute, as in :func:`decode_attention_sync`."""
+    overflow recompute, as in :func:`decode_attention_sync`. With
+    ``k_scale`` / ``v_scale`` the pools hold codes."""
     if (out is None) != (flag is None):
         raise ValueError("pass both out= and flag=, or neither")
     if not q.is_cuda:
         res = paged_decode_attention_sync_plain(
-            q, k_pool, v_pool, block_tables, lengths, scale=scale)
+            q, k_pool, v_pool, block_tables, lengths, scale=scale,
+            k_scale=k_scale, v_scale=v_scale)
         return res if out is None else torch.where(flag, res, out)
     bt, lens = check_paged_inputs("paged decode attention", q, k_pool,
-                                  v_pool, block_tables, lengths)
+                                  v_pool, block_tables, lengths, k_scale,
+                                  v_scale)
+    fp8 = code_flag(k_pool, k_scale)
     q = q.contiguous()
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if out is None:
@@ -358,12 +448,23 @@ def paged_decode_attention_sync(q, k_pool, v_pool, block_tables, lengths, *,
         raise ValueError("paged_decode_attention_sync: out must be a "
                          "contiguous (B, HQ, D) tensor of q's dtype")
     lib = _build.load("decode_attention", _SIG)
+    dims = _paged_dims(q, k_pool, bt)
+    flag_p = _build.ptr(flag) if flag is not None else None
+    if fp8 is not None:
+        entry = "paged_decode_attention_sync_q8"
+        code = getattr(lib, entry)(
+            _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+            _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(bt),
+            _build.ptr(lens), _build.ptr(out), flag_p, *dims, scale, fp8,
+            _build.stream_of(q))
+        _build.check(lib, entry, code)
+        paged_decode_attention_sync_quant.launches += 1
+        return out
     entry = "paged_decode_attention_sync_bf16"
     code = getattr(lib, entry)(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
-        _build.ptr(bt), _build.ptr(lens), _build.ptr(out),
-        _build.ptr(flag) if flag is not None else None,
-        *_paged_dims(q, k_pool, bt), scale, _build.stream_of(q))
+        _build.ptr(bt), _build.ptr(lens), _build.ptr(out), flag_p, *dims,
+        scale, _build.stream_of(q))
     _build.check(lib, entry, code)
     paged_decode_attention_sync.launches += 1
     return out

@@ -27,6 +27,13 @@ On a CUDA tensor each stage wrapper launches its kernel and counts the
 launch in ``.launches``; on a CPU tensor it runs its plain version, which
 emulates the warp split (key position ``p`` belongs to warp
 ``(p // 32) % 4``).
+
+A quantized pool (int8 / float8_e4m3fn codes with ``k_scale`` /
+``v_scale``, the (NP, HK) f32 steps) runs both stages' quantized bodies,
+counted in :data:`group_prefix_partials_quant` /
+:data:`group_tail_merge_quant`; they dequantize as the ungrouped
+quantized kernel does, so the pair stays bitwise it. The plain versions
+read the pool's dequantized view (``codes.float() * step``).
 """
 from __future__ import annotations
 
@@ -36,8 +43,8 @@ import torch
 
 from repro_torch.kernels import _build, merge
 from repro_torch.kernels.decode_attention import (check_paged_inputs,
-                                                  check_pools)
-from repro_torch.kernels.ref import gather_paged_kv
+                                                  check_pools, code_flag)
+from repro_torch.kernels.ref import dequantize_pool_ref, gather_paged_kv
 
 WARPS = 4          # warp partials per row (the ungrouped kernel's warps)
 CHUNK = 32         # keys per warp chunk
@@ -72,7 +79,25 @@ class DecodeGroups(NamedTuple):
 _SIG = {"group_prefix_bf16": [_build.VP] * 10 + [_build.I32] * 9
         + [_build.I64] * 3 + [_build.F32, _build.F32, _build.VP],
         "group_tail_bf16": [_build.VP] * 13 + [_build.I32] * 9
-        + [_build.I64] * 3 + [_build.F32, _build.F32, _build.VP]}
+        + [_build.I64] * 3 + [_build.F32, _build.F32, _build.VP],
+        # + k_step, v_step pointers and the code-type flag (1 = fp8)
+        "group_prefix_q8": [_build.VP] * 12 + [_build.I32] * 9
+        + [_build.I64] * 3 + [_build.F32, _build.F32, _build.I32, _build.VP],
+        "group_tail_q8": [_build.VP] * 15 + [_build.I32] * 9
+        + [_build.I64] * 3 + [_build.F32, _build.F32, _build.I32, _build.VP]}
+
+# the quantized bodies' launches, apart from the bf16 kernels'
+group_prefix_partials_quant = _build.LaunchCounter(
+    "group_prefix_partials_quant")
+group_tail_merge_quant = _build.LaunchCounter("group_tail_merge_quant")
+
+
+def _gather(pool, tables, steps=None):
+    """f32 (R, NB*PS, HK, D) view of a pool through ``tables``: values of
+    a bf16 pool, or a quantized pool's ``codes.float() * step``."""
+    if steps is not None:
+        pool = dequantize_pool_ref(pool, steps)
+    return gather_paged_kv(pool, tables).float()
 
 
 # ---------------------------------------------------------------------------
@@ -81,7 +106,8 @@ _SIG = {"group_prefix_bf16": [_build.VP] * 10 + [_build.I32] * 9
 
 
 def group_prefix_plain(q, k_pool, v_pool, groups: DecodeGroups, *,
-                       phi: float = 0.0, scale: float | None = None):
+                       phi: float = 0.0, scale: float | None = None,
+                       k_scale=None, v_scale=None):
     """Plain stage 1: per-warp unified-max partials of every member row
     over its group's first ``g_prefix_len`` keys (rows past
     ``num_members * G`` get the empty partial)."""
@@ -94,8 +120,8 @@ def group_prefix_plain(q, k_pool, v_pool, groups: DecodeGroups, *,
     rows = groups.member_rows.long().clamp(0, b - 1)              # (NG, M)
     qs = (q.reshape(b, hk, g, d).float() * scale)[rows]           # NG,M,HK,G,D
     qs = qs.permute(0, 2, 1, 3, 4).reshape(ng, hk, m * g, d)
-    k = gather_paged_kv(k_pool, groups.tables).float()            # NG,S,HK,D
-    v = gather_paged_kv(v_pool, groups.tables).float()
+    k = _gather(k_pool, groups.tables, k_scale)                   # NG,S,HK,D
+    v = _gather(v_pool, groups.tables, v_scale)
     centered = torch.einsum("nhrd,nshd->nhrs", qs, k) - phi
     pos = torch.arange(k.shape[1], device=q.device)
     plen = groups.g_prefix_len.to(q.device).long()
@@ -147,7 +173,8 @@ def _row_seeds(groups: DecodeGroups, num, den, stat, g: int):
 
 def group_tail_plain(q, k_pool, v_pool, block_tables, lengths,
                      groups: DecodeGroups, num, den, stat, *,
-                     phi: float = 0.0, scale: float | None = None):
+                     phi: float = 0.0, scale: float | None = None,
+                     k_scale=None, v_scale=None):
     """Plain stage 2: each row's stage-1 partials plus its keys
     ``[prefix_len, length)``, normalised: ``(out (B,HQ,D), stat
     (B,HK))``."""
@@ -156,8 +183,8 @@ def group_tail_plain(q, k_pool, v_pool, block_tables, lengths,
     g = hq // hk
     scale = scale if scale is not None else d ** -0.5
     acc, dsum, msc, plen = _row_seeds(groups, num, den, stat, g)
-    k = gather_paged_kv(k_pool, block_tables).float()              # B,S,HK,D
-    v = gather_paged_kv(v_pool, block_tables).float()
+    k = _gather(k_pool, block_tables, k_scale)                     # B,S,HK,D
+    v = _gather(v_pool, block_tables, v_scale)
     qg = q.reshape(b, hk, g, d).float() * scale
     s = torch.einsum("bhgd,bshd->bhgs", qg, k)
     pos = torch.arange(k.shape[1], device=q.device)
@@ -172,12 +199,13 @@ def group_tail_plain(q, k_pool, v_pool, block_tables, lengths,
 
 def grouped_paged_decode_attention_unified_max_plain(
         q, k_pool, v_pool, block_tables, lengths, groups: DecodeGroups, *,
-        phi: float = 0.0, scale: float | None = None):
+        phi: float = 0.0, scale: float | None = None, k_scale=None,
+        v_scale=None):
     """Plain version of both stages: ``(out (B,HQ,D), stat (B,HK))``."""
-    parts = group_prefix_plain(q, k_pool, v_pool, groups, phi=phi,
-                               scale=scale)
+    qkw = dict(phi=phi, scale=scale, k_scale=k_scale, v_scale=v_scale)
+    parts = group_prefix_plain(q, k_pool, v_pool, groups, **qkw)
     return group_tail_plain(q, k_pool, v_pool, block_tables, lengths,
-                            groups, *parts, phi=phi, scale=scale)
+                            groups, *parts, **qkw)
 
 
 # ---------------------------------------------------------------------------
@@ -210,12 +238,17 @@ def _pool_dims(k_pool):
 
 
 def group_prefix_partials(q, k_pool, v_pool, groups: DecodeGroups, *,
-                          phi: float = 0.0, scale: float | None = None):
-    """Stage 1: ``(num (NG,HK,4,M·G,D), den, stat (NG,HK,4,M·G))`` f32."""
+                          phi: float = 0.0, scale: float | None = None,
+                          k_scale=None, v_scale=None):
+    """Stage 1: ``(num (NG,HK,4,M·G,D), den, stat (NG,HK,4,M·G))`` f32.
+    With ``k_scale`` / ``v_scale`` the pools hold codes."""
     if not q.is_cuda:
         return group_prefix_plain(q, k_pool, v_pool, groups, phi=phi,
-                                  scale=scale)
-    check_pools("grouped decode attention", q, k_pool, v_pool)
+                                  scale=scale, k_scale=k_scale,
+                                  v_scale=v_scale)
+    check_pools("grouped decode attention", q, k_pool, v_pool, k_scale,
+                v_scale)
+    fp8 = code_flag(k_pool, k_scale)
     gr = _check_groups(groups, q.shape[0], q.device)
     q = q.contiguous()
     b, hq, d = q.shape
@@ -229,28 +262,39 @@ def group_prefix_partials(q, k_pool, v_pool, groups: DecodeGroups, *,
     den = torch.empty((ng, hk, WARPS, m * g), **f32)
     stat = torch.empty((ng, hk, WARPS, m * g), **f32)
     lib = _build.load("group_attention", _SIG)
-    code = lib.group_prefix_bf16(
-        _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
-        _build.ptr(gr.tables), _build.ptr(gr.g_prefix_len),
-        _build.ptr(gr.num_members), _build.ptr(gr.member_rows),
-        _build.ptr(num), _build.ptr(den), _build.ptr(stat),
-        b, hk, g, ng, lp, m, ps, num_pages, d, sp, ss, sh, scale, phi,
-        _build.stream_of(q))
-    _build.check(lib, "group_prefix_bf16", code)
-    group_prefix_partials.launches += 1
+    pools = (_build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool))
+    rest = (_build.ptr(gr.tables), _build.ptr(gr.g_prefix_len),
+            _build.ptr(gr.num_members), _build.ptr(gr.member_rows),
+            _build.ptr(num), _build.ptr(den), _build.ptr(stat),
+            b, hk, g, ng, lp, m, ps, num_pages, d, sp, ss, sh, scale, phi)
+    if fp8 is not None:
+        entry, counter = "group_prefix_q8", group_prefix_partials_quant
+        code = lib.group_prefix_q8(*pools, _build.ptr(k_scale),
+                                   _build.ptr(v_scale), *rest, fp8,
+                                   _build.stream_of(q))
+    else:
+        entry, counter = "group_prefix_bf16", group_prefix_partials
+        code = lib.group_prefix_bf16(*pools, *rest, _build.stream_of(q))
+    _build.check(lib, entry, code)
+    counter.launches += 1
     return num, den, stat
 
 
 def group_tail_merge(q, k_pool, v_pool, block_tables, lengths,
                      groups: DecodeGroups, num, den, stat, *,
-                     phi: float = 0.0, scale: float | None = None):
+                     phi: float = 0.0, scale: float | None = None,
+                     k_scale=None, v_scale=None):
     """Stage 2: ``(out (B,HQ,D), stat (B,HK))`` from stage 1's
-    partials and each row's private tail."""
+    partials and each row's private tail. With ``k_scale`` / ``v_scale``
+    the pools hold codes."""
     if not q.is_cuda:
         return group_tail_plain(q, k_pool, v_pool, block_tables, lengths,
-                                groups, num, den, stat, phi=phi, scale=scale)
+                                groups, num, den, stat, phi=phi, scale=scale,
+                                k_scale=k_scale, v_scale=v_scale)
     bt, lens = check_paged_inputs("grouped decode attention", q, k_pool,
-                                  v_pool, block_tables, lengths)
+                                  v_pool, block_tables, lengths, k_scale,
+                                  v_scale)
+    fp8 = code_flag(k_pool, k_scale)
     gr = _check_groups(groups, q.shape[0], q.device)
     q = q.contiguous()
     b, hq, d = q.shape
@@ -271,29 +315,38 @@ def group_tail_merge(q, k_pool, v_pool, block_tables, lengths,
     out = torch.empty_like(q)
     stat_out = torch.empty((b, hk), dtype=torch.float32, device=q.device)
     lib = _build.load("group_attention", _SIG)
-    code = lib.group_tail_bf16(
-        _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool), _build.ptr(bt),
-        _build.ptr(lens), _build.ptr(gr.gid), _build.ptr(gr.member),
-        _build.ptr(gr.prefix_len), _build.ptr(num), _build.ptr(den),
-        _build.ptr(stat), _build.ptr(out), _build.ptr(stat_out),
-        b, hk, g, bt.shape[1], ps, num_pages, ng, mg, d, sp, ss, sh, scale,
-        phi, _build.stream_of(q))
-    _build.check(lib, "group_tail_bf16", code)
-    group_tail_merge.launches += 1
+    pools = (_build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool))
+    rest = (_build.ptr(bt), _build.ptr(lens), _build.ptr(gr.gid),
+            _build.ptr(gr.member), _build.ptr(gr.prefix_len),
+            _build.ptr(num), _build.ptr(den), _build.ptr(stat),
+            _build.ptr(out), _build.ptr(stat_out), b, hk, g, bt.shape[1], ps,
+            num_pages, ng, mg, d, sp, ss, sh, scale, phi)
+    if fp8 is not None:
+        entry, counter = "group_tail_q8", group_tail_merge_quant
+        code = lib.group_tail_q8(*pools, _build.ptr(k_scale),
+                                 _build.ptr(v_scale), *rest, fp8,
+                                 _build.stream_of(q))
+    else:
+        entry, counter = "group_tail_bf16", group_tail_merge
+        code = lib.group_tail_bf16(*pools, *rest, _build.stream_of(q))
+    _build.check(lib, entry, code)
+    counter.launches += 1
     return out, stat_out
 
 
 def grouped_paged_decode_attention_unified_max(
         q, k_pool, v_pool, block_tables, lengths, groups: DecodeGroups, *,
-        phi: float = 0.0, scale: float | None = None):
+        phi: float = 0.0, scale: float | None = None, k_scale=None,
+        v_scale=None):
     """Two-stage grouped decode attention over a paged pool: ``(out
     (B,HQ,D), stat (B,HK))`` as
     :func:`~repro_torch.kernels.decode_attention.
-    paged_decode_attention_unified_max` returns them."""
-    parts = group_prefix_partials(q, k_pool, v_pool, groups, phi=phi,
-                                  scale=scale)
+    paged_decode_attention_unified_max` returns them. With ``k_scale`` /
+    ``v_scale`` the pools hold codes."""
+    qkw = dict(phi=phi, scale=scale, k_scale=k_scale, v_scale=v_scale)
+    parts = group_prefix_partials(q, k_pool, v_pool, groups, **qkw)
     return group_tail_merge(q, k_pool, v_pool, block_tables, lengths,
-                            groups, *parts, phi=phi, scale=scale)
+                            groups, *parts, **qkw)
 
 
 group_prefix_partials.launches = 0

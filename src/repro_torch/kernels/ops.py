@@ -29,7 +29,9 @@ from repro_torch.core.plan import DEFAULT_PLAN, ExecutionPlan
 from repro_torch.kernels import ref
 from repro_torch.kernels.chunk_attention import (
     paged_chunk_attention_sync,
+    paged_chunk_attention_sync_quant,
     paged_chunk_attention_unified_max,
+    paged_chunk_attention_unified_max_quant,
 )
 from repro_torch.kernels.decode_fuse import (
     decode_ingest_fused,
@@ -43,7 +45,9 @@ from repro_torch.kernels.decode_attention import (
     decode_attention_sync,
     decode_attention_unified_max,
     paged_decode_attention_sync,
+    paged_decode_attention_sync_quant,
     paged_decode_attention_unified_max,
+    paged_decode_attention_unified_max_quant,
 )
 from repro_torch.kernels.flash_prefill import (
     flash_prefill_sync,
@@ -55,7 +59,9 @@ from repro_torch.kernels.gemv import gemv, gemv_quant
 from repro_torch.kernels.group_attention import (
     DecodeGroups,
     group_prefix_partials,
+    group_prefix_partials_quant,
     group_tail_merge,
+    group_tail_merge_quant,
     grouped_paged_decode_attention_unified_max,
 )
 
@@ -71,7 +77,10 @@ LAUNCH_COUNTERS = (
     paged_chunk_attention_unified_max, paged_chunk_attention_sync,
     gemv_quant, flat_gemm_quant, fused_ffn_up_quant,
     decode_ingest_fused_quant, oproj_residual_fused_quant,
-    ffn_norm_fused_quant,
+    ffn_norm_fused_quant, paged_decode_attention_unified_max_quant,
+    paged_decode_attention_sync_quant, paged_chunk_attention_unified_max_quant,
+    paged_chunk_attention_sync_quant, group_prefix_partials_quant,
+    group_tail_merge_quant,
 )
 
 
@@ -300,7 +309,9 @@ def attention_chunk(q, k_cache, v_cache, lengths, *,
 def attention_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
                            phi_cfg: SoftmaxPhiConfig = SoftmaxPhiConfig(),
                            plan: Optional[ExecutionPlan] = None,
-                           groups: Optional[DecodeGroups] = None
+                           groups: Optional[DecodeGroups] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Decode attention over a block-paged pool (q (B,HQ,D), pools (NP,
     PS, HK, D), block_tables (B, NB)), governed by the plan's ``paged``
@@ -315,10 +326,19 @@ def attention_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
     group's shared pages once; the sync scheme and the overflow
     recompute run the ungrouped sync kernel, which is exact. On
     ``"torch"`` the dense view is gathered through the group plan, so
-    grouped and ungrouped results are bitwise equal."""
+    grouped and ungrouped results are bitwise equal.
+
+    ``k_scale`` / ``v_scale`` ((NP, HK) f32 steps) mark the pools as
+    int8 / fp8 codes. On ``"cuda"`` every kernel above runs its quantized
+    body, which dequantizes each page as it reads it; on ``"torch"`` the
+    pool-level dequantized view (:func:`ref.dequantize_pool_ref`) feeds
+    the same reference math, as in the JAX package."""
     pp = (plan or DEFAULT_PLAN).paged
     unified = _unified(phi_cfg, pp.scheme)
     if pp.backend != "cuda":
+        if k_scale is not None:
+            k_pool = ref.dequantize_pool_ref(k_pool, k_scale)
+            v_pool = ref.dequantize_pool_ref(v_pool, v_scale)
         args = (q, k_pool, v_pool, block_tables, lengths)
         if groups is None:
             safe_ref = ref.attention_decode_paged_ref
@@ -334,26 +354,29 @@ def attention_decode_paged(q, k_pool, v_pool, block_tables, lengths, *,
             return out
         return torch.where(_overflow(stat, phi_cfg), safe_ref(*args), out)
 
+    qkw = dict(k_scale=k_scale, v_scale=v_scale)
     if not unified:
         return paged_decode_attention_sync(q, k_pool, v_pool, block_tables,
-                                           lengths)
+                                           lengths, **qkw)
     if groups is None:
         out, stat = paged_decode_attention_unified_max(
-            q, k_pool, v_pool, block_tables, lengths, phi=phi_cfg.phi)
+            q, k_pool, v_pool, block_tables, lengths, phi=phi_cfg.phi, **qkw)
     else:
         out, stat = grouped_paged_decode_attention_unified_max(
             q, k_pool, v_pool, block_tables, lengths, groups,
-            phi=phi_cfg.phi)
+            phi=phi_cfg.phi, **qkw)
     if not pp.fallback:
         return out
     return paged_decode_attention_sync(q, k_pool, v_pool, block_tables,
                                        lengths, out=out,
-                                       flag=_overflow(stat, phi_cfg))
+                                       flag=_overflow(stat, phi_cfg), **qkw)
 
 
 def attention_chunk_paged(q, k_pool, v_pool, block_tables, lengths, *,
                           phi_cfg: SoftmaxPhiConfig = SoftmaxPhiConfig(),
-                          plan: Optional[ExecutionPlan] = None
+                          plan: Optional[ExecutionPlan] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Paged twin of :func:`attention_chunk` (lengths before the chunk;
     the chunk's KV already in the pool), governed by the plan's ``paged``
@@ -361,19 +384,26 @@ def attention_chunk_paged(q, k_pool, v_pool, block_tables, lengths, *,
     kernels over the pool in place, with the scheme and recompute of
     ``plan.paged``; every other combination gathers the given tables
     into a dense view and runs :func:`attention_chunk`, as the JAX
-    package does."""
+    package does. A quantized pool (``k_scale`` / ``v_scale``) runs the
+    fused kernels' quantized bodies, or gathers from the pool-level
+    dequantized view."""
     pp = (plan or DEFAULT_PLAN).paged
     if pp.backend == "cuda" and pp.gather_chunk == "fused":
+        qkw = dict(k_scale=k_scale, v_scale=v_scale)
         if not _unified(phi_cfg, pp.scheme):
             return paged_chunk_attention_sync(q, k_pool, v_pool,
-                                              block_tables, lengths)
+                                              block_tables, lengths, **qkw)
         out, stat = paged_chunk_attention_unified_max(
-            q, k_pool, v_pool, block_tables, lengths, phi=phi_cfg.phi)
+            q, k_pool, v_pool, block_tables, lengths, phi=phi_cfg.phi, **qkw)
         if not pp.fallback:
             return out
         return paged_chunk_attention_sync(q, k_pool, v_pool, block_tables,
                                           lengths, out=out,
-                                          flag=_overflow(stat, phi_cfg))
+                                          flag=_overflow(stat, phi_cfg),
+                                          **qkw)
+    if k_scale is not None:
+        k_pool = ref.dequantize_pool_ref(k_pool, k_scale)
+        v_pool = ref.dequantize_pool_ref(v_pool, v_scale)
     k = ref.gather_paged_kv(k_pool, block_tables)
     v = ref.gather_paged_kv(v_pool, block_tables)
     return attention_chunk(q, k, v, lengths, phi_cfg=phi_cfg, plan=plan)

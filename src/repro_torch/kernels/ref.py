@@ -192,6 +192,16 @@ def attention_chunk_unified_max_ref(q, k_cache, v_cache, lengths, *,
 # ---------------------------------------------------------------------------
 
 
+def dequantize_pool_ref(pool: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """f32 view of a quantized page pool: codes (NP, PS, HK, D) times the
+    (NP, HK) f32 steps, the JAX package's oracle expression. It is the
+    kernels' per-element dequant too, so gathering before or after it
+    gives the same values, and every paged oracle here can take the
+    dequantized pool through its existing math."""
+    return pool.float() * scales[:, None, :, None]
+
+
 def gather_paged_kv(pool: torch.Tensor,
                     block_tables: torch.Tensor) -> torch.Tensor:
     """The dense per-sequence view of a paged KV pool.

@@ -9,6 +9,8 @@ the kernels' plain versions on the CPU (use ``--smoke`` there). Weights
 are random, drawn from ``--seed`` with the JAX package's init
 distributions. ``--prefill-chunk 0`` prefills each admission wave in one
 padded call through flash prefill attention instead of 64-token chunks.
+``--temperature`` and ``--top-p`` set every request's sampling (greedy
+at temperature 0, the default).
 
 ``--cache-kind paged`` serves from a shared pool of ``--page-size``
 pages through block tables; ``--num-pages`` or ``--overcommit`` below 1
@@ -28,6 +30,13 @@ The summary's ``weights=`` segment gives the stored weight bytes per
 decode tick and the total the decode ticks read. The accuracy contract of
 int8 / fp8 is the logits guard (``quant.logits_guard_tol``), not bitwise
 tokens against bf16; ``bf16`` (the default) keeps every ``req N:`` line.
+
+``--kv-dtype bf16|int8|fp8`` (paged only; default: the plan's
+``paged.kv_dtype``, bf16) stores every KV page as int8 or fp8 codes with
+one f32 step per (page, kv head), written by the quantized scatter and
+dequantized inside the paged kernels. The summary's ``kv=`` segment gives
+the stored bytes per page (steps included) and the KV bytes the decode
+ticks read; the accuracy contract is again the logits guard.
 
 ``--decode-fusion split|fused|looped`` overrides the plan's decode-layer
 granularity: ``fused`` runs each layer as four fused stage kernels,
@@ -97,7 +106,13 @@ def _parse(argv=None):
                     help="GEMM weight storage: int8 / fp8 codes with one "
                          "f32 step per output channel, quantized at load "
                          "(default: the plan's matmul.weight_dtype, bf16)")
+    ap.add_argument("--kv-dtype", choices=["bf16", "int8", "fp8"],
+                    default=None,
+                    help="KV page storage (paged cache only): int8 / fp8 "
+                         "codes with one f32 step per (page, kv head) "
+                         "(default: the plan's paged.kv_dtype, bf16)")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
@@ -142,10 +157,11 @@ def main(argv=None) -> int:
                  prefix_sharing=args.prefix_sharing,
                  scheduler=args.scheduler, plan=plan,
                  decode_fusion=args.decode_fusion,
-                 weight_dtype=args.weight_dtype, seed=args.seed, device=dev)
+                 weight_dtype=args.weight_dtype, kv_dtype=args.kv_dtype,
+                 seed=args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
     sp = SamplingParams(max_new_tokens=args.max_new,
-                        temperature=args.temperature)
+                        temperature=args.temperature, top_p=args.top_p)
     header = rng.integers(1, cfg.vocab_size,
                           size=args.shared_prefix).astype(np.int32)
     reqs = [(np.concatenate([header, rng.integers(
@@ -170,6 +186,8 @@ def main(argv=None) -> int:
     if eng.pool is not None:
         line += (f", {st.preemptions} preemptions, peak pages "
                  f"{st.peak_pages_used}/{eng.pool.num_pages}")
+        line += (f", kv={eng.kv_dtype} ({st.kv_page_bytes} B/page, "
+                 f"{st.kv_bytes_decode_read} decode KV bytes read)")
     if args.prefix_sharing:
         line += (f", {st.shared_prefix_pages} shared pages, "
                  f"{st.saved_prefill_tokens} prefill tokens saved, "

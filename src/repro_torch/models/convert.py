@@ -1,12 +1,15 @@
-"""Carry the JAX package's params into the port.
+"""Carry the JAX package's params, or a KV cache, into the port.
 
-:func:`params_from_numpy` takes the reference's param tree as a nested
-dict of numpy arrays (``jax.device_get`` of ``init_params``) and returns
-the port's tree leaf by leaf under the same names and shapes — both keep
-layer params stacked on a leading L axis. bfloat16 and float8_e4m3fn
+:func:`params_from_numpy` takes a reference tree as a nested dict of
+numpy arrays (``jax.device_get`` of ``init_params``, or of a cache from
+``init_cache`` and the steps after it) and returns the port's tree leaf
+by leaf under the same names and shapes — both keep layer params and
+cache leaves stacked on a leading L axis. bfloat16 and float8_e4m3fn
 leaves (numpy's ``ml_dtypes`` types, which torch cannot read) are
 reinterpreted bit for bit, so a quantized weight's ``{"codes", "scale"}``
-dict converts through the same recursion with its codes unchanged.
+dict and a quantized pool's int8 / fp8 codes with their f32
+``k_scale`` / ``v_scale`` steps convert through the same recursion with
+every bit unchanged.
 """
 from __future__ import annotations
 

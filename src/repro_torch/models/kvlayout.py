@@ -7,12 +7,17 @@ API and the serving engine.
     HK, Dh)`` shared by every sequence; position ``p`` of slot ``s`` lives
     at ``(block_tables[s, p // page_size], p % page_size)``. The model
     steps take the engine's block tables as an optional ``block_tables``
-    operand and pick the paged addressing when it is present.
+    operand and pick the paged addressing when it is present. Its pages
+    hold bf16 values or, with ``kv_dtype`` ``"int8"`` / ``"fp8"``, 1-byte
+    codes beside one f32 step per (layer, page, kv head)
+    (:mod:`repro_torch.serving.kvquant`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Tuple, Union
+
+from repro_torch.kernels.quant import KV_DTYPES
 
 
 def pages_for(positions: int, page_size: int) -> int:
@@ -49,8 +54,10 @@ class DenseLayout:
 @dataclasses.dataclass(frozen=True)
 class PagedLayout:
     """Block-paged KV storage: a shared pool of fixed-size pages addressed
-    through per-sequence block tables. ``kv_dtype`` other than ``"bf16"``
-    (quantized pages) comes with slice 4 of the port."""
+    through per-sequence block tables. ``kv_dtype`` (:data:`KV_DTYPES`)
+    is the pages' storage precision: ``"bf16"`` values, or ``"int8"`` /
+    ``"fp8"`` codes with a :meth:`scale_shape` step pool beside each of
+    K and V."""
 
     num_pages: int
     page_size: int
@@ -59,10 +66,21 @@ class PagedLayout:
     kind = "paged"
     is_paged = True
 
+    def __post_init__(self):
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {self.kv_dtype!r} not in "
+                             f"{KV_DTYPES}")
+
     def kv_shape(self, num_layers: int, kv_heads: int,
                  head_dim: int) -> Tuple[int, int, int, int, int]:
         return (num_layers, self.num_pages, self.page_size, kv_heads,
                 head_dim)
+
+    def scale_shape(self, num_layers: int,
+                    kv_heads: int) -> Tuple[int, int, int]:
+        """The f32 step pool of a quantized layout: one step per (layer,
+        page, kv head)."""
+        return (num_layers, self.num_pages, kv_heads)
 
     def pages_for(self, positions: int) -> int:
         return pages_for(positions, self.page_size)

@@ -23,7 +23,10 @@ fusion backend can claim (``DecodeFusionPlan.granularity``):
 graph (:class:`~repro_torch.models.stack.LoopedDecode`, kept on the
 context). Stage B keeps its own plan-governed dispatch. KV appends update
 the dense cache or the paged pool in place through one sync-free masked
-write (:class:`KVWrite`).
+write (:class:`KVWrite`); a quantized pool (int8 / fp8 codes with
+``k_scale`` / ``v_scale`` step pools) appends through the step's
+:class:`~repro_torch.serving.kvquant.QuantWrite` instead, and its scale
+views ride into the attention front doors.
 
 A GEMM weight leaf (``wq`` … ``w_down``) is a tensor or, under a quantized
 ``weight_dtype``, the ``{"codes", "scale"}`` dict of ``models/wquant.py``.
@@ -320,40 +323,57 @@ def decode_mlp(ctx: LayerCtx, norm_p: Params, p: Params, x):
     return x + mlp_block(ctx, p, h)
 
 
+def _append(write, store_k, store_v, k, v, k_scale, v_scale) -> None:
+    """The step's KV entries into this layer's storage, in place: through
+    the quantized scatter when step pools ride along (``write`` is then
+    the step's ``QuantWrite``), else through the masked ``KVWrite``."""
+    if k_scale is None:
+        write.put(store_k, k)
+        write.put(store_v, v)
+    else:
+        write.put(store_k, k_scale, k)
+        write.put(store_v, v_scale, v)
+
+
 def attention_chunk_block(ctx: LayerCtx, p: Params, x, cache_k, cache_v,
-                          lengths, write: KVWrite, block_tables=None):
+                          lengths, write, block_tables=None, *,
+                          k_scale=None, v_scale=None):
     """Chunked-prefill step: C prompt tokens append in place (through the
     step's ``write``) to the dense slot cache or, with ``block_tables``,
-    to the page pool, and attend causally to prefix + chunk.
+    to the page pool, and attend causally to prefix + chunk. With
+    ``k_scale`` / ``v_scale`` (a quantized pool's (NP, HK) step pools)
+    the chunk lands as codes and attention dequantizes in place.
     x: (B, C, D) -> (B, C, D)."""
     cfg = ctx.cfg
     b, c, _ = x.shape
     positions = lengths[:, None] + torch.arange(c, device=x.device)[None, :]
     q, k, v = attention_qkv(ctx, p, x, positions)
-    write.put(cache_k, k)
-    write.put(cache_v, v)
+    _append(write, cache_k, cache_v, k, v, k_scale, v_scale)
     if block_tables is None:
         o = ops.attention_chunk(q, cache_k, cache_v, lengths,
                                 phi_cfg=ctx.phi_cfg, plan=ctx.plan)
     else:
         o = ops.attention_chunk_paged(q, cache_k, cache_v, block_tables,
                                       lengths, phi_cfg=ctx.phi_cfg,
-                                      plan=ctx.plan)
+                                      plan=ctx.plan, k_scale=k_scale,
+                                      v_scale=v_scale)
     return ctx.matmul(o.reshape(b, c, cfg.q_dim), p["wo"])
 
 
 def decode_attend_paged(ctx: LayerCtx, q, k, v, pool_k, pool_v,
-                        block_tables, lengths, write: KVWrite, *,
-                        decode_groups=None):
+                        block_tables, lengths, write, *,
+                        decode_groups=None, k_scale=None, v_scale=None):
     """Stage B (paged layout): append this token's KV through the block
     tables (``write`` drops empty slots' sentinel entries), attend over
     the page pool, through the shared-prefix grouped path when
-    ``decode_groups`` is given. Returns o (B, 1, HQ*Dh)."""
-    write.put(pool_k, k)
-    write.put(pool_v, v)
+    ``decode_groups`` is given. A quantized pool (``k_scale`` /
+    ``v_scale``) appends through the quantized scatter and attends
+    through the quantized kernels. Returns o (B, 1, HQ*Dh)."""
+    _append(write, pool_k, pool_v, k, v, k_scale, v_scale)
     o = ops.attention_decode_paged(q[:, 0], pool_k, pool_v, block_tables,
                                    lengths + 1, phi_cfg=ctx.phi_cfg,
-                                   plan=ctx.plan, groups=decode_groups)
+                                   plan=ctx.plan, groups=decode_groups,
+                                   k_scale=k_scale, v_scale=v_scale)
     return o.reshape(q.shape[0], 1, ctx.cfg.q_dim)
 
 

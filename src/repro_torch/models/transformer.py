@@ -9,7 +9,10 @@ cache or the block-paged pool (:mod:`repro_torch.models.kvlayout`);
 ``decode_step`` and ``prefill_chunk`` take the engine's block tables as
 ``block_tables`` and address the pool through them when given. Under
 the ``"looped"`` decode granularity on the card, ``decode_step`` replays
-one CUDA graph of the whole step (:class:`stack.LoopedDecode`).
+one CUDA graph of the whole step (:class:`stack.LoopedDecode`). A
+quantized pool (``PagedLayout.kv_dtype`` int8 / fp8) adds the
+``k_scale`` / ``v_scale`` step pools to the cache; its appends go
+through the quantized scatter (:class:`kvquant.QuantWrite`).
 """
 from __future__ import annotations
 
@@ -20,11 +23,12 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, quant
 from repro_torch.models import layers as L
 from repro_torch.models import stack
 from repro_torch.models.kvlayout import KVLayout
 from repro_torch.models.layers import LayerCtx, Params
+from repro_torch.serving import kvquant
 
 
 # ---------------------------------------------------------------------------
@@ -56,16 +60,23 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def init_cache(cfg: ModelConfig, layout: KVLayout, dtype=None,
                device="cuda") -> dict:
     """KV storage for a layout, zero-filled: the dense (L, B, S, HK, Dh)
-    slot cache or the (L, NP, PS, HK, Dh) page pool."""
-    if getattr(layout, "kv_dtype", "bf16") != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype {layout.kv_dtype!r} (quantized pages) comes with "
-            "slice 4 (precision) of the port; use 'bf16'")
+    slot cache or the (L, NP, PS, HK, Dh) page pool. A quantized paged
+    layout stores code pools in its spec's code dtype and adds the
+    (L, NP, HK) f32 step pools ``k_scale`` / ``v_scale``."""
     shape = layout.kv_shape(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim)
     dtype = dtype or L.adt(cfg)
     dev = resolve(device)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    spec = quant.spec_for(getattr(layout, "kv_dtype", "bf16"))
+    if spec is not None:
+        dtype = spec.code_dtype
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if spec is not None:
+        sshape = layout.scale_shape(cfg.num_layers, cfg.num_kv_heads)
+        for name in (kvquant.K_SCALE, kvquant.V_SCALE):
+            cache[name] = torch.zeros(sshape, dtype=torch.float32,
+                                      device=dev)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +98,9 @@ def decode_block(ctx: LayerCtx, p: Params, x, position, cache_i: dict,
     else:
         o = L.decode_attend_paged(ctx, q, k, v, cache_i["k"], cache_i["v"],
                                   block_tables, lengths, write,
-                                  decode_groups=decode_groups)
+                                  decode_groups=decode_groups,
+                                  k_scale=cache_i.get(kvquant.K_SCALE),
+                                  v_scale=cache_i.get(kvquant.V_SCALE))
     x = L.decode_epilogue(ctx, p["attn"], o, x)
     return L.decode_mlp(ctx, p["mlp_norm"], p["mlp"], x)
 
@@ -99,7 +112,9 @@ def chunk_block(ctx: LayerCtx, p: Params, x, cache_i: dict, lengths,
     h = L.norm(cfg, p["attn_norm"], x)
     x = x + L.attention_chunk_block(ctx, p["attn"], h, cache_i["k"],
                                     cache_i["v"], lengths, write,
-                                    block_tables)
+                                    block_tables,
+                                    k_scale=cache_i.get(kvquant.K_SCALE),
+                                    v_scale=cache_i.get(kvquant.V_SCALE))
     h = L.norm(cfg, p["mlp_norm"], x)
     return x + L.mlp_block(ctx, p["mlp"], h)
 
@@ -176,6 +191,17 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
     return step(**inputs), cache
 
 
+def _paged_write(cache: dict, block_tables, lengths, chunk_lens, c: int):
+    """The step's placement of its KV entries in the page pool: a
+    :class:`~repro_torch.models.layers.KVWrite` for bf16 pages, a
+    :class:`~repro_torch.serving.kvquant.QuantWrite` for quantized ones."""
+    pool = cache["k"][0]
+    if kvquant.cache_is_quantized(cache):
+        return kvquant.QuantWrite.build(block_tables, lengths, chunk_lens, c,
+                                        pool.shape[0], pool.shape[1])
+    return L.paged_chunk_write(pool, block_tables, lengths, chunk_lens, c)
+
+
 def _decode_step(ctx: LayerCtx, params: Params, cache: dict, *, tokens,
                  lengths, block_tables, decode_groups, positions):
     """The decode step's work (eager): logits (B, Vp)."""
@@ -183,8 +209,8 @@ def _decode_step(ctx: LayerCtx, params: Params, cache: dict, *, tokens,
     position = lengths if positions is None else positions
     write = None
     if block_tables is not None:
-        write = L.paged_chunk_write(cache["k"][0], block_tables, lengths,
-                                    torch.ones_like(lengths), 1)
+        write = _paged_write(cache, block_tables, lengths,
+                             torch.ones_like(lengths), 1)
     x, cache = stack.run_stack_cached(
         params["layers"], x, cache,
         lambda p_i, xx, c_i: decode_block(ctx, p_i, xx, position, c_i,
@@ -206,8 +232,7 @@ def prefill_chunk(ctx: LayerCtx, params: Params, tokens, chunk_lens,
     if block_tables is None:
         write = L.dense_chunk_write(cache["k"][0], lengths, chunk_lens, c)
     else:
-        write = L.paged_chunk_write(cache["k"][0], block_tables, lengths,
-                                    chunk_lens, c)
+        write = _paged_write(cache, block_tables, lengths, chunk_lens, c)
     x, cache = stack.run_stack_cached(
         params["layers"], x, cache,
         lambda p_i, xx, c_i: chunk_block(ctx, p_i, xx, c_i, lengths, write,

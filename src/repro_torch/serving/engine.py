@@ -3,7 +3,7 @@ block-paged pool.
 
 The port of the JAX package's ``serving/engine.py`` for
 ``cache_kind="dense"`` and ``cache_kind="paged"`` (the tiered KV store
-and quantized KV pages come with later slices):
+comes with a later slice):
 
   * **Request lifecycle.** Each submission is a
     :class:`~repro_torch.serving.request.RequestState` walking WAITING →
@@ -61,6 +61,15 @@ and quantized KV pages come with later slices):
     stored weight bytes the decode ticks read. The accuracy contract is
     the logits guard (``quant.logits_guard_tol``), not bitwise tokens;
     ``"bf16"`` keeps every kernel and token.
+  * **Quantized KV pages** (paged, ``kv_dtype=`` or the plan's
+    ``paged.kv_dtype``). ``"int8"`` / ``"fp8"`` store every page as 1-byte
+    codes with one f32 step per (layer, page, kv head) in the
+    ``k_scale`` / ``v_scale`` cache leaves; appends go through the
+    quantized scatter (:mod:`~repro_torch.serving.kvquant`) and the paged
+    kernels' quantized bodies dequantize as they read. A page costs about
+    half the bytes (``EngineStats.kv_page_bytes``), and
+    ``kv_bytes_decode_read`` counts the stored KV bytes the decode ticks
+    read. The accuracy contract is the logits guard, as for weights.
   * **One dispatch surface.** Every kernel decision rides in the single
     ``plan=`` operand; plans change which kernel runs, never the tokens
     (the weight precision changes them within the logits guard).
@@ -78,8 +87,8 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.core.plan import (DEFAULT_PLAN, FUSION_MODES, WEIGHT_DTYPES,
-                                   ExecutionPlan)
+from repro_torch.core.plan import (DEFAULT_PLAN, FUSION_MODES, KV_DTYPES,
+                                   WEIGHT_DTYPES, ExecutionPlan)
 from repro_torch.device import resolve
 from repro_torch.kernels import quant
 from repro_torch.models import wquant
@@ -137,6 +146,12 @@ class EngineStats:
     #                                  codes and steps at stored width
     #                                  (embedding / lm_head excluded: not
     #                                  per-layer streams)
+    # KV page storage (zero for cache_kind="dense")
+    kv_page_bytes: int = 0           # one page's K+V slab across all layers
+    #                                  (code pools + scale rows as stored)
+    kv_bytes_decode_read: int = 0    # cumulative KV bytes decode ticks
+    #                                  streamed (resident pages x slab
+    #                                  bytes), at stored width
 
 
 def request_seed(seed: int, rid: int) -> int:
@@ -161,6 +176,7 @@ class Engine:
         plan: Optional[ExecutionPlan] = None,
         decode_fusion: Optional[str] = None,
         weight_dtype: Optional[str] = None,
+        kv_dtype: Optional[str] = None,
         seed: int = 0,
         device="cuda",
     ):
@@ -213,6 +229,21 @@ class Engine:
             prefill_chunk = self.plan.paged.chunk_block
         self.prefill_chunk = (
             prefill_chunk if self.api.supports_chunked_prefill else 0)
+        # KV page precision: the explicit argument wins, else the plan's
+        # paged.kv_dtype (paged engines only: a dense engine never reads
+        # plan.paged); the step rows are page-pool leaves, so quantized
+        # pages need the paged layout
+        if kv_dtype is None:
+            kv_dtype = (self.plan.paged.kv_dtype if cache_kind == "paged"
+                        else "bf16")
+        if kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {kv_dtype!r} not in {KV_DTYPES}")
+        if kv_dtype != "bf16" and cache_kind != "paged":
+            raise ValueError(
+                "kv_dtype quantization stores per-page scales in the block "
+                "pool; use cache_kind='paged'")
+        quant.spec_for(kv_dtype)          # raises where fp8 is unsupported
+        self.kv_dtype = kv_dtype
         self.layout: KVLayout
         self.prefix: Optional[PrefixIndex] = None
         self.pool: Optional[BlockPool] = None
@@ -223,11 +254,6 @@ class Engine:
             self.layout = DenseLayout(num_slots, max_seq)
             self.slots: SlotManager = SlotManager(num_slots, max_seq)
         elif cache_kind == "paged":
-            pp = self.plan.paged
-            if pp.kv_dtype != "bf16":
-                raise NotImplementedError(
-                    f"kv_dtype={pp.kv_dtype!r} comes with slice 4 "
-                    "(precision) of the port; use 'bf16'")
             if not self.api.supports_paged:
                 raise ValueError(f"family {cfg.family!r} has no paged-KV "
                                  "path; use cache_kind='dense'")
@@ -246,7 +272,8 @@ class Engine:
             self.pool = BlockPool(
                 num_pages if num_pages is not None
                 else num_slots * pages_for(max_seq, page_size), page_size)
-            self.layout = PagedLayout(self.pool.num_pages, page_size)
+            self.layout = PagedLayout(self.pool.num_pages, page_size,
+                                      kv_dtype)
             if prefix_sharing:
                 self.prefix = PrefixIndex(page_size)
             self.slots = PagedSlotManager(num_slots, max_seq, self.pool,
@@ -259,8 +286,8 @@ class Engine:
         # exist only where prefix sharing maps pages onto several slots
         self._group_decode = (cache_kind == "paged" and prefix_sharing
                               and self.plan.paged.decode_group == "grouped")
-        # one page's K+V slab across all layers: the unit of the grouped
-        # decode's bytes-saved count
+        # one page's K+V slab across all layers, steps included: the unit
+        # of the grouped decode's bytes-saved and the decode KV byte counts
         self._kv_bytes_per_page = (
             sum(t.nbytes for t in self.cache.values())
             // self.pool.num_pages) if cache_kind == "paged" else 0
@@ -269,7 +296,7 @@ class Engine:
         self.requests: dict[int, RequestState] = {}
         self.waiting: list[RequestState] = []
         self.by_slot: dict[int, RequestState] = {}
-        self.stats = EngineStats()
+        self.stats = EngineStats(kv_page_bytes=self._kv_bytes_per_page)
         self.ticks = 0
         self._next_rid = 0
         self._arrival = 0
@@ -442,10 +469,11 @@ class Engine:
         return self._prefill_batched(admitted)
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """COW fork on the device: page ``dst`` of every layer's K and V
-        pool becomes a copy of page ``src``, before anything writes it."""
-        for name in ("k", "v"):
-            self.cache[name][:, dst] = self.cache[name][:, src]
+        """COW fork on the device: page ``dst`` of every cache leaf (the K
+        and V pools and, quantized, their step rows) becomes a copy of
+        page ``src``, before anything writes it."""
+        for leaf in self.cache.values():
+            leaf[:, dst] = leaf[:, src]
         self.stats.cow_forks += 1
 
     def _apply_pending_forks(
@@ -633,6 +661,13 @@ class Engine:
             decode_groups=(gplan.operands(self.device)
                            if gplan is not None else None))
         self.stats.weight_bytes_decode_read += self._weight_bytes_per_tick
+        if self.pool is not None:
+            # decode streams every resident page once per tick, at the
+            # stored width: the term kv_dtype shrinks
+            pages_read = sum(len(self.slots.slots[i].pages)
+                             for i in self.by_slot)
+            self.stats.kv_bytes_decode_read += (
+                pages_read * self._kv_bytes_per_page)
         if self.ctx.graphs is not None:
             self.stats.graph_captures = self.ctx.graphs.captures
             self.stats.graph_replays = self.ctx.graphs.replays

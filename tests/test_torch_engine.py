@@ -148,8 +148,7 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
     params = tget_model(cfg).init_params(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(cfg, params)
-    # paged KV serves, grouped decode included; quantized pages (a later
-    # slice) refuse by name
+    # paged KV serves, grouped decode included, and so do quantized pages
     plan = make_plan("cuda", decode_group="grouped")
     eng = Engine(cfg, params, cache_kind="paged", prefix_sharing=True,
                  page_size=16, prefill_chunk=16, num_slots=2, max_seq=64,
@@ -161,8 +160,53 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
     assert eng.stats.grouped_requests > 0
     plan = dataclasses.replace(plan, paged=dataclasses.replace(
         plan.paged, kv_dtype="int8"))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        Engine(cfg, params, cache_kind="paged", plan=plan, device="cpu")
+    eng = Engine(cfg, params, cache_kind="paged", prefix_sharing=True,
+                 page_size=16, prefill_chunk=16, num_slots=2, max_seq=64,
+                 plan=plan, device="cpu")
+    out = eng.run([(header + [40 + i], SamplingParams(max_new_tokens=3))
+                   for i in range(2)])
+    assert all(len(t) == 3 for t in out.values())
+    assert eng.kv_dtype == "int8" and eng.cache["k"].dtype == torch.int8
+    assert eng.stats.grouped_requests > 0
+    assert eng.stats.kv_bytes_decode_read > 0
+
+
+def test_serve_cli_top_p_reaches_the_engine(capsys, monkeypatch):
+    """``--top-p`` lands in every request's SamplingParams (default 1.0),
+    and reaches the sampler: at temperature 1.0 a nucleus of 1e-6 keeps
+    only the top token, so an f32 engine (no bf16 logit ties) samples the
+    greedy tokens, while the full nucleus does not."""
+    from repro_torch.launch import serve
+    seen = []
+    run = Engine.run
+
+    def spy(self, requests, **kw):
+        seen.extend(sp for _, sp in requests)
+        return run(self, requests, **kw)
+
+    monkeypatch.setattr(Engine, "run", spy)
+    base = ["--smoke", "--device", "cpu", "--requests", "3", "--slots", "2",
+            "--max-seq", "96", "--max-new", "3", "--prompt-len", "20"]
+    assert serve.main(base + ["--temperature", "1.0", "--top-p", "1e-6"]) == 0
+    assert capsys.readouterr().out.count("  req ") == 3
+    assert [(sp.temperature, sp.top_p) for sp in seen] == [(1.0, 1e-6)] * 3
+    seen.clear()
+    assert serve.main(base) == 0
+    assert [sp.top_p for sp in seen] == [1.0] * 3
+
+    jcfg, jparams = _jax_side()
+    params = params_from_numpy(jax.device_get(jparams), device="cpu")
+    prompts = _prompts(3, seed=2)
+
+    def tokens(**sp):
+        eng = Engine(_port_cfg(**F32), params, num_slots=3, max_seq=128,
+                     device="cpu", seed=5)
+        return eng.run([(p, SamplingParams(max_new_tokens=8, **sp))
+                        for p in prompts])
+
+    greedy = tokens()
+    assert tokens(temperature=1.0, top_p=1e-6) == greedy
+    assert tokens(temperature=1.0, top_p=1.0) != greedy
 
 
 def test_serve_cli_runs_on_cpu(capsys):

@@ -327,8 +327,12 @@ def test_init_cache_layouts():
     assert paged["v"].shape == (shape[0], 12, 16, *shape[1:])
     assert not paged["k"].any()
     assert PagedLayout(12, 16).pages_for(17) == pages_for(17, 16) == 2
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        api.init_cache(PagedLayout(12, 16, kv_dtype="int8"), device="cpu")
+    q8 = api.init_cache(PagedLayout(12, 16, kv_dtype="int8"), device="cpu")
+    assert q8["k"].dtype == q8["v"].dtype == torch.int8
+    assert q8["k"].shape == paged["k"].shape
+    for name in ("k_scale", "v_scale"):
+        assert q8[name].shape == (shape[0], 12, shape[1])
+        assert q8[name].dtype == torch.float32 and not q8[name].any()
 
 
 def _write_reference(store, new, rows, keep):
