@@ -27,7 +27,13 @@
    library chain (dequantize to bf16, then SDPA); the grouped pair must be
    bitwise quantized row 5, NaN steps on unread pages (and, fp8, NaN codes
    in unread rows) must change nothing, and the KV scatter run on the card
-   must give the CPU's codes and steps bitwise.
+   must give the CPU's codes and steps bitwise. The tensor-core prefill
+   and split-KV chunk kernels (rows 7, 9, 10) must give each batch row run
+   alone the bits of its rows in the batch; a long chunk (4,032 positions
+   before it, 16 splits) is timed beside SDPA, and with a table twice as
+   wide and NaN in every unread pool row gives the tight table's bits; a
+   ragged chunk (``chunk_lens``) gives its valid rows the clean pool's
+   bits with dirty pool rows past each sequence's last valid position.
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
    greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
@@ -68,7 +74,7 @@
    fused stages, H's plan) and, on the "torch" plan, against the bf16
    logits within the JAX package's guard (``quant.logits_guard_tol``);
    does the same for int8 and fp8 KV pages on the paged cases; profiles
-   the decode tick of A, H, J, K, M, O and S.
+   the decode tick of A, H, J, K, M, O and S, and run E's chunk steps.
 5. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -863,7 +869,21 @@ def kernel_phase(torch, timer, rows, log):
                                                               phi=phi.phi),
                    lib, pf_bytes, pf_flops, sq == 512, attn_close)
         want_sync = fp.flash_prefill_sync_plain(q, k, v)
-        record("flash_prefill_sync", tag, fp.flash_prefill_sync(q, k, v),
+        sync = fp.flash_prefill_sync(q, k, v)
+        if sq == 512:
+            # each batch row run alone gives its rows' bits in the batch
+            alone = same_bits(torch, *[
+                pair for i in range(bp) for pair in (
+                    (fp.flash_prefill_unified_max(
+                        q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                        phi=phi.phi)[0], out[i:i + 1]),
+                    (fp.flash_prefill_sync(q[i:i + 1], k[i:i + 1],
+                                           v[i:i + 1]), sync[i:i + 1]))])
+            log(f"kernel flash_prefill {tag}: each batch row alone (B=1) "
+                f"bitwise its rows in the batch {alone}")
+            check(alone, f"flash prefill {tag}: a row's bits depend on "
+                  "its batch")
+        record("flash_prefill_sync", tag, sync,
                want_sync, lambda: fp.flash_prefill_sync(q, k, v),
                lambda: fp.flash_prefill_sync_plain(q, k, v), lib, pf_bytes,
                pf_flops, sq == 512 and not overflow, attn_close)
@@ -919,6 +939,18 @@ def kernel_phase(torch, timer, rows, log):
         log(f"kernel paged_chunk_attention {tag}: unchanged with NaN in "
             f"unread pool rows {clean}")
         check(clean, f"paged chunk {tag}: reads pool rows past the chunk")
+        # each sequence run alone gives its rows' bits in the batch
+        alone = same_bits(torch, *[
+            pair for i in range(b) for pair in (
+                (ca.paged_chunk_attention_unified_max(
+                    q[i:i + 1], kp, vp, bt[i:i + 1], before[i:i + 1],
+                    phi=phi.phi)[0], out[i:i + 1]),
+                (ca.paged_chunk_attention_sync(
+                    q[i:i + 1], kp, vp, bt[i:i + 1], before[i:i + 1]),
+                 sync[i:i + 1]))])
+        log(f"kernel paged_chunk_attention {tag}: each sequence alone "
+            f"(B=1) bitwise its rows in the batch {alone}")
+        check(alone, f"paged chunk {tag}: a row's bits depend on its batch")
         if not overflow:
             record("paged_chunk_attention_unified_max", tag, out, want,
                    lambda: ca.paged_chunk_attention_unified_max(
@@ -944,7 +976,125 @@ def kernel_phase(torch, timer, rows, log):
             f"max_abs_err={err:.3e} ({tol})")
         check(ok, f"ops.attention_chunk_paged {tag} disagrees")
 
+    split_kv_checks(torch, cfg, gen, randn, record, attn_close, log)
     kv_quant_kernels(torch, cfg, gen, randn, record, attn_close, log)
+
+
+def split_kv_checks(torch, cfg, gen, randn, record, attn_close, log):
+    """The split-KV chunk kernels (rows 9-10) where the split shows.
+
+    * A long chunk: one sequence with 4,032 positions before a 64-token
+      chunk (16 splits of 256 keys), timed beside SDPA over the
+      pre-gathered view; with a block table twice as wide as its live
+      positions (16 more splits past the chunk) and NaN in every pool row
+      that holds no live position, its output is bitwise the tight
+      table's on the clean pool: an empty split reads nothing and adds
+      nothing.
+    * A ragged chunk: row 9's case with chunk_lens 64/37/1/64, and the
+      pool rows past each sequence's last valid position written with NaN
+      (bf16), the NaN code (fp8) or the code -128 that encode never writes
+      (int8, which has no NaN): the valid rows' output is bitwise the
+      clean pool's, and the same as without chunk_lens."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import chunk_attention as ca
+    from repro_torch.kernels import quant
+    from repro_torch.serving import kvquant
+
+    hd, hq, hk = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    phi, dev, c = cfg.softmax_phi, "cuda", 64
+
+    # -- the long chunk: B=1, 4,032 positions before it --------------------
+    before = torch.tensor([4032], dtype=torch.int32, device=dev)
+    n_live = 4096
+    kd, vd = randn(1, 2 * n_live, hk, hd), randn(1, 2 * n_live, hk, hd)
+    (kp, vp), wide, live = paged_layout(torch, gen, (kd, vd), before + c)
+    tight = wide[:, :n_live // PAGE]
+    kpn, vpn = poisoned(torch, (kp, vp), live)
+    q = randn(1, c, hq, hd)
+    qe = q.transpose(1, 2)
+    ke, ve = (x[:, :n_live].transpose(1, 2).repeat_interleave(hq // hk, dim=1)
+              for x in (kd, vd))
+    qpos = before[:, None] + torch.arange(c, device=dev)[None, :]
+    mask = (torch.arange(n_live, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    pairs = c * 4032 + c * (c + 1) // 2
+    nbytes = (2 * (2 * c * hq * hd + 2 * n_live * hk * hd) + 4 * hk
+              + 4 * tight.numel() + 4)
+    tag = "B=1 C=64 PS=64, 4032 positions before (16 splits)"
+    lib = lambda: F.scaled_dot_product_attention(qe, ke, ve, attn_mask=mask)
+    out, _ = ca.paged_chunk_attention_unified_max(q, kp, vp, tight, before,
+                                                  phi=phi.phi)
+    sync = ca.paged_chunk_attention_sync(q, kp, vp, tight, before)
+    clean = same_bits(
+        torch, (ca.paged_chunk_attention_unified_max(
+            q, kpn, vpn, wide, before, phi=phi.phi)[0], out),
+        (ca.paged_chunk_attention_sync(q, kpn, vpn, wide, before), sync))
+    log(f"kernel paged_chunk_attention {tag}: a table twice as wide, NaN in "
+        f"every unread pool row, bitwise the tight table's {clean}")
+    check(clean, f"paged chunk {tag}: an empty split reads or adds")
+    record("paged_chunk_attention_unified_max", tag, out,
+           ca.paged_chunk_attention_unified_max_plain(q, kp, vp, tight,
+                                                      before, phi=phi.phi)[0],
+           lambda: ca.paged_chunk_attention_unified_max(
+               q, kp, vp, tight, before, phi=phi.phi),
+           lambda: ca.paged_chunk_attention_unified_max_plain(
+               q, kp, vp, tight, before, phi=phi.phi),
+           lib, nbytes, 4 * pairs * hq * hd, True, attn_close, slot="long")
+    record("paged_chunk_attention_sync", tag, sync,
+           ca.paged_chunk_attention_sync_plain(q, kp, vp, tight, before),
+           lambda: ca.paged_chunk_attention_sync(q, kp, vp, tight, before),
+           lambda: ca.paged_chunk_attention_sync_plain(q, kp, vp, tight,
+                                                       before),
+           lib, nbytes, 4 * pairs * hq * hd, True, attn_close, slot="long")
+
+    # -- the ragged chunk: chunk_lens 64/37/1/64 ----------------------------
+    b, s_max = 4, 1024
+    before = torch.tensor([960, 453, 0, 128], dtype=torch.int32, device=dev)
+    clens = torch.tensor([64, 37, 1, 64], dtype=torch.int32, device=dev)
+    (kp, vp), bt, _ = paged_layout(
+        torch, gen, (randn(b, s_max, hk, hd), randn(b, s_max, hk, hd)),
+        before + c)
+    written = torch.zeros((kp.shape[0], PAGE), dtype=torch.bool, device=dev)
+    for i in range(b):
+        n = -(-int(before[i] + c) // PAGE)
+        pos = torch.arange(n * PAGE, device=dev).reshape(n, PAGE)
+        written[bt[i, :n].long()] = pos < int(before[i] + clens[i])
+    q = randn(b, c, hq, hd)
+    keep = torch.arange(c, device=dev)[None, :] < clens[:, None]
+    for name in ("bf16", "int8", "fp8"):
+        if name == "bf16":
+            pools = [(kp, None), (vp, None)]
+        else:
+            qs = quant.INT8 if name == "int8" else quant.FP8
+            pools = [kvquant.quantize_pages(p, qs) for p in (kp, vp)]
+        dirty = []
+        for codes, _ in pools:
+            if name == "bf16":
+                bad = torch.full_like(codes, float("nan"))
+            else:
+                bad = torch.full_like(codes.view(torch.uint8),
+                                      0x80 if name == "int8" else 0x7F
+                                      ).view(codes.dtype)
+            dirty.append(torch.where(written[:, :, None, None], codes, bad))
+        kw = {} if name == "bf16" else dict(k_scale=pools[0][1],
+                                            v_scale=pools[1][1])
+        (kc, _), (vc, _) = pools
+        same = []
+        for fn in (lambda k, v, **x: ca.paged_chunk_attention_unified_max(
+                       q, k, v, bt, before, phi=phi.phi, **kw, **x)[0],
+                   lambda k, v, **x: ca.paged_chunk_attention_sync(
+                       q, k, v, bt, before, **kw, **x)):
+            ragged = fn(kc, vc, chunk_lens=clens)
+            same.append(same_bits(
+                torch, (fn(*dirty, chunk_lens=clens)[keep], ragged[keep]),
+                (fn(kc, vc)[keep], ragged[keep])))
+        log(f"kernel paged_chunk_attention {name} ragged chunk (chunk_lens "
+            f"64/37/1/64, the rows past each sequence's last valid position "
+            f"dirty): valid rows bitwise the clean pool's and the unragged "
+            f"call's, unified {same[0]}, sync {same[1]}")
+        check(all(same), f"paged chunk {name} ragged chunk: a row past the "
+              "last valid position reaches a valid row")
 
 
 def grouped_layout(torch, gen, randn, glens, plen, s_max, hk, hd):
@@ -1707,6 +1857,54 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
     return outputs
 
 
+def chunk_profile_phase(torch, cfg, params, shared, log):
+    """Where run E's chunk steps spend the card: one E run (warm) with
+    every ``api.prefill_chunk`` call under torch.profiler, its device busy
+    time (sum of kernel times), the share of the fused chunk attention
+    kernels in it, and the step's wall on the host clock."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(cfg, params, num_slots=4, max_seq=1024, device="cuda",
+                 prefix_sharing=True, cache_kind="paged", page_size=PAGE)
+    real = eng.api.prefill_chunk
+    steps = []
+
+    def profiled(*args, **kw):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = real(*args, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+        attn = [e for e in evs if "split_kernel" in e.key
+                or "combine_kernel" in e.key]
+        steps.append((sum(e.self_device_time_total for e in evs) / 1e3,
+                      sum(e.self_device_time_total for e in attn) / 1e3,
+                      1e3 * wall))
+        return res
+
+    eng.api = dataclasses.replace(eng.api, prefill_chunk=profiled)
+    eng.run(shared)
+    busy = sum(b for b, _, _ in steps)
+    if busy == 0:
+        log("profile E chunk steps: device time not measured (the profiler "
+            "reported none)")
+        return
+    n = len(steps)
+    log(f"profile E chunk steps: {n} steps, device busy "
+        f"{busy / n:.3f} ms/step (fused chunk attention "
+        f"{sum(a for _, a, _ in steps) / n:.3f}), wall "
+        f"{sum(w for _, _, w in steps) / n:.3f} ms/step; per step busy "
+        + " ".join(f"{b:.3f}" for b, _, _ in steps))
+
+
 def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
                   **engine_kw):
     """Where a decode tick's time goes at 4 slots: 8 steady ticks timed
@@ -2208,6 +2406,7 @@ def main(argv=None) -> int:
                            "shared32": [(p, sp32) for p, _ in shared]},
                           log, launches)
     profile_phase(torch, cfg, params, requests, log)
+    chunk_profile_phase(torch, cfg, params, shared, log)
     profile_phase(torch, cfg, params, shared, log,
                   tag="H slots=4 paged sharing grouped fused-FFN",
                   cache_kind="paged", page_size=PAGE, prefix_sharing=True,
@@ -2247,7 +2446,8 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["case"],
-            **{key: r[key] for key in ("bf16_ms", "fp8") if key in r}})
+            **{key: r[key] for key in ("bf16_ms", "fp8", "long")
+               if key in r}})
     (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
     print(smi)
     print(json.dumps({"kernels": kernels}))

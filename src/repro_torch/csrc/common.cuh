@@ -137,6 +137,31 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// ldmatrix: four 8x8 b16 matrices from shared memory, lane l giving the
+// 16-byte row address of row l % 8 of matrix l / 8. Lane l receives, in
+// r[i], row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of matrix i; with
+// .trans, rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* row) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* row) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
 __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
                                          uint32_t a2, uint32_t a3,
                                          uint32_t b0, uint32_t b1) {
@@ -149,6 +174,13 @@ __device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
 
 __device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
   return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
+}
+
+// Two floats rounded to bf16 and packed as an MMA operand register (lo
+// in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return pack2(__bfloat16_as_ushort(__float2bfloat16_rn(lo)),
+               __bfloat16_as_ushort(__float2bfloat16_rn(hi)));
 }
 
 // Raise the dynamic shared-memory cap of `kernel` when a launch needs

@@ -6,42 +6,41 @@
 //
 // Bound on H100: at the main path's prompt lengths (64..512 tokens,
 // head_dim 64) the causal work is 4 * Sq * Sk / 2 * D FLOPs per head
-// against (Sq + 2 Sk) * D * 2 bytes — tens of FLOP per byte, so the
-// device-memory bytes bound it on paper; this first kernel computes on
-// the CUDA cores in f32 and is in practice limited by its shared-memory
-// FMA loop (tensor-core wgmma tiles are a later PR's work).
+// against (Sq + 2 Sk) * D * 2 bytes: tens of FLOP per byte, under the
+// card's ~295 bf16 ridge, so device-memory bytes bound it on paper. The
+// block's walk is at most 8 64-key tiles on the tensor cores
+// (attn_tile.cuh), each waiting in turn on its copy, its MMA chain and
+// its softmax: that serial walk of the longest (last) query tile, the
+// pipeline's fill and the launch set the time, some 20-30x the bound.
 //
-// Design: grid (ceil(Sq / 32), HQ, B); one block of 128 threads per
-// (32-query tile, query head), with kv_head = h / G (GQA by index, no
-// repeated KV). The block walks 32-key tiles only up to its causal /
-// window limit. Q, K, V tiles are staged in shared memory as f32; each
-// thread scores 8 keys of one query row, and the row's 4 threads share
-// row statistics through quad shuffles.
+// Design: grid (ceil(Sq / 64), HQ, B); one block of 128 threads (4 warps
+// of 16 query rows) per (64-query tile, query head), with kv_head = h / G
+// (GQA by index, no repeated KV). The block walks 64-key tiles from the
+// window's first tile (lo) to the causal limit of its last row (hi) with
+// the shared tile body of attn_tile.cuh: bf16 mma.sync into f32, K/V
+// tiles double-buffered through cp.async, keys past hi zero-filled.
+// Masks are per (row, key) from absolute positions: causal, sliding
+// window, key < Sk, row < Sq.
 //   * unified-max (T1): weights exp(s − φ), no running max, no rescale;
-//     each block writes the max of (s − φ) over its tile into a
+//     each block writes the max of (s − φ) over its valid entries into a
 //     (B, HQ, n_q_tiles) buffer, and the wrapper takes one amax over the
 //     tiles, so `stat` is the true per-(b, h) max over every query row.
 //   * sync: the online-max FlashAttention-2 update, masked logits at
 //     -1e30 as in the reference; given a device flag it returns at entry
 //     unless the flag is set (the overflow recompute).
-// Ragged edges (Sq or Sk not a tile multiple) are masked in the kernel;
-// rows with no valid key come out as zeros.
-#include "common.cuh"
+// No split of the keys: at B = 2, Sq = 512 the grid is already 8 x 14 x 2
+// = 224 blocks on 132 SMs. Rows with no valid key come out as zeros.
+// q, k and v are strided views: every row start must be 16-byte aligned
+// for cp.async (the wrapper checks the base pointers and strides).
+#include "attn_tile.cuh"
 
 using namespace repro;
 
 namespace {
 
-constexpr int kBQ = 32;
-constexpr int kBK = 32;
-constexpr int kThreads = 128;
-constexpr float kNegBig = -1e30f;
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1));
-}
+using attn::kBK;
+using attn::kBQ;
+using attn::kThreads;
 
 template <int D, bool UNIFIED>
 __global__ void __launch_bounds__(kThreads)
@@ -55,24 +54,12 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
                long long vsh, int causal, int window, float scale,
                float phi) {
   if (!UNIFIED && flag != nullptr && !*flag) return;
-  extern __shared__ float sm[];
-  float* q_s = sm;                          // [kBQ][D + 1]
-  float* k_s = q_s + kBQ * (D + 1);         // [kBK][D + 1]
-  float* v_s = k_s + kBK * (D + 1);         // [kBK][D]
-  float* p_s = v_s + kBK * D;               // [kBQ][kBK + 1]
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / G;
   const int q0 = qt * kBQ;
-  const int r = threadIdx.x / 4, cg = threadIdx.x % 4;
   const int delta = Sk - Sq;       // query i sits at key position i + delta
-
-  for (int i = threadIdx.x; i < kBQ * D; i += kThreads) {
-    const int rr = i / D, d = i % D;
-    const int qi = q0 + rr;
-    q_s[rr * (D + 1) + d] =
-        qi < Sq ? bf2f(q[b * qsb + qi * qss + h * qsh + d]) * scale : 0.f;
-  }
 
   // key range this tile can see
   const int q_last = min(q0 + kBQ, Sq) - 1;
@@ -81,105 +68,41 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   int lo = 0;
   if (window) lo = max(0, q0 + delta - window + 1);
 
-  constexpr int DT = D / 4;        // output columns per thread: cg + 4*j
-  float acc[DT];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) acc[j] = 0.f;
-  float den = 0.f;                 // this thread's share of the row sum
-  float m_run = kNegBig;           // sync: running row max
-  float msc = -INFINITY;           // unified: max centered logit
-  const int qi = q0 + r;
-  const int qpos = qi + delta;
+  attn::load_q<D>(smem, q + b * qsb + h * qsh, qss, q0, Sq);
+  const attn::DenseRows rows{b * ksb + kvh * ksh, kss, b * vsb + kvh * vsh,
+                             vss};
+  auto valid = [&](int r, int key) {
+    const int qi = q0 + r, qpos = qi + delta;
+    bool ok = qi < Sq && key < hi;
+    if (causal) ok = ok && key <= qpos;
+    if (window) ok = ok && qpos - key < window;
+    return ok;
+  };
+  attn::Acc<D> a;
+  a.init();
+  attn::walk<D, UNIFIED, __nv_bfloat16>(smem, k, v, rows, lo / kBK * kBK,
+                                        hi, scale, phi, valid, a);
+  a.reduce_den();
 
-  for (int kv0 = (lo / kBK) * kBK; kv0 < hi; kv0 += kBK) {
-    __syncthreads();               // previous tile fully consumed
-    for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
-      const int c = i / D, d = i % D;
-      const int key = kv0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (key < Sk) {
-        kv = bf2f(k[b * ksb + key * kss + kvh * ksh + d]);
-        vv = bf2f(v[b * vsb + key * vss + kvh * vsh + d]);
-      }
-      k_s[c * (D + 1) + d] = kv;
-      v_s[c * D + d] = vv;
-    }
-    __syncthreads();
-
-    float s[kBK / 4];
-    bool ok[kBK / 4];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
 #pragma unroll
-    for (int i = 0; i < kBK / 4; ++i) {
-      const int c = cg + 4 * i, key = kv0 + c;
-      float dot = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d)
-        dot = fmaf(q_s[r * (D + 1) + d], k_s[c * (D + 1) + d], dot);
-      bool valid = qi < Sq && key < Sk;
-      if (causal) valid = valid && qpos >= key;
-      if (window) valid = valid && qpos - key < window;
-      s[i] = dot;
-      ok[i] = valid;
-    }
-
-    float rescale = 1.f;
-    if (UNIFIED) {
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + warp * 16 + g + 8 * i;
+    if (qi >= Sq) continue;
+    const float inv = a.den[i] != 0.f ? 1.f / a.den[i] : 0.f;
+    __nv_bfloat16* o =
+        out + ((static_cast<long long>(b) * Sq + qi) * HQ + h) * D + 2 * t;
 #pragma unroll
-      for (int i = 0; i < kBK / 4; ++i) {
-        const float cen = s[i] - phi;
-        const float e = ok[i] ? expf(cen) : 0.f;
-        if (ok[i]) msc = fmaxf(msc, cen);
-        den += e;
-        p_s[r * (kBK + 1) + cg + 4 * i] = e;
-      }
-    } else {
-      float mt = kNegBig;
-#pragma unroll
-      for (int i = 0; i < kBK / 4; ++i) mt = fmaxf(mt, ok[i] ? s[i] : kNegBig);
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(m_run, mt);
-      rescale = expf(m_run - m_new);
-      m_run = m_new;
-      den *= rescale;
-#pragma unroll
-      for (int i = 0; i < kBK / 4; ++i) {
-        const float e = ok[i] ? expf(s[i] - m_new) : 0.f;
-        den += e;
-        p_s[r * (kBK + 1) + cg + 4 * i] = e;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < DT; ++j) acc[j] *= rescale;
-    for (int c = 0; c < kBK; ++c) {
-      const float p = p_s[r * (kBK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DT; ++j)
-        acc[j] = fmaf(p, v_s[c * D + cg + 4 * j], acc[j]);
-    }
-  }
-
-  den += __shfl_xor_sync(0xffffffffu, den, 1);
-  den += __shfl_xor_sync(0xffffffffu, den, 2);
-  if (qi < Sq) {
-    const float inv = den != 0.f ? 1.f / den : 0.f;
-    __nv_bfloat16* o = out + ((static_cast<long long>(b) * Sq + qi) * HQ + h) * D;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) o[cg + 4 * j] = f2bf(acc[j] * inv);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
+          a.o[j][2 * i] * inv, a.o[j][2 * i + 1] * inv);
   }
 
   if (UNIFIED) {
-    __shared__ float wmax[kThreads / 32];
-    msc = warp_max(msc);
-    if (threadIdx.x % 32 == 0) wmax[threadIdx.x / 32] = msc;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float m = wmax[0];
-      for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, wmax[w]);
+    const float m = attn::block_max(a.msc);
+    if (threadIdx.x == 0)
       stat_part[(static_cast<long long>(b) * HQ + h) * gridDim.x + qt] = m;
-    }
   }
 }
 
@@ -189,7 +112,7 @@ int launch_d(dim3 grid, const void* q, const void* k, const void* v,
              int HQ, int G, const long long* qs, const long long* ks,
              const long long* vs, int causal, int window, float scale,
              float phi, cudaStream_t st) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = attn::Smem<D, __nv_bfloat16>::kBytes;
   cudaError_t e = allow_smem(prefill_kernel<D, UNIFIED>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   prefill_kernel<D, UNIFIED><<<grid, kThreads, smem, st>>>(
@@ -234,8 +157,9 @@ int launch(const void* q, const void* k, const void* v, void* out,
 REPRO_ERROR_STRING_FN
 
 // q (B, Sq, HQ, D), k/v (B, Sk, HK, D) through element strides
-// (batch, seq, head; head_dim contiguous); out (B, Sq, HQ, D) contiguous;
-// stat_part (B, HQ, ceil(Sq/32)) f32 per-tile max of (s − φ).
+// (batch, seq, head; head_dim contiguous; 16-byte aligned rows); out
+// (B, Sq, HQ, D) contiguous; stat_part (B, HQ, ceil(Sq/64)) f32 per-tile
+// max of (s − φ).
 REPRO_EXPORT int flash_prefill_unified_max_bf16(
     const void* q, const void* k, const void* v, void* out, void* stat_part,
     int B, int Sq, int Sk, int HQ, int HK, int D, long long qsb,

@@ -10,8 +10,15 @@ One deliberate difference from the TPU kernel: ``stat`` is the max
 centered logit over *every* query row. The TPU kernel keeps only the
 last query tile's (its stat block is shared across query tiles and
 reset per tile), so an overflow in an earlier tile never triggered the
-recompute. Here each CUDA block writes its tile's max into a
-``(B, HQ, n_q_tiles)`` buffer and the wrapper takes one ``amax``.
+recompute. Here each CUDA block (``KERNEL_BLOCK_Q`` = 64 query rows of
+one head, walking 64-key tiles on the tensor cores) writes its tile's
+max into a ``(B, HQ, ceil(Sq / 64))`` buffer and the wrapper takes one
+``amax``; rows past ``Sq`` are masked out of it.
+
+The kernel copies q, k and v rows with 16-byte ``cp.async``: every row
+start must be 16-byte aligned (base pointers, and batch / seq / head
+strides that are multiples of 8 elements). The wrappers raise on
+anything else rather than copy.
 
 On a CPU tensor the wrappers run the plain versions, which loop over
 ``block_q`` x ``block_k`` tiles through :mod:`repro_torch.kernels.merge`
@@ -27,7 +34,7 @@ from repro_torch.kernels.ref import prefill_mask
 
 DEFAULT_BLOCK_Q = 256
 DEFAULT_BLOCK_K = 256
-KERNEL_BLOCK_Q = 32      # query rows per CUDA block (csrc kBQ)
+KERNEL_BLOCK_Q = 64      # query rows per CUDA block (attn_tile.cuh kBQ)
 
 _NEG_INF = -1e30         # sync-scheme mask value, as in the reference
 
@@ -123,6 +130,18 @@ def _check_inputs(q, k, v):
     if d not in (32, 64, 128):
         raise ValueError(f"flash_prefill kernel takes head_dim 32/64/128, "
                          f"got {d}")
+    check_aligned_rows("flash_prefill", q, k, v)
+
+
+def check_aligned_rows(what, *tensors):
+    """Raise unless every row of each (B, S, H, D) tensor starts 16-byte
+    aligned, as the kernels' ``cp.async`` row copies need."""
+    for t in tensors:
+        vec = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:3]):
+            raise ValueError(f"{what} kernel needs 16-byte aligned rows "
+                             f"(base pointer and batch / seq / head "
+                             f"strides), got strides {tuple(t.stride())}")
 
 
 def _dims(q, k, v, causal, window):

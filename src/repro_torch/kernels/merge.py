@@ -15,9 +15,17 @@ The CUDA kernels under ``csrc/`` run the same fold per warp or per tile.
 Shapes here carry leading batch dims: ``acc (..., R, D)``, ``den (..., R,
 1)``, ``centered``/``s (..., R, K)``, ``v (..., K, D)``.
 
-One divergence from the JAX package: :func:`sync_accumulate` guards a
-fully masked row (``m_prev == m_new == -inf``), which there yields NaN
-(``exp(-inf - -inf)``); here the row stays at ``acc = den = 0``.
+Two symmetric merges fold whole partials, as the split-KV chunk kernel's
+combine does: :func:`merge_unified` (pure addition under T1) and
+:func:`merge_lse` (rescale both to the larger max).
+
+One divergence from the JAX package, in both online-max steps: a
+partial that saw no valid key (``m == -inf``) contributes nothing. There,
+:func:`sync_accumulate` makes NaN on a fully masked row (``exp(-inf -
+-inf)``) and ``merge_lse`` carries an empty partial's NaN on (the seed
+failure ``tests/test_merge_properties.py::test_sync_split_equivalence``);
+here the row stays at ``acc = den = 0`` and the other partial passes
+through unchanged.
 """
 from __future__ import annotations
 
@@ -66,6 +74,30 @@ def sync_accumulate(acc, den, m_prev, s, v, *, valid=None):
     acc = acc * rescale + _weighted_sum(e, v)
     den = den * rescale + e.sum(dim=-1, keepdim=True)
     return acc, den, m_new
+
+
+def merge_unified(p1, p2):
+    """Symmetric merge of two unified-max partials ``(num, den, msc)``."""
+    n1, d1, m1 = p1
+    n2, d2, m2 = p2
+    return n1 + n2, d1 + d2, torch.maximum(m1, m2)
+
+
+def merge_lse(p1, p2):
+    """Symmetric merge of two max-stabilized partials ``(acc, den, m)``
+    (``m`` broadcastable against ``den``). A partial with ``m == -inf``
+    saw no valid key and adds nothing; two such give the empty partial."""
+    a1, d1, m1 = p1
+    a2, d2, m2 = p2
+    m = torch.maximum(m1, m2)
+    shift = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+
+    def weight(mi):
+        return torch.where(mi == float("-inf"), torch.zeros_like(mi),
+                           torch.exp(mi - shift))
+
+    r1, r2 = weight(m1), weight(m2)
+    return a1 * r1 + a2 * r2, d1 * r1 + d2 * r2, m
 
 
 def finalize(acc, den, *, guard_zero: bool = False):

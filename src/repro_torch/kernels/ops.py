@@ -376,7 +376,8 @@ def attention_chunk_paged(q, k_pool, v_pool, block_tables, lengths, *,
                           phi_cfg: SoftmaxPhiConfig = SoftmaxPhiConfig(),
                           plan: Optional[ExecutionPlan] = None,
                           k_scale: Optional[torch.Tensor] = None,
-                          v_scale: Optional[torch.Tensor] = None
+                          v_scale: Optional[torch.Tensor] = None,
+                          chunk_lens: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Paged twin of :func:`attention_chunk` (lengths before the chunk;
     the chunk's KV already in the pool), governed by the plan's ``paged``
@@ -386,10 +387,12 @@ def attention_chunk_paged(q, k_pool, v_pool, block_tables, lengths, *,
     into a dense view and runs :func:`attention_chunk`, as the JAX
     package does. A quantized pool (``k_scale`` / ``v_scale``) runs the
     fused kernels' quantized bodies, or gathers from the pool-level
-    dequantized view."""
+    dequantized view. ``chunk_lens`` (the step's valid tokens per row)
+    keeps the fused kernels from reading pool rows past each sequence's
+    last valid position; it changes only rows the caller drops."""
     pp = (plan or DEFAULT_PLAN).paged
     if pp.backend == "cuda" and pp.gather_chunk == "fused":
-        qkw = dict(k_scale=k_scale, v_scale=v_scale)
+        qkw = dict(k_scale=k_scale, v_scale=v_scale, chunk_lens=chunk_lens)
         if not _unified(phi_cfg, pp.scheme):
             return paged_chunk_attention_sync(q, k_pool, v_pool,
                                               block_tables, lengths, **qkw)

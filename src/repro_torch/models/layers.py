@@ -337,12 +337,14 @@ def _append(write, store_k, store_v, k, v, k_scale, v_scale) -> None:
 
 def attention_chunk_block(ctx: LayerCtx, p: Params, x, cache_k, cache_v,
                           lengths, write, block_tables=None, *,
-                          k_scale=None, v_scale=None):
+                          k_scale=None, v_scale=None, chunk_lens=None):
     """Chunked-prefill step: C prompt tokens append in place (through the
     step's ``write``) to the dense slot cache or, with ``block_tables``,
     to the page pool, and attend causally to prefix + chunk. With
     ``k_scale`` / ``v_scale`` (a quantized pool's (NP, HK) step pools)
     the chunk lands as codes and attention dequantizes in place.
+    ``chunk_lens`` (the step's valid tokens per row) keeps the paged
+    kernels off the pool rows past each row's last written position.
     x: (B, C, D) -> (B, C, D)."""
     cfg = ctx.cfg
     b, c, _ = x.shape
@@ -356,7 +358,7 @@ def attention_chunk_block(ctx: LayerCtx, p: Params, x, cache_k, cache_v,
         o = ops.attention_chunk_paged(q, cache_k, cache_v, block_tables,
                                       lengths, phi_cfg=ctx.phi_cfg,
                                       plan=ctx.plan, k_scale=k_scale,
-                                      v_scale=v_scale)
+                                      v_scale=v_scale, chunk_lens=chunk_lens)
     return ctx.matmul(o.reshape(b, c, cfg.q_dim), p["wo"])
 
 

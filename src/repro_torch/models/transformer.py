@@ -106,7 +106,7 @@ def decode_block(ctx: LayerCtx, p: Params, x, position, cache_i: dict,
 
 
 def chunk_block(ctx: LayerCtx, p: Params, x, cache_i: dict, lengths,
-                write, block_tables=None):
+                write, block_tables=None, chunk_lens=None):
     """Chunked-prefill block (decode-shaped path) over either layout."""
     cfg = ctx.cfg
     h = L.norm(cfg, p["attn_norm"], x)
@@ -114,7 +114,8 @@ def chunk_block(ctx: LayerCtx, p: Params, x, cache_i: dict, lengths,
                                     cache_i["v"], lengths, write,
                                     block_tables,
                                     k_scale=cache_i.get(kvquant.K_SCALE),
-                                    v_scale=cache_i.get(kvquant.V_SCALE))
+                                    v_scale=cache_i.get(kvquant.V_SCALE),
+                                    chunk_lens=chunk_lens)
     h = L.norm(cfg, p["mlp_norm"], x)
     return x + L.mlp_block(ctx, p["mlp"], h)
 
@@ -236,7 +237,7 @@ def prefill_chunk(ctx: LayerCtx, params: Params, tokens, chunk_lens,
     x, cache = stack.run_stack_cached(
         params["layers"], x, cache,
         lambda p_i, xx, c_i: chunk_block(ctx, p_i, xx, c_i, lengths, write,
-                                         block_tables))
+                                         block_tables, chunk_lens))
     x = L.norm(ctx.cfg, params["final_norm"], x)
     logits = L.lm_logits(ctx, params, _last_rows(x, chunk_lens))[:, 0]
     return logits, cache

@@ -269,6 +269,32 @@ def test_fused_threshold_bounds_the_chunk_tables(ref_model, monkeypatch,
     assert got == want
 
 
+def test_fused_chunk_kernel_gets_each_steps_chunk_lens(ref_model,
+                                                     monkeypatch):
+    """Every fused chunk-kernel call of a chunk step carries that step's
+    chunk_lens (the valid tokens per row), so on the card it never reads
+    the pool rows past a ragged chunk: a 7-token prompt ends in a ragged
+    chunk, a 40-token one in a full one and then an 8-token one."""
+    from repro_torch.kernels import ops
+    _, _, cfg, params = ref_model
+    seen = []
+    real = ops.paged_chunk_attention_unified_max
+
+    def spy(*a, **k):
+        seen.append(k["chunk_lens"].tolist())
+        return real(*a, **k)
+
+    monkeypatch.setattr(ops, "paged_chunk_attention_unified_max", spy)
+    prompts = [np.random.default_rng(23).integers(1, 500, n).astype(np.int32)
+               for n in (7, 40)]
+    Engine(cfg, params, num_slots=2, max_seq=128, page_size=16,
+           prefill_chunk=16, cache_kind="paged", device="cpu").run(
+        [(p, SamplingParams(max_new_tokens=2)) for p in prompts])
+    steps = [seen[i] for i in range(0, len(seen), cfg.num_layers)]
+    assert len(seen) == len(steps) * cfg.num_layers
+    assert sorted(n for step in steps for n in step if n) == [7, 8, 16, 16]
+
+
 def test_paged_engine_rejects_what_it_cannot_serve(ref_model):
     _, _, cfg, params = ref_model
     with pytest.raises(ValueError, match="paged"):

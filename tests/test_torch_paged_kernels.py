@@ -27,7 +27,9 @@ from repro_torch.core.plan import make_plan
 from repro_torch.kernels import chunk_attention as tca
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import ops
+from repro_torch.kernels import quant as tquant
 from repro_torch.kernels import ref
+from repro_torch.serving import kvquant as tkvquant
 
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -272,3 +274,134 @@ def test_paged_wrappers_check_inputs_and_count_only_launches():
     tca.paged_chunk_attention_unified_max(qc, pool, pool, bt, lens)
     tca.paged_chunk_attention_sync(qc, pool, pool, bt, lens)
     assert [f.launches for f in counters] == before
+
+
+# ---------------------------------------------------------------------------
+# Rows 9-10 on the card: the split-KV emulation of the CUDA path
+# ---------------------------------------------------------------------------
+
+
+# positions before the chunk: empty, one, either side of and on the first
+# split boundary (SPLIT_KEYS = 256), and a chunk reaching the table's end
+_SPLIT_LENGTHS = [0, 1, 255, 256, 257, 960]
+
+
+def _split_case(kind):
+    """A C = 8 chunk for one row per length before it, over 64-row pages
+    with NB = 16 (1,024 positions: 4 splits); f32 pools, or int8 / fp8
+    codes with (NP, HK) steps quantized by the port and carried to JAX
+    bit for bit. Returns the JAX and port operands and keyword args."""
+    b, c, hq, hk, d, ps, nb = len(_SPLIT_LENGTHS), 8, 4, 2, 32, 64, 16
+    rng = np.random.default_rng(300)
+    pages = [-(-(n + c) // ps) for n in _SPLIT_LENGTHS]
+    (jk, tk), (jv, tv), bt = _pool_fixture(
+        rng, b=b, hk=hk, d=d, ps=ps, nb=nb, pages_per_row=pages,
+        dtype="float32")
+    jq, tq = _pair(rng.normal(size=(b, c, hq, d)))
+    jkw, tkw = {}, {}
+    if kind != "values":
+        spec = tquant.INT8 if kind == "int8" else tquant.FP8
+        (tk, ks), (tv, vs) = (tkvquant.quantize_pages(p, spec)
+                              for p in (tk, tv))
+
+        def carried(codes):
+            raw = jnp.asarray(codes.view(torch.uint8).numpy())
+            return raw.view(jnp.int8 if kind == "int8"
+                            else jnp.float8_e4m3fn)
+
+        jk, jv = carried(tk), carried(tv)
+        jkw = dict(k_scale=jnp.asarray(ks.numpy()),
+                   v_scale=jnp.asarray(vs.numpy()))
+        tkw = dict(k_scale=ks, v_scale=vs)
+    return (jq, jk, jv, *bt[:1], _ints(_SPLIT_LENGTHS)[0], jkw), \
+        (tq, tk, tv, bt[1], _ints(_SPLIT_LENGTHS)[1], tkw)
+
+
+@pytest.mark.parametrize("kind", ["values", "int8", "fp8"])
+def test_split_emulation_matches_plain_and_pallas(kind):
+    """The split kernel and its combine, emulated on the CPU (keys cut at
+    the fixed SPLIT_KEYS, partials folded with merge_unified / the
+    guarded merge_lse), against the unsplit plain versions and the JAX
+    Pallas kernels (interpret=True), both schemes: TOL["float32"] (f32
+    q and values or dequantized codes; only summation order differs)."""
+    (jq, jk, jv, jbt, jl, jkw), (tq, tk, tv, tbt, tl, tkw) = \
+        _split_case(kind)
+    got, stat = tca.paged_chunk_attention_split_plain(
+        tq, tk, tv, tbt, tl, phi=0.5, **tkw)
+    plain, plain_stat = tca.paged_chunk_attention_unified_max_plain(
+        tq, tk, tv, tbt, tl, phi=0.5, **tkw)
+    want, want_stat = jca.paged_chunk_attention_unified_max(
+        jq, jk, jv, jbt, jl, phi=0.5, interpret=True, **jkw)
+    for w, ws in ((plain, plain_stat), (want, want_stat)):
+        _close(got, w)
+        _close(stat, ws)
+    got = tca.paged_chunk_attention_split_plain(
+        tq, tk, tv, tbt, tl, unified_max=False, **tkw)
+    assert torch.isfinite(got).all()
+    _close(got, tca.paged_chunk_attention_sync_plain(tq, tk, tv, tbt, tl,
+                                                     **tkw))
+    _close(got, jca.paged_chunk_attention_sync(jq, jk, jv, jbt, jl,
+                                               interpret=True, **jkw))
+
+
+@pytest.mark.parametrize("unified_max", [True, False],
+                         ids=["unified", "sync"])
+def test_split_emulation_never_reads_past_the_last_valid_row(unified_max):
+    """With chunk_lens, pool rows past each sequence's last valid position
+    (a ragged chunk's unwritten rows) may hold NaN: the valid rows come
+    out bitwise as on a clean pool and as without chunk_lens, and a table
+    twice as wide (four more splits past every sequence) adds nothing."""
+    _, (tq, tk, tv, tbt, tl, _) = _split_case("values")
+    c, ps = tq.shape[1], tk.shape[1]
+    clens = torch.tensor([8, 5, 1, 8, 3, 8], dtype=torch.int32)
+    dirty = tk.clone(), tv.clone()
+    for i, (n, m) in enumerate(zip(tl.tolist(), clens.tolist())):
+        for pos in range(n + m, -(-(n + c) // ps) * ps):
+            page = int(tbt[i, pos // ps])
+            for pool in dirty:
+                pool[page, pos % ps] = float("nan")
+    wide = torch.cat([tbt, torch.full_like(tbt, tk.shape[0])], dim=1)
+
+    def run(k, v, bt, **kw):
+        res = tca.paged_chunk_attention_split_plain(
+            tq, k, v, bt, tl, unified_max=unified_max, **kw)
+        return res[0] if unified_max else res
+
+    keep = torch.arange(c)[None, :] < clens[:, None]
+    clean = run(tk, tv, tbt, chunk_lens=clens)[keep]
+    assert torch.equal(run(*dirty, tbt, chunk_lens=clens)[keep], clean)
+    assert torch.equal(run(tk, tv, tbt)[keep], clean)
+    assert torch.equal(run(*dirty, wide, chunk_lens=clens)[keep], clean)
+
+
+def test_chunk_launch_operands_and_alignment_checks():
+    """What a CUDA launch allocates and refuses, on CPU tensors: NSPLIT =
+    ceil(NB * PS / SPLIT_KEYS) and the f32 scratch shapes; chunk_lens of
+    the wrong shape; q rows that are not 16-byte aligned (flash prefill's
+    check too: the kernels copy rows with cp.async and never copy a
+    tensor behind the caller's back)."""
+    q = torch.zeros(2, 70, 4, 32, dtype=torch.bfloat16)
+    pool = torch.zeros(6, 16, 2, 32, dtype=torch.bfloat16)
+    bt = torch.zeros(2, 17, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    assert (tca.KERNEL_BLOCK_Q, tca.SPLIT_KEYS) == (64, 256)
+    for unified, aux in ((True, (2, 4, 2, 2)), (False, (4, 70, 4))):
+        *_, nsplit, (acc, den, aux_t) = tca._launch_operands(
+            q, pool, pool, bt, lens, None, None, None, unified)
+        assert nsplit == 2                      # 17 * 16 = 272 positions
+        assert acc.shape == (4, 70, 4, 32) and den.shape == (4, 70, 4)
+        assert aux_t.shape == aux and acc.dtype == torch.float32
+    with pytest.raises(ValueError, match="chunk_lens"):
+        tca._launch_operands(q, pool, pool, bt, lens, lens[:1], None, None,
+                             True)
+    skewed = torch.zeros(2, 70, 4, 40, dtype=torch.bfloat16)[..., 1:33]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tca._launch_operands(skewed, pool, pool, bt, lens, None, None, None,
+                             True)
+    from repro_torch.kernels import flash_prefill as tfp
+    assert tfp.KERNEL_BLOCK_Q == 64
+    kv = torch.zeros(2, 70, 2, 32, dtype=torch.bfloat16)
+    tfp._check_inputs(q, kv, kv)
+    qkv = torch.zeros(2, 70, 4 + 2 * 2, 36, dtype=torch.bfloat16)[..., :32]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfp._check_inputs(qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:])
