@@ -34,6 +34,12 @@
    wide and NaN in every unread pool row gives the tight table's bits; a
    ragged chunk (``chunk_lens``) gives its valid rows the clean pool's
    bits with dirty pool rows past each sequence's last valid position.
+   The split-KV decode kernels (rows 3-6 and 11) get a second, long line:
+   four rows of 8,192 positions (128 splits each), timed beside SDPA,
+   paged bitwise dense and, with a 4,096-token prefix shared by the four
+   rows, grouped bitwise paged; and a grouped case whose prefix is not a
+   multiple of a 64-key split (32-row pages, a 160-token prefix), bf16 and
+   int8, bitwise row 5 and unchanged with NaN where it must not read.
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
    greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
@@ -797,22 +803,29 @@ def kernel_phase(torch, timer, rows, log):
         check(bool((gstat > phi.band[1]).any()) == overflow,
               f"grouped decode overflow flag wrong for {tag}")
         if not overflow:
-            # each stage against its plain version on the same inputs
+            # each stage against its plain version on the same inputs:
+            # stage 1 on the prefix's whole splits, the ones it writes
             parts = ga.group_prefix_partials(q, kp, vp, groups, phi=phi.phi)
             wparts = ga.group_prefix_plain(q, kp, vp, groups, phi=phi.phi)
-            errs = [((a - w).abs().max() / w.abs().max()).item()
-                    for a, w in zip(parts[:2], wparts[:2])]
-            serr = torch.where(torch.isfinite(wparts[2]),
-                               parts[2] - wparts[2], 0.0).abs().max().item()
+            # num is P·V with P rounded to bf16 (the row rule on each
+            # split's normalised partial), den the f32 sum of P
+            whole = plen // da.SPLIT_KEYS
+            (num, den, st), (wnum, wden, wst) = (
+                [t[:, :whole] for t in p] for p in (parts, wparts))
+            ok1, tol1 = attn_close(num / den[..., None],
+                                   wnum / wden[..., None])
+            derr = ((den - wden).abs().max() / wden.abs().max()).item()
+            serr = (st - wst).abs().max().item()
             tail = ga.group_tail_merge(q, kp, vp, bt, glens, groups, *parts,
                                        phi=phi.phi)[0]
             ok, tol = attn_close(tail, ga.group_tail_plain(
                 q, kp, vp, bt, glens, groups, *parts, phi=phi.phi)[0])
-            log(f"kernel grouped stages {tag}: stage 1 num/den max error "
-                f"{errs[0]:.2e}/{errs[1]:.2e} of the largest value, stat "
-                f"{serr:.2e}; stage 2 on the same partials "
-                f"{'ok' if ok else 'MISMATCH'} ({tol})")
-            check(max(errs) <= 1e-4 and serr <= 1e-3,
+            log(f"kernel grouped stages {tag}: stage 1 on the prefix's "
+                f"{whole} whole splits: num / den per row "
+                f"{'ok' if ok1 else 'MISMATCH'} ({tol1}), den max error "
+                f"{derr:.2e} of the largest value, stat {serr:.2e}; stage 2 "
+                f"on the same partials {'ok' if ok else 'MISMATCH'} ({tol})")
+            check(ok1 and derr <= 1e-4 and serr <= 1e-3,
                   f"grouped stage 1 {tag} disagrees")
             check(ok, f"grouped stage 2 {tag} disagrees")
             record("grouped_paged_decode_attention_unified_max", tag, gout,
@@ -977,6 +990,8 @@ def kernel_phase(torch, timer, rows, log):
         check(ok, f"ops.attention_chunk_paged {tag} disagrees")
 
     split_kv_checks(torch, cfg, gen, randn, record, attn_close, log)
+    decode_split_checks(torch, timer, cfg, gen, randn, record, attn_close,
+                        log)
     kv_quant_kernels(torch, cfg, gen, randn, record, attn_close, log)
 
 
@@ -1097,22 +1112,187 @@ def split_kv_checks(torch, cfg, gen, randn, record, attn_close, log):
               "last valid position reaches a valid row")
 
 
-def grouped_layout(torch, gen, randn, glens, plen, s_max, hk, hd):
+def decode_split_checks(torch, timer, cfg, gen, randn, record, attn_close,
+                        log):
+    """The split-KV decode kernels (rows 3-6 and 11) where the split shows.
+
+    * The long case: B = 4, every row 8,192 positions (128 splits of 64
+      keys), rows 3-6 timed beside SDPA (over the GQA-expanded cache) as
+      their second line; paged bitwise dense. Row 11 on the same lengths
+      with a 4,096-token prefix shared by the four rows, bitwise row 5.
+    * A grouped case whose prefix is not a multiple of a split: 32-row
+      pages, a 160-token prefix (two whole splits; stage 2 re-reads the
+      last 32 prefix keys), bf16 and int8 pages, out and stat bitwise
+      row 5 on the same pool and unchanged with NaN in every pool row
+      (and, int8, every step) that holds no position a row reads."""
+    import torch.nn.functional as F
+
+    from repro_torch import hardware
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import group_attention as ga
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.ref import gather_paged_kv
+    from repro_torch.serving import kvquant
+
+    spec = hardware.DEFAULT
+    hd, hq, hk = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    phi, dev, b = cfg.softmax_phi, "cuda", 4
+
+    # -- the long case: rows 3-6 -------------------------------------------
+    s_max = 8192
+    lengths = torch.full((b,), s_max, dtype=torch.int32, device=dev)
+    kc, vc = randn(b, s_max, hk, hd), randn(b, s_max, hk, hd)
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    ke = kt.repeat_interleave(hq // hk, dim=1)
+    ve = vt.repeat_interleave(hq // hk, dim=1)
+    (kp, vp), bt, _ = paged_layout(torch, gen, (kc, vc), lengths)
+    q = randn(b, hq, hd)
+    q4 = q[:, :, None, :]
+    lib = lambda: F.scaled_dot_product_attention(q4, ke, ve)
+    n_valid = b * s_max
+    nbytes = 2 * (2 * b * hq * hd + 2 * n_valid * hk * hd) + 4 * b * hk
+    flops = 4 * n_valid * hq * hd
+    tag = f"B=4 S={s_max} every row full ({s_max // 64} splits)"
+    ptag = tag + f" PS={PAGE} shuffled"
+    out, stat = da.decode_attention_unified_max(q, kt, vt, lengths,
+                                                phi=phi.phi)
+    sync = da.decode_attention_sync(q, kt, vt, lengths)
+    pout, pstat = da.paged_decode_attention_unified_max(q, kp, vp, bt,
+                                                        lengths, phi=phi.phi)
+    psync = da.paged_decode_attention_sync(q, kp, vp, bt, lengths)
+    same = same_bits(torch, (pout, out), (pstat, stat), (psync, sync))
+    log(f"kernel paged_decode_attention {ptag}: bitwise equal to the dense "
+        f"kernel {same}")
+    check(same, f"paged decode {ptag}: not bitwise the dense kernel")
+    want, want_stat = da.decode_attention_unified_max_plain(
+        q, kt, vt, lengths, phi=phi.phi)
+    serr = (stat - want_stat).abs().max().item()
+    log(f"kernel decode_attention_unified_max {tag}: stat max_abs_err="
+        f"{serr:.3e}")
+    check(serr <= 1e-2 * max(1.0, want_stat.abs().max().item()),
+          f"decode unified-max {tag}: stat disagrees")
+    record("decode_attention_unified_max", tag, out, want,
+           lambda: da.decode_attention_unified_max(q, kt, vt, lengths,
+                                                   phi=phi.phi),
+           lambda: da.decode_attention_unified_max_plain(
+               q, kt, vt, lengths, phi=phi.phi),
+           lib, nbytes, flops, True, attn_close, slot="long")
+    record("decode_attention_sync", tag, sync,
+           da.decode_attention_sync_plain(q, kt, vt, lengths),
+           lambda: da.decode_attention_sync(q, kt, vt, lengths),
+           lambda: da.decode_attention_sync_plain(q, kt, vt, lengths),
+           lib, nbytes, flops, True, attn_close, slot="long")
+    pbytes = nbytes + 4 * bt.numel()
+    record("paged_decode_attention_unified_max", ptag, pout,
+           da.paged_decode_attention_unified_max_plain(
+               q, kp, vp, bt, lengths, phi=phi.phi)[0],
+           lambda: da.paged_decode_attention_unified_max(
+               q, kp, vp, bt, lengths, phi=phi.phi),
+           lambda: da.paged_decode_attention_unified_max_plain(
+               q, kp, vp, bt, lengths, phi=phi.phi),
+           lib, pbytes, flops, True, attn_close, slot="long")
+    record("paged_decode_attention_sync", ptag, psync,
+           da.paged_decode_attention_sync_plain(q, kp, vp, bt, lengths),
+           lambda: da.paged_decode_attention_sync(q, kp, vp, bt, lengths),
+           lambda: da.paged_decode_attention_sync_plain(q, kp, vp, bt,
+                                                        lengths),
+           lib, pbytes, flops, True, attn_close, slot="long")
+
+    # -- the long case: row 11, a 4,096-token prefix shared by four rows ---
+    plen = 4096
+    kp, vp, bt, _, groups = grouped_layout(torch, gen, randn, lengths, plen,
+                                           s_max, hk, hd)
+    kd, vd = (gather_paged_kv(p, bt).transpose(1, 2) for p in (kp, vp))
+    ke = kd.repeat_interleave(hq // hk, dim=1)
+    ve = vd.repeat_interleave(hq // hk, dim=1)
+    lib = lambda: F.scaled_dot_product_attention(q4, ke, ve)
+    n_read = plen + b * (s_max - plen)
+    gbytes = (2 * (2 * b * hq * hd + 2 * n_read * hk * hd) + 4 * b * hk
+              + 4 * (bt.numel() + sum(t.numel() for t in groups)))
+    gtag = f"B=4 S={s_max} PS={PAGE}, prefix {plen} shared by 4 rows"
+    gout, gstat = ga.grouped_paged_decode_attention_unified_max(
+        q, kp, vp, bt, lengths, groups, phi=phi.phi)
+    pout, pstat = da.paged_decode_attention_unified_max(q, kp, vp, bt,
+                                                        lengths, phi=phi.phi)
+    same = same_bits(torch, (gout, pout), (gstat, pstat))
+    log(f"kernel grouped_paged_decode_attention {gtag}: out and stat "
+        f"bitwise the paged decode kernel {same}")
+    check(same, f"grouped decode {gtag}: not bitwise the paged kernel")
+    record("grouped_paged_decode_attention_unified_max", gtag, gout,
+           ga.grouped_paged_decode_attention_unified_max_plain(
+               q, kp, vp, bt, lengths, groups, phi=phi.phi)[0],
+           lambda: ga.grouped_paged_decode_attention_unified_max(
+               q, kp, vp, bt, lengths, groups, phi=phi.phi),
+           lambda: ga.grouped_paged_decode_attention_unified_max_plain(
+               q, kp, vp, bt, lengths, groups, phi=phi.phi),
+           lib, gbytes, flops, True, attn_close, slot="long")
+    p_ms = timer.ms(lambda: da.paged_decode_attention_unified_max(
+        q, kp, vp, bt, lengths, phi=phi.phi))
+    log(f"kernel paged_decode_attention_unified_max {gtag} (the same input "
+        f"ungrouped): kernel_ms={p_ms:.4f} bound_ms="
+        f"{bound_ms(pbytes, flops, spec)[0]:.4f}")
+
+    # -- a prefix that is not a multiple of a split: 32-row pages ---------
+    page, plen, s32 = 32, 160, 1024
+    glens = torch.tensor([1024, 800, 600, 161], dtype=torch.int32,
+                         device=dev)
+    kp, vp, bt, live, groups = grouped_layout(torch, gen, randn, glens, plen,
+                                              s32, hk, hd, page=page)
+    q = randn(b, hq, hd)
+    tag = f"B=4 PS={page} prefix {plen} (2.5 splits), 1024/800/600/161"
+    for name in ("bf16", "int8"):
+        if name == "bf16":
+            (kc, ks), (vc, vs) = (kp, None), (vp, None)
+        else:
+            (kc, ks), (vc, vs) = (kvquant.quantize_pages(p, quant.INT8)
+                                  for p in (kp, vp))
+        kw = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+        nan_kw = dict(kw)
+        if ks is None:
+            kn, vn = poisoned(torch, (kc, vc), live)
+        else:
+            kn, vn = kc, vc
+            read = live.any(dim=1)[:, None]
+            nan_kw = {key: torch.where(read, st, torch.full_like(
+                st, float("nan"))) for key, st in kw.items()}
+        gout, gstat = ga.grouped_paged_decode_attention_unified_max(
+            q, kc, vc, bt, glens, groups, phi=phi.phi, **kw)
+        pout, pstat = da.paged_decode_attention_unified_max(
+            q, kc, vc, bt, glens, phi=phi.phi, **kw)
+        same = same_bits(torch, (gout, pout), (gstat, pstat))
+        nan_out, _ = ga.grouped_paged_decode_attention_unified_max(
+            q, kn, vn, bt, glens, groups, phi=phi.phi, **nan_kw)
+        clean = same_bits(torch, (nan_out, gout))
+        ok, tol = attn_close(
+            gout, ga.grouped_paged_decode_attention_unified_max_plain(
+                q, kc, vc, bt, glens, groups, phi=phi.phi, **kw)[0])
+        log(f"kernel grouped_paged_decode_attention {name} {tag}: out and "
+            f"stat bitwise the paged decode kernel {same}; unchanged with "
+            f"NaN where it must not read {clean}; against its plain version "
+            f"{'ok' if ok else 'MISMATCH'} ({tol})")
+        check(same, f"grouped decode {name} {tag}: not bitwise row 5")
+        check(clean, f"grouped decode {name} {tag}: reads what it must not")
+        check(ok, f"grouped decode {name} {tag}: disagrees with its plain "
+              "version")
+
+
+def grouped_layout(torch, gen, randn, glens, plen, s_max, hk, hd,
+                   page=PAGE):
     """Row 11's pool: every row's table leads with one shared ``plen``-
-    token prefix (shuffled pages of a pool 8 pages larger than needed),
-    then its own pages to ``glens[b]``. Returns the bf16 pools, the
-    tables, the (NP, PAGE) mask of rows that hold a position some row
-    reads, and the one-group ``DecodeGroups``."""
+    token prefix (shuffled ``page``-row pages of a pool 8 pages larger
+    than needed), then its own pages to ``glens[b]``. Returns the bf16
+    pools, the tables, the (NP, page) mask of rows that hold a position
+    some row reads, and the one-group ``DecodeGroups``."""
     from repro_torch.kernels import group_attention as ga
     b, dev = glens.shape[0], glens.device
-    npre = plen // PAGE
-    own = [-(-int(n) // PAGE) - npre for n in glens.tolist()]
+    npre = plen // page
+    own = [-(-int(n) // page) - npre for n in glens.tolist()]
     num_pages = npre + sum(own) + 8
     perm = torch.randperm(num_pages, generator=gen, device=dev)
-    kp, vp = (randn(num_pages, PAGE, hk, hd) for _ in range(2))
-    bt = torch.full((b, s_max // PAGE), num_pages, dtype=torch.int32,
+    kp, vp = (randn(num_pages, page, hk, hd) for _ in range(2))
+    bt = torch.full((b, s_max // page), num_pages, dtype=torch.int32,
                     device=dev)
-    live = torch.zeros((num_pages, PAGE), dtype=torch.bool, device=dev)
+    live = torch.zeros((num_pages, page), dtype=torch.bool, device=dev)
     pre = perm[:npre].int()
     live[pre.long()] = True
     lo = npre
@@ -1121,8 +1301,8 @@ def grouped_layout(torch, gen, randn, glens, plen, s_max, hk, hd):
         lo += n
         bt[i, :npre] = pre
         bt[i, npre:npre + n] = pages.int()
-        live[pages] = (npre * PAGE + torch.arange(n * PAGE, device=dev)
-                       < int(glens[i])).reshape(n, PAGE)
+        live[pages] = (npre * page + torch.arange(n * page, device=dev)
+                       < int(glens[i])).reshape(n, page)
 
     def i32(*vals):
         return torch.tensor(vals, dtype=torch.int32, device=dev)
@@ -1282,7 +1462,8 @@ def kv_quant_kernels(torch, cfg, gen, randn, record, attn_close, log):
     g_bytes = q_bytes(plen + n_tail, plen // PAGE + tail_pages, b,
                       4 * b * hk + tables)
     mg = b * g
-    parts_bytes = 4 * hk * 4 * mg * (hd + 2)       # num, den, stat (f32)
+    # the prefix's whole splits of stage 1's partials: num, den, stat (f32)
+    parts_bytes = 4 * (plen // 64) * hk * mg * (hd + 2)
     t_bytes = q_bytes(n_tail, tail_pages, b,
                       parts_bytes + 4 * b * hk + 4 * bt.numel() + 4 * 3 * b)
     gmask = (torch.arange(s_max, device=dev)[None, :] < glens[:, None])[

@@ -1,7 +1,9 @@
 // The tensor-core attention tile body shared by flash_prefill.cu (row 7
-// of PERF.md's kernel table) and chunk_attention.cu (rows 9-10 and their
-// int8 / fp8 bodies): one FlashAttention-2 block step for bf16 operands
-// with f32 accumulation.
+// of PERF.md's kernel table), chunk_attention.cu (rows 9-10) and
+// decode_split.cuh (rows 3-6 and 11), with their int8 / fp8 bodies: one
+// FlashAttention-2 block step for bf16 operands with f32 accumulation.
+// The walk below is the prefill and chunk kernels'; the decode kernels
+// run tile_step on one tile per warp (decode_split.cuh).
 //
 //   * A block is 4 warps over a 64-row query tile. Q lands in shared
 //     memory as bf16 once; each warp keeps the A fragments of its 16 rows
@@ -17,7 +19,8 @@
 //     row of an m16n8 fragment lives in the 4 threads of a quad, which
 //     combine by two shuffles.
 //       - unified max (T1): p = exp(s − φ), no running max, no rescale;
-//         the thread keeps the max of its valid s − φ for `stat`.
+//         the thread keeps the max of its valid s − φ in each of its two
+//         rows for `stat`.
 //       - sync: the online max, masked logits at -1e30, so no partial
 //         starts from exp(-inf - -inf).
 //   * O += P V: P is rounded to bf16 in registers and fed as the A operand
@@ -131,17 +134,20 @@ __device__ __forceinline__ void load_q(unsigned char* smem,
 }
 
 // The K and V rows of keys kv0 .. kv0 + 63 into one ring stage; keys at
-// or past `end` are zero-filled and their rows never read.
+// or past `end` are zero-filled and their rows never read. The copies are
+// shared by `nthr` threads, `tid` being this thread's rank among them: the
+// block (walk() below), or one warp that owns its stage (decode_split.cuh).
 template <int D, typename T, typename Rows>
 __device__ __forceinline__ void load_kv(unsigned char* stage,
                                         const T* __restrict__ k,
                                         const T* __restrict__ v,
-                                        const Rows& rows, int kv0, int end) {
+                                        const Rows& rows, int kv0, int end,
+                                        int tid, int nthr) {
   using S = Smem<D, T>;
   constexpr int kCpr = D * static_cast<int>(sizeof(T)) / 16;
   const unsigned char* kb = reinterpret_cast<const unsigned char*>(k);
   const unsigned char* vb = reinterpret_cast<const unsigned char*>(v);
-  for (int c = threadIdx.x; c < kBK * kCpr; c += kThreads) {
+  for (int c = tid; c < kBK * kCpr; c += nthr) {
     const int r = c / kCpr, cc = c % kCpr, key = kv0 + r;
     const bool ok = key < end;
     const unsigned char* ks = kb;
@@ -156,15 +162,16 @@ __device__ __forceinline__ void load_kv(unsigned char* stage,
 }
 
 // One stage of codes into the bf16 K / V tiles (exact values), and the
-// tile's K and V steps (0 past `end`, whose pages are never read).
+// tile's K and V steps (0 past `end`, whose pages are never read); shared
+// by `nthr` threads as load_kv.
 template <int D, typename T, typename Rows>
 __device__ __forceinline__ void convert_codes(unsigned char* kv_s,
                                               const unsigned char* stage,
                                               const Rows& rows, int kv0,
-                                              int end) {
+                                              int end, int tid, int nthr) {
   using S = Smem<D, T>;
   constexpr int kVpr = D / 16;          // 16-code vectors per row
-  for (int c = threadIdx.x; c < 2 * kBK * kVpr; c += kThreads) {
+  for (int c = tid; c < 2 * kBK * kVpr; c += nthr) {
     const int which = c / (kBK * kVpr), rem = c % (kBK * kVpr);
     const int r = rem / kVpr, cc = rem % kVpr;
     const uint4 u = *reinterpret_cast<const uint4*>(
@@ -181,10 +188,11 @@ __device__ __forceinline__ void convert_codes(unsigned char* kv_s,
     dst[1] = o[1];
   }
   float* steps = reinterpret_cast<float*>(kv_s + 2 * S::kTileBytes);
-  const int i = threadIdx.x % kBK, key = kv0 + i;
-  const bool kside = threadIdx.x < kBK;
-  steps[(kside ? 0 : kBK) + i] =
-      key < end ? (kside ? rows.kstep(key) : rows.vstep(key)) : 0.f;
+  for (int c = tid; c < 2 * kBK; c += nthr) {     // K steps, then V steps
+    const int key = kv0 + c % kBK;
+    const bool kside = c < kBK;
+    steps[c] = key < end ? (kside ? rows.kstep(key) : rows.vstep(key)) : 0.f;
+  }
 }
 
 // A thread's share of the block's accumulators: rows g and g + 8 of its
@@ -194,7 +202,7 @@ struct Acc {
   float o[D / 8][4];
   float den[2];     // this thread's share of the row sums
   float m[2];       // sync: running row max (kNegBig: no valid key yet)
-  float msc;        // unified: max valid s − φ seen by this thread
+  float msc[2];     // unified: max valid s − φ this thread saw in each row
 
   __device__ __forceinline__ void init() {
 #pragma unroll
@@ -203,7 +211,21 @@ struct Acc {
       for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
     den[0] = den[1] = 0.f;
     m[0] = m[1] = kNegBig;
-    msc = -INFINITY;
+    msc[0] = msc[1] = -INFINITY;
+  }
+
+  // The max of msc over this thread's two rows.
+  __device__ __forceinline__ float msc_max() const {
+    return fmaxf(msc[0], msc[1]);
+  }
+
+  // Each row's msc over the quad that shares it.
+  __device__ __forceinline__ void reduce_msc() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      msc[i] = fmaxf(msc[i], __shfl_xor_sync(0xffffffffu, msc[i], 1));
+      msc[i] = fmaxf(msc[i], __shfl_xor_sync(0xffffffffu, msc[i], 2));
+    }
   }
 
   // The row sums over the quad that shares each row.
@@ -216,18 +238,21 @@ struct Acc {
   }
 };
 
-// One 64-key tile: S, the softmax step, O += P V. `ks` / `vs` are the
-// bf16 K / V tiles, `steps` (codes only) their K then V steps, `valid`
-// the mask of (tile-local query row, absolute key).
+// One 64-key tile: S, the softmax step, O += P V for the 16 query rows
+// row_base .. row_base + 15 held in `qf`. `ks` / `vs` are the bf16 K / V
+// tiles, `steps` (codes only) their K then V steps, `valid` the mask of
+// (query row, absolute key). A row's results depend only on its own q
+// row and the tile: mma.sync computes each output row from its A row
+// alone, and every per-row statistic stays in that row's quad.
 template <int D, bool UNIFIED, typename T, typename Valid>
 __device__ __forceinline__ void tile_step(
     const uint32_t (&qf)[D / 16][4], const __nv_bfloat16* ks,
     const __nv_bfloat16* vs, const float* steps, int kv0, float scale,
-    float phi, const Valid& valid, Acc<D>& a) {
+    float phi, const Valid& valid, Acc<D>& a, int row_base) {
   constexpr int P = D + 8;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16 + g;
+  const int r0 = row_base + g;
 
   float s[8][4];
 #pragma unroll
@@ -269,7 +294,7 @@ __device__ __forceinline__ void tile_step(
         const float cen = s[j][e] - phi;
         float p = 0.f;
         if (ok[j][e]) {
-          a.msc = fmaxf(a.msc, cen);
+          a.msc[e >> 1] = fmaxf(a.msc[e >> 1], cen);
           p = exp2f(cen * kLog2e);
         }
         a.den[e >> 1] += p;
@@ -356,7 +381,7 @@ __device__ __forceinline__ void walk(unsigned char* smem,
   unsigned char* kv_s = smem + S::kQBytes;
   unsigned char* ring = kv_s + S::kKVBytes;
   cp_async_commit();                                  // group: Q
-  load_kv<D, T>(ring, k, v, rows, kv_begin, kv_end);
+  load_kv<D, T>(ring, k, v, rows, kv_begin, kv_end, threadIdx.x, kThreads);
   cp_async_commit();                                  // group: tile 0
   cp_async_wait1();                                   // Q has landed
   __syncthreads();
@@ -373,7 +398,7 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     const int kv0 = kv_begin + it * kBK;
     if (it + 1 < n_tiles)
       load_kv<D, T>(ring + ((it + 1) & 1) * S::kStageBytes, k, v, rows,
-                    kv0 + kBK, kv_end);
+                    kv0 + kBK, kv_end, threadIdx.x, kThreads);
     cp_async_commit();   // possibly empty: keeps the group count uniform
     cp_async_wait1();    // tile it has landed
     __syncthreads();
@@ -381,7 +406,8 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     const float* steps = nullptr;
     const unsigned char* tiles = stage;
     if constexpr (kCodes<T>) {
-      convert_codes<D, T>(kv_s, stage, rows, kv0, kv_end);
+      convert_codes<D, T>(kv_s, stage, rows, kv0, kv_end, threadIdx.x,
+                          kThreads);
       __syncthreads();
       tiles = kv_s;
       steps = reinterpret_cast<const float*>(kv_s + 2 * S::kTileBytes);
@@ -390,7 +416,7 @@ __device__ __forceinline__ void walk(unsigned char* smem,
     tile_step<D, UNIFIED, T>(
         qf, reinterpret_cast<const __nv_bfloat16*>(tiles),
         reinterpret_cast<const __nv_bfloat16*>(tiles + vofs), steps, kv0,
-        scale, phi, valid, a);
+        scale, phi, valid, a, warp * 16);
     __syncthreads();     // the stage (and the converted tiles) may refill
   }
 }

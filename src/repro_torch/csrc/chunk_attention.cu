@@ -168,7 +168,7 @@ split_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (UNIFIED) {
-    const float m = attn::block_max(a.msc);
+    const float m = attn::block_max(a.msc_max());
     if (threadIdx.x == 0) aux_part[stat_at] = m;
   }
 }

@@ -100,7 +100,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   if (UNIFIED) {
-    const float m = attn::block_max(a.msc);
+    const float m = attn::block_max(a.msc_max());
     if (threadIdx.x == 0)
       stat_part[(static_cast<long long>(b) * HQ + h) * gridDim.x + qt] = m;
   }

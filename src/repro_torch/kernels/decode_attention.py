@@ -1,5 +1,5 @@
 """T1 — GQA decode attention over the dense KV cache or the block-paged
-pool (kernel: ``csrc/decode_attention.cu``).
+pool (kernels: ``csrc/decode_attention.cu`` on ``csrc/decode_split.cuh``).
 
 Replaces ``repro/kernels/decode_attention.py::decode_attention_unified_max``,
 ``::decode_attention_sync``, ``::paged_decode_attention_unified_max`` and
@@ -14,22 +14,36 @@ int32 whose unassigned entries hold the sentinel ``NP``; every table
 entry read is clamped to the pool. Dense and paged run one CUDA kernel
 body, so on the same KV the paged result is bitwise the dense one.
 
-On a CUDA tensor each wrapper launches its kernel (grid (B, HK), one
-block per sequence and kv head; see the source's header); on a CPU
-tensor it runs the plain version, which walks the cache in ``block_k``
-tiles through :mod:`repro_torch.kernels.merge` exactly like the TPU
-kernel's grid (the paged plain versions walk one page per step, as the
-TPU kernel's grid does). ``block_k`` only shapes that emulation: the
-CUDA kernel walks 32-key warp chunks and its result does not depend on
-it. Each wrapper counts its launches in ``.launches``.
+On a CUDA tensor each wrapper launches the split-KV pair (two launches,
+counted once in ``.launches``): a split kernel on the grid
+``(ceil(NSPLIT / 4), HK, B)``, one warp per absolute ``SPLIT_KEYS`` = 64
+key split (``NSPLIT = ceil(S / 64)``, or ``ceil(NB * PS / 64)`` paged,
+from static shapes: the host reads nothing of ``lengths``), the kv head's
+G query heads as the rows of one tensor-core fragment (G <= ``MAX_G``);
+and a combine kernel that folds each row's splits in ascending order. The
+split kernel writes f32 partials into scratch the wrapper allocates with
+``torch.empty`` (so a CUDA graph capture owns it): ``acc (B, NSPLIT, HQ,
+D)``, ``den`` and ``aux (B, NSPLIT, HQ)`` — 4 (D + 2) bytes per query
+head per 64 keys. The online-max pair reads the recompute flag at entry.
+:func:`decode_attention_split_plain` and
+:func:`paged_decode_attention_split_plain` are the CPU emulations of that
+split and combine.
+
+On a CPU tensor a wrapper runs the plain version, which walks the cache
+in ``block_k`` tiles through :mod:`repro_torch.kernels.merge` exactly
+like the TPU kernel's grid (the paged plain versions walk one page per
+step, as the TPU kernel's grid does). ``block_k`` only shapes that plain
+version: the kernel's splits are fixed and its result does not depend on
+it.
 
 The paged entries also take a quantized pool: int8 or float8_e4m3fn codes
 with ``k_scale`` / ``v_scale``, the (NP, HK) f32 step of every (page, kv
 head). On a CUDA tensor they launch the kernels' quantized bodies, which
-turn each element into ``code * step`` in f32 as they read it, and count
-those launches in :data:`paged_decode_attention_unified_max_quant` /
+turn each code into its exact bf16 value with the K step on the score
+and the V step on P, and count those launches in
+:data:`paged_decode_attention_unified_max_quant` /
 :data:`paged_decode_attention_sync_quant`; the plain versions dequantize
-each gathered page with the same expression. The steps are the only
+each gathered page (``codes.float() * step``). The steps are the only
 signal: codes without them, or steps beside bf16 pools, raise.
 """
 from __future__ import annotations
@@ -39,27 +53,31 @@ import torch
 from repro_torch.kernels import _build, merge, quant, ref
 
 DEFAULT_BLOCK_K = 512
+SPLIT_KEYS = 64          # absolute key positions per split (csrc kSplit)
+MAX_G = 16               # query heads per kv head: one m16 fragment
 
-_COMMON = [_build.VP] * 4                     # q, k, v, lengths
-_DIMS = [_build.I32] * 5 + [_build.I64] * 3   # B, HK, G, S, D, sb, ss, sh
-# B, HK, G, NB, PS, NP, D, sp, ss, sh
-_PDIMS = [_build.I32] * 7 + [_build.I64] * 3
+# q, k, v, lengths, out, stat / flag, acc, den, aux
+_PTRS = [_build.VP] * 9
+# B, HK, G, S, D, NSPLIT, sb, ss, sh
+_DIMS = [_build.I32] * 6 + [_build.I64] * 3
+# B, HK, G, NB, PS, NP, D, NSPLIT, sp, ss, sh
+_PDIMS = [_build.I32] * 8 + [_build.I64] * 3
 _SIG = {
     "decode_attention_unified_max_bf16":
-        _COMMON + [_build.VP, _build.VP] + _DIMS
-        + [_build.F32, _build.F32, _build.VP],
-    "decode_attention_sync_bf16":
-        _COMMON + [_build.VP, _build.VP] + _DIMS + [_build.F32, _build.VP],
+        _PTRS + _DIMS + [_build.F32, _build.F32, _build.VP],
+    "decode_attention_sync_bf16": _PTRS + _DIMS + [_build.F32, _build.VP],
+    # + bt
     "paged_decode_attention_unified_max_bf16":
-        [_build.VP] * 7 + _PDIMS + [_build.F32, _build.F32, _build.VP],
+        _PTRS + [_build.VP] + _PDIMS + [_build.F32, _build.F32, _build.VP],
     "paged_decode_attention_sync_bf16":
-        [_build.VP] * 7 + _PDIMS + [_build.F32, _build.VP],
-    # + k_step, v_step pointers and the code-type flag (1 = fp8)
+        _PTRS + [_build.VP] + _PDIMS + [_build.F32, _build.VP],
+    # + bt, k_step, v_step pointers and the code-type flag (1 = fp8)
     "paged_decode_attention_unified_max_q8":
-        [_build.VP] * 9 + _PDIMS
+        _PTRS + [_build.VP] * 3 + _PDIMS
         + [_build.F32, _build.F32, _build.I32, _build.VP],
     "paged_decode_attention_sync_q8":
-        [_build.VP] * 9 + _PDIMS + [_build.F32, _build.I32, _build.VP],
+        _PTRS + [_build.VP] * 3 + _PDIMS + [_build.F32, _build.I32,
+                                            _build.VP],
 }
 
 # the quantized bodies' launches, apart from the bf16 kernels'
@@ -123,6 +141,117 @@ def decode_attention_sync_plain(q, k_cache, v_cache, lengths, *,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# The CUDA path's split and combine, emulated
+# ---------------------------------------------------------------------------
+
+
+def split_fold(qg, k, v, valid, *, unified_max: bool, phi: float = 0.0):
+    """One split's partial of every query row, as the split kernel forms
+    it: ``qg (..., R, D)`` f32 scaled query rows, ``k`` / ``v`` ``(...,
+    L, D)`` f32 with every key it must not read at zero (the kernel
+    zero-fills them), ``valid (..., R, L)``. Each row is folded by itself,
+    as an mma.sync output row depends on its own A row only: products
+    summed along D and along the keys, never a matmul, whose CPU kernels
+    pick their summation order by the batch's shape. So a row's bits do
+    not depend on the rows beside it (the grouped pair's contract). The
+    weights are :func:`merge.unified_accumulate`'s and
+    :func:`merge.sync_accumulate`'s. Returns ``(acc (..., R, D), den (...,
+    R, 1), aux (..., R))``: aux is the row's max of ``s − φ`` over its
+    valid keys (unified max) or its running max (online max), ``-inf``
+    where it has none."""
+    s = (qg.unsqueeze(-2) * k.unsqueeze(-3)).sum(-1)          # (..., R, L)
+    neg = torch.full_like(s, float("-inf"))
+    if unified_max:
+        cen = s - phi
+        aux = torch.where(valid, cen, neg).amax(dim=-1)
+        e = torch.where(valid, torch.exp(cen), torch.zeros_like(cen))
+    else:
+        aux = torch.where(valid, s, neg).amax(dim=-1)
+        shift = torch.where(torch.isfinite(aux), aux, torch.zeros_like(aux))
+        e = torch.where(valid, torch.exp(s - shift[..., None]),
+                        torch.zeros_like(s))
+    acc = (e.unsqueeze(-1) * v.unsqueeze(-3)).sum(-2)        # (..., R, D)
+    return acc, e.sum(dim=-1, keepdim=True), aux
+
+
+def split_combine(parts, n, *, unified_max: bool):
+    """Fold each row's splits ``0 .. n - 1`` in ascending order, as the
+    combine kernel does: ``parts`` is the list of per-split ``(acc, den,
+    aux)`` of :func:`split_fold`, ``n`` the rows' split counts
+    (broadcastable to aux's shape). Unified-max partials add
+    (:func:`merge.merge_unified`); online-max ones merge by the guarded
+    :func:`merge.merge_lse` (an empty split adds nothing). Returns ``(out
+    (..., R, D) f32, aux (..., R))``, a row with no split giving zeros."""
+    acc = torch.zeros_like(parts[0][0])
+    den = torch.zeros_like(parts[0][1])
+    aux = torch.full_like(parts[0][2], float("-inf"))
+    n = torch.as_tensor(n, device=acc.device)
+    for i, (a, d, x) in enumerate(parts):
+        if unified_max:
+            a2, d2, x2 = merge.merge_unified((acc, den, aux), (a, d, x))
+        else:
+            a2, d2, x2 = merge.merge_lse((acc, den, aux[..., None]),
+                                         (a, d, x[..., None]))
+            x2 = x2[..., 0]
+        take = (i < n).expand_as(aux)
+        acc = torch.where(take[..., None], a2, acc)
+        den = torch.where(take[..., None], d2, den)
+        aux = torch.where(take, x2, aux)
+    return merge.finalize(acc, den, guard_zero=True), aux
+
+
+def split_parts(qg, k, v, lens, *, unified_max: bool, phi: float = 0.0):
+    """Every split's partials of ``qg (B, HK, G, D)`` over the keys ``k``
+    / ``v`` ``(B, HK, S, D)`` (f32, zero at and past ``lens``), cut at the
+    absolute multiples of ``SPLIT_KEYS``; keys at or past ``lens (B,)``
+    are masked."""
+    b, hk, g, _ = qg.shape
+    s_max = k.shape[2]
+    parts = []
+    for k0 in range(0, s_max, SPLIT_KEYS):
+        k1 = min(k0 + SPLIT_KEYS, s_max)
+        pos = torch.arange(k0, k1, device=qg.device)
+        valid = (pos[None, :] < lens[:, None])[:, None, None, :].expand(
+            b, hk, g, k1 - k0)
+        parts.append(split_fold(qg, k[:, :, k0:k1], v[:, :, k0:k1], valid,
+                                unified_max=unified_max, phi=phi))
+    return parts
+
+
+def split_counts(lens):
+    """Each row's split count, ``ceil(lens / SPLIT_KEYS)``, as (B, 1, 1)."""
+    return (-(-lens // SPLIT_KEYS))[:, None, None]
+
+
+def _split_result(q, parts, lens, unified_max):
+    b, hq, d = q.shape
+    out, aux = split_combine(parts, split_counts(lens),
+                             unified_max=unified_max)
+    out = out.reshape(b, hq, d).to(q.dtype)
+    return (out, aux.amax(dim=-1)) if unified_max else out
+
+
+def decode_attention_split_plain(q, k_cache, v_cache, lengths, *,
+                                 unified_max: bool = True, phi: float = 0.0,
+                                 scale: float | None = None):
+    """The dense CUDA path's split and combine, emulated on ``(B, HK, S,
+    D)`` caches: :func:`split_fold` per 64-key split, folded in order by
+    :func:`split_combine`. Keys at or past ``lengths`` (clamped to S) are
+    read as zeros, as the kernel zero-fills them. Returns ``(out, stat (B,
+    HK))`` for the unified-max scheme, ``out`` for the online-max one."""
+    b, hq, d = q.shape
+    hk, s_max = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hk, hq // hk, d).float() * scale
+    lens = lengths.to(q.device).long().clamp(0, s_max)
+    read = (torch.arange(s_max, device=q.device)[None, :]
+            < lens[:, None])[:, None, :, None]
+    k, v = (torch.where(read, c.float(), 0.0) for c in (k_cache, v_cache))
+    parts = split_parts(qg, k, v, lens, unified_max=unified_max, phi=phi)
+    return _split_result(q, parts, lens, unified_max)
+
+
 def _check_inputs(q, k_cache, v_cache, lengths):
     b, hq, d = q.shape
     if k_cache.shape != v_cache.shape or k_cache.shape[0] != b \
@@ -145,15 +274,34 @@ def _check_inputs(q, k_cache, v_cache, lengths):
     if d not in (32, 64, 128):
         raise ValueError(f"decode attention kernel takes head_dim 32/64/128, "
                          f"got {d}")
+    check_heads("decode attention", hq, k_cache.shape[1])
     return (q.contiguous(), lengths.to(device=q.device,
                                        dtype=torch.int32).contiguous())
 
 
-def _dims(q, k_cache):
+def check_heads(what, hq, hk):
+    """The split kernel holds a kv head's G = HQ/HK query heads in one
+    16-row tensor-core fragment."""
+    if hq // hk > MAX_G:
+        raise ValueError(f"{what} kernel takes at most {MAX_G} query heads "
+                         f"per kv head, got {hq // hk}")
+
+
+def split_scratch(b, s_max, hq, d, device):
+    """NSPLIT and the split kernel's f32 scratch ``(acc (B, NSPLIT, HQ,
+    D), den, aux (B, NSPLIT, HQ))`` for ``s_max`` key positions."""
+    nsplit = -(-s_max // SPLIT_KEYS)
+    f32 = dict(dtype=torch.float32, device=device)
+    return nsplit, (torch.empty((b, nsplit, hq, d), **f32),
+                    torch.empty((b, nsplit, hq), **f32),
+                    torch.empty((b, nsplit, hq), **f32))
+
+
+def _dims(q, k_cache, nsplit):
     b, hq, d = q.shape
     hk, s_max = k_cache.shape[1], k_cache.shape[2]
     sb, sh, ss, _ = k_cache.stride()
-    return [b, hk, hq // hk, s_max, d, sb, ss, sh]
+    return [b, hk, hq // hk, s_max, d, nsplit, sb, ss, sh]
 
 
 def decode_attention_unified_max(q, k_cache, v_cache, lengths, *,
@@ -169,16 +317,19 @@ def decode_attention_unified_max(q, k_cache, v_cache, lengths, *,
             q, k_cache, v_cache, lengths, phi=phi, scale=scale,
             block_k=block_k)
     q, lens = _check_inputs(q, k_cache, v_cache, lengths)
-    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    b, hq, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
-    stat = torch.empty((q.shape[0], k_cache.shape[1]), dtype=torch.float32,
+    stat = torch.empty((b, k_cache.shape[1]), dtype=torch.float32,
                        device=q.device)
+    nsplit, scratch = split_scratch(b, k_cache.shape[2], hq, d, q.device)
     lib = _build.load("decode_attention", _SIG)
     entry = "decode_attention_unified_max_bf16"
     code = getattr(lib, entry)(
         _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
         _build.ptr(lens), _build.ptr(out), _build.ptr(stat),
-        *_dims(q, k_cache), scale, phi, _build.stream_of(q))
+        *map(_build.ptr, scratch), *_dims(q, k_cache, nsplit), scale, phi,
+        _build.stream_of(q))
     _build.check(lib, entry, code)
     decode_attention_unified_max.launches += 1
     return out, stat
@@ -205,20 +356,23 @@ def decode_attention_sync(q, k_cache, v_cache, lengths, *,
                                           scale=scale, block_k=block_k)
         return res if out is None else torch.where(flag, res, out)
     q, lens = _check_inputs(q, k_cache, v_cache, lengths)
-    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    b, hq, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
     if out is None:
         out = torch.empty_like(q)
     elif out.shape != q.shape or not out.is_contiguous() \
             or out.dtype != q.dtype:
         raise ValueError("decode_attention_sync: out must be a contiguous "
                          "(B, HQ, D) tensor of q's dtype")
+    nsplit, scratch = split_scratch(b, k_cache.shape[2], hq, d, q.device)
     lib = _build.load("decode_attention", _SIG)
     entry = "decode_attention_sync_bf16"
     code = getattr(lib, entry)(
         _build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
         _build.ptr(lens), _build.ptr(out),
         _build.ptr(flag) if flag is not None else None,
-        *_dims(q, k_cache), scale, _build.stream_of(q))
+        *map(_build.ptr, scratch), *_dims(q, k_cache, nsplit), scale,
+        _build.stream_of(q))
     _build.check(lib, entry, code)
     decode_attention_sync.launches += 1
     return out
@@ -304,6 +458,44 @@ def paged_decode_attention_sync_plain(q, k_pool, v_pool, block_tables,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def paged_keys(q, k_pool, v_pool, block_tables, lengths, k_scale=None,
+               v_scale=None):
+    """The (B, HK, NB*PS, D) f32 keys and values a paged split kernel
+    reads through its tables (dequantized codes for a quantized pool),
+    zero at and past each row's length, and the lengths clamped to the
+    table's width."""
+    num_pages, ps = k_pool.shape[:2]
+    nb = block_tables.shape[1]
+    bt = block_tables.to(q.device).long().clamp(0, num_pages - 1)
+    lens = lengths.to(q.device).long().clamp(0, nb * ps)
+    read = (torch.arange(nb * ps, device=q.device)[None, :]
+            < lens[:, None])[:, None, :, None]
+    k, v = (torch.where(read, torch.cat(
+        [page_values(pool, bt[:, i], st) for i in range(nb)],
+        dim=1).float().permute(0, 2, 1, 3), 0.0)
+        for pool, st in ((k_pool, k_scale), (v_pool, v_scale)))
+    return k, v, lens
+
+
+def paged_decode_attention_split_plain(q, k_pool, v_pool, block_tables,
+                                       lengths, *, unified_max: bool = True,
+                                       phi: float = 0.0,
+                                       scale: float | None = None,
+                                       k_scale=None, v_scale=None):
+    """The paged CUDA path's split and combine, emulated: as
+    :func:`decode_attention_split_plain` on the keys the block tables
+    name (:func:`paged_keys`); the splits are cut on the table's logical
+    positions, so on the same KV this is bitwise the dense emulation."""
+    b, hq, d = q.shape
+    hk = k_pool.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hk, hq // hk, d).float() * scale
+    k, v, lens = paged_keys(q, k_pool, v_pool, block_tables, lengths,
+                            k_scale, v_scale)
+    parts = split_parts(qg, k, v, lens, unified_max=unified_max, phi=phi)
+    return _split_result(q, parts, lens, unified_max)
+
+
 def code_flag(k_pool, k_scale):
     """The quantized C entries' code-type flag of a checked pool: None
     for bf16 values (the bf16 entries), 0 for int8 codes, 1 for fp8."""
@@ -371,11 +563,28 @@ def check_paged_inputs(what, q, k_pool, v_pool, block_tables, lengths,
             lengths.to(device=q.device, dtype=torch.int32).contiguous())
 
 
-def _paged_dims(q, k_pool, bt):
+def _paged_dims(q, k_pool, bt, nsplit):
     b, hq, d = q.shape
     num_pages, ps, hk, _ = k_pool.shape
     sp, ss, sh, _ = k_pool.stride()
-    return [b, hk, hq // hk, bt.shape[1], ps, num_pages, d, sp, ss, sh]
+    return [b, hk, hq // hk, bt.shape[1], ps, num_pages, d, nsplit, sp, ss,
+            sh]
+
+
+def _paged_launch(q, k_pool, v_pool, block_tables, lengths, k_scale,
+                  v_scale):
+    """Check a paged launch's operands; returns the contiguous q, int32
+    tables and lengths, the code-type flag, the dims and the scratch."""
+    bt, lens = check_paged_inputs("paged decode attention", q, k_pool,
+                                  v_pool, block_tables, lengths, k_scale,
+                                  v_scale)
+    q = q.contiguous()
+    b, hq, d = q.shape
+    check_heads("paged decode attention", hq, k_pool.shape[2])
+    nsplit, scratch = split_scratch(b, bt.shape[1] * k_pool.shape[1], hq, d,
+                                    q.device)
+    return (q, bt, lens, code_flag(k_pool, k_scale),
+            _paged_dims(q, k_pool, bt, nsplit), scratch)
 
 
 def paged_decode_attention_unified_max(q, k_pool, v_pool, block_tables,
@@ -389,24 +598,21 @@ def paged_decode_attention_unified_max(q, k_pool, v_pool, block_tables,
         return paged_decode_attention_unified_max_plain(
             q, k_pool, v_pool, block_tables, lengths, phi=phi, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
-    bt, lens = check_paged_inputs("paged decode attention", q, k_pool,
-                                  v_pool, block_tables, lengths, k_scale,
-                                  v_scale)
-    fp8 = code_flag(k_pool, k_scale)
-    q = q.contiguous()
+    q, bt, lens, fp8, dims, scratch = _paged_launch(
+        q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     out = torch.empty_like(q)
     stat = torch.empty((q.shape[0], k_pool.shape[2]), dtype=torch.float32,
                        device=q.device)
     lib = _build.load("decode_attention", _SIG)
-    dims = _paged_dims(q, k_pool, bt)
+    parts = map(_build.ptr, scratch)
     if fp8 is not None:
         entry = "paged_decode_attention_unified_max_q8"
         code = getattr(lib, entry)(
             _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
             _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(bt),
-            _build.ptr(lens), _build.ptr(out), _build.ptr(stat), *dims,
-            scale, phi, fp8, _build.stream_of(q))
+            _build.ptr(lens), _build.ptr(out), _build.ptr(stat), *parts,
+            *dims, scale, phi, fp8, _build.stream_of(q))
         _build.check(lib, entry, code)
         paged_decode_attention_unified_max_quant.launches += 1
         return out, stat
@@ -414,7 +620,7 @@ def paged_decode_attention_unified_max(q, k_pool, v_pool, block_tables,
     code = getattr(lib, entry)(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
         _build.ptr(bt), _build.ptr(lens), _build.ptr(out), _build.ptr(stat),
-        *dims, scale, phi, _build.stream_of(q))
+        *parts, *dims, scale, phi, _build.stream_of(q))
     _build.check(lib, entry, code)
     paged_decode_attention_unified_max.launches += 1
     return out, stat
@@ -435,11 +641,8 @@ def paged_decode_attention_sync(q, k_pool, v_pool, block_tables, lengths, *,
             q, k_pool, v_pool, block_tables, lengths, scale=scale,
             k_scale=k_scale, v_scale=v_scale)
         return res if out is None else torch.where(flag, res, out)
-    bt, lens = check_paged_inputs("paged decode attention", q, k_pool,
-                                  v_pool, block_tables, lengths, k_scale,
-                                  v_scale)
-    fp8 = code_flag(k_pool, k_scale)
-    q = q.contiguous()
+    q, bt, lens, fp8, dims, scratch = _paged_launch(
+        q, k_pool, v_pool, block_tables, lengths, k_scale, v_scale)
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if out is None:
         out = torch.empty_like(q)
@@ -448,23 +651,23 @@ def paged_decode_attention_sync(q, k_pool, v_pool, block_tables, lengths, *,
         raise ValueError("paged_decode_attention_sync: out must be a "
                          "contiguous (B, HQ, D) tensor of q's dtype")
     lib = _build.load("decode_attention", _SIG)
-    dims = _paged_dims(q, k_pool, bt)
     flag_p = _build.ptr(flag) if flag is not None else None
+    parts = map(_build.ptr, scratch)
     if fp8 is not None:
         entry = "paged_decode_attention_sync_q8"
         code = getattr(lib, entry)(
             _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
             _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(bt),
-            _build.ptr(lens), _build.ptr(out), flag_p, *dims, scale, fp8,
-            _build.stream_of(q))
+            _build.ptr(lens), _build.ptr(out), flag_p, *parts, *dims, scale,
+            fp8, _build.stream_of(q))
         _build.check(lib, entry, code)
         paged_decode_attention_sync_quant.launches += 1
         return out
     entry = "paged_decode_attention_sync_bf16"
     code = getattr(lib, entry)(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
-        _build.ptr(bt), _build.ptr(lens), _build.ptr(out), flag_p, *dims,
-        scale, _build.stream_of(q))
+        _build.ptr(bt), _build.ptr(lens), _build.ptr(out), flag_p, *parts,
+        *dims, scale, _build.stream_of(q))
     _build.check(lib, entry, code)
     paged_decode_attention_sync.launches += 1
     return out

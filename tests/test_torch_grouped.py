@@ -166,10 +166,12 @@ def test_grouped_plain_matches_pallas(case, dtype):
     _, want_stat = jda.paged_decode_attention_unified_max(
         jq, jk, jv, jbt, jl, phi=0.25, interpret=True)
     _close(stat, want_stat, dtype)
-    # the two stages compose to the whole
+    # the two stages compose to the whole; stage 1 lays its partials out
+    # per 64-key split of the group tables' positions (at least one)
     parts = tga.group_prefix_partials(tq, tk, tv, tg, phi=0.25)
+    nws = tga.prefix_splits(jg.tables.shape[1], PS)
     assert [tuple(t.shape) for t in parts] == [
-        (jg.tables.shape[0], 2, tga.WARPS,
+        (jg.tables.shape[0], nws, 2,
          jg.member_rows.shape[1] * 4) + s for s in ((32,), (), ())]
     out2, stat2 = tga.group_tail_merge(tq, tk, tv, tbt, tl, tg, *parts,
                                        phi=0.25)
@@ -229,21 +231,36 @@ def test_grouped_plain_equals_ungrouped_plain_in_f32():
 
 
 def test_stage_one_partials_follow_the_warp_chunks():
-    """Stage 1 keeps one partial per warp of the ungrouped kernel's walk
-    (key p to warp (p // 32) % 4): a 16-key prefix lands wholly in warp
-    0, a 64-key prefix in warps 0 and 1; padding rows stay empty."""
+    """Stage 1 keeps one partial per 64-key split, the unit one warp of
+    the split kernel computes (row 5's splits), and per member slot:
+    ``(NG, NWS, HK, M·G)`` with NWS = LP·PS // 64. A prefix under 64 keys
+    has no whole split and leaves stage 1 empty; a 64-key prefix fills
+    split 0, a 100-key one split 0 only (stage 2 takes keys 64-99 from
+    the rows' own tables), a 128-key one splits 0 and 1. Member slots
+    past num_members and splits past the prefix stay empty (0, 0,
+    -inf)."""
     q, kp, vp, _, _ = _fixture("float32", seed=5, nb=6)
-    for plen, busy in ((PS, {0}), (4 * PS, {0, 1})):
-        _, tg = _groups(6, 32, [([3, 4, 10, 11], plen, [0])])
+    pages = [3, 4, 10, 11, 12, 13, 14, 16]
+    g = 4                                        # HQ / HK
+    for plen, busy in ((PS, set()), (4 * PS, {0}), (100, {0}),
+                       (8 * PS, {0, 1})):
+        _, tg = _groups(6, 32, [(pages, plen, [0, 2])])
         num, den, stat = tga.group_prefix_partials(q[1], kp[1], vp[1], tg)
-        g = 4                                    # HQ / HK
-        for w in range(tga.WARPS):
-            live = den[0, :, w, :g]
-            assert bool((live > 0).all()) == (w in busy)
-            assert bool((live == 0).all()) == (w not in busy)
+        assert num.shape == (1, 2, 2, 2 * g, 32)
+        assert den.shape == stat.shape == (1, 2, 2, 2 * g)
+        for s in range(2):
+            live = den[0, s, :, :2 * g]
+            assert bool((live > 0).all()) == (s in busy)
+            assert bool((live == 0).all()) == (s not in busy)
+            assert bool(torch.isneginf(stat[0, s, :, :2 * g]).all()) == \
+                (s not in busy)
         # member slots past num_members carry the empty partial
-        assert not den[0, :, :, g:].any()
-        assert bool(torch.isneginf(stat[0, :, :, g:]).all())
+        _, tg = _groups(6, 32, [(pages, plen, [0, 2, 4])])
+        num, den, stat = tga.group_prefix_partials(q[1], kp[1], vp[1], tg)
+        assert num.shape[3] == 4 * g
+        assert not den[0, :, :, 3 * g:].any()
+        assert not num[0, :, :, 3 * g:].any()
+        assert bool(torch.isneginf(stat[0, :, :, 3 * g:]).all())
 
 
 def test_grouped_oracles_equal_ungrouped_bitwise():
