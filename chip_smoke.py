@@ -40,6 +40,13 @@
    rows, grouped bitwise paged; and a grouped case whose prefix is not a
    multiple of a 64-key split (32-row pages, a 160-token prefix), bf16 and
    int8, bitwise row 5 and unchanged with NaN where it must not read.
+   The split-K flat GEMM (rows 2 and 13) is held to its split plain
+   version at the q, k / v, o_proj and down shapes, M in {1, 4, 8, 13,
+   64}, bf16, int8 and fp8, with and without a residual; a row alone must
+   give its row's bits in the batch, a second launch the first's, and a
+   CUDA graph's replay the eager call's. Rows 1, 2 and 13 get a second
+   line at N = 896 (gemv and flat_gemm on the down projection,
+   oproj_residual on the o_proj), timed beside matmul / addmm.
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
    greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
@@ -521,18 +528,19 @@ def kernel_phase(torch, timer, rows, log):
             record(name, f"{qs.name} {case}", got, want, kern, plain, lib,
                    nbytes, flops, primary, gemm_close, twin=twin, slot=slot)
 
-        for m, name, fn in ((1, "gemv_quant", gemv),
-                            (4, "flat_gemm_quant", flat_gemm),
-                            (64, "flat_gemm_quant", flat_gemm)):
+        for m, name, fn, plain in (
+                (1, "gemv_quant", gemv, gemv_plain),
+                (4, "flat_gemm_quant", flat_gemm, flat_gemm_plain),
+                (64, "flat_gemm_quant", flat_gemm, flat_gemm_plain)):
             x = randn(m, max(d, f))
             for k, n in shapes:
                 xx = x[:, :k].contiguous()
                 w = randn(k, n, scale=k ** -0.5)
                 c, sc = Q(w)
                 qrec(name, f"M={m} K={k} N={n}",
-                     fn(xx, c, w_scale=sc), gemv_plain(xx, c, w_scale=sc),
+                     fn(xx, c, w_scale=sc), plain(xx, c, w_scale=sc),
                      lambda: fn(xx, c, w_scale=sc),
-                     lambda: gemv_plain(xx, c, w_scale=sc),
+                     lambda: plain(xx, c, w_scale=sc),
                      lambda: (torch.matmul(xx, c.to(bf)) * sc).to(bf),
                      lambda: fn(xx, w), q_bytes(m, k, n), 2 * m * k * n,
                      m <= 4 and (k, n) == (f, d))
@@ -989,10 +997,123 @@ def kernel_phase(torch, timer, rows, log):
             f"max_abs_err={err:.3e} ({tol})")
         check(ok, f"ops.attention_chunk_paged {tag} disagrees")
 
+    split_k_checks(torch, cfg, randn, record, gemm_close, log)
     split_kv_checks(torch, cfg, gen, randn, record, attn_close, log)
     decode_split_checks(torch, timer, cfg, gen, randn, record, attn_close,
                         log)
     kv_quant_kernels(torch, cfg, gen, randn, record, attn_close, log)
+
+
+def split_k_checks(torch, cfg, randn, record, gemm_close, log):
+    """The split-K flat GEMM (rows 2 and 13, bf16 and quantized) where
+    the split shows: the decode GEMMs whose N leaves SMs idle.
+
+    * q, k / v, o_proj and down at M in {1, 4, 8, 13, 64}, bf16, int8 and
+      fp8: ``flat_gemm`` (no residual) and ``oproj_residual_fused`` (with
+      one), each within ``gemm_close`` of its split plain version.
+    * Rows 0, 5 and M - 1 of M = 13 and 64, each run alone (M = 1),
+      bitwise their rows in the batch; a second launch bitwise the first;
+      a CUDA graph's replay at M = 4 bitwise the eager calls.
+    * The second kernel-table line of rows 1, 2 and 13 at N = 896: gemv
+      (M = 1) and flat_gemm (M = 4) on the down projection, and
+      oproj_residual (M = 4) on the o_proj (its first line is the down
+      projection), timed beside ``matmul`` / ``addmm``."""
+    from repro_torch.kernels import decode_fuse as dfu
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.flat_gemm import (flat_gemm, flat_gemm_plain,
+                                               gemm_tiles)
+    from repro_torch.kernels.gemv import gemv, gemv_plain
+    from repro_torch.models import wquant
+
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    nq, nk = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    shapes = {"q": (d, nq), "k/v": (d, nk), "o_proj": (nq, d),
+              "down": (f, d)}
+    x = randn(64, f)
+    for tag, (k, n) in shapes.items():
+        w = randn(k, n, scale=k ** -0.5)
+        resid = randn(64, n)
+        weights = {"bf16": (w, None)}
+        for qs in (quant.INT8, quant.FP8):
+            q = wquant.quantize_weight(w, qs)
+            weights[qs.name] = (q["codes"], q["scale"])
+        for kind, (wt, sc) in weights.items():
+            bn, bk, splits = gemm_tiles(4, k, n, w_bytes=wt.element_size())
+            check(splits > 1, f"split-K {tag}: {k}->{n} is not split")
+
+            def gemm(xx, res=None):
+                if res is None:
+                    return flat_gemm(xx, wt, w_scale=sc)
+                return dfu.oproj_residual_fused(xx, wt, res, w_scale=sc)
+
+            def plain(xx, res=None):
+                if res is None:
+                    return flat_gemm_plain(xx, wt, w_scale=sc)
+                return dfu.oproj_residual_plain(xx, wt, res, w_scale=sc)
+
+            worst, close, alone, again = 0.0, True, True, True
+            for m in (1, 4, 8, 13, 64):
+                xx = x[:m, :k].contiguous()
+                for res in (None, resid[:m].contiguous()):
+                    got = gemm(xx, res)
+                    want = plain(xx, res)
+                    worst = max(worst, (got.float() - want.float()).abs()
+                                .max().item())
+                    close = close and gemm_close(got, want)[0]
+                    again = again and same_bits(torch, (gemm(xx, res), got))
+                    if m in (13, 64):
+                        alone = alone and same_bits(torch, *[
+                            (gemm(xx[i:i + 1], None if res is None
+                                  else res[i:i + 1]), got[i:i + 1])
+                            for i in (0, 5, m - 1)])
+            # a graph replay at M = 4, both entries, bitwise the eager calls
+            xx, res = x[:4, :k].contiguous(), resid[:4].contiguous()
+            eager = (gemm(xx), gemm(xx, res))
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                gemm(xx), gemm(xx, res)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = (gemm(xx), gemm(xx, res))
+            for t in captured:
+                t.fill_(0)
+            graph.replay()
+            torch.cuda.synchronize()
+            replay = same_bits(torch, *zip(captured, eager))
+            log(f"kernel split-K {tag} {kind} K={k} N={n} (BN={bn} BK={bk},"
+                f" {splits} splits) M=1/4/8/13/64, with and without a "
+                f"residual: max_abs_err={worst:.3e} (tol atol="
+                f"{TOL['atol']} rtol={TOL['rtol']}) "
+                f"{'ok' if close else 'MISMATCH'}"
+                f"; a row alone bitwise in its batch {alone}; two launches "
+                f"bitwise {again}; graph replay bitwise eager {replay}")
+            check(close, f"split-K {tag} {kind}: kernel disagrees with its "
+                  "split plain version")
+            check(alone, f"split-K {tag} {kind}: a row's bits depend on M")
+            check(again, f"split-K {tag} {kind}: two launches differ")
+            check(replay, f"split-K {tag} {kind}: a graph replay differs "
+                  "from the eager call")
+
+    # -- the second kernel-table line of rows 1, 2 and 13 at N = 896 -------
+    wd, wo = randn(f, d, scale=f ** -0.5), randn(nq, d, scale=nq ** -0.5)
+    for name, fn, pl, m, k, w in (("gemv", gemv, gemv_plain, 1, f, wd),
+                                  ("flat_gemm", flat_gemm, flat_gemm_plain, 4,
+                                   f, wd)):
+        xx = x[:m, :k].contiguous()
+        record(name, f"M={m} K={k} N={d} (K,N) down", fn(xx, w), pl(xx, w),
+               lambda: fn(xx, w), lambda: pl(xx, w),
+               lambda: torch.matmul(xx, w), 2 * (m * k + k * d + m * d),
+               2 * m * k * d, True, gemm_close, slot="n896")
+    o, res = x[:4, :nq].contiguous(), randn(4, d)
+    record("oproj_residual_fused", f"M=4 K={nq} N={d} o_proj",
+           dfu.oproj_residual_fused(o, wo, res),
+           dfu.oproj_residual_plain(o, wo, res),
+           lambda: dfu.oproj_residual_fused(o, wo, res),
+           lambda: dfu.oproj_residual_plain(o, wo, res),
+           lambda: torch.addmm(res, o, wo), 2 * (4 * nq + nq * d + 8 * d),
+           2 * 4 * nq * d, True, gemm_close, slot="n896")
 
 
 def split_kv_checks(torch, cfg, gen, randn, record, attn_close, log):
@@ -2627,7 +2748,7 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["case"],
-            **{key: r[key] for key in ("bf16_ms", "fp8", "long")
+            **{key: r[key] for key in ("bf16_ms", "fp8", "long", "n896")
                if key in r}})
     (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
     print(smi)

@@ -141,6 +141,12 @@ __device__ __forceinline__ void cp_async_wait0() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
+// Wait until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // ldmatrix: four 8x8 b16 matrices from shared memory, lane l giving the
 // 16-byte row address of row l % 8 of matrix l / 8. Lane l receives, in
 // r[i], row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of matrix i; with

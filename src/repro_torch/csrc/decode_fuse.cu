@@ -254,15 +254,16 @@ REPRO_EXPORT int decode_ingest_q8(const void* x, const void* scale,
 }
 
 // out (M, N) row-major bf16 = resid + bf16(o @ W); o (M, K; row stride
-// ldo), W row-major (K, N), resid (M, N; row stride ldr); tiles (bn, bk).
+// ldo), W row-major (K, N), resid (M, N; row stride ldr); tiles (bn, bk),
+// K in `splits` ranges summed in order (flat_gemm.cu's split K).
 // Needs K % 8 == 0 and N % 8 == 0 with 16-byte aligned rows.
 REPRO_EXPORT int oproj_residual_bf16(const void* o, const void* w,
                                      const void* resid, void* out, int M,
                                      int K, int N, long long ldo,
                                      long long ldr, int bn, int bkt,
-                                     void* stream) {
+                                     int splits, void* stream) {
   return flat::dispatch_gemm<true, __nv_bfloat16>(
-      bn, bkt, o, w, nullptr, resid, out, M, K, N, ldo, N, ldr,
+      bn, bkt, splits, o, w, nullptr, resid, out, M, K, N, ldo, N, ldr,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -273,10 +274,11 @@ REPRO_EXPORT int oproj_residual_q8(const void* o, const void* w,
                                    const void* wscale, const void* resid,
                                    void* out, int M, int K, int N,
                                    long long ldo, long long ldr, int bn,
-                                   int bkt, int fp8, void* stream) {
-  return flat::dispatch_gemm_q8<>(fp8, bn, bkt, o, w, wscale, resid, out, M,
-                                K, N, ldo, N, ldr,
-                                static_cast<cudaStream_t>(stream));
+                                   int bkt, int splits, int fp8,
+                                   void* stream) {
+  return flat::dispatch_gemm_q8<>(fp8, bn, bkt, splits, o, w, wscale, resid,
+                                  out, M, K, N, ldo, N, ldr,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // out (M, N) row-major bf16 = act(rmsnorm(x) @ Wg) * (rmsnorm(x) @ Wu);

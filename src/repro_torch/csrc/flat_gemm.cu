@@ -20,6 +20,18 @@
 //     with cp.async (2 stages): tile k+1 lands while tile k is consumed.
 //     Rows past M and columns past N are zero-filled by the copy itself
 //     (src-size 0), so no host-side padding is needed.
+//   * Split K where the columns alone leave SMs idle (the 896- and
+//     128-wide decode GEMMs: 28 and 4 blocks on 132 SMs, each walking all
+//     of K with two stages in flight, ~0.11 TB/s measured): `splits` fixed
+//     K ranges of whole BK tiles form one thread-block cluster per output
+//     tile, each block streams its range through a 4-stage ring, copying
+//     only its live x rows, and the cluster sums the ranges' f32 partials
+//     in split order through distributed shared memory before the one
+//     epilogue (flat_stream.cuh's gemm_split_kernel). No atomics and no
+//     scratch: a launch's bits are the same every time and under a CUDA
+//     graph, and a row's bits do not depend on M (splits come from K, N
+//     and the card). splits = 1 (the tied head fills the card) launches
+//     the unsplit kernel.
 //   * W is taken in two layouts, as in the GEMV: "KN" (row-major (K, N))
 //     and "NK" (the transposed view of a row-major (N, K) tensor, e.g.
 //     the tied LM head), read in place.
@@ -38,19 +50,21 @@ using namespace repro;
 
 REPRO_ERROR_STRING_FN
 
-// out (M, N) row-major bf16 = x (M, K; row stride ldx) @ W, tiles (bn, bk).
+// out (M, N) row-major bf16 = x (M, K; row stride ldx) @ W, tiles (bn,
+// bk), K in `splits` ranges (1 = unsplit; more needs bn = 32).
 // w_kn = 1: W[k, n] at w[k*ldw + n]; w_kn = 0: W[k, n] at w[n*ldw + k].
 // Needs K % 8 == 0 (and N % 8 == 0 for "KN") with 16-byte aligned rows.
 REPRO_EXPORT int flat_gemm_bf16(const void* x, const void* w, void* out,
                                 int M, int K, int N, long long ldx,
                                 long long ldw, int w_kn, int bn, int bk,
-                                void* stream) {
+                                int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (w_kn)
     return flat::dispatch_gemm<true, __nv_bfloat16>(
-        bn, bk, x, w, nullptr, nullptr, out, M, K, N, ldx, ldw, 0, st);
+        bn, bk, splits, x, w, nullptr, nullptr, out, M, K, N, ldx, ldw, 0,
+        st);
   return flat::dispatch_gemm<false, __nv_bfloat16>(
-      bn, bk, x, w, nullptr, nullptr, out, M, K, N, ldx, ldw, 0, st);
+      bn, bk, splits, x, w, nullptr, nullptr, out, M, K, N, ldx, ldw, 0, st);
 }
 
 // Quantized weights (replaces _flat_gemm_quant_kernel): out (M, N) bf16 =
@@ -61,8 +75,8 @@ REPRO_EXPORT int flat_gemm_bf16(const void* x, const void* w, void* out,
 REPRO_EXPORT int flat_gemm_q8(const void* x, const void* w,
                               const void* scale, void* out, int M, int K,
                               int N, long long ldx, long long ldw, int bn,
-                              int bk, int fp8, void* stream) {
-  return flat::dispatch_gemm_q8<>(fp8, bn, bk, x, w, scale, nullptr, out, M,
-                                K, N, ldx, ldw, 0,
-                                static_cast<cudaStream_t>(stream));
+                              int bk, int splits, int fp8, void* stream) {
+  return flat::dispatch_gemm_q8<>(fp8, bn, bk, splits, x, w, scale, nullptr,
+                                  out, M, K, N, ldx, ldw, 0,
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -14,7 +14,7 @@
 //     tied LM head).
 //   * K streams in BK tiles through two shared-memory stages filled by
 //     cp.async (zero-filled past K and N): tile k+1 lands while tile k is
-//     consumed.
+//     consumed. The split GEMM keeps a deeper ring (split_mainloop).
 //   * x is either streamed (kMT = 64 rows per block, one x tile per
 //     stage) or resident: norm_rows() writes the block's rows, rms-
 //     normalised and rounded to bf16, into shared memory once before the
@@ -29,7 +29,12 @@
 //     package's quantized bodies: dot on codes cast to the activation
 //     dtype, f32 accumulation, acc * step). The bf16 instantiations keep
 //     their layout, loads and MMA order, so they keep their bits.
+//   * The split-K GEMM (gemm_split_kernel) walks one fixed range of whole
+//     K tiles per block and sums the ranges' f32 partials in order
+//     through a thread-block cluster's distributed shared memory.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
@@ -37,15 +42,18 @@ namespace repro {
 namespace flat {
 
 constexpr int kMT = 64;  // token rows per block at most (8 n8 tiles)
+constexpr int kMaxSplits = 8;    // K splits: a portable cluster at most
+constexpr int kSplitBN = 64;     // the split GEMM's column tile
+constexpr int kSplitStages = 4;  // the split GEMM's cp.async ring
 
 template <typename WT>
 constexpr bool kIsCode = sizeof(WT) == 1;   // a quantized weight's codes
 
 // One pipeline stage: the streamed x tile (bf16, absent when x is
 // resident), then S weight tiles. Every row is padded by 16 bytes (8 bf16
-// or 16 codes), which keeps each row start 16-byte aligned.
+// or 16 codes), which keeps each row start 16-byte aligned. NST stages.
 template <int BN, int BK, int S, bool XRES, bool KN = true,
-          typename WT = __nv_bfloat16>
+          typename WT = __nv_bfloat16, int NST = 2>
 struct Tile {
   static_assert(KN || !kIsCode<WT>, "codes come in the (K, N) layout only");
   static constexpr int kThreads = BN / 16 * 32;
@@ -57,7 +65,8 @@ struct Tile {
   static constexpr int kXBytes = XRES ? 0 : kMT * kXPitch * 2;
   static constexpr int kWBytes = kWRows * kWPitchBytes;
   static constexpr int kStageBytes = kXBytes + S * kWBytes;
-  static constexpr size_t kStagesBytes = 2 * static_cast<size_t>(kStageBytes);
+  static constexpr size_t kStagesBytes =
+      NST * static_cast<size_t>(kStageBytes);
 };
 
 // Row pitch of the resident rows: K rounded up to whole BK tiles, plus 8
@@ -106,14 +115,15 @@ __device__ __forceinline__ void load_w(unsigned char* ws,
   }
 }
 
+// Rows m0 .. m0 + rows of a BK-wide x tile (zero-filled past M and K).
 template <int BK, int NT>
 __device__ __forceinline__ void load_x(__nv_bfloat16* xs,
                                        const __nv_bfloat16* __restrict__ x,
                                        int M, int K, long long ldx, int m0,
-                                       int k0) {
+                                       int k0, int rows = kMT) {
   constexpr int kPitch = BK + 8;
-  constexpr int kChunks = kMT * (BK / 8);
-  for (int c = threadIdx.x; c < kChunks; c += NT) {
+  const int chunks = rows * (BK / 8);
+  for (int c = threadIdx.x; c < chunks; c += NT) {
     const int r = c / (BK / 8), cc = c % (BK / 8);
     const int gm = m0 + r, gk = k0 + cc * 8;
     const bool ok = gm < M && gk < K;
@@ -274,6 +284,69 @@ __device__ __forceinline__ void mainloop(
   }
 }
 
+// The split GEMM's walk: acc (this warp's 16 columns x nt n8 row tiles)
+// = x[m0.., K tiles kt_lo .. min(kt_hi, ceil(K / BK)) - 1] @ W[same, n0..]
+// in K order, mainloop's arithmetic for one weight stream and streamed x,
+// through an NST-deep ring that copies only the nt * 8 live x rows. Kept
+// apart from mainloop so that the other kernels compile its two-stage
+// loop unchanged: with one loop for both, the ingest kernel compiled to
+// fewer registers and ran slower on the H100. Ends with __syncthreads().
+template <int BN, int BK, bool KN, typename WT, int NST>
+__device__ __forceinline__ void split_mainloop(
+    unsigned char* stages, const __nv_bfloat16* __restrict__ x,
+    long long ldx, const WT* __restrict__ w, long long ldw, int M, int K,
+    int N, int m0, int n0, int nt, int kt_lo, int kt_hi,
+    float (&acc)[8][4]) {
+  using T = Tile<BN, BK, 1, false, KN, WT, NST>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wn = warp * 16;  // this warp's 16 columns
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+
+  auto load_stage = [&](int i) {
+    unsigned char* stage = stages + i % NST * T::kStageBytes;
+    const int k0 = (kt_lo + i) * BK;
+    load_x<BK, T::kThreads>(reinterpret_cast<__nv_bfloat16*>(stage), x, M, K,
+                            ldx, m0, k0, nt * 8);
+    load_w<BN, BK, T::kThreads, KN, WT>(stage + T::kXBytes, w, K, N, ldw, n0,
+                                        k0);
+  };
+
+  const int n = min(kt_hi, (K + BK - 1) / BK) - kt_lo;  // tiles to walk
+  for (int i = 0; i < NST - 1; ++i) {
+    if (i < n) load_stage(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    if (i + NST - 1 < n) load_stage(i + NST - 1);
+    cp_async_commit();         // possibly empty: keeps the group count uniform
+    cp_async_wait<NST - 1>();  // tile i has landed
+    __syncthreads();
+
+    const unsigned char* stage = stages + i % NST * T::kStageBytes;
+    const uint16_t* xs16 = reinterpret_cast<const uint16_t*>(stage);
+    const unsigned char* wsb = stage + T::kXBytes;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[4];
+      w_frag<BN, BK, KN, WT>(wsb, kk, wn, g, t, a);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < nt) {
+          const uint16_t* xr = xs16 + (j * 8 + g) * T::kXPitch + kk + 2 * t;
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 8);
+          mma_bf16(acc[j], a[0], a[1], a[2], a[3], b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // stage i may be refilled next iteration
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The flat GEMM, out = x @ W, or resid + x @ W with a residual: flat_gemm.cu
 // instantiates it without one (resid = nullptr), decode_fuse.cu's
@@ -283,6 +356,17 @@ __device__ __forceinline__ void mainloop(
 // multiplies the accumulator first: bf16(acc * step), and with a
 // residual bf16(resid + bf16(acc * step)); bf16 weights take no scale.
 // ---------------------------------------------------------------------------
+
+// The epilogue of one output element from its f32 sum over all of K.
+template <typename WT>
+__device__ __forceinline__ void gemm_store(
+    float v, int m, int n, int N, const float* __restrict__ scale,
+    const __nv_bfloat16* __restrict__ resid, long long ldr,
+    __nv_bfloat16* __restrict__ out) {
+  if constexpr (kIsCode<WT>) v *= scale[n];
+  if (resid != nullptr) v = bf2f(resid[m * ldr + n]) + bf2f(f2bf(v));
+  out[static_cast<long long>(m) * N + n] = f2bf(v);
+}
 
 template <int BN, int BK, bool KN, typename WT>
 __global__ void __launch_bounds__(BN / 16 * 32)
@@ -308,15 +392,83 @@ gemm_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
       for (int i = 0; i < 4; ++i) {
         const int m = m0 + j * 8 + 2 * t + (i & 1);
         const int n = n0 + warp * 16 + g + (i >> 1) * 8;
-        if (m < M && n < N) {
-          float v = acc[0][j][i];
-          if constexpr (kIsCode<WT>) v *= scale[n];
-          if (resid != nullptr) v = bf2f(resid[m * ldr + n]) + bf2f(f2bf(v));
-          out[static_cast<long long>(m) * N + n] = f2bf(v);
-        }
+        if (m < M && n < N)
+          gemm_store<WT>(acc[0][j][i], m, n, N, scale, resid, ldr, out);
       }
     }
   }
+}
+
+// Split K, for grids whose columns alone leave SMs idle (N = 896 gives
+// 28 blocks of BN = 32 on 132 SMs, each walking all of K). The launch's
+// z axis holds S = gridDim.z fixed K ranges of ceil(n_kt / S) whole BK
+// tiles each, counted from K = 0; the S blocks of one (column, row) tile
+// form one thread-block cluster along z, block rank = split. Each block
+// walks its range through a kSplitStages-deep cp.async ring, copying only
+// its live x rows, and leaves its f32 accumulators in shared memory;
+// after cluster.sync() every block folds one slice of the tile's
+// elements over the S splits in split order (distributed shared memory:
+// no atomics, no scratch) and runs the epilogue on the sum, so the step
+// multiplies the summed f32 accumulator once, before the first rounding.
+// S is a function of K, N and the card (kernels/flat_gemm.py::
+// pick_splits), never of M, and an element's sum depends only on its own
+// row and column: a row's bits are the same alone and in any batch,
+// launch after launch. Launched at BN = kSplitBN: on the H100, at the
+// same split count, 128-byte weight row segments stream faster than
+// 64-byte ones, and the time falls with each block's share of K more
+// than with anything else tried (ring depth, x rows per stage, warps
+// that only copy).
+template <int BN, int BK, bool KN, typename WT>
+__global__ void __launch_bounds__(BN / 16 * 32)
+gemm_split_kernel(const __nv_bfloat16* __restrict__ x,
+                  const WT* __restrict__ w, const float* __restrict__ scale,
+                  const __nv_bfloat16* __restrict__ resid,
+                  __nv_bfloat16* __restrict__ out, int M, int K, int N,
+                  long long ldx, long long ldw, long long ldr) {
+  using T = Tile<BN, BK, 1, false, KN, WT, kSplitStages>;
+  constexpr int NT = T::kThreads;
+  static_assert(8 * 4 * NT * sizeof(float) <= T::kStagesBytes,
+                "the partials reuse the stages");
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int z = static_cast<int>(cluster.block_rank());
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * kMT;
+  const int nt = min(8, (M - m0 + 7) / 8);  // live n8 token tiles
+  const int per = ((K + BK - 1) / BK + S - 1) / S;  // K tiles per split
+  float acc[8][4];
+  split_mainloop<BN, BK, KN, WT, kSplitStages>(smem, x, ldx, w, ldw, M, K, N,
+                                               m0, n0, nt, z * per,
+                                               (z + 1) * per, acc);
+
+  // this split's partials, element e = (j * 4 + i) * NT + thread
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        part[(j * 4 + i) * NT + threadIdx.x] = acc[j][i];
+    }
+  }
+  cluster.sync();  // every split's partials are written and visible
+
+  const int E = nt * 4 * NT;
+  for (int e = E * z / S + threadIdx.x; e < E * (z + 1) / S; e += NT) {
+    const int tid = e % NT, i = e / NT % 4, j = e / (4 * NT);
+    const int lane = tid % 32;
+    const int m = m0 + j * 8 + 2 * (lane % 4) + (i & 1);
+    const int n = n0 + tid / 32 * 16 + lane / 4 + (i >> 1) * 8;
+    if (m < M && n < N) {
+      float v = *cluster.map_shared_rank(part + e, 0);
+#pragma unroll 4
+      for (int q = 1; q < S; ++q) v += *cluster.map_shared_rank(part + e, q);
+      gemm_store<WT>(v, m, n, N, scale, resid, ldr, out);
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partials
 }
 
 template <int BN, int BK, bool KN, typename WT>
@@ -336,11 +488,59 @@ int launch_gemm(const void* x, const void* w, const void* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BN, int BK, bool KN, typename WT>
+int launch_gemm_split(int splits, const void* x, const void* w,
+                      const void* scale, const void* resid, void* out, int M,
+                      int K, int N, long long ldx, long long ldw,
+                      long long ldr, cudaStream_t st) {
+  using T = Tile<BN, BK, 1, false, KN, WT, kSplitStages>;
+  auto kernel = gemm_split_kernel<BN, BK, KN, WT>;
+  cudaError_t e = allow_smem(kernel, T::kStagesBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, (M + kMT - 1) / kMT, splits);
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = T::kStagesBytes;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  using B = __nv_bfloat16;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const B*>(x),
+                         static_cast<const WT*>(w),
+                         static_cast<const float*>(scale),
+                         static_cast<const B*>(resid), static_cast<B*>(out),
+                         M, K, N, ldx, ldw, ldr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// splits = 1: gemm_kernel at (bn, bk); 2 .. kMaxSplits: gemm_split_kernel
+// at (kSplitBN, bk).
 template <bool KN, typename WT>
-int dispatch_gemm(int bn, int bk, const void* x, const void* w,
+int dispatch_gemm(int bn, int bk, int splits, const void* x, const void* w,
                   const void* scale, const void* resid, void* out, int M,
                   int K, int N, long long ldx, long long ldw, long long ldr,
                   cudaStream_t st) {
+  if (splits > 1) {
+    constexpr int BN = kSplitBN;
+    if (splits > kMaxSplits || bn != BN)
+      return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_FS_CASE(BK_)                                                \
+  if (bk == BK_)                                                          \
+    return launch_gemm_split<BN, BK_, KN, WT>(splits, x, w, scale, resid, \
+                                              out, M, K, N, ldx, ldw, ldr, \
+                                              st);
+    REPRO_FS_CASE(32)
+    REPRO_FS_CASE(64)
+    REPRO_FS_CASE(128)
+#undef REPRO_FS_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
 #define REPRO_FG_CASE(BN_, BK_)                                             \
   if (bn == BN_ && bk == BK_)                                               \
     return launch_gemm<BN_, BK_, KN, WT>(x, w, scale, resid, out, M, K, N,  \
@@ -362,16 +562,16 @@ int dispatch_gemm(int bn, int bk, const void* x, const void* w,
 // in the (K, N) layout, steps (N,) f32, optional residual. A template, so
 // that only the sources that call it compile its kernels.
 template <bool KN = true>
-int dispatch_gemm_q8(int fp8, int bn, int bk, const void* x,
-                            const void* w, const void* scale,
-                            const void* resid, void* out, int M, int K,
-                            int N, long long ldx, long long ldw,
-                            long long ldr, cudaStream_t st) {
+int dispatch_gemm_q8(int fp8, int bn, int bk, int splits, const void* x,
+                     const void* w, const void* scale, const void* resid,
+                     void* out, int M, int K, int N, long long ldx,
+                     long long ldw, long long ldr, cudaStream_t st) {
   if (fp8)
-    return dispatch_gemm<KN, __nv_fp8_e4m3>(bn, bk, x, w, scale, resid, out,
-                                            M, K, N, ldx, ldw, ldr, st);
-  return dispatch_gemm<KN, int8_t>(bn, bk, x, w, scale, resid, out, M, K, N,
-                                   ldx, ldw, ldr, st);
+    return dispatch_gemm<KN, __nv_fp8_e4m3>(bn, bk, splits, x, w, scale,
+                                            resid, out, M, K, N, ldx, ldw,
+                                            ldr, st);
+  return dispatch_gemm<KN, int8_t>(bn, bk, splits, x, w, scale, resid, out,
+                                   M, K, N, ldx, ldw, ldr, st);
 }
 
 // ---------------------------------------------------------------------------

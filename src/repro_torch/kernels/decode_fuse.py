@@ -9,18 +9,19 @@ Replaces ``repro/kernels/decode_fuse.py``:
     itself.
   * :func:`oproj_residual_fused` (``oproj_residual_fused``) — ``resid +
     o @ wo``: flat_gemm's kernel (``csrc/flat_stream.cuh``) with the
-    residual add in its epilogue; it serves the o_proj and the FFN down
-    projection.
+    residual add in its epilogue and flat_gemm's split K at narrow N;
+    it serves the o_proj and the FFN down projection.
   * :func:`ffn_norm_fused` (``ffn_norm_fused``) — rmsnorm → x · Wg, x · Wu
     → act(g) · u on the f32 accumulators: the fused FFN-up kernel
     (``csrc/flat_stream.cuh``) with the rmsnorm prologue.
 
 On a CUDA tensor each wrapper launches its kernel and counts the launch
 in ``.launches``; on a CPU tensor it runs its plain version, which walks
-the kernel's K tiles with f32 accumulation and rounds where the kernel
-rounds. The kernels round where the split chain rounds (normed x to the
-activation dtype, each GEMM output, the bias add, rope once), so they
-agree with the ``"torch"`` oracles in ``ref.py`` to bf16 rounding.
+the kernel's K tiles (and K splits) with f32 accumulation and rounds
+where the kernel rounds. The kernels round where the split chain rounds
+(normed x to the activation dtype, each GEMM output, the bias add, rope
+once), so they agree with the ``"torch"`` oracles in ``ref.py`` to bf16
+rounding.
 
 The resident-row kernels (ingest, ffn_norm) hold ``mt`` token rows per
 block: the smallest multiple of 8 covering M, at most 64, halved until
@@ -42,8 +43,8 @@ import torch
 
 from repro_torch import hardware
 from repro_torch.kernels import _build
-from repro_torch.kernels.flat_gemm import (BK_CHOICES, BLOCK_M, pick_bk,
-                                           pick_bn, round_up)
+from repro_torch.kernels.flat_gemm import (BK_CHOICES, BLOCK_M, gemm_tiles,
+                                           pick_bn, round_up, split_acc)
 from repro_torch.kernels.fused_ffn import ACTIVATIONS, scale_pair
 from repro_torch.kernels.gemv import check_codes, vector_ok, weight_layout
 from repro_torch.kernels.ref import ffn_activation, rmsnorm_ref, rope_ref
@@ -55,14 +56,14 @@ _SIG = {"decode_ingest_bf16": [_build.VP] * 12 + [_build.I32] * 4
         + [_build.I64] + [_build.I32] * 4 + [_build.F32, _build.F32,
                                              _build.VP],
         "oproj_residual_bf16": [_build.VP] * 4 + [_build.I32] * 3
-        + [_build.I64] * 2 + [_build.I32] * 2 + [_build.VP],
+        + [_build.I64] * 2 + [_build.I32] * 3 + [_build.VP],
         "ffn_norm_bf16": [_build.VP] * 5 + [_build.I32] * 3 + [_build.I64]
         + [_build.I32] * 4 + [_build.F32, _build.VP],
         "decode_ingest_q8": [_build.VP] * 15 + [_build.I32] * 4
         + [_build.I64] + [_build.I32] * 4 + [_build.F32, _build.F32,
                                              _build.I32, _build.VP],
         "oproj_residual_q8": [_build.VP] * 5 + [_build.I32] * 3
-        + [_build.I64] * 2 + [_build.I32] * 3 + [_build.VP],
+        + [_build.I64] * 2 + [_build.I32] * 4 + [_build.VP],
         "ffn_norm_q8": [_build.VP] * 7 + [_build.I32] * 3 + [_build.I64]
         + [_build.I32] * 4 + [_build.F32, _build.I32, _build.VP]}
 
@@ -112,11 +113,11 @@ def ffn_norm_tiles(m: int, k: int, n: int,
     return bn, bk, mt
 
 
-def oproj_tiles(m: int, k: int, n: int, w_bytes: int = 2) -> tuple[int, int]:
-    """(BN, BK) of an oproj_residual launch: flat_gemm's pickers."""
-    m_pad = round_up(max(m, 1), 8)
-    bn = pick_bn(m_pad, n, k, w_bytes=w_bytes)
-    return bn, pick_bk(m_pad, bn, k, w_bytes=w_bytes)
+def oproj_tiles(m: int, k: int, n: int,
+                w_bytes: int = 2) -> tuple[int, int, int]:
+    """(BN, BK, splits) of an oproj_residual launch: flat_gemm's tiles
+    for a (K, N) weight."""
+    return gemm_tiles(m, k, n, w_bytes=w_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -170,11 +171,12 @@ def decode_ingest_plain(x, norm_scale, wq, wk, wv, positions, *,
 
 
 def oproj_residual_plain(o, wo, resid, *, w_scale=None):
-    """Plain version: the K tiles in f32, times the step if quantized,
-    rounded to o's dtype, added to the residual (one rounding)."""
+    """Plain version: the kernel's splits of K tiles in f32, summed in
+    split order, times the step if quantized, rounded to o's dtype, added
+    to the residual (one rounding)."""
     m, k = o.shape
-    _, bk = oproj_tiles(m, k, wo.shape[1], wo.element_size())
-    return resid + _ktiles(o, wo, bk, w_scale).to(o.dtype)
+    _, bk, splits = oproj_tiles(m, k, wo.shape[1], wo.element_size())
+    return resid + split_acc(o, wo, bk, splits, w_scale).to(o.dtype)
 
 
 def ffn_norm_plain(x, norm_scale, w_gate, w_up, *,
@@ -322,20 +324,21 @@ def oproj_residual_fused(o, wo, resid, *, w_scale=None):
     _check_bf16("oproj_residual", o.device, o, resid)
     o, resid = _rows(o), _rows(resid)
     fp8 = _check_weights("oproj_residual", o, (wo,), (w_scale,))
-    bn, bk = oproj_tiles(m, k, n, wo.element_size())
+    bn, bk, splits = oproj_tiles(m, k, n, wo.element_size())
     out = torch.empty((m, n), dtype=resid.dtype, device=o.device)
     lib = _build.load("decode_fuse", _SIG)
     if fp8 >= 0:
         code = lib.oproj_residual_q8(
             _build.ptr(o), _build.ptr(wo), _build.ptr(w_scale),
             _build.ptr(resid), _build.ptr(out), m, k, n, o.stride(0),
-            resid.stride(0), bn, bk, fp8, _build.stream_of(o))
+            resid.stride(0), bn, bk, splits, fp8, _build.stream_of(o))
         _build.check(lib, "oproj_residual_q8", code)
         oproj_residual_fused_quant.launches += 1
         return out
     code = lib.oproj_residual_bf16(
         _build.ptr(o), _build.ptr(wo), _build.ptr(resid), _build.ptr(out),
-        m, k, n, o.stride(0), resid.stride(0), bn, bk, _build.stream_of(o))
+        m, k, n, o.stride(0), resid.stride(0), bn, bk, splits,
+        _build.stream_of(o))
     _build.check(lib, "oproj_residual_bf16", code)
     oproj_residual_fused.launches += 1
     return out

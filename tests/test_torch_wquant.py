@@ -211,7 +211,8 @@ def test_gemv_and_flat_gemm_quant_match_pallas(m, k, n, specs):
     _close(flat_gemm_plain(tx, tl["codes"], w_scale=tl["scale"]), want_flat)
     # the wrappers on CPU tensors are the plain versions
     assert torch.equal(gemv(tx, tl["codes"], w_scale=tl["scale"]), got)
-    assert torch.equal(flat_gemm(tx, tl["codes"], w_scale=tl["scale"]), got)
+    assert torch.equal(flat_gemm(tx, tl["codes"], w_scale=tl["scale"]),
+                       flat_gemm_plain(tx, tl["codes"], w_scale=tl["scale"]))
 
 
 @pytest.mark.parametrize("specs", SPECS, ids=IDS)
@@ -428,7 +429,8 @@ def test_tile_budgets_count_codes_at_one_byte():
     their element width, as the kernels' stage layout does (rows padded by
     16 bytes); bf16 budgets keep their values."""
     from repro_torch import hardware
-    from repro_torch.kernels.flat_gemm import round_up, smem_bytes
+    from repro_torch.kernels.flat_gemm import (SPLIT_STAGES, round_up,
+                                               smem_bytes)
     from repro_torch.kernels.fused_ffn import tiles
     budget = hardware.DEFAULT.smem_per_block
     for bn in (32, 64, 128):
@@ -446,8 +448,10 @@ def test_tile_budgets_count_codes_at_one_byte():
             bn, bk = tiles(m, k, n, 1)
             assert smem_bytes(bn, bk, w_kn=True, w_bytes=1,
                               streams=2) <= budget
-            bn, bk = tdf.oproj_tiles(m, k, n, 1)
-            assert smem_bytes(bn, bk, w_kn=True, w_bytes=1) <= budget
+            bn, bk, splits = tdf.oproj_tiles(m, k, n, 1)
+            stages = SPLIT_STAGES if splits > 1 else 2
+            assert smem_bytes(bn, bk, w_kn=True, w_bytes=1,
+                              stages=stages) <= budget
 
 
 # ---------------------------------------------------------------------------
