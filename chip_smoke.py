@@ -2,6 +2,8 @@
 """Chip smoke for the PyTorch + CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --profiles-only   # build, then only the decode-tick
+                                            # and chunk-step profiles
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -46,7 +48,14 @@
    give its row's bits in the batch, a second launch the first's, and a
    CUDA graph's replay the eager call's. Rows 1, 2 and 13 get a second
    line at N = 896 (gemv and flat_gemm on the down projection,
-   oproj_residual on the o_proj), timed beside matmul / addmm.
+   oproj_residual on the o_proj), timed beside matmul / addmm. The
+   split-K GEMV (row 1) is held to its split plain version at the q,
+   k / v, o_proj, gate / up and down shapes and the tied head, M in {1,
+   2, 4}, bf16, int8 and fp8, and the wgmma fused FFN-up (row 8, bf16) at
+   M in {1, 4, 13, 64, 256, 1024}, swiglu and geglu: a row alone must give
+   its row's bits in the batch, a second launch the first's, and a CUDA
+   graph's replay the eager call's; row 1 gets lines at N = 128 and 4,864,
+   row 8 at M = 256 and 1,024.
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
    greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
@@ -87,7 +96,9 @@
    fused stages, H's plan) and, on the "torch" plan, against the bf16
    logits within the JAX package's guard (``quant.logits_guard_tol``);
    does the same for int8 and fp8 KV pages on the paged cases; profiles
-   the decode tick of A, H, J, K, M, O and S, and run E's chunk steps.
+   the decode tick of A, H, J, K, M, O and S, the 1-slot ticks of B and N
+   (with the GEMV's share), and the chunk steps of runs E and H (with the
+   fused FFN-up's share).
 5. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -409,16 +420,19 @@ def kernel_phase(torch, timer, rows, log):
                       x[:, :d].contiguous(), embedding.T))
         for case, xx, w in cases:
             k, n = w.shape
-            primary = "tied head" in case and m <= 4
+            # row 1's lines: the tied head, and (K, N) at N = 128, 4,864
+            slot = {(d, hk * hd): "n128", (d, f): "n4864"}.get(
+                (k, n)) if m == 1 and "tied" not in case else None
+            primary = "tied head" in case and m <= 4 or slot is not None
             record(name, case, fn(xx, w), plain(xx, w),
                    lambda: fn(xx, w), lambda: plain(xx, w),
                    lambda: torch.matmul(xx, w),
                    2 * (m * k + k * n + m * n), 2 * m * k * n, primary,
-                   gemm_close)
+                   gemm_close, slot=slot)
 
-    # -- fused FFN-up (row 8) at a decode tick's and a chunk step's M ------
-    # (4 slots; 4 rows x 64-token chunks)
-    for m in (4, 256):
+    # -- fused FFN-up (row 8) at a decode tick's, a chunk step's and a
+    # one-shot prefill's M (4 slots; 4 rows x 64-token chunks; 4 x 256) ----
+    for m in (4, 256, 1024):
         x = randn(m, d)
         wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
         record("fused_ffn_up", f"M={m} K={d} N={f} swiglu",
@@ -426,8 +440,8 @@ def kernel_phase(torch, timer, rows, log):
                lambda: ff.fused_ffn_up(x, wg, wu),
                lambda: ff.fused_ffn_up_plain(x, wg, wu),
                lambda: F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu),
-               2 * (m * d + 2 * d * f + m * f), 4 * m * d * f, m == 4,
-               gemm_close)
+               2 * (m * d + 2 * d * f + m * f), 4 * m * d * f, True,
+               gemm_close, slot=None if m == 4 else f"m{m}")
         got = ff.fused_ffn_up(x, wg, wu, activation="geglu")
         ok, tol = gemm_close(got, ff.fused_ffn_up_plain(
             x, wg, wu, activation="geglu"))
@@ -998,6 +1012,8 @@ def kernel_phase(torch, timer, rows, log):
         check(ok, f"ops.attention_chunk_paged {tag} disagrees")
 
     split_k_checks(torch, cfg, randn, record, gemm_close, log)
+    gemv_split_checks(torch, cfg, randn, embedding, gemm_close, log)
+    ffn_wgmma_checks(torch, cfg, randn, gemm_close, log)
     split_kv_checks(torch, cfg, gen, randn, record, attn_close, log)
     decode_split_checks(torch, timer, cfg, gen, randn, record, attn_close,
                         log)
@@ -1068,20 +1084,8 @@ def split_k_checks(torch, cfg, randn, record, gemm_close, log):
                             for i in (0, 5, m - 1)])
             # a graph replay at M = 4, both entries, bitwise the eager calls
             xx, res = x[:4, :k].contiguous(), resid[:4].contiguous()
-            eager = (gemm(xx), gemm(xx, res))
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                gemm(xx), gemm(xx, res)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                captured = (gemm(xx), gemm(xx, res))
-            for t in captured:
-                t.fill_(0)
-            graph.replay()
-            torch.cuda.synchronize()
-            replay = same_bits(torch, *zip(captured, eager))
+            replay = graph_replay_same(
+                torch, lambda: (gemm(xx), gemm(xx, res)))
             log(f"kernel split-K {tag} {kind} K={k} N={n} (BN={bn} BK={bk},"
                 f" {splits} splits) M=1/4/8/13/64, with and without a "
                 f"residual: max_abs_err={worst:.3e} (tol atol="
@@ -1114,6 +1118,128 @@ def split_k_checks(torch, cfg, randn, record, gemm_close, log):
            lambda: dfu.oproj_residual_plain(o, wo, res),
            lambda: torch.addmm(res, o, wo), 2 * (4 * nq + nq * d + 8 * d),
            2 * 4 * nq * d, True, gemm_close, slot="n896")
+
+
+def graph_replay_same(torch, fn):
+    """A CUDA graph's replay of ``fn`` (outputs zeroed first) gives the
+    bits of an eager call; ``fn`` returns a tensor or a tuple of them."""
+    def parts(r):
+        return r if isinstance(r, tuple) else (r,)
+    eager = parts(fn())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = parts(fn())
+    for t in captured:
+        t.fill_(0)
+    graph.replay()
+    torch.cuda.synchronize()
+    return same_bits(torch, *zip(captured, eager))
+
+
+def gemv_split_checks(torch, cfg, randn, embedding, gemm_close, log):
+    """The split-K GEMV (row 1, bf16 and quantized) at the decode GEMMs'
+    shapes, and the tied head's unsplit (N, K) body.
+
+    * q, k / v, o_proj, gate / up and down at M in {1, 2, 4}, bf16, int8
+      and fp8, and the tied head (bf16), each within ``gemm_close`` of
+      ``gemv_plain`` (the same splits walked on the card).
+    * Every row of M = 2 and 4 run alone (M = 1) bitwise its row in the
+      batch; a second launch bitwise the first; a CUDA graph's replay at
+      M = 4 bitwise the eager call."""
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.gemv import gemv, gemv_plain, gemv_tiles
+    from repro_torch.models import wquant
+
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+    nq, nk = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    shapes = {"q": (d, nq), "k/v": (d, nk), "o_proj": (nq, d),
+              "gate/up": (d, f), "down": (f, d)}
+    x = randn(4, f)
+    cases = []
+    for tag, (k, n) in shapes.items():
+        w = randn(k, n, scale=k ** -0.5)
+        cases.append((tag, "bf16", k, w, None))
+        for qs in (quant.INT8, quant.FP8):
+            q = wquant.quantize_weight(w, qs)
+            cases.append((tag, qs.name, k, q["codes"], q["scale"]))
+    cases.append(("tied head (N,K)", "bf16", d, embedding.T, None))
+    for tag, kind, k, wt, sc in cases:
+        n = wt.shape[1]
+        cols, splits = gemv_tiles(k, n, wt.stride(1) == 1)
+
+        def run(xx):
+            return gemv(xx, wt, w_scale=sc)
+
+        worst, close, alone, again = 0.0, True, True, True
+        for m in (1, 2, 4):
+            xx = x[:m, :k].contiguous()
+            got = run(xx)
+            want = gemv_plain(xx, wt, w_scale=sc)
+            worst = max(worst, (got.float() - want.float()).abs().max().item())
+            close = close and gemm_close(got, want)[0]
+            again = again and same_bits(torch, (run(xx), got))
+            if m > 1:
+                alone = alone and same_bits(torch, *[
+                    (run(xx[i:i + 1]), got[i:i + 1]) for i in range(m)])
+        replay = graph_replay_same(torch, lambda: run(x[:4, :k]))
+        log(f"kernel gemv split {tag} {kind} K={k} N={n} ({cols} columns a "
+            f"block, {splits} splits) M=1/2/4: max_abs_err={worst:.3e} (tol "
+            f"atol={TOL['atol']} rtol={TOL['rtol']}) "
+            f"{'ok' if close else 'MISMATCH'}; a row alone bitwise in its "
+            f"batch {alone}; two launches bitwise {again}; graph replay "
+            f"bitwise eager {replay}")
+        check(close, f"gemv {tag} {kind}: kernel disagrees with its split "
+              "plain version")
+        check(alone, f"gemv {tag} {kind}: a row's bits depend on M")
+        check(again, f"gemv {tag} {kind}: two launches differ")
+        check(replay, f"gemv {tag} {kind}: a graph replay differs from the "
+              "eager call")
+
+
+def ffn_wgmma_checks(torch, cfg, randn, gemm_close, log):
+    """The wgmma fused FFN-up (row 8, bf16) at M in {1, 4, 13, 64, 256,
+    1024}, swiglu and geglu: within ``gemm_close`` of
+    ``fused_ffn_up_plain``; rows 0, M // 2 and M - 1 run alone bitwise
+    their rows in the batch; a second launch bitwise the first; a CUDA
+    graph's replay at M = 4 and 256 bitwise the eager call."""
+    from repro_torch.kernels import fused_ffn as ff
+
+    d, f = cfg.d_model, cfg.d_ff
+    wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
+    x = randn(1024, d)
+    for act in ("swiglu", "geglu"):
+        def run(xx):
+            return ff.fused_ffn_up(xx, wg, wu, activation=act)
+
+        worst, close, alone, again, replay = 0.0, True, True, True, True
+        for m in (1, 4, 13, 64, 256, 1024):
+            xx = x[:m].contiguous()
+            got = run(xx)
+            want = ff.fused_ffn_up_plain(xx, wg, wu, activation=act)
+            worst = max(worst, (got.float() - want.float()).abs().max().item())
+            close = close and gemm_close(got, want)[0]
+            again = again and same_bits(torch, (run(xx), got))
+            alone = alone and same_bits(torch, *[
+                (run(xx[i:i + 1]), got[i:i + 1])
+                for i in sorted({0, m // 2, m - 1})])
+            if m in (4, 256):
+                replay = replay and graph_replay_same(torch, lambda: run(xx))
+        log(f"kernel fused_ffn_up wgmma {act} K={d} N={f} M=1/4/13/64/256/"
+            f"1024: max_abs_err={worst:.3e} (tol atol={TOL['atol']} rtol="
+            f"{TOL['rtol']}) {'ok' if close else 'MISMATCH'}; a row alone "
+            f"bitwise in its batch {alone}; two launches bitwise {again}; "
+            f"graph replay bitwise eager {replay}")
+        check(close, f"fused_ffn_up {act}: kernel disagrees with its plain "
+              "version")
+        check(alone, f"fused_ffn_up {act}: a row's bits depend on M")
+        check(again, f"fused_ffn_up {act}: two launches differ")
+        check(replay, f"fused_ffn_up {act}: a graph replay differs from the "
+              "eager call")
 
 
 def split_kv_checks(torch, cfg, gen, randn, record, attn_close, log):
@@ -2159,11 +2285,14 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
     return outputs
 
 
-def chunk_profile_phase(torch, cfg, params, shared, log):
-    """Where run E's chunk steps spend the card: one E run (warm) with
-    every ``api.prefill_chunk`` call under torch.profiler, its device busy
-    time (sum of kernel times), the share of the fused chunk attention
-    kernels in it, and the step's wall on the host clock."""
+def chunk_profile_phase(torch, cfg, params, shared, log, tag="E",
+                        **engine_kw):
+    """Where a run's chunk steps spend the card: one run (warm; run E's
+    engine unless ``engine_kw`` says otherwise) with every
+    ``api.prefill_chunk`` call under torch.profiler, its device busy time
+    (sum of kernel times), the shares of the fused chunk attention
+    kernels and of the fused FFN-up in it, and the step's wall on the
+    host clock."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -2171,7 +2300,8 @@ def chunk_profile_phase(torch, cfg, params, shared, log):
     from repro_torch.serving.engine import Engine
 
     eng = Engine(cfg, params, num_slots=4, max_seq=1024, device="cuda",
-                 prefix_sharing=True, cache_kind="paged", page_size=PAGE)
+                 prefix_sharing=True, cache_kind="paged", page_size=PAGE,
+                 **engine_kw)
     real = eng.api.prefill_chunk
     steps = []
 
@@ -2187,29 +2317,33 @@ def chunk_profile_phase(torch, cfg, params, shared, log):
                and e.self_device_time_total > 0]
         attn = [e for e in evs if "split_kernel" in e.key
                 or "combine_kernel" in e.key]
+        ffn = [e for e in evs if "ffn_up" in e.key]
         steps.append((sum(e.self_device_time_total for e in evs) / 1e3,
                       sum(e.self_device_time_total for e in attn) / 1e3,
+                      sum(e.self_device_time_total for e in ffn) / 1e3,
                       1e3 * wall))
         return res
 
     eng.api = dataclasses.replace(eng.api, prefill_chunk=profiled)
     eng.run(shared)
-    busy = sum(b for b, _, _ in steps)
+    busy = sum(b for b, _, _, _ in steps)
     if busy == 0:
-        log("profile E chunk steps: device time not measured (the profiler "
-            "reported none)")
+        log(f"profile {tag} chunk steps: device time not measured (the "
+            "profiler reported none)")
         return
     n = len(steps)
-    log(f"profile E chunk steps: {n} steps, device busy "
+    log(f"profile {tag} chunk steps: {n} steps, device busy "
         f"{busy / n:.3f} ms/step (fused chunk attention "
-        f"{sum(a for _, a, _ in steps) / n:.3f}), wall "
-        f"{sum(w for _, _, w in steps) / n:.3f} ms/step; per step busy "
-        + " ".join(f"{b:.3f}" for b, _, _ in steps))
+        f"{sum(a for _, a, _, _ in steps) / n:.3f}, fused FFN-up "
+        f"{sum(u for _, _, u, _ in steps) / n:.3f}), wall "
+        f"{sum(w for _, _, _, w in steps) / n:.3f} ms/step; per step busy "
+        + " ".join(f"{b:.3f}" for b, _, _, _ in steps))
 
 
 def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
-                  **engine_kw):
-    """Where a decode tick's time goes at 4 slots: 8 steady ticks timed
+                  slots=4, **engine_kw):
+    """Where a decode tick's time goes at ``slots`` slots (four requests
+    submitted), with the GEMV kernels' share of it: 8 steady ticks timed
     on the host clock without the profiler, then 8 more under
     torch.profiler for the device busy time (sum of kernel times) and
     the costliest device kernels. The idle share is given against both
@@ -2223,7 +2357,7 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import SamplingParams
 
-    eng = Engine(cfg, params, num_slots=4, max_seq=1024, device="cuda",
+    eng = Engine(cfg, params, num_slots=slots, max_seq=1024, device="cuda",
                  **engine_kw)
     for p, _ in requests[:4]:
         eng.submit(p, SamplingParams(max_new_tokens=40))
@@ -2270,11 +2404,15 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
         log(f"profile {tag} decode: device time not measured (the "
             "profiler reported none)")
         return
+    gemv_us = sum(e.self_device_time_total for e in evs
+                  if "gemv" in e.key) / n
     log(f"profile {tag} decode ({n} ticks each window): device busy "
         f"{busy_us / 1e3:.3f} ms/tick; profiled wall {1e3 * wall:.3f} "
         f"ms/tick, device idle {100 * (1 - busy_us / 1e6 / wall):.1f}%; "
         f"unprofiled wall {1e3 * plain_wall:.3f} ms/tick, device idle "
-        f"{100 * (1 - busy_us / 1e6 / plain_wall):.1f}%")
+        f"{100 * (1 - busy_us / 1e6 / plain_wall):.1f}%; gemv kernels "
+        f"{gemv_us / 1e3:.3f} ms/tick ({100 * gemv_us / busy_us:.1f}% of "
+        f"busy)")
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         log(f"profile   {e.self_device_time_total / n / 1e3:8.4f} ms/tick "
@@ -2283,6 +2421,23 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
         f"decode_profile_{tag.split()[0]}.txt"
     (OUT_DIR / name).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
+
+
+def tick_profiles(torch, cfg, params, requests, shared, log):
+    """The decode tick of A (4 slots) and of the 1-slot runs B and N
+    (bf16, int8 weights: the GEMV's share), and the chunk steps of E and
+    H (H: the fused FFN-up at a chunk step's 256 rows)."""
+    from repro_torch.serving.request import SamplingParams
+    profile_phase(torch, cfg, params, requests, log)
+    profile_phase(torch, cfg, params, requests, log, tag="B slots=1",
+                  slots=1)
+    profile_phase(torch, cfg, params, requests, log,
+                  tag="N slots=1 int8 weights", slots=1, weight_dtype="int8")
+    chunk_profile_phase(torch, cfg, params, shared, log)
+    # two new tokens each: only the prefill is profiled
+    sp2 = SamplingParams(max_new_tokens=2)
+    chunk_profile_phase(torch, cfg, params, [(p, sp2) for p, _ in shared],
+                        log, tag="H", plan=tuned_plan())
 
 
 def logits_phase(torch, cfg, params, requests, log, cuda_tokens):
@@ -2640,6 +2795,10 @@ def quant_logits_phase(torch, cfg, params, requests, log):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profiles-only", action="store_true",
+                    help="build, then run only the decode-tick and "
+                    "chunk-step profiles (A, B, N, E, H) and print them; "
+                    "checks nothing and prints no result line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2677,10 +2836,11 @@ def main(argv=None) -> int:
     log(f"build: {time.perf_counter() - t0:.1f}s wall, per source "
         + ", ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
 
-    timer = Timer(torch)
     rows = {}
-    kernel_phase(torch, timer, rows, log)
-    del timer
+    if not args.profiles_only:
+        timer = Timer(torch)
+        kernel_phase(torch, timer, rows, log)
+        del timer
 
     cfg = configs.get(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -2695,6 +2855,10 @@ def main(argv=None) -> int:
     mixed = mixed_requests(np, cfg, args.seed)
     log("two-header prompt lengths / new tokens: " + str(
         [(len(p), s.max_new_tokens) for p, s in mixed]))
+    if args.profiles_only:
+        tick_profiles(torch, cfg, params, requests, shared, log)
+        print(smi)
+        return 0
     check(set(REPLACES) <= set(counters()),
           "a kernel of REPLACES has no counter in ops.LAUNCH_COUNTERS")
     # the quantized-weight runs serve the same requests with fewer tokens
@@ -2707,8 +2871,7 @@ def main(argv=None) -> int:
                            "plain16": [(p, sp16) for p, _ in requests],
                            "shared32": [(p, sp32) for p, _ in shared]},
                           log, launches)
-    profile_phase(torch, cfg, params, requests, log)
-    chunk_profile_phase(torch, cfg, params, shared, log)
+    tick_profiles(torch, cfg, params, requests, shared, log)
     profile_phase(torch, cfg, params, shared, log,
                   tag="H slots=4 paged sharing grouped fused-FFN",
                   cache_kind="paged", page_size=PAGE, prefix_sharing=True,

@@ -5,6 +5,11 @@
 // kernel whose two K-stream pipelines share one x tile and whose epilogue
 // applies the activation to the f32 accumulators before the only write.
 //
+// Two bodies: bf16 weights run ffn_wgmma.cuh's wgmma + TMA kernel (its
+// header has the design); quantized weights run the mma.sync kernel
+// described below, which turns each code into its exact bf16 value in
+// its fragment loads.
+//
 // Bound on H100: device-memory bytes at decode and chunk shapes. The two
 // weight streams (2 * K * N * 2 bytes) dominate; for M <= 256 token rows
 // the work is 4 * M * K * N FLOPs, at most ~256 FLOP per weight byte,
@@ -12,9 +17,10 @@
 // the second read of x, the (M, N) gate and up round trips through
 // device memory and two of three launches.
 //
-// Design: flat_gemm.cu's kernel with a second weight stream; the kernel
-// itself lives in flat_stream.cuh (ffn_up_kernel, NORM = false), shared
-// with decode_fuse.cu's ffn_norm, which adds an rmsnorm prologue.
+// The quantized body: flat_gemm.cu's kernel with a second weight stream;
+// the kernel itself lives in flat_stream.cuh (ffn_up_kernel, NORM =
+// false), shared with decode_fuse.cu's ffn_norm, which adds an rmsnorm
+// prologue.
 //   * Operands swapped: each warp computes 16 (N) x 8 (M) tiles of
 //     G^T = Wg^T x^T and U^T = Wu^T x^T with mma.sync.m16n8k16 (bf16 in,
 //     f32 accumulate), so N fills the MMA's 16-row slot and M is padded
@@ -29,6 +35,7 @@
 //   * Weights are row-major (K, N), as the model stores w_gate / w_up:
 //     bf16, or 1-byte codes (int8 / e4m3) streamed at their width, with
 //     the per-output-channel steps applied before the activation.
+#include "ffn_wgmma.cuh"
 #include "flat_stream.cuh"
 
 using namespace repro;
@@ -36,16 +43,15 @@ using namespace repro;
 REPRO_ERROR_STRING_FN
 
 // out (M, N) row-major bf16 = act(x @ Wg) * (x @ Wu); x (M, K; row
-// stride ldx), Wg/Wu row-major (K, N); act = silu (gelu = 0) or the tanh
-// gelu (gelu = 1); tiles (bn, bk). Needs K % 8 == 0 and N % 8 == 0 with
-// 16-byte aligned rows.
+// stride ldx), Wg/Wu contiguous row-major (K, N); act = silu (gelu = 0)
+// or the tanh gelu (gelu = 1). The wgmma body: needs K % 8 == 0 and
+// N % 8 == 0 with 16-byte aligned bases and ldx % 8 == 0.
 REPRO_EXPORT int fused_ffn_up_bf16(const void* x, const void* wg,
                                    const void* wu, void* out, int M, int K,
-                                   int N, long long ldx, int gelu, int bn,
-                                   int bk, void* stream) {
-  return flat::dispatch_ffn_up<false, __nv_bfloat16>(
-      bn, bk, x, nullptr, wg, wu, nullptr, nullptr, out, M, K, N, ldx,
-      flat::kMT, gelu != 0, 0.f, static_cast<cudaStream_t>(stream));
+                                   int N, long long ldx, int gelu,
+                                   void* stream) {
+  return tc::launch_ffn_up_wgmma(x, wg, wu, out, M, K, N, ldx, gelu,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 // Quantized weights (the quantized branch of _fused_ffn_kernel): Wg / Wu

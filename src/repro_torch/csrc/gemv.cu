@@ -10,30 +10,49 @@
 // thing that matters is streaming W once at full rate. Tensor cores
 // would waste >= 75% of an m16 tile and buy nothing.
 //
-// Design: x (at most 4 x K bf16) is staged once per block in shared
-// memory; W is read exactly once with 16-byte loads and accumulated in
-// f32. Two weight layouts, picked by the wrapper from the strides:
-//   * "KN": W[k, n] at w[k*ldw + n] (a row-major (K, N) weight). Each
-//     thread owns 8 adjacent columns, so a warp reads 4 rows x 128
-//     contiguous bytes; 32 k-groups split K inside the block and are
-//     reduced with shuffles, then across warps in shared memory.
+// Design: W is read exactly once with 16-byte loads and accumulated in
+// f32 against x in shared memory. Two weight layouts, picked by the
+// wrapper from the strides:
+//   * "KN": W[k, n] at w[k*ldw + n] (a row-major (K, N) weight), bf16 or
+//     the int8 / fp8 codes of a quantized weight (models/wquant.py) with
+//     one f32 step per column. Each thread owns one 16-byte vector of
+//     adjacent columns (8 bf16 or 16 codes); CT threads cover a block's
+//     COLS = CT * vector columns (64, or 32 for narrow N) and the other
+//     threads split the block's rows of K into k-groups. Split K: the
+//     columns of a decode GEMM (N = 128 .. 4,864) give far fewer blocks
+//     than the card has SMs, so the launch's z axis cuts K into S fixed
+//     ranges of whole kSplitRows-row chunks counted from K = 0 (S from
+//     kernels/gemv.py::pick_splits: a function of K, N and the card, never
+//     of M; 1 where the columns alone give every SM two blocks). The S
+//     blocks of a column tile form one thread-block cluster along z. A
+//     block issues its first weight loads (12 bf16 or 5 code vectors a
+//     thread, streamed past L1), stages its range of x meanwhile, walks
+//     the range with those loads in flight ahead of the FMAs, reduces
+//     over its k-groups (shuffles, then across warps in shared memory)
+//     and leaves an f32 (M x COLS) partial tile in shared memory; after
+//     cluster.sync() every block folds a slice of the tile over the S
+//     splits in split order through distributed shared memory (no
+//     atomics, no scratch, nothing to reset between graph replays) and
+//     runs the epilogue on the sum: the step for codes, then the one bf16
+//     rounding. An element's sum depends only on its own row and column,
+//     so a row's bits are the same alone and in any batch.
 //   * "NK": W[k, n] at w[n*ldw + k] (the transposed view of a row-major
-//     (N, K) tensor — the tied LM head, embedding.T, 152064 x 896).
-//     One warp per output column: lanes read K with 16-byte loads and
-//     the column's dot products finish with a warp-shuffle reduction.
-//     Reading the view in place avoids a 272 MB copy per decode tick.
-//   * "KN" with quantized weights (models/wquant.py): W is (K, N) int8 or
-//     fp8 e4m3 codes with one f32 step per column. A 16-byte load now
-//     carries 16 codes, so each thread owns 16 adjacent columns and 4
-//     threads cover a block's 64 (64 k-groups): the block still reads 64
-//     columns of every row, at half the bytes. Each code becomes a float
-//     exactly, the FMAs run against the staged x in f32, and the step
-//     multiplies the reduced f32 sum before the one bf16 rounding (the
-//     reference's acc * scale). Quantized leaves are always (K, N) and
-//     the tied head never quantizes, so "NK" has no quantized variant.
+//     (N, K) tensor — the tied LM head, embedding.T, 152064 x 896), bf16
+//     only (the tied head never quantizes). A warp takes groups of
+//     kNkCols adjacent columns in turn (two blocks a SM, each staging x
+//     once) and treats a group's K/8 16-byte vectors as one list that its
+//     lanes share out, kNkVec a lane a pass, so no lane idles on a ragged
+//     last step (896 / 8 = 112 vectors per column do not divide by 32
+//     lanes; 2 x 112 = 7 x 32 do). The next group's vectors are loaded
+//     before this group's FMAs, so the stream never waits on a
+//     reduction; the columns' dot products finish with warp shuffles.
+//     Reading the view in place avoids a 272 MB copy per decode tick; its
+//     76,032 column pairs fill the card unsplit.
 // Every path loads only whole 16-byte vectors: the contiguous axis is a
 // multiple of 8 (16 for codes) and every row is 16-byte aligned (the
-// wrapper raises otherwise, as the flat GEMM's does).
+// wrapper raises otherwise).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 using namespace repro;
@@ -42,222 +61,351 @@ namespace {
 
 constexpr int kMaxM = 4;
 constexpr int kThreads = 256;
-constexpr int kColThreads = 8;                       // KN: threads along N
-constexpr int kKGroups = kThreads / kColThreads;     // KN: 32 k-groups
-constexpr int kColsPerBlock = kColThreads * 8;       // KN: 64 columns
 constexpr int kWarps = kThreads / 32;
-constexpr int kQColThreads = 4;                      // KN codes: 16 each
-constexpr int kQKGroups = kThreads / kQColThreads;   // KN codes: 64
-static_assert(kQColThreads * 16 == kColsPerBlock, "one block, 64 columns");
+constexpr int kMaxSplits = 8;     // a portable cluster at most
+constexpr int kSplitRows = 64;    // K rows per split chunk (kernels/gemv.py)
+constexpr int kNkCols = 2;        // NK: columns per warp group
+constexpr int kNkVec = 8;         // NK: 16-byte weight vectors a lane a pass
 
-// Stage x (M x K, row stride ldx) into shared memory as bf16 (M*K dense).
-__device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ x,
-                                        __nv_bfloat16* xs, int M, int K,
-                                        long long ldx) {
-  for (int i = threadIdx.x; i < M * K; i += blockDim.x) {
-    int m = i / K, k = i - m * K;
-    xs[i] = x[m * ldx + k];
-  }
-  __syncthreads();
+// The column layout of a KN block: CT threads along N, each owning one
+// 16-byte vector of kVec columns; the block's other threads are k-groups,
+// each with kUnroll weight vectors in flight.
+template <int CT, typename WT>
+struct KnTile {
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(WT));
+  static constexpr int kCols = CT * kVec;
+  static constexpr int kKGroups = kThreads / CT;
+  static constexpr int kUnroll = sizeof(WT) == 1 ? 5 : 12;
+  static_assert(kCols == 32 || kCols == 64, "32 or 64 columns per block");
+};
+
+__host__ __device__ inline size_t align16(size_t b) {
+  return (b + 15) / 16 * 16;
 }
 
-__global__ void __launch_bounds__(kThreads)
-gemv_kn_kernel(const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ w,
+// Shared memory of a KN launch whose largest split range holds `kr` rows:
+// the warps' and the block's partial tiles, then x's rows of the range.
+template <int CT, typename WT>
+size_t kn_smem(int M, int kr) {
+  using T = KnTile<CT, WT>;
+  return static_cast<size_t>(kWarps + 1) * kMaxM * T::kCols * 4 +
+         align16(static_cast<size_t>(M) * kr * 2);
+}
+
+// A 16-byte weight vector, read once: streamed past L1.
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// Rows of x (row stride ldx) from column k0, `kr` wide, into xs (M x kr)
+// in 16-byte vectors (kr, ldx and k0 are multiples of 8).
+__device__ __forceinline__ void stage_x(__nv_bfloat16* xs,
+                                        const __nv_bfloat16* __restrict__ x,
+                                        int M, long long ldx, int k0,
+                                        int kr) {
+  const int vrow = kr / 8;
+  for (int i = threadIdx.x; i < M * vrow; i += kThreads) {
+    const int m = i / vrow, c = i - m * vrow;
+    reinterpret_cast<uint4*>(xs + m * kr)[c] =
+        *reinterpret_cast<const uint4*>(x + m * ldx + k0 + c * 8);
+  }
+}
+
+template <typename WT>
+__device__ __forceinline__ void unpack_vec(const uint4& u, float* out) {
+  if constexpr (sizeof(WT) == 1)
+    unpack16<WT>(u, out);
+  else
+    unpack8(u, out);
+}
+
+template <int CT, typename WT>
+__global__ void __launch_bounds__(kThreads, 2)
+gemv_kn_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
+               const float* __restrict__ scale,
                __nv_bfloat16* __restrict__ out, int M, int K, int N,
                long long ldx, long long ldw) {
+  using T = KnTile<CT, WT>;
+  constexpr int V = T::kVec, COLS = T::kCols, KG = T::kKGroups;
+  constexpr int U = T::kUnroll;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int z = static_cast<int>(cluster.block_rank());
+
+  // this split's rows of K: whole chunks from K = 0
+  const int per = ((K + kSplitRows - 1) / kSplitRows + S - 1) / S;
+  const int k_lo = min(K, z * per * kSplitRows);
+  const int kr = min(K, (z + 1) * per * kSplitRows) - k_lo;
+
+  // the partial tiles first: the fold reads its partners' `part` at this
+  // block's own offset, and the splits' ranges (so x's rows) differ
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* red = reinterpret_cast<float*>(
-      smem + ((static_cast<size_t>(M) * K * 2 + 15) / 16) * 16);
-  stage_x(x, xs, M, K, ldx);
+  float* red = reinterpret_cast<float*>(smem);    // warps x kMaxM x COLS
+  float* part = red + kWarps * kMaxM * COLS;      // M x COLS
+  __nv_bfloat16* xs =
+      reinterpret_cast<__nv_bfloat16*>(part + kMaxM * COLS);  // M x kr
 
-  const int ct = threadIdx.x % kColThreads;
-  const int kg = threadIdx.x / kColThreads;
-  const int n0 = blockIdx.x * kColsPerBlock + ct * 8;
+  const int ct = threadIdx.x % CT, kg = threadIdx.x / CT;
+  const int n0 = blockIdx.x * COLS + ct * V;
+  // N is a multiple of V, so a thread's columns lie wholly inside or past N
+  const bool cols_in = n0 < N;
+  const WT* wp = w + static_cast<long long>(k_lo) * ldw + n0;
+  uint4 raw[U];
+  // the first weight vectors are in flight while x is staged
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int kk = kg + u * KG;
+    raw[u] = cols_in && kk < kr ? ld_stream(wp + kk * ldw)
+                                : make_uint4(0u, 0u, 0u, 0u);
+  }
+  stage_x(xs, x, M, ldx, k_lo, kr);
+  __syncthreads();
 
-  float acc[kMaxM][8];
+  float acc[kMaxM][V];
 #pragma unroll
   for (int m = 0; m < kMaxM; ++m)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[m][j] = 0.f;
-
-  // N % 8 == 0, so a thread's 8 columns lie wholly inside or past N
-  if (n0 < N) {
-    for (int k = kg; k < K; k += kKGroups) {
-      float wv[8];
-      unpack8(__ldg(reinterpret_cast<const uint4*>(w + k * ldw + n0)), wv);
+    for (int j = 0; j < V; ++j) acc[m][j] = 0.f;
+  for (int k = kg; k < kr; k += U * KG) {
+    if (k != kg) {
 #pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          float xv = bf2f(xs[m * K + k]);
+      for (int u = 0; u < U; ++u) {
+        const int kk = k + u * KG;
+        raw[u] = cols_in && kk < kr ? ld_stream(wp + kk * ldw)
+                                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
+    for (int u = 0; u < U; ++u) {
+      const int kk = k + u * KG;
+      if (kk < kr) {
+        float wv[V];
+        unpack_vec<WT>(raw[u], wv);
+#pragma unroll
+        for (int m = 0; m < kMaxM; ++m) {
+          if (m < M) {
+            const float xv = bf2f(xs[m * kr + kk]);
+#pragma unroll
+            for (int j = 0; j < V; ++j) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
+          }
         }
       }
     }
   }
 
-  // k-groups kg, kg+4, kg+8, kg+12 of one warp sit 8 lanes apart
-  const int warp = threadIdx.x / 32;
+  // the k-groups of one warp sit CT lanes apart
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int m = 0; m < kMaxM; ++m) {
+    if (m < M) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float v = acc[m][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][j] = v;
+      for (int j = 0; j < V; ++j) {
+        float v = acc[m][j];
+#pragma unroll
+        for (int o = CT; o < 32; o <<= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        acc[m][j] = v;
+      }
     }
   }
-  const int lane = threadIdx.x % 32;
-  if (lane < kColThreads) {
-    for (int m = 0; m < M; ++m)
+  if (lane < CT) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        red[(warp * kMaxM + m) * kColsPerBlock + ct * 8 + j] = acc[m][j];
+    for (int m = 0; m < kMaxM; ++m) {
+      if (m < M) {
+#pragma unroll
+        for (int j = 0; j < V; ++j)
+          red[(warp * kMaxM + m) * COLS + ct * V + j] = acc[m][j];
+      }
+    }
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < M * kColsPerBlock; t += blockDim.x) {
-    const int m = t / kColsPerBlock, c = t % kColsPerBlock;
-    const int n = blockIdx.x * kColsPerBlock + c;
-    if (n < N) {
-      float s = 0.f;
+  for (int t = threadIdx.x; t < M * COLS; t += kThreads) {
+    const int m = t / COLS, c = t % COLS;
+    float s = 0.f;
 #pragma unroll
-      for (int wi = 0; wi < kWarps; ++wi)
-        s += red[(wi * kMaxM + m) * kColsPerBlock + c];
-      out[static_cast<long long>(m) * N + n] = f2bf(s);
+    for (int wi = 0; wi < kWarps; ++wi) s += red[(wi * kMaxM + m) * COLS + c];
+    part[t] = s;
+  }
+  cluster.sync();  // every split's partial tile is written and visible
+
+  const int E = M * COLS;
+  for (int e = E * z / S + threadIdx.x; e < E * (z + 1) / S; e += kThreads) {
+    const int m = e / COLS, n = blockIdx.x * COLS + e % COLS;
+    if (n < N) {
+      float v = *cluster.map_shared_rank(part + e, 0);
+      for (int q = 1; q < S; ++q) v += *cluster.map_shared_rank(part + e, q);
+      if constexpr (sizeof(WT) == 1) v *= scale[n];
+      out[static_cast<long long>(m) * N + n] = f2bf(v);
     }
+  }
+  cluster.sync();  // no block leaves while another reads its partials
+}
+
+// The weight vectors of pass p of column group g for this lane: vector
+// i = p * 32 * kNkVec + lane + 32 u of the group's list, column i / kv
+// (by comparisons), k (i - column * kv) * 8.
+__device__ __forceinline__ void nk_load(uint4 (&raw)[kNkVec],
+                                        const __nv_bfloat16* __restrict__ w,
+                                        long long ldw, int N, int kv, int g,
+                                        int p, int lane) {
+  const int total = kNkCols * kv;
+#pragma unroll
+  for (int u = 0; u < kNkVec; ++u) {
+    const int i = p * 32 * kNkVec + lane + 32 * u;
+    int c = 0;
+#pragma unroll
+    for (int j = 1; j < kNkCols; ++j) c += i >= j * kv;
+    const int n = g * kNkCols + c;
+    raw[u] = i < total && n < N
+                 ? ld_stream(w + static_cast<long long>(n) * ldw +
+                             (i - c * kv) * 8)
+                 : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 gemv_nk_kernel(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ w,
                __nv_bfloat16* __restrict__ out, int M, int K, int N,
                long long ldx, long long ldw) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  stage_x(x, xs, M, K, ldx);
-
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);   // M x K
   const int lane = threadIdx.x % 32;
-  const int n = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (n >= N) return;
-  const __nv_bfloat16* col = w + static_cast<long long>(n) * ldw;
+  const int kv = K / 8;                // 16-byte vectors per column
+  const int passes = (kNkCols * kv + 32 * kNkVec - 1) / (32 * kNkVec);
+  const int groups = (N + kNkCols - 1) / kNkCols;
+  const int stride = gridDim.x * kWarps;
+  // this warp's items: passes 0 .. passes - 1 of groups g, g + stride, ...
+  int g = blockIdx.x * kWarps + threadIdx.x / 32, p = 0;
 
-  float acc[kMaxM];
-#pragma unroll
-  for (int m = 0; m < kMaxM; ++m) acc[m] = 0.f;
+  uint4 cur[kNkVec], nxt[kNkVec];
+  if (g < groups) nk_load(cur, w, ldw, N, kv, g, 0, lane);
+  stage_x(xs, x, M, ldx, 0, K);   // while the first vectors are in flight
+  __syncthreads();
 
-  for (int k0 = lane * 8; k0 < K; k0 += 32 * 8) {
-    float wv[8];
-    unpack8(__ldg(reinterpret_cast<const uint4*>(col + k0)), wv);
+  float acc[kNkCols][kMaxM];
 #pragma unroll
-    for (int m = 0; m < kMaxM; ++m) {
-      if (m < M) {
-        float xv[8];
-        unpack8(*reinterpret_cast<const uint4*>(xs + m * K + k0), xv);
+  for (int c = 0; c < kNkCols; ++c)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[m] = fmaf(xv[j], wv[j], acc[m]);
-      }
+    for (int m = 0; m < kMaxM; ++m) acc[c][m] = 0.f;
+  while (g < groups) {
+    // the next item's vectors go out before this one's FMAs
+    int gn = g, pn = p + 1;
+    if (pn == passes) {
+      pn = 0;
+      gn += stride;
     }
-  }
+    if (gn < groups) nk_load(nxt, w, ldw, N, kv, gn, pn, lane);
 #pragma unroll
-  for (int m = 0; m < kMaxM; ++m) acc[m] = warp_sum(acc[m]);
-  if (lane == 0) {
-    for (int m = 0; m < M; ++m)
-      out[static_cast<long long>(m) * N + n] = f2bf(acc[m]);
-  }
-}
-
-template <typename CT>
-__global__ void __launch_bounds__(kThreads)
-gemv_kn_q8_kernel(const __nv_bfloat16* __restrict__ x,
-                  const unsigned char* __restrict__ w,
-                  const float* __restrict__ scale,
-                  __nv_bfloat16* __restrict__ out, int M, int K, int N,
-                  long long ldx, long long ldw) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* red = reinterpret_cast<float*>(
-      smem + ((static_cast<size_t>(M) * K * 2 + 15) / 16) * 16);
-  stage_x(x, xs, M, K, ldx);
-
-  const int ct = threadIdx.x % kQColThreads;
-  const int kg = threadIdx.x / kQColThreads;
-  const int n0 = blockIdx.x * kColsPerBlock + ct * 16;
-
-  float acc[kMaxM][16];
+    for (int u = 0; u < kNkVec; ++u) {
+      const int i = p * 32 * kNkVec + lane + 32 * u;
+      if (i < kNkCols * kv) {
+        int col = 0;
 #pragma unroll
-  for (int m = 0; m < kMaxM; ++m)
+        for (int j = 1; j < kNkCols; ++j) col += i >= j * kv;
+        const int k8 = (i - col * kv) * 8;
+        float wv[8];
+        unpack8(cur[u], wv);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) acc[m][j] = 0.f;
-
-  // N % 16 == 0, so a thread's 16 columns lie wholly inside or past N
-  if (n0 < N) {
-    for (int k = kg; k < K; k += kQKGroups) {
-      float wv[16];
-      unpack16<CT>(__ldg(reinterpret_cast<const uint4*>(w + k * ldw + n0)),
-                   wv);
+        for (int m = 0; m < kMaxM; ++m) {
+          if (m < M) {
+            float xv[8];
+            unpack8(*reinterpret_cast<const uint4*>(xs + m * K + k8), xv);
+            float dot = 0.f;
 #pragma unroll
-      for (int m = 0; m < kMaxM; ++m) {
-        if (m < M) {
-          float xv = bf2f(xs[m * K + k]);
+            for (int j = 0; j < 8; ++j) dot = fmaf(xv[j], wv[j], dot);
 #pragma unroll
-          for (int j = 0; j < 16; ++j) acc[m][j] = fmaf(xv, wv[j], acc[m][j]);
+            for (int c = 0; c < kNkCols; ++c)
+              if (col == c) acc[c][m] += dot;
+          }
         }
       }
     }
-  }
-
-  // the 8 k-groups of one warp sit 4 lanes apart
-  const int warp = threadIdx.x / 32;
+    if (p == passes - 1) {
 #pragma unroll
-  for (int m = 0; m < kMaxM; ++m) {
+      for (int c = 0; c < kNkCols; ++c) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      float v = acc[m][j];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][j] = v;
+        for (int m = 0; m < kMaxM; ++m) {
+          if (m < M) {
+            const float v = warp_sum(acc[c][m]);
+            const int n = g * kNkCols + c;
+            if (lane == 0 && n < N)
+              out[static_cast<long long>(m) * N + n] = f2bf(v);
+          }
+          acc[c][m] = 0.f;
+        }
+      }
     }
-  }
-  const int lane = threadIdx.x % 32;
-  if (lane < kQColThreads) {
-    for (int m = 0; m < M; ++m)
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        red[(warp * kMaxM + m) * kColsPerBlock + ct * 16 + j] = acc[m][j];
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < M * kColsPerBlock; t += blockDim.x) {
-    const int m = t / kColsPerBlock, c = t % kColsPerBlock;
-    const int n = blockIdx.x * kColsPerBlock + c;
-    if (n < N) {
-      float s = 0.f;
-#pragma unroll
-      for (int wi = 0; wi < kWarps; ++wi)
-        s += red[(wi * kMaxM + m) * kColsPerBlock + c];
-      out[static_cast<long long>(m) * N + n] = f2bf(s * scale[n]);
-    }
+    for (int u = 0; u < kNkVec; ++u) cur[u] = nxt[u];
+    g = gn;
+    p = pn;
   }
 }
 
-template <typename CT>
-int launch_gemv_q8(const void* x, const void* w, const void* scale,
-                   void* out, int M, int K, int N, long long ldx,
-                   long long ldw, cudaStream_t st) {
-  const size_t smem = ((static_cast<size_t>(M) * K * 2 + 15) / 16) * 16 +
-                      static_cast<size_t>(kWarps) * kMaxM * kColsPerBlock * 4;
-  cudaError_t e = allow_smem(gemv_kn_q8_kernel<CT>, smem);
+// SMs of the current device (the NK grid is two blocks a SM at most).
+inline int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+template <int CT, typename WT>
+int launch_kn(int splits, const void* x, const void* w, const void* scale,
+              void* out, int M, int K, int N, long long ldx, long long ldw,
+              cudaStream_t st) {
+  using T = KnTile<CT, WT>;
+  const int per = ((K + kSplitRows - 1) / kSplitRows + splits - 1) / splits;
+  const size_t smem = kn_smem<CT, WT>(M, min(K, per * kSplitRows));
+  auto kernel = gemv_kn_kernel<CT, WT>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((N + kColsPerBlock - 1) / kColsPerBlock);
-  gemv_kn_q8_kernel<CT><<<grid, kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const unsigned char*>(w), static_cast<const float*>(scale),
-      static_cast<__nv_bfloat16*>(out), M, K, N, ldx, ldw);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + T::kCols - 1) / T::kCols, 1, splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  using B = __nv_bfloat16;
+  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const B*>(x),
+                         static_cast<const WT*>(w),
+                         static_cast<const float*>(scale), static_cast<B*>(out),
+                         M, K, N, ldx, ldw);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+// cols 64 or 32 (a 16-byte vector per column thread: 8 bf16, 16 codes)
+template <typename WT>
+int dispatch_kn(int cols, int splits, const void* x, const void* w,
+                const void* scale, void* out, int M, int K, int N,
+                long long ldx, long long ldw, cudaStream_t st) {
+  if (M < 1 || M > kMaxM || splits < 1 || splits > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int V = 16 / static_cast<int>(sizeof(WT));
+  if (cols == 64)
+    return launch_kn<64 / V, WT>(splits, x, w, scale, out, M, K, N, ldx, ldw,
+                                 st);
+  if (cols == 32)
+    return launch_kn<32 / V, WT>(splits, x, w, scale, out, M, K, N, ldx, ldw,
+                                 st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -265,47 +413,44 @@ int launch_gemv_q8(const void* x, const void* w, const void* scale,
 REPRO_ERROR_STRING_FN
 
 // out (M, N) row-major bf16 = x (M, K; row stride ldx) @ W.
-// w_kn = 1: W[k, n] at w[k*ldw + n]; w_kn = 0: W[k, n] at w[n*ldw + k].
-// Needs K % 8 == 0 (and N % 8 == 0 for w_kn = 1) with 16-byte aligned rows
-// of W and x; the wrapper checks this.
+// w_kn = 1: W[k, n] at w[k*ldw + n], launched in `cols`-column blocks over
+// `splits` K ranges (kernels/gemv.py::gemv_tiles); w_kn = 0: W[k, n] at
+// w[n*ldw + k], unsplit (cols and splits ignored). Needs K % 8 == 0 (and
+// N % 8 == 0 for w_kn = 1) with 16-byte aligned rows of W and x; the
+// wrapper checks this.
 REPRO_EXPORT int gemv_bf16(const void* x, const void* w, void* out, int M,
                            int K, int N, long long ldx, long long ldw,
-                           int w_kn, void* stream) {
-  if (M < 1 || M > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
+                           int w_kn, int cols, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t xs_bytes = ((static_cast<size_t>(M) * K * 2 + 15) / 16) * 16;
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const __nv_bfloat16*>(w);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (w_kn) {
-    const size_t smem =
-        xs_bytes + static_cast<size_t>(kWarps) * kMaxM * kColsPerBlock * 4;
-    cudaError_t e = allow_smem(gemv_kn_kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((N + kColsPerBlock - 1) / kColsPerBlock);
-    gemv_kn_kernel<<<grid, kThreads, smem, st>>>(xp, wp, op, M, K, N, ldx,
-                                                 ldw);
-  } else {
-    cudaError_t e = allow_smem(gemv_nk_kernel, xs_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    dim3 grid((N + kWarps - 1) / kWarps);
-    gemv_nk_kernel<<<grid, kThreads, xs_bytes, st>>>(xp, wp, op, M, K, N,
-                                                     ldx, ldw);
-  }
+  if (w_kn)
+    return dispatch_kn<__nv_bfloat16>(cols, splits, x, w, nullptr, out, M, K,
+                                      N, ldx, ldw, st);
+  if (M < 1 || M > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = align16(static_cast<size_t>(M) * K * 2);
+  cudaError_t e = allow_smem(gemv_nk_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int per_block = kWarps * kNkCols;
+  const int blocks = min((N + per_block - 1) / per_block, 2 * num_sms());
+  gemv_nk_kernel<<<blocks, kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(out),
+      M, K, N, ldx, ldw);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Quantized weights: out (M, N) bf16 = bf16((x @ codes) * scale), codes
 // (K, N) row-major int8 (fp8 = 0) or e4m3 (fp8 = 1), leading dimension ldw,
-// scale (N,) f32. Needs K % 8 == 0, N % 16 == 0 and ldw % 16 == 0 with
-// 16-byte aligned rows of the codes and x.
+// scale (N,) f32, launched like gemv_bf16's KN layout. Needs K % 8 == 0,
+// N % 16 == 0 and ldw % 16 == 0 with 16-byte aligned rows of the codes and
+// x.
 REPRO_EXPORT int gemv_q8(const void* x, const void* w, const void* scale,
                          void* out, int M, int K, int N, long long ldx,
-                         long long ldw, int fp8, void* stream) {
-  if (M < 1 || M > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
+                         long long ldw, int cols, int splits, int fp8,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fp8)
-    return launch_gemv_q8<__nv_fp8_e4m3>(x, w, scale, out, M, K, N, ldx, ldw,
-                                         st);
-  return launch_gemv_q8<int8_t>(x, w, scale, out, M, K, N, ldx, ldw, st);
+    return dispatch_kn<__nv_fp8_e4m3>(cols, splits, x, w, scale, out, M, K, N,
+                                      ldx, ldw, st);
+  return dispatch_kn<int8_t>(cols, splits, x, w, scale, out, M, K, N, ldx,
+                             ldw, st);
 }

@@ -11,42 +11,89 @@ The weight may be a row-major (K, N) tensor or the transposed view of a
 row-major (N, K) tensor (the tied LM head ``embedding.T``); the kernel
 reads either layout in place, chosen from the strides.
 
+Split K: a (K, N) launch covers ``cols`` output columns per block (64,
+or 32 where even the most splits leave 64-column blocks short of the
+SMs) and cuts K into :func:`pick_splits` ranges of whole ``SPLIT_ROWS``
+chunks counted from K = 0; one thread-block cluster per column tile sums
+the ranges' f32 partials in split order before the epilogue. Both come
+from :func:`gemv_tiles`, a function of K, N and the card, never of M, so
+a row's bits are the same alone and in any batch. :func:`gemv_plain`
+walks the same splits (``flat_gemm.split_acc``). The (N, K) view (the
+tied head) launches unsplit: its columns fill the card.
+
 ``w_scale`` ((N,) f32, one step per output channel) marks ``w`` as the
 int8 / fp8 codes of a quantized weight (``models/wquant.py``): the
 quantized kernel (``_gemv_quant_kernel``'s port) streams the codes at 1
-byte and multiplies the f32 sum by the step before the one rounding, and
-:data:`gemv_quant` counts its launches. Codes come in the (K, N) layout
-only: a quantized (N, K) view raises.
+byte and multiplies the summed f32 partials by the step before the one
+rounding, and :data:`gemv_quant` counts its launches. Codes come in the
+(K, N) layout only: a quantized (N, K) view raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch import hardware
 from repro_torch.kernels import _build
 
 MAX_M = 4
+MAX_SPLITS = 8                     # K splits: a portable cluster at most
+SPLIT_ROWS = 64                    # K rows per split chunk (csrc: kSplitRows)
 
 # a quantized weight's code dtypes -> the C entries' ``fp8`` flag
 CODE_DTYPES = {torch.int8: 0, torch.float8_e4m3fn: 1}
 
-_SIG = {"gemv_bf16": [_build.VP, _build.VP, _build.VP, _build.I32,
-                      _build.I32, _build.I32, _build.I64, _build.I64,
-                      _build.I32, _build.VP],
+_SIG = {"gemv_bf16": [_build.VP] * 3 + [_build.I32] * 3 + [_build.I64] * 2
+        + [_build.I32] * 3 + [_build.VP],
         "gemv_q8": [_build.VP] * 4 + [_build.I32] * 3 + [_build.I64] * 2
-        + [_build.I32, _build.VP]}
+        + [_build.I32] * 3 + [_build.VP]}
 
 gemv_quant = _build.LaunchCounter("gemv_quant")
 
 
+def pick_cols(n: int, *,
+              spec: hardware.HardwareSpec = hardware.DEFAULT) -> int:
+    """Columns per (K, N) block: 64 (128-byte rows of bf16 weights), or
+    32 where even MAX_SPLITS splits of 64-column blocks leave SMs idle
+    (k / v at N = 128, q / o_proj / down at N = 896), which doubles the
+    blocks."""
+    return 64 if -(-n // 64) * MAX_SPLITS >= spec.num_sms else 32
+
+
+def pick_splits(k: int, n: int, *,
+                spec: hardware.HardwareSpec = hardware.DEFAULT) -> int:
+    """K splits of a (K, N) launch over :func:`pick_cols`'s column
+    blocks: as many as keep the grid within two blocks per SM (one wave
+    at the kernel's occupancy), at most MAX_SPLITS (a portable cluster)
+    and one per SPLIT_ROWS chunk, trimmed so that none is empty; 1 where
+    the columns alone give every SM two blocks. A function of K, N and
+    the card only."""
+    blocks = -(-n // pick_cols(n, spec=spec))
+    n_ch = -(-k // SPLIT_ROWS)
+    want = max(1, min(n_ch, MAX_SPLITS, 2 * spec.num_sms // blocks))
+    return -(-n_ch // -(-n_ch // want))
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_tiles(k: int, n: int, kn: bool = True, *,
+               spec: hardware.HardwareSpec = hardware.DEFAULT
+               ) -> tuple[int, int]:
+    """(cols, splits) of a launch; the (N, K) view runs unsplit."""
+    if not kn:
+        return 64, 1
+    return pick_cols(n, spec=spec), pick_splits(k, n, spec=spec)
+
+
 def gemv_plain(x: torch.Tensor, w: torch.Tensor, *,
                w_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain PyTorch version: f32 accumulation, result in x's dtype; with
-    ``w_scale`` the codes cast to f32 (exact) and the step multiplies the
-    f32 sum before the rounding."""
-    acc = torch.matmul(x.float(), w.float())
-    if w_scale is not None:
-        acc = acc * w_scale.float()
-    return acc.to(x.dtype)
+    """Plain version: the kernel's splits walked by ``flat_gemm.split_acc``
+    (each split's SPLIT_ROWS chunks in f32 in K order, codes cast to f32
+    exactly, the splits' sums in split order, the step on the sum), one
+    rounding to x's dtype."""
+    from repro_torch.kernels.flat_gemm import split_acc
+    _, splits = gemv_tiles(x.shape[1], w.shape[1], w.stride(1) == 1)
+    return split_acc(x, w, SPLIT_ROWS, splits, w_scale).to(x.dtype)
 
 
 def check_codes(what: str, w: torch.Tensor, w_scale: torch.Tensor) -> int:
@@ -118,17 +165,19 @@ def gemv(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(
             "gemv kernel needs K (and N for a (K, N) weight) to be a "
             "multiple of 8 with 16-byte aligned rows")
+    cols, splits = gemv_tiles(k, n, kn)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("gemv", _SIG)
     if w_scale is not None:
         code = lib.gemv_q8(_build.ptr(x), _build.ptr(w), _build.ptr(w_scale),
-                           _build.ptr(out), m, k, n, x.stride(0), ldw, fp8,
-                           _build.stream_of(x))
+                           _build.ptr(out), m, k, n, x.stride(0), ldw, cols,
+                           splits, fp8, _build.stream_of(x))
         _build.check(lib, "gemv_q8", code)
         gemv_quant.launches += 1
         return out
     code = lib.gemv_bf16(_build.ptr(x), _build.ptr(w), _build.ptr(out), m, k,
-                         n, x.stride(0), ldw, int(kn), _build.stream_of(x))
+                         n, x.stride(0), ldw, int(kn), cols, splits,
+                         _build.stream_of(x))
     _build.check(lib, "gemv_bf16", code)
     gemv.launches += 1
     return out

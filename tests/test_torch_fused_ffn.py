@@ -7,9 +7,11 @@ fused plan's logits and greedy tokens against the JAX package's fused
 plan.
 
 Tolerances: TOL["float32"] for f32 inputs (same math, other summation
-order: the plain version accumulates the kernel's K tiles); TOL["bfloat16"]
-for bf16 inputs. The CUDA kernel is held to this plain version on the
-card by ``chip_smoke.py``.
+order: the plain version accumulates the wgmma body's fixed K tiles);
+TOL["bfloat16"] for bf16 inputs. The plain version's rows do not depend on
+their batch, bit for bit, and the wgmma body's ring fits a block's shared
+memory. The CUDA kernel is held to this plain version on the card by
+``chip_smoke.py``.
 """
 import dataclasses
 
@@ -34,7 +36,6 @@ from repro_torch import hardware
 from repro_torch.core.plan import DEFAULT_PLAN, make_plan
 from repro_torch.kernels import fused_ffn as tff
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flat_gemm import smem_bytes
 from repro_torch.models import layers as L
 from repro_torch.models.api import get_model as tget_model
 from repro_torch.models.convert import params_from_numpy
@@ -85,7 +86,7 @@ def _operands(m, k, n, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("m", [1, 4, 13, 64])
+@pytest.mark.parametrize("m", [1, 4, 13, 64, 200])
 def test_fused_ffn_up_matches_pallas(m, dtype):
     """K = 200 and N = 72 are multiples of no tile of either kernel."""
     k, n = 200, 72
@@ -127,17 +128,51 @@ def test_fused_ffn_up_rejects_bad_operands():
 
 
 def test_fused_ffn_tiles_fit_shared_memory():
-    """The tile pickers budget two weight tiles per stage: every launch
-    of the qwen2 FFN-up shapes fits a block's shared memory, and M past
-    one 64-row block keeps the picks legal (the grid tiles M)."""
+    """The bf16 body's ring holds two weight tiles and the x tiles of a
+    block's rows per stage and fits a block's shared memory at every M of
+    the qwen2 FFN-up: M past one block's WG_TILES x WG_TOKENS rows takes
+    more row blocks (the grid tiles M), never more x tiles a stage."""
     cfg = tconfigs.get(ARCH)
     spec = hardware.DEFAULT
     for m in (1, 4, 64, 256, 4096):
-        bn, bk = tff.tiles(m, cfg.d_model, cfg.d_ff)
-        assert smem_bytes(bn, bk, w_kn=True, streams=2) \
-            <= spec.smem_per_block
-        assert smem_bytes(bn, bk, w_kn=True, streams=2) \
-            > smem_bytes(bn, bk, w_kn=True)
+        rows = min(m, tff.WG_TILES * tff.WG_TOKENS)
+        assert -(-rows // tff.WG_TOKENS) <= tff.WG_TILES
+        assert tff.wgmma_smem_bytes() <= spec.smem_per_block
+        assert tff.wgmma_smem_bytes(streams=2) \
+            > tff.wgmma_smem_bytes(streams=1)
+    # the K tile is one 128-byte swizzled row of bf16; the column block is
+    # the wgmma's 64 rows, which N = d_ff fills exactly
+    assert tff.WG_BK * 2 == 128
+    assert cfg.d_ff % tff.WG_BN == 0
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu"])
+def test_fused_ffn_row_alone_bitwise_in_batch(act):
+    """bf16, M = 200 (four 64-row tiles, the last ragged): rows run
+    alone give their rows' bits in the batch."""
+    (_, tx), (_, tg), (_, tu) = _operands(200, 200, 72, "bfloat16", seed=9)
+    batch = tff.fused_ffn_up_plain(tx, tg, tu, activation=act)
+    for i in (0, 77, 199):
+        alone = tff.fused_ffn_up_plain(tx[i:i + 1], tg, tu, activation=act)
+        assert torch.equal(alone.view(torch.int16),
+                           batch[i:i + 1].view(torch.int16))
+
+
+def test_fused_ffn_plain_walks_fixed_k_tiles():
+    """The bf16 plain version sums WG_BK-wide K tiles in K order in f32,
+    the last one ragged (K = 200), at every M, then the activation and
+    one rounding: each row on its own, bit for bit."""
+    (_, tx), (_, tg), (_, tu) = _operands(5, 200, 72, "bfloat16", seed=4)
+    got = tff.fused_ffn_up_plain(tx, tg, tu)
+    for r in range(5):
+        g = torch.zeros(72)
+        u = torch.zeros(72)
+        for t in range(0, 200, tff.WG_BK):
+            xs = tx[r, t:t + tff.WG_BK].float()
+            g += xs @ tg[t:t + tff.WG_BK].float()
+            u += xs @ tu[t:t + tff.WG_BK].float()
+        want = (torch.nn.functional.silu(g) * u).to(torch.bfloat16)
+        assert torch.equal(got[r], want)
 
 
 # ---------------------------------------------------------------------------
