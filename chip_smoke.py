@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --profiles-only   # build, then only the decode-tick
                                             # and chunk-step profiles
+                                            # (A, B, N, E, H, J, K, O, P, S)
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -51,11 +52,16 @@
    oproj_residual on the o_proj), timed beside matmul / addmm. The
    split-K GEMV (row 1) is held to its split plain version at the q,
    k / v, o_proj, gate / up and down shapes and the tied head, M in {1,
-   2, 4}, bf16, int8 and fp8, and the wgmma fused FFN-up (row 8, bf16) at
-   M in {1, 4, 13, 64, 256, 1024}, swiglu and geglu: a row alone must give
-   its row's bits in the batch, a second launch the first's, and a CUDA
-   graph's replay the eager call's; row 1 gets lines at N = 128 and 4,864,
-   row 8 at M = 256 and 1,024.
+   2, 4, 5, 8, 15} (past four rows, one launch a 4-row slice), bf16, int8
+   and fp8, and the wgmma fused FFN-up (row 8, bf16) at M in {1, 4, 13,
+   64, 256, 1024}, swiglu and geglu: a row alone must give its row's bits
+   in the batch, a second launch the first's, and a CUDA graph's replay
+   the eager call's; row 1 gets lines at N = 128 and 4,864, row 8 at M =
+   256 and 1,024. The split-K decode ingest (row 12) and the rmsnorm-fused
+   FFN-up (row 14: bf16 on its wgmma body) get the same four checks at M
+   in {1, 4, 8, 13, 64}, bf16, int8 and fp8, at qwen2-0.5b's and at
+   llama2-7b's widths (random weights, head_dim 128), and llama2-7b lines
+   timed at M = 4.
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
    greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
@@ -96,7 +102,7 @@
    fused stages, H's plan) and, on the "torch" plan, against the bf16
    logits within the JAX package's guard (``quant.logits_guard_tol``);
    does the same for int8 and fp8 KV pages on the paged cases; profiles
-   the decode tick of A, H, J, K, M, O and S, the 1-slot ticks of B and N
+   the decode tick of A, H, J, K, M, O, P and S, the 1-slot ticks of B and N
    (with the GEMV's share), and the chunk steps of runs E and H (with the
    fused FFN-up's share).
 5. Prints the card's name and power limit, one JSON line describing every
@@ -1014,6 +1020,7 @@ def kernel_phase(torch, timer, rows, log):
     split_k_checks(torch, cfg, randn, record, gemm_close, log)
     gemv_split_checks(torch, cfg, randn, embedding, gemm_close, log)
     ffn_wgmma_checks(torch, cfg, randn, gemm_close, log)
+    ingest_ffn_split_checks(torch, randn, record, gemm_close, log)
     split_kv_checks(torch, cfg, gen, randn, record, attn_close, log)
     decode_split_checks(torch, timer, cfg, gen, randn, record, attn_close,
                         log)
@@ -1145,21 +1152,24 @@ def gemv_split_checks(torch, cfg, randn, embedding, gemm_close, log):
     """The split-K GEMV (row 1, bf16 and quantized) at the decode GEMMs'
     shapes, and the tied head's unsplit (N, K) body.
 
-    * q, k / v, o_proj, gate / up and down at M in {1, 2, 4}, bf16, int8
-      and fp8, and the tied head (bf16), each within ``gemm_close`` of
-      ``gemv_plain`` (the same splits walked on the card).
-    * Every row of M = 2 and 4 run alone (M = 1) bitwise its row in the
-      batch; a second launch bitwise the first; a CUDA graph's replay at
-      M = 4 bitwise the eager call."""
+    * q, k / v, o_proj, gate / up and down at M in {1, 2, 4, 5, 8, 15},
+      bf16, int8 and fp8, and the tied head (bf16), each within
+      ``gemm_close`` of ``gemv_plain`` (the same splits walked on the
+      card); past four rows the wrapper launches the kernel on slices of
+      at most four rows (``gemv.row_slices``), one launch counted each.
+    * Every row of M = 2, 4, 5, 8 and 15 run alone (M = 1) bitwise its row
+      in the batch; a second launch bitwise the first; a CUDA graph's
+      replay at M = 4 bitwise the eager call."""
     from repro_torch.kernels import quant
-    from repro_torch.kernels.gemv import gemv, gemv_plain, gemv_tiles
+    from repro_torch.kernels.gemv import (gemv, gemv_plain, gemv_quant,
+                                          gemv_tiles, row_slices)
     from repro_torch.models import wquant
 
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     nq, nk = cfg.num_heads * hd, cfg.num_kv_heads * hd
     shapes = {"q": (d, nq), "k/v": (d, nk), "o_proj": (nq, d),
               "gate/up": (d, f), "down": (f, d)}
-    x = randn(4, f)
+    x = randn(15, f)
     cases = []
     for tag, (k, n) in shapes.items():
         w = randn(k, n, scale=k ** -0.5)
@@ -1175,10 +1185,14 @@ def gemv_split_checks(torch, cfg, randn, embedding, gemm_close, log):
         def run(xx):
             return gemv(xx, wt, w_scale=sc)
 
-        worst, close, alone, again = 0.0, True, True, True
-        for m in (1, 2, 4):
+        counter = gemv if sc is None else gemv_quant
+        worst, close, alone, again, counted = 0.0, True, True, True, True
+        for m in (1, 2, 4, 5, 8, 15):
             xx = x[:m, :k].contiguous()
+            before = counter.launches
             got = run(xx)
+            counted = counted and (counter.launches - before
+                                   == len(row_slices(m)))
             want = gemv_plain(xx, wt, w_scale=sc)
             worst = max(worst, (got.float() - want.float()).abs().max().item())
             close = close and gemm_close(got, want)[0]
@@ -1188,11 +1202,13 @@ def gemv_split_checks(torch, cfg, randn, embedding, gemm_close, log):
                     (run(xx[i:i + 1]), got[i:i + 1]) for i in range(m)])
         replay = graph_replay_same(torch, lambda: run(x[:4, :k]))
         log(f"kernel gemv split {tag} {kind} K={k} N={n} ({cols} columns a "
-            f"block, {splits} splits) M=1/2/4: max_abs_err={worst:.3e} (tol "
-            f"atol={TOL['atol']} rtol={TOL['rtol']}) "
+            f"block, {splits} splits) M=1/2/4/5/8/15: max_abs_err="
+            f"{worst:.3e} (tol atol={TOL['atol']} rtol={TOL['rtol']}) "
             f"{'ok' if close else 'MISMATCH'}; a row alone bitwise in its "
-            f"batch {alone}; two launches bitwise {again}; graph replay "
-            f"bitwise eager {replay}")
+            f"batch {alone}; two launches bitwise {again}; one launch "
+            f"counted per 4-row slice {counted}; graph replay bitwise eager "
+            f"{replay}")
+        check(counted, f"gemv {tag} {kind}: launches not counted per slice")
         check(close, f"gemv {tag} {kind}: kernel disagrees with its split "
               "plain version")
         check(alone, f"gemv {tag} {kind}: a row's bits depend on M")
@@ -1240,6 +1256,151 @@ def ffn_wgmma_checks(torch, cfg, randn, gemm_close, log):
         check(again, f"fused_ffn_up {act}: two launches differ")
         check(replay, f"fused_ffn_up {act}: a graph replay differs from the "
               "eager call")
+
+
+def ingest_ffn_split_checks(torch, randn, record, gemm_close, log):
+    """The split-K fused decode ingest (row 12) and the rmsnorm-fused
+    FFN-up (row 14; bf16 on the wgmma body, int8 / fp8 on the mma.sync
+    one) at qwen2-0.5b's and llama2-7b's widths, random weights from the
+    smoke's generator (llama2-7b: head_dim 128, one query head a kv head).
+
+    * M in {1, 4, 8, 13, 64}, bf16, int8 and fp8 (row 14 bf16 with swiglu
+      and geglu), each within ``gemm_close`` of its plain version (the
+      same splits walked on the card).
+    * Rows 0, M // 2 and M - 1 run alone bitwise their rows in the batch;
+      a second launch bitwise the first; a CUDA graph's replay at M = 4
+      bitwise the eager call.
+    * llama2-7b's M = 4 bf16 lines of rows 12 and 14 are timed beside
+      their library chains (the kernel table's "llama" lines)."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import decode_fuse as dfu
+    from repro_torch.kernels import quant
+    from repro_torch.models import wquant
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for arch in (ARCH, "llama2-7b"):
+        cfg = configs.get(arch)
+        d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+        hq, hk = cfg.num_heads, cfg.num_kv_heads
+        nq, nk = hq * hd, hk * hd
+        wq, wk, wv = (randn(d, n, scale=d ** -0.5) for n in (nq, nk, nk))
+        bq, bkb, bv = (randn(n) for n in (nq, nk, nk))
+        nscale = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(
+            torch.bfloat16)
+        wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
+        x = randn(64, d)
+        pos = torch.randint(0, 4096, (64,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        ikw = dict(num_heads=hq, num_kv_heads=hk, head_dim=hd,
+                   rope_theta=cfg.rope_theta, bq=bq, bk=bkb, bv=bv)
+        splits = (dfu.ingest_splits(d, hq + 2 * hk),
+                  dfu.ffn_norm_splits(d, f))
+        kinds = {"bf16": ((wq, wk, wv), {}, (wg, wu), {})}
+        for qs in (quant.INT8, quant.FP8):
+            leaves = [wquant.quantize_weight(w, qs)
+                      for w in (wq, wk, wv, wg, wu)]
+            kinds[qs.name] = (
+                tuple(lf["codes"] for lf in leaves[:3]),
+                dict(wq_scale=leaves[0]["scale"],
+                     wk_scale=leaves[1]["scale"],
+                     wv_scale=leaves[2]["scale"]),
+                tuple(lf["codes"] for lf in leaves[3:]),
+                dict(wg_scale=leaves[3]["scale"],
+                     wu_scale=leaves[4]["scale"]))
+        for kind, (qkv, qsc, gu, gsc) in kinds.items():
+            def ingest(xx, pp, plain=False):
+                fn = dfu.decode_ingest_plain if plain \
+                    else dfu.decode_ingest_fused
+                return fn(xx, nscale, *qkv, pp, **ikw, **qsc)
+
+            cases = [("decode_ingest_fused", ingest)]
+            for act in ("swiglu", "geglu") if kind == "bf16" else ("swiglu",):
+                def ffn(xx, pp, plain=False, act=act):
+                    fn = dfu.ffn_norm_plain if plain else dfu.ffn_norm_fused
+                    return fn(xx, nscale, *gu, activation=act, **gsc)
+                cases.append((f"ffn_norm_fused {act}", ffn))
+            for name, fn in cases:
+                def parts(r):
+                    return r if isinstance(r, tuple) else (r,)
+
+                worst, close, alone, again = 0.0, True, True, True
+                for m in (1, 4, 8, 13, 64):
+                    xx, pp = x[:m].contiguous(), pos[:m].contiguous()
+                    got = parts(fn(xx, pp))
+                    want = parts(fn(xx, pp, plain=True))
+                    for a, b in zip(got, want):
+                        worst = max(worst, (a.float() - b.float()).abs()
+                                    .max().item())
+                        close = close and gemm_close(a, b)[0]
+                    again = again and same_bits(
+                        torch, *zip(parts(fn(xx, pp)), got))
+                    alone = alone and same_bits(torch, *[
+                        (a, b[i:i + 1]) for i in sorted({0, m // 2, m - 1})
+                        for a, b in zip(parts(fn(xx[i:i + 1], pp[i:i + 1])),
+                                        got)])
+                x4, p4 = x[:4].contiguous(), pos[:4].contiguous()
+                replay = graph_replay_same(torch, lambda: fn(x4, p4))
+                log(f"kernel split {name} {arch} {kind} K={d} (ingest "
+                    f"{splits[0]} splits, ffn_norm bf16 {splits[1]}) "
+                    f"M=1/4/8/13/64: max_abs_err={worst:.3e} (tol atol="
+                    f"{TOL['atol']} rtol={TOL['rtol']}) "
+                    f"{'ok' if close else 'MISMATCH'}; a row alone bitwise "
+                    f"in its batch {alone}; two launches bitwise {again}; "
+                    f"graph replay bitwise eager {replay}")
+                check(close, f"{name} {arch} {kind}: kernel disagrees with "
+                      "its split plain version")
+                check(alone, f"{name} {arch} {kind}: a row's bits depend on "
+                      "M")
+                check(again, f"{name} {arch} {kind}: two launches differ")
+                check(replay, f"{name} {arch} {kind}: a graph replay differs "
+                      "from the eager call")
+        if arch == ARCH:
+            continue
+        # llama2-7b's timed lines at M = 4, bf16, beside the library chains
+        m = 4
+        x4, p4 = x[:m].contiguous(), pos[:m].contiguous()
+        wqkv, bqkv = torch.cat([wq, wk, wv], 1), torch.cat([bq, bkb, bv])
+        half = hd // 2
+        inv_freq = cfg.rope_theta ** (
+            -torch.arange(half, device="cuda", dtype=torch.float32) / half)
+
+        def lib_ingest():
+            h = F.rms_norm(x4, (d,), nscale, eps=1e-6)
+            qkv = torch.addmm(bqkv, h, wqkv).view(m, -1, hd)
+            ang = p4.float()[:, None, None] * inv_freq
+            c, sn = ang.cos(), ang.sin()
+            x1, x2 = qkv[:, :hq + hk, :half], qkv[:, :hq + hk, half:]
+            rot = torch.cat([x1 * c - x2 * sn, x2 * c + x1 * sn], -1)
+            return rot.to(qkv.dtype), qkv[:, hq + hk:]
+
+        def lib_ffn():
+            h = F.rms_norm(x4, (d,), nscale, eps=1e-6)
+            return F.silu(torch.matmul(h, wg)) * torch.matmul(h, wu)
+
+        n_all = nq + 2 * nk
+        record("decode_ingest_fused",
+               f"llama2-7b M={m} K={d} N={nq}+{nk}+{nk} bias rope",
+               torch.cat(dfu.decode_ingest_fused(x4, nscale, wq, wk, wv, p4,
+                                                 **ikw), 1),
+               torch.cat(dfu.decode_ingest_plain(x4, nscale, wq, wk, wv, p4,
+                                                 **ikw), 1),
+               lambda: dfu.decode_ingest_fused(x4, nscale, wq, wk, wv, p4,
+                                               **ikw),
+               lambda: dfu.decode_ingest_plain(x4, nscale, wq, wk, wv, p4,
+                                               **ikw),
+               lib_ingest,
+               2 * (m * d + d + d * n_all + n_all + m * n_all) + 4 * m,
+               2 * m * d * n_all, True, gemm_close, slot="llama")
+        record("ffn_norm_fused", f"llama2-7b M={m} K={d} N={f} swiglu",
+               dfu.ffn_norm_fused(x4, nscale, wg, wu),
+               dfu.ffn_norm_plain(x4, nscale, wg, wu),
+               lambda: dfu.ffn_norm_fused(x4, nscale, wg, wu),
+               lambda: dfu.ffn_norm_plain(x4, nscale, wg, wu), lib_ffn,
+               2 * (m * d + d + 2 * d * f + m * f), 4 * m * d * f, True,
+               gemm_close, slot="llama")
+        del wq, wk, wv, wg, wu, wqkv, kinds
 
 
 def split_kv_checks(torch, cfg, gen, randn, record, attn_close, log):
@@ -2425,8 +2586,10 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
 
 def tick_profiles(torch, cfg, params, requests, shared, log):
     """The decode tick of A (4 slots) and of the 1-slot runs B and N
-    (bf16, int8 weights: the GEMV's share), and the chunk steps of E and
-    H (H: the fused FFN-up at a chunk step's 256 rows)."""
+    (bf16, int8 weights: the GEMV's share), the chunk steps of E and H
+    (H: the fused FFN-up at a chunk step's 256 rows), and the looped
+    ticks of J, K, O, P and S (the fused stages, rows 12-14, replayed in
+    one CUDA graph a tick)."""
     from repro_torch.serving.request import SamplingParams
     profile_phase(torch, cfg, params, requests, log)
     profile_phase(torch, cfg, params, requests, log, tag="B slots=1",
@@ -2438,6 +2601,22 @@ def tick_profiles(torch, cfg, params, requests, shared, log):
     sp2 = SamplingParams(max_new_tokens=2)
     chunk_profile_phase(torch, cfg, params, [(p, sp2) for p, _ in shared],
                         log, tag="H", plan=tuned_plan())
+    paged = dict(cache_kind="paged", page_size=PAGE, prefix_sharing=True,
+                 plan=looped_plan())
+    profile_phase(torch, cfg, params, requests, log,
+                  tag="J slots=4 looped", decode_fusion="looped")
+    profile_phase(torch, cfg, params, shared, log,
+                  tag="K slots=4 paged sharing grouped fused-FFN looped",
+                  **paged)
+    profile_phase(torch, cfg, params, requests, log,
+                  tag="O slots=4 looped fp8 weights", decode_fusion="looped",
+                  weight_dtype="fp8")
+    profile_phase(torch, cfg, params, shared, log,
+                  tag="P slots=4 paged sharing grouped fused-FFN looped int8 "
+                  "weights", weight_dtype="int8", **paged)
+    profile_phase(torch, cfg, params, shared, log,
+                  tag="S slots=4 paged sharing grouped looped fp8 KV pages",
+                  kv_dtype="fp8", **paged)
 
 
 def logits_phase(torch, cfg, params, requests, log, cuda_tokens):
@@ -2797,8 +2976,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profiles-only", action="store_true",
                     help="build, then run only the decode-tick and "
-                    "chunk-step profiles (A, B, N, E, H) and print them; "
-                    "checks nothing and prints no result line")
+                    "chunk-step profiles (A, B, N, E, H, J, K, O, P, S) and "
+                    "print them; checks nothing and prints no result line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2877,20 +3056,7 @@ def main(argv=None) -> int:
                   cache_kind="paged", page_size=PAGE, prefix_sharing=True,
                   plan=tuned_plan())
     profile_phase(torch, cfg, params, requests, log,
-                  tag="J slots=4 looped", decode_fusion="looped")
-    profile_phase(torch, cfg, params, shared, log,
-                  tag="K slots=4 paged sharing grouped fused-FFN looped",
-                  cache_kind="paged", page_size=PAGE, prefix_sharing=True,
-                  plan=looped_plan())
-    profile_phase(torch, cfg, params, requests, log,
                   tag="M slots=4 int8 weights", weight_dtype="int8")
-    profile_phase(torch, cfg, params, requests, log,
-                  tag="O slots=4 looped fp8 weights", decode_fusion="looped",
-                  weight_dtype="fp8")
-    profile_phase(torch, cfg, params, shared, log,
-                  tag="S slots=4 paged sharing grouped looped fp8 KV pages",
-                  cache_kind="paged", page_size=PAGE, prefix_sharing=True,
-                  plan=looped_plan(), kv_dtype="fp8")
     graph_phase(torch, cfg, params, shared, log)
     logits_phase(torch, cfg, params, requests, log, outputs["A"])
     bf16_paged = paged_logits_phase(torch, cfg, params, shared, log)
@@ -2911,8 +3077,8 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["case"],
-            **{key: r[key] for key in ("bf16_ms", "fp8", "long", "n896")
-               if key in r}})
+            **{key: r[key] for key in ("bf16_ms", "fp8", "long", "n896",
+                                       "llama") if key in r}})
     (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -105,6 +105,20 @@ struct KVElem<__nv_bfloat16> {
   }
 };
 
+// Bring the 128-byte lines of [p, p + bytes) into this SM's L1 cache,
+// one line per thread from thread `tid` of `nthreads`: epilogue operands
+// whose first use would otherwise wait on device memory.
+__device__ __forceinline__ void prefetch_l1(const void* p, int bytes,
+                                            int tid, int nthreads) {
+  const char* base = reinterpret_cast<const char*>(
+      reinterpret_cast<uintptr_t>(p) & ~static_cast<uintptr_t>(127));
+  const int lines =
+      static_cast<int>((reinterpret_cast<const char*>(p) + bytes - base +
+                        127) / 128);
+  for (int l = tid; l < lines; l += nthreads)
+    asm volatile("prefetch.global.L1 [%0];\n" ::"l"(base + l * 128));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

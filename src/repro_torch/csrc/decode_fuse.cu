@@ -20,24 +20,40 @@
 // Design: the TPU kernels walk one sequential grid with a normed-x
 // scratch in VMEM; here every block is independent, so every block that
 // needs the normed rows computes them itself (flat_stream.cuh's
-// norm_rows: same reduction order in every block, so the same bits).
+// norm_rows_range: each row's rms over all of K in one fixed order, so
+// the same bits in every block, whatever K range it then writes).
 //   * decode_ingest: a block owns one head, a head_dim-column tile of one
-//     of the q, k or v streams (grid HQ + 2 * HK blocks, three weight
-//     pointers, no concatenated copy). Epilogue, at the split chain's
-//     rounding points: the f32 accumulator rounds to bf16, adds the bf16
-//     bias (rounded again), and the rows are staged in shared memory so
-//     that rope can pair column i with i + head_dim / 2, which another
-//     warp computed; rope runs in f32 with the angle pos * theta^(-i/half)
-//     and rounds once. v gets no rope; absent biases read as zero.
+//     of the q, k or v streams (three weight pointers, no concatenated
+//     copy), and one K split. A head per block gave 18 blocks at qwen2-
+//     0.5b (14 + 2 + 2 heads) for 132 SMs, each walking all of K, so the
+//     launch's z axis holds S fixed ranges of ceil(n_kt / S) whole 64-row
+//     K tiles from K = 0 (S from kernels/decode_fuse.py::ingest_splits:
+//     K, the head count and the card, never M; 7 there, 126 blocks), and
+//     the S blocks of a head form a thread-block cluster along z. A block
+//     normalises its rows over its range only into shared memory, streams
+//     its range's weight tiles through a 4-stage cp.async ring (mma.sync
+//     m16n8k16, operands swapped: the head's columns fill m16, tokens n8)
+//     and leaves its f32 partial in shared memory; after cluster.sync()
+//     each block folds a slice of the (column i, column i + head_dim / 2)
+//     pairs over the splits in split order through distributed shared
+//     memory, so the epilogue runs in place on the sums, at the split
+//     chain's rounding points: (the step,) the bf16 rounding, the bf16
+//     bias (rounded again), rope on the pair in f32 with the angle pos *
+//     theta^(-i/half), rounded once. v gets no rope; absent biases read
+//     as zero.
 //   * oproj_residual: flat_gemm.cu's kernel itself (flat_stream.cuh's
-//     gemm_kernel: x streamed, 2-stage cp.async) with its residual
-//     epilogue: the accumulator rounds to bf16 and the kernel writes
-//     resid + acc, rounded once, as `resid + matmul(o, wo)` does.
-//   * ffn_norm: fused_ffn.cu's kernel (flat_stream.cuh's ffn_up_kernel)
-//     with the rmsnorm prologue and x resident.
-// The resident kernels hold `mt` token rows per block (the host picks mt
-// so that the rows and two weight stages fit shared memory) and tile M
-// over blockIdx.y. None uses atomics: a replayed step gives the same bits.
+//     gemm_kernel: x streamed, 2-stage cp.async, or gemm_split_kernel)
+//     with its residual epilogue: the accumulator rounds to bf16 and the
+//     kernel writes resid + acc, rounded once, as `resid + matmul(o, wo)`
+//     does.
+//   * ffn_norm: bf16 weights run ffn_norm_wgmma.cuh's wgmma + TMA body,
+//     split K over a cluster, the rmsnorm applied as the consumer stages
+//     x (its header has the design); codes run fused_ffn.cu's mma.sync
+//     kernel (flat_stream.cuh's ffn_up_kernel) with the rmsnorm prologue
+//     and x resident, `mt` token rows per block (the host picks mt so that
+//     the rows and two weight stages fit shared memory), M tiled over
+//     blockIdx.y.
+// None uses atomics: a replayed step gives the same bits.
 //
 // Quantized weights (the quantized branches of the three TPU kernels): each
 // kernel is templated on the weight element type, and the *_q8 entries take
@@ -46,18 +62,31 @@
 // kernels' points: before the bf16 rounding, the bias and rope (ingest),
 // before the rounding and the residual add (oproj_residual), before the
 // activation (ffn_norm).
+#include "ffn_norm_wgmma.cuh"
 #include "flat_stream.cuh"
 
-#include <algorithm>
-
 using namespace repro;
-using flat::Streams;
 using flat::Tile;
 
 namespace {
 
-template <int BN, int BK, typename WT>
-__global__ void __launch_bounds__(BN / 16 * 32)
+constexpr int kIngestBK = 64;      // K rows per tile and per split chunk
+constexpr int kIngestStages = 4;   // the weight ring
+constexpr int kIngestPerSM = 2;    // blocks a SM the split count counts on
+                                   // (kernels/decode_fuse.py: INGEST_PER_SM)
+
+// sin and cos of rope's angle pos * theta^(-i / half) for column pair i.
+__device__ __forceinline__ void rope_factors(float theta, int i, int half,
+                                             int pos, float& sn, float& cs) {
+  const float freq =
+      powf(theta, -static_cast<float>(i) / static_cast<float>(half));
+  sincosf(static_cast<float>(pos) * freq, &sn, &cs);
+}
+
+// One head of one stream over one K split; the gridDim.z = S splits of a
+// head form a cluster along z (block rank = split).
+template <int BN, typename WT>
+__global__ void __launch_bounds__(BN / 16 * 32, kIngestPerSM)
 ingest_kernel(const __nv_bfloat16* __restrict__ x,
               const __nv_bfloat16* __restrict__ scale,
               const WT* __restrict__ wq, const WT* __restrict__ wk,
@@ -70,10 +99,16 @@ ingest_kernel(const __nv_bfloat16* __restrict__ x,
               __nv_bfloat16* __restrict__ ok, __nv_bfloat16* __restrict__ ov,
               int M, int K, int NQ, int NK, long long ldx, int mt, int rope,
               float theta, float eps) {
-  using T = Tile<BN, BK, 1, true, true, WT>;
+  constexpr int BK = kIngestBK, NST = kIngestStages;
+  using T = Tile<BN, BK, 1, true, true, WT, NST>;
+  constexpr int NT = T::kThreads;
+  static_assert(sizeof(float) * flat::kMT * BN <= T::kStagesBytes,
+                "the partials reuse the ring");
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int z = static_cast<int>(cluster.block_rank());
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(smem + T::kStagesBytes);
-  const int xn_pitch = flat::resident_pitch(K, BK);
 
   // which stream and which head of it this block owns
   const int q_blocks = NQ / BN, k_blocks = NK / BN;
@@ -92,53 +127,135 @@ ingest_kernel(const __nv_bfloat16* __restrict__ x,
   __nv_bfloat16* out = stream == 0 ? oq : stream == 1 ? ok : ov;
   const int N = stream == 0 ? NQ : NK;
 
+  // this split's K tiles: ceil(n_kt / S) whole chunks each from K = 0
+  const int n_kt = (K + BK - 1) / BK;
+  const int per = (n_kt + S - 1) / S;
+  const int kt_lo = min(n_kt, z * per);
+  const int n = min(n_kt, kt_lo + per) - kt_lo;
   const int m0 = blockIdx.y * mt;
   const int nt = min(mt / 8, (M - m0 + 7) / 8);  // live n8 token tiles
-  flat::norm_rows(xn, xn_pitch, x, ldx, scale, M, K, m0, nt * 8, eps);
-  __syncthreads();
-  float acc[1][8][4];
-  flat::mainloop<BN, BK, 1, true, true, WT>(smem, xn, xn_pitch, nullptr, 0,
-                                            Streams<1, WT>{{w}}, N, M, K, N,
-                                            m0, n0, nt, acc);
 
-  // (scale,) round, add the bias, stage the head's rows: ys[r][c], c < BN,
-  // over the stages and the resident rows, dead after the mainloop (the
-  // launch gives at least mt * BN bf16 of shared memory)
-  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem);
+  // the normed rows of this range, after the ring (every block's row rms
+  // is over all of K, in one order); while their first loads fly, the
+  // ring's first weight tiles go out and the epilogue's operands head for
+  // L1
+  auto load = [&](int i) {
+    flat::load_w<BN, BK, NT, true, WT>(smem + i % NST * T::kStageBytes, w,
+                                       K, N, N, n0, (kt_lo + i) * BK);
+  };
+  const int xp = per * BK + 8;
+  __nv_bfloat16* xn =
+      reinterpret_cast<__nv_bfloat16*>(smem + T::kStagesBytes);
+  flat::norm_rows_range(
+      [=](int r, int c) { return reinterpret_cast<uint4*>(xn + r * xp + c); },
+      [&](int live) {
+        for (int i = 0; i < NST - 1; ++i) {
+          if (i < n) load(i);
+          cp_async_commit();
+        }
+        prefetch_l1(pos + m0, min(mt, M - m0) * 4, threadIdx.x, NT);
+        if (bias != nullptr) prefetch_l1(bias + n0, BN * 2, threadIdx.x, NT);
+        if constexpr (flat::kIsCode<WT>)
+          prefetch_l1(step + n0, BN * 4, threadIdx.x, NT);
+        flat::zero_rows(xn, xp, live, nt * 8, NT);
+      },
+      x, ldx, scale, M, K, m0, nt * 8, kt_lo * BK, per * BK, eps,
+      threadIdx.x / 32, NT / 32);
+
+  // acc (this warp's 16 columns x nt n8 row tiles) = the normed rows' K
+  // tiles @ W's, flat::mainloop's arithmetic on one K range
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    if (i + NST - 1 < n) load(i + NST - 1);
+    cp_async_commit();         // possibly empty: keeps the group count uniform
+    cp_async_wait<NST - 1>();  // tile i has landed
+    __syncthreads();           // (the first: the normed rows are written)
+    const unsigned char* wsb = smem + i % NST * T::kStageBytes;
+    const uint16_t* xs16 = reinterpret_cast<const uint16_t*>(xn) + i * BK;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[4];
+      flat::w_frag<BN, BK, true, WT>(wsb, kk, warp * 16, g, t, a);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j < nt) {
+          const uint16_t* xr = xs16 + (j * 8 + g) * xp + kk + 2 * t;
+          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
+          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 8);
+          mma_bf16(acc[j], a[0], a[1], a[2], a[3], b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // stage i may be refilled next iteration
+  }
+
+  // this split's f32 partial, part[r][c] (c < BN), over the dead ring:
+  // the same offset in every block of the cluster
+  float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     if (j < nt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = j * 8 + 2 * t + (i & 1);
-        const int c = warp * 16 + g + (i >> 1) * 8;
-        const float b = bias != nullptr ? bf2f(bias[n0 + c]) : 0.f;
-        float a = acc[0][j][i];
-        if constexpr (flat::kIsCode<WT>) a *= step[n0 + c];
-        ys[r * BN + c] = f2bf(bf2f(f2bf(a)) + b);
-      }
+      for (int i = 0; i < 4; ++i)
+        part[(j * 8 + 2 * t + (i & 1)) * BN + warp * 16 + g + (i >> 1) * 8] =
+            acc[j][i];
     }
   }
-  __syncthreads();
-
-  // rope on (i, i + half) of q and k in f32, one rounding; v as staged.
-  // __fmul_rn / __fadd_rn keep the split chain's separate roundings
-  // (no contraction into fma).
+  // the rope factors of this thread's first element of the fold below,
+  // while the other splits finish
   constexpr int kHalf = BN / 2;
-  for (int e = threadIdx.x; e < nt * 8 * kHalf; e += T::kThreads) {
+  const int E = min(mt, M - m0) * kHalf;
+  const int e0 = E * z / S + threadIdx.x;
+  float sn0 = 0.f, cs0 = 1.f;
+  if (rope && stream < 2 && e0 < E * (z + 1) / S)
+    rope_factors(theta, e0 % kHalf, kHalf, pos[m0 + e0 / kHalf], sn0, cs0);
+  cluster.sync();  // every split's partial is written and visible
+
+  // each block folds one slice of the live rows' column pairs (i, i +
+  // half) over the splits in split order (distributed shared memory, every
+  // split's value requested before the sums), then runs the epilogue in
+  // place at the split chain's rounding points: (the step,) round, add the
+  // bias, round, and rope on the pair in f32 with one rounding (__fmul_rn /
+  // __fadd_rn: no contraction into fma); v gets no rope; absent biases
+  // read as zero
+  for (int e = e0; e < E * (z + 1) / S; e += NT) {
     const int r = e / kHalf, i = e % kHalf;
     const int gm = m0 + r;
-    if (gm >= M) continue;
-    const float x1 = bf2f(ys[r * BN + i]), x2 = bf2f(ys[r * BN + i + kHalf]);
+    float* p1 = part + r * BN + i;
+    float v1[flat::kMaxSplits], v2[flat::kMaxSplits];
+#pragma unroll
+    for (int q = 0; q < flat::kMaxSplits; ++q) {
+      if (q < S) {
+        v1[q] = *cluster.map_shared_rank(p1, q);
+        v2[q] = *cluster.map_shared_rank(p1 + kHalf, q);
+      }
+    }
+    float a1 = v1[0], a2 = v2[0];
+#pragma unroll
+    for (int q = 1; q < flat::kMaxSplits; ++q) {
+      if (q < S) {
+        a1 += v1[q];
+        a2 += v2[q];
+      }
+    }
+    if constexpr (flat::kIsCode<WT>) {
+      a1 *= step[n0 + i];
+      a2 *= step[n0 + i + kHalf];
+    }
+    const float b1 = bias != nullptr ? bf2f(bias[n0 + i]) : 0.f;
+    const float b2 = bias != nullptr ? bf2f(bias[n0 + i + kHalf]) : 0.f;
+    const float x1 = bf2f(f2bf(bf2f(f2bf(a1)) + b1));
+    const float x2 = bf2f(f2bf(bf2f(f2bf(a2)) + b2));
     float o1 = x1, o2 = x2;
     if (rope && stream < 2) {
-      const float freq =
-          powf(theta, -static_cast<float>(i) / static_cast<float>(kHalf));
-      const float ang = static_cast<float>(pos[gm]) * freq;
-      float sn, cs;
-      sincosf(ang, &sn, &cs);
+      float sn = sn0, cs = cs0;
+      if (e != e0) rope_factors(theta, i, kHalf, pos[gm], sn, cs);
       o1 = __fsub_rn(__fmul_rn(x1, cs), __fmul_rn(x2, sn));
       o2 = __fadd_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn));
     }
@@ -146,62 +263,72 @@ ingest_kernel(const __nv_bfloat16* __restrict__ x,
     row[i] = f2bf(o1);
     row[i + kHalf] = f2bf(o2);
   }
+  cluster.sync();  // no block leaves while another reads its partial
 }
 
-template <int BN, int BK, typename WT>
-int launch_ingest(const void* x, const void* scale, const void* wq,
-                  const void* wk, const void* wv, const void* sq,
-                  const void* sk, const void* sv, const void* bq,
-                  const void* bk, const void* bv, const int* pos, void* oq,
-                  void* ok, void* ov, int M, int K, int NQ, int NK,
-                  long long ldx, int mt, int rope, float theta, float eps,
-                  cudaStream_t st) {
-  using T = Tile<BN, BK, 1, true, true, WT>;
-  const size_t smem = std::max(
-      T::kStagesBytes +
-          static_cast<size_t>(mt) * flat::resident_pitch(K, BK) * 2,
-      static_cast<size_t>(mt) * BN * 2);
-  cudaError_t e = allow_smem(ingest_kernel<BN, BK, WT>, smem);
+template <int BN, typename WT>
+int launch_ingest(int splits, const void* x, const void* scale,
+                  const void* wq, const void* wk, const void* wv,
+                  const void* sq, const void* sk, const void* sv,
+                  const void* bq, const void* bk, const void* bv,
+                  const int* pos, void* oq, void* ok, void* ov, int M, int K,
+                  int NQ, int NK, long long ldx, int mt, int rope,
+                  float theta, float eps, cudaStream_t st) {
+  using T = Tile<BN, kIngestBK, 1, true, true, WT, kIngestStages>;
+  const int per = ((K + kIngestBK - 1) / kIngestBK + splits - 1) / splits;
+  const size_t smem = T::kStagesBytes + static_cast<size_t>(mt) *
+                                            (per * kIngestBK + 8) * 2;
+  auto kernel = ingest_kernel<BN, WT>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(NQ / BN + 2 * (NK / BN), (M + mt - 1) / mt, splits);
+  cfg.blockDim = dim3(T::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   using B = __nv_bfloat16;
   using F = float;
-  dim3 grid(NQ / BN + 2 * (NK / BN), (M + mt - 1) / mt);
-  ingest_kernel<BN, BK, WT><<<grid, T::kThreads, smem, st>>>(
-      static_cast<const B*>(x), static_cast<const B*>(scale),
+  e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const B*>(x), static_cast<const B*>(scale),
       static_cast<const WT*>(wq), static_cast<const WT*>(wk),
       static_cast<const WT*>(wv), static_cast<const F*>(sq),
       static_cast<const F*>(sk), static_cast<const F*>(sv),
-      static_cast<const B*>(bq),
-      static_cast<const B*>(bk), static_cast<const B*>(bv), pos,
-      static_cast<B*>(oq), static_cast<B*>(ok), static_cast<B*>(ov), M, K,
-      NQ, NK, ldx, mt, rope, theta, eps);
+      static_cast<const B*>(bq), static_cast<const B*>(bk),
+      static_cast<const B*>(bv), pos, static_cast<B*>(oq),
+      static_cast<B*>(ok), static_cast<B*>(ov), M, K, NQ, NK, ldx, mt, rope,
+      theta, eps);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename WT>
-int dispatch_ingest(int head_dim, int bkt, const void* x, const void* scale,
-                    const void* wq, const void* wk, const void* wv,
-                    const void* sq, const void* sk, const void* sv,
-                    const void* bq, const void* bk, const void* bv,
-                    const void* pos, void* oq, void* ok, void* ov, int M,
-                    int K, int NQ, int NK, long long ldx, int mt, int rope,
-                    float theta, float eps, cudaStream_t st) {
+int dispatch_ingest(int head_dim, int splits, const void* x,
+                    const void* scale, const void* wq, const void* wk,
+                    const void* wv, const void* sq, const void* sk,
+                    const void* sv, const void* bq, const void* bk,
+                    const void* bv, const void* pos, void* oq, void* ok,
+                    void* ov, int M, int K, int NQ, int NK, long long ldx,
+                    int mt, int rope, float theta, float eps,
+                    cudaStream_t st) {
+  if (splits < 1 || splits > flat::kMaxSplits || mt < 8 || mt > flat::kMT ||
+      mt % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* p = static_cast<const int*>(pos);
-#define REPRO_IN_CASE(BN_, BK_)                                            \
-  if (head_dim == BN_ && bkt == BK_)                                       \
-    return launch_ingest<BN_, BK_, WT>(x, scale, wq, wk, wv, sq, sk, sv,   \
-                                       bq, bk, bv, p, oq, ok, ov, M, K,    \
-                                       NQ, NK, ldx, mt, rope, theta, eps,  \
-                                       st);
-  REPRO_IN_CASE(32, 32)
-  REPRO_IN_CASE(32, 64)
-  REPRO_IN_CASE(32, 128)
-  REPRO_IN_CASE(64, 32)
-  REPRO_IN_CASE(64, 64)
-  REPRO_IN_CASE(64, 128)
-  REPRO_IN_CASE(128, 32)
-  REPRO_IN_CASE(128, 64)
-  REPRO_IN_CASE(128, 128)
+#define REPRO_IN_CASE(BN_)                                                  \
+  if (head_dim == BN_)                                                      \
+    return launch_ingest<BN_, WT>(splits, x, scale, wq, wk, wv, sq, sk, sv, \
+                                  bq, bk, bv, p, oq, ok, ov, M, K, NQ, NK,  \
+                                  ldx, mt, rope, theta, eps, st);
+  REPRO_IN_CASE(32)
+  REPRO_IN_CASE(64)
+  REPRO_IN_CASE(128)
 #undef REPRO_IN_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -214,18 +341,20 @@ REPRO_ERROR_STRING_FN
 // q and k, rmsnorm(x) @ Wv + bv for v; x (M, K; row stride ldx), scale
 // (K,), W row-major (K, N), biases (N,) or null (zero), pos (M,) int32.
 // head_dim (32, 64 or 128) is the block's column tile and must divide NQ
-// and NK; tiles (bk, mt). Needs K % 8 == 0 with 16-byte aligned rows.
+// and NK; mt token rows a block (a multiple of 8, at most 64); K in
+// `splits` (1 .. 8) ranges of whole 64-row tiles folded in order. Needs
+// K % 8 == 0 with 16-byte aligned rows.
 REPRO_EXPORT int decode_ingest_bf16(const void* x, const void* scale,
                                     const void* wq, const void* wk,
                                     const void* wv, const void* bq,
                                     const void* bk, const void* bv,
                                     const void* pos, void* oq, void* ok,
                                     void* ov, int M, int K, int NQ, int NK,
-                                    long long ldx, int head_dim, int bkt,
-                                    int mt, int rope, float theta, float eps,
-                                    void* stream) {
+                                    long long ldx, int head_dim, int mt,
+                                    int splits, int rope, float theta,
+                                    float eps, void* stream) {
   return dispatch_ingest<__nv_bfloat16>(
-      head_dim, bkt, x, scale, wq, wk, wv, nullptr, nullptr, nullptr, bq,
+      head_dim, splits, x, scale, wq, wk, wv, nullptr, nullptr, nullptr, bq,
       bk, bv, pos, oq, ok, ov, M, K, NQ, NK, ldx, mt, rope, theta, eps,
       static_cast<cudaStream_t>(stream));
 }
@@ -241,14 +370,14 @@ REPRO_EXPORT int decode_ingest_q8(const void* x, const void* scale,
                                   const void* bv, const void* pos, void* oq,
                                   void* ok, void* ov, int M, int K, int NQ,
                                   int NK, long long ldx, int head_dim,
-                                  int bkt, int mt, int rope, float theta,
+                                  int mt, int splits, int rope, float theta,
                                   float eps, int fp8, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (fp8)
     return dispatch_ingest<__nv_fp8_e4m3>(
-        head_dim, bkt, x, scale, wq, wk, wv, sq, sk, sv, bq, bk, bv, pos,
+        head_dim, splits, x, scale, wq, wk, wv, sq, sk, sv, bq, bk, bv, pos,
         oq, ok, ov, M, K, NQ, NK, ldx, mt, rope, theta, eps, st);
-  return dispatch_ingest<int8_t>(head_dim, bkt, x, scale, wq, wk, wv, sq, sk,
+  return dispatch_ingest<int8_t>(head_dim, splits, x, scale, wq, wk, wv, sq, sk,
                                  sv, bq, bk, bv, pos, oq, ok, ov, M, K, NQ,
                                  NK, ldx, mt, rope, theta, eps, st);
 }
@@ -282,17 +411,18 @@ REPRO_EXPORT int oproj_residual_q8(const void* o, const void* w,
 }
 
 // out (M, N) row-major bf16 = act(rmsnorm(x) @ Wg) * (rmsnorm(x) @ Wu);
-// x (M, K; row stride ldx), scale (K,), Wg / Wu row-major (K, N); act =
-// silu (gelu = 0) or the tanh gelu (gelu = 1); tiles (bn, bk, mt). Needs
-// K % 8 == 0 and N % 8 == 0 with 16-byte aligned rows.
+// x (M, K; row stride ldx), scale (K,), Wg / Wu contiguous row-major
+// (K, N); act = silu (gelu = 0) or the tanh gelu (gelu = 1); K in
+// `splits` (1 .. 8) ranges of whole 64-row tiles folded in order (the
+// wgmma body, ffn_norm_wgmma.cuh). Needs K % 8 == 0 and N % 8 == 0 with
+// 16-byte aligned rows and bases.
 REPRO_EXPORT int ffn_norm_bf16(const void* x, const void* scale,
                                const void* wg, const void* wu, void* out,
                                int M, int K, int N, long long ldx, int gelu,
-                               int bn, int bkt, int mt, float eps,
-                               void* stream) {
-  return flat::dispatch_ffn_up<true, __nv_bfloat16>(
-      bn, bkt, x, scale, wg, wu, nullptr, nullptr, out, M, K, N, ldx, mt,
-      gelu != 0, eps, static_cast<cudaStream_t>(stream));
+                               int splits, float eps, void* stream) {
+  return tcn::launch_ffn_norm_wgmma(x, scale, wg, wu, out, M, K, N, ldx,
+                                    gelu, splits, eps,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // ffn_norm_bf16 with quantized weights: Wg / Wu (K, N) row-major codes,

@@ -162,53 +162,129 @@ __device__ __forceinline__ void w_frag(const unsigned char* ws, int kk,
   }
 }
 
-// Rows m0 .. m0 + rows of x, rms-normalised as rmsnorm_ref does (f32 sum
-// of squares over the real K, x * (1 / sqrt(mean + eps)) * scale in f32,
-// one rounding to bf16), into xn[r][k] with the given pitch; zero past K
-// (up to pitch - 8) and in rows past M. One warp per row: lanes take
-// 8-element vectors in a fixed order, so every block gets the same bits.
-// Needs K % 8 == 0 and 16-byte aligned rows of x and scale.
+// Rows lo .. hi - 1 of xn[r][k] (pitch a multiple of 8) set to zero, 16
+// bytes a thread at a time over `nt` threads: contiguous, so no division.
+__device__ __forceinline__ void zero_rows(__nv_bfloat16* xn, int pitch,
+                                          int lo, int hi, int nt) {
+  uint4* p = reinterpret_cast<uint4*>(xn + lo * pitch);
+  const int n = (hi - lo) * pitch / 8;
+  for (int i = threadIdx.x; i < n; i += nt) p[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+constexpr int kNormBatch = 8;  // a row's 16-byte vectors a lane loads at once
+constexpr int kRangeBatch = 4;  // its range's x and scale vectors likewise
+
+// Rows m0 .. m0 + rows of x, rms-normalised over all of K as rmsnorm_ref
+// does (f32 sum of squares; x * (1 / sqrt(mean + eps)) * scale in f32,
+// one rounding to bf16), columns k_lo .. k_lo + span only: the 16-byte
+// vector of row r from column k_lo + c goes to *dst(r, c) (c a multiple
+// of 8, k_lo too); zero past K. meanwhile(live) runs on every thread of
+// the nw warps once their first row's loads are out: it must zero the
+// rows from `live` (the first past M) on, and may issue other work. Warp
+// `warp` of `nw` takes the live rows warp, warp + nw, ... Each lane sums
+// its 8-element vectors from lane * 8 in steps of 256 in K order (a
+// vector past K adds +0, which leaves the sum's bits alone) and warp_sum
+// folds the lanes in a fixed order, so every block gets the same bits
+// whatever range it writes. A row's loads (the sum's first kNormBatch
+// vectors a lane, the range's first kRangeBatch x and scale vectors) go
+// out together: with one warp a scheduler every dependent round trip
+// shows. Needs K % 8 == 0 and 16-byte aligned rows of x and scale.
+template <typename Dst, typename Meanwhile>
+__device__ __forceinline__ void norm_rows_range(
+    Dst dst, Meanwhile meanwhile, const __nv_bfloat16* __restrict__ x,
+    long long ldx, const __nv_bfloat16* __restrict__ scale, int M, int K,
+    int m0, int rows, int k_lo, int span, float eps, int warp, int nw) {
+  const int lane = threadIdx.x % 32;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int live = max(0, min(rows, M - m0));
+  uint4 raw[kNormBatch], xv[kRangeBatch], sv[kRangeBatch];
+  auto ld = [&](const __nv_bfloat16* p, bool in) {
+    return in ? *reinterpret_cast<const uint4*>(p) : zero;
+  };
+  auto issue = [&](int r) {
+    const __nv_bfloat16* src = x + (m0 + r) * ldx;
+#pragma unroll
+    for (int u = 0; u < kNormBatch; ++u) {
+      const int c = lane * 8 + 256 * u;
+      raw[u] = ld(src + c, c < K);
+    }
+#pragma unroll
+    for (int u = 0; u < kRangeBatch; ++u) {
+      const int c = lane * 8 + 256 * u, k = k_lo + c;
+      xv[u] = ld(src + k, c < span && k < K);
+      sv[u] = ld(scale + k, c < span && k < K);
+    }
+  };
+  // the range's vectors u of a batch: normed, rounded, stored
+  auto put = [&](int r, int c0, float inv) {
+#pragma unroll
+    for (int u = 0; u < kRangeBatch; ++u) {
+      const int c = c0 + 256 * u;
+      if (c < span) {
+        uint4 o = zero;
+        if (k_lo + c < K) {
+          float v[8], s[8];
+          unpack8(xv[u], v);
+          unpack8(sv[u], s);
+          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            h[i] = __floats2bfloat162_rn(v[2 * i] * inv * s[2 * i],
+                                         v[2 * i + 1] * inv * s[2 * i + 1]);
+        }
+        *dst(r, c) = o;
+      }
+    }
+  };
+
+  if (warp < live) issue(warp);
+  meanwhile(live);  // while the first row's loads fly
+  for (int r = warp; r < live; r += nw) {
+    if (r != warp) issue(r);
+    const __nv_bfloat16* src = x + (m0 + r) * ldx;
+    float ss = 0.f;
+    for (int c0 = lane * 8;; c0 += 256 * kNormBatch) {
+#pragma unroll
+      for (int u = 0; u < kNormBatch; ++u) {
+        float v[8];
+        unpack8(raw[u], v);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ss += v[i] * v[i];
+      }
+      if (c0 + 256 * kNormBatch >= K) break;
+#pragma unroll
+      for (int u = 0; u < kNormBatch; ++u) {
+        const int c = c0 + 256 * (kNormBatch + u);
+        raw[u] = ld(src + c, c < K);
+      }
+    }
+    ss = warp_sum(ss);
+    const float inv = 1.f / sqrtf(ss / static_cast<float>(K) + eps);
+    for (int c0 = lane * 8;; c0 += 256 * kRangeBatch) {
+      put(r, c0, inv);
+      if (c0 + 256 * kRangeBatch >= span) break;
+#pragma unroll
+      for (int u = 0; u < kRangeBatch; ++u) {
+        const int c = c0 + 256 * (kRangeBatch + u), k = k_lo + c;
+        xv[u] = ld(src + k, c < span && k < K);
+        sv[u] = ld(scale + k, c < span && k < K);
+      }
+    }
+  }
+}
+
+// Rows m0 .. m0 + rows of x, rms-normalised (norm_rows_range over all of
+// K), into xn[r][k] with the given pitch; zero past K (up to pitch - 8)
+// and in rows past M. One warp per row.
 __device__ __forceinline__ void norm_rows(
     __nv_bfloat16* xn, int pitch, const __nv_bfloat16* __restrict__ x,
     long long ldx, const __nv_bfloat16* __restrict__ scale, int M, int K,
     int m0, int rows, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nw = blockDim.x / 32;
-  const int kp = pitch - 8;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  for (int r = warp; r < rows; r += nw) {
-    const int gm = m0 + r;
-    __nv_bfloat16* dst = xn + r * pitch;
-    if (gm >= M) {
-      for (int c = lane * 8; c < kp; c += 256)
-        *reinterpret_cast<uint4*>(dst + c) = zero;
-      continue;
-    }
-    const __nv_bfloat16* src = x + gm * ldx;
-    float ss = 0.f;
-    for (int c = lane * 8; c < K; c += 256) {
-      float v[8];
-      unpack8(*reinterpret_cast<const uint4*>(src + c), v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) ss += v[i] * v[i];
-    }
-    ss = warp_sum(ss);
-    const float inv = 1.f / sqrtf(ss / static_cast<float>(K) + eps);
-    for (int c = lane * 8; c < kp; c += 256) {
-      uint4 o = zero;
-      if (c < K) {
-        float v[8], s[8];
-        unpack8(*reinterpret_cast<const uint4*>(src + c), v);
-        unpack8(*reinterpret_cast<const uint4*>(scale + c), s);
-        __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          h[i] = __floats2bfloat162_rn(v[2 * i] * inv * s[2 * i],
-                                       v[2 * i + 1] * inv * s[2 * i + 1]);
-      }
-      *reinterpret_cast<uint4*>(dst + c) = o;
-    }
-  }
+  norm_rows_range(
+      [=](int r, int c) { return reinterpret_cast<uint4*>(xn + r * pitch + c); },
+      [=](int live) { zero_rows(xn, pitch, live, rows, blockDim.x); },
+      x, ldx, scale, M, K, m0, rows, 0, pitch - 8, eps, threadIdx.x / 32,
+      blockDim.x / 32);
 }
 
 // acc[s] (this warp's 16 columns x nt n8 row tiles of stream s) =

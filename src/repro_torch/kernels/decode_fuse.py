@@ -5,28 +5,37 @@ Replaces ``repro/kernels/decode_fuse.py``:
 
   * :func:`decode_ingest_fused` (``decode_ingest_fused``) — rmsnorm → x ·
     [Wq Wk Wv] → bias → rope in one launch. One block per head of the q,
-    k and v streams; each block normalises the rows into shared memory
-    itself.
+    k and v streams and per K split (:func:`ingest_tiles`); each block
+    normalises its rows over its K range into shared memory itself, and
+    the splits of a head fold their f32 partials in split order before
+    the epilogue.
   * :func:`oproj_residual_fused` (``oproj_residual_fused``) — ``resid +
     o @ wo``: flat_gemm's kernel (``csrc/flat_stream.cuh``) with the
     residual add in its epilogue and flat_gemm's split K at narrow N;
     it serves the o_proj and the FFN down projection.
   * :func:`ffn_norm_fused` (``ffn_norm_fused``) — rmsnorm → x · Wg, x · Wu
-    → act(g) · u on the f32 accumulators: the fused FFN-up kernel
-    (``csrc/flat_stream.cuh``) with the rmsnorm prologue.
+    → act(g) · u on the f32 accumulators. bf16 weights: the ``wgmma`` /
+    TMA body (``csrc/ffn_norm_wgmma.cuh``) with the rmsnorm applied as x
+    is staged and K split over a cluster (:func:`ffn_norm_splits`);
+    codes: the mma.sync fused FFN-up kernel (``csrc/flat_stream.cuh``)
+    with the rmsnorm prologue (:func:`ffn_norm_tiles`).
 
 On a CUDA tensor each wrapper launches its kernel and counts the launch
 in ``.launches``; on a CPU tensor it runs its plain version, which walks
-the kernel's K tiles (and K splits) with f32 accumulation and rounds
+the kernel's K splits and tiles with ``flat_gemm.split_acc`` (f32 sums,
+each row its own product, the splits' sums in split order) and rounds
 where the kernel rounds. The kernels round where the split chain rounds
 (normed x to the activation dtype, each GEMM output, the bias add, rope
 once), so they agree with the ``"torch"`` oracles in ``ref.py`` to bf16
-rounding.
+rounding. Every split count is a function of K, N (or the head count)
+and the card, never of M, so a row's bits are the same alone and in any
+batch.
 
-The resident-row kernels (ingest, ffn_norm) hold ``mt`` token rows per
-block: the smallest multiple of 8 covering M, at most 64, halved until
-the rows and two weight stages fit a block's shared memory; M is tiled
-over the grid's second axis.
+The mma.sync kernels (ingest, quantized ffn_norm) hold ``mt`` token
+rows per block: the smallest multiple of 8 covering M, at most 64,
+halved until the rows and the weight stages fit a block's shared memory;
+M is tiled over the grid's second axis, as it is in 64-row tiles for
+the wgmma body.
 
 Quantized weights (``{"codes", "scale"}`` leaves, ``models/wquant.py``)
 reach each wrapper as int8 / fp8 codes with (N,) f32 steps
@@ -39,6 +48,8 @@ the ``*_quant`` counters, apart from the bf16 kernels'.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch import hardware
@@ -50,6 +61,17 @@ from repro_torch.kernels.gemv import check_codes, vector_ok, weight_layout
 from repro_torch.kernels.ref import ffn_activation, rmsnorm_ref, rope_ref
 
 HEAD_TILES = (32, 64, 128)     # head_dim the ingest kernel takes
+MAX_SPLITS = 8                 # K splits: a portable cluster at most
+SPLIT_ROWS = 64                # K rows per split chunk and tile (csrc:
+                               # kIngestBK, tcn::kBK)
+INGEST_STAGES = 4              # the ingest kernel's cp.async ring
+INGEST_PER_SM = 2              # ingest blocks a SM its splits count on
+# the bf16 wgmma ffn_norm body (csrc/ffn_norm_wgmma.cuh)
+FN_BN = 64                     # output columns per block: the wgmma's m64
+FN_TOKENS = 64                 # token rows per block, whatever M (n64)
+FN_STAGES = 4                  # TMA ring depth at most
+FN_THREADS = 160               # a consumer warpgroup and a producer warp
+FN_MAX_BLOCKS = 4              # blocks a SM its register cap allows
 
 # one library, loaded once with every entry's argument types
 _SIG = {"decode_ingest_bf16": [_build.VP] * 12 + [_build.I32] * 4
@@ -58,7 +80,7 @@ _SIG = {"decode_ingest_bf16": [_build.VP] * 12 + [_build.I32] * 4
         "oproj_residual_bf16": [_build.VP] * 4 + [_build.I32] * 3
         + [_build.I64] * 2 + [_build.I32] * 3 + [_build.VP],
         "ffn_norm_bf16": [_build.VP] * 5 + [_build.I32] * 3 + [_build.I64]
-        + [_build.I32] * 4 + [_build.F32, _build.VP],
+        + [_build.I32] * 2 + [_build.F32, _build.VP],
         "decode_ingest_q8": [_build.VP] * 15 + [_build.I32] * 4
         + [_build.I64] + [_build.I32] * 4 + [_build.F32, _build.F32,
                                              _build.I32, _build.VP],
@@ -75,9 +97,9 @@ ffn_norm_fused_quant = _build.LaunchCounter("ffn_norm_fused_quant")
 
 def resident_smem(mt: int, k: int, bn: int, bk: int, streams: int,
                   w_bytes: int = 2) -> int:
-    """Shared memory of a resident-row launch: two stages of ``streams``
-    (BK, BN) weight tiles of ``w_bytes``-byte elements, rows padded by 16
-    bytes, and ``mt`` bf16 normed rows of the K tiles (pitch
+    """Shared memory of a quantized ffn_norm launch: two stages of
+    ``streams`` (BK, BN) weight tiles of ``w_bytes``-byte elements, rows
+    padded by 16 bytes, and ``mt`` bf16 normed rows of the K tiles (pitch
     round_up(K, BK) + 8)."""
     return (2 * streams * bk * (bn * w_bytes + 16)
             + 2 * mt * (round_up(k, bk) + 8))
@@ -87,8 +109,8 @@ def resident_tiles(m: int, k: int, bn: int, streams: int, *,
                    w_bytes: int = 2,
                    spec: hardware.HardwareSpec = hardware.DEFAULT
                    ) -> tuple[int, int]:
-    """(mt, BK) of a resident-row launch: the deepest K tile that does not
-    overshoot K and fits beside ``mt`` rows, halving ``mt`` from
+    """(mt, BK) of a quantized ffn_norm launch: the deepest K tile that
+    does not overshoot K and fits beside ``mt`` rows, halving ``mt`` from
     min(64, round_up(M, 8)) while none fits."""
     mt = min(BLOCK_M, round_up(max(m, 1), 8))
     while True:
@@ -106,8 +128,8 @@ def resident_tiles(m: int, k: int, bn: int, streams: int, *,
 
 def ffn_norm_tiles(m: int, k: int, n: int,
                    w_bytes: int = 2) -> tuple[int, int, int]:
-    """(BN, BK, mt) of an ffn_norm launch: flat_gemm's BN for two weight
-    streams, then the resident-row tiles."""
+    """(BN, BK, mt) of a quantized ffn_norm launch: flat_gemm's BN for two
+    weight streams, then the resident-row tiles."""
     bn = pick_bn(round_up(max(m, 1), 8), n, k, w_bytes=w_bytes, streams=2)
     mt, bk = resident_tiles(m, k, bn, 2, w_bytes=w_bytes)
     return bn, bk, mt
@@ -120,20 +142,119 @@ def oproj_tiles(m: int, k: int, n: int,
     return gemm_tiles(m, k, n, w_bytes=w_bytes)
 
 
+def split_tiles(k: int, splits: int) -> int:
+    """Whole SPLIT_ROWS tiles a split of K holds: ceil(n_ch / splits),
+    counted from K = 0 (the last split may hold fewer)."""
+    return -(-(-(-k // SPLIT_ROWS)) // splits)
+
+
+def _trim(k: int, want: int) -> int:
+    """``want`` splits of K, trimmed so that none is empty."""
+    return -(-(-(-k // SPLIT_ROWS)) // split_tiles(k, want))
+
+
+def ingest_smem(mt: int, span: int, head_dim: int, w_bytes: int = 2) -> int:
+    """Shared memory of an ingest launch: INGEST_STAGES (SPLIT_ROWS,
+    head_dim) weight tiles of ``w_bytes``-byte elements, rows padded by
+    16 bytes, and ``mt`` bf16 normed rows of a split's ``span`` columns
+    (pitch span + 8). The f32 partials reuse the ring."""
+    return (INGEST_STAGES * SPLIT_ROWS * (head_dim * w_bytes + 16)
+            + 2 * mt * (span + 8))
+
+
+@functools.lru_cache(maxsize=None)
+def ingest_splits(k: int, heads: int, *,
+                  spec: hardware.HardwareSpec = hardware.DEFAULT) -> int:
+    """K splits of an ingest launch over ``heads`` head blocks (the q, k
+    and v heads together): the most, at most MAX_SPLITS (a portable
+    cluster) and one per SPLIT_ROWS chunk, none empty, whose clusters all
+    run at once with INGEST_PER_SM blocks a SM
+    (:func:`hardware.cluster_slots`: one wave); 1 where none do. K, the
+    head count and the card only: qwen2-0.5b (K = 896, 18 heads) 7,
+    llama2-7b (K = 4,096, 96 heads) 2."""
+    best = 1
+    for want in range(2, min(MAX_SPLITS, -(-k // SPLIT_ROWS)) + 1):
+        splits = _trim(k, want)
+        if heads <= hardware.cluster_slots(spec, splits, INGEST_PER_SM):
+            best = max(best, splits)
+    return best
+
+
+def ingest_tiles(m: int, k: int, head_dim: int, heads: int, *,
+                 w_bytes: int = 2,
+                 spec: hardware.HardwareSpec = hardware.DEFAULT
+                 ) -> tuple[int, int]:
+    """(mt, splits) of an ingest launch: :func:`ingest_splits`, then
+    ``mt`` token rows a block from min(64, round_up(M, 8)), halved until
+    the rows of one split's range fit beside the ring."""
+    splits = ingest_splits(k, heads, spec=spec)
+    span = split_tiles(k, splits) * SPLIT_ROWS
+    mt = min(BLOCK_M, round_up(max(m, 1), 8))
+    while ingest_smem(mt, span, head_dim, w_bytes) > spec.smem_per_block:
+        if mt == 8:
+            raise ValueError(f"K={k}: a split's rows do not fit a block's "
+                             "shared memory beside the weight ring")
+        mt //= 2
+    return mt, splits
+
+
+def wgmma_norm_smem(x_tiles: int) -> int:
+    """Shared memory of a bf16 ffn_norm launch whose splits hold
+    ``x_tiles`` K tiles: a ring of min(FN_STAGES, x_tiles) stages (at
+    least two) of two (SPLIT_ROWS x FN_BN) weight tiles, the normed rows'
+    (FN_TOKENS x SPLIT_ROWS) tiles, two mbarriers a stage, and 1024 bytes
+    to align the ring to the 128-byte swizzle's period. The f32 partials
+    reuse the ring."""
+    stages = min(FN_STAGES, max(2, x_tiles))
+    return (stages * 2 * 2 * SPLIT_ROWS * FN_BN
+            + x_tiles * 2 * FN_TOKENS * SPLIT_ROWS + 2 * FN_STAGES * 8
+            + 1024)
+
+
+def wgmma_norm_blocks_per_sm(x_tiles: int, *,
+                             spec: hardware.HardwareSpec = hardware.DEFAULT
+                             ) -> int:
+    """Blocks of a bf16 ffn_norm launch one SM holds: as many as its
+    shared memory takes (each block also holding the reserved share), at
+    most FN_MAX_BLOCKS (the kernel's register cap); 0 where one block's
+    shared memory does not fit."""
+    smem = wgmma_norm_smem(x_tiles)
+    if smem > spec.smem_per_block:
+        return 0
+    return min(FN_MAX_BLOCKS,
+               spec.smem_per_sm // (smem + spec.smem_reserved_per_block))
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_norm_splits(k: int, n: int, *,
+                    spec: hardware.HardwareSpec = hardware.DEFAULT) -> int:
+    """K splits of a bf16 ffn_norm launch over ceil(N / FN_BN) column
+    tiles: the most (at most MAX_SPLITS, none empty) whose clusters all
+    run at once at the occupancy their shared memory allows
+    (:func:`wgmma_norm_blocks_per_sm`, :func:`hardware.cluster_slots`);
+    where none do, the fewest whose normed rows fit a block. K, N and the
+    card only. qwen2-0.5b (896 -> 4,864): 76 tiles x 3 splits of 5 K
+    tiles, 2 blocks a SM; llama2-7b (4,096 -> 11,008): 172 tiles, whose
+    rows fit from 4 splits of 16 tiles."""
+    blocks = -(-n // FN_BN)
+    best = fit = None
+    for want in range(1, min(MAX_SPLITS, -(-k // SPLIT_ROWS)) + 1):
+        splits = _trim(k, want)
+        occ = wgmma_norm_blocks_per_sm(split_tiles(k, splits), spec=spec)
+        if occ == 0:
+            continue
+        fit = fit or splits
+        if blocks <= hardware.cluster_slots(spec, splits, occ):
+            best = splits
+    if fit is None:
+        raise ValueError(f"K={k}: no split of at most {MAX_SPLITS} fits its "
+                         "normed rows beside the ring in a block")
+    return best or fit
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
-
-
-def _ktiles(x: torch.Tensor, w: torch.Tensor, bk: int,
-            scale: torch.Tensor | None = None) -> torch.Tensor:
-    """x @ w accumulated in f32 over the kernel's K tiles (codes cast to
-    f32 tile by tile, exactly), times the per-column step if given."""
-    acc = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
-                      device=x.device)
-    for lo in range(0, x.shape[1], bk):
-        acc += x[:, lo:lo + bk].float() @ w[lo:lo + bk].float()
-    return acc if scale is None else acc * scale.float()
 
 
 def _qkv_scales(wq_scale, wk_scale, wv_scale) -> tuple:
@@ -149,18 +270,20 @@ def decode_ingest_plain(x, norm_scale, wq, wk, wv, positions, *,
                         rope_theta: float = 1e4, eps: float = 1e-6,
                         use_rope: bool = True, bq=None, bk=None, bv=None,
                         wq_scale=None, wk_scale=None, wv_scale=None):
-    """Plain version: normed rows rounded to x's dtype, each stream's K
-    tiles accumulated in f32, times its step if quantized, and rounded,
-    the bias added (rounded), rope on q and k in f32 (one rounding)."""
+    """Plain version: normed rows rounded to x's dtype, each stream's
+    splits of SPLIT_ROWS tiles in f32 (``split_acc``: the kernel's
+    :func:`ingest_splits`, summed in split order), times its step if
+    quantized, and rounded, the bias added (rounded), rope on q and k in
+    f32 (one rounding)."""
     m, d = x.shape
-    _, bkt = resident_tiles(m, d, head_dim, 1, w_bytes=wq.element_size())
+    splits = ingest_splits(d, num_heads + 2 * num_kv_heads)
     xn = rmsnorm_ref(x, norm_scale, eps)
     scales = _qkv_scales(wq_scale, wk_scale, wv_scale)
     outs = []
     for w, sc, b, heads, rot in ((wq, scales[0], bq, num_heads, use_rope),
                                  (wk, scales[1], bk, num_kv_heads, use_rope),
                                  (wv, scales[2], bv, num_kv_heads, False)):
-        t = _ktiles(xn, w, bkt, sc).to(x.dtype)
+        t = split_acc(xn, w, SPLIT_ROWS, splits, sc).to(x.dtype)
         if b is not None:
             t = t + b
         if rot:
@@ -182,15 +305,21 @@ def oproj_residual_plain(o, wo, resid, *, w_scale=None):
 def ffn_norm_plain(x, norm_scale, w_gate, w_up, *,
                    activation: str = "swiglu", eps: float = 1e-6,
                    wg_scale=None, wu_scale=None):
-    """Plain version: normed rows rounded to x's dtype, both streams' K
-    tiles in f32, times their steps if quantized, the activation on the
-    f32 sums, one rounding."""
+    """Plain version: normed rows rounded to x's dtype, both streams in
+    f32 through ``split_acc`` (bf16: the wgmma body's
+    :func:`ffn_norm_splits` of SPLIT_ROWS tiles, summed in split order;
+    codes: the mma.sync body's BK tiles, unsplit, times their steps),
+    the activation on the f32 sums, one rounding."""
     m, k = x.shape
-    _, bk, _ = ffn_norm_tiles(m, k, w_gate.shape[1], w_gate.element_size())
-    scale_pair("ffn_norm", wg_scale, wu_scale)
+    n = w_gate.shape[1]
+    if scale_pair("ffn_norm", wg_scale, wu_scale):
+        _, bk, _ = ffn_norm_tiles(m, k, n, w_gate.element_size())
+        splits = 1
+    else:
+        bk, splits = SPLIT_ROWS, ffn_norm_splits(k, n)
     xn = rmsnorm_ref(x, norm_scale, eps)
-    g = _ktiles(xn, w_gate, bk, wg_scale)
-    u = _ktiles(xn, w_up, bk, wu_scale)
+    g = split_acc(xn, w_gate, bk, splits, wg_scale)
+    u = split_acc(xn, w_up, bk, splits, wu_scale)
     return (ffn_activation(g, activation) * u).to(x.dtype)
 
 
@@ -284,7 +413,8 @@ def decode_ingest_fused(x, norm_scale, wq, wk, wv, positions, *,
     _check_scale("decode_ingest", x, norm_scale)
     biases = [b if b is None else b.contiguous() for b in (bq, bk, bv)]
     pos = positions.to(device=x.device, dtype=torch.int32).contiguous()
-    mt, bkt = resident_tiles(m, d, head_dim, 1, w_bytes=wq.element_size())
+    mt, splits = ingest_tiles(m, d, head_dim, num_heads + 2 * num_kv_heads,
+                              w_bytes=wq.element_size())
     q = torch.empty((m, nq), dtype=x.dtype, device=x.device)
     k = torch.empty((m, nk), dtype=x.dtype, device=x.device)
     v = torch.empty((m, nk), dtype=x.dtype, device=x.device)
@@ -293,7 +423,7 @@ def decode_ingest_fused(x, norm_scale, wq, wk, wv, positions, *,
     tail = (*(_build.VP(None) if b is None else _build.ptr(b)
               for b in biases),
             _build.ptr(pos), _build.ptr(q), _build.ptr(k), _build.ptr(v),
-            m, d, nq, nk, x.stride(0), head_dim, bkt, mt, int(use_rope),
+            m, d, nq, nk, x.stride(0), head_dim, mt, splits, int(use_rope),
             rope_theta, eps)
     if fp8 >= 0:
         code = lib.decode_ingest_q8(
@@ -367,11 +497,11 @@ def ffn_norm_fused(x, norm_scale, w_gate, w_up, *,
     fp8 = _check_weights("ffn_norm", x, (w_gate, w_up), (wg_scale, wu_scale))
     _check_scale("ffn_norm", x, norm_scale)
     n = w_gate.shape[1]
-    bn, bk, mt = ffn_norm_tiles(m, d, n, w_gate.element_size())
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("decode_fuse", _SIG)
     gelu = int(activation == "geglu")
     if fp8 >= 0:
+        bn, bk, mt = ffn_norm_tiles(m, d, n, w_gate.element_size())
         code = lib.ffn_norm_q8(
             _build.ptr(x), _build.ptr(norm_scale), _build.ptr(w_gate),
             _build.ptr(w_up), _build.ptr(wg_scale), _build.ptr(wu_scale),
@@ -382,8 +512,8 @@ def ffn_norm_fused(x, norm_scale, w_gate, w_up, *,
         return out
     code = lib.ffn_norm_bf16(
         _build.ptr(x), _build.ptr(norm_scale), _build.ptr(w_gate),
-        _build.ptr(w_up), _build.ptr(out), m, d, n, x.stride(0), gelu, bn,
-        bk, mt, eps, _build.stream_of(x))
+        _build.ptr(w_up), _build.ptr(out), m, d, n, x.stride(0), gelu,
+        ffn_norm_splits(d, n), eps, _build.stream_of(x))
     _build.check(lib, "ffn_norm_bf16", code)
     ffn_norm_fused.launches += 1
     return out

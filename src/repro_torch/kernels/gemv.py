@@ -1,4 +1,4 @@
-"""ImplA — FastGEMV for M <= 4 token rows (kernel: ``csrc/gemv.cu``).
+"""ImplA — FastGEMV, four token rows a launch (kernel: ``csrc/gemv.cu``).
 
 Replaces ``repro/kernels/gemv.py::gemv``. On a CUDA tensor the wrapper
 launches the CUDA-core GEMV (bound: the weight bytes over device-memory
@@ -27,6 +27,12 @@ quantized kernel (``_gemv_quant_kernel``'s port) streams the codes at 1
 byte and multiplies the summed f32 partials by the step before the one
 rounding, and :data:`gemv_quant` counts its launches. Codes come in the
 (K, N) layout only: a quantized (N, K) view raises.
+
+Rows: the kernel holds at most MAX_M token rows. A call with more (a
+plan may route M up to its ``m1`` here) launches the same kernel on
+consecutive slices of at most MAX_M rows (:func:`row_slices`), each
+writing its rows of one output; the tiles do not depend on M, so every
+row gets the bits it gets alone, and each slice counts as one launch.
 """
 from __future__ import annotations
 
@@ -85,6 +91,14 @@ def gemv_tiles(k: int, n: int, kn: bool = True, *,
     return pick_cols(n, spec=spec), pick_splits(k, n, spec=spec)
 
 
+def row_slices(m: int) -> list[tuple[int, int]]:
+    """The (lo, hi) row ranges of a launch sequence: consecutive slices
+    of at most MAX_M rows covering 0 .. M - 1, one kernel launch each."""
+    if m < 1:
+        raise ValueError(f"gemv kernel takes at least one row, got {m}")
+    return [(lo, min(lo + MAX_M, m)) for lo in range(0, m, MAX_M)]
+
+
 def gemv_plain(x: torch.Tensor, w: torch.Tensor, *,
                w_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version: the kernel's splits walked by ``flat_gemm.split_acc``
@@ -135,16 +149,16 @@ def vector_ok(x: torch.Tensor, w: torch.Tensor, kn: bool, ldw: int) -> bool:
 
 def gemv(x: torch.Tensor, w: torch.Tensor, *,
          w_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """x (M, K) @ w (K, N) -> (M, N) in x's dtype, M <= 4; with
-    ``w_scale`` ``w`` holds codes and the result is (x @ codes) * step."""
+    """x (M, K) @ w (K, N) -> (M, N) in x's dtype, any M >= 1 (one launch
+    per :func:`row_slices` slice); with ``w_scale`` ``w`` holds codes and
+    the result is (x @ codes) * step."""
     m, k = x.shape
     k2, n = w.shape
     if k != k2:
         raise ValueError(f"gemv: x {tuple(x.shape)} vs w {tuple(w.shape)}")
     if not x.is_cuda:
         return gemv_plain(x, w, w_scale=w_scale)
-    if not 1 <= m <= MAX_M:
-        raise ValueError(f"gemv kernel takes 1..{MAX_M} rows, got {m}")
+    slices = row_slices(m)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"gemv kernel takes bf16 x, got {x.dtype}")
     if w_scale is None and w.dtype != torch.bfloat16:
@@ -168,18 +182,22 @@ def gemv(x: torch.Tensor, w: torch.Tensor, *,
     cols, splits = gemv_tiles(k, n, kn)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("gemv", _SIG)
-    if w_scale is not None:
-        code = lib.gemv_q8(_build.ptr(x), _build.ptr(w), _build.ptr(w_scale),
-                           _build.ptr(out), m, k, n, x.stride(0), ldw, cols,
-                           splits, fp8, _build.stream_of(x))
-        _build.check(lib, "gemv_q8", code)
-        gemv_quant.launches += 1
-        return out
-    code = lib.gemv_bf16(_build.ptr(x), _build.ptr(w), _build.ptr(out), m, k,
-                         n, x.stride(0), ldw, int(kn), cols, splits,
-                         _build.stream_of(x))
-    _build.check(lib, "gemv_bf16", code)
-    gemv.launches += 1
+    for lo, hi in slices:
+        xs, os_ = x[lo:hi], out[lo:hi]
+        if w_scale is not None:
+            code = lib.gemv_q8(_build.ptr(xs), _build.ptr(w),
+                               _build.ptr(w_scale), _build.ptr(os_), hi - lo,
+                               k, n, x.stride(0), ldw, cols, splits, fp8,
+                               _build.stream_of(x))
+            _build.check(lib, "gemv_q8", code)
+            gemv_quant.launches += 1
+        else:
+            code = lib.gemv_bf16(_build.ptr(xs), _build.ptr(w),
+                                 _build.ptr(os_), hi - lo, k, n, x.stride(0),
+                                 ldw, int(kn), cols, splits,
+                                 _build.stream_of(x))
+            _build.check(lib, "gemv_bf16", code)
+            gemv.launches += 1
     return out
 
 

@@ -198,7 +198,9 @@ def test_stage_kernels_reject_bad_operands():
 def test_resident_tiles_fit_shared_memory():
     """The resident-row kernels keep mt rows and two weight stages inside
     a block's shared memory, at decode M and past one 64-row block, and
-    shrink the row tile for a wide model rather than fail."""
+    shrink the row tile for a wide model rather than fail. The split
+    ingest keeps mt rows of one split's K range beside its weight ring,
+    and the wgmma ffn_norm one split's normed rows beside its TMA ring."""
     from repro_torch import hardware
     budget = hardware.DEFAULT.smem_per_block
     for m in (1, 4, 64, 300):
@@ -208,7 +210,15 @@ def test_resident_tiles_fit_shared_memory():
             assert tdf.resident_smem(mt, k, bn, bk, 2) <= budget
             mt, bk = tdf.resident_tiles(m, k, 128, 1)
             assert tdf.resident_smem(mt, k, 128, bk, 1) <= budget
+            for hd, heads in ((64, 18), (128, 96)):
+                mt, splits = tdf.ingest_tiles(m, k, hd, heads)
+                span = tdf.split_tiles(k, splits) * tdf.SPLIT_ROWS
+                assert mt % 8 == 0 and 8 <= mt <= 64
+                assert tdf.ingest_smem(mt, span, hd) <= budget
+            per = tdf.split_tiles(k, tdf.ffn_norm_splits(k, n))
+            assert tdf.wgmma_norm_smem(per) <= budget
     assert tdf.resident_tiles(4, 896, 64, 1) == (8, 128)
+    assert tdf.ingest_tiles(4, 896, 64, 18) == (8, 7)
 
 
 # ---------------------------------------------------------------------------
