@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --profiles-only   # build, then only the decode-tick
-                                            # and chunk-step profiles
-                                            # (A, B, N, E, H, J, K, O, P, S)
+                                            # and chunk-step profiles (A, B,
+                                            # N, E, H, P, J, K, O, P, S)
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -49,19 +49,25 @@
    give its row's bits in the batch, a second launch the first's, and a
    CUDA graph's replay the eager call's. Rows 1, 2 and 13 get a second
    line at N = 896 (gemv and flat_gemm on the down projection,
-   oproj_residual on the o_proj), timed beside matmul / addmm. The
+   oproj_residual on the o_proj), timed beside matmul / addmm. Row 2's
+   wgmma body (every flat_gemm launch whose N is not narrow) gets the
+   same checks at gate / up, the tied heads' (N, K) views and an
+   o_proj-sized (K, N) shape (with and without a residual), at
+   qwen2-0.5b's and llama2-7b's widths, M in {1, 4, 8, 13, 64, 127, 300},
+   bf16, int8 and fp8, and lines at gate / up (M = 4, both widths). The
    split-K GEMV (row 1) is held to its split plain version at the q,
    k / v, o_proj, gate / up and down shapes and the tied head, M in {1,
    2, 4, 5, 8, 15} (past four rows, one launch a 4-row slice), bf16, int8
-   and fp8, and the wgmma fused FFN-up (row 8, bf16) at M in {1, 4, 13,
-   64, 256, 1024}, swiglu and geglu: a row alone must give its row's bits
-   in the batch, a second launch the first's, and a CUDA graph's replay
-   the eager call's; row 1 gets lines at N = 128 and 4,864, row 8 at M =
-   256 and 1,024. The split-K decode ingest (row 12) and the rmsnorm-fused
-   FFN-up (row 14: bf16 on its wgmma body) get the same four checks at M
-   in {1, 4, 8, 13, 64}, bf16, int8 and fp8, at qwen2-0.5b's and at
-   llama2-7b's widths (random weights, head_dim 128), and llama2-7b lines
-   timed at M = 4.
+   and fp8, and the wgmma fused FFN-up (row 8, bf16, int8 and fp8, at
+   both widths) at M in {1, 4, 13, 64, 256, 1024}, swiglu and geglu: a
+   row alone must give its row's bits in the batch, a second launch the
+   first's, and a CUDA graph's replay the eager call's; row 1 gets lines
+   at N = 128 and 4,864, row 8 at M = 256 and 1,024 (its codes at M =
+   256 and llama2-7b's widths). The split-K decode ingest (row 12) and the
+   rmsnorm-fused FFN-up (row 14, bf16 and codes on its wgmma body) get
+   the same four checks at M in {1, 4, 8, 13, 64}, bf16, int8 and fp8
+   (row 14 swiglu and geglu), at qwen2-0.5b's and at llama2-7b's widths
+   (random weights, head_dim 128), and llama2-7b lines timed at M = 4.
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
    greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
@@ -426,9 +432,13 @@ def kernel_phase(torch, timer, rows, log):
                       x[:, :d].contiguous(), embedding.T))
         for case, xx, w in cases:
             k, n = w.shape
-            # row 1's lines: the tied head, and (K, N) at N = 128, 4,864
-            slot = {(d, hk * hd): "n128", (d, f): "n4864"}.get(
-                (k, n)) if m == 1 and "tied" not in case else None
+            # row 1's lines: the tied head, and (K, N) at N = 128, 4,864;
+            # row 2's: the tied head, and gate / up at M = 4
+            slot = None
+            if m == 1 and "tied" not in case:
+                slot = {(d, hk * hd): "n128", (d, f): "n4864"}.get((k, n))
+            elif m == 4 and (k, n) == (d, f):
+                slot = "n4864"
             primary = "tied head" in case and m <= 4 or slot is not None
             record(name, case, fn(xx, w), plain(xx, w),
                    lambda: fn(xx, w), lambda: plain(xx, w),
@@ -544,9 +554,13 @@ def kernel_phase(torch, timer, rows, log):
             return q["codes"], q["scale"]
 
         def qrec(name, case, got, want, kern, plain, lib, twin, nbytes,
-                 flops, primary):
+                 flops, primary, line=None):
+            """``line`` keys a second line of the row (fp8's beside
+            int8's: "fp8 <line>")."""
+            key = slot if line is None else (
+                line if qs.is_int else f"fp8 {line}")
             record(name, f"{qs.name} {case}", got, want, kern, plain, lib,
-                   nbytes, flops, primary, gemm_close, twin=twin, slot=slot)
+                   nbytes, flops, primary, gemm_close, twin=twin, slot=key)
 
         for m, name, fn, plain in (
                 (1, "gemv_quant", gemv, gemv_plain),
@@ -557,13 +571,16 @@ def kernel_phase(torch, timer, rows, log):
                 xx = x[:, :k].contiguous()
                 w = randn(k, n, scale=k ** -0.5)
                 c, sc = Q(w)
+                # row 2's second line: gate / up at M = 4
+                gate_up = m == 4 and (k, n) == (d, f)
                 qrec(name, f"M={m} K={k} N={n}",
                      fn(xx, c, w_scale=sc), plain(xx, c, w_scale=sc),
                      lambda: fn(xx, c, w_scale=sc),
                      lambda: plain(xx, c, w_scale=sc),
                      lambda: (torch.matmul(xx, c.to(bf)) * sc).to(bf),
                      lambda: fn(xx, w), q_bytes(m, k, n), 2 * m * k * n,
-                     m <= 4 and (k, n) == (f, d))
+                     m <= 4 and (k, n) == (f, d) or gate_up,
+                     line="n4864" if gate_up else None)
         for m in (4, 256):
             x = randn(m, d)
             gw, uw = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
@@ -578,7 +595,7 @@ def kernel_phase(torch, timer, rows, log):
                           * (torch.matmul(x, cu.to(bf)) * su)).to(bf),
                  lambda: ff.fused_ffn_up(x, gw, uw),
                  2 * m * d + 2 * q_bytes(0, d, f) + 2 * m * f,
-                 4 * m * d * f, m == 4)
+                 4 * m * d * f, True, line=None if m == 4 else f"m{m}")
             got = ff.fused_ffn_up(x, cg, cu, activation="geglu", **kw)
             ok, tol = gemm_close(got, ff.fused_ffn_up_plain(
                 x, cg, cu, activation="geglu", **kw))
@@ -1018,8 +1035,9 @@ def kernel_phase(torch, timer, rows, log):
         check(ok, f"ops.attention_chunk_paged {tag} disagrees")
 
     split_k_checks(torch, cfg, randn, record, gemm_close, log)
+    wgmma_gemm_checks(torch, randn, record, gemm_close, log)
     gemv_split_checks(torch, cfg, randn, embedding, gemm_close, log)
-    ffn_wgmma_checks(torch, cfg, randn, gemm_close, log)
+    ffn_wgmma_checks(torch, randn, record, gemm_close, log)
     ingest_ffn_split_checks(torch, randn, record, gemm_close, log)
     split_kv_checks(torch, cfg, gen, randn, record, attn_close, log)
     decode_split_checks(torch, timer, cfg, gen, randn, record, attn_close,
@@ -1061,8 +1079,9 @@ def split_k_checks(torch, cfg, randn, record, gemm_close, log):
             q = wquant.quantize_weight(w, qs)
             weights[qs.name] = (q["codes"], q["scale"])
         for kind, (wt, sc) in weights.items():
-            bn, bk, splits = gemm_tiles(4, k, n, w_bytes=wt.element_size())
-            check(splits > 1, f"split-K {tag}: {k}->{n} is not split")
+            body, bk, splits = gemm_tiles(k, n, w_bytes=wt.element_size())
+            check(body == "split" and splits > 1,
+                  f"split-K {tag}: {k}->{n} is not split")
 
             def gemm(xx, res=None):
                 if res is None:
@@ -1093,7 +1112,7 @@ def split_k_checks(torch, cfg, randn, record, gemm_close, log):
             xx, res = x[:4, :k].contiguous(), resid[:4].contiguous()
             replay = graph_replay_same(
                 torch, lambda: (gemm(xx), gemm(xx, res)))
-            log(f"kernel split-K {tag} {kind} K={k} N={n} (BN={bn} BK={bk},"
+            log(f"kernel split-K {tag} {kind} K={k} N={n} (BK={bk},"
                 f" {splits} splits) M=1/4/8/13/64, with and without a "
                 f"residual: max_abs_err={worst:.3e} (tol atol="
                 f"{TOL['atol']} rtol={TOL['rtol']}) "
@@ -1125,6 +1144,134 @@ def split_k_checks(torch, cfg, randn, record, gemm_close, log):
            lambda: dfu.oproj_residual_plain(o, wo, res),
            lambda: torch.addmm(res, o, wo), 2 * (4 * nq + nq * d + 8 * d),
            2 * 4 * nq * d, True, gemm_close, slot="n896")
+
+
+def wgmma_gemm_checks(torch, randn, record, gemm_close, log):
+    """Row 2's wgmma body (every flat_gemm launch whose N is not narrow),
+    bf16, int8 and fp8, at qwen2-0.5b's and llama2-7b's widths, random
+    weights from the smoke's generator.
+
+    * gate / up (896 -> 4,864; 4,096 -> 11,008), the tied heads' (N, K)
+      views (896 -> 152,064; 4,096 -> 32,000; bf16 only: a head never
+      quantizes) and an o_proj-sized (K, N) shape at the narrowest N the
+      body takes (896 -> 4,224, also through oproj_residual_fused with a
+      residual), M in {1, 4, 8, 13, 64, 127, 300}, each within
+      ``gemm_close`` of its plain version (the same K tiles and splits
+      walked on the card); every launch counted once.
+    * Rows 0, 5 and M - 1 run alone bitwise their rows in the batch; a
+      second launch bitwise the first; a CUDA graph's replay at M = 4
+      bitwise the eager call.
+    * llama2-7b's M = 4 gate / up lines of row 2 (bf16 and codes) timed
+      beside ``matmul`` (the kernel table's "llama" lines)."""
+    from repro_torch import configs
+    from repro_torch.kernels import decode_fuse as dfu
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.flat_gemm import (flat_gemm, flat_gemm_plain,
+                                               flat_gemm_quant, gemm_tiles)
+    from repro_torch.models import wquant
+
+    bf = torch.bfloat16
+    for arch in (ARCH, "llama2-7b"):
+        cfg = configs.get(arch)
+        d, f = cfg.d_model, cfg.d_ff
+        vocab = -(-cfg.vocab_size // 256) * 256
+        x = randn(300, max(d, f))
+        resid = randn(300, 4224)
+        shapes = [("gate/up", d, f), ("tied head (N,K)", d, vocab)]
+        if arch == ARCH:
+            shapes.append(("o_proj-sized", cfg.num_heads * cfg.head_dim,
+                           4224))
+        for tag, k, n in shapes:
+            kinds = {}
+            if "tied" in tag:
+                kinds["bf16"] = (randn(n, k, scale=k ** -0.5).T, None)
+            else:
+                w = randn(k, n, scale=k ** -0.5)
+                kinds["bf16"] = (w, None)
+                for qs in (quant.INT8, quant.FP8):
+                    q = wquant.quantize_weight(w, qs)
+                    kinds[qs.name] = (q["codes"], q["scale"])
+            residual = tag == "o_proj-sized"
+            for kind, (wt, sc) in kinds.items():
+                body, _, splits = gemm_tiles(k, n, w_kn=wt.stride(1) == 1,
+                                             w_bytes=wt.element_size())
+                check(body == "wgmma", f"wgmma GEMM {arch} {tag}: {k}->{n} "
+                      "takes the split body")
+                counter = flat_gemm if sc is None else flat_gemm_quant
+
+                def run(xx, res=None):
+                    if res is None:
+                        return flat_gemm(xx, wt, w_scale=sc)
+                    return dfu.oproj_residual_fused(xx, wt, res, w_scale=sc)
+
+                def plain(xx, res=None):
+                    if res is None:
+                        return flat_gemm_plain(xx, wt, w_scale=sc)
+                    return dfu.oproj_residual_plain(xx, wt, res, w_scale=sc)
+
+                worst, close, alone, again, counted = 0.0, True, True, True, \
+                    True
+                for m in (1, 4, 8, 13, 64, 127, 300):
+                    xx = x[:m, :k].contiguous()
+                    for res in ((None, resid[:m].contiguous()) if residual
+                                else (None,)):
+                        before = counter.launches
+                        got = run(xx, res)
+                        counted = counted and (res is not None or
+                                               counter.launches - before == 1)
+                        want = plain(xx, res)
+                        worst = max(worst, (got.float() - want.float()).abs()
+                                    .max().item())
+                        close = close and gemm_close(got, want)[0]
+                        again = again and same_bits(torch, (run(xx, res),
+                                                            got))
+                        alone = alone and same_bits(torch, *[
+                            (run(xx[i:i + 1], None if res is None
+                                 else res[i:i + 1]), got[i:i + 1])
+                            for i in sorted({0, min(5, m - 1), m - 1})])
+                x4, r4 = x[:4, :k].contiguous(), resid[:4].contiguous()
+                replay = graph_replay_same(
+                    torch, (lambda: (run(x4), run(x4, r4))) if residual
+                    else (lambda: run(x4)))
+                log(f"kernel wgmma GEMM {arch} {tag} {kind} K={k} N={n} "
+                    f"({splits} splits{', with a residual' if residual else ''}"
+                    f") M=1/4/8/13/64/127/300: max_abs_err={worst:.3e} (tol "
+                    f"atol={TOL['atol']} rtol={TOL['rtol']}) "
+                    f"{'ok' if close else 'MISMATCH'}; a row alone bitwise in "
+                    f"its batch {alone}; two launches bitwise {again}; one "
+                    f"launch counted a call {counted}; graph replay bitwise "
+                    f"eager {replay}")
+                name = f"wgmma GEMM {arch} {tag} {kind}"
+                check(close, f"{name}: kernel disagrees with its plain "
+                      "version")
+                check(alone, f"{name}: a row's bits depend on M")
+                check(again, f"{name}: two launches differ")
+                check(counted, f"{name}: launches not counted once a call")
+                check(replay, f"{name}: a graph replay differs from the "
+                      "eager call")
+                if arch == ARCH or tag != "gate/up":
+                    continue
+                # llama2-7b's timed gate / up lines at M = 4
+                m = 4
+                xx = x[:m, :k].contiguous()
+                w = kinds["bf16"][0]
+                if sc is None:
+                    record("flat_gemm", f"llama2-7b M={m} K={k} N={n} (K,N) "
+                           "gate/up", run(xx), plain(xx), lambda: run(xx),
+                           lambda: plain(xx), lambda: torch.matmul(xx, w),
+                           2 * (m * k + k * n + m * n), 2 * m * k * n, True,
+                           gemm_close, slot="llama")
+                else:
+                    record("flat_gemm_quant", f"{kind} llama2-7b M={m} K={k} "
+                           f"N={n} gate/up", run(xx), plain(xx),
+                           lambda: run(xx), lambda: plain(xx),
+                           lambda: (torch.matmul(xx, wt.to(bf)) * sc).to(bf),
+                           2 * m * k + k * n + 4 * n + 2 * m * n,
+                           2 * m * k * n, True, gemm_close,
+                           twin=lambda: flat_gemm(xx, w),
+                           slot="llama" if kind == "int8" else "fp8 llama")
+            del kinds
+        del x, resid
 
 
 def graph_replay_same(torch, fn):
@@ -1217,61 +1364,103 @@ def gemv_split_checks(torch, cfg, randn, embedding, gemm_close, log):
               "eager call")
 
 
-def ffn_wgmma_checks(torch, cfg, randn, gemm_close, log):
-    """The wgmma fused FFN-up (row 8, bf16) at M in {1, 4, 13, 64, 256,
+def ffn_wgmma_checks(torch, randn, record, gemm_close, log):
+    """The wgmma fused FFN-up (row 8), bf16, int8 and fp8, at qwen2-0.5b's
+    and llama2-7b's widths (random weights), M in {1, 4, 13, 64, 256,
     1024}, swiglu and geglu: within ``gemm_close`` of
     ``fused_ffn_up_plain``; rows 0, M // 2 and M - 1 run alone bitwise
     their rows in the batch; a second launch bitwise the first; a CUDA
-    graph's replay at M = 4 and 256 bitwise the eager call."""
+    graph's replay at M = 4 and 256 bitwise the eager call. llama2-7b's M
+    = 4 lines of the quantized body are timed beside the library chain
+    (codes cast to bf16, two matmuls and the steps)."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
     from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels import quant
+    from repro_torch.models import wquant
 
-    d, f = cfg.d_model, cfg.d_ff
-    wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
-    x = randn(1024, d)
-    for act in ("swiglu", "geglu"):
-        def run(xx):
-            return ff.fused_ffn_up(xx, wg, wu, activation=act)
+    bf = torch.bfloat16
+    for arch in (ARCH, "llama2-7b"):
+        cfg = configs.get(arch)
+        d, f = cfg.d_model, cfg.d_ff
+        wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
+        x = randn(1024, d)
+        kinds = {"bf16": (wg, wu, {})}
+        for qs in (quant.INT8, quant.FP8):
+            qg, qu = (wquant.quantize_weight(w, qs) for w in (wg, wu))
+            kinds[qs.name] = (qg["codes"], qu["codes"],
+                              dict(wg_scale=qg["scale"], wu_scale=qu["scale"]))
+        for kind, (g, u, kw) in kinds.items():
+            for act in ("swiglu", "geglu"):
+                def run(xx):
+                    return ff.fused_ffn_up(xx, g, u, activation=act, **kw)
 
-        worst, close, alone, again, replay = 0.0, True, True, True, True
-        for m in (1, 4, 13, 64, 256, 1024):
+                worst, close, alone, again, replay = 0.0, True, True, True, \
+                    True
+                for m in (1, 4, 13, 64, 256, 1024):
+                    xx = x[:m].contiguous()
+                    got = run(xx)
+                    want = ff.fused_ffn_up_plain(xx, g, u, activation=act,
+                                                 **kw)
+                    worst = max(worst, (got.float() - want.float()).abs()
+                                .max().item())
+                    close = close and gemm_close(got, want)[0]
+                    again = again and same_bits(torch, (run(xx), got))
+                    alone = alone and same_bits(torch, *[
+                        (run(xx[i:i + 1]), got[i:i + 1])
+                        for i in sorted({0, m // 2, m - 1})])
+                    if m in (4, 256):
+                        replay = replay and graph_replay_same(
+                            torch, lambda: run(xx))
+                name = f"fused_ffn_up wgmma {arch} {kind} {act}"
+                log(f"kernel {name} K={d} N={f} M=1/4/13/64/256/1024: "
+                    f"max_abs_err={worst:.3e} (tol atol={TOL['atol']} rtol="
+                    f"{TOL['rtol']}) {'ok' if close else 'MISMATCH'}; a row "
+                    f"alone bitwise in its batch {alone}; two launches "
+                    f"bitwise {again}; graph replay bitwise eager {replay}")
+                check(close, f"{name}: kernel disagrees with its plain "
+                      "version")
+                check(alone, f"{name}: a row's bits depend on M")
+                check(again, f"{name}: two launches differ")
+                check(replay, f"{name}: a graph replay differs from the "
+                      "eager call")
+            if arch == ARCH or kind == "bf16":
+                continue
+            # llama2-7b's timed quantized line at M = 4
+            m = 4
             xx = x[:m].contiguous()
-            got = run(xx)
-            want = ff.fused_ffn_up_plain(xx, wg, wu, activation=act)
-            worst = max(worst, (got.float() - want.float()).abs().max().item())
-            close = close and gemm_close(got, want)[0]
-            again = again and same_bits(torch, (run(xx), got))
-            alone = alone and same_bits(torch, *[
-                (run(xx[i:i + 1]), got[i:i + 1])
-                for i in sorted({0, m // 2, m - 1})])
-            if m in (4, 256):
-                replay = replay and graph_replay_same(torch, lambda: run(xx))
-        log(f"kernel fused_ffn_up wgmma {act} K={d} N={f} M=1/4/13/64/256/"
-            f"1024: max_abs_err={worst:.3e} (tol atol={TOL['atol']} rtol="
-            f"{TOL['rtol']}) {'ok' if close else 'MISMATCH'}; a row alone "
-            f"bitwise in its batch {alone}; two launches bitwise {again}; "
-            f"graph replay bitwise eager {replay}")
-        check(close, f"fused_ffn_up {act}: kernel disagrees with its plain "
-              "version")
-        check(alone, f"fused_ffn_up {act}: a row's bits depend on M")
-        check(again, f"fused_ffn_up {act}: two launches differ")
-        check(replay, f"fused_ffn_up {act}: a graph replay differs from the "
-              "eager call")
+            record("fused_ffn_up_quant", f"{kind} llama2-7b M={m} K={d} "
+                   f"N={f} swiglu", ff.fused_ffn_up(xx, g, u, **kw),
+                   ff.fused_ffn_up_plain(xx, g, u, **kw),
+                   lambda: ff.fused_ffn_up(xx, g, u, **kw),
+                   lambda: ff.fused_ffn_up_plain(xx, g, u, **kw),
+                   lambda: (F.silu(torch.matmul(xx, g.to(bf))
+                                   * kw["wg_scale"])
+                            * (torch.matmul(xx, u.to(bf))
+                               * kw["wu_scale"])).to(bf),
+                   2 * m * d + 2 * (d * f + 4 * f) + 2 * m * f,
+                   4 * m * d * f, True, gemm_close,
+                   twin=lambda: ff.fused_ffn_up(xx, wg, wu),
+                   slot="llama" if kind == "int8" else "fp8 llama")
+        del wg, wu, kinds
 
 
 def ingest_ffn_split_checks(torch, randn, record, gemm_close, log):
     """The split-K fused decode ingest (row 12) and the rmsnorm-fused
-    FFN-up (row 14; bf16 on the wgmma body, int8 / fp8 on the mma.sync
-    one) at qwen2-0.5b's and llama2-7b's widths, random weights from the
-    smoke's generator (llama2-7b: head_dim 128, one query head a kv head).
+    FFN-up (row 14, on its wgmma body for bf16 and codes alike) at
+    qwen2-0.5b's and llama2-7b's widths, random weights from the smoke's
+    generator (llama2-7b: head_dim 128, one query head a kv head).
 
-    * M in {1, 4, 8, 13, 64}, bf16, int8 and fp8 (row 14 bf16 with swiglu
-      and geglu), each within ``gemm_close`` of its plain version (the
-      same splits walked on the card).
+    * M in {1, 4, 8, 13, 64}, bf16, int8 and fp8 (row 14 with swiglu and
+      geglu), each within ``gemm_close`` of its plain version (the same
+      splits walked on the card).
     * Rows 0, M // 2 and M - 1 run alone bitwise their rows in the batch;
       a second launch bitwise the first; a CUDA graph's replay at M = 4
       bitwise the eager call.
-    * llama2-7b's M = 4 bf16 lines of rows 12 and 14 are timed beside
-      their library chains (the kernel table's "llama" lines)."""
+    * llama2-7b's M = 4 lines of rows 12 and 14 (bf16, and row 14's
+      codes) are timed beside their library chains (the kernel table's
+      "llama" lines)."""
     import torch.nn.functional as F
 
     from repro_torch import configs
@@ -1295,8 +1484,7 @@ def ingest_ffn_split_checks(torch, randn, record, gemm_close, log):
                             dtype=torch.int32)
         ikw = dict(num_heads=hq, num_kv_heads=hk, head_dim=hd,
                    rope_theta=cfg.rope_theta, bq=bq, bk=bkb, bv=bv)
-        splits = (dfu.ingest_splits(d, hq + 2 * hk),
-                  dfu.ffn_norm_splits(d, f))
+        ingest_splits = dfu.ingest_splits(d, hq + 2 * hk)
         kinds = {"bf16": ((wq, wk, wv), {}, (wg, wu), {})}
         for qs in (quant.INT8, quant.FP8):
             leaves = [wquant.quantize_weight(w, qs)
@@ -1316,7 +1504,7 @@ def ingest_ffn_split_checks(torch, randn, record, gemm_close, log):
                 return fn(xx, nscale, *qkv, pp, **ikw, **qsc)
 
             cases = [("decode_ingest_fused", ingest)]
-            for act in ("swiglu", "geglu") if kind == "bf16" else ("swiglu",):
+            for act in ("swiglu", "geglu"):
                 def ffn(xx, pp, plain=False, act=act):
                     fn = dfu.ffn_norm_plain if plain else dfu.ffn_norm_fused
                     return fn(xx, nscale, *gu, activation=act, **gsc)
@@ -1343,7 +1531,8 @@ def ingest_ffn_split_checks(torch, randn, record, gemm_close, log):
                 x4, p4 = x[:4].contiguous(), pos[:4].contiguous()
                 replay = graph_replay_same(torch, lambda: fn(x4, p4))
                 log(f"kernel split {name} {arch} {kind} K={d} (ingest "
-                    f"{splits[0]} splits, ffn_norm bf16 {splits[1]}) "
+                    f"{ingest_splits} splits, ffn_norm "
+                    f"{dfu.ffn_norm_splits(d, f, gu[0].element_size())}) "
                     f"M=1/4/8/13/64: max_abs_err={worst:.3e} (tol atol="
                     f"{TOL['atol']} rtol={TOL['rtol']}) "
                     f"{'ok' if close else 'MISMATCH'}; a row alone bitwise "
@@ -1400,6 +1589,28 @@ def ingest_ffn_split_checks(torch, randn, record, gemm_close, log):
                lambda: dfu.ffn_norm_plain(x4, nscale, wg, wu), lib_ffn,
                2 * (m * d + d + 2 * d * f + m * f), 4 * m * d * f, True,
                gemm_close, slot="llama")
+        bf = torch.bfloat16
+        for kind in ("int8", "fp8"):
+            _, _, gu, gsc = kinds[kind]
+
+            def lib_ffn_q(gu=gu, gsc=gsc):
+                h = F.rms_norm(x4, (d,), nscale, eps=1e-6)
+                return (F.silu(torch.matmul(h, gu[0].to(bf))
+                               * gsc["wg_scale"])
+                        * (torch.matmul(h, gu[1].to(bf))
+                           * gsc["wu_scale"])).to(bf)
+
+            record("ffn_norm_fused_quant",
+                   f"{kind} llama2-7b M={m} K={d} N={f} swiglu",
+                   dfu.ffn_norm_fused(x4, nscale, *gu, **gsc),
+                   dfu.ffn_norm_plain(x4, nscale, *gu, **gsc),
+                   lambda: dfu.ffn_norm_fused(x4, nscale, *gu, **gsc),
+                   lambda: dfu.ffn_norm_plain(x4, nscale, *gu, **gsc),
+                   lib_ffn_q,
+                   2 * m * d + 2 * d + 2 * (d * f + 4 * f) + 2 * m * f,
+                   4 * m * d * f, True, gemm_close,
+                   twin=lambda: dfu.ffn_norm_fused(x4, nscale, wg, wu),
+                   slot="llama" if kind == "int8" else "fp8 llama")
         del wq, wk, wv, wg, wu, wqkv, kinds
 
 
@@ -2586,10 +2797,10 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
 
 def tick_profiles(torch, cfg, params, requests, shared, log):
     """The decode tick of A (4 slots) and of the 1-slot runs B and N
-    (bf16, int8 weights: the GEMV's share), the chunk steps of E and H
-    (H: the fused FFN-up at a chunk step's 256 rows), and the looped
-    ticks of J, K, O, P and S (the fused stages, rows 12-14, replayed in
-    one CUDA graph a tick)."""
+    (bf16, int8 weights: the GEMV's share), the chunk steps of E, H and P
+    (H: the fused FFN-up at a chunk step's 256 rows; P: its int8 body),
+    and the looped ticks of J, K, O, P and S (the fused stages, rows
+    12-14, replayed in one CUDA graph a tick)."""
     from repro_torch.serving.request import SamplingParams
     profile_phase(torch, cfg, params, requests, log)
     profile_phase(torch, cfg, params, requests, log, tag="B slots=1",
@@ -2601,6 +2812,9 @@ def tick_profiles(torch, cfg, params, requests, shared, log):
     sp2 = SamplingParams(max_new_tokens=2)
     chunk_profile_phase(torch, cfg, params, [(p, sp2) for p, _ in shared],
                         log, tag="H", plan=tuned_plan())
+    chunk_profile_phase(torch, cfg, params, [(p, sp2) for p, _ in shared],
+                        log, tag="P int8 weights", plan=looped_plan(),
+                        weight_dtype="int8")
     paged = dict(cache_kind="paged", page_size=PAGE, prefix_sharing=True,
                  plan=looped_plan())
     profile_phase(torch, cfg, params, requests, log,
@@ -2976,8 +3190,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profiles-only", action="store_true",
                     help="build, then run only the decode-tick and "
-                    "chunk-step profiles (A, B, N, E, H, J, K, O, P, S) and "
-                    "print them; checks nothing and prints no result line")
+                    "chunk-step profiles (A, B, N; E, H, P; J, K, O, P, S) "
+                    "and print them; checks nothing and prints no result "
+                    "line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3077,8 +3292,8 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["case"],
-            **{key: r[key] for key in ("bf16_ms", "fp8", "long", "n896",
-                                       "llama") if key in r}})
+            **{key: v for key, v in r.items()
+               if key == "bf16_ms" or isinstance(v, dict)}})
     (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
     print(smi)
     print(json.dumps({"kernels": kernels}))

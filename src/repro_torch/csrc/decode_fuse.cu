@@ -41,18 +41,15 @@
 //     bias (rounded again), rope on the pair in f32 with the angle pos *
 //     theta^(-i/half), rounded once. v gets no rope; absent biases read
 //     as zero.
-//   * oproj_residual: flat_gemm.cu's kernel itself (flat_stream.cuh's
-//     gemm_kernel: x streamed, 2-stage cp.async, or gemm_split_kernel)
-//     with its residual epilogue: the accumulator rounds to bf16 and the
-//     kernel writes resid + acc, rounded once, as `resid + matmul(o, wo)`
-//     does.
-//   * ffn_norm: bf16 weights run ffn_norm_wgmma.cuh's wgmma + TMA body,
-//     split K over a cluster, the rmsnorm applied as the consumer stages
-//     x (its header has the design); codes run fused_ffn.cu's mma.sync
-//     kernel (flat_stream.cuh's ffn_up_kernel) with the rmsnorm prologue
-//     and x resident, `mt` token rows per block (the host picks mt so that
-//     the rows and two weight stages fit shared memory), M tiled over
-//     blockIdx.y.
+//   * oproj_residual: flat_gemm.cu's bodies themselves (flat_stream.cuh's
+//     split gemm_split_kernel at narrow N, gemm_wgmma.cuh's wgmma body
+//     otherwise) with their residual epilogue: the accumulator rounds to
+//     bf16 and the kernel writes resid + acc, rounded once, as `resid +
+//     matmul(o, wo)` does.
+//   * ffn_norm: ffn_norm_wgmma.cuh's wgmma + TMA body for bf16 weights and
+//     codes alike, split K over a cluster, the rmsnorm applied as the
+//     consumer stages x (its header has the design), M tiled in 64-row
+//     tiles over blockIdx.y.
 // None uses atomics: a replayed step gives the same bits.
 //
 // Quantized weights (the quantized branches of the three TPU kernels): each
@@ -63,10 +60,9 @@
 // before the rounding and the residual add (oproj_residual), before the
 // activation (ffn_norm).
 #include "ffn_norm_wgmma.cuh"
-#include "flat_stream.cuh"
+#include "gemm_wgmma.cuh"
 
 using namespace repro;
-using flat::Tile;
 
 namespace {
 
@@ -100,9 +96,10 @@ ingest_kernel(const __nv_bfloat16* __restrict__ x,
               int M, int K, int NQ, int NK, long long ldx, int mt, int rope,
               float theta, float eps) {
   constexpr int BK = kIngestBK, NST = kIngestStages;
-  using T = Tile<BN, BK, 1, true, true, WT, NST>;
+  using T = flat::Tile<BN, BK, true, WT>;
   constexpr int NT = T::kThreads;
-  static_assert(sizeof(float) * flat::kMT * BN <= T::kStagesBytes,
+  constexpr int kRing = NST * T::kWBytes;  // weight tiles only
+  static_assert(sizeof(float) * flat::kMT * BN <= kRing,
                 "the partials reuse the ring");
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -140,12 +137,11 @@ ingest_kernel(const __nv_bfloat16* __restrict__ x,
   // ring's first weight tiles go out and the epilogue's operands head for
   // L1
   auto load = [&](int i) {
-    flat::load_w<BN, BK, NT, true, WT>(smem + i % NST * T::kStageBytes, w,
+    flat::load_w<BN, BK, NT, true, WT>(smem + i % NST * T::kWBytes, w,
                                        K, N, N, n0, (kt_lo + i) * BK);
   };
   const int xp = per * BK + 8;
-  __nv_bfloat16* xn =
-      reinterpret_cast<__nv_bfloat16*>(smem + T::kStagesBytes);
+  __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(smem + kRing);
   flat::norm_rows_range(
       [=](int r, int c) { return reinterpret_cast<uint4*>(xn + r * xp + c); },
       [&](int live) {
@@ -163,7 +159,7 @@ ingest_kernel(const __nv_bfloat16* __restrict__ x,
       threadIdx.x / 32, NT / 32);
 
   // acc (this warp's 16 columns x nt n8 row tiles) = the normed rows' K
-  // tiles @ W's, flat::mainloop's arithmetic on one K range
+  // tiles @ W's, flat::split_mainloop's arithmetic on one K range
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   float acc[8][4];
@@ -176,7 +172,7 @@ ingest_kernel(const __nv_bfloat16* __restrict__ x,
     cp_async_commit();         // possibly empty: keeps the group count uniform
     cp_async_wait<NST - 1>();  // tile i has landed
     __syncthreads();           // (the first: the normed rows are written)
-    const unsigned char* wsb = smem + i % NST * T::kStageBytes;
+    const unsigned char* wsb = smem + i % NST * T::kWBytes;
     const uint16_t* xs16 = reinterpret_cast<const uint16_t*>(xn) + i * BK;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
@@ -274,10 +270,10 @@ int launch_ingest(int splits, const void* x, const void* scale,
                   const int* pos, void* oq, void* ok, void* ov, int M, int K,
                   int NQ, int NK, long long ldx, int mt, int rope,
                   float theta, float eps, cudaStream_t st) {
-  using T = Tile<BN, kIngestBK, 1, true, true, WT, kIngestStages>;
+  using T = flat::Tile<BN, kIngestBK, true, WT>;
   const int per = ((K + kIngestBK - 1) / kIngestBK + splits - 1) / splits;
-  const size_t smem = T::kStagesBytes + static_cast<size_t>(mt) *
-                                            (per * kIngestBK + 8) * 2;
+  const size_t smem = kIngestStages * T::kWBytes +
+                      static_cast<size_t>(mt) * (per * kIngestBK + 8) * 2;
   auto kernel = ingest_kernel<BN, WT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -383,17 +379,18 @@ REPRO_EXPORT int decode_ingest_q8(const void* x, const void* scale,
 }
 
 // out (M, N) row-major bf16 = resid + bf16(o @ W); o (M, K; row stride
-// ldo), W row-major (K, N), resid (M, N; row stride ldr); tiles (bn, bk),
-// K in `splits` ranges summed in order (flat_gemm.cu's split K).
+// ldo), W row-major (K, N), resid (M, N; row stride ldr); split = 1 runs
+// the narrow-N split body at BK = bkt, 0 the wgmma body (bkt = 64), K in
+// `splits` ranges summed in order (flat_gemm.cu's bodies).
 // Needs K % 8 == 0 and N % 8 == 0 with 16-byte aligned rows.
 REPRO_EXPORT int oproj_residual_bf16(const void* o, const void* w,
                                      const void* resid, void* out, int M,
                                      int K, int N, long long ldo,
-                                     long long ldr, int bn, int bkt,
+                                     long long ldr, int split, int bkt,
                                      int splits, void* stream) {
-  return flat::dispatch_gemm<true, __nv_bfloat16>(
-      bn, bkt, splits, o, w, nullptr, resid, out, M, K, N, ldo, N, ldr,
-      static_cast<cudaStream_t>(stream));
+  return gw::dispatch<true, __nv_bfloat16>(split, bkt, splits, o, w, nullptr,
+                                           resid, out, M, K, N, ldo, N, ldr,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // oproj_residual_bf16 with quantized weights: W (K, N) row-major codes,
@@ -402,12 +399,12 @@ REPRO_EXPORT int oproj_residual_bf16(const void* o, const void* w,
 REPRO_EXPORT int oproj_residual_q8(const void* o, const void* w,
                                    const void* wscale, const void* resid,
                                    void* out, int M, int K, int N,
-                                   long long ldo, long long ldr, int bn,
+                                   long long ldo, long long ldr, int split,
                                    int bkt, int splits, int fp8,
                                    void* stream) {
-  return flat::dispatch_gemm_q8<>(fp8, bn, bkt, splits, o, w, wscale, resid,
-                                  out, M, K, N, ldo, N, ldr,
-                                  static_cast<cudaStream_t>(stream));
+  return gw::dispatch_q8(fp8, split, bkt, splits, o, w, wscale, resid, out,
+                         M, K, N, ldo, N, ldr,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // out (M, N) row-major bf16 = act(rmsnorm(x) @ Wg) * (rmsnorm(x) @ Wu);
@@ -420,20 +417,23 @@ REPRO_EXPORT int ffn_norm_bf16(const void* x, const void* scale,
                                const void* wg, const void* wu, void* out,
                                int M, int K, int N, long long ldx, int gelu,
                                int splits, float eps, void* stream) {
-  return tcn::launch_ffn_norm_wgmma(x, scale, wg, wu, out, M, K, N, ldx,
-                                    gelu, splits, eps,
-                                    static_cast<cudaStream_t>(stream));
+  return tcn::launch_ffn_norm_wgmma<__nv_bfloat16>(
+      x, scale, wg, wu, nullptr, nullptr, out, M, K, N, ldx, gelu, splits,
+      eps, static_cast<cudaStream_t>(stream));
 }
 
 // ffn_norm_bf16 with quantized weights: Wg / Wu (K, N) row-major codes,
-// int8 (fp8 = 0) or e4m3 (fp8 = 1), steps sg / su (N,) f32 applied before
-// the activation. Needs N % 16 == 0.
+// int8 (fp8 = 0) or e4m3 (fp8 = 1), steps sg / su (N,) f32 applied to the
+// folded sums before the activation. Needs N % 16 == 0.
 REPRO_EXPORT int ffn_norm_q8(const void* x, const void* scale,
                              const void* wg, const void* wu, const void* sg,
                              const void* su, void* out, int M, int K, int N,
-                             long long ldx, int gelu, int bn, int bkt,
-                             int mt, float eps, int fp8, void* stream) {
-  return flat::dispatch_ffn_up_q8<true>(
-      fp8, bn, bkt, x, scale, wg, wu, sg, su, out, M, K, N, ldx, mt,
-      gelu != 0, eps, static_cast<cudaStream_t>(stream));
+                             long long ldx, int gelu, int splits, float eps,
+                             int fp8, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fp8)
+    return tcn::launch_ffn_norm_wgmma<__nv_fp8_e4m3>(
+        x, scale, wg, wu, sg, su, out, M, K, N, ldx, gelu, splits, eps, st);
+  return tcn::launch_ffn_norm_wgmma<int8_t>(x, scale, wg, wu, sg, su, out, M,
+                                            K, N, ldx, gelu, splits, eps, st);
 }

@@ -1,25 +1,22 @@
-// The flat-GEMM mainloop and the kernels built on it, shared by
-// flat_gemm.cu, fused_ffn.cu and decode_fuse.cu: S weight streams, with x
-// either streamed beside the weights or resident in shared memory after
-// an rmsnorm prologue.
+// The mma.sync pieces of the flat GEMM family, shared by flat_gemm.cu,
+// decode_fuse.cu and the wgmma bodies: the split-K GEMM for narrow N
+// (gemm_split_kernel), the weight-tile loads and fragments the decode
+// ingest also runs on, the rmsnorm of a row range (norm_rows_range), and
+// the epilogues (gemm_store, activate).
 //
 //   * Operands swapped: each warp computes 16 (N) x 8 (M) tiles of
 //     C^T = W^T x^T with mma.sync.m16n8k16 (bf16 in, f32 accumulate), so N
 //     fills the MMA's 16-row slot and the token rows fill n8: M is padded
 //     to 8 in-kernel (masked, zero-filled copies), never on the host.
-//   * A block covers BN columns (BN/16 warps) of each of its S weight
-//     streams and up to 8 n8 tiles of token rows. W is read in place in
-//     one of two layouts: "KN" (row-major (K, N), leading dimension ldw)
-//     or "NK" (the transposed view of a row-major (N, K) tensor, e.g. the
-//     tied LM head).
-//   * K streams in BK tiles through two shared-memory stages filled by
-//     cp.async (zero-filled past K and N): tile k+1 lands while tile k is
-//     consumed. The split GEMM keeps a deeper ring (split_mainloop).
-//   * x is either streamed (kMT = 64 rows per block, one x tile per
-//     stage) or resident: norm_rows() writes the block's rows, rms-
-//     normalised and rounded to bf16, into shared memory once before the
-//     loop, and every weight tile reads them in place. The rows are the
-//     same in every block because the reduction order is fixed.
+//   * A block covers BN columns (BN/16 warps) and up to 8 n8 tiles of
+//     token rows. W is read in place in one of two layouts: "KN"
+//     (row-major (K, N), leading dimension ldw) or "NK" (the transposed
+//     view of a row-major (N, K) tensor, e.g. the tied LM head).
+//   * The split-K GEMM (gemm_split_kernel) walks one fixed range of whole
+//     BK tiles per block through a kSplitStages-deep cp.async ring
+//     (zero-filled past K and N), copying only its live x rows, and sums
+//     the ranges' f32 partials in order through a thread-block cluster's
+//     distributed shared memory.
 //   * The weight element type WT is bf16, or a 1-byte code (int8_t,
 //     __nv_fp8_e4m3) of a quantized weight in the "KN" layout: the codes
 //     stream at their stored width (16 per cp.async chunk), w_frag turns
@@ -27,11 +24,7 @@
 //     kernels multiply the f32 accumulators by the per-output-channel
 //     step in their epilogues, before the first rounding (the JAX
 //     package's quantized bodies: dot on codes cast to the activation
-//     dtype, f32 accumulation, acc * step). The bf16 instantiations keep
-//     their layout, loads and MMA order, so they keep their bits.
-//   * The split-K GEMM (gemm_split_kernel) walks one fixed range of whole
-//     K tiles per block and sums the ranges' f32 partials in order
-//     through a thread-block cluster's distributed shared memory.
+//     dtype, f32 accumulation, acc * step).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -49,11 +42,12 @@ constexpr int kSplitStages = 4;  // the split GEMM's cp.async ring
 template <typename WT>
 constexpr bool kIsCode = sizeof(WT) == 1;   // a quantized weight's codes
 
-// One pipeline stage: the streamed x tile (bf16, absent when x is
-// resident), then S weight tiles. Every row is padded by 16 bytes (8 bf16
+// One stage of the split GEMM's ring: the streamed x tile (kMT bf16 rows
+// of BK), then the weight tile. Every row is padded by 16 bytes (8 bf16
 // or 16 codes), which keeps each row start 16-byte aligned. NST stages.
-template <int BN, int BK, int S, bool XRES, bool KN = true,
-          typename WT = __nv_bfloat16, int NST = 2>
+// The ingest kernel rings the weight tiles alone (kWBytes a stage).
+template <int BN, int BK, bool KN = true, typename WT = __nv_bfloat16,
+          int NST = kSplitStages>
 struct Tile {
   static_assert(KN || !kIsCode<WT>, "codes come in the (K, N) layout only");
   static constexpr int kThreads = BN / 16 * 32;
@@ -62,23 +56,11 @@ struct Tile {
   // ws[k][n] / ws[n][k] row pitch in bytes
   static constexpr int kWPitchBytes =
       (KN ? BN : BK) * static_cast<int>(sizeof(WT)) + 16;
-  static constexpr int kXBytes = XRES ? 0 : kMT * kXPitch * 2;
+  static constexpr int kXBytes = kMT * kXPitch * 2;
   static constexpr int kWBytes = kWRows * kWPitchBytes;
-  static constexpr int kStageBytes = kXBytes + S * kWBytes;
+  static constexpr int kStageBytes = kXBytes + kWBytes;
   static constexpr size_t kStagesBytes =
       NST * static_cast<size_t>(kStageBytes);
-};
-
-// Row pitch of the resident rows: K rounded up to whole BK tiles, plus 8
-// elements of padding.
-__host__ __device__ inline int resident_pitch(int K, int BK) {
-  return (K + BK - 1) / BK * BK + 8;
-}
-
-// The S weight streams of one block.
-template <int S, typename WT = __nv_bfloat16>
-struct Streams {
-  const WT* w[S];
 };
 
 // One BK x BN weight tile into ws (row pitch kWPitchBytes), 16 bytes per
@@ -273,107 +255,18 @@ __device__ __forceinline__ void norm_rows_range(
   }
 }
 
-// Rows m0 .. m0 + rows of x, rms-normalised (norm_rows_range over all of
-// K), into xn[r][k] with the given pitch; zero past K (up to pitch - 8)
-// and in rows past M. One warp per row.
-__device__ __forceinline__ void norm_rows(
-    __nv_bfloat16* xn, int pitch, const __nv_bfloat16* __restrict__ x,
-    long long ldx, const __nv_bfloat16* __restrict__ scale, int M, int K,
-    int m0, int rows, float eps) {
-  norm_rows_range(
-      [=](int r, int c) { return reinterpret_cast<uint4*>(xn + r * pitch + c); },
-      [=](int live) { zero_rows(xn, pitch, live, rows, blockDim.x); },
-      x, ldx, scale, M, K, m0, rows, 0, pitch - 8, eps, threadIdx.x / 32,
-      blockDim.x / 32);
-}
-
-// acc[s] (this warp's 16 columns x nt n8 row tiles of stream s) =
-// x[m0.., :K] @ W_s[:K, n0..]. `stages` holds the two pipeline stages;
-// with XRES the rows come from `xn` (pitch xn_pitch, written before the
-// call), otherwise from x (row stride ldx). Ends with __syncthreads(), so
-// the caller may reuse the stages and xn at once.
-// C^T fragment: acc[s][j][0..1] at (n = g, m = j*8 + 2t, +1),
-// acc[s][j][2..3] at (n = g + 8, same m).
-template <int BN, int BK, int S, bool XRES, bool KN = true,
-          typename WT = __nv_bfloat16>
-__device__ __forceinline__ void mainloop(
-    unsigned char* stages, const __nv_bfloat16* xn, int xn_pitch,
-    const __nv_bfloat16* __restrict__ x, long long ldx,
-    const Streams<S, WT>& ws, long long ldw, int M, int K, int N, int m0,
-    int n0, int nt, float (&acc)[S][8][4]) {
-  using T = Tile<BN, BK, S, XRES, KN, WT>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wn = warp * 16;  // this warp's 16 columns
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[s][j][i] = 0.f;
-
-  auto load_stage = [&](unsigned char* stage, int k0) {
-    if constexpr (!XRES)
-      load_x<BK, T::kThreads>(reinterpret_cast<__nv_bfloat16*>(stage), x, M,
-                              K, ldx, m0, k0);
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      load_w<BN, BK, T::kThreads, KN, WT>(stage + T::kXBytes + s * T::kWBytes,
-                                          ws.w[s], K, N, ldw, n0, k0);
-  };
-
-  const int n_kt = (K + BK - 1) / BK;
-  load_stage(stages, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt)
-      load_stage(stages + ((kt + 1) & 1) * T::kStageBytes, (kt + 1) * BK);
-    cp_async_commit();  // possibly empty: keeps the group count uniform
-    cp_async_wait1();   // tile kt has landed
-    __syncthreads();
-
-    const unsigned char* stage = stages + (kt & 1) * T::kStageBytes;
-    const uint16_t* xs16 =
-        XRES ? reinterpret_cast<const uint16_t*>(xn) + kt * BK
-             : reinterpret_cast<const uint16_t*>(stage);
-    const int xp = XRES ? xn_pitch : T::kXPitch;
-    const unsigned char* wsb = stage + T::kXBytes;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t a[S][4];
-#pragma unroll
-      for (int s = 0; s < S; ++s)
-        w_frag<BN, BK, KN, WT>(wsb + s * T::kWBytes, kk, wn, g, t, a[s]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (j < nt) {
-          const uint16_t* xr = xs16 + (j * 8 + g) * xp + kk + 2 * t;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xr);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xr + 8);
-#pragma unroll
-          for (int s = 0; s < S; ++s)
-            mma_bf16(acc[s][j], a[s][0], a[s][1], a[s][2], a[s][3], b0, b1);
-        }
-      }
-    }
-    __syncthreads();  // stage kt may be refilled next iteration
-  }
-}
-
 // The split GEMM's walk: acc (this warp's 16 columns x nt n8 row tiles)
 // = x[m0.., K tiles kt_lo .. min(kt_hi, ceil(K / BK)) - 1] @ W[same, n0..]
-// in K order, mainloop's arithmetic for one weight stream and streamed x,
-// through an NST-deep ring that copies only the nt * 8 live x rows. Kept
-// apart from mainloop so that the other kernels compile its two-stage
-// loop unchanged: with one loop for both, the ingest kernel compiled to
-// fewer registers and ran slower on the H100. Ends with __syncthreads().
+// in K order, through an NST-deep ring that copies only the nt * 8 live x
+// rows. C^T fragment: acc[j][0..1] at (n = g, m = j*8 + 2t, +1),
+// acc[j][2..3] at (n = g + 8, same m). Ends with __syncthreads().
 template <int BN, int BK, bool KN, typename WT, int NST>
 __device__ __forceinline__ void split_mainloop(
     unsigned char* stages, const __nv_bfloat16* __restrict__ x,
     long long ldx, const WT* __restrict__ w, long long ldw, int M, int K,
     int N, int m0, int n0, int nt, int kt_lo, int kt_hi,
     float (&acc)[8][4]) {
-  using T = Tile<BN, BK, 1, false, KN, WT, NST>;
+  using T = Tile<BN, BK, KN, WT, NST>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int wn = warp * 16;  // this warp's 16 columns
@@ -424,13 +317,14 @@ __device__ __forceinline__ void split_mainloop(
 }
 
 // ---------------------------------------------------------------------------
-// The flat GEMM, out = x @ W, or resid + x @ W with a residual: flat_gemm.cu
-// instantiates it without one (resid = nullptr), decode_fuse.cu's
-// oproj_residual with one. The accumulator rounds to bf16 before the add,
-// so the residual form writes bf16(resid + bf16(x @ W)), as
-// `resid + matmul(o, wo)` does. With codes (WT 1 byte) the step scale[n]
-// multiplies the accumulator first: bf16(acc * step), and with a
-// residual bf16(resid + bf16(acc * step)); bf16 weights take no scale.
+// The flat GEMM's epilogue, out = x @ W, or resid + x @ W with a residual
+// (decode_fuse.cu's oproj_residual; resid = nullptr for flat_gemm.cu),
+// for the split body here and gemm_wgmma.cuh's. The accumulator rounds
+// to bf16 before the add, so the residual form writes bf16(resid +
+// bf16(x @ W)), as `resid + matmul(o, wo)` does. With codes (WT 1 byte)
+// the step scale[n] multiplies the accumulator first: bf16(acc * step),
+// and with a residual bf16(resid + bf16(acc * step)); bf16 weights take
+// no scale.
 // ---------------------------------------------------------------------------
 
 // The epilogue of one output element from its f32 sum over all of K.
@@ -444,39 +338,9 @@ __device__ __forceinline__ void gemm_store(
   out[static_cast<long long>(m) * N + n] = f2bf(v);
 }
 
-template <int BN, int BK, bool KN, typename WT>
-__global__ void __launch_bounds__(BN / 16 * 32)
-gemm_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
-            const float* __restrict__ scale,
-            const __nv_bfloat16* __restrict__ resid,
-            __nv_bfloat16* __restrict__ out, int M, int K, int N,
-            long long ldx, long long ldw, long long ldr) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * kMT;
-  const int nt = min(8, (M - m0 + 7) / 8);  // live n8 token tiles
-  float acc[1][8][4];
-  mainloop<BN, BK, 1, false, KN, WT>(smem, nullptr, 0, x, ldx,
-                                     Streams<1, WT>{{w}}, ldw, M, K, N, m0,
-                                     n0, nt, acc);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (j < nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + j * 8 + 2 * t + (i & 1);
-        const int n = n0 + warp * 16 + g + (i >> 1) * 8;
-        if (m < M && n < N)
-          gemm_store<WT>(acc[0][j][i], m, n, N, scale, resid, ldr, out);
-      }
-    }
-  }
-}
-
 // Split K, for grids whose columns alone leave SMs idle (N = 896 gives
-// 28 blocks of BN = 32 on 132 SMs, each walking all of K). The launch's
+// 28 blocks of BN = 32 on 132 SMs, each walking all of K; gemm_wgmma.cuh
+// takes every wider N). The launch's
 // z axis holds S = gridDim.z fixed K ranges of ceil(n_kt / S) whole BK
 // tiles each, counted from K = 0; the S blocks of one (column, row) tile
 // form one thread-block cluster along z, block rank = split. Each block
@@ -501,7 +365,7 @@ gemm_split_kernel(const __nv_bfloat16* __restrict__ x,
                   const __nv_bfloat16* __restrict__ resid,
                   __nv_bfloat16* __restrict__ out, int M, int K, int N,
                   long long ldx, long long ldw, long long ldr) {
-  using T = Tile<BN, BK, 1, false, KN, WT, kSplitStages>;
+  using T = Tile<BN, BK, KN, WT>;
   constexpr int NT = T::kThreads;
   static_assert(8 * 4 * NT * sizeof(float) <= T::kStagesBytes,
                 "the partials reuse the stages");
@@ -548,28 +412,11 @@ gemm_split_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 template <int BN, int BK, bool KN, typename WT>
-int launch_gemm(const void* x, const void* w, const void* scale,
-                const void* resid, void* out, int M, int K, int N,
-                long long ldx, long long ldw, long long ldr,
-                cudaStream_t st) {
-  using T = Tile<BN, BK, 1, false, KN, WT>;
-  cudaError_t e = allow_smem(gemm_kernel<BN, BK, KN, WT>, T::kStagesBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  using B = __nv_bfloat16;
-  dim3 grid((N + BN - 1) / BN, (M + kMT - 1) / kMT);
-  gemm_kernel<BN, BK, KN, WT><<<grid, T::kThreads, T::kStagesBytes, st>>>(
-      static_cast<const B*>(x), static_cast<const WT*>(w),
-      static_cast<const float*>(scale), static_cast<const B*>(resid),
-      static_cast<B*>(out), M, K, N, ldx, ldw, ldr);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int BN, int BK, bool KN, typename WT>
 int launch_gemm_split(int splits, const void* x, const void* w,
                       const void* scale, const void* resid, void* out, int M,
                       int K, int N, long long ldx, long long ldw,
                       long long ldr, cudaStream_t st) {
-  using T = Tile<BN, BK, 1, false, KN, WT, kSplitStages>;
+  using T = Tile<BN, BK, KN, WT>;
   auto kernel = gemm_split_kernel<BN, BK, KN, WT>;
   cudaError_t e = allow_smem(kernel, T::kStagesBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -595,69 +442,29 @@ int launch_gemm_split(int splits, const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// splits = 1: gemm_kernel at (bn, bk); 2 .. kMaxSplits: gemm_split_kernel
-// at (kSplitBN, bk).
+// gemm_split_kernel at (kSplitBN, bk), K in 1 .. kMaxSplits ranges.
 template <bool KN, typename WT>
-int dispatch_gemm(int bn, int bk, int splits, const void* x, const void* w,
-                  const void* scale, const void* resid, void* out, int M,
-                  int K, int N, long long ldx, long long ldw, long long ldr,
-                  cudaStream_t st) {
-  if (splits > 1) {
-    constexpr int BN = kSplitBN;
-    if (splits > kMaxSplits || bn != BN)
-      return static_cast<int>(cudaErrorInvalidValue);
+int dispatch_gemm_split(int bk, int splits, const void* x, const void* w,
+                        const void* scale, const void* resid, void* out,
+                        int M, int K, int N, long long ldx, long long ldw,
+                        long long ldr, cudaStream_t st) {
+  constexpr int BN = kSplitBN;
+  if (splits < 1 || splits > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
 #define REPRO_FS_CASE(BK_)                                                \
   if (bk == BK_)                                                          \
     return launch_gemm_split<BN, BK_, KN, WT>(splits, x, w, scale, resid, \
                                               out, M, K, N, ldx, ldw, ldr, \
                                               st);
-    REPRO_FS_CASE(32)
-    REPRO_FS_CASE(64)
-    REPRO_FS_CASE(128)
+  REPRO_FS_CASE(32)
+  REPRO_FS_CASE(64)
+  REPRO_FS_CASE(128)
 #undef REPRO_FS_CASE
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-#define REPRO_FG_CASE(BN_, BK_)                                             \
-  if (bn == BN_ && bk == BK_)                                               \
-    return launch_gemm<BN_, BK_, KN, WT>(x, w, scale, resid, out, M, K, N,  \
-                                         ldx, ldw, ldr, st);
-  REPRO_FG_CASE(32, 32)
-  REPRO_FG_CASE(32, 64)
-  REPRO_FG_CASE(32, 128)
-  REPRO_FG_CASE(64, 32)
-  REPRO_FG_CASE(64, 64)
-  REPRO_FG_CASE(64, 128)
-  REPRO_FG_CASE(128, 32)
-  REPRO_FG_CASE(128, 64)
-  REPRO_FG_CASE(128, 128)
-#undef REPRO_FG_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The quantized flat GEMM's entry: codes int8 (fp8 = 0) or e4m3 (fp8 = 1)
-// in the (K, N) layout, steps (N,) f32, optional residual. A template, so
-// that only the sources that call it compile its kernels.
-template <bool KN = true>
-int dispatch_gemm_q8(int fp8, int bn, int bk, int splits, const void* x,
-                     const void* w, const void* scale, const void* resid,
-                     void* out, int M, int K, int N, long long ldx,
-                     long long ldw, long long ldr, cudaStream_t st) {
-  if (fp8)
-    return dispatch_gemm<KN, __nv_fp8_e4m3>(bn, bk, splits, x, w, scale,
-                                            resid, out, M, K, N, ldx, ldw,
-                                            ldr, st);
-  return dispatch_gemm<KN, int8_t>(bn, bk, splits, x, w, scale, resid, out,
-                                   M, K, N, ldx, ldw, ldr, st);
-}
-
-// ---------------------------------------------------------------------------
-// The fused FFN-up, h = act(x @ Wg) * (x @ Wu), with the activation on the
-// unrounded f32 accumulators and one rounding: fused_ffn.cu instantiates
-// it with x streamed (NORM = false), decode_fuse.cu's ffn_norm with the
-// rmsnorm prologue and x resident (NORM = true). With codes the steps sg[n]
-// and su[n] multiply the accumulators before the activation.
-// ---------------------------------------------------------------------------
-
+// The fused FFN-up's activation on an unrounded f32 accumulator: silu, or
+// the tanh gelu.
 __device__ __forceinline__ float activate(float g, bool gelu) {
   if (gelu) {
     // tanh approximation, jax.nn.gelu's default
@@ -665,114 +472,6 @@ __device__ __forceinline__ float activate(float g, bool gelu) {
     return 0.5f * g * (1.f + tanhf(inner));
   }
   return g / (1.f + expf(-g));
-}
-
-template <int BN, int BK, bool NORM, typename WT>
-__global__ void __launch_bounds__(BN / 16 * 32)
-ffn_up_kernel(const __nv_bfloat16* __restrict__ x,
-              const __nv_bfloat16* __restrict__ scale,
-              const WT* __restrict__ wg, const WT* __restrict__ wu,
-              const float* __restrict__ sg, const float* __restrict__ su,
-              __nv_bfloat16* __restrict__ out, int M, int K, int N,
-              long long ldx, int mt, bool gelu, float eps) {
-  using T = Tile<BN, BK, 2, NORM, true, WT>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xn = reinterpret_cast<__nv_bfloat16*>(smem + T::kStagesBytes);
-  const int xn_pitch = resident_pitch(K, BK);
-
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * mt;
-  const int nt = min(mt / 8, (M - m0 + 7) / 8);  // live n8 token tiles
-  if constexpr (NORM) {
-    norm_rows(xn, xn_pitch, x, ldx, scale, M, K, m0, nt * 8, eps);
-    __syncthreads();
-  }
-  float acc[2][8][4];
-  mainloop<BN, BK, 2, NORM, true, WT>(smem, xn, xn_pitch, x, ldx,
-                                      Streams<2, WT>{{wg, wu}}, N, M, K, N,
-                                      m0, n0, nt, acc);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (j < nt) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + j * 8 + 2 * t + (i & 1);
-        const int n = n0 + warp * 16 + g + (i >> 1) * 8;
-        if (m < M && n < N) {
-          float gv = acc[0][j][i], uv = acc[1][j][i];
-          if constexpr (kIsCode<WT>) {
-            gv *= sg[n];
-            uv *= su[n];
-          }
-          out[static_cast<long long>(m) * N + n] =
-              f2bf(activate(gv, gelu) * uv);
-        }
-      }
-    }
-  }
-}
-
-template <int BN, int BK, bool NORM, typename WT>
-int launch_ffn_up(const void* x, const void* scale, const void* wg,
-                  const void* wu, const void* sg, const void* su, void* out,
-                  int M, int K, int N, long long ldx, int mt, bool gelu,
-                  float eps, cudaStream_t st) {
-  using T = Tile<BN, BK, 2, NORM, true, WT>;
-  const size_t smem =
-      T::kStagesBytes +
-      (NORM ? static_cast<size_t>(mt) * resident_pitch(K, BK) * 2 : 0);
-  cudaError_t e = allow_smem(ffn_up_kernel<BN, BK, NORM, WT>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((N + BN - 1) / BN, (M + mt - 1) / mt);
-  ffn_up_kernel<BN, BK, NORM, WT><<<grid, T::kThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(scale), static_cast<const WT*>(wg),
-      static_cast<const WT*>(wu), static_cast<const float*>(sg),
-      static_cast<const float*>(su), static_cast<__nv_bfloat16*>(out), M, K,
-      N, ldx, mt, gelu, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool NORM, typename WT>
-int dispatch_ffn_up(int bn, int bk, const void* x, const void* scale,
-                    const void* wg, const void* wu, const void* sg,
-                    const void* su, void* out, int M, int K, int N,
-                    long long ldx, int mt, bool gelu, float eps,
-                    cudaStream_t st) {
-#define REPRO_FF_CASE(BN_, BK_)                                           \
-  if (bn == BN_ && bk == BK_)                                             \
-    return launch_ffn_up<BN_, BK_, NORM, WT>(x, scale, wg, wu, sg, su,    \
-                                             out, M, K, N, ldx, mt, gelu, \
-                                             eps, st);
-  REPRO_FF_CASE(32, 32)
-  REPRO_FF_CASE(32, 64)
-  REPRO_FF_CASE(32, 128)
-  REPRO_FF_CASE(64, 32)
-  REPRO_FF_CASE(64, 64)
-  REPRO_FF_CASE(64, 128)
-  REPRO_FF_CASE(128, 32)
-  REPRO_FF_CASE(128, 64)
-  REPRO_FF_CASE(128, 128)
-#undef REPRO_FF_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The quantized fused FFN-up's entry: two code streams of one type, int8
-// (fp8 = 0) or e4m3 (fp8 = 1), and their (N,) f32 steps.
-template <bool NORM>
-int dispatch_ffn_up_q8(int fp8, int bn, int bk, const void* x,
-                       const void* scale, const void* wg, const void* wu,
-                       const void* sg, const void* su, void* out, int M,
-                       int K, int N, long long ldx, int mt, bool gelu,
-                       float eps, cudaStream_t st) {
-  if (fp8)
-    return dispatch_ffn_up<NORM, __nv_fp8_e4m3>(bn, bk, x, scale, wg, wu,
-                                                sg, su, out, M, K, N, ldx,
-                                                mt, gelu, eps, st);
-  return dispatch_ffn_up<NORM, int8_t>(bn, bk, x, scale, wg, wu, sg, su,
-                                       out, M, K, N, ldx, mt, gelu, eps, st);
 }
 
 }  // namespace flat

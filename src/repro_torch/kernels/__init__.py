@@ -3,15 +3,16 @@ its plain PyTorch version and a launch counter.
 
 Modules:
   * gemv             — ImplA CUDA-core GEMV (csrc/gemv.cu)
-  * flat_gemm        — T2 flat GEMM, M padded to 8 (csrc/flat_gemm.cu, the
-                       kernel in csrc/flat_stream.cuh)
+  * flat_gemm        — T2 flat GEMM at small M (csrc/flat_gemm.cu: the
+                       wgmma body in csrc/gemm_wgmma.cuh, the narrow-N
+                       split body in csrc/flat_stream.cuh)
   * fused_ffn        — fused FFN-up act(x@Wg) * (x@Wu), two weight streams
                        and an activation epilogue (csrc/fused_ffn.cu, the
-                       mainloop in csrc/flat_stream.cuh)
+                       wgmma body in csrc/ffn_wgmma.cuh)
   * decode_fuse      — the fused decode stages: rmsnorm → QKV → bias → rope,
                        resid + o@Wo (o_proj and down), rmsnorm → gate/up →
-                       act (csrc/decode_fuse.cu; o_proj is flat_gemm's
-                       kernel with a residual epilogue)
+                       act (csrc/decode_fuse.cu; o_proj runs flat_gemm's
+                       bodies with a residual epilogue)
   * decode_attention — T1 decode attention over the dense cache or the
                        paged pool, unified-max and sync
                        (csrc/decode_attention.cu)

@@ -10,15 +10,15 @@ Replaces ``repro/kernels/decode_fuse.py``:
     the splits of a head fold their f32 partials in split order before
     the epilogue.
   * :func:`oproj_residual_fused` (``oproj_residual_fused``) — ``resid +
-    o @ wo``: flat_gemm's kernel (``csrc/flat_stream.cuh``) with the
-    residual add in its epilogue and flat_gemm's split K at narrow N;
-    it serves the o_proj and the FFN down projection.
+    o @ wo``: flat_gemm's bodies with the residual add in their epilogue
+    (the split body at narrow N, the ``wgmma`` one otherwise, as
+    ``flat_gemm.gemm_tiles`` picks); it serves the o_proj and the FFN
+    down projection.
   * :func:`ffn_norm_fused` (``ffn_norm_fused``) — rmsnorm → x · Wg, x · Wu
-    → act(g) · u on the f32 accumulators. bf16 weights: the ``wgmma`` /
-    TMA body (``csrc/ffn_norm_wgmma.cuh``) with the rmsnorm applied as x
-    is staged and K split over a cluster (:func:`ffn_norm_splits`);
-    codes: the mma.sync fused FFN-up kernel (``csrc/flat_stream.cuh``)
-    with the rmsnorm prologue (:func:`ffn_norm_tiles`).
+    → act(g) · u on the f32 accumulators: the ``wgmma`` / TMA body
+    (``csrc/ffn_norm_wgmma.cuh``) for bf16 weights and codes alike, with
+    the rmsnorm applied as x is staged and K split over a cluster
+    (:func:`ffn_norm_splits`).
 
 On a CUDA tensor each wrapper launches its kernel and counts the launch
 in ``.launches``; on a CPU tensor it runs its plain version, which walks
@@ -31,11 +31,10 @@ rounding. Every split count is a function of K, N (or the head count)
 and the card, never of M, so a row's bits are the same alone and in any
 batch.
 
-The mma.sync kernels (ingest, quantized ffn_norm) hold ``mt`` token
-rows per block: the smallest multiple of 8 covering M, at most 64,
-halved until the rows and the weight stages fit a block's shared memory;
-M is tiled over the grid's second axis, as it is in 64-row tiles for
-the wgmma body.
+The ingest kernel (mma.sync) holds ``mt`` token rows per block: the
+smallest multiple of 8 covering M, at most 64, halved until the rows and
+the weight stages fit a block's shared memory; M is tiled over the
+grid's second axis, as it is in 64-row tiles for the wgmma body.
 
 Quantized weights (``{"codes", "scale"}`` leaves, ``models/wquant.py``)
 reach each wrapper as int8 / fp8 codes with (N,) f32 steps
@@ -54,16 +53,16 @@ import torch
 
 from repro_torch import hardware
 from repro_torch.kernels import _build
-from repro_torch.kernels.flat_gemm import (BK_CHOICES, BLOCK_M, gemm_tiles,
-                                           pick_bn, round_up, split_acc)
+from repro_torch.kernels.flat_gemm import (BLOCK_M, SPLIT_ROWS, TILE_BYTES,
+                                           blocks_per_sm, cluster_splits,
+                                           gemm_tiles, round_up, split_acc,
+                                           split_tiles)
 from repro_torch.kernels.fused_ffn import ACTIVATIONS, scale_pair
 from repro_torch.kernels.gemv import check_codes, vector_ok, weight_layout
 from repro_torch.kernels.ref import ffn_activation, rmsnorm_ref, rope_ref
 
 HEAD_TILES = (32, 64, 128)     # head_dim the ingest kernel takes
 MAX_SPLITS = 8                 # K splits: a portable cluster at most
-SPLIT_ROWS = 64                # K rows per split chunk and tile (csrc:
-                               # kIngestBK, tcn::kBK)
 INGEST_STAGES = 4              # the ingest kernel's cp.async ring
 INGEST_PER_SM = 2              # ingest blocks a SM its splits count on
 # the bf16 wgmma ffn_norm body (csrc/ffn_norm_wgmma.cuh)
@@ -87,70 +86,12 @@ _SIG = {"decode_ingest_bf16": [_build.VP] * 12 + [_build.I32] * 4
         "oproj_residual_q8": [_build.VP] * 5 + [_build.I32] * 3
         + [_build.I64] * 2 + [_build.I32] * 4 + [_build.VP],
         "ffn_norm_q8": [_build.VP] * 7 + [_build.I32] * 3 + [_build.I64]
-        + [_build.I32] * 4 + [_build.F32, _build.I32, _build.VP]}
+        + [_build.I32] * 2 + [_build.F32, _build.I32, _build.VP]}
 
 decode_ingest_fused_quant = _build.LaunchCounter("decode_ingest_fused_quant")
 oproj_residual_fused_quant = _build.LaunchCounter(
     "oproj_residual_fused_quant")
 ffn_norm_fused_quant = _build.LaunchCounter("ffn_norm_fused_quant")
-
-
-def resident_smem(mt: int, k: int, bn: int, bk: int, streams: int,
-                  w_bytes: int = 2) -> int:
-    """Shared memory of a quantized ffn_norm launch: two stages of
-    ``streams`` (BK, BN) weight tiles of ``w_bytes``-byte elements, rows
-    padded by 16 bytes, and ``mt`` bf16 normed rows of the K tiles (pitch
-    round_up(K, BK) + 8)."""
-    return (2 * streams * bk * (bn * w_bytes + 16)
-            + 2 * mt * (round_up(k, bk) + 8))
-
-
-def resident_tiles(m: int, k: int, bn: int, streams: int, *,
-                   w_bytes: int = 2,
-                   spec: hardware.HardwareSpec = hardware.DEFAULT
-                   ) -> tuple[int, int]:
-    """(mt, BK) of a quantized ffn_norm launch: the deepest K tile that
-    does not overshoot K and fits beside ``mt`` rows, halving ``mt`` from
-    min(64, round_up(M, 8)) while none fits."""
-    mt = min(BLOCK_M, round_up(max(m, 1), 8))
-    while True:
-        fits = [bk for bk in BK_CHOICES
-                if bk <= round_up(k, BK_CHOICES[0])
-                and resident_smem(mt, k, bn, bk, streams, w_bytes)
-                <= spec.smem_per_block]
-        if fits:
-            return mt, max(fits)
-        if mt == 8:
-            raise ValueError(f"K={k} rows do not fit a block's shared "
-                             "memory beside two weight stages")
-        mt //= 2
-
-
-def ffn_norm_tiles(m: int, k: int, n: int,
-                   w_bytes: int = 2) -> tuple[int, int, int]:
-    """(BN, BK, mt) of a quantized ffn_norm launch: flat_gemm's BN for two
-    weight streams, then the resident-row tiles."""
-    bn = pick_bn(round_up(max(m, 1), 8), n, k, w_bytes=w_bytes, streams=2)
-    mt, bk = resident_tiles(m, k, bn, 2, w_bytes=w_bytes)
-    return bn, bk, mt
-
-
-def oproj_tiles(m: int, k: int, n: int,
-                w_bytes: int = 2) -> tuple[int, int, int]:
-    """(BN, BK, splits) of an oproj_residual launch: flat_gemm's tiles
-    for a (K, N) weight."""
-    return gemm_tiles(m, k, n, w_bytes=w_bytes)
-
-
-def split_tiles(k: int, splits: int) -> int:
-    """Whole SPLIT_ROWS tiles a split of K holds: ceil(n_ch / splits),
-    counted from K = 0 (the last split may hold fewer)."""
-    return -(-(-(-k // SPLIT_ROWS)) // splits)
-
-
-def _trim(k: int, want: int) -> int:
-    """``want`` splits of K, trimmed so that none is empty."""
-    return -(-(-(-k // SPLIT_ROWS)) // split_tiles(k, want))
 
 
 def ingest_smem(mt: int, span: int, head_dim: int, w_bytes: int = 2) -> int:
@@ -169,15 +110,11 @@ def ingest_splits(k: int, heads: int, *,
     and v heads together): the most, at most MAX_SPLITS (a portable
     cluster) and one per SPLIT_ROWS chunk, none empty, whose clusters all
     run at once with INGEST_PER_SM blocks a SM
-    (:func:`hardware.cluster_slots`: one wave); 1 where none do. K, the
+    (``flat_gemm.cluster_splits``: one wave); 1 where none do. K, the
     head count and the card only: qwen2-0.5b (K = 896, 18 heads) 7,
     llama2-7b (K = 4,096, 96 heads) 2."""
-    best = 1
-    for want in range(2, min(MAX_SPLITS, -(-k // SPLIT_ROWS)) + 1):
-        splits = _trim(k, want)
-        if heads <= hardware.cluster_slots(spec, splits, INGEST_PER_SM):
-            best = max(best, splits)
-    return best
+    best, _ = cluster_splits(k, heads, lambda per: INGEST_PER_SM, spec=spec)
+    return best or 1
 
 
 def ingest_tiles(m: int, k: int, head_dim: int, heads: int, *,
@@ -198,54 +135,47 @@ def ingest_tiles(m: int, k: int, head_dim: int, heads: int, *,
     return mt, splits
 
 
-def wgmma_norm_smem(x_tiles: int) -> int:
-    """Shared memory of a bf16 ffn_norm launch whose splits hold
-    ``x_tiles`` K tiles: a ring of min(FN_STAGES, x_tiles) stages (at
-    least two) of two (SPLIT_ROWS x FN_BN) weight tiles, the normed rows'
-    (FN_TOKENS x SPLIT_ROWS) tiles, two mbarriers a stage, and 1024 bytes
-    to align the ring to the 128-byte swizzle's period. The f32 partials
-    reuse the ring."""
+def wgmma_norm_smem(x_tiles: int, w_bytes: int = 2) -> int:
+    """Shared memory of an ffn_norm launch whose splits hold ``x_tiles``
+    K tiles: a ring of min(FN_STAGES, x_tiles) stages (at least two) of
+    two (SPLIT_ROWS x FN_BN) weight tiles of ``w_bytes``-byte elements,
+    the normed rows' (FN_TOKENS x SPLIT_ROWS) tiles, for codes two
+    buffers of both streams' converted bf16 tiles, two mbarriers a stage,
+    and 1024 bytes to align the ring to the 128-byte swizzle's period.
+    The f32 partials reuse the ring."""
     stages = min(FN_STAGES, max(2, x_tiles))
-    return (stages * 2 * 2 * SPLIT_ROWS * FN_BN
-            + x_tiles * 2 * FN_TOKENS * SPLIT_ROWS + 2 * FN_STAGES * 8
-            + 1024)
+    conv = 2 * 2 * TILE_BYTES if w_bytes == 1 else 0
+    return (stages * 2 * SPLIT_ROWS * FN_BN * w_bytes
+            + x_tiles * 2 * FN_TOKENS * SPLIT_ROWS + conv
+            + 2 * FN_STAGES * 8 + 1024)
 
 
-def wgmma_norm_blocks_per_sm(x_tiles: int, *,
+def wgmma_norm_blocks_per_sm(x_tiles: int, w_bytes: int = 2, *,
                              spec: hardware.HardwareSpec = hardware.DEFAULT
                              ) -> int:
-    """Blocks of a bf16 ffn_norm launch one SM holds: as many as its
-    shared memory takes (each block also holding the reserved share), at
-    most FN_MAX_BLOCKS (the kernel's register cap); 0 where one block's
+    """Blocks of an ffn_norm launch one SM holds: as many as its shared
+    memory takes (each block also holding the reserved share), at most
+    FN_MAX_BLOCKS (the kernel's register cap); 0 where one block's
     shared memory does not fit."""
-    smem = wgmma_norm_smem(x_tiles)
-    if smem > spec.smem_per_block:
-        return 0
-    return min(FN_MAX_BLOCKS,
-               spec.smem_per_sm // (smem + spec.smem_reserved_per_block))
+    return blocks_per_sm(wgmma_norm_smem(x_tiles, w_bytes), FN_MAX_BLOCKS,
+                         spec=spec)
 
 
 @functools.lru_cache(maxsize=None)
-def ffn_norm_splits(k: int, n: int, *,
+def ffn_norm_splits(k: int, n: int, w_bytes: int = 2, *,
                     spec: hardware.HardwareSpec = hardware.DEFAULT) -> int:
-    """K splits of a bf16 ffn_norm launch over ceil(N / FN_BN) column
-    tiles: the most (at most MAX_SPLITS, none empty) whose clusters all
-    run at once at the occupancy their shared memory allows
-    (:func:`wgmma_norm_blocks_per_sm`, :func:`hardware.cluster_slots`);
-    where none do, the fewest whose normed rows fit a block. K, N and the
-    card only. qwen2-0.5b (896 -> 4,864): 76 tiles x 3 splits of 5 K
-    tiles, 2 blocks a SM; llama2-7b (4,096 -> 11,008): 172 tiles, whose
+    """K splits of an ffn_norm launch over ceil(N / FN_BN) column tiles:
+    the most (at most MAX_SPLITS, none empty) whose clusters all run at
+    once at the occupancy their shared memory allows
+    (``flat_gemm.cluster_splits``); where none do, the fewest whose
+    normed rows fit a block. K, N, the weight width and the card only.
+    qwen2-0.5b (896 -> 4,864): 76 tiles x 3 splits of 5 K tiles, 2 blocks
+    a SM, bf16 and codes; llama2-7b (4,096 -> 11,008): 172 tiles, whose
     rows fit from 4 splits of 16 tiles."""
-    blocks = -(-n // FN_BN)
-    best = fit = None
-    for want in range(1, min(MAX_SPLITS, -(-k // SPLIT_ROWS)) + 1):
-        splits = _trim(k, want)
-        occ = wgmma_norm_blocks_per_sm(split_tiles(k, splits), spec=spec)
-        if occ == 0:
-            continue
-        fit = fit or splits
-        if blocks <= hardware.cluster_slots(spec, splits, occ):
-            best = splits
+    best, fit = cluster_splits(
+        k, -(-n // FN_BN),
+        lambda per: wgmma_norm_blocks_per_sm(per, w_bytes, spec=spec),
+        spec=spec)
     if fit is None:
         raise ValueError(f"K={k}: no split of at most {MAX_SPLITS} fits its "
                          "normed rows beside the ring in a block")
@@ -297,8 +227,8 @@ def oproj_residual_plain(o, wo, resid, *, w_scale=None):
     """Plain version: the kernel's splits of K tiles in f32, summed in
     split order, times the step if quantized, rounded to o's dtype, added
     to the residual (one rounding)."""
-    m, k = o.shape
-    _, bk, splits = oproj_tiles(m, k, wo.shape[1], wo.element_size())
+    _, bk, splits = gemm_tiles(o.shape[1], wo.shape[1],
+                               w_bytes=wo.element_size())
     return resid + split_acc(o, wo, bk, splits, w_scale).to(o.dtype)
 
 
@@ -306,20 +236,15 @@ def ffn_norm_plain(x, norm_scale, w_gate, w_up, *,
                    activation: str = "swiglu", eps: float = 1e-6,
                    wg_scale=None, wu_scale=None):
     """Plain version: normed rows rounded to x's dtype, both streams in
-    f32 through ``split_acc`` (bf16: the wgmma body's
-    :func:`ffn_norm_splits` of SPLIT_ROWS tiles, summed in split order;
-    codes: the mma.sync body's BK tiles, unsplit, times their steps),
-    the activation on the f32 sums, one rounding."""
-    m, k = x.shape
-    n = w_gate.shape[1]
-    if scale_pair("ffn_norm", wg_scale, wu_scale):
-        _, bk, _ = ffn_norm_tiles(m, k, n, w_gate.element_size())
-        splits = 1
-    else:
-        bk, splits = SPLIT_ROWS, ffn_norm_splits(k, n)
+    f32 through ``split_acc`` (the body's :func:`ffn_norm_splits` of
+    SPLIT_ROWS tiles, summed in split order, times their steps for
+    codes), the activation on the f32 sums, one rounding."""
+    scale_pair("ffn_norm", wg_scale, wu_scale)
+    k, n = w_gate.shape
+    splits = ffn_norm_splits(k, n, w_gate.element_size())
     xn = rmsnorm_ref(x, norm_scale, eps)
-    g = split_acc(xn, w_gate, bk, splits, wg_scale)
-    u = split_acc(xn, w_up, bk, splits, wu_scale)
+    g = split_acc(xn, w_gate, SPLIT_ROWS, splits, wg_scale)
+    u = split_acc(xn, w_up, SPLIT_ROWS, splits, wu_scale)
     return (ffn_activation(g, activation) * u).to(x.dtype)
 
 
@@ -454,20 +379,21 @@ def oproj_residual_fused(o, wo, resid, *, w_scale=None):
     _check_bf16("oproj_residual", o.device, o, resid)
     o, resid = _rows(o), _rows(resid)
     fp8 = _check_weights("oproj_residual", o, (wo,), (w_scale,))
-    bn, bk, splits = oproj_tiles(m, k, n, wo.element_size())
+    body, bk, splits = gemm_tiles(k, n, w_bytes=wo.element_size())
+    split = int(body == "split")
     out = torch.empty((m, n), dtype=resid.dtype, device=o.device)
     lib = _build.load("decode_fuse", _SIG)
     if fp8 >= 0:
         code = lib.oproj_residual_q8(
             _build.ptr(o), _build.ptr(wo), _build.ptr(w_scale),
             _build.ptr(resid), _build.ptr(out), m, k, n, o.stride(0),
-            resid.stride(0), bn, bk, splits, fp8, _build.stream_of(o))
+            resid.stride(0), split, bk, splits, fp8, _build.stream_of(o))
         _build.check(lib, "oproj_residual_q8", code)
         oproj_residual_fused_quant.launches += 1
         return out
     code = lib.oproj_residual_bf16(
         _build.ptr(o), _build.ptr(wo), _build.ptr(resid), _build.ptr(out),
-        m, k, n, o.stride(0), resid.stride(0), bn, bk, splits,
+        m, k, n, o.stride(0), resid.stride(0), split, bk, splits,
         _build.stream_of(o))
     _build.check(lib, "oproj_residual_bf16", code)
     oproj_residual_fused.launches += 1
@@ -500,20 +426,20 @@ def ffn_norm_fused(x, norm_scale, w_gate, w_up, *,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("decode_fuse", _SIG)
     gelu = int(activation == "geglu")
+    splits = ffn_norm_splits(d, n, w_gate.element_size())
     if fp8 >= 0:
-        bn, bk, mt = ffn_norm_tiles(m, d, n, w_gate.element_size())
         code = lib.ffn_norm_q8(
             _build.ptr(x), _build.ptr(norm_scale), _build.ptr(w_gate),
             _build.ptr(w_up), _build.ptr(wg_scale), _build.ptr(wu_scale),
-            _build.ptr(out), m, d, n, x.stride(0), gelu, bn, bk, mt, eps,
-            fp8, _build.stream_of(x))
+            _build.ptr(out), m, d, n, x.stride(0), gelu, splits, eps, fp8,
+            _build.stream_of(x))
         _build.check(lib, "ffn_norm_q8", code)
         ffn_norm_fused_quant.launches += 1
         return out
     code = lib.ffn_norm_bf16(
         _build.ptr(x), _build.ptr(norm_scale), _build.ptr(w_gate),
         _build.ptr(w_up), _build.ptr(out), m, d, n, x.stride(0), gelu,
-        ffn_norm_splits(d, n), eps, _build.stream_of(x))
+        splits, eps, _build.stream_of(x))
     _build.check(lib, "ffn_norm_bf16", code)
     ffn_norm_fused.launches += 1
     return out

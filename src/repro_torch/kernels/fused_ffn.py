@@ -3,40 +3,37 @@
 
 Replaces ``repro/kernels/fused_ffn.py::fused_ffn_up``. On a CUDA tensor the
 wrapper launches the kernel, whose epilogue applies the activation to the
-unrounded f32 accumulators of both products and writes only ``h`` (one
+unrounded f32 sums of both products and writes only ``h`` (one
 rounding); on a CPU tensor it runs :func:`fused_ffn_up_plain`.
-``fused_ffn_up.launches`` counts the bf16 kernel's launches.
+``fused_ffn_up.launches`` counts the bf16 launches.
 
-bf16 weights run the wgmma + TMA body (``csrc/ffn_wgmma.cuh``): blocks of
-WG_BN output columns and WG_TILES token tiles of WG_TOKENS rows, K in
-WG_BK tiles through a WG_STAGES-deep ring (:func:`wgmma_smem_bytes`), the
-same instruction sequence for every row at every M. Its plain version
-walks the same fixed K tiles, each one batched product per row
-(``flat_gemm.split_acc``), so a row's CPU bits do not depend on its batch
-either.
+One body for both weight types, the wgmma + TMA kernel
+(``csrc/ffn_wgmma.cuh``): blocks of WG_BN output columns and WG_TILES
+token tiles of WG_TOKENS rows, K in WG_BK tiles through a WG_STAGES-deep
+ring (:func:`wgmma_smem_bytes`), the same instruction sequence for every
+row at every M. Its plain version walks the same fixed K tiles, each one
+batched product per row (``flat_gemm.split_acc``), so a row's CPU bits do
+not depend on its batch either.
 
 ``wg_scale`` / ``wu_scale`` ((N,) f32 steps, given together) mark the
-weights as the int8 / fp8 codes of quantized weights: the mma.sync body
-(flat_gemm's design with two weight streams sharing one staged x tile)
-streams both at 1 byte and multiplies each f32 accumulator by its step
-before the activation (the quantized branch of ``_fused_ffn_kernel``);
-:data:`fused_ffn_up_quant` counts its launches. Its tiles come from
-:func:`~repro_torch.kernels.flat_gemm.pick_bn` / ``pick_bk`` with the
-shared-memory budget counted for two weight streams of the launched
-element width (:func:`tiles`).
+weights as the int8 / fp8 codes of quantized weights: the body streams
+both at 1 byte, turns them into bf16 exactly in shared memory and
+multiplies each f32 sum by its step before the activation (the
+quantized branch of ``_fused_ffn_kernel``); :data:`fused_ffn_up_quant`
+counts those launches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flat_gemm import pick_bk, pick_bn, round_up, split_acc
+from repro_torch.kernels.flat_gemm import TILE_BYTES, split_acc
 from repro_torch.kernels.gemv import check_codes, vector_ok, weight_layout
 from repro_torch.kernels.ref import ffn_activation
 
 ACTIVATIONS = ("swiglu", "geglu")
 
-# the bf16 wgmma body (csrc/ffn_wgmma.cuh)
+# the wgmma body (csrc/ffn_wgmma.cuh)
 WG_BN = 64          # output columns per block: the wgmma's m64
 WG_BK = 64          # K per stage: one 128-byte swizzled row of bf16
 WG_TOKENS = 64      # token rows per tile, whatever M: the wgmma's n64
@@ -46,26 +43,20 @@ WG_STAGES = 4       # TMA ring depth
 _SIG = {"fused_ffn_up_bf16": [_build.VP] * 4 + [_build.I32] * 3
         + [_build.I64, _build.I32, _build.VP],
         "fused_ffn_up_q8": [_build.VP] * 6 + [_build.I32] * 3
-        + [_build.I64] + [_build.I32] * 4 + [_build.VP]}
+        + [_build.I64] + [_build.I32] * 2 + [_build.VP]}
 
 fused_ffn_up_quant = _build.LaunchCounter("fused_ffn_up_quant")
 
 
-def tiles(m: int, k: int, n: int, w_bytes: int = 2) -> tuple[int, int]:
-    """(BN, BK) of a quantized launch: flat_gemm's pickers, budgeted for
-    the two weight tiles of ``w_bytes``-byte elements each stage holds."""
-    m_pad = round_up(max(m, 1), 8)
-    bn = pick_bn(m_pad, n, k, w_bytes=w_bytes, streams=2)
-    return bn, pick_bk(m_pad, bn, k, w_bytes=w_bytes, streams=2)
-
-
-def wgmma_smem_bytes(stages: int = WG_STAGES, streams: int = 2) -> int:
-    """Shared memory of a bf16 launch: ``stages`` ring stages of
-    ``streams`` (WG_BK x WG_BN) weight tiles and WG_TILES (WG_TOKENS x
-    WG_BK) x tiles, two mbarriers a stage, and 1024 bytes to align the
-    ring to the 128-byte swizzle's period."""
-    stage = 2 * WG_BK * (streams * WG_BN + WG_TILES * WG_TOKENS)
-    return stages * stage + 2 * stages * 8 + 1024
+def wgmma_smem_bytes(w_bytes: int = 2) -> int:
+    """Shared memory of a launch: WG_STAGES ring stages of the two
+    (WG_BK x WG_BN) weight tiles of ``w_bytes``-byte elements and WG_TILES
+    (WG_TOKENS x WG_BK) bf16 x tiles, for codes two buffers of both
+    streams' converted bf16 tiles, two mbarriers a stage, and 1024 bytes
+    to align the ring to the 128-byte swizzle's period."""
+    stage = 2 * WG_BK * WG_BN * w_bytes + 2 * WG_TILES * WG_TOKENS * WG_BK
+    conv = 2 * 2 * TILE_BYTES if w_bytes == 1 else 0
+    return WG_STAGES * stage + conv + 2 * WG_STAGES * 8 + 1024
 
 
 def scale_pair(what: str, wg_scale, wu_scale) -> bool:
@@ -81,24 +72,13 @@ def fused_ffn_up_plain(x: torch.Tensor, w_gate: torch.Tensor,
                        w_up: torch.Tensor, *, activation: str = "swiglu",
                        wg_scale: torch.Tensor | None = None,
                        wu_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version: the launched body's K tiles accumulated in f32, the
-    activation on the f32 sums, one rounding to x's dtype. bf16 weights:
-    the wgmma body's fixed WG_BK tiles, each one batched product per row
-    (``split_acc``). Codes: the quantized body's tiles (cast to f32 tile
-    by tile), the steps on the f32 sums before the activation."""
-    m, k = x.shape
-    if not scale_pair("fused_ffn_up", wg_scale, wu_scale):
-        g, u = (split_acc(x, w, WG_BK, 1) for w in (w_gate, w_up))
-        return (ffn_activation(g, activation) * u).to(x.dtype)
-    _, bk = tiles(m, k, w_gate.shape[1], w_gate.element_size())
-    g = torch.zeros((m, w_gate.shape[1]), dtype=torch.float32,
-                    device=x.device)
-    u = torch.zeros_like(g)
-    for lo in range(0, k, bk):
-        xs = x[:, lo:lo + bk].float()
-        g += xs @ w_gate[lo:lo + bk].float()
-        u += xs @ w_up[lo:lo + bk].float()
-    g, u = g * wg_scale.float(), u * wu_scale.float()
+    """Plain version: the body's fixed WG_BK tiles accumulated in f32,
+    each one batched product per row (``split_acc``; codes cast to f32,
+    exactly), the steps (codes) and the activation on the f32 sums, one
+    rounding to x's dtype."""
+    scale_pair("fused_ffn_up", wg_scale, wu_scale)
+    g = split_acc(x, w_gate, WG_BK, 1, wg_scale)
+    u = split_acc(x, w_up, WG_BK, 1, wu_scale)
     return (ffn_activation(g, activation) * u).to(x.dtype)
 
 
@@ -145,11 +125,10 @@ def fused_ffn_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("fused_ffn", _SIG)
     if quantized:
-        bn, bk = tiles(m, k, n, w_gate.element_size())
         code = lib.fused_ffn_up_q8(
             _build.ptr(x), _build.ptr(w_gate), _build.ptr(w_up),
             _build.ptr(wg_scale), _build.ptr(wu_scale), _build.ptr(out),
-            m, k, n, x.stride(0), int(activation == "geglu"), bn, bk, fp8,
+            m, k, n, x.stride(0), int(activation == "geglu"), fp8,
             _build.stream_of(x))
         _build.check(lib, "fused_ffn_up_q8", code)
         fused_ffn_up_quant.launches += 1

@@ -196,28 +196,26 @@ def test_stage_kernels_reject_bad_operands():
 
 
 def test_resident_tiles_fit_shared_memory():
-    """The resident-row kernels keep mt rows and two weight stages inside
-    a block's shared memory, at decode M and past one 64-row block, and
-    shrink the row tile for a wide model rather than fail. The split
-    ingest keeps mt rows of one split's K range beside its weight ring,
-    and the wgmma ffn_norm one split's normed rows beside its TMA ring."""
+    """The resident-row kernels keep their rows inside a block's shared
+    memory, at decode M and past one 64-row block, and shrink the row
+    tile for a wide model rather than fail: the split ingest keeps mt
+    rows of one split's K range beside its weight ring, and the wgmma
+    ffn_norm (bf16 and codes) one split's normed rows beside its TMA ring
+    and, for codes, its conversion buffers."""
     from repro_torch import hardware
     budget = hardware.DEFAULT.smem_per_block
     for m in (1, 4, 64, 300):
         for k, n in ((896, 4864), (4096, 11008)):
-            bn, bk, mt = tdf.ffn_norm_tiles(m, k, n)
-            assert mt % 8 == 0 and 8 <= mt <= 64
-            assert tdf.resident_smem(mt, k, bn, bk, 2) <= budget
-            mt, bk = tdf.resident_tiles(m, k, 128, 1)
-            assert tdf.resident_smem(mt, k, 128, bk, 1) <= budget
             for hd, heads in ((64, 18), (128, 96)):
                 mt, splits = tdf.ingest_tiles(m, k, hd, heads)
                 span = tdf.split_tiles(k, splits) * tdf.SPLIT_ROWS
                 assert mt % 8 == 0 and 8 <= mt <= 64
                 assert tdf.ingest_smem(mt, span, hd) <= budget
-            per = tdf.split_tiles(k, tdf.ffn_norm_splits(k, n))
-            assert tdf.wgmma_norm_smem(per) <= budget
-    assert tdf.resident_tiles(4, 896, 64, 1) == (8, 128)
+            for w_bytes in (2, 1):
+                splits = tdf.ffn_norm_splits(k, n, w_bytes)
+                per = tdf.split_tiles(k, splits)
+                assert tdf.wgmma_norm_smem(per, w_bytes) <= budget
+                assert tdf.wgmma_norm_blocks_per_sm(per, w_bytes) >= 1
     assert tdf.ingest_tiles(4, 896, 64, 18) == (8, 7)
 
 

@@ -128,18 +128,20 @@ def test_fused_ffn_up_rejects_bad_operands():
 
 
 def test_fused_ffn_tiles_fit_shared_memory():
-    """The bf16 body's ring holds two weight tiles and the x tiles of a
-    block's rows per stage and fits a block's shared memory at every M of
-    the qwen2 FFN-up: M past one block's WG_TILES x WG_TOKENS rows takes
-    more row blocks (the grid tiles M), never more x tiles a stage."""
+    """The body's ring holds two weight tiles and the x tiles of a block's
+    rows per stage and fits a block's shared memory at every M of the
+    qwen2 FFN-up, bf16 and codes (whose half-size tiles leave room for
+    the two converted bf16 buffers): M past one block's WG_TILES x
+    WG_TOKENS rows takes more row blocks (the grid tiles M), never more x
+    tiles a stage."""
     cfg = tconfigs.get(ARCH)
     spec = hardware.DEFAULT
     for m in (1, 4, 64, 256, 4096):
         rows = min(m, tff.WG_TILES * tff.WG_TOKENS)
         assert -(-rows // tff.WG_TOKENS) <= tff.WG_TILES
-        assert tff.wgmma_smem_bytes() <= spec.smem_per_block
-        assert tff.wgmma_smem_bytes(streams=2) \
-            > tff.wgmma_smem_bytes(streams=1)
+        for w_bytes in (2, 1):
+            assert tff.wgmma_smem_bytes(w_bytes) <= spec.smem_per_block
+    assert tff.wgmma_smem_bytes(1) == tff.wgmma_smem_bytes(2)
     # the K tile is one 128-byte swizzled row of bf16; the column block is
     # the wgmma's 64 rows, which N = d_ff fills exactly
     assert tff.WG_BK * 2 == 128

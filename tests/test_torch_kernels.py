@@ -24,8 +24,8 @@ from repro_torch.core.plan import MatmulPlan, make_plan
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_prefill as tfp
 from repro_torch.kernels import ops
-from repro_torch.kernels.flat_gemm import (flat_gemm, pick_bk, pick_bn,
-                                           smem_bytes)
+from repro_torch.kernels.flat_gemm import (flat_gemm, gemm_tiles, pick_bk,
+                                           split_smem)
 from repro_torch.kernels.gemv import gemv
 
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -73,34 +73,35 @@ def test_gemm_matches_pallas_kernel(m, k, n, fn, jfn, dtype):
 
 
 def test_pick_bn_bk_on_h100():
+    """The flat GEMM's tiles on the H100: narrow N (fewer than 132 blocks
+    of 32 columns) takes the split body at pick_bk's BK; every wider N
+    the wgmma body's fixed 64-column, 64-row K tile (no BN to pick)."""
     spec = hardware.H100_SXM
     assert spec.num_sms == 132 and spec.smem_per_block == 232_448
-    # decode shapes of qwen2-0.5b: narrow N cannot fill 132 SMs, so the
-    # most parallel tile wins; the 152064-wide LM head fills the card at
-    # every width, so the widest (most x reuse) wins
-    assert pick_bn(8, 896, 896, spec=spec) == 32
-    assert pick_bn(8, 4864, 896, spec=spec) == 32
-    assert pick_bn(8, 152064, 896, spec=spec) == 128
-    # two 64-row M blocks: 64 x 2 blocks fill the card, 128 x 2 do not
-    assert pick_bn(128, 8192, 896, spec=spec) == 64
-    for m, n, k in [(8, 896, 896), (64, 4864, 4864), (8, 152064, 896),
-                    (8, 100, 40)]:
+    # decode shapes of qwen2-0.5b: q / o_proj, gate / up, the tied head
+    assert gemm_tiles(896, 896, spec=spec) == ("split", 128, 7)
+    assert gemm_tiles(896, 4864, spec=spec) == ("wgmma", 64, 5)
+    assert gemm_tiles(896, 152064, w_kn=False, spec=spec) == (
+        "wgmma", 64, 1)
+    # the boundary: 131 blocks of 32 columns are narrow, 132 are not
+    assert gemm_tiles(4864, 131 * 32, spec=spec)[0] == "split"
+    assert gemm_tiles(4864, 132 * 32, spec=spec)[0] == "wgmma"
+    for k in (896, 4864, 40):
         for w_kn in (True, False):
-            bn = pick_bn(m, n, k, w_kn=w_kn, spec=spec)
-            bk = pick_bk(m, bn, k, w_kn=w_kn, spec=spec)
+            bk = pick_bk(k, w_kn=w_kn, spec=spec)
             assert bk <= max(32, -(-k // 32) * 32)
-            assert smem_bytes(bn, bk, w_kn=w_kn) <= spec.smem_per_block
-    assert pick_bk(8, 32, 896, spec=spec) == 128
-    assert pick_bk(8, 32, 40, spec=spec) == 64
+            assert split_smem(bk, w_kn=w_kn) <= spec.smem_per_block
+    assert pick_bk(896, spec=spec) == 128
+    assert pick_bk(40, spec=spec) == 64
     # a card with a small shared-memory budget gets shallower K tiles
     tiny = hardware.HardwareSpec(**{**spec.__dict__, "smem_per_block": 40_000})
-    assert pick_bk(8, 128, 4096, spec=tiny) < pick_bk(8, 128, 4096, spec=spec)
-    # the budget is counted for the layout launched: at BN = 128 a 64-deep
-    # K tile fits 54 000 bytes as (K, N) rows (53 248) but not as (N, K)
-    # rows (55 296)
-    edge = hardware.HardwareSpec(**{**spec.__dict__, "smem_per_block": 54_000})
-    assert pick_bk(8, 128, 4096, w_kn=True, spec=edge) == 64
-    assert pick_bk(8, 128, 4096, w_kn=False, spec=edge) == 32
+    assert pick_bk(4096, spec=tiny) < pick_bk(4096, spec=spec)
+    # the budget is counted for the layout launched: a 128-deep K tile's
+    # four stages fit 140 000 bytes as (N, K) rows (139 264) but not as
+    # (K, N) rows (143 360)
+    edge = hardware.HardwareSpec(**{**spec.__dict__, "smem_per_block": 140_000})
+    assert pick_bk(4096, w_kn=True, spec=edge) == 64
+    assert pick_bk(4096, w_kn=False, spec=edge) == 128
 
 
 @pytest.mark.parametrize("m,want", [(1, Impl.GEMV), (2, Impl.GEMV),

@@ -9,9 +9,9 @@ on the same numpy inputs, within ``TOL["bfloat16"]``:
     blocks of 32 columns): K over several splits with a ragged last one,
     N not a multiple of BN, M in {1, 4, 13, 64}; bf16, int8 and fp8
     weights;
-  * ``pick_splits`` / ``gemm_tiles``: one split for the tied head (its
-    launch unchanged), enough blocks for N = 128 and 896, the same
-    splits at every M;
+  * ``pick_splits`` / ``gemm_tiles``: the split body for narrow N only
+    (enough blocks for N = 128 and 896), the wgmma body unsplit for the
+    tied head, a function of K, N and the card (no M argument);
   * a row's plain result bitwise the same alone as in a batch.
 
 The CUDA kernels are held to these plain versions on the card by
@@ -30,11 +30,10 @@ from repro.models import wquant as jw
 from repro_torch import hardware
 from repro_torch.kernels import decode_fuse as tdf
 from repro_torch.kernels import quant as tq
-from repro_torch.kernels.flat_gemm import (MAX_SPLITS, SPLIT_BN,
-                                           SPLIT_STAGES, flat_gemm,
+from repro_torch.kernels.flat_gemm import (MAX_SPLITS, SPLIT_BN, flat_gemm,
                                            flat_gemm_plain, gemm_tiles,
-                                           pick_bk, pick_bn, pick_splits,
-                                           smem_bytes, split_acc)
+                                           pick_bk, pick_splits, split_acc,
+                                           split_smem)
 from repro_torch.models import wquant as tw
 
 BF16 = TOL["bfloat16"]
@@ -87,7 +86,8 @@ def _bits(t: torch.Tensor) -> np.ndarray:
 def test_test_shapes_split_on_the_default_card():
     for k, n in SHAPES:
         for w_bytes in (2, 1):
-            assert gemm_tiles(4, k, n, w_bytes=w_bytes)[2] > 1
+            body, _, splits = gemm_tiles(k, n, w_bytes=w_bytes)
+            assert body == "split" and splits > 1
 
 
 @pytest.mark.parametrize("kind", WEIGHTS)
@@ -122,22 +122,20 @@ def test_split_oproj_residual_matches_pallas(m, k, n, kind):
 
 
 def test_pick_splits_on_h100():
+    import inspect
     spec = H100
     # the tied head (896 -> 152064, the (N, K) view) fills the card with
-    # its columns: one split, the tiles pick_bn / pick_bk give at each M
+    # its columns: the wgmma body, one split
     assert pick_splits(896, 152064, 128, 128, spec=spec) == 1
-    for m in (1, 4, 64, 100):
-        m_pad = -(-m // 8) * 8
-        bn = pick_bn(m_pad, 152064, 896, w_kn=False, spec=spec)
-        assert gemm_tiles(m, 896, 152064, w_kn=False, spec=spec) == (
-            bn, pick_bk(m_pad, bn, 896, w_kn=False, spec=spec), 1)
+    assert gemm_tiles(896, 152064, w_kn=False, spec=spec) == ("wgmma", 64, 1)
     # the decode GEMMs of qwen2-0.5b: q / o_proj (896 -> 896), k / v
     # (896 -> 128), down (4864 -> 896), bf16 and 1-byte codes
     want = {(896, 896): 7, (896, 128): 7, (4864, 896): 8}
     for (k, n), splits in want.items():
         for w_bytes in (2, 1):
-            bn, bk, s = gemm_tiles(4, k, n, w_bytes=w_bytes, spec=spec)
-            assert (bn, bk, s) == (SPLIT_BN, 128, splits)
+            body, bk, s = gemm_tiles(k, n, w_bytes=w_bytes, spec=spec)
+            assert (body, bk, s) == ("split", 128, splits)
+            bn = SPLIT_BN
             n_kt = -(-k // bk)
             # every SM gets a block, or every K tile (up to a portable
             # cluster) is a split of its own
@@ -145,19 +143,18 @@ def test_pick_splits_on_h100():
                     or s == min(n_kt, MAX_SPLITS))
             # ceil(n_kt / splits) tiles a split: none is empty
             assert -(-n_kt // -(-n_kt // s)) == s
-            assert smem_bytes(bn, bk, w_kn=True, w_bytes=w_bytes,
-                              stages=SPLIT_STAGES) <= spec.smem_per_block
-    # a function of K, N and the card only: the same tiles at every M
-    for k, n in [(896, 896), (896, 128), (4864, 896), (4864, 4096),
-                 (200, 136)]:
-        tiles = {gemm_tiles(m, k, n, spec=spec) for m in range(1, 300)}
-        split = {t for t in tiles if t[2] > 1}
-        assert len({t[2] for t in tiles}) == 1 and len(split) <= 1
-    # columns that fill the card alone (at pick_bn's BN) are never split;
-    # a split grid aims at two blocks per SM
-    assert gemm_tiles(4, 896, 4864, spec=spec)[2] == 1
-    assert gemm_tiles(4, 4864, 132 * 32, spec=spec)[2] == 1
-    assert gemm_tiles(4, 4864, 131 * 32, spec=spec)[2] > 1
+            assert bk == pick_bk(k, w_bytes=w_bytes, spec=spec)
+            assert split_smem(bk, w_kn=True, w_bytes=w_bytes) \
+                <= spec.smem_per_block
+    # a function of K, N and the card only: the pickers take no M
+    for fn in (gemm_tiles, pick_splits, pick_bk):
+        assert "m" not in inspect.signature(fn).parameters
+    # columns that fill the card alone (132 blocks of 32) never take the
+    # split body; a split grid aims at two blocks per SM
+    assert gemm_tiles(896, 4864, spec=spec)[0] == "wgmma"
+    assert gemm_tiles(4864, 132 * 32, spec=spec)[0] == "wgmma"
+    assert gemm_tiles(4864, 131 * 32, spec=spec)[0] == "split"
+    assert gemm_tiles(4864, 131 * 32, spec=spec)[2] > 1
     assert pick_splits(4864, 131 * 32, 32, 128, spec=spec) == 3
     assert pick_splits(4864, 264 * 32, 32, 128, spec=spec) == 1
 

@@ -426,32 +426,36 @@ def test_quantized_kernels_refuse_what_they_cannot_take():
 
 def test_tile_budgets_count_codes_at_one_byte():
     """The shared-memory budgets count x at 2 bytes and the weights at
-    their element width, as the kernels' stage layout does (rows padded by
-    16 bytes); bf16 budgets keep their values."""
+    their element width, as the kernels' stage layouts do (the split
+    body's rows padded by 16 bytes; the wgmma bodies' code tiles at 64
+    bytes a row plus the two converted bf16 buffers); bf16 budgets keep
+    their values, and every launch at w_bytes 1 fits a block."""
     from repro_torch import hardware
-    from repro_torch.kernels.flat_gemm import (SPLIT_STAGES, round_up,
-                                               smem_bytes)
-    from repro_torch.kernels.fused_ffn import tiles
+    from repro_torch.kernels import flat_gemm as tfg
+    from repro_torch.kernels.fused_ffn import wgmma_smem_bytes
     budget = hardware.DEFAULT.smem_per_block
-    for bn in (32, 64, 128):
-        for bk in (32, 64, 128):
-            assert smem_bytes(bn, bk, w_kn=True) == \
-                2 * (64 * (bk + 8) + bk * (bn + 8)) * 2
-            assert smem_bytes(bn, bk, w_kn=True, w_bytes=1, streams=2) == \
-                2 * (64 * (bk + 8) * 2 + 2 * bk * (bn + 16))
-            assert tdf.resident_smem(8, 896, bn, bk, 2, 1) == \
-                2 * 2 * bk * (bn + 16) + 2 * 8 * (round_up(896, bk) + 8)
-    for m in (1, 4, 64, 300):
-        for k, n in ((896, 4864), (4864, 896), (4096, 11008)):
-            bn, bk, mt = tdf.ffn_norm_tiles(m, k, n, 1)
-            assert tdf.resident_smem(mt, k, bn, bk, 2, 1) <= budget
-            bn, bk = tiles(m, k, n, 1)
-            assert smem_bytes(bn, bk, w_kn=True, w_bytes=1,
-                              streams=2) <= budget
-            bn, bk, splits = tdf.oproj_tiles(m, k, n, 1)
-            stages = SPLIT_STAGES if splits > 1 else 2
-            assert smem_bytes(bn, bk, w_kn=True, w_bytes=1,
-                              stages=stages) <= budget
+    for bk in (32, 64, 128):
+        assert tfg.split_smem(bk, w_kn=True) == \
+            4 * (64 * (bk + 8) + bk * (64 + 8)) * 2
+        assert tfg.split_smem(bk, w_kn=True, w_bytes=1) == \
+            4 * (64 * (bk + 8) * 2 + bk * (64 + 16))
+    for per in (1, 3, 5, 14):
+        stages = min(4, max(2, per))
+        assert tfg.wgmma_smem(per) == stages * 16384 + 64 + 1024
+        assert tfg.wgmma_smem(per, 1) == stages * 12288 + 16384 + 64 + 1024
+        assert tdf.wgmma_norm_smem(per) == \
+            stages * 16384 + per * 8192 + 64 + 1024
+        assert tdf.wgmma_norm_smem(per, 1) == \
+            stages * 8192 + per * 8192 + 32768 + 64 + 1024
+    assert wgmma_smem_bytes(1) == 4 * (8192 + 32768) + 32768 + 64 + 1024
+    assert wgmma_smem_bytes(1) <= budget
+    for k, n in ((896, 4864), (4864, 896), (4096, 11008)):
+        body, bk, splits = tfg.gemm_tiles(k, n, w_bytes=1)
+        per = tfg.split_tiles(k, splits)
+        assert (tfg.split_smem(bk, w_bytes=1) if body == "split"
+                else tfg.wgmma_smem(per, 1)) <= budget
+        per = tfg.split_tiles(k, tdf.ffn_norm_splits(k, n, 1))
+        assert tdf.wgmma_norm_smem(per, 1) <= budget
 
 
 # ---------------------------------------------------------------------------
