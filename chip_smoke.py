@@ -5,6 +5,9 @@
     python3 chip_smoke.py --profiles-only   # build, then only the decode-tick
                                             # and chunk-step profiles (A, B,
                                             # N, E, H, P, J, K, O, P, S)
+    python3 chip_smoke.py --plan-only       # build, then only the cost phase
+                                            # and the wallclock tune (the
+                                            # plan lands in chiprun_out/)
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -111,7 +114,24 @@
    the decode tick of A, H, J, K, M, O, P and S, the 1-slot ticks of B and N
    (with the GEMV's share), and the chunk steps of runs E and H (with the
    fused FFN-up's share).
-5. Prints the card's name and power limit, one JSON line describing every
+5. T3 on the card: measures the fixed costs ``hardware.H100_SXM`` carries
+   for the cost models (a launch in a CUDA graph and eager, the library
+   GEMM's edge, a pinned host copy, a decode KV split step, run E's chunk
+   step and run J's looped tick beyond their device work), printing each
+   beside its committed value; tunes qwen2-0.5b with the wallclock
+   measure (``gemv``, ``flat_gemm`` and ``torch.matmul`` timed on the
+   card), printing every entry and the three impls' times at M = 1, 4, 8
+   and 16, saves the plan under chiprun_out/ and reloads it strictly; fails
+   if a shape the layers call has no entry or if the committed
+   ``plans_torch/`` plan does not load strictly or differs in an
+   analytical knob; serves T (A's traffic and plan with the tuned GEMM
+   route) and U (B's, 1 slot), every GEMM's launches checked against the
+   plan's pick, tokens counted against A's and B's, their first prefill
+   and decode logits within 0.25 of the "torch" plan; profiles T beside A
+   and U beside B in turns (busy, wall, the shares of gate / up, k / v
+   and the head); and runs V, the serving CLI with ``--plan`` on the
+   committed plan, in a subprocess.
+6. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Exits non-zero, printing no result line, without CUDA, outside the repo,
@@ -2664,7 +2684,8 @@ def chunk_profile_phase(torch, cfg, params, shared, log, tag="E",
     ``api.prefill_chunk`` call under torch.profiler, its device busy time
     (sum of kernel times), the shares of the fused chunk attention
     kernels and of the fused FFN-up in it, and the step's wall on the
-    host clock."""
+    host clock. Returns the steps' (busy, attention, FFN-up, wall) in ms,
+    None when the profiler reported no device time."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -2710,6 +2731,7 @@ def chunk_profile_phase(torch, cfg, params, shared, log, tag="E",
         f"{sum(u for _, _, u, _ in steps) / n:.3f}), wall "
         f"{sum(w for _, _, _, w in steps) / n:.3f} ms/step; per step busy "
         + " ".join(f"{b:.3f}" for b, _, _, _ in steps))
+    return steps
 
 
 def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
@@ -2723,7 +2745,8 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
     wall inflated by the profiler) and the unprofiled window's (adjacent
     ticks of the same engine, the wall a serving user sees). The
     admission step before the window (one prefill wave and one tick)
-    reports its kernel launches too."""
+    reports its kernel launches too. Returns (busy, unprofiled wall) in
+    ms a tick, None when the profiler reported no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import Engine
@@ -2793,6 +2816,7 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
         f"decode_profile_{tag.split()[0]}.txt"
     (OUT_DIR / name).write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=40))
+    return busy_us / 1e3, 1e3 * plain_wall
 
 
 def tick_profiles(torch, cfg, params, requests, shared, log):
@@ -3185,6 +3209,496 @@ def quant_logits_phase(torch, cfg, params, requests, log):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# T3 on the card: the cost models' fixed costs, the wallclock tuner, and
+# serving with the tuned GEMM route (runs T, U and the CLI's V)
+# ---------------------------------------------------------------------------
+
+TIED_HEAD = "lm_head_tied"
+# the [K, N] shapes whose share of a tick the T / U profiles report
+SHARE_SHAPES = {"gate/up": "gate_up", "k/v": "kv_proj", "head": TIED_HEAD}
+
+
+def graph_ms_per_call(torch, fn, n=1000, reps=7):
+    """Median device ms a call of ``fn`` adds when ``n`` calls run back to
+    back in one CUDA graph (the replay's CUDA-event time over ``n``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
+def cost_phase(torch, cfg, params, requests, shared, log):
+    """The fixed costs in ``hardware.H100_SXM`` that T3's cost models add,
+    measured here, each printed beside its committed value (a mismatch is
+    printed, not failed: the machine is shared and noisy). Returns
+    {field: measured seconds}.
+
+    * launch_s: the noop probe kernel (csrc/probe.cu) launched 1,000 times
+      back to back in a CUDA graph, device time a launch;
+    * host_dispatch_s: the same launches eager, host time a launch;
+    * library_edge_s: a 64 x 64 x 64 bf16 ``torch.matmul`` 1,000 times in a
+      graph, device time a call (the library GEMM's fixed cost);
+    * host_copy_s: one 4 KB pinned host-to-device copy, then a
+      synchronize, on the host clock (median of 50);
+    * kv_step_s: row 3 (decode_attention_unified_max) on its long case
+      (4 rows of 8,192 keys, 128 splits) against its short one (lengths
+      1024/517/64/3, 16 splits), less the bytes, per extra split;
+    * chunk_step_s: run E's chunk steps (2 new tokens a request), each
+      step's unprofiled wall less its profiled device busy, median;
+    * loop_setup_s: run J's looped tick, unprofiled wall less busy.
+    """
+    import dataclasses
+
+    from repro_torch import hardware
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import SamplingParams
+
+    spec = hardware.H100_SXM
+    got = {}
+    lib = _build.load("probe", {"probe_noop": [_build.VP, _build.I32,
+                                               _build.VP]})
+    flag = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def noop():
+        _build.check(lib, "probe_noop", lib.probe_noop(
+            _build.ptr(flag), 1, _build.stream_of(flag)))
+
+    got["launch_s"] = 1e-3 * graph_ms_per_call(torch, noop)
+    n, walls = 1000, []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            noop()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / n)
+    got["host_dispatch_s"] = statistics.median(walls)
+    a = torch.randn((64, 64), device="cuda").to(torch.bfloat16)
+    b = torch.randn((64, 64), device="cuda").to(torch.bfloat16)
+    got["library_edge_s"] = 1e-3 * graph_ms_per_call(
+        torch, lambda: torch.matmul(a, b))
+    src = torch.zeros(4096, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(4096, dtype=torch.uint8, device="cuda")
+    copies = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        copies.append(time.perf_counter() - t0)
+    got["host_copy_s"] = statistics.median(copies)
+
+    # one more 64-key split of decode attention, beyond its bytes
+    hq, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    timer = Timer(torch)
+    case = {}
+    for s_max, lens in ((1024, [1024, 517, 64, 3]), (8192, [8192] * 4)):
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        kc, vc = (torch.randn((4, s_max, hk, hd), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+                  for _ in range(2))
+        q = torch.randn((4, hq, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+        ms = timer.ms(lambda: da.decode_attention_unified_max(
+            q, kt, vt, lengths, phi=cfg.softmax_phi.phi))
+        nbytes = 2 * (2 * 4 * hq * hd + 2 * sum(lens) * hk * hd) + 16 * hk
+        case[s_max] = (ms, nbytes, -(-s_max // 64))
+    (t1, b1, n1), (t2, b2, n2) = case[1024], case[8192]
+    got["kv_step_s"] = (1e-3 * (t2 - t1) - (b2 - b1) / spec.hbm_bw) / (
+        n2 - n1)
+    log(f"cost row 3: short {t1:.4f} ms ({n1} splits, {b1} B), long "
+        f"{t2:.4f} ms ({n2} splits, {b2} B)")
+    del timer
+
+    # a chunk step's wall beyond its device work (run E's engine)
+    sp2 = SamplingParams(max_new_tokens=2)
+    reqs = [(p, sp2) for p, _ in shared]
+    paged = dict(num_slots=4, max_seq=1024, device="cuda",
+                 prefix_sharing=True, cache_kind="paged", page_size=PAGE)
+    for _ in range(2):                   # the first run warms the engine
+        eng = Engine(cfg, params, **paged)
+        real, walls = eng.api.prefill_chunk, []
+
+        def timed(*args, _real=real, _walls=walls, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _real(*args, **kw)
+            torch.cuda.synchronize()
+            _walls.append(time.perf_counter() - t0)
+            return res
+
+        eng.api = dataclasses.replace(eng.api, prefill_chunk=timed)
+        eng.run(reqs)
+    steps = chunk_profile_phase(torch, cfg, params, reqs, log,
+                                tag="E (cost phase)")
+    check(steps is not None and len(steps) == len(walls),
+          f"cost phase: {len(walls)} unprofiled chunk steps against "
+          f"{None if steps is None else len(steps)} profiled")
+    got["chunk_step_s"] = statistics.median(
+        w - 1e-3 * busy for w, (busy, _, _, _) in zip(walls, steps))
+    log(f"cost E chunk steps: unprofiled wall "
+        f"{1e3 * sum(walls) / len(walls):.3f} ms/step over {len(walls)}")
+
+    j = profile_phase(torch, cfg, params, requests, log,
+                      tag="J slots=4 looped (cost phase)",
+                      decode_fusion="looped")
+    check(j is not None, "cost phase: run J's tick has no device time")
+    got["loop_setup_s"] = 1e-3 * (j[1] - j[0])
+
+    for field, v in got.items():
+        want = getattr(spec, field)
+        log(f"cost {field}: measured {v:.3e} s, H100_SXM {want:.3e} s "
+            f"(measured / committed {v / want:.2f})")
+    return got
+
+
+def tune_phase(torch, cfg, log, strict=True):
+    """``tune(cfg, H100_SXM, measure="wallclock")``: every entry's (K, N,
+    m1, m2) and the three impls' times at M = 1, 4, 8 and 16; the plan
+    saved under chiprun_out/ and reloaded strictly; where its entries
+    differ from the committed ``plans_torch/`` file. Fails if a shape of
+    ``called_gemm_shapes`` has no entry and, ``strict``, if the committed
+    file does not load strictly or its analytical knobs differ from this
+    tune's. Returns the tuned plan."""
+    from repro_torch import hardware
+    from repro_torch.core import dispatch
+    from repro_torch.core import plan as plan_mod
+
+    spec = hardware.H100_SXM
+    t0 = time.perf_counter()
+    tuned = plan_mod.tune(cfg, spec, measure="wallclock")
+    log(f"tune {cfg.name} on {spec.name} (wallclock, "
+        f"{time.perf_counter() - t0:.1f}s): {tuned.describe()}")
+    check(tuned.provenance.measure == "wallclock",
+          "tune: provenance does not say wallclock")
+    called = dispatch.called_gemm_shapes(cfg)
+    missing = [gs for gs in called
+               if (gs.k, gs.n) not in tuned.matmul.entries]
+    check(not missing, f"tune: called shapes without an entry: {missing}")
+    names = {(gs.k, gs.n): gs.name
+             for gs in plan_mod.tuned_gemm_shapes(cfg) + called}
+    measure = dispatch.wallclock_measure_factory(
+        nk=[(gs.k, gs.n) for gs in called if gs.name == TIED_HEAD])
+    for (k, n), e in sorted(tuned.matmul.entries.items()):
+        cells = []
+        for m in (1, 4, 8, 16):
+            a, b, c = (1e3 * measure(impl, m, k, n)
+                       for impl in dispatch.Impl)
+            cells.append(f"M={m} {a:.4f}/{b:.4f}/{c:.4f}")
+        log(f"tune entry {names[(k, n)]} ({k}, {n}): m1={e.m1} m2={e.m2}; "
+            f"ms gemv/flat_gemm/matmul " + "; ".join(cells))
+    log(f"tune default ladder: m1={tuned.matmul.default_m1} "
+        f"m2={tuned.matmul.default_m2}; find_weight_dtype: "
+        f"{dispatch.find_weight_dtype(cfg, spec=spec)} (any guard), "
+        f"{dispatch.find_weight_dtype(cfg, spec=spec, tol_budget=0.0)} "
+        "(bitwise only)")
+    saved = tuned.save(plan_mod.default_plan_path(cfg, spec,
+                                                  root=str(OUT_DIR)))
+    check(plan_mod.ExecutionPlan.load(saved, cfg=cfg, spec=spec) == tuned,
+          "tune: the saved plan does not reload to itself")
+    log(f"tune: saved to {saved}, reloads strictly to the same plan")
+
+    committed_path = ROOT / plan_mod.default_plan_path(cfg, spec)
+    if not committed_path.exists():
+        check(not strict, f"tune: no committed plan {committed_path}")
+        log(f"tune: no committed plan {committed_path}")
+        return tuned
+    committed = plan_mod.ExecutionPlan.load(str(committed_path), cfg=cfg,
+                                            spec=spec, strict=strict)
+    for kn in sorted(set(committed.matmul.entries) | set(
+            tuned.matmul.entries)):
+        old, new = committed.matmul.entries.get(kn), \
+            tuned.matmul.entries.get(kn)
+        if old != new:
+            log(f"tune: entry {kn} differs from the committed plan: "
+                f"committed {old and (old.m1, old.m2)}, now "
+                f"{new and (new.m1, new.m2)}")
+    knobs = (("attention_decode", "block_k"), ("paged", "chunk_block"),
+             ("paged", "fused_threshold"), ("paged", "group_threshold"),
+             ("paged", "swap_threshold"), ("decode_fusion", "granularity"),
+             ("matmul", "weight_dtype"))
+    diff = [f"{op}.{knob}: committed "
+            f"{getattr(getattr(committed, op), knob)!r}, now "
+            f"{getattr(getattr(tuned, op), knob)!r}"
+            for op, knob in knobs
+            if getattr(getattr(committed, op), knob)
+            != getattr(getattr(tuned, op), knob)]
+    log(f"tune: analytical knobs against {committed_path.name}: "
+        + ("; ".join(diff) if diff else "all equal"))
+    check(not diff or not strict,
+          f"tune: analytical knobs differ from the committed plan: {diff}")
+    return tuned
+
+
+def gemm_launch_checker(log_calls):
+    """Wrap ``ops.matmul`` so that every call checks its launch counters
+    against the plan's pick: ImplA launches ``gemv`` once per four-row
+    slice, ImplB ``flat_gemm`` once, ImplC neither. Appends (M, K, N,
+    impl) to ``log_calls`` and raises SmokeFailure on a mismatch.
+    Returns a function that restores ``ops.matmul``."""
+    from repro_torch.core.dispatch import Impl
+    from repro_torch.core.plan import DEFAULT_PLAN
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flat_gemm import flat_gemm, flat_gemm_quant
+    from repro_torch.kernels.gemv import gemv, gemv_quant, row_slices
+
+    real = ops.matmul
+
+    def launched():
+        return (gemv.launches + gemv_quant.launches,
+                flat_gemm.launches + flat_gemm_quant.launches)
+
+    def checked(x, w, *, plan=None):
+        g0, f0 = launched()
+        out = real(x, w, plan=plan)
+        g1, f1 = launched()
+        k, n = x.shape[-1], out.shape[-1]
+        m = x.numel() // k
+        impl = (plan or DEFAULT_PLAN).matmul.pick(m, k, n)
+        want = {Impl.GEMV: (len(row_slices(m)), 0),
+                Impl.FLAT_GEMM: (0, 1), Impl.XLA_DOT: (0, 0)}[impl]
+        check((g1 - g0, f1 - f0) == want,
+              f"matmul M={m} K={k} N={n}: the plan picks {impl.value}, "
+              f"launched gemv {g1 - g0}, flat_gemm {f1 - f0}")
+        log_calls.append((m, k, n, impl))
+        return out
+
+    ops.matmul = checked
+
+    def restore():
+        ops.matmul = real
+
+    return restore
+
+
+def tuned_serve_phase(torch, cfg, params, requests, tuned, outputs,
+                      launches, log):
+    """Runs T (A's traffic and plan, the tuned GEMM route) and U (B's, 1
+    slot), each with every counter set to 0 just before and read just
+    after, every GEMM's launches checked against the plan's pick
+    (:func:`gemm_launch_checker`) and every (K, N) it saw a tuned entry;
+    tokens counted against A's and B's. Returns the tuned split plan."""
+    import dataclasses
+
+    from repro_torch.core.plan import DEFAULT_PLAN
+    from repro_torch.serving.engine import Engine
+
+    plan = dataclasses.replace(DEFAULT_PLAN, matmul=tuned.matmul)
+    for tag, slots, ref in (("T", 4, "A"), ("U", 1, "B")):
+        eng = Engine(cfg, params, num_slots=slots, max_seq=1024, plan=plan,
+                     device="cuda")
+        calls = []
+        for fn in counters().values():
+            fn.launches = 0
+        restore = gemm_launch_checker(calls)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = eng.run(requests)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            restore()
+        counts = {n: fn.launches for n, fn in counters().items()}
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        seen = {(k, n) for _, k, n, _ in calls}
+        check(seen <= set(tuned.matmul.entries),
+              f"{tag}: GEMM shapes without a tuned entry: "
+              f"{sorted(seen - set(tuned.matmul.entries))}")
+        picks = {}
+        for m, k, n, impl in calls:
+            key = f"{k}x{n} {impl.value}"
+            picks[key] = picks.get(key, 0) + 1
+        for rid, toks in out.items():
+            check(len(toks) == requests[rid][1].max_new_tokens
+                  and all(0 <= t < cfg.vocab_size for t in toks),
+                  f"{tag}: request {rid} produced {toks}")
+        total = sum(len(v) for v in out.values())
+        agree = sum(sum(1 for x, y in zip(outputs[ref][r], out[r]) if x == y)
+                    for r in out)
+        log(f"serve {tag} slots={slots} {ref}'s traffic, tuned GEMM route: "
+            f"{len(out)} requests, {total} tokens in {dt:.3f}s = "
+            f"{total / dt:.1f} tok/s; {eng.ticks} decode ticks at "
+            f"{1e3 * eng.stats.decode_seconds / max(eng.ticks, 1):.3f} "
+            f"ms/tick; {len(calls)} GEMM calls, every launch under the "
+            f"plan's pick; calls by (K x N, impl) {json.dumps(picks)}; "
+            f"agrees with {ref} on {agree}/{total} tokens; launches "
+            f"{json.dumps(counts)}")
+    return plan
+
+
+def tuned_logits_phase(torch, cfg, params, requests, plan, log):
+    """The first prefill chunk's and decode step's logits of the tuned
+    split plan (4 rows, as T, and 1, as U) against the "torch" plan's,
+    within LOGITS_TOL."""
+    from repro_torch.core.plan import make_plan
+    from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import DenseLayout
+    from repro_torch.models.layers import LayerCtx
+
+    api = get_model(cfg)
+    c = 64
+    worst = 0.0
+    for b in (4, 1):
+        toks = torch.stack([torch.as_tensor(p[:c], device="cuda")
+                            for p, _ in requests[:b]]).int()
+        lens = torch.full((b,), c, dtype=torch.int32, device="cuda")
+        zeros = torch.zeros((b,), dtype=torch.int32, device="cuda")
+        res, nxt = {}, None
+        for name, p in (("tuned", plan), ("torch", make_plan("torch"))):
+            ctx = LayerCtx(cfg, p)
+            cache = api.init_cache(DenseLayout(b, 1024), device="cuda")
+            with torch.no_grad():
+                l1, cache = api.prefill_chunk(ctx, params, toks, lens,
+                                              cache, zeros)
+                if nxt is None:
+                    nxt = l1[:, :cfg.vocab_size].argmax(-1).int()
+                l2, _ = api.decode_step(ctx, params, nxt, cache, lens)
+            res[name] = (l1, l2)
+        for i, what in enumerate(("first prefill chunk",
+                                  "first decode step")):
+            x = res["tuned"][i][:, :cfg.vocab_size].float()
+            y = res["torch"][i][:, :cfg.vocab_size].float()
+            err = (x - y).abs().max().item()
+            worst = max(worst, err)
+            log(f"logits tuned GEMM route, {b} row(s), {what}: vs torch "
+                f"plan max_abs_err={err:.4f} (tol {LOGITS_TOL}); argmax "
+                f"agree {(x.argmax(-1) == y.argmax(-1)).sum().item()}/{b}")
+    check(worst <= LOGITS_TOL,
+          f"tuned-route logits differ by {worst} > {LOGITS_TOL}")
+
+
+def gemm_share_profile(torch, cfg, params, requests, log, tag, slots,
+                       plan=None):
+    """A split decode tick's device busy, its unprofiled wall and the
+    shares of gate / up, k / v and the head in it (each GEMM call under
+    a ``record_function`` label naming its (K, N), so cuBLAS's kernels
+    count too): 2 warm ticks, 8 timed, 8 profiled. Returns (busy ms,
+    wall ms, {share: ms})."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import SamplingParams
+
+    eng = Engine(cfg, params, num_slots=slots, max_seq=1024, device="cuda",
+                 plan=plan)
+    for p, _ in requests[:4]:
+        eng.submit(p, SamplingParams(max_new_tokens=40))
+    for _ in range(3):
+        eng.step()
+    n = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / n
+    real = ops.matmul
+
+    def labelled(x, w, *, plan=None):
+        k = x.shape[-1]
+        n_ = (w["codes"] if isinstance(w, dict) else w).shape[-1]
+        with record_function(f"gemm {k}x{n_}"):
+            return real(x, w, plan=plan)
+
+    ops.matmul = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                eng.step()
+            torch.cuda.synchronize()
+    finally:
+        ops.matmul = real
+    avg = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # each label also appears on the card's timeline, as a span over the
+    # kernels its calls launched (the host-side label links only the
+    # kernels of aten ops, not those the wrappers launch through ctypes):
+    # busy sums kernels only, a shape's time is its labels' device spans
+    busy = sum(e.self_device_time_total for e in avg
+               if e.device_type == cuda and not e.is_user_annotation) / n / 1e3
+    by_shape = {e.key: e.device_time_total / n / 1e3 for e in avg
+                if e.key.startswith("gemm ") and e.device_type == cuda
+                and e.is_user_annotation}
+    shapes = {gs.name: f"gemm {gs.k}x{gs.n}"
+              for gs in dispatch.called_gemm_shapes(cfg)}
+    shares = {s: by_shape.get(shapes[name], 0.0)
+              for s, name in SHARE_SHAPES.items()}
+    if busy == 0:
+        log(f"profile {tag}: device time not measured (the profiler "
+            "reported none)")
+        return None
+    log(f"profile {tag}: device busy {busy:.3f} ms/tick, unprofiled wall "
+        f"{wall:.3f} ms/tick (idle {100 * (1 - busy / wall):.1f}%); "
+        + ", ".join(f"{s} {v:.3f} ms ({100 * v / busy:.1f}%)"
+                    for s, v in shares.items())
+        + f"; every GEMM {sum(by_shape.values()):.3f} ms")
+    return busy, wall, shares
+
+
+def tuned_profiles(torch, cfg, params, requests, plan, log):
+    """T beside A (4 slots) and U beside B (1 slot), in turns (A, T, T, A;
+    B, U, U, B) in one call."""
+    for slots, base, tuned in ((4, "A", "T"), (1, "B", "U")):
+        for tag in (base, tuned, tuned, base):
+            gemm_share_profile(
+                torch, cfg, params, requests, log,
+                f"{tag} slots={slots} split tick GEMM shares", slots,
+                plan=plan if tag == tuned else None)
+
+
+def cli_phase(log):
+    """Run V: the serving CLI in a subprocess with the committed plan,
+    strictly loaded, on a few requests at full width."""
+    import os
+
+    from repro_torch import configs, hardware
+    from repro_torch.core import plan as plan_mod
+
+    path = ROOT / plan_mod.default_plan_path(configs.get(ARCH),
+                                             hardware.H100_SXM)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+           "--plan", str(path), "--requests", "4", "--slots", "4",
+           "--max-seq", "512", "--max-new", "8", "--prompt-len", "48"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"serve V (CLI, --plan {path.name}): {line}")
+    check(res.returncode == 0,
+          f"serve V: the CLI exited {res.returncode}: {res.stderr[-2000:]}")
+    check("served 4 requests" in res.stdout and "plan " in res.stdout,
+          f"serve V: unexpected output {res.stdout[-2000:]}")
+    log(f"serve V: CLI subprocess finished in {dt:.1f}s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3193,6 +3707,11 @@ def main(argv=None) -> int:
                     "chunk-step profiles (A, B, N; E, H, P; J, K, O, P, S) "
                     "and print them; checks nothing and prints no result "
                     "line")
+    ap.add_argument("--plan-only", action="store_true",
+                    help="build, then only measure the cost models' fixed "
+                    "costs and tune qwen2-0.5b's plan into chiprun_out/ "
+                    "(printing where it differs from plans_torch/); "
+                    "prints no result line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3231,7 +3750,7 @@ def main(argv=None) -> int:
         + ", ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
 
     rows = {}
-    if not args.profiles_only:
+    if not (args.profiles_only or args.plan_only):
         timer = Timer(torch)
         kernel_phase(torch, timer, rows, log)
         del timer
@@ -3251,6 +3770,12 @@ def main(argv=None) -> int:
         [(len(p), s.max_new_tokens) for p, s in mixed]))
     if args.profiles_only:
         tick_profiles(torch, cfg, params, requests, shared, log)
+        print(smi)
+        return 0
+    if args.plan_only:
+        cost_phase(torch, cfg, params, requests, shared, log)
+        tune_phase(torch, cfg, log, strict=False)
+        (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
         print(smi)
         return 0
     check(set(REPLACES) <= set(counters()),
@@ -3277,6 +3802,14 @@ def main(argv=None) -> int:
     bf16_paged = paged_logits_phase(torch, cfg, params, shared, log)
     quant_logits_phase(torch, cfg, params, requests, log)
     kv_quant_logits_phase(torch, cfg, params, shared, log, bf16_paged)
+    # T3 on the card: fixed costs, the wallclock tuner, the tuned route
+    cost_phase(torch, cfg, params, requests, shared, log)
+    tuned = tune_phase(torch, cfg, log)
+    split_tuned = tuned_serve_phase(torch, cfg, params, requests, tuned,
+                                    outputs, launches, log)
+    tuned_logits_phase(torch, cfg, params, requests, split_tuned, log)
+    tuned_profiles(torch, cfg, params, requests, split_tuned, log)
+    cli_phase(log)
 
     for name in REPLACES:
         check(launches.get(name, 0) > 0,

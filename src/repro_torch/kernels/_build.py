@@ -27,7 +27,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 SOURCES = ("gemv", "flat_gemm", "decode_attention", "flash_prefill",
-           "chunk_attention", "fused_ffn", "group_attention", "decode_fuse")
+           "chunk_attention", "fused_ffn", "group_attention", "decode_fuse",
+           "probe")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

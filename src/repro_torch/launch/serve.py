@@ -7,8 +7,9 @@ for the port, on the dense slot cache or the block-paged pool.
 Runs on the card by default (``--device cuda``); ``--device cpu`` runs
 the kernels' plain versions on the CPU (use ``--smoke`` there). Weights
 are random, drawn from ``--seed`` with the JAX package's init
-distributions. ``--prefill-chunk 0`` prefills each admission wave in one
-padded call through flash prefill attention instead of 64-token chunks.
+distributions. ``--prefill-chunk`` defaults to the plan's
+``paged.chunk_block`` (64 untuned); ``--prefill-chunk 0`` prefills each
+admission wave in one padded call through flash prefill attention.
 ``--temperature`` and ``--top-p`` set every request's sampling (greedy
 at temperature 0, the default).
 
@@ -38,6 +39,15 @@ dequantized inside the paged kernels. The summary's ``kv=`` segment gives
 the stored bytes per page (steps included) and the KV bytes the decode
 ticks read; the accuracy contract is again the logits guard.
 
+``--plan PATH`` serves with a tuned plan, loaded strictly: a plan tuned
+for another config or other hardware (its provenance hashes) raises
+``StalePlanError``. ``--tune`` runs the offline tuner first
+(``core.plan.tune``: GEMM inflections timed on the card with the
+wallclock measure, or from the analytical models under ``--device
+cpu``), saves the plan to ``--plan`` or
+``plans_torch/<arch>-<hw>.json``, prints its ``describe()`` line and
+serves with it. Plans pick kernels, not tokens.
+
 ``--decode-fusion split|fused|looped`` overrides the plan's decode-layer
 granularity: ``fused`` runs each layer as four fused stage kernels,
 ``looped`` replays the whole decode step as one CUDA graph on the card
@@ -61,9 +71,10 @@ def _parse(argv=None):
     ap.add_argument("--max-seq", type=int, default=512)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--prompt-len", type=int, default=48)
-    ap.add_argument("--prefill-chunk", type=int, default=64,
-                    help="chunked-prefill chunk size; 0 = one padded "
-                         "prefill call per admission wave (dense cache)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked-prefill chunk size (default: the plan's "
+                         "paged.chunk_block); 0 = one padded prefill call "
+                         "per admission wave (dense cache)")
     ap.add_argument("--cache-kind", choices=["dense", "paged"],
                     default="dense",
                     help="dense slot cache or block-paged pool")
@@ -111,6 +122,15 @@ def _parse(argv=None):
                     help="KV page storage (paged cache only): int8 / fp8 "
                          "codes with one f32 step per (page, kv head) "
                          "(default: the plan's paged.kv_dtype, bf16)")
+    ap.add_argument("--plan", default=None,
+                    help="serve with this tuned plan (strict load: its "
+                         "provenance must match the config and the card); "
+                         "with --tune, where the tuned plan is saved")
+    ap.add_argument("--tune", action="store_true",
+                    help="tune a plan first (wallclock GEMM timings on the "
+                         "card, the analytical models under --device cpu), "
+                         "save it to --plan or plans_torch/<arch>-<hw>.json "
+                         "and serve with it")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
@@ -125,8 +145,8 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from repro_torch import configs
-    from repro_torch.core.plan import DEFAULT_PLAN
+    from repro_torch import configs, hardware
+    from repro_torch.core import plan as plan_mod
     from repro_torch.device import resolve
     from repro_torch.models.api import get_model
     from repro_torch.models.kvlayout import pages_for
@@ -141,12 +161,24 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init_params(gen, device=dev)
     plan = None
+    if args.tune:
+        # the wallclock measure raises without CUDA; on the CPU the
+        # analytical models stand in, and the provenance says which
+        measure = "analytical" if dev.type == "cpu" else "wallclock"
+        plan = plan_mod.tune(cfg, hardware.DEFAULT, measure=measure)
+        path = plan.save(args.plan or plan_mod.default_plan_path(cfg))
+        print(f"tuned ({measure}) -> {path}: {plan.describe()}")
+    elif args.plan:
+        plan = plan_mod.ExecutionPlan.load(args.plan, cfg=cfg,
+                                           spec=hardware.DEFAULT)
+        print(f"plan {args.plan}: {plan.describe()}")
     over = {k: v for k, v in (("gather_chunk", args.gather_chunk),
                               ("decode_group", args.decode_group))
             if v is not None}
     if over:
-        plan = dataclasses.replace(DEFAULT_PLAN, paged=dataclasses.replace(
-            DEFAULT_PLAN.paged, **over))
+        base = plan or plan_mod.DEFAULT_PLAN
+        plan = dataclasses.replace(base, paged=dataclasses.replace(
+            base.paged, **over))
     num_pages = args.num_pages
     if num_pages is None and args.cache_kind == "paged":
         worst = args.slots * pages_for(args.max_seq, args.page_size)
