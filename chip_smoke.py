@@ -71,6 +71,11 @@
    the same four checks at M in {1, 4, 8, 13, 64}, bf16, int8 and fp8
    (row 14 swiglu and geglu), at qwen2-0.5b's and at llama2-7b's widths
    (random weights, head_dim 128), and llama2-7b lines timed at M = 4.
+   At dbrx-132b's widths (head_dim 128, 48 query / 8 KV heads, d_model
+   6,144, random inputs) rows 3-7 and 9-11 (paged bitwise dense, grouped
+   bitwise paged) and the GEMM rows 1 and 2 (q / o_proj, k / v, the
+   untied 100,352-column head), 12 and 13 are held to their plain
+   versions and timed (the kernel table's "dbrx" lines).
 3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
    greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
@@ -99,6 +104,20 @@
    paged run exactly its resident pages' stored KV bytes; a quantized run
    must launch the quantized variants and no bf16 layer-GEMM kernel (KV:
    no bf16 attention body), and a bf16 run no quantized variant.
+   Then the tiered KV hierarchy: W (E with a 64-page host tier, two
+   rounds with every retained page flushed to the host between them:
+   round 1's tokens equal E's, round 2's round 1's, pages demoted,
+   promoted and session hits above 0, and every promoted page holding
+   the bytes it was demoted with), Wc (every W request returns as
+   prompt + reply + 32 new tokens: session hits above 0, agreement with
+   a tier-less engine counted), W′ (W on S's looped fp8 plan: tokens
+   equal to S's, round 2 captures no graph), W″ (W with an 8-page host
+   tier and a 64-page disk tier: pages reach the disk, tokens equal E's)
+   and Wp (F's pool with the host tier, shortest job first: preemptions,
+   demotions and promotions above 0, slots.check(), an empty pool after
+   the flush); the tier copies' gather and upload times for 1-128 pages,
+   bf16 and fp8, beside ``dispatch.predict_swap_time``, the re-prefill
+   they replace and the plans' ``swap_threshold``.
 4. Checks the logits of the first prefill and decode step (and, on the
    paged pool, of a chunk that reads resident pages, and of runs H's and
    K's plans over a shared prefix with grouped decode) against the
@@ -131,13 +150,25 @@
    and U beside B in turns (busy, wall, the shares of gate / up, k / v
    and the head); and runs V, the serving CLI with ``--plan`` on the
    committed plan, in a subprocess.
-6. Prints the card's name and power limit, one JSON line describing every
+6. The MoE family: dbrx-132b at its published widths cut to 4 of its 40
+   layers (random bf16 weights from --seed, 28.6 GB), A's prompt lengths,
+   16 new tokens, 4 slots: X (paged, the fused chunk kernel, the fused
+   stages), X′ (X looped, tokens equal to X's), X″ (the dense cache on
+   D's plan) and X‴ (paged on D's plan, tokens equal to X″'s); every
+   ``ops.matmul`` of X at a ``called_gemm_shapes`` shape; X's first
+   prefill and decode logits within 5 % of the "torch" plan's range on
+   the "torch" run's expert choices, and free on every row whose token
+   chose the same experts (rows that chose otherwise are counted); busy
+   and wall a tick of X and X′, the MoE tail's share of X's busy
+   tick, and the tick's bytes against its bound.
+7. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Exits non-zero, printing no result line, without CUDA, outside the repo,
 or when any check fails. Long output goes to ``chiprun_out/``.
 """
 import argparse
+import gc
 import hashlib
 import json
 import statistics
@@ -151,6 +182,8 @@ SRC = ROOT / "src"
 OUT_DIR = ROOT / "chiprun_out"
 
 ARCH = "qwen2-0.5b"
+MOE_ARCH = "dbrx-132b"                # runs X to X‴ and the D = 128 lines
+MOE_LAYERS = 4                        # of its 40: 28.6 GB of bf16 weights
 TOL = dict(atol=3e-2, rtol=3e-2)      # GEMMs: outputs ~1, bf16 ~2^-8 relative
 # attention: per output row (one head's D values), max |error| must stay
 # under ATTN_REL x the row's RMS. bf16 output rounding is 2^-8 of an element
@@ -1063,6 +1096,275 @@ def kernel_phase(torch, timer, rows, log):
     decode_split_checks(torch, timer, cfg, gen, randn, record, attn_close,
                         log)
     kv_quant_kernels(torch, cfg, gen, randn, record, attn_close, log)
+    dbrx_kernel_checks(torch, randn, record, gemm_close, attn_close, log)
+
+
+def dbrx_kernel_checks(torch, randn, record, gemm_close, attn_close, log):
+    """Rows 1-7 and 9-13 at dbrx-132b's widths, random inputs: head_dim
+    128 with 48 query and 8 KV heads (G = 6), d_model 6,144 and the
+    untied head at the padded 100,352 columns in (K, N) layout, the
+    shapes runs X to X‴ serve. Each against its plain version within the
+    limits above, timed beside its bound and library call (the kernel
+    table's "dbrx" lines: rows 1 and 2 at q / o_proj, k / v and the head,
+    row 12 at 6,144 -> 6,144 + 2 x 1,024 with rope, row 13 at o_proj,
+    the attention rows on the qwen2-0.5b lines' lengths). Paged decode
+    must stay bitwise dense decode, and grouped decode bitwise paged."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import chunk_attention as ca
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import decode_fuse as dfu
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import group_attention as ga
+    from repro_torch.kernels.flat_gemm import flat_gemm, flat_gemm_plain
+    from repro_torch.kernels.gemv import gemv, gemv_plain
+    from repro_torch.kernels.ref import gather_paged_kv
+
+    cfg = configs.get(MOE_ARCH)
+    d, hd = cfg.d_model, cfg.head_dim
+    hq, hk = cfg.num_heads, cfg.num_kv_heads
+    nq, nk = hq * hd, hk * hd
+    vp = -(-cfg.vocab_size // 256) * 256
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(4)
+    phi = cfg.softmax_phi
+    tag0 = "dbrx-132b"
+
+    # -- rows 1 (M = 1) and 2 (M = 4): q / o_proj, k / v, the head --------
+    for m, name, fn, plain in ((1, "gemv", gemv, gemv_plain),
+                               (4, "flat_gemm", flat_gemm, flat_gemm_plain)):
+        x = randn(m, d)
+        for k, n, what in ((d, nq, "q/o_proj"), (d, nk, "k/v"),
+                           (d, vp, "head")):
+            w = randn(k, n, scale=k ** -0.5)
+            record(name, f"{tag0} M={m} K={k} N={n} (K,N) {what}",
+                   fn(x, w), plain(x, w), lambda: fn(x, w),
+                   lambda: plain(x, w), lambda: torch.matmul(x, w),
+                   2 * (m * k + k * n + m * n), 2 * m * k * n, True,
+                   gemm_close,
+                   slot="dbrx" if what == "q/o_proj" else f"dbrx {what}")
+            del w
+
+    # -- rows 12 and 13 at M = 4 -------------------------------------------
+    m = 4
+    wq, wk, wv = (randn(d, n, scale=d ** -0.5) for n in (nq, nk, nk))
+    nscale = (torch.rand(d, generator=gen, device=dev) + 0.5).to(
+        torch.bfloat16)
+    wqkv = torch.cat([wq, wk, wv], 1)
+    half = hd // 2
+    inv_freq = cfg.rope_theta ** (
+        -torch.arange(half, device=dev, dtype=torch.float32) / half)
+    ikw = dict(num_heads=hq, num_kv_heads=hk, head_dim=hd,
+               rope_theta=cfg.rope_theta)
+    x = randn(m, d)
+    pos = torch.randint(0, 1024, (m,), generator=gen, device=dev,
+                        dtype=torch.int32)
+
+    def lib_ingest():
+        h = F.rms_norm(x, (d,), nscale, eps=1e-6)
+        qkv = torch.matmul(h, wqkv).view(m, -1, hd)
+        ang = pos.float()[:, None, None] * inv_freq
+        c, s_ = ang.cos(), ang.sin()
+        x1, x2 = qkv[:, :hq + hk, :half], qkv[:, :hq + hk, half:]
+        rot = torch.cat([x1 * c - x2 * s_, x2 * c + x1 * s_], -1)
+        return rot.to(qkv.dtype), qkv[:, hq + hk:]
+
+    n_all = nq + 2 * nk
+    record("decode_ingest_fused", f"{tag0} M={m} K={d} N={nq}+{nk}+{nk} rope",
+           torch.cat(dfu.decode_ingest_fused(x, nscale, wq, wk, wv, pos,
+                                             **ikw), 1),
+           torch.cat(dfu.decode_ingest_plain(x, nscale, wq, wk, wv, pos,
+                                             **ikw), 1),
+           lambda: dfu.decode_ingest_fused(x, nscale, wq, wk, wv, pos, **ikw),
+           lambda: dfu.decode_ingest_plain(x, nscale, wq, wk, wv, pos, **ikw),
+           lib_ingest, 2 * (m * d + d + d * n_all + m * n_all) + 4 * m,
+           2 * m * d * n_all, True, gemm_close, slot="dbrx")
+    del wqkv, wk, wv
+    o, res = randn(m, nq), randn(m, d)
+    record("oproj_residual_fused", f"{tag0} M={m} K={nq} N={d} o_proj",
+           dfu.oproj_residual_fused(o, wq, res),
+           dfu.oproj_residual_plain(o, wq, res),
+           lambda: dfu.oproj_residual_fused(o, wq, res),
+           lambda: dfu.oproj_residual_plain(o, wq, res),
+           lambda: torch.addmm(res, o, wq), 2 * (m * nq + nq * d + 2 * m * d),
+           2 * m * nq * d, True, gemm_close, slot="dbrx")
+    del wq
+
+    # -- rows 3-6: B = 4 rows to 1024/517/64/3 positions, dense and paged --
+    b, s_max = 4, 1024
+    lengths = torch.tensor([1024, 517, 64, 3], dtype=torch.int32,
+                           device=dev)
+    n_valid = int(lengths.sum())
+    kc, vc = randn(b, s_max, hk, hd), randn(b, s_max, hk, hd)
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    ke = kt.repeat_interleave(hq // hk, dim=1)
+    ve = vt.repeat_interleave(hq // hk, dim=1)
+    mask = (torch.arange(s_max, device=dev)[None, :] < lengths[:, None])[
+        :, None, None, :]
+    attn_bytes = 2 * (2 * b * hq * hd + 2 * n_valid * hk * hd) + 4 * b * hk
+    attn_flops = 4 * n_valid * hq * hd
+    (kp, vp_), bt, live = paged_layout(torch, gen, (kc, vc), lengths)
+    kpn, vpn = poisoned(torch, (kp, vp_), live)
+    q = randn(b, hq, hd)
+    q4 = q[:, :, None, :]
+
+    def lib():
+        return F.scaled_dot_product_attention(q4, ke, ve, attn_mask=mask)
+
+    tag = f"{tag0} B=4 HQ={hq} HK={hk} D={hd} S=1024 ragged"
+    out, stat = da.decode_attention_unified_max(q, kt, vt, lengths,
+                                                phi=phi.phi)
+    record("decode_attention_unified_max", tag, out,
+           da.decode_attention_unified_max_plain(q, kt, vt, lengths,
+                                                 phi=phi.phi)[0],
+           lambda: da.decode_attention_unified_max(q, kt, vt, lengths,
+                                                   phi=phi.phi),
+           lambda: da.decode_attention_unified_max_plain(q, kt, vt, lengths,
+                                                         phi=phi.phi),
+           lib, attn_bytes, attn_flops, True, attn_close, slot="dbrx")
+    sync = da.decode_attention_sync(q, kt, vt, lengths)
+    record("decode_attention_sync", tag, sync,
+           da.decode_attention_sync_plain(q, kt, vt, lengths),
+           lambda: da.decode_attention_sync(q, kt, vt, lengths),
+           lambda: da.decode_attention_sync_plain(q, kt, vt, lengths),
+           lib, attn_bytes, attn_flops, True, attn_close, slot="dbrx")
+    ptag = tag + f" PS={PAGE} shuffled"
+    pout, pstat = da.paged_decode_attention_unified_max(q, kp, vp_, bt,
+                                                        lengths, phi=phi.phi)
+    psync = da.paged_decode_attention_sync(q, kp, vp_, bt, lengths)
+    same = same_bits(torch, (pout, out), (pstat, stat), (psync, sync))
+    clean = same_bits(torch, (da.paged_decode_attention_unified_max(
+        q, kpn, vpn, bt, lengths, phi=phi.phi)[0], pout), (
+        da.paged_decode_attention_sync(q, kpn, vpn, bt, lengths), psync))
+    log(f"kernel paged_decode_attention {ptag}: bitwise equal to the dense "
+        f"kernel {same}; unchanged with NaN in unread pool rows {clean}")
+    check(same and clean, f"paged decode {ptag}: not bitwise the dense "
+          "kernel, or reads pool rows past lengths")
+    paged_bytes = attn_bytes + 4 * bt.numel()
+    record("paged_decode_attention_unified_max", ptag, pout,
+           da.paged_decode_attention_unified_max_plain(
+               q, kp, vp_, bt, lengths, phi=phi.phi)[0],
+           lambda: da.paged_decode_attention_unified_max(
+               q, kp, vp_, bt, lengths, phi=phi.phi),
+           lambda: da.paged_decode_attention_unified_max_plain(
+               q, kp, vp_, bt, lengths, phi=phi.phi),
+           lib, paged_bytes, attn_flops, True, attn_close, slot="dbrx")
+    record("paged_decode_attention_sync", ptag, psync,
+           da.paged_decode_attention_sync_plain(q, kp, vp_, bt, lengths),
+           lambda: da.paged_decode_attention_sync(q, kp, vp_, bt, lengths),
+           lambda: da.paged_decode_attention_sync_plain(q, kp, vp_, bt,
+                                                        lengths),
+           lib, paged_bytes, attn_flops, True, attn_close, slot="dbrx")
+    del kc, vc, kt, vt, kp, vp_, kpn, vpn
+
+    # -- row 11: four rows share a 512-token prefix ------------------------
+    glens = torch.tensor([1024, 800, 600, 520], dtype=torch.int32,
+                         device=dev)
+    plen = 512
+    kp, vp_, bt, live, groups = grouped_layout(torch, gen, randn, glens,
+                                               plen, s_max, hk, hd)
+    kpn, vpn = poisoned(torch, (kp, vp_), live)
+    ke = gather_paged_kv(kp, bt).transpose(1, 2).repeat_interleave(
+        hq // hk, dim=1)
+    ve = gather_paged_kv(vp_, bt).transpose(1, 2).repeat_interleave(
+        hq // hk, dim=1)
+    mask = (torch.arange(s_max, device=dev)[None, :] < glens[:, None])[
+        :, None, None, :]
+    n_keys = int(glens.sum())
+    n_read = plen + int((glens - plen).sum())
+    g_bytes = (2 * (2 * b * hq * hd + 2 * n_read * hk * hd) + 4 * b * hk
+               + 4 * (bt.numel() + sum(t.numel() for t in groups)))
+    gtag = f"{tag0} B=4 PS=64 prefix 512, 1024/800/600/520"
+    gout, gstat = ga.grouped_paged_decode_attention_unified_max(
+        q, kp, vp_, bt, glens, groups, phi=phi.phi)
+    pout, pstat = da.paged_decode_attention_unified_max(q, kp, vp_, bt,
+                                                        glens, phi=phi.phi)
+    same = same_bits(torch, (gout, pout), (gstat, pstat))
+    clean = same_bits(torch, (ga.grouped_paged_decode_attention_unified_max(
+        q, kpn, vpn, bt, glens, groups, phi=phi.phi)[0], gout))
+    log(f"kernel grouped_paged_decode_attention {gtag}: bitwise the paged "
+        f"decode kernel {same}; unchanged with NaN in unread pool rows "
+        f"{clean}")
+    check(same and clean, f"grouped decode {gtag}: not bitwise the paged "
+          "kernel, or reads pool rows it must not")
+    record("grouped_paged_decode_attention_unified_max", gtag, gout,
+           ga.grouped_paged_decode_attention_unified_max_plain(
+               q, kp, vp_, bt, glens, groups, phi=phi.phi)[0],
+           lambda: ga.grouped_paged_decode_attention_unified_max(
+               q, kp, vp_, bt, glens, groups, phi=phi.phi),
+           lambda: ga.grouped_paged_decode_attention_unified_max_plain(
+               q, kp, vp_, bt, glens, groups, phi=phi.phi),
+           lib, g_bytes, 4 * n_keys * hq * hd, True, attn_close,
+           slot="dbrx")
+    del kp, vp_, kpn, vpn, ke, ve
+
+    # -- row 7: B = 2, causal, Sq = Sk = 512 --------------------------------
+    bp, sq = 2, 512
+    qp, kk, vv = (randn(bp, sq, h, hd) for h in (hq, hk, hk))
+    qe = qp.transpose(1, 2)
+    kx = kk.transpose(1, 2).repeat_interleave(hq // hk, dim=1)
+    vx = vv.transpose(1, 2).repeat_interleave(hq // hk, dim=1)
+
+    def lib_prefill():
+        return F.scaled_dot_product_attention(qe, kx, vx, is_causal=True)
+
+    pf_bytes = 2 * (2 * bp * sq * hq * hd + 2 * bp * sq * hk * hd)
+    pf_flops = 4 * (bp * sq * (sq + 1) // 2) * hq * hd
+    ftag = f"{tag0} B=2 Sq=Sk=512 causal"
+    record("flash_prefill_unified_max", ftag,
+           fp.flash_prefill_unified_max(qp, kk, vv, phi=phi.phi)[0],
+           fp.flash_prefill_unified_max_plain(qp, kk, vv, phi=phi.phi)[0],
+           lambda: fp.flash_prefill_unified_max(qp, kk, vv, phi=phi.phi),
+           lambda: fp.flash_prefill_unified_max_plain(qp, kk, vv,
+                                                      phi=phi.phi),
+           lib_prefill, pf_bytes, pf_flops, True, attn_close, slot="dbrx")
+    record("flash_prefill_sync", ftag, fp.flash_prefill_sync(qp, kk, vv),
+           fp.flash_prefill_sync_plain(qp, kk, vv),
+           lambda: fp.flash_prefill_sync(qp, kk, vv),
+           lambda: fp.flash_prefill_sync_plain(qp, kk, vv), lib_prefill,
+           pf_bytes, pf_flops, True, attn_close, slot="dbrx")
+    del qp, kk, vv, qe, kx, vx
+
+    # -- rows 9-10: B = 4, C = 64 after 960/453/0/128 positions -------------
+    c = 64
+    before = torch.tensor([960, 453, 0, 128], dtype=torch.int32, device=dev)
+    kd, vd = randn(b, s_max, hk, hd), randn(b, s_max, hk, hd)
+    (kp, vp_), bt, live = paged_layout(torch, gen, (kd, vd), before + c)
+    ke = kd.transpose(1, 2).repeat_interleave(hq // hk, dim=1)
+    ve = vd.transpose(1, 2).repeat_interleave(hq // hk, dim=1)
+    qpos = before[:, None] + torch.arange(c, device=dev)[None, :]
+    cmask = (torch.arange(s_max, device=dev)[None, None, :]
+             <= qpos[:, :, None])[:, None]
+    pairs = int(c * before.sum().item() + b * c * (c + 1) // 2)
+    ch_bytes = (2 * (2 * b * c * hq * hd + 2 * int((before + c).sum())
+                     * hk * hd) + 4 * b * hk + 4 * bt.numel() + 4 * b)
+    qc = randn(b, c, hq, hd)
+    qce = qc.transpose(1, 2)
+
+    def lib_chunk():
+        return F.scaled_dot_product_attention(qce, ke, ve, attn_mask=cmask)
+
+    ctag = f"{tag0} B=4 C=64 PS={PAGE} lengths 960/453/0/128"
+    record("paged_chunk_attention_unified_max", ctag,
+           ca.paged_chunk_attention_unified_max(qc, kp, vp_, bt, before,
+                                                phi=phi.phi)[0],
+           ca.paged_chunk_attention_unified_max_plain(qc, kp, vp_, bt, before,
+                                                      phi=phi.phi)[0],
+           lambda: ca.paged_chunk_attention_unified_max(
+               qc, kp, vp_, bt, before, phi=phi.phi),
+           lambda: ca.paged_chunk_attention_unified_max_plain(
+               qc, kp, vp_, bt, before, phi=phi.phi),
+           lib_chunk, ch_bytes, 4 * pairs * hq * hd, True, attn_close,
+           slot="dbrx")
+    record("paged_chunk_attention_sync", ctag,
+           ca.paged_chunk_attention_sync(qc, kp, vp_, bt, before),
+           ca.paged_chunk_attention_sync_plain(qc, kp, vp_, bt, before),
+           lambda: ca.paged_chunk_attention_sync(qc, kp, vp_, bt, before),
+           lambda: ca.paged_chunk_attention_sync_plain(qc, kp, vp_, bt,
+                                                       before),
+           lib_chunk, ch_bytes, 4 * pairs * hq * hd, True, attn_close,
+           slot="dbrx")
 
 
 def split_k_checks(torch, cfg, randn, record, gemm_close, log):
@@ -2735,7 +3037,7 @@ def chunk_profile_phase(torch, cfg, params, shared, log, tag="E",
 
 
 def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
-                  slots=4, **engine_kw):
+                  slots=4, ranges=(), **engine_kw):
     """Where a decode tick's time goes at ``slots`` slots (four requests
     submitted), with the GEMV kernels' share of it: 8 steady ticks timed
     on the host clock without the profiler, then 8 more under
@@ -2745,8 +3047,11 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
     wall inflated by the profiler) and the unprofiled window's (adjacent
     ticks of the same engine, the wall a serving user sees). The
     admission step before the window (one prefill wave and one tick)
-    reports its kernel launches too. Returns (busy, unprofiled wall) in
-    ms a tick, None when the profiler reported no device time."""
+    reports its kernel launches too. ``ranges`` names
+    ``record_function`` ranges whose device time (the kernels launched
+    inside them) is reported with its share of busy. Returns (busy,
+    unprofiled wall) in ms a tick, None when the profiler reported no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import Engine
@@ -2791,9 +3096,11 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
         f"{json.dumps(per_tick)}{graphs}")
     # device-side events only (the aten ops that launched them carry the
     # same time again as their own "self device" time)
+    # (a record_function range also appears as a device-side span: not a
+    # kernel, so not busy time)
     evs = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
+           and e.self_device_time_total > 0 and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in evs) / n
     if busy_us == 0:
         log(f"profile {tag} decode: device time not measured (the "
@@ -2808,6 +3115,17 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
         f"{100 * (1 - busy_us / 1e6 / plain_wall):.1f}%; gemv kernels "
         f"{gemv_us / 1e3:.3f} ms/tick ({100 * gemv_us / busy_us:.1f}% of "
         f"busy)")
+    for rng in ranges:
+        # the host-side range's device time (its kernels' time) and its
+        # device-side span (first kernel start to last kernel end)
+        us, span = (sum(e.device_time_total if cpu else
+                        e.self_device_time_total
+                        for e in prof.key_averages() if e.key == rng and (
+                            e.device_type == torch.autograd.DeviceType.CPU)
+                        == cpu) / n for cpu in (True, False))
+        log(f"profile {tag} decode: range {rng} {us / 1e3:.3f} ms/tick of "
+            f"kernel time ({100 * us / busy_us:.1f}% of busy), device span "
+            f"{span / 1e3:.3f} ms/tick")
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         log(f"profile   {e.self_device_time_total / n / 1e3:8.4f} ms/tick "
@@ -3699,6 +4017,530 @@ def cli_phase(log):
     log(f"serve V: CLI subprocess finished in {dt:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: the tiered KV hierarchy on full-width qwen2-0.5b
+# ---------------------------------------------------------------------------
+
+HOST_PAGES = 64       # runs W, W′, Wp: room for every retained page
+
+
+def ordered(out):
+    """A run's tokens in submission order (rids keep counting across the
+    runs of one engine)."""
+    return [out[r] for r in sorted(out)]
+
+
+def counted_run(torch, eng, requests, launches):
+    """``eng.run(requests)`` with every launch counter set to 0 just before
+    and read just after; the counts join ``launches``."""
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    out = eng.run(requests)
+    torch.cuda.synchronize()
+    counts = {n: fn.launches for n, fn in counters().items()}
+    for n, c in counts.items():
+        launches[n] = launches.get(n, 0) + c
+    return out, counts
+
+
+def check_finished(tag, out, requests, vocab):
+    for toks, (_, sp) in zip(ordered(out), requests):
+        check(len(toks) == sp.max_new_tokens
+              and all(0 <= t < vocab for t in toks),
+              f"{tag}: a request produced {len(toks)} tokens, or one out of "
+              "the vocabulary")
+
+
+def promoted_bytes_checker(torch, eng):
+    """Before a flush: keep the bytes of every session page about to be
+    demoted, by its prefix-index key. Then wrap the engine's promotion so
+    that every promoted page whose key was kept must hold those bytes
+    bit for bit right after its upload. Returns a one-element list that
+    counts the pages checked."""
+    kept = {}
+    for page in eng.slots._session:
+        key = eng.prefix._by_page.get(page)
+        if key is not None:
+            kept[key] = [leaf[:, page].clone() for leaf in eng.cache.values()]
+    real = eng._apply_pending_promotions
+    checked = [0]
+
+    def promote(admitted):
+        dsts = [dst for idx, _ in admitted
+                for _slab, dst in eng.slots.slots[idx].pending_promotions]
+        real(admitted)
+        for dst in dsts:
+            want = kept.get(eng.prefix._by_page.get(dst))
+            if want is None:
+                continue
+            check(same_bits(torch, *[(leaf[:, dst], w) for leaf, w in zip(
+                eng.cache.values(), want)]),
+                f"promoted page {dst} does not hold the bytes it was "
+                "demoted with")
+            checked[0] += 1
+
+    eng._apply_pending_promotions = promote
+    return checked
+
+
+def chunk_step_timer(torch, eng):
+    """Time every ``prefill_chunk`` call of ``eng`` on the host clock
+    (synchronized on both sides); returns the list of ms it fills."""
+    import dataclasses
+    real = eng.api.prefill_chunk
+    walls = []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        return res
+
+    eng.api = dataclasses.replace(eng.api, prefill_chunk=timed)
+    return walls
+
+
+def tier_phase(torch, cfg, params, shared, outputs, log, launches):
+    """Runs W, W′, W″, Wp and Wc (see the module docstring). Returns the
+    mean wall of run W's round-1 chunk steps (E's traffic), in ms."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import SamplingParams
+
+    paged = dict(num_slots=4, max_seq=1024, cache_kind="paged",
+                 page_size=PAGE, prefix_sharing=True, device="cuda")
+    vocab = cfg.vocab_size
+
+    def tiers_line(tag, eng, extra=""):
+        st, ts = eng.stats, eng.tiers.stats
+        log(f"serve {tag}: demoted {st.demoted_pages}, promoted "
+            f"{st.promoted_pages}, session hits {st.session_hits}, host "
+            f"evicted {st.host_evicted_pages}, disk demotions "
+            f"{ts.disk_demotions}, preemptions {st.preemptions}, shared "
+            f"prefix pages {st.shared_prefix_pages}, saved prefill tokens "
+            f"{st.saved_prefill_tokens}, peak pages {st.peak_pages_used}/"
+            f"{eng.pool.num_pages}{extra}")
+
+    def two_rounds(tag, base, **kw):
+        eng = Engine(cfg, params, **paged, **kw)
+        walls = chunk_step_timer(torch, eng)
+        t0 = time.perf_counter()
+        r1, _ = counted_run(torch, eng, shared, launches)
+        t1 = time.perf_counter()
+        walls1 = list(walls)
+        check_finished(f"{tag} round 1", r1, shared, vocab)
+        check(ordered(r1) == base, f"run {tag}: round 1's tokens differ")
+        caps = eng.stats.graph_captures
+        checked = promoted_bytes_checker(torch, eng)
+        t2 = time.perf_counter()
+        eng.evict_finished(flush=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        check(eng.slots.session_pages() == 0 and eng.pool.used_pages == 0,
+              f"run {tag}: the flush left {eng.pool.used_pages} pages on "
+              "the device")
+        r2, counts = counted_run(torch, eng, shared, launches)
+        t4 = time.perf_counter()
+        check(ordered(r2) == ordered(r1),
+              f"run {tag}: round 2's tokens differ from round 1's")
+        st = eng.stats
+        check(st.demoted_pages > 0 and st.promoted_pages > 0
+              and st.session_hits > 0,
+              f"run {tag}: demoted {st.demoted_pages}, promoted "
+              f"{st.promoted_pages}, session hits {st.session_hits}")
+        check(checked[0] > 0, f"run {tag}: no promoted page was checked "
+              "against its demoted bytes")
+        eng.slots.check()
+        tiers_line(tag, eng, f"; round 1 {t1 - t0:.3f}s, flush "
+                   f"{1e3 * (t3 - t2):.3f} ms, round 2 {t4 - t3:.3f}s; "
+                   f"{checked[0]} promoted pages bitwise their demoted "
+                   f"bytes; round 1 chunk steps {len(walls1)}, mean "
+                   f"{statistics.mean(walls1):.3f} ms; graphs "
+                   f"{caps} -> {st.graph_captures} captured, "
+                   f"{st.graph_replays} replays; round 2 launches "
+                   f"{json.dumps({n: c for n, c in counts.items() if c})}")
+        return eng, r1, r2, caps, walls1
+
+    e_toks, s_toks = ordered(outputs["E"]), ordered(outputs["S"])
+    w, w1, w2, _, walls = two_rounds("W", e_toks, host_pages=HOST_PAGES)
+    chunk_ms = statistics.mean(walls)
+
+    # Wc: every request returns as its prompt, its reply and 32 more tokens
+    sp32 = SamplingParams(max_new_tokens=32)
+    convo = [(np.concatenate([p, np.asarray(t, np.int32)]), sp32)
+             for (p, _), t in zip(shared, ordered(w2))]
+    hits = w.stats.session_hits
+    wc, _ = counted_run(torch, w, convo, launches)
+    check_finished("Wc", wc, convo, vocab)
+    check(w.stats.session_hits > hits, "run Wc: no session hit")
+    plain = Engine(cfg, params, **paged)
+    ref, _ = counted_run(torch, plain, convo, launches)
+    agree = sum(a == b for x, y in zip(ordered(wc), ordered(ref))
+                for a, b in zip(x, y))
+    tiers_line("Wc (conversation)", w, f"; {w.stats.session_hits - hits} "
+               f"session hits this round; agrees with a tier-less engine "
+               f"on {agree}/{32 * len(convo)} tokens")
+    del w, plain
+
+    wq, _, _, caps, _ = two_rounds("W'", s_toks, host_pages=HOST_PAGES,
+                                   kv_dtype="fp8", plan=looped_plan())
+    check(wq.stats.graph_captures == caps,
+          f"run W′: round 2 captured {wq.stats.graph_captures - caps} new "
+          "graph(s); a promotion must only replay")
+    del wq
+
+    disk = OUT_DIR / "tiers"
+    shutil.rmtree(disk, ignore_errors=True)
+    wd, _, _, _, _ = two_rounds("W''", e_toks, host_pages=8, disk_pages=64,
+                                disk_dir=str(disk))
+    check(wd.tiers.stats.disk_demotions > 0, "run W″: nothing reached disk")
+    del wd
+    shutil.rmtree(disk, ignore_errors=True)
+
+    # shortest job first: on this traffic FCFS re-admits F's victim from
+    # the tier-0 session cache before any reclaim reaches its pages, so
+    # nothing would be promoted; under SJF a resume promotes
+    wp = Engine(cfg, params, **dict(paged, num_pages=F_PAGES),
+                host_pages=HOST_PAGES, scheduler="sjf")
+    out, _ = counted_run(torch, wp, shared, launches)
+    check_finished("Wp", out, shared, vocab)
+    st = wp.stats
+    check(st.preemptions > 0 and st.demoted_pages > 0
+          and st.promoted_pages > 0,
+          f"run Wp: preemptions {st.preemptions}, demoted "
+          f"{st.demoted_pages}, promoted {st.promoted_pages}")
+    wp.slots.check()
+    wp.flush_sessions()
+    check(wp.pool.used_pages == 0,
+          f"run Wp: {wp.pool.used_pages} pages left after the flush")
+    agree = sum(a == b for x, y in zip(ordered(out), e_toks)
+                for a, b in zip(x, y))
+    tiers_line(f"Wp (F's {F_PAGES}-page pool, SJF)", wp,
+               f"; slots.check() ok, no page allocated after the flush; "
+               f"agrees with E on {agree}/{sum(map(len, e_toks))} tokens")
+    del wp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return chunk_ms
+
+
+def transfer_phase(torch, cfg, params, log, chunk_ms):
+    """Gather (device to pinned host) and upload (host to device, in
+    place) of 1, 8, 32 and 128 pages through the engine's own tier
+    copies, bf16 and fp8 pages, median of 5 on the host clock around
+    synchronized calls; each beside ``dispatch.predict_swap_time``, the
+    re-prefill the swap replaces (that many of run W's chunk steps, one
+    64-token page a step) and the plans' ``paged.swap_threshold``. The
+    uploaded pages must hold the gathered pages' bits."""
+    from repro_torch import configs, hardware
+    from repro_torch.core import dispatch
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.serving.engine import Engine
+
+    spec = hardware.H100_SXM
+    tuned = plan_mod.ExecutionPlan.load(
+        ROOT / plan_mod.default_plan_path(configs.get(ARCH), spec),
+        cfg=configs.get(ARCH), spec=spec)
+    log(f"tiers transfer: swap_threshold {plan_mod.DEFAULT_PLAN.paged.swap_threshold} "
+        f"(default plan), {tuned.paged.swap_threshold} (plans_torch/); "
+        f"host link {spec.host_bw / 1e9:.1f} GB/s, host_copy_s "
+        f"{1e6 * spec.host_copy_s:.1f} us (H100_SXM); run W's chunk step "
+        f"{chunk_ms:.3f} ms")
+    for kv in ("bf16", "fp8"):
+        eng = Engine(cfg, params, num_slots=1, max_seq=1024,
+                     cache_kind="paged", page_size=PAGE, prefix_sharing=True,
+                     host_pages=256, num_pages=256, kv_dtype=kv,
+                     device="cuda")
+        for leaf in eng.cache.values():
+            leaf.view(torch.uint8).random_(0, 255)
+        page_bytes = eng.stats.kv_page_bytes
+        slot = eng.slots.slots[0]
+        for n in (1, 8, 32, 128):
+            src = list(range(n))
+            dst = list(range(128, 128 + n))
+            gather, upload = [], []
+            for rep in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                slabs = eng._gather_pages(src)
+                t1 = time.perf_counter()
+                slot.pending_promotions = [(slabs[p], d)
+                                           for p, d in zip(src, dst)]
+                eng._apply_pending_promotions([(0, None)])
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                gather.append(1e3 * (t1 - t0))
+                upload.append(1e3 * (t2 - t1))
+                if rep == 0:
+                    check(same_bits(torch, *[(leaf[:, dst], leaf[:, src])
+                                             for leaf in eng.cache.values()]),
+                          f"tiers transfer {kv} {n} pages: the uploaded "
+                          "pages differ from the gathered ones")
+            g, u = statistics.median(gather), statistics.median(upload)
+            gb = n * page_bytes / 1e9
+            pred = 1e3 * dispatch.predict_swap_time(n, page_bytes, spec=spec)
+            log(f"tiers transfer {kv} {n:3d} pages x {page_bytes} B: gather "
+                f"{g:.3f} ms ({g / n:.4f} ms/page, {gb / (g / 1e3):.2f} "
+                f"GB/s), upload {u:.3f} ms ({u / n:.4f} ms/page, "
+                f"{gb / (u / 1e3):.2f} GB/s) against the link's "
+                f"{spec.host_bw / 1e9:.1f} GB/s; predict_swap_time "
+                f"{pred:.4f} ms; re-prefill {n} x {chunk_ms:.3f} = "
+                f"{n * chunk_ms:.1f} ms")
+        del eng
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the MoE family, dbrx-132b at its published widths
+# ---------------------------------------------------------------------------
+
+
+def logits_check(torch, cfg, params, reqs, log):
+    """X's first prefill chunk and decode step (4 rows, a 64-row paged
+    pool) on X's plan against the "torch" plan. With the "torch" run's
+    expert choices forced every row must lie within 5 % of the "torch"
+    logits' range; free, every row whose token chose the same experts in
+    every layer must too, and the rows that chose otherwise are
+    counted."""
+    from repro_torch.core.plan import make_plan
+    from repro_torch.models import moe
+    from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import PagedLayout
+    from repro_torch.models.layers import LayerCtx
+
+    api = get_model(cfg)
+    c = 64
+    toks = torch.zeros((4, c), dtype=torch.int32, device="cuda")
+    for i, (p, _) in enumerate(reqs[:4]):
+        toks[i, :min(len(p), c)] = torch.as_tensor(p[:c], device="cuda")
+    chunk_lens = torch.full((4,), c, dtype=torch.int32, device="cuda")
+    zeros = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    bt = torch.arange(64, dtype=torch.int32, device="cuda").view(4, 16)
+    route = moe.route
+
+    def run(plan, nxt=None, force=None):
+        """(prefill logits, decode logits, next tokens, each route call's
+        expert choices), ``force`` replacing the choices call by call."""
+        calls = []
+
+        def routed(router, xg, k):
+            probs, w, idx = route(router, xg, k)
+            if force is not None:
+                idx = force[len(calls)]
+                w = probs.gather(-1, idx)
+                w = w / w.sum(-1, keepdim=True)
+            calls.append(idx)
+            return probs, w, idx
+
+        moe.route = routed
+        try:
+            ctx = LayerCtx(cfg, plan)
+            cache = api.init_cache(PagedLayout(64, PAGE), device="cuda")
+            with torch.no_grad():
+                l1, cache = api.prefill_chunk(ctx, params, toks, chunk_lens,
+                                              cache, zeros, block_tables=bt)
+                if nxt is None:
+                    nxt = l1[:, :cfg.vocab_size].argmax(-1).int()
+                l2, _ = api.decode_step(ctx, params, nxt, cache, chunk_lens,
+                                        block_tables=bt)
+        finally:
+            moe.route = route
+        return l1, l2, nxt, calls
+
+    x_plan = make_plan("cuda", decode_fusion="fused")
+    c1, c2, nxt, ccalls = run(x_plan)
+    t1, t2, _, tcalls = run(make_plan("torch"), nxt=nxt)
+    f1, f2, _, _ = run(x_plan, nxt=nxt, force=tcalls)
+    n_layers = cfg.num_layers
+    for i, (what, got, forced, want) in enumerate((
+            ("first prefill chunk", c1, f1, t1),
+            ("first decode step", c2, f2, t2))):
+        # the route calls of this step, one a layer; a row's own tokens:
+        # the chunk's last position (prefill), its one token (decode)
+        calls = zip(ccalls[i * n_layers:(i + 1) * n_layers],
+                    tcalls[i * n_layers:(i + 1) * n_layers])
+        flipped = torch.zeros(4, dtype=torch.bool, device="cuda")
+        n_flips = 0
+        for a, b in calls:
+            rows = a.reshape(4, -1, a.shape[-1]).sort(-1).values != \
+                b.reshape(4, -1, b.shape[-1]).sort(-1).values
+            n_flips += int(rows.any(-1).sum())
+            flipped |= rows[:, -1].any(-1)
+        b_ = want[:, :cfg.vocab_size].float()
+        rng_ = b_.abs().max().item()
+        tol = 0.05 * rng_
+        free = (got[:, :cfg.vocab_size].float() - b_).abs().amax(-1)
+        same = (forced[:, :cfg.vocab_size].float() - b_).abs().amax(-1)
+        log(f"logits {MOE_ARCH} {what}: X's plan vs torch plan, per row "
+            f"max_abs_err free {[round(v, 4) for v in free.tolist()]}, with "
+            f"the torch run's expert choices "
+            f"{[round(v, 4) for v in same.tolist()]} (tol 5% of the range "
+            f"{rng_:.3f} = {tol:.4f}); {n_flips} (token, layer) expert sets "
+            f"differ, rows whose own token's did: "
+            f"{flipped.nonzero().flatten().tolist()}; argmax agree "
+            f"{(got[:, :cfg.vocab_size].argmax(-1) == b_.argmax(-1)).sum().item()}/4")
+        check(bool((same <= tol).all()), f"{MOE_ARCH} {what} logits with "
+              f"the same expert choices differ by {same.max().item()} > {tol}")
+        check(bool((free[~flipped] <= tol).all()), f"{MOE_ARCH} {what} "
+              "logits of rows whose experts agree differ by more than "
+              f"{tol}")
+
+
+def moe_runs():
+    """(tag, engine kwargs, kernels that must launch) of runs X to X‴."""
+    from repro_torch.core.plan import make_plan
+    paged = dict(cache_kind="paged", page_size=PAGE)
+    gather = make_plan("cuda", gather_chunk="dense", fused_ffn=False)
+    attn = ("paged_decode_attention_unified_max",
+            "paged_decode_attention_sync")
+    chunk = ("paged_chunk_attention_unified_max",
+             "paged_chunk_attention_sync")
+    stages = ("decode_ingest_fused", "oproj_residual_fused", "flat_gemm")
+    return [
+        ("X paged fused chunk kernel, fused stages", dict(
+            decode_fusion="fused", **paged), attn + chunk + stages),
+        ("X' X looped", dict(decode_fusion="looped", **paged),
+         attn + chunk + stages),
+        ("X'' dense cache, D's plan", dict(plan=gather),
+         ("flat_gemm", "decode_attention_unified_max",
+          "decode_attention_sync")),
+        ("X''' paged, D's plan", dict(plan=gather, **paged),
+         ("flat_gemm",) + attn),
+    ]
+
+
+def moe_phase(torch, seed, lengths, log, launches):
+    """Runs X to X‴: dbrx-132b at its published widths, cut to
+    MOE_LAYERS layers, random bf16 weights from ``seed``; A's prompt
+    lengths (tokens drawn from dbrx's vocabulary), 16 new tokens, 4
+    slots, chunked prefill 64. X′ = X and X‴ = X″ token for token; every
+    ``ops.matmul`` call of X at a ``called_gemm_shapes`` shape; X's first
+    prefill and decode logits against the "torch" plan
+    (:func:`logits_check`); busy and wall a tick of X and X′, the MoE
+    tail's share of X's busy, and the tick's bytes against its bound."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs, hardware
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.api import get_model
+    from repro_torch.models.stack import tree_leaves
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.request import SamplingParams
+
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), num_layers=MOE_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init_params(gen, device="cuda")
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.nbytes for t in tree_leaves(params))
+    log(f"moe {MOE_ARCH}: {MOE_LAYERS} of {configs.get(MOE_ARCH).num_layers}"
+        f" layers, d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.num_experts_per_tok}, "
+        f"vocabulary {cfg.vocab_size} (untied head); {weight_bytes / 1e9:.2f}"
+        f" GB of weights drawn in {time.perf_counter() - t0:.1f}s; device "
+        f"memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rng = np.random.default_rng(seed + 3)
+    sp = SamplingParams(max_new_tokens=16)
+    reqs = [(rng.integers(1, cfg.vocab_size, size=n).astype(np.int32), sp)
+            for n in lengths]
+    called = {(s.k, s.n) for s in dispatch.called_gemm_shapes(cfg)}
+    outs = {}
+    for tag, kw, expect in moe_runs():
+        seen = set()
+        real = ops.matmul
+        if tag.startswith("X "):
+            def recording(x, w, **k):
+                out = real(x, w, **k)
+                seen.add((x.shape[-1], out.shape[-1]))
+                return out
+            ops.matmul = recording
+        try:
+            eng = Engine(cfg, params, num_slots=4, max_seq=1024,
+                         prefill_chunk=64, device="cuda", **kw)
+            t0 = time.perf_counter()
+            out, counts = counted_run(torch, eng, reqs, launches)
+            dt = time.perf_counter() - t0
+        finally:
+            ops.matmul = real
+        check_finished(tag, out, reqs, cfg.vocab_size)
+        for n in expect:
+            check(counts[n] > 0, f"{tag}: kernel {n} was never launched")
+        graphs = ""
+        if eng.ctx.graphs is not None:
+            graphs = (f"; graphs {eng.stats.graph_captures} captured, "
+                      f"{eng.stats.graph_replays} replays")
+        log(f"serve {tag}: {len(out)} requests, "
+            f"{sum(map(len, out.values()))} tokens in {dt:.3f}s, "
+            f"{eng.ticks} decode ticks at "
+            f"{1e3 * eng.stats.decode_seconds / max(eng.ticks, 1):.3f} "
+            f"ms/tick{graphs}; launches "
+            f"{json.dumps({n: c for n, c in counts.items() if c})}")
+        if seen:
+            check(seen <= called, f"{tag}: ops.matmul called at "
+                  f"{sorted(seen - called)}, not a called_gemm_shapes shape")
+            log(f"serve {tag}: every ops.matmul (K, N) {sorted(seen)} is a "
+                f"called_gemm_shapes({MOE_ARCH}) shape")
+        outs[tag.split()[0]] = ordered(out)
+        del eng
+    check(outs["X'"] == outs["X"], "run X′'s tokens differ from X's")
+    check(outs["X'''"] == outs["X''"], "run X‴'s tokens differ from X″'s")
+    agree = sum(a == b for x, y in zip(outs["X"], outs["X''"])
+                for a, b in zip(x, y))
+    log(f"serve moe contracts: X′ == X, X‴ == X″ token for token; X agrees "
+        f"with X″ on {agree}/{16 * len(reqs)} tokens")
+
+    # X's first prefill chunk and decode step against the "torch" plan. A
+    # token whose router scores two experts within rounding of each other
+    # may pick another expert set under each plan (the plans round the
+    # router's input differently), which moves that row's logits by more
+    # than rounding; so X's plan runs twice: free, and with the "torch"
+    # run's expert choices (weights from its own router) forced
+    logits_check(torch, cfg, params, reqs, log)
+
+    # busy and wall a tick; the MoE tail's share of X's busy tick
+    spec = hardware.H100_SXM
+    tick_bytes = sum(t.nbytes for t in tree_leaves(params["layers"])) \
+        + params["lm_head"].nbytes
+    bound = 1e3 * tick_bytes / spec.hbm_bw
+    real_mlp = moe._moe_mlp
+
+    def annotated(*a, **k):
+        with torch.profiler.record_function("moe_tail"):
+            return real_mlp(*a, **k)
+
+    moe._moe_mlp = annotated
+    try:
+        x = profile_phase(torch, cfg, params, reqs, log,
+                          tag="X dbrx-132b paged fused stages",
+                          ranges=("moe_tail",), cache_kind="paged",
+                          page_size=PAGE, decode_fusion="fused")
+    finally:
+        moe._moe_mlp = real_mlp
+    xl = profile_phase(torch, cfg, params, reqs, log,
+                       tag="X' dbrx-132b paged looped", cache_kind="paged",
+                       page_size=PAGE, decode_fusion="looped")
+    for tag, r in (("X", x), ("X'", xl)):
+        if r is not None:
+            log(f"moe tick {tag}: {tick_bytes} bytes a tick (every layer's "
+                f"weights, all experts read at zero drop, and the head) -> "
+                f"bound {bound:.3f} ms at {spec.hbm_bw / 1e12:.2f} TB/s; "
+                f"busy {r[0]:.3f} ms ({bound / r[0]:.2f} of the bound's "
+                f"rate), wall {r[1]:.3f} ms")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3790,6 +4632,9 @@ def main(argv=None) -> int:
                            "plain16": [(p, sp16) for p, _ in requests],
                            "shared32": [(p, sp32) for p, _ in shared]},
                           log, launches)
+    chunk_ms = tier_phase(torch, cfg, params, shared, outputs, log,
+                          launches)
+    transfer_phase(torch, cfg, params, log, chunk_ms)
     tick_profiles(torch, cfg, params, requests, shared, log)
     profile_phase(torch, cfg, params, shared, log,
                   tag="H slots=4 paged sharing grouped fused-FFN",
@@ -3810,6 +4655,13 @@ def main(argv=None) -> int:
     tuned_logits_phase(torch, cfg, params, requests, split_tuned, log)
     tuned_profiles(torch, cfg, params, requests, split_tuned, log)
     cli_phase(log)
+    # the MoE runs need the card's memory: qwen2-0.5b's weights go first
+    # (the engines that held them sit in reference cycles: collect them)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_phase(torch, args.seed, [len(p) for p, _ in requests], log,
+              launches)
 
     for name in REPLACES:
         check(launches.get(name, 0) > 0,

@@ -82,16 +82,19 @@ def model_gemm_shapes(cfg: ModelConfig) -> list[GemmShape]:
 
 
 # families whose layers the port has (models/api.py refuses the others)
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "moe")
 
 
 def called_gemm_shapes(cfg: ModelConfig) -> list[GemmShape]:
     """The [K, N] shapes the port's layers pass to ``ops.matmul``:
     q, k / v, o_proj, gate / up (or up alone, ungated), down, and the
     head at the padded vocabulary the embedding is stored at (tied:
-    ``embedding.T``, an (N, K) view). A family without port layers calls
-    none yet. The tuner gives each of these an entry, so no call falls
-    to the plan's default ladder."""
+    ``embedding.T``, an (N, K) view). The MoE family's experts and router
+    are batched products outside ``ops.matmul`` (as the JAX package's are
+    einsums outside its GEMM kernels), so it calls q, k / v, o_proj and
+    the head only. A family without port layers calls none yet. The
+    tuner gives each of these an entry, so no call falls to the plan's
+    default ladder."""
     if cfg.family not in PORTED_FAMILIES:
         return []
     # models.layers imports the ops, which import the plan and so this
@@ -99,16 +102,18 @@ def called_gemm_shapes(cfg: ModelConfig) -> list[GemmShape]:
     from repro_torch.models.layers import vocab_padded
     d = cfg.d_model
     gated = cfg.activation in ("swiglu", "geglu")
-    return [
+    shapes = [
         GemmShape("q_proj", d, cfg.q_dim),
         GemmShape("kv_proj", d, cfg.kv_dim, 2),
         GemmShape("o_proj", cfg.q_dim, d),
-        GemmShape("gate_up" if gated else "up", d, cfg.d_ff,
-                  2 if gated else 1),
-        GemmShape("down", cfg.d_ff, d),
-        GemmShape("lm_head_tied" if cfg.tie_embeddings else "lm_head", d,
-                  vocab_padded(cfg)),
     ]
+    if cfg.family != "moe":
+        shapes += [GemmShape("gate_up" if gated else "up", d, cfg.d_ff,
+                             2 if gated else 1),
+                   GemmShape("down", cfg.d_ff, d)]
+    return shapes + [
+        GemmShape("lm_head_tied" if cfg.tie_embeddings else "lm_head", d,
+                  vocab_padded(cfg))]
 
 
 # ---------------------------------------------------------------------------

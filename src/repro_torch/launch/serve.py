@@ -24,6 +24,16 @@ prefill reads the pool. ``--decode-group grouped`` (with
 decode; the summary then counts grouped decodes and the prefix KV bytes
 saved. The ``req N:`` lines do not change with any of these.
 
+``--host-pages N`` (paged, with ``--prefix-sharing``) puts a host-memory
+tier of N pages behind the pool: preemption and retirement keep their
+full KV pages in a session cache instead of freeing them, pool pressure
+demotes those pages to pinned host memory, and a returning prompt
+promotes them back instead of re-prefilling them (``--session-cache``
+alone keeps the session cache on the device only). ``--rounds R``
+resubmits every prompt R times, calling ``evict_finished()`` between
+rounds, so rounds 2 and on are returning conversations; the summary adds
+the pages demoted and promoted and the session hits.
+
 ``--weight-dtype bf16|int8|fp8`` stores every layer GEMM weight as int8
 or fp8 codes with one f32 step per output channel, quantized once at
 load; the GEMM kernels stream the codes and scale their f32 accumulators.
@@ -112,6 +122,19 @@ def _parse(argv=None):
                          "'fused' = four fused stage kernels per layer, "
                          "'looped' = the fused step replayed as one CUDA "
                          "graph per tick")
+    ap.add_argument("--host-pages", type=int, default=None,
+                    help="host-memory tier capacity in KV pages: "
+                         "preemption and retirement demote pages here "
+                         "instead of discarding them (paged cache + "
+                         "--prefix-sharing only); returning prompts "
+                         "promote them back")
+    ap.add_argument("--session-cache", action="store_true",
+                    help="retain finished conversations' KV pages in the "
+                         "session cache (implied by --host-pages; alone it "
+                         "keeps them on the device only)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="resubmit every prompt this many times: rounds 2 "
+                         "and on are returning conversations")
     ap.add_argument("--weight-dtype", choices=["bf16", "int8", "fp8"],
                     default=None,
                     help="GEMM weight storage: int8 / fp8 codes with one "
@@ -187,6 +210,8 @@ def main(argv=None) -> int:
                  cache_kind=args.cache_kind, page_size=args.page_size,
                  num_pages=num_pages, prefill_chunk=args.prefill_chunk,
                  prefix_sharing=args.prefix_sharing,
+                 host_pages=args.host_pages,
+                 session_cache=args.session_cache or None,
                  scheduler=args.scheduler, plan=plan,
                  decode_fusion=args.decode_fusion,
                  weight_dtype=args.weight_dtype, kv_dtype=args.kv_dtype,
@@ -201,12 +226,18 @@ def main(argv=None) -> int:
         for _ in range(args.requests)]
 
     t0 = time.perf_counter()
-    out = eng.run(reqs)
+    out = {}
+    served = total = 0                # over every round, as dt and ticks
+    for rnd in range(max(args.rounds, 1)):
+        out = eng.run(reqs)
+        served += len(out)
+        total += sum(len(v) for v in out.values())
+        if rnd + 1 < args.rounds:
+            eng.evict_finished()      # the KV stays in the session cache
     dt = time.perf_counter() - t0
-    total = sum(len(v) for v in out.values())
     st = eng.stats
     tick_ms = 1e3 * st.decode_seconds / max(eng.ticks, 1)
-    line = (f"served {len(out)} requests, {total} tokens in {dt:.2f}s "
+    line = (f"served {served} requests, {total} tokens in {dt:.2f}s "
             f"({total / dt:.1f} tok/s, {eng.ticks} decode ticks, "
             f"{tick_ms:.2f} ms/tick, prefill {st.prefill_seconds:.2f}s, "
             f"{eng.scheduler.name} scheduler, device={dev}, "
@@ -227,6 +258,12 @@ def main(argv=None) -> int:
     if st.grouped_requests:
         line += (f", {st.grouped_requests} grouped decodes, "
                  f"{st.prefix_kv_bytes_saved} prefix KV bytes saved")
+    if eng.tiers is not None:
+        line += (f", {st.demoted_pages} pages demoted, "
+                 f"{st.promoted_pages} promoted, {st.session_hits} session "
+                 f"hits")
+        if st.host_evicted_pages:
+            line += f", {st.host_evicted_pages} evicted"
     print(line + ")")
     for rid in sorted(out)[:4]:
         print(f"  req {rid}: {out[rid]} [{eng.finish_reason(rid)}]")

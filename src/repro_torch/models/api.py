@@ -1,8 +1,9 @@
 """Uniform model API keyed by ``cfg.family``.
 
-This slice ports the dense GQA family (and the VLM backbone that shares
-it); the other families raise ``NotImplementedError`` naming the slice of
-the port that brings them.
+The port has the dense GQA family (and the VLM backbone that shares it)
+and the MoE family, which reuses the dense steps through their block
+hooks; the other families raise ``NotImplementedError`` naming the slice
+of the port that brings them.
 """
 from __future__ import annotations
 
@@ -10,10 +11,9 @@ import dataclasses
 from typing import Callable, Optional
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
 _LATER = {
-    "moe": "slice 7 (other families: models/moe.py)",
     "ssm": "slice 7 (other families: models/ssm.py)",
     "hybrid": "slice 7 (other families: models/hybrid.py)",
     "encdec": "slice 7 (other families: models/encdec.py)",
@@ -50,13 +50,13 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; it comes with "
             f"{_LATER[cfg.family]}")
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise ValueError(f"unknown family {cfg.family}")
     if cfg.norm != "rmsnorm":
         raise NotImplementedError(
             f"norm {cfg.norm!r} comes with slice 7 (encdec); the dense "
-            "family uses rmsnorm")
-    mod = transformer
+            "and MoE families use rmsnorm")
+    mod = moe if cfg.family == "moe" else transformer
     return ModelApi(
         cfg=cfg,
         init_params=lambda generator=None, device="cuda": mod.init_params(
@@ -65,6 +65,6 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         decode_step=mod.decode_step,
         init_cache=lambda layout, device="cuda": mod.init_cache(
             cfg, layout, device=device),
-        supports_paged=True,
+        supports_paged=mod.PAGED_KV,
         prefill_chunk=mod.prefill_chunk,
     )

@@ -77,6 +77,8 @@ class LayerCtx:
 
     cfg: ModelConfig
     plan: ExecutionPlan = DEFAULT_PLAN
+    # MoE routing group count (the data-parallel shard count at scale)
+    moe_groups: int = 1
     graphs: Optional[LoopedDecode] = dataclasses.field(
         default=None, init=False, compare=False, repr=False)
 

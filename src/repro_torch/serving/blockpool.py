@@ -46,14 +46,38 @@ Grouped decode reads each shared prefix once per group: the manager's
 :meth:`PagedSlotManager.group_plan` turns the refcount-derived groups of
 :func:`~repro_torch.serving.prefix.shared_prefix_groups` into a
 :class:`GroupPlan`, cached under the block tables' dirty discipline with
-its device operands. The JAX package's tiered session cache
-(``retain_session`` / ``reclaim_session``) comes with the tiers slice of
-the port.
+its device operands.
+
+**The memory hierarchy (tier 0 of three).** With a
+:class:`~repro_torch.serving.tiers.TieredPool` attached, the pool is tier
+0 of a device -> host -> disk page hierarchy and the manager stops
+discarding KV it might want back:
+
+  * **Session cache (tier-0 retention).** :meth:`retain_session`, the
+    retire / preempt hook, registers a departing sequence's full pages
+    in the prefix index and moves the slot's ref on each to a
+    manager-held LRU *session set* instead of freeing them. A returning
+    conversation re-maps its prefix by refcount bump, with no copy.
+  * **Demotion under pressure.** When allocation runs dry,
+    :meth:`reclaim_session` drops session refs LRU-first; a page whose
+    last ref that was is copied to the host (the engine's bulk gather)
+    and lands in the tiered store, its index entry rebound from page id
+    to store handle: matchable, not addressable. Only falling off the
+    hierarchy's bottom evicts.
+  * **Promotion at admission.** :meth:`_make_slot` spans tiers: a match
+    whose demoted span reaches ``swap_threshold`` pages (the plan's
+    ``paged.swap_threshold``) allocates fresh pages for those chunks and
+    hands the engine ``pending_promotions``, one bulk host-to-device
+    upload, instead of re-prefilling them.
+
+The demoted bytes are the bytes the original run wrote, so a resumed or
+returning sequence decodes bit for bit like one that never left.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from collections import OrderedDict
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -62,6 +86,7 @@ from repro_torch.kernels.group_attention import DecodeGroups
 from repro_torch.models.kvlayout import pages_for, pow2_bucket
 from repro_torch.serving.kvcache import Slot, SlotManager
 from repro_torch.serving.prefix import PrefixIndex, shared_prefix_groups
+from repro_torch.serving.tiers import TieredPool
 
 
 class BlockPool:
@@ -193,6 +218,13 @@ class PagedSlot(Slot):
     #                              slot whose pending pages this one mapped
     pending_fork: Optional[tuple] = None   # (src, dst): page copy the
     #                              engine owes before this slot's prefill
+    # tiered-promotion admission metadata (empty without a TieredPool)
+    pending_promotions: list = dataclasses.field(default_factory=list)
+    #                              [(slab, dst_page)]: host-to-device
+    #                              uploads the engine owes before this
+    #                              slot's prefill
+    session_mapped: int = 0      # matched pages served out of the session
+    #                              cache (refcount bump) or promoted
 
 
 class PagedSlotManager(SlotManager):
@@ -204,16 +236,35 @@ class PagedSlotManager(SlotManager):
     prefix the :class:`~repro_torch.serving.prefix.PrefixIndex` maps onto
     existing pages (``prefix_index=None`` disables sharing); decode growth
     goes through :meth:`ensure`, writes into shared pages fork through
-    :meth:`fork_for_write`, and release drops one ref per page.
+    :meth:`fork_for_write`, and release drops one ref per page. ``tiers``
+    (which needs the index) adds the session cache and the tier
+    transitions.
     """
 
     def __init__(self, num_slots: int, max_seq: int, pool: BlockPool,
-                 prefix_index: Optional[PrefixIndex] = None):
+                 prefix_index: Optional[PrefixIndex] = None,
+                 tiers: Optional[TieredPool] = None):
         self.pool = pool
         self.prefix = prefix_index
         if prefix_index is not None and \
                 prefix_index.page_size != pool.page_size:
             raise ValueError("prefix index / pool page_size mismatch")
+        if tiers is not None and prefix_index is None:
+            raise ValueError(
+                "a TieredPool needs a prefix index — the index is the "
+                "cross-tier map that makes demoted pages matchable")
+        self.tiers = tiers
+        # tier-0 session cache: pages of finished / preempted sequences
+        # the manager holds one ref on, LRU order (page -> None); drained
+        # by reclaim_session under pool pressure
+        self._session: "OrderedDict[int, None]" = OrderedDict()
+        # least demoted span (pages) worth promoting instead of
+        # re-prefilling; the engine sets it from plan.paged.swap_threshold
+        self.swap_threshold = 1
+        # engine hook: reclaim_cb(pages_needed) -> bool demotes session
+        # pages (the device-to-host gather included) and says whether
+        # enough of the pool was freed
+        self.reclaim_cb: Optional[Callable[[int], bool]] = None
         self.max_pages_per_seq = pool.pages_for(max_seq)
         # the (num_slots, max_pages_per_seq) block-table operand, cached on
         # the device; rebuilt only when a table changed
@@ -254,48 +305,130 @@ class PagedSlotManager(SlotManager):
                 f"{self.pool.num_pages} (page_size {self.pool.page_size})")
 
         ps = self.pool.page_size
-        shared: list[int] = []
+        # per covered chunk: ("share", page) -> refcount bump, or
+        # ("promote", hid) -> fresh page + host-to-device upload
+        kept: list[tuple] = []
         level = 0
         fork_src: Optional[int] = None
+        session_mapped = 0
         if self.prefix is not None and tokens is not None and prompt_len:
             m = self.prefix.match(tokens)
-            shared = list(m.pages)
-            if shared and len(shared) * ps == prompt_len:
+            n_demoted = sum(1 for t in m.tiers if t > 0)
+            # swap or re-prefill, once per admission: either the whole
+            # demoted span is worth the copies (swap_threshold pages) or
+            # the match stops at the first demoted entry and those chunks
+            # re-prefill
+            promote = (self.tiers is not None
+                       and n_demoted >= self.swap_threshold)
+            for pg, tier, hid in zip(m.pages, m.tiers, m.hids):
+                if tier == 0:
+                    kept.append(("share", pg))
+                elif promote:
+                    kept.append(("promote", hid))
+                else:
+                    break
+            if kept and len(kept) * ps == prompt_len:
                 # prompt fully covered: the last page must still yield the
                 # last-token logits, so the engine re-runs the final chunk.
                 # A committed shared tail is forked (the rewrite lands in
                 # a private copy); a pending tail has no content to copy
-                # yet, so this slot prefills that page itself.
-                if m.pending[len(shared) - 1] is None:
-                    fork_src = shared[-1]
-                shared.pop()
+                # yet, so this slot prefills that page itself; a promoted
+                # tail needs neither: its fresh page is private already.
+                kind, val = kept[-1]
+                if kind == "share":
+                    if m.pending[len(kept) - 1] is None:
+                        fork_src = val
+                    kept.pop()
             if m.pending_level >= 0:
                 level = m.pending_level + 1
-        shared_len = (len(shared) + (1 if fork_src is not None else 0)) * ps
+        n_shared = sum(1 for kind, _ in kept if kind == "share")
+        n_promote = len(kept) - n_shared
+        shared_len = (len(kept) + (1 if fork_src is not None else 0)) * ps
 
         # lazy: reserve what prefill writes (shared prefix excluded; a COW
-        # fork destination counts as a write) plus ONE decode growth page
-        # capped at the true footprint — without that headroom a request
-        # admitted into a dry pool would be preempted on its first decode
-        # write. Further growth goes through ensure().
+        # fork destination and promoted pages count as writes) plus ONE
+        # decode growth page capped at the true footprint — without that
+        # headroom a request admitted into a dry pool would be preempted
+        # on its first decode write. Further growth goes through ensure().
         need = min(self.pool.pages_for(prompt_len) + 1,
-                   self.pool.pages_for(prompt_len + max_new)) - len(shared)
-        self.pool.share(shared)
-        fresh = self.pool.alloc(need)
+                   self.pool.pages_for(prompt_len + max_new)) - n_shared
+
+        # pin before any reclaim can run: share() the matched tier-0 pages
+        # (a session page's lone ref might be the one reclaim demotes) and
+        # pop the promoted slabs out of the store (reclaim demotes *into*
+        # the store and could LRU-evict the slabs about to be uploaded)
+        share_pages = [v for kind, v in kept if kind == "share"]
+        self.pool.share(share_pages)
+        promos = [(i, hid, self.tiers.pop(hid))
+                  for i, (kind, hid) in enumerate(kept) if kind == "promote"]
+        held = [p for p in share_pages if p in self._session]
+        fresh = self._alloc_reclaiming(need)
         if fresh is None:
-            for page in self.pool.free(shared):
+            # roll back: net refcounts restored; slabs demoted again (their
+            # entries rebound to the new handles, purged only if the store
+            # is full). A session page whose session ref this admission's
+            # own reclaim dropped (the pin kept it alive) takes the pin's
+            # ref back into the session cache: freeing the pin would
+            # discard its KV without demoting it
+            back = [p for p in held if p not in self._session]
+            for p in back:
+                self._session[p] = None
+            back = set(back)
+            for page in self.pool.free([p for p in share_pages
+                                        if p not in back]):
                 self.prefix.drop_page(page)
+            for _i, hid, slab in promos:
+                new_hid = self.tiers.demote(slab)
+                if new_hid is None:
+                    self.prefix.purge_hid(hid)
+                else:
+                    self.prefix.rebind_hid(hid, new_hid)
+                    self.prefix.set_tier(new_hid,
+                                         self.tiers.tier_of(new_hid))
+            if share_pages or promos:
+                self._bt_dirty = True
+                self._gp_dirty = True
             return None
-        slot = PagedSlot(request_id, prompt_len, 0, max_new,
-                         pages=shared + fresh, shared_len=shared_len,
-                         prefill_level=level)
+        pages: list[int] = []
+        fi = 0
+        pending_promotions: list[tuple] = []
+        slab_by_chunk = {i: slab for i, _hid, slab in promos}
+        for i, (kind, val) in enumerate(kept):
+            if kind == "share":
+                pages.append(val)
+                if val in self._session:
+                    self._session.move_to_end(val)   # LRU recency
+                    session_mapped += 1
+            else:
+                dst = fresh[fi]
+                fi += 1
+                pending_promotions.append((slab_by_chunk[i], dst))
+                self.prefix.promote_hid(val, dst)
+                pages.append(dst)
+        pages += fresh[fi:]
+        slot = PagedSlot(request_id, prompt_len, 0, max_new, pages=pages,
+                         shared_len=shared_len, prefill_level=level,
+                         pending_promotions=pending_promotions,
+                         session_mapped=session_mapped + n_promote)
         if fork_src is not None:
-            # the table already names the fork destination (fresh[0]); the
-            # engine copies the page before prefill, then re-runs the
+            # the table already names the fork destination (fresh[fi]);
+            # the engine copies the page before prefill, then re-runs the
             # final chunk into it
-            slot.pending_fork = (fork_src, fresh[0])
+            slot.pending_fork = (fork_src, fresh[fi])
         slot.prefill_start = min(shared_len, prompt_len)
         return slot
+
+    def _alloc_reclaiming(self, n: int) -> Optional[list]:
+        """``pool.alloc`` that spends the session cache before failing: on
+        a dry pool, ask the engine to demote LRU session pages
+        (``reclaim_cb``) and retry — finished-session KV is a cache, and
+        a cache never wins a page fight against admission or growth."""
+        got = self.pool.alloc(n)
+        if got is not None or self.reclaim_cb is None:
+            return got
+        if self.reclaim_cb(n - self.pool.free_pages):
+            return self.pool.alloc(n)
+        return None
 
     def ensure(self, idx: int, positions: int) -> bool:
         """Grow slot ``idx``'s table to cover ``positions`` KV entries.
@@ -305,7 +438,7 @@ class PagedSlotManager(SlotManager):
         need = self.pool.pages_for(positions) - len(s.pages)
         if need <= 0:
             return True
-        got = self.pool.alloc(need)
+        got = self._alloc_reclaiming(need)
         if got is None:
             return False
         s.pages.extend(got)
@@ -318,7 +451,10 @@ class PagedSlotManager(SlotManager):
         covered page whose refcount > 1: a private destination, a patched
         table, one ref dropped on the source. Returns the ``(src, dst)``
         page copies the engine owes, or None when the pool is dry — with
-        no side effect, since every destination is reserved up front."""
+        no side effect, since every destination is reserved up front (in
+        one ``_alloc_reclaiming`` call: the session-cache reclaim it may
+        trigger changes refcounts, so it runs before this fork takes any
+        ref, never between a source's ref drop and the engine's copy)."""
         s = self.slots[idx]
         ps = self.pool.page_size
         to_fork: list[int] = []
@@ -329,12 +465,15 @@ class PagedSlotManager(SlotManager):
                 to_fork.append(pi)
         if not to_fork:
             return []
-        dsts = self.pool.alloc(len(to_fork))
+        dsts = self._alloc_reclaiming(len(to_fork))
         if dsts is None:
             return None
         out: list[tuple[int, int]] = []
         for pi, dst in zip(to_fork, dsts):
             src = s.pages[pi]
+            # a reclaim during the reservation may have left src private
+            # after all: the fork is then redundant but harmless, except
+            # that its source can now die
             for page in self.pool.free([src]):
                 if self.prefix is not None:
                     self.prefix.drop_page(page)
@@ -359,6 +498,78 @@ class PagedSlotManager(SlotManager):
             self._bt_dirty = True
             self._gp_dirty = True
         super().release(idx)
+
+    # -- session cache (tier-0 retention + demotion under pressure) ----------
+
+    def retain_session(self, idx: int, tokens) -> int:
+        """Retire or preempt a slot *without discarding its KV*: register
+        every full page of ``tokens`` (the slot's KV-valid token prefix)
+        in the prefix index and move this slot's ref on each registered
+        page to the LRU session set. A returning conversation re-maps
+        those pages by refcount bump; pool pressure demotes them through
+        :meth:`reclaim_session`. Pages the index does not hold (the
+        partial tail, superseded duplicates) are freed as usual. Returns
+        how many pages the session set newly retained."""
+        assert self.prefix is not None, "session cache needs a prefix index"
+        s = self.slots[idx]
+        self.prefix.register(tokens, s.pages)
+        self.prefix.commit(tokens)
+        indexed = self.prefix.shared_page_ids()
+        retained = 0
+        to_free: list[int] = []
+        for p in s.pages:
+            if p in indexed and p not in self._session:
+                self._session[p] = None       # the ref moves to the cache
+                retained += 1
+            else:
+                to_free.append(p)
+        for page in self.pool.free(to_free):
+            self.prefix.drop_page(page)
+        s.pages = []
+        self._bt_dirty = True
+        self._gp_dirty = True
+        self.release(idx)
+        return retained
+
+    def reclaim_session(self, need: int, gather) -> int:
+        """Drop session-cache refs LRU-first until ``need`` pages return to
+        the free list (or the cache is empty). A page whose *last* ref was
+        the session's dies: its slab is copied to the host first
+        (``gather(pages) -> {page: slab}``, one copy for the whole batch)
+        and demoted into the tiered store, its index entry rebound to the
+        store handle. A page a live slot still shares survives with its
+        entry untouched. Returns how many pages were freed."""
+        if not self._session:
+            return 0
+        drop: list[int] = []
+        expect = 0
+        for p in self._session:               # LRU -> MRU order
+            drop.append(p)
+            if self.pool.refcount(p) == 1:
+                expect += 1
+            if expect >= need:
+                break
+        dying = [p for p in drop if self.pool.refcount(p) == 1]
+        slabs = gather(dying) if dying and self.tiers is not None else {}
+        freed = 0
+        for p in drop:
+            del self._session[p]
+            if not self.pool.free([p]):
+                continue                      # survives through a slot
+            freed += 1
+            hid = self.tiers.demote(slabs[p]) \
+                if self.tiers is not None and p in slabs else None
+            if hid is None or not self.prefix.demote_page(
+                    p, hid, tier=self.tiers.tier_of(hid)):
+                if hid is not None:
+                    self.tiers.drop(hid)      # the page was not indexed
+                self.prefix.drop_page(p)
+        self._bt_dirty = True
+        self._gp_dirty = True
+        return freed
+
+    def session_pages(self) -> int:
+        return len(self._session)
 
     def block_tables(self, device) -> torch.Tensor:
         """The (num_slots, max_pages_per_seq) int32 block-table operand on
@@ -437,7 +648,9 @@ class PagedSlotManager(SlotManager):
 
     def check(self) -> None:
         """Cross-structure invariants: pool conservation, and refcounts
-        equal to the ownership multiset across the slots' block tables."""
+        equal to the ownership multiset across the slots' block tables
+        plus the session cache's one ref a page. With a tiered store,
+        every demoted index entry resolves to a live slab."""
         self.pool.check()
         owned: dict[int, int] = {}
         for s in self.slots:
@@ -447,9 +660,18 @@ class PagedSlotManager(SlotManager):
                 "one slot maps the same page twice (fork aliased)"
             for p in s.pages:
                 owned[p] = owned.get(p, 0) + 1
+        for p in self._session:
+            owned[p] = owned.get(p, 0) + 1
+            assert self.prefix is not None \
+                and p in self.prefix.shared_page_ids(), \
+                f"session cache holds unindexed page {p}"
         assert {p: self.pool.refcount(p) for p in owned} == owned, \
-            "refcounts out of sync with slot ownership multiset"
+            "refcounts out of sync with slot+session ownership multiset"
         assert set(owned) == self.pool.allocated_pages(), \
             "pool used-set out of sync with slot block tables"
+        if self.tiers is not None:
+            self.tiers.check()
         if self.prefix is not None:
-            self.prefix.check(self.pool.allocated_pages())
+            self.prefix.check(
+                self.pool.allocated_pages(),
+                self.tiers.ids() if self.tiers is not None else frozenset())

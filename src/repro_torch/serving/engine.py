@@ -2,8 +2,7 @@
 block-paged pool.
 
 The port of the JAX package's ``serving/engine.py`` for
-``cache_kind="dense"`` and ``cache_kind="paged"`` (the tiered KV store
-comes with a later slice):
+``cache_kind="dense"`` and ``cache_kind="paged"``:
 
   * **Request lifecycle.** Each submission is a
     :class:`~repro_torch.serving.request.RequestState` walking WAITING →
@@ -32,6 +31,19 @@ comes with a later slice):
     prefills only the rest; the first write into a shared page forks it
     (fresh page, device page copy, table patch). Chunk boundaries stay on
     the share-less grid, so greedy tokens do not change with sharing.
+  * **Tiered KV + session cache** (paged + sharing, ``host_pages`` /
+    ``session_cache`` / ``disk_pages``). The pool becomes tier 0 of a
+    hierarchy (:mod:`~repro_torch.serving.tiers`): retiring or preempting
+    a sequence *retains* its full pages in a session set instead of
+    freeing them, pool pressure demotes those pages to pinned host memory
+    (one device gather per reclaim batch, copied out into a pinned buffer
+    a page) and on to disk, and
+    a returning conversation whose prefix matches a demoted span
+    *promotes* the slabs back (one bulk host-to-device copy before its
+    prefill, written in place into the cache leaves) instead of
+    re-prefilling them, when the span reaches the plan's
+    ``paged.swap_threshold``. Demoted bytes are the bytes the run wrote,
+    so the tokens do not change.
   * **Chunk discipline** (paged). With ``plan.paged.gather_chunk ==
     "fused"`` chunk attention reads the pool in place (the fused chunk
     kernel on the ``"cuda"`` backend), and a wave whose longest prompt
@@ -104,6 +116,7 @@ from repro_torch.serving.request import (FinishReason, Phase, RequestState,
                                          SamplingParams, TokenEvent)
 from repro_torch.serving.sampling import mask_vocab, sample
 from repro_torch.serving.scheduler import Scheduler, get_scheduler
+from repro_torch.serving.tiers import TieredPool
 
 PROMPT_BUCKET = 64
 DEFAULT_PREFILL_CHUNK = 64
@@ -152,6 +165,22 @@ class EngineStats:
     kv_bytes_decode_read: int = 0    # cumulative KV bytes decode ticks
     #                                  streamed (resident pages x slab
     #                                  bytes), at stored width
+    # tiered KV / session cache (all zero without host_pages/session_cache)
+    demoted_pages: int = 0           # pages copied device -> host (-> disk)
+    #                                  instead of being discarded
+    promoted_pages: int = 0          # demoted pages copied back into fresh
+    #                                  pages at re-admission
+    session_hits: int = 0            # admissions that re-mapped at least
+    #                                  one retained session page (refcount
+    #                                  bump or promotion)
+    host_evicted_pages: int = 0      # pages that fell off the bottom tier
+    #                                  (KV lost; those spans re-prefill)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float8 tensor as its uint8 bits (the tier copies move bytes, and
+    the index kernels take no float8); any other tensor as it is."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
 def request_seed(seed: int, rid: int) -> int:
@@ -177,6 +206,10 @@ class Engine:
         decode_fusion: Optional[str] = None,
         weight_dtype: Optional[str] = None,
         kv_dtype: Optional[str] = None,
+        host_pages: Optional[int] = None,
+        session_cache: Optional[bool] = None,
+        disk_dir: Optional[str] = None,
+        disk_pages: int = 0,
         seed: int = 0,
         device="cuda",
     ):
@@ -210,6 +243,16 @@ class Engine:
             self.plan = dataclasses.replace(
                 self.plan, matmul=dataclasses.replace(
                     self.plan.matmul, weight_dtype=weight_dtype))
+        if cfg.family == "moe" and weight_dtype != "bf16":
+            # the JAX package quantizes the expert leaves too (w_gate /
+            # w_up / w_down are weight keys) and its MoE einsums cannot
+            # take the {codes, scale} dict: its engine fails there, so
+            # there is no reference result to hold quantized experts to
+            raise ValueError(
+                f"weight_dtype {weight_dtype!r} is not served for the moe "
+                "family: the JAX package quantizes the expert weights and "
+                "its expert einsums cannot read the {codes, scale} leaves; "
+                "use weight_dtype='bf16'")
         self.weight_dtype = weight_dtype
         self.ctx = LayerCtx(cfg=cfg, plan=self.plan)
         # quantize at load, once, on the params' device: every GEMM weight
@@ -244,13 +287,26 @@ class Engine:
                 "pool; use cache_kind='paged'")
         quant.spec_for(kv_dtype)          # raises where fp8 is unsupported
         self.kv_dtype = kv_dtype
+        # tiered KV store: any of the knobs turns the hierarchy on
+        tiered = (host_pages is not None or disk_pages > 0
+                  or bool(session_cache))
+        # retain finished sequences' KV in the session cache? On whenever
+        # the hierarchy exists (the session cache is its point);
+        # session_cache=False keeps demotion for preemption only
+        self.session_cache = (tiered if session_cache is None
+                              else bool(session_cache))
         self.layout: KVLayout
         self.prefix: Optional[PrefixIndex] = None
         self.pool: Optional[BlockPool] = None
+        self.tiers: Optional[TieredPool] = None
         if cache_kind == "dense":
             if prefix_sharing:
                 raise ValueError("prefix_sharing needs refcounted pages; "
                                  "use cache_kind='paged'")
+            if tiered:
+                raise ValueError(
+                    "tiered KV (host_pages/session_cache/disk_pages) "
+                    "needs cache_kind='paged'")
             self.layout = DenseLayout(num_slots, max_seq)
             self.slots: SlotManager = SlotManager(num_slots, max_seq)
         elif cache_kind == "paged":
@@ -276,8 +332,22 @@ class Engine:
                                       kv_dtype)
             if prefix_sharing:
                 self.prefix = PrefixIndex(page_size)
+            if tiered:
+                if self.prefix is None:
+                    raise ValueError(
+                        "tiered KV needs prefix_sharing=True — the "
+                        "prefix index is the cross-tier map that makes "
+                        "retained/demoted pages matchable")
+                self.tiers = TieredPool(
+                    host_pages if host_pages is not None else 0,
+                    index=self.prefix, disk_dir=disk_dir,
+                    disk_pages=disk_pages)
             self.slots = PagedSlotManager(num_slots, max_seq, self.pool,
-                                          prefix_index=self.prefix)
+                                          prefix_index=self.prefix,
+                                          tiers=self.tiers)
+            if self.tiers is not None:
+                self.slots.swap_threshold = self.plan.paged.swap_threshold
+                self.slots.reclaim_cb = self._reclaim_session
         else:
             raise ValueError(f"unknown cache_kind {cache_kind!r}")
         self.cache_kind = cache_kind
@@ -379,6 +449,31 @@ class Engine:
     def finish_reason(self, rid: int) -> Optional[FinishReason]:
         return self.requests[rid].finish_reason
 
+    def evict(self, rid: int) -> list[int]:
+        """Drop a *finished* request's record (tokens, events, prompt) and
+        return its tokens. A long-lived server calls this (or
+        :meth:`evict_finished`) after consuming results. The
+        conversation's KV stays: with the session cache on, its pages
+        were retained at retire time, so its next turn still matches."""
+        state = self.requests[rid]
+        if not state.finished:
+            raise ValueError(f"request {rid} is not finished; abort() it "
+                             "first to evict early")
+        del self.requests[rid]
+        return state.tokens
+
+    def evict_finished(self, *, flush: bool = False) -> int:
+        """Evict every finished request's record; returns how many were
+        dropped. Their KV stays cached (see :meth:`evict`); ``flush=True``
+        also demotes the whole session cache to the host now
+        (:meth:`flush_sessions`) instead of waiting for pool pressure."""
+        done = [r for r, s in self.requests.items() if s.finished]
+        for r in done:
+            del self.requests[r]
+        if flush:
+            self.flush_sessions()
+        return len(done)
+
     def run(self, requests, *, max_ticks: int = 10_000
             ) -> dict[int, list[int]]:
         """Blocking batch API: ``requests`` is a list of prompts or
@@ -450,14 +545,24 @@ class Engine:
                 # the COW-fork destination is private, not shared
                 state.shared_len = slot.shared_len - (
                     self.pool.page_size if slot.pending_fork else 0)
+                # refcount-bump pages only; promoted pages are fresh pages,
+                # counted under promoted_pages
                 self.stats.shared_prefix_pages += (
-                    state.shared_len // self.pool.page_size)
+                    state.shared_len // self.pool.page_size
+                    - len(slot.pending_promotions))
                 self.stats.saved_prefill_tokens += \
                     self._chunk_start(idx, len(toks))
+                if slot.session_mapped:
+                    # re-mapped a retired / preempted session's retained
+                    # KV (refcount bump and / or promotion)
+                    self.stats.session_hits += 1
+                    slot.session_mapped = 0
         if not admitted:
             return []
         self.waiting = [s for s in self.waiting if s.slot is None]
         self._note_page_pressure()
+        if self.tiers is not None:
+            self._apply_pending_promotions(admitted)
         if self.prefix is not None:
             self._apply_pending_forks(admitted)
         if self.prefill_chunk:
@@ -488,6 +593,90 @@ class Engine:
             if slot.pending_fork:
                 self._copy_page(*slot.pending_fork)
                 slot.pending_fork = None
+
+    def _apply_pending_promotions(
+            self, admitted: list[tuple[int, RequestState]]) -> None:
+        """The host-to-device uploads admission promised: each promoted
+        prefix page's slab (popped from the store at match time) lands in
+        its fresh page, before any fork or prefill of this wave reads it.
+        One bulk copy for the wave: each leaf's slabs stacked into pinned
+        memory, one ``non_blocking`` copy to the device, and one in-place
+        ``index_copy_`` into the cache leaf on the engine's stream. The
+        leaves are never rebound to new tensors: the looped decode's
+        graphs are keyed on their addresses."""
+        ups: list[tuple] = []           # (slab, dst_page)
+        for idx, _state in admitted:
+            slot = self.slots.slots[idx]
+            if slot.pending_promotions:
+                ups.extend(slot.pending_promotions)
+                slot.pending_promotions = []
+        if not ups:
+            return
+        n = len(ups)
+        dst = torch.tensor([d for _slab, d in ups], dtype=torch.long,
+                           device=self.device)
+        pinned = self.device.type == "cuda"
+        for j, leaf in enumerate(self.cache.values()):
+            rows = [_bits(slab[j]) for slab, _d in ups]
+            shape = (rows[0].shape[0], n, *rows[0].shape[1:])
+            staged = torch.empty(shape, dtype=rows[0].dtype,
+                                 pin_memory=pinned)
+            torch.stack(rows, dim=1, out=staged)
+            _bits(leaf).index_copy_(
+                1, dst, staged.to(self.device, non_blocking=True))
+        self.stats.promoted_pages += n
+
+    def _gather_pages(self, pages: list[int]) -> dict[int, tuple]:
+        """Bulk device-to-host copy of the named pages: one
+        ``index_select`` per cache leaf along the page axis (a quantized
+        pool's step rows travel with the codes), laid out page-major,
+        then each page's run copied ``non_blocking`` into a pinned buffer
+        of its own, and one synchronization. Returns ``{page: slab}``, a
+        slab being the tuple of each leaf's page in the cache's leaf
+        order. A slab owns its storage, so the host tier's
+        ``host_pages`` bounds host memory however large the batch."""
+        if not pages:
+            return {}
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        pinned = self.device.type == "cuda"
+        slabs: list[list] = [[] for _ in pages]
+        for leaf in self.cache.values():
+            got = _bits(leaf).index_select(1, idx).movedim(1, 0).contiguous()
+            for slab, row in zip(slabs, got):
+                buf = torch.empty(row.shape, dtype=row.dtype,
+                                  pin_memory=pinned)
+                buf.copy_(row, non_blocking=pinned)
+                slab.append(buf.view(leaf.dtype))
+        if pinned:
+            torch.cuda.current_stream(self.device).synchronize()
+        return {p: tuple(slab) for p, slab in zip(pages, slabs)}
+
+    def _reclaim_session(self, need: int) -> bool:
+        """Slot-manager callback when an allocation finds the pool dry:
+        demote LRU session pages (the gather included) until ``need``
+        pages are free. The session cache never wins a page fight
+        against admission or growth."""
+        if self.slots.session_pages() == 0:
+            return False
+        return self._demote(max(need, 1)) >= need
+
+    def flush_sessions(self) -> int:
+        """Demote the *entire* session cache to the host now (one bulk
+        gather), returning how many device pages were freed. Pool
+        pressure does this on demand (:meth:`_reclaim_session`); this is
+        for checkpoints and for runs that want host-resident sessions
+        without running the pool dry."""
+        if self.tiers is None or self.slots.session_pages() == 0:
+            return 0
+        return self._demote(self.slots.session_pages())
+
+    def _demote(self, need: int) -> int:
+        before = dataclasses.replace(self.tiers.stats)
+        freed = self.slots.reclaim_session(need, self._gather_pages)
+        st = self.tiers.stats
+        self.stats.demoted_pages += st.demoted - before.demoted
+        self.stats.host_evicted_pages += st.evicted - before.evicted
+        return freed
 
     def _chunk_start(self, idx: int, n_prefill: int) -> int:
         """First position slot ``idx``'s chunked prefill must process: the
@@ -684,10 +873,18 @@ class Engine:
     def _preempt(self, state: RequestState) -> None:
         idx = state.slot
         self.by_slot.pop(idx, None)
-        self.slots.release(idx)
+        if self.tiers is not None:
+            # demote, don't discard: the victim's full pages move to the
+            # session cache (to the host only under pressure), so
+            # re-admission promotes instead of re-prefilling them
+            length = self.slots.slots[idx].length
+            self.slots.retain_session(idx, state.prefill_tokens()[:length])
+        else:
+            self.slots.release(idx)
         state.phase = Phase.PREEMPTED
         state.slot = None
         state.shared_len = 0          # recomputed if re-admission re-maps
+        state.persistable_len = 0
         state.preemptions += 1
         self.stats.preemptions += 1
         self.waiting.append(state)
@@ -704,6 +901,11 @@ class Engine:
             state.shared_len = ps * sum(
                 1 for p in self.slots.slots[idx].pages
                 if self.pool.refcount(p) > 1)
+            if self.tiers is not None:
+                # preemption retains every full page, so a re-admission
+                # recomputes only the partial tail past the last boundary
+                state.persistable_len = (
+                    self.slots.slots[idx].length // ps) * ps
 
     def _note_page_pressure(self) -> None:
         if self.pool is not None:
@@ -761,8 +963,14 @@ class Engine:
                 reason: FinishReason) -> TokenEvent:
         """Release the slot and record the terminal event, which carries
         the last *kept* token (``None`` when the request ends without
-        keeping one)."""
-        self.slots.release(idx)
+        keeping one). With the session cache on, the sequence's full
+        pages are retained instead of freed, so the conversation's next
+        turn re-maps or promotes them rather than re-prefilling."""
+        if self.tiers is not None and self.session_cache:
+            length = self.slots.slots[idx].length
+            self.slots.retain_session(idx, state.prefill_tokens()[:length])
+        else:
+            self.slots.release(idx)
         self.by_slot.pop(idx, None)
         state.finish(reason)
         self.stats.finished += 1

@@ -27,10 +27,21 @@ Lifecycle contract (enforced by :meth:`check`):
     the page returns to the free list, so a key never resolves to a
     recycled page.
 
+**Tiered entries.** With a :class:`~repro_torch.serving.tiers.TieredPool`
+behind the pool, an entry outlives its tier-0 page: when a session-cache
+page's last device owner lets go, the manager demotes its slab to the
+host store and :meth:`demote_page` rebinds the entry from its page id to
+the store's ``hid`` (``tier`` 1 = host RAM, 2 = disk). The chain hash
+stays matchable: :meth:`match` reports each hit's tier, so admission can
+share it (tier 0), promote it (``promote_hid`` rebinds it onto a fresh
+tier-0 page once the engine uploads the slab) or re-prefill it (below
+the plan's ``swap_threshold``). Only a **true eviction**, the slab
+falling off the bottom of the hierarchy, purges a demoted entry
+(:meth:`purge_hid`). Demoted entries are always committed: only written,
+full pages are demoted.
+
 At decode time :func:`shared_prefix_groups` groups resident slots by the
 physical pages of their shared prefix (refcounts alone, no index lookup).
-The JAX package's tier methods (demotion/promotion of entries to a host
-store) come with the tiers slice of the port.
 """
 from __future__ import annotations
 
@@ -43,11 +54,14 @@ import numpy as np
 
 @dataclasses.dataclass
 class _Entry:
-    """One registered full page of prefix KV."""
+    """One registered full page of prefix KV (tier 0: a live device page;
+    tier >= 1: a slab handle in the tiered store)."""
 
-    page: int
+    page: Optional[int]               # tier-0 page id; None when demoted
     chunk: Tuple[int, ...]            # exact tokens (collision guard)
     pending_level: Optional[int]      # None = content committed
+    tier: int = 0                     # 0 device, 1 host, 2 disk
+    hid: Optional[int] = None         # tiered-store handle; None at tier 0
 
 
 @dataclasses.dataclass
@@ -55,9 +69,12 @@ class Match:
     """Result of :meth:`PrefixIndex.match` for one prompt."""
 
     pages: List[int]                  # matched pages, position order
+    #                                   (-1 placeholder for demoted entries)
     pending_level: int                # max pending level matched; -1 if all
     #                                   matched pages are committed
     tail_pending: bool                # is the *last* matched page pending?
+    tiers: List[int] = dataclasses.field(default_factory=list)
+    hids: List[Optional[int]] = dataclasses.field(default_factory=list)
     pending: List[Optional[int]] = dataclasses.field(default_factory=list)
     #                                   per-entry pending level
 
@@ -74,6 +91,7 @@ class PrefixIndex:
         self.page_size = page_size
         self._entries: Dict[Tuple[int, Tuple[int, ...]], _Entry] = {}
         self._by_page: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+        self._by_hid: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
         # one admission derives the chain three times (match, register,
         # commit); a small LRU keyed on the token bytes makes that one pass
         self._chain_cache: "OrderedDict[bytes, list]" = OrderedDict()
@@ -113,6 +131,8 @@ class PrefixIndex:
         """Longest indexed page-aligned prefix of ``tokens``; stops at the
         first missing chunk (the chain key makes later hits unreachable)."""
         pages: List[int] = []
+        tiers: List[int] = []
+        hids: List[Optional[int]] = []
         per_pending: List[Optional[int]] = []
         pending = -1
         tail_pending = False
@@ -120,7 +140,9 @@ class PrefixIndex:
             e = self._entries.get(key)
             if e is None or e.chunk != key[1]:
                 break
-            pages.append(e.page)
+            pages.append(e.page if e.page is not None else -1)
+            tiers.append(e.tier)
+            hids.append(e.hid)
             per_pending.append(e.pending_level)
             tail_pending = e.pending_level is not None
             if e.pending_level is not None:
@@ -130,7 +152,8 @@ class PrefixIndex:
         else:
             self.misses += 1
         return Match(pages=pages, pending_level=pending,
-                     tail_pending=tail_pending, pending=per_pending)
+                     tail_pending=tail_pending, tiers=tiers, hids=hids,
+                     pending=per_pending)
 
     def register(self, tokens: Sequence[int], pages: Sequence[int],
                  *, level: int = 0) -> int:
@@ -165,21 +188,86 @@ class PrefixIndex:
         if key is not None:
             del self._entries[key]
 
+    # -- tier transitions ----------------------------------------------------
+
+    def demote_page(self, page: int, hid: int, tier: int = 1) -> bool:
+        """Rebind a tier-0 entry onto a tiered-store handle: the device
+        page is about to be freed but its slab lives on as ``hid``, so
+        the key stays matchable. False (no-op) when the page was never
+        indexed."""
+        key = self._by_page.pop(page, None)
+        if key is None:
+            return False
+        e = self._entries[key]
+        e.page = None
+        e.tier = tier
+        e.hid = hid
+        self._by_hid[hid] = key
+        return True
+
+    def promote_hid(self, hid: int, page: int) -> None:
+        """Rebind a demoted entry onto a fresh tier-0 ``page`` (the engine
+        uploads the slab; demoted content is always committed)."""
+        key = self._by_hid.pop(hid)
+        e = self._entries[key]
+        e.page = page
+        e.tier = 0
+        e.hid = None
+        e.pending_level = None
+        self._by_page[page] = key
+
+    def set_tier(self, hid: int, tier: int) -> None:
+        """Record a move inside the hierarchy (host -> disk spill)."""
+        key = self._by_hid.get(hid)
+        if key is not None:
+            self._entries[key].tier = tier
+
+    def rebind_hid(self, old: int, new: int) -> None:
+        """Point a demoted entry at a fresh store handle (an aborted
+        promotion pushed the slab back down under a new hid)."""
+        key = self._by_hid.pop(old)
+        self._by_hid[new] = key
+        self._entries[key].hid = new
+
+    def purge_hid(self, hid: int) -> None:
+        """True eviction: the slab fell off the bottom tier, so the key
+        stops matching (re-prefill is the only way back)."""
+        key = self._by_hid.pop(hid, None)
+        if key is not None:
+            del self._entries[key]
+
+    def demoted_ids(self) -> set:
+        return set(self._by_hid)
+
+    # -- invariants ----------------------------------------------------------
+
     def shared_page_ids(self) -> set:
         return set(self._by_page)
 
-    def check(self, live_pages: set) -> None:
+    def check(self, live_pages: set, live_hids: set = frozenset()) -> None:
         """Index invariants (called from ``PagedSlotManager.check``):
-        bijection between entries and pages, every indexed page alive,
-        chunks exactly one page long."""
-        assert len(self._entries) == len(self._by_page), \
-            "entry/page maps out of sync"
+        bijection between entries and pages / hids, every indexed page
+        alive (or its hid resident in the tiered store), chunks exactly
+        one page long, demoted entries committed."""
+        assert len(self._entries) == len(self._by_page) + len(self._by_hid), \
+            "entry/page/hid maps out of sync"
         for key, e in self._entries.items():
             assert len(e.chunk) == self.page_size, \
                 "registered chunk is not exactly one page"
-            assert self._by_page.get(e.page) == key, \
-                "page -> key back-pointer broken"
-            assert e.page in live_pages, f"index maps to freed page {e.page}"
+            if e.tier == 0:
+                assert e.hid is None, "tier-0 entry carries a hid"
+                assert self._by_page.get(e.page) == key, \
+                    "page -> key back-pointer broken"
+                assert e.page in live_pages, \
+                    f"index maps to freed page {e.page}"
+            else:
+                assert e.page is None, "demoted entry still names a page"
+                assert self._by_hid.get(e.hid) == key, \
+                    "hid -> key back-pointer broken"
+                assert e.hid in live_hids, \
+                    f"index maps to evicted hid {e.hid}"
+                assert e.pending_level is None, \
+                    "demoted entry is pending (unwritten content demoted)"
 
 
 # -- decode-time group enumeration -------------------------------------------

@@ -218,7 +218,14 @@ def test_called_shapes_are_the_layers_separate_gemms():
     gelu = tconfigs.get("minitron-8b")
     assert ("up", 4096, 16384, 1) in {
         (s.name, s.k, s.n, s.count) for s in td.called_gemm_shapes(gelu)}
-    assert td.called_gemm_shapes(tconfigs.get("dbrx-132b")) == []
+    # MoE: the experts and the router are batched products outside
+    # ops.matmul; the untied head runs at the padded vocabulary
+    dbrx = tconfigs.get("dbrx-132b")
+    assert {(s.name, s.k, s.n, s.count)
+            for s in td.called_gemm_shapes(dbrx)} == {
+        ("q_proj", 6144, 6144, 1), ("kv_proj", 6144, 1024, 2),
+        ("o_proj", 6144, 6144, 1), ("lm_head", 6144, 100352, 1)}
+    assert td.called_gemm_shapes(tconfigs.get("rwkv6-1.6b")) == []
 
 
 # ---------------------------------------------------------------------------

@@ -158,7 +158,7 @@ def test_prefill_logits(dtype, backend):
 
 def test_unported_families_and_modes_raise():
     with pytest.raises(NotImplementedError, match="slice 7"):
-        tget_model(tconfigs.smoke(tconfigs.get("dbrx-132b")))
+        tget_model(tconfigs.smoke(tconfigs.get("rwkv6-1.6b")))
 
 
 def test_init_params_draws_reference_distributions():
