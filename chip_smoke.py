@@ -399,7 +399,7 @@ def poisoned(torch, pools, live):
             for p in pools]
 
 
-def kernel_phase(torch, timer, rows, log):
+def kernel_phase(torch, timer, rows, log, slice7b_only=False):
     import torch.nn.functional as F
 
     from repro_torch import hardware
@@ -470,6 +470,11 @@ def kernel_phase(torch, timer, rows, log):
                           library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
             if t_ms is not None:
                 target["bf16_ms"] = t_ms
+
+    if slice7b_only:
+        slice7b_kernel_checks(torch, randn, record, gemm_close, attn_close,
+                              log)
+        return
 
     # -- GEMMs at the decode path's [K, N] shapes --------------------------
     shapes = [(d, d), (d, hk * hd), (d, f), (f, d)]
@@ -1097,6 +1102,173 @@ def kernel_phase(torch, timer, rows, log):
                         log)
     kv_quant_kernels(torch, cfg, gen, randn, record, attn_close, log)
     dbrx_kernel_checks(torch, randn, record, gemm_close, attn_close, log)
+    slice7b_kernel_checks(torch, randn, record, gemm_close, attn_close, log)
+
+
+# the slice 7b families' GEMM shapes of rows 1 and 2, (K, N, what): the
+# widths runs Y, Z, Z′ and AA serve (called_gemm_shapes)
+SLICE7B_GEMMS = [
+    (2048, 7168, "rwkv6 cm_k"), (7168, 2048, "rwkv6 cm_v"),
+    (2048, 2048, "rwkv6 rkvgo"), (2048, 65536, "rwkv6 head"),
+    (1600, 1600, "hymba q/o"), (1600, 320, "hymba k/v"),
+    (1600, 3200, "hymba ssm in/gate"), (3200, 1600, "hymba ssm out"),
+    (1600, 32, "hymba w_bc"), (1600, 50, "hymba w_dt"),
+    (1600, 5504, "hymba gate/up"), (5504, 1600, "hymba down"),
+    (1600, 32256, "hymba head"),
+    (384, 384, "whisper q/k/v/o"), (384, 1536, "whisper up"),
+    (1536, 384, "whisper down"), (384, 51968, "whisper head"),
+]
+
+
+def slice7b_kernel_checks(torch, randn, record, gemm_close, attn_close,
+                          log):
+    """The kernel table's "slice 7b" lines, random inputs at the shapes
+    the RWKV6, Hymba and Whisper runs give the kernels, each against its
+    plain version within the limits above and timed beside its bound and
+    library call: rows 1 (M = 1) and 2 (M = 4) at every SLICE7B_GEMMS
+    shape; the odd-N tail (bf16, M 1 / 4 / 7 at 1,600 -> 50 and 1,600 ->
+    32: within the GEMM limit of the plain version, each row bitwise the
+    same row launched alone); row 7 with Hymba's window (1,024) at its
+    heads (25 / 5 x 64) and Sq = Sk = 2,048, and non-causal at Whisper's
+    (6 / 6 x 64) for its encoder (Sq = Sk = 1,500) and cross-attention
+    (Sq = 64, Sk = 1,500); rows 3-4 at Whisper's heads (G = 1) over 1,500
+    keys a row, every row full; row 8 at Hymba's 1,600 -> 5,504."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import fused_ffn as ff
+    from repro_torch.kernels.flat_gemm import flat_gemm, flat_gemm_plain
+    from repro_torch.kernels.gemv import gemv, gemv_plain
+
+    dev = "cuda"
+    # -- rows 1 (M = 1) and 2 (M = 4) at the families' widths --------------
+    for m, name, fn, plain in ((1, "gemv", gemv, gemv_plain),
+                               (4, "flat_gemm", flat_gemm, flat_gemm_plain)):
+        for k, n, what in SLICE7B_GEMMS:
+            x = randn(m, k)
+            w = randn(k, n, scale=k ** -0.5)
+            record(name, f"7b M={m} K={k} N={n} (K,N) {what}", fn(x, w),
+                   plain(x, w), lambda: fn(x, w), lambda: plain(x, w),
+                   lambda: torch.matmul(x, w),
+                   2 * (m * k + k * n + m * n), 2 * m * k * n, True,
+                   gemm_close, slot=f"7b {what}")
+            del w
+
+    # -- the odd-N tail: a row alone bitwise its row in the batch ----------
+    for k, n in ((1600, 50), (1600, 32)):
+        w = randn(k, n, scale=k ** -0.5)
+        for m in (1, 4, 7):
+            x = randn(m, k)
+            for name, fn, plain in (("gemv", gemv, gemv_plain),
+                                    ("flat_gemm", flat_gemm,
+                                     flat_gemm_plain)):
+                got = fn(x, w)
+                ok, tol = gemm_close(got, plain(x, w))
+                alone = all(torch.equal(fn(x[i:i + 1], w), got[i:i + 1])
+                            for i in range(m))
+                log(f"kernel {name} tail M={m} K={k} N={n} (K,N) bf16: "
+                    f"{'ok' if ok else 'MISMATCH'} ({tol}); each row alone "
+                    f"bitwise its row in the batch {alone}")
+                check(ok and alone, f"{name} M={m} K={k} N={n}: disagrees "
+                      "with its plain version, or a row's bits depend on "
+                      "its batch")
+
+    # -- row 7: Hymba's window, Whisper's encoder and cross-attention ------
+    hy, wh = configs.get("hymba-1.5b"), configs.get("whisper-tiny")
+
+    def prefill_case(cfg, b, sq, sk, causal, window, tag):
+        hq, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        phi = cfg.softmax_phi.phi
+        q, kk, vv = randn(b, sq, hq, hd), randn(b, sk, hk, hd), \
+            randn(b, sk, hk, hd)
+        qe = q.transpose(1, 2)
+        kx = kk.transpose(1, 2).repeat_interleave(hq // hk, dim=1)
+        vx = vv.transpose(1, 2).repeat_interleave(hq // hk, dim=1)
+        qi = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+        ki = torch.arange(sk, device=dev)[None, :]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= ki <= qi
+        if window:
+            mask &= qi - ki < window
+        pairs = int(mask.sum()) * b
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                qe, kx, vx, attn_mask=None if mask.all() else mask)
+
+        kw = dict(causal=causal, sliding_window=window)
+        nbytes = 2 * (2 * b * sq * hq * hd + 2 * b * sk * hk * hd)
+        flops = 4 * pairs * hq * hd
+        record("flash_prefill_unified_max", tag,
+               fp.flash_prefill_unified_max(q, kk, vv, phi=phi, **kw)[0],
+               fp.flash_prefill_unified_max_plain(q, kk, vv, phi=phi,
+                                                  **kw)[0],
+               lambda: fp.flash_prefill_unified_max(q, kk, vv, phi=phi,
+                                                    **kw),
+               lambda: fp.flash_prefill_unified_max_plain(q, kk, vv,
+                                                          phi=phi, **kw),
+               lib, nbytes, flops, True, attn_close, slot=tag.split(" ")[0])
+        record("flash_prefill_sync", tag,
+               fp.flash_prefill_sync(q, kk, vv, **kw),
+               fp.flash_prefill_sync_plain(q, kk, vv, **kw),
+               lambda: fp.flash_prefill_sync(q, kk, vv, **kw),
+               lambda: fp.flash_prefill_sync_plain(q, kk, vv, **kw), lib,
+               nbytes, flops, True, attn_close, slot=tag.split(" ")[0])
+
+    prefill_case(hy, 1, 2048, 2048, True, hy.sliding_window,
+                 "hymba-window B=1 HQ=25 HK=5 D=64 Sq=Sk=2048 causal "
+                 "window 1024")
+    prefill_case(wh, 4, 1500, 1500, False, 0,
+                 "whisper-encoder B=4 HQ=HK=6 D=64 Sq=Sk=1500 non-causal")
+    prefill_case(wh, 4, 64, 1500, False, 0,
+                 "whisper-cross B=4 HQ=HK=6 D=64 Sq=64 Sk=1500 non-causal")
+
+    # -- rows 3-4: Whisper's cross-attention decode, 1,500 keys a row ------
+    b, s, hq, hk, hd = 4, 1500, wh.num_heads, wh.num_kv_heads, wh.head_dim
+    phi = wh.softmax_phi.phi
+    kc, vc = randn(b, s, hk, hd), randn(b, s, hk, hd)
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    lengths = torch.full((b,), s, dtype=torch.int32, device=dev)
+    q = randn(b, hq, hd)
+
+    def lib_decode():
+        return F.scaled_dot_product_attention(q[:, :, None], kt, vt)
+
+    tag = "whisper-cross B=4 HQ=HK=6 D=64 S=1500 full rows (G=1)"
+    nbytes = 2 * (2 * b * hq * hd + 2 * b * s * hk * hd) + 4 * b * hk
+    flops = 4 * b * s * hq * hd
+    record("decode_attention_unified_max", tag,
+           da.decode_attention_unified_max(q, kt, vt, lengths, phi=phi)[0],
+           da.decode_attention_unified_max_plain(q, kt, vt, lengths,
+                                                 phi=phi)[0],
+           lambda: da.decode_attention_unified_max(q, kt, vt, lengths,
+                                                   phi=phi),
+           lambda: da.decode_attention_unified_max_plain(q, kt, vt, lengths,
+                                                         phi=phi),
+           lib_decode, nbytes, flops, True, attn_close, slot="whisper-cross")
+    record("decode_attention_sync", tag,
+           da.decode_attention_sync(q, kt, vt, lengths),
+           da.decode_attention_sync_plain(q, kt, vt, lengths),
+           lambda: da.decode_attention_sync(q, kt, vt, lengths),
+           lambda: da.decode_attention_sync_plain(q, kt, vt, lengths),
+           lib_decode, nbytes, flops, True, attn_close, slot="whisper-cross")
+    del kc, vc, kt, vt
+
+    # -- row 8: Hymba's MLP, 1,600 -> 5,504 --------------------------------
+    d, f = hy.d_model, hy.d_ff
+    wg, wu = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
+    for m in (4, 256):
+        x = randn(m, d)
+        record("fused_ffn_up", f"hymba M={m} K={d} N={f} swiglu",
+               ff.fused_ffn_up(x, wg, wu), ff.fused_ffn_up_plain(x, wg, wu),
+               lambda: ff.fused_ffn_up(x, wg, wu),
+               lambda: ff.fused_ffn_up_plain(x, wg, wu),
+               lambda: F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu),
+               2 * (m * d + 2 * d * f + m * f), 4 * m * d * f, True,
+               gemm_close, slot=f"hymba m{m}")
 
 
 def dbrx_kernel_checks(torch, randn, record, gemm_close, attn_close, log):
@@ -3037,7 +3209,7 @@ def chunk_profile_phase(torch, cfg, params, shared, log, tag="E",
 
 
 def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
-                  slots=4, ranges=(), **engine_kw):
+                  slots=4, ranges=(), max_seq=1024, **engine_kw):
     """Where a decode tick's time goes at ``slots`` slots (four requests
     submitted), with the GEMV kernels' share of it: 8 steady ticks timed
     on the host clock without the profiler, then 8 more under
@@ -3057,8 +3229,8 @@ def profile_phase(torch, cfg, params, requests, log, tag="slots=4",
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import SamplingParams
 
-    eng = Engine(cfg, params, num_slots=slots, max_seq=1024, device="cuda",
-                 **engine_kw)
+    eng = Engine(cfg, params, num_slots=slots, max_seq=max_seq,
+                 device="cuda", **engine_kw)
     for p, _ in requests[:4]:
         eng.submit(p, SamplingParams(max_new_tokens=40))
     for fn in counters().values():
@@ -4541,6 +4713,426 @@ def moe_phase(torch, seed, lengths, log, launches):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: slice 7b, the RWKV6, Hymba and Whisper families at full width
+# ---------------------------------------------------------------------------
+
+
+def family_requests(np, cfg, seed, lengths, new=32):
+    from repro_torch.serving.request import SamplingParams
+    rng = np.random.default_rng(seed)
+    sp = SamplingParams(max_new_tokens=new)
+    return [(rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32),
+             sp) for n in lengths]
+
+
+def first_row_logits(eng, n_new):
+    """Record the logits row of the engine's first request (rid 0, the
+    first admitted, so row 0 of the first prefill wave and slot 0 of the
+    decode ticks) for each of its ``n_new`` tokens: the prefill's and
+    the next ``n_new - 1`` decode ticks'. Returns the list it fills."""
+    import dataclasses
+    rows = []
+    api = eng.api
+
+    def prefill(*a, **k):
+        logits, cache = api.prefill(*a, **k)
+        if not rows:
+            rows.append(logits[0].float().clone())
+        return logits, cache
+
+    def decode_step(*a, **k):
+        logits, cache = api.decode_step(*a, **k)
+        if len(rows) < n_new:
+            rows.append(logits[0].float().clone())
+        return logits, cache
+
+    eng.api = dataclasses.replace(api, prefill=prefill,
+                                  decode_step=decode_step)
+    return rows
+
+
+def family_serve(torch, tag, cfg, params, reqs, max_seq, expect, log,
+                 launches, plan=None):
+    """Serve ``reqs`` on 4 slots (dense cache, ``plan`` or the default
+    plan) with every launch counted and every ``ops.matmul`` (K, N)
+    recorded, which must lie in ``called_gemm_shapes``; every kernel of
+    ``expect`` must have launched (here or in the 1-slot run). Row batch
+    invariance: the first request served alone on the same 4-slot engine
+    (its wave's prompt bucket, so every launch has the run's shapes) must
+    give its row's logits bit for bit at each of its steps, and so its
+    tokens. Then the first request alone on 1 slot, where the GEMMs take
+    row 1 (GEMV) at decode and other shapes at prefill: its tokens are
+    counted against its row's (random weights carry the rounding of two
+    kernel routes far, Hymba's most). Returns the 4-slot run's tokens in
+    submission order."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine
+
+    called = {(s.k, s.n) for s in dispatch.called_gemm_shapes(cfg)}
+    seen = set()
+    real = ops.matmul
+
+    def recording(x, w, **k):
+        out = real(x, w, **k)
+        seen.add((x.shape[-1], out.shape[-1]))
+        return out
+
+    n_new = reqs[0][1].max_new_tokens
+    ops.matmul = recording
+    rows = {}
+    try:
+        eng = Engine(cfg, params, num_slots=4, max_seq=max_seq,
+                     device="cuda", plan=plan)
+        rows[4] = first_row_logits(eng, n_new)
+        t0 = time.perf_counter()
+        out, counts = counted_run(torch, eng, reqs, launches)
+        dt = time.perf_counter() - t0
+        alone = {}
+        for slots in (4, 1):
+            a_eng = Engine(cfg, params, num_slots=slots, max_seq=max_seq,
+                           device="cuda", plan=plan)
+            rows[-slots] = first_row_logits(a_eng, n_new)
+            a_out, a_counts = counted_run(torch, a_eng, reqs[:1], launches)
+            alone[slots] = (ordered(a_out)[0], a_counts)
+    finally:
+        ops.matmul = real
+    check_finished(tag, out, reqs, cfg.vocab_size)
+    one_counts = alone[1][1]
+    for n in expect:
+        check(counts[n] + one_counts[n] > 0,
+              f"{tag}: kernel {n} was never launched")
+    check(seen <= called, f"{tag}: ops.matmul called at "
+          f"{sorted(seen - called)}, not a called_gemm_shapes shape")
+    toks = ordered(out)
+    log(f"serve {tag}: {len(out)} requests, {sum(map(len, toks))} tokens "
+        f"in {dt:.3f}s, {eng.ticks} decode ticks at "
+        f"{1e3 * eng.stats.decode_seconds / max(eng.ticks, 1):.3f} ms/tick, "
+        f"prefill {eng.stats.prefill_seconds:.3f}s; launches "
+        f"{json.dumps({n: c for n, c in counts.items() if c})}; alone on 1 "
+        f"slot {json.dumps({n: c for n, c in one_counts.items() if c})}; "
+        f"every ops.matmul (K, N) {sorted(seen)} is a called_gemm_shapes "
+        "shape")
+    check(all(len(r) == n_new for r in rows.values()), f"{tag}: a run "
+          "recorded too few logits rows of its first request")
+    same = all(torch.equal(a, b) for a, b in zip(rows[4], rows[-4]))
+    check(same and alone[4][0] == toks[0], f"{tag}: the first request "
+          "alone on the 4-slot engine does not give its row's logits bit "
+          "for bit")
+    one = alone[1][0]
+    agree = sum(x == y for x, y in zip(toks[0], one))
+    first = next((i for i, (x, y) in enumerate(zip(toks[0], one)) if x != y),
+                 len(one))
+    diffs = [(x[:cfg.vocab_size] - y[:cfg.vocab_size]).abs().max().item()
+             for x, y in zip(rows[4], rows[-1])]
+    log(f"serve {tag}: row batch invariance: the first request alone on "
+        f"the 4-slot engine gives its row's logits bit for bit at all "
+        f"{n_new} steps, and its tokens; alone on 1 slot (GEMV at decode) "
+        f"{agree}/{len(one)} tokens agree, the first {first} in a row; max "
+        f"|logits(row) - logits(1 slot)| {diffs[0]:.4f} at prefill, "
+        f"{max(diffs[1:first + 1] or [0.0]):.4f} over the decode steps "
+        "before the first difference")
+    return toks
+
+
+def family_logits(torch, cfg, params, reqs, max_seq, log, frames=None,
+                  forced=False):
+    """The first 4 requests' prefill and 8 teacher-forced decode steps on
+    the default ("cuda") plan against the "torch" plan on the card, each
+    step's logits within 5 % of the "torch" logits' range; the next
+    tokens are the "torch" plan's argmax, and the steps whose argmax the
+    plans share are counted. ``frames`` feed the encoder.
+
+    ``forced``: every layer of the "cuda" run takes the "torch" run's
+    input to that layer, and each decode step starts from the "torch"
+    run's cache, so that the limit holds the kernels to the reference
+    math layer by layer; each layer's update (output minus input) must
+    then lie within 5 % of the "torch" update's range too. For a model
+    whose random-init dynamics carry one bf16 rounding through the depth
+    to a large share of the logits (Hymba: the same plan's 1-slot and
+    4-slot routes differ by about half the range), the free-running
+    difference is logged, not held."""
+    from repro_torch.core.plan import DEFAULT_PLAN, make_plan
+    from repro_torch.models import stack
+    from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import DenseLayout, pow2_bucket
+    from repro_torch.models.layers import LayerCtx
+
+    api = get_model(cfg)
+    lens = [len(p) for p, _ in reqs[:4]]
+    t = pow2_bucket(max(lens), lo=64, hi=max_seq)
+    toks = torch.zeros((4, t), dtype=torch.int32, device="cuda")
+    for i, (p, _) in enumerate(reqs[:4]):
+        toks[i, :len(p)] = torch.as_tensor(p, device="cuda")
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    kw = {} if frames is None else {"frames": frames}
+    ctxs = {"torch": LayerCtx(cfg, make_plan("torch")),
+            "cuda": LayerCtx(cfg, DEFAULT_PLAN)}
+    real = stack.run_stack_cached
+    layer_in, worst_layer = [], [0.0]
+
+    def run_stack_cached(layers, x, cache, fn, mode):
+        """Record each layer's input ("torch"), or run each layer on the
+        recorded input and hold its update to the recorded one's."""
+        outs = []
+        for i, (p_i, c_i) in enumerate(zip(stack.unstack(layers),
+                                           stack.unstack(cache))):
+            if mode == "torch":
+                layer_in.append(x)
+            else:
+                x = layer_in[i]
+            y = fn(p_i, x, c_i)
+            outs.append(y - x)
+            x = y
+        return x, cache, outs
+
+    def step(name, fn, *a, **k):
+        if not forced:
+            return fn(ctxs[name], *a, **k) + (None,)
+        got = {}
+
+        def patched(layers, x, cache, blk):
+            x, cache, got["upd"] = run_stack_cached(layers, x, cache, blk,
+                                                    name)
+            return x, cache
+
+        stack.run_stack_cached = patched
+        try:
+            return fn(ctxs[name], *a, **k) + (got["upd"],)
+        finally:
+            stack.run_stack_cached = real
+
+    caches = {n: api.init_cache(DenseLayout(4, max_seq), device="cuda")
+              for n in ctxs}
+    out = {n: [] for n in ctxs}
+    with torch.no_grad():
+        upd = {}
+        for name in ("torch", "cuda"):
+            lg, caches[name], upd[name] = step(
+                name, api.prefill, params, toks, lengths, caches[name], **kw)
+            out[name].append(lg[:, :cfg.vocab_size].float())
+        for i in range(9):
+            if forced:
+                for u_t, u_c in zip(upd["torch"], upd["cuda"]):
+                    lim = 0.05 * u_t.abs().max().item()
+                    err = (u_c - u_t).abs().max().item()
+                    worst_layer[0] = max(worst_layer[0], err / lim)
+                    check(err <= lim, f"logits {cfg.name} step {i}: a "
+                          f"layer's update on the default plan differs by "
+                          f"{err} > {lim} (5% of its range)")
+            if i == 8:
+                break
+            nxt = out["torch"][-1].argmax(-1).int()
+            layer_in.clear()
+            if forced:
+                for n_, leaf in caches["cuda"].items():
+                    leaf.copy_(caches["torch"][n_])
+            for name in ("torch", "cuda"):
+                lg, caches[name], upd[name] = step(
+                    name, api.decode_step, params, nxt, caches[name],
+                    lengths + i)
+                out[name].append(lg[:, :cfg.vocab_size].float())
+    del caches
+    worst, agree = 0.0, 0
+    for i, (got, want) in enumerate(zip(out["cuda"], out["torch"])):
+        tol = 0.05 * want.abs().max().item()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err / tol)
+        agree += int((got.argmax(-1) == want.argmax(-1)).sum())
+        check(err <= tol, f"logits {cfg.name} step {i}: the default plan's "
+              f"logits differ from the torch plan's by {err} > {tol} (5% "
+              "of the range)")
+    how = ("every layer on the torch run's input and cache, each layer's "
+           f"update within {worst_layer[0]:.3f} x its 5% limit; "
+           if forced else "")
+    if forced:
+        # the free-running prefill, logged
+        with torch.no_grad():
+            free = [api.prefill(ctxs[n], params, toks, lengths,
+                                api.init_cache(DenseLayout(4, max_seq),
+                                               device="cuda"), **kw)[0]
+                    [:, :cfg.vocab_size].float() for n in ("cuda", "torch")]
+        log(f"logits {cfg.name} free-running prefill: default plan vs torch "
+            f"plan max_abs_err {(free[0] - free[1]).abs().max().item():.4f} "
+            f"against 5% of the range "
+            f"{0.05 * free[1].abs().max().item():.4f} (not held: the depth "
+            "carries each route's rounding)")
+    log(f"logits {cfg.name}: prefill and 8 decode steps on the default plan "
+        f"vs the torch plan ({how}teacher-forced tokens), worst max_abs_err "
+        f"{worst:.3f} x the limit (5% of the torch logits' range); argmax "
+        f"agree {agree}/36")
+
+
+def chunked_vs_stepwise(torch, cfg, params, prompt, max_seq, log):
+    """The prompt prefilled in one chunked pass against the same prompt
+    stepped token by token, layer by layer: each layer's recurrence (the
+    RWKV time mix, Hymba's SSD) stepped over the very input the chunked
+    pass gave it must end in its state within the JAX package's limit
+    (rtol = atol = 3e-2). The whole model stepped through
+    ``decode_step`` is compared too and logged: there each layer's input
+    already differs by the two paths' bf16 rounding, which grows with
+    depth (on the CPU in bf16 too; the f32 model agrees exactly)."""
+    from repro_torch.models import hybrid, ssm
+    from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import DenseLayout
+    from repro_torch.models.layers import LayerCtx
+
+    api = get_model(cfg)
+    ctx = LayerCtx(cfg)
+    mod, name = ((ssm, "time_mix_chunked") if cfg.family == "ssm"
+                 else (hybrid, "ssm_chunked"))
+    real = getattr(mod, name)
+    calls = []
+
+    def recorded(ctx_, p, x, *a, **k):
+        out = real(ctx_, p, x, *a, **k)
+        calls.append((p, x, out[1]))
+        return out
+
+    toks = torch.as_tensor(prompt, device="cuda")[None]
+    n = toks.shape[1]
+    setattr(mod, name, recorded)
+    try:
+        with torch.no_grad():
+            chunked = api.init_cache(DenseLayout(1, max_seq), device="cuda")
+            _, chunked = api.prefill(ctx, params, toks, torch.tensor(
+                [n], dtype=torch.int32, device="cuda"), chunked)
+    finally:
+        setattr(mod, name, real)
+    check(len(calls) == cfg.num_layers, f"{cfg.name}: {len(calls)} "
+          f"recurrences recorded for {cfg.num_layers} layers")
+    worst, rels = 0.0, []
+    with torch.no_grad():
+        for p, x, s_chunk in calls:
+            state = torch.zeros_like(s_chunk)
+            last = torch.zeros_like(x[:, 0])
+            for t in range(n):
+                if cfg.family == "ssm":
+                    _, state, last = ssm.time_mix_step(ctx, p, x[:, t],
+                                                       state, last)
+                else:
+                    _, state = hybrid.ssm_step(ctx, p, x[:, t], state)
+            ok = torch.allclose(s_chunk, state, rtol=3e-2, atol=3e-2)
+            err = (s_chunk - state).abs()
+            worst = max(worst, (err / (3e-2 + 3e-2 * state.abs())).max()
+                        .item())
+            rels.append(((s_chunk - state).norm() / state.norm()).item())
+            check(ok, f"{cfg.name} layer {len(rels) - 1}: the chunked "
+                  "state differs from the stepped one beyond 3e-2")
+        stepped = api.init_cache(DenseLayout(1, max_seq), device="cuda")
+        for i in range(n):
+            _, stepped = api.decode_step(ctx, params, toks[:, i], stepped,
+                                         torch.tensor([i], dtype=torch.int32,
+                                                      device="cuda"))
+    a, b = chunked["state"], stepped["state"]
+    deep = [((a[i] - b[i]).norm() / b[i].norm()).item()
+            for i in range(cfg.num_layers)]
+    log(f"chunked vs stepwise {cfg.name}: {n}-token prompt; each layer's "
+        f"recurrence on its chunked input, stepped: every state within "
+        f"rtol = atol = 3e-2 (worst {worst:.3f} x the limit; relative norm "
+        f"error {min(rels):.2e} .. {max(rels):.2e}); the whole model "
+        f"stepped through decode_step: relative norm error of the state "
+        f"layer 0 {deep[0]:.2e}, layer {cfg.num_layers // 2} "
+        f"{deep[cfg.num_layers // 2]:.2e}, layer {cfg.num_layers - 1} "
+        f"{deep[-1]:.2e} (bf16 rounding carried through the depth)")
+
+
+def family_tick(torch, cfg, params, reqs, max_seq, tag, log, **engine_kw):
+    """Busy and wall a decode tick (profile_phase) beside the tick's bound:
+    the decoder's weights (every layer's and the head's bytes, read once a
+    tick) over the card's memory rate."""
+    from repro_torch import hardware
+    from repro_torch.models.stack import tree_leaves
+    spec = hardware.H100_SXM
+    weight_bytes = sum(t.nbytes for t in tree_leaves(params["layers"]))
+    weight_bytes += params["lm_head"].nbytes
+    bound = 1e3 * weight_bytes / spec.hbm_bw
+    r = profile_phase(torch, cfg, params, reqs, log, tag=tag,
+                      max_seq=max_seq, **engine_kw)
+    if r is not None:
+        log(f"tick {tag}: {weight_bytes} weight bytes a tick (the decoder's "
+            f"layers and the head) -> bound {bound:.3f} ms at "
+            f"{spec.hbm_bw / 1e12:.2f} TB/s; busy {r[0]:.3f} ms ({bound / r[0]:.2f}"
+            f" of the bound's rate), unprofiled wall {r[1]:.3f} ms, idle "
+            f"{100 * (1 - r[0] / r[1]):.1f}%")
+
+
+def slice7b_phase(torch, seed, lengths, log, launches):
+    """Runs Y (rwkv6-1.6b, A's prompt lengths, max_seq 1,024), Z
+    (hymba-1.5b, A's lengths, max_seq 2,048), Z′ (hymba, 4 prompts of
+    1,030-1,600 tokens: the window mask and the ring's wrap) and AA
+    (whisper-tiny, 8 prompts of 4-64 tokens, max_seq 448, the engine's
+    zero frames): full published widths and depth, random bf16 weights
+    from ``seed``, 32 new tokens, 4 slots, the dense cache. Each family's
+    weights are freed before the next one's are drawn."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.plan import make_plan
+    from repro_torch.models.api import get_model
+    from repro_torch.models.stack import tree_leaves
+
+    flash = ("flash_prefill_unified_max", "flash_prefill_sync")
+    decode = ("decode_attention_unified_max", "decode_attention_sync")
+    for arch, max_seq in (("rwkv6-1.6b", 1024), ("hymba-1.5b", 2048),
+                          ("whisper-tiny", 448)):
+        t_phase = time.perf_counter()
+        cfg = configs.get(arch)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = get_model(cfg).init_params(gen, device="cuda")
+        torch.cuda.synchronize()
+        log(f"slice 7b {arch}: {cfg.num_layers} layers"
+            f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+            f", d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocabulary "
+            f"{cfg.vocab_size}; {sum(t.nbytes for t in tree_leaves(params)) / 1e9:.2f}"
+            f" GB of weights; device memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        if arch == "rwkv6-1.6b":
+            reqs = family_requests(np, cfg, seed + 5, lengths)
+            family_serve(torch, "Y rwkv6-1.6b", cfg, params, reqs, max_seq,
+                         ("gemv", "flat_gemm"), log, launches)
+            family_logits(torch, cfg, params, reqs, max_seq, log)
+            chunked_vs_stepwise(torch, cfg, params, reqs[0][0][:64],
+                                max_seq, log)
+            family_tick(torch, cfg, params, reqs, max_seq, "Y rwkv6-1.6b",
+                        log)
+        elif arch == "hymba-1.5b":
+            reqs = family_requests(np, cfg, seed + 6, lengths)
+            family_serve(torch, "Z hymba-1.5b", cfg, params, reqs, max_seq,
+                         ("gemv", "flat_gemm") + flash, log, launches)
+            # Z′ also fuses the FFN-up (row 8 on Hymba's MLP)
+            long_reqs = family_requests(np, cfg, seed + 7,
+                                        (1030, 1600, 1234, 1100))
+            family_serve(torch, "Z' hymba-1.5b long prompts, fused FFN-up",
+                         cfg, params, long_reqs, max_seq,
+                         ("gemv", "flat_gemm", "fused_ffn_up") + flash, log,
+                         launches, plan=make_plan("cuda", fused_ffn=True))
+            family_logits(torch, cfg, params, reqs, max_seq, log,
+                          forced=True)
+            chunked_vs_stepwise(torch, cfg, params, reqs[0][0][:64],
+                                max_seq, log)
+            family_tick(torch, cfg, params, reqs, max_seq, "Z hymba-1.5b",
+                        log)
+        else:
+            rng = np.random.default_rng(seed + 8)
+            reqs = family_requests(np, cfg, seed + 9,
+                                   rng.integers(4, 65, size=8))
+            family_serve(torch, "AA whisper-tiny", cfg, params, reqs,
+                         max_seq, ("gemv", "flat_gemm") + flash + decode,
+                         log, launches)
+            frames = (torch.randn((4, 1500, cfg.d_model), generator=gen,
+                                  device="cuda") * 0.5).to(torch.bfloat16)
+            family_logits(torch, cfg, params, reqs, max_seq, log,
+                          frames=frames)
+            family_tick(torch, cfg, params, reqs, max_seq,
+                        "AA whisper-tiny", log)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"slice 7b {arch}: phase {time.perf_counter() - t_phase:.1f}s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4554,6 +5146,9 @@ def main(argv=None) -> int:
                     "costs and tune qwen2-0.5b's plan into chiprun_out/ "
                     "(printing where it differs from plans_torch/); "
                     "prints no result line")
+    ap.add_argument("--slice7b-only", action="store_true",
+                    help="build, then only the slice 7b kernel lines and "
+                    "runs Y, Z, Z′ and AA; prints no result line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -4594,8 +5189,17 @@ def main(argv=None) -> int:
     rows = {}
     if not (args.profiles_only or args.plan_only):
         timer = Timer(torch)
-        kernel_phase(torch, timer, rows, log)
+        t0 = time.perf_counter()
+        kernel_phase(torch, timer, rows, log,
+                     slice7b_only=args.slice7b_only)
+        log(f"kernel phase: {time.perf_counter() - t0:.1f}s")
         del timer
+    if args.slice7b_only:
+        a_lengths = np.random.default_rng(args.seed).integers(32, 301, size=8)
+        slice7b_phase(torch, args.seed, [int(n) for n in a_lengths], log, {})
+        (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
+        print(smi)
+        return 0
 
     cfg = configs.get(ARCH)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
@@ -4626,6 +5230,14 @@ def main(argv=None) -> int:
     sp16 = SamplingParams(max_new_tokens=16)
     sp32 = SamplingParams(max_new_tokens=32)
     launches = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(what):
+        """Log the seconds since the last mark (the time a phase takes)."""
+        now = time.perf_counter()
+        log(f"{what} phase: {now - t_mark[0]:.1f}s")
+        t_mark[0] = now
+
     outputs = serve_phase(torch, cfg, params,
                           {"plain": requests, "shared": shared,
                            "mixed": mixed,
@@ -4635,6 +5247,7 @@ def main(argv=None) -> int:
     chunk_ms = tier_phase(torch, cfg, params, shared, outputs, log,
                           launches)
     transfer_phase(torch, cfg, params, log, chunk_ms)
+    mark("serve and tier")
     tick_profiles(torch, cfg, params, requests, shared, log)
     profile_phase(torch, cfg, params, shared, log,
                   tag="H slots=4 paged sharing grouped fused-FFN",
@@ -4642,11 +5255,13 @@ def main(argv=None) -> int:
                   plan=tuned_plan())
     profile_phase(torch, cfg, params, requests, log,
                   tag="M slots=4 int8 weights", weight_dtype="int8")
+    mark("profile")
     graph_phase(torch, cfg, params, shared, log)
     logits_phase(torch, cfg, params, requests, log, outputs["A"])
     bf16_paged = paged_logits_phase(torch, cfg, params, shared, log)
     quant_logits_phase(torch, cfg, params, requests, log)
     kv_quant_logits_phase(torch, cfg, params, shared, log, bf16_paged)
+    mark("graph and logits")
     # T3 on the card: fixed costs, the wallclock tuner, the tuned route
     cost_phase(torch, cfg, params, requests, shared, log)
     tuned = tune_phase(torch, cfg, log)
@@ -4655,6 +5270,7 @@ def main(argv=None) -> int:
     tuned_logits_phase(torch, cfg, params, requests, split_tuned, log)
     tuned_profiles(torch, cfg, params, requests, split_tuned, log)
     cli_phase(log)
+    mark("T3")
     # the MoE runs need the card's memory: qwen2-0.5b's weights go first
     # (the engines that held them sit in reference cycles: collect them)
     del params
@@ -4662,6 +5278,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     moe_phase(torch, args.seed, [len(p) for p, _ in requests], log,
               launches)
+    mark("moe")
+    slice7b_phase(torch, args.seed, [len(p) for p, _ in requests], log,
+                  launches)
+    mark("slice 7b")
 
     for name in REPLACES:
         check(launches.get(name, 0) > 0,

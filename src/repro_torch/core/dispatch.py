@@ -81,36 +81,61 @@ def model_gemm_shapes(cfg: ModelConfig) -> list[GemmShape]:
     return shapes
 
 
-# families whose layers the port has (models/api.py refuses the others)
-PORTED_FAMILIES = ("dense", "vlm", "moe")
+# families whose layers the port has (every family of the JAX package)
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def called_gemm_shapes(cfg: ModelConfig) -> list[GemmShape]:
-    """The [K, N] shapes the port's layers pass to ``ops.matmul``:
-    q, k / v, o_proj, gate / up (or up alone, ungated), down, and the
+    """The [K, N] shapes the port's layers pass to ``ops.matmul``, each
     head at the padded vocabulary the embedding is stored at (tied:
-    ``embedding.T``, an (N, K) view). The MoE family's experts and router
-    are batched products outside ``ops.matmul`` (as the JAX package's are
-    einsums outside its GEMM kernels), so it calls q, k / v, o_proj and
-    the head only. A family without port layers calls none yet. The
-    tuner gives each of these an entry, so no call falls to the plan's
-    default ladder."""
+    ``embedding.T``, an (N, K) view):
+
+      * dense / vlm: q, k / v, o_proj, gate / up (or up alone, ungated),
+        down;
+      * moe: q, k / v, o_proj (the experts and the router are batched
+        products outside ``ops.matmul``, as the JAX package's are einsums
+        outside its GEMM kernels);
+      * ssm (RWKV6): the time mix's r / k / v / g / o and the channel
+        mix's k, v and r (the decay LoRA is a plain f32 product, as in
+        the JAX package);
+      * hybrid (Hymba): q, k / v, o_proj, the SSM's in / gate, B·C, dt
+        and out projections, gate / up and down;
+      * encdec (Whisper): the decoder's and the encoder's q, k / v,
+        o_proj, the cross-attention's q, k / v, o_proj, up and down.
+
+    The tuner gives each of these an entry, so no call falls to the
+    plan's default ladder."""
     if cfg.family not in PORTED_FAMILIES:
         return []
     # models.layers imports the ops, which import the plan and so this
     # module: import it here, not at the top
     from repro_torch.models.layers import vocab_padded
-    d = cfg.d_model
+    d, f = cfg.d_model, cfg.d_ff
     gated = cfg.activation in ("swiglu", "geglu")
-    shapes = [
-        GemmShape("q_proj", d, cfg.q_dim),
-        GemmShape("kv_proj", d, cfg.kv_dim, 2),
-        GemmShape("o_proj", cfg.q_dim, d),
-    ]
-    if cfg.family != "moe":
-        shapes += [GemmShape("gate_up" if gated else "up", d, cfg.d_ff,
-                             2 if gated else 1),
-                   GemmShape("down", cfg.d_ff, d)]
+    attn = [GemmShape("q_proj", d, cfg.q_dim),
+            GemmShape("kv_proj", d, cfg.kv_dim, 2),
+            GemmShape("o_proj", cfg.q_dim, d)]
+    mlp = [GemmShape("gate_up" if gated else "up", d, f, 2 if gated else 1),
+           GemmShape("down", f, d)]
+    if cfg.family == "ssm":
+        shapes = [GemmShape("rkvgo_proj", d, d, 5),
+                  GemmShape("cm_k", d, f), GemmShape("cm_v", f, d),
+                  GemmShape("cm_r", d, d)]
+    elif cfg.family == "hybrid":
+        from repro_torch.models.hybrid import _ssm_dims
+        inner, hm, n = _ssm_dims(cfg)
+        shapes = attn + [GemmShape("ssm_in_gate", d, inner, 2),
+                         GemmShape("ssm_bc", d, 2 * n),
+                         GemmShape("ssm_dt", d, hm),
+                         GemmShape("ssm_out", inner, d)] + mlp
+    elif cfg.family == "encdec":
+        shapes = attn + [GemmShape("cross_q", d, cfg.q_dim),
+                         GemmShape("cross_kv", d, cfg.kv_dim, 2),
+                         GemmShape("cross_o", cfg.q_dim, d)] + mlp
+    elif cfg.family == "moe":
+        shapes = attn
+    else:
+        shapes = attn + mlp
     return shapes + [
         GemmShape("lm_head_tied" if cfg.tie_embeddings else "lm_head", d,
                   vocab_padded(cfg))]

@@ -196,6 +196,27 @@ __device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
   return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
 }
 
+// The 8 bf16 at p as one 16-byte vector, element by element: those from
+// `live` on (columns past N) read as zero. For rows that are not 16-byte
+// aligned (a (K, N) weight whose N or leading dimension is not a
+// multiple of 8), where a vector load would fault.
+__device__ __forceinline__ uint4 ld_cols8(const __nv_bfloat16* p, int live) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  uint16_t e[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) e[j] = j < live ? __ldg(h + j) : 0;
+  return make_uint4(pack2(e[0], e[1]), pack2(e[2], e[3]), pack2(e[4], e[5]),
+                    pack2(e[6], e[7]));
+}
+
+// True where a (K, N) weight's rows are not all 16-byte aligned: N or the
+// leading dimension not a multiple of 8 elements of 2 bytes, or the base
+// off 16 bytes. A bf16 weight then takes the tail loads (ld_cols8).
+inline bool kn_tail(int N, long long ldw, const void* w) {
+  return N % 8 != 0 || ldw % 8 != 0 ||
+         reinterpret_cast<uintptr_t>(w) % 16 != 0;
+}
+
 // Two floats rounded to bf16 and packed as an MMA operand register (lo
 // in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

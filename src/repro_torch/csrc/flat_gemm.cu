@@ -42,8 +42,10 @@ REPRO_ERROR_STRING_FN
 // runs the narrow-N split body at BK = bk, 0 the wgmma body (bk = 64);
 // K in `splits` ranges either way.
 // w_kn = 1: W[k, n] at w[k*ldw + n]; w_kn = 0: W[k, n] at w[n*ldw + k].
-// Needs K % 8 == 0, ldw % 8 == 0 (and N % 8 == 0 for "KN") with 16-byte
-// aligned rows.
+// Needs K % 8 == 0 with 16-byte aligned rows of x, and of W for the wgmma
+// body and for w_kn = 0 (ldw % 8 == 0); a w_kn = 1 weight of any N and
+// ldw runs on the split body, its unaligned rows through the tail loads
+// (flat_stream.cuh's load_w).
 REPRO_EXPORT int flat_gemm_bf16(const void* x, const void* w, void* out,
                                 int M, int K, int N, long long ldx,
                                 long long ldw, int w_kn, int split, int bk,

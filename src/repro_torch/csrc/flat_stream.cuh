@@ -65,13 +65,22 @@ struct Tile {
 
 // One BK x BN weight tile into ws (row pitch kWPitchBytes), 16 bytes per
 // cp.async: 8 bf16 or 16 codes. Chunks past K or N are zero-filled, so N
-// must be a multiple of 16 / sizeof(WT).
-template <int BN, int BK, int NT, bool KN, typename WT>
+// must be a multiple of 16 / sizeof(WT), with 16-byte aligned rows.
+// TAIL (a bf16 (K, N) weight whose N or leading dimension is not a
+// multiple of 8, so its rows are not 16-byte aligned): each chunk loads
+// element by element (common.cuh's ld_cols8), the columns past N as zero,
+// and lands in shared memory with one plain 16-byte store. The stage it
+// fills was released by the __syncthreads() that ended its last use, and
+// the one before its own compute makes the stores visible, as for the
+// cp.async copies.
+template <int BN, int BK, int NT, bool KN, typename WT, bool TAIL = false>
 __device__ __forceinline__ void load_w(unsigned char* ws,
                                        const WT* __restrict__ w, int K,
                                        int N, long long ldw, int n0,
                                        int k0) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(WT));
+  static_assert(!TAIL || (KN && !kIsCode<WT>),
+                "the tail loads take a bf16 (K, N) weight");
   if constexpr (KN) {
     constexpr int kPitch = BN * static_cast<int>(sizeof(WT)) + 16;
     constexpr int kCpr = BN / kVec;   // copies per row
@@ -80,8 +89,16 @@ __device__ __forceinline__ void load_w(unsigned char* ws,
       const int r = c / kCpr, cc = c % kCpr;
       const int gk = k0 + r, gn = n0 + cc * kVec;
       const bool ok = gk < K && gn < N;
-      cp_async16(ws + r * kPitch + cc * 16,
-                 ok ? w + static_cast<long long>(gk) * ldw + gn : w, ok);
+      if constexpr (TAIL) {
+        *reinterpret_cast<uint4*>(ws + r * kPitch + cc * 16) =
+            ok ? ld_cols8(reinterpret_cast<const __nv_bfloat16*>(w) +
+                              static_cast<long long>(gk) * ldw + gn,
+                          N - gn)
+               : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        cp_async16(ws + r * kPitch + cc * 16,
+                   ok ? w + static_cast<long long>(gk) * ldw + gn : w, ok);
+      }
     }
   } else {
     constexpr int kPitch = BK * static_cast<int>(sizeof(WT)) + 16;
@@ -260,7 +277,7 @@ __device__ __forceinline__ void norm_rows_range(
 // in K order, through an NST-deep ring that copies only the nt * 8 live x
 // rows. C^T fragment: acc[j][0..1] at (n = g, m = j*8 + 2t, +1),
 // acc[j][2..3] at (n = g + 8, same m). Ends with __syncthreads().
-template <int BN, int BK, bool KN, typename WT, int NST>
+template <int BN, int BK, bool KN, typename WT, int NST, bool TAIL = false>
 __device__ __forceinline__ void split_mainloop(
     unsigned char* stages, const __nv_bfloat16* __restrict__ x,
     long long ldx, const WT* __restrict__ w, long long ldw, int M, int K,
@@ -280,8 +297,8 @@ __device__ __forceinline__ void split_mainloop(
     const int k0 = (kt_lo + i) * BK;
     load_x<BK, T::kThreads>(reinterpret_cast<__nv_bfloat16*>(stage), x, M, K,
                             ldx, m0, k0, nt * 8);
-    load_w<BN, BK, T::kThreads, KN, WT>(stage + T::kXBytes, w, K, N, ldw, n0,
-                                        k0);
+    load_w<BN, BK, T::kThreads, KN, WT, TAIL>(stage + T::kXBytes, w, K, N,
+                                              ldw, n0, k0);
   };
 
   const int n = min(kt_hi, (K + BK - 1) / BK) - kt_lo;  // tiles to walk
@@ -357,8 +374,10 @@ __device__ __forceinline__ void gemm_store(
 // same split count, 128-byte weight row segments stream faster than
 // 64-byte ones, and the time falls with each block's share of K more
 // than with anything else tried (ring depth, x rows per stage, warps
-// that only copy).
-template <int BN, int BK, bool KN, typename WT>
+// that only copy). TAIL: a bf16 (K, N) weight whose rows are not 16-byte
+// aligned, loaded element by element (load_w); the products are the
+// same.
+template <int BN, int BK, bool KN, typename WT, bool TAIL = false>
 __global__ void __launch_bounds__(BN / 16 * 32)
 gemm_split_kernel(const __nv_bfloat16* __restrict__ x,
                   const WT* __restrict__ w, const float* __restrict__ scale,
@@ -379,9 +398,8 @@ gemm_split_kernel(const __nv_bfloat16* __restrict__ x,
   const int nt = min(8, (M - m0 + 7) / 8);  // live n8 token tiles
   const int per = ((K + BK - 1) / BK + S - 1) / S;  // K tiles per split
   float acc[8][4];
-  split_mainloop<BN, BK, KN, WT, kSplitStages>(smem, x, ldx, w, ldw, M, K, N,
-                                               m0, n0, nt, z * per,
-                                               (z + 1) * per, acc);
+  split_mainloop<BN, BK, KN, WT, kSplitStages, TAIL>(
+      smem, x, ldx, w, ldw, M, K, N, m0, n0, nt, z * per, (z + 1) * per, acc);
 
   // this split's partials, element e = (j * 4 + i) * NT + thread
   float* part = reinterpret_cast<float*>(smem);
@@ -411,13 +429,13 @@ gemm_split_kernel(const __nv_bfloat16* __restrict__ x,
   cluster.sync();  // no block leaves while another reads its partials
 }
 
-template <int BN, int BK, bool KN, typename WT>
+template <int BN, int BK, bool KN, typename WT, bool TAIL>
 int launch_gemm_split(int splits, const void* x, const void* w,
                       const void* scale, const void* resid, void* out, int M,
                       int K, int N, long long ldx, long long ldw,
                       long long ldr, cudaStream_t st) {
   using T = Tile<BN, BK, KN, WT>;
-  auto kernel = gemm_split_kernel<BN, BK, KN, WT>;
+  auto kernel = gemm_split_kernel<BN, BK, KN, WT, TAIL>;
   cudaError_t e = allow_smem(kernel, T::kStagesBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
@@ -442,25 +460,41 @@ int launch_gemm_split(int splits, const void* x, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// gemm_split_kernel at (kSplitBN, bk), K in 1 .. kMaxSplits ranges.
-template <bool KN, typename WT>
-int dispatch_gemm_split(int bk, int splits, const void* x, const void* w,
-                        const void* scale, const void* resid, void* out,
-                        int M, int K, int N, long long ldx, long long ldw,
-                        long long ldr, cudaStream_t st) {
+template <bool KN, typename WT, bool TAIL>
+int dispatch_split_bk(int bk, int splits, const void* x, const void* w,
+                      const void* scale, const void* resid, void* out, int M,
+                      int K, int N, long long ldx, long long ldw,
+                      long long ldr, cudaStream_t st) {
   constexpr int BN = kSplitBN;
-  if (splits < 1 || splits > kMaxSplits)
-    return static_cast<int>(cudaErrorInvalidValue);
-#define REPRO_FS_CASE(BK_)                                                \
-  if (bk == BK_)                                                          \
-    return launch_gemm_split<BN, BK_, KN, WT>(splits, x, w, scale, resid, \
-                                              out, M, K, N, ldx, ldw, ldr, \
-                                              st);
+#define REPRO_FS_CASE(BK_)                                                   \
+  if (bk == BK_)                                                             \
+    return launch_gemm_split<BN, BK_, KN, WT, TAIL>(splits, x, w, scale,     \
+                                                    resid, out, M, K, N, ldx, \
+                                                    ldw, ldr, st);
   REPRO_FS_CASE(32)
   REPRO_FS_CASE(64)
   REPRO_FS_CASE(128)
 #undef REPRO_FS_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// gemm_split_kernel at (kSplitBN, bk), K in 1 .. kMaxSplits ranges; a
+// bf16 (K, N) weight with unaligned rows takes the TAIL loads, codes and
+// (N, K) views must have aligned rows.
+template <bool KN, typename WT>
+int dispatch_gemm_split(int bk, int splits, const void* x, const void* w,
+                        const void* scale, const void* resid, void* out,
+                        int M, int K, int N, long long ldx, long long ldw,
+                        long long ldr, cudaStream_t st) {
+  if (splits < 1 || splits > kMaxSplits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (KN && !kIsCode<WT>) {
+    if (kn_tail(N, ldw, w))
+      return dispatch_split_bk<KN, WT, true>(bk, splits, x, w, scale, resid,
+                                             out, M, K, N, ldx, ldw, ldr, st);
+  }
+  return dispatch_split_bk<KN, WT, false>(bk, splits, x, w, scale, resid,
+                                          out, M, K, N, ldx, ldw, ldr, st);
 }
 
 // The fused FFN-up's activation on an unrounded f32 accumulator: silu, or

@@ -48,9 +48,14 @@
 //     reduction; the columns' dot products finish with warp shuffles.
 //     Reading the view in place avoids a 272 MB copy per decode tick; its
 //     76,032 column pairs fill the card unsplit.
-// Every path loads only whole 16-byte vectors: the contiguous axis is a
-// multiple of 8 (16 for codes) and every row is 16-byte aligned (the
-// wrapper raises otherwise).
+// Both layouts load whole 16-byte vectors wherever every weight row is
+// 16-byte aligned. A bf16 (K, N) weight whose N or leading dimension is
+// not a multiple of 8 (hymba's w_dt, 1,600 -> 50) runs the same "KN"
+// kernel with TAIL set: each thread's 8 columns load element by element,
+// those past N as zero (common.cuh's ld_cols8), so the products and
+// their order, and with them every output's bits, are the aligned
+// body's. Codes keep N % 16 == 0 with aligned rows, and x's rows (K a
+// multiple of 8) stay 16-byte vectors (the wrapper raises otherwise).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -124,7 +129,7 @@ __device__ __forceinline__ void unpack_vec(const uint4& u, float* out) {
     unpack8(u, out);
 }
 
-template <int CT, typename WT>
+template <int CT, typename WT, bool TAIL>
 __global__ void __launch_bounds__(kThreads, 2)
 gemv_kn_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
                const float* __restrict__ scale,
@@ -153,15 +158,23 @@ gemv_kn_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
 
   const int ct = threadIdx.x % CT, kg = threadIdx.x / CT;
   const int n0 = blockIdx.x * COLS + ct * V;
-  // N is a multiple of V, so a thread's columns lie wholly inside or past N
+  // aligned, N is a multiple of V, so a thread's columns lie wholly inside
+  // or past N; with TAIL the first `live` of them lie inside
   const bool cols_in = n0 < N;
+  const int live = min(V, N - n0);
   const WT* wp = w + static_cast<long long>(k_lo) * ldw + n0;
+  auto load = [&](const WT* p) {
+    if constexpr (TAIL)
+      return ld_cols8(reinterpret_cast<const __nv_bfloat16*>(p), live);
+    else
+      return ld_stream(p);
+  };
   uint4 raw[U];
   // the first weight vectors are in flight while x is staged
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int kk = kg + u * KG;
-    raw[u] = cols_in && kk < kr ? ld_stream(wp + kk * ldw)
+    raw[u] = cols_in && kk < kr ? load(wp + kk * ldw)
                                 : make_uint4(0u, 0u, 0u, 0u);
   }
   stage_x(xs, x, M, ldx, k_lo, kr);
@@ -177,7 +190,7 @@ gemv_kn_kernel(const __nv_bfloat16* __restrict__ x, const WT* __restrict__ w,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int kk = k + u * KG;
-        raw[u] = cols_in && kk < kr ? ld_stream(wp + kk * ldw)
+        raw[u] = cols_in && kk < kr ? load(wp + kk * ldw)
                                     : make_uint4(0u, 0u, 0u, 0u);
       }
     }
@@ -360,14 +373,14 @@ inline int num_sms() {
   return sms;
 }
 
-template <int CT, typename WT>
+template <int CT, typename WT, bool TAIL>
 int launch_kn(int splits, const void* x, const void* w, const void* scale,
               void* out, int M, int K, int N, long long ldx, long long ldw,
               cudaStream_t st) {
   using T = KnTile<CT, WT>;
   const int per = ((K + kSplitRows - 1) / kSplitRows + splits - 1) / splits;
   const size_t smem = kn_smem<CT, WT>(M, min(K, per * kSplitRows));
-  auto kernel = gemv_kn_kernel<CT, WT>;
+  auto kernel = gemv_kn_kernel<CT, WT, TAIL>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchAttribute attr[1];
@@ -392,20 +405,38 @@ int launch_kn(int splits, const void* x, const void* w, const void* scale,
 }
 
 // cols 64 or 32 (a 16-byte vector per column thread: 8 bf16, 16 codes)
+template <typename WT, bool TAIL>
+int dispatch_cols(int cols, int splits, const void* x, const void* w,
+                  const void* scale, void* out, int M, int K, int N,
+                  long long ldx, long long ldw, cudaStream_t st) {
+  constexpr int V = 16 / static_cast<int>(sizeof(WT));
+  if (cols == 64)
+    return launch_kn<64 / V, WT, TAIL>(splits, x, w, scale, out, M, K, N,
+                                       ldx, ldw, st);
+  if (cols == 32)
+    return launch_kn<32 / V, WT, TAIL>(splits, x, w, scale, out, M, K, N,
+                                       ldx, ldw, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The KN launch; bf16 weights whose rows are not 16-byte aligned (N or
+// ldw not a multiple of 8) run the TAIL loads. Codes must be aligned.
 template <typename WT>
 int dispatch_kn(int cols, int splits, const void* x, const void* w,
                 const void* scale, void* out, int M, int K, int N,
                 long long ldx, long long ldw, cudaStream_t st) {
   if (M < 1 || M > kMaxM || splits < 1 || splits > kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int V = 16 / static_cast<int>(sizeof(WT));
-  if (cols == 64)
-    return launch_kn<64 / V, WT>(splits, x, w, scale, out, M, K, N, ldx, ldw,
-                                 st);
-  if (cols == 32)
-    return launch_kn<32 / V, WT>(splits, x, w, scale, out, M, K, N, ldx, ldw,
-                                 st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (sizeof(WT) == 2) {
+    if (kn_tail(N, ldw, w))
+      return dispatch_cols<WT, true>(cols, splits, x, w, scale, out, M, K, N,
+                                     ldx, ldw, st);
+  } else {
+    if (kn_tail(N, ldw, w) || N % 16 || ldw % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch_cols<WT, false>(cols, splits, x, w, scale, out, M, K, N,
+                                  ldx, ldw, st);
 }
 
 }  // namespace
@@ -415,8 +446,9 @@ REPRO_ERROR_STRING_FN
 // out (M, N) row-major bf16 = x (M, K; row stride ldx) @ W.
 // w_kn = 1: W[k, n] at w[k*ldw + n], launched in `cols`-column blocks over
 // `splits` K ranges (kernels/gemv.py::gemv_tiles); w_kn = 0: W[k, n] at
-// w[n*ldw + k], unsplit (cols and splits ignored). Needs K % 8 == 0 (and
-// N % 8 == 0 for w_kn = 1) with 16-byte aligned rows of W and x; the
+// w[n*ldw + k], unsplit (cols and splits ignored). Needs K % 8 == 0 with
+// 16-byte aligned rows of x (and of W for w_kn = 0); a w_kn = 1 weight
+// of any N and ldw runs (its unaligned rows through the TAIL loads). The
 // wrapper checks this.
 REPRO_EXPORT int gemv_bf16(const void* x, const void* w, void* out, int M,
                            int K, int N, long long ldx, long long ldw,

@@ -21,6 +21,12 @@ runs :func:`flat_gemm_plain`, which walks the launched body's tiles and
 splits with :func:`split_acc`, each row its own product.
 ``flat_gemm.launches`` counts the bf16 launches.
 
+Any N: a bf16 (K, N) weight whose rows are not 16-byte aligned (N or the
+leading dimension not a multiple of 8, :func:`gemv.kn_tail`) cannot feed
+TMA, so it always runs the split body, whose tail loads read it element
+by element (columns past N as zero); the epilogue writes columns below N
+only.
+
 ``w_scale`` ((N,) f32 steps) marks ``w`` as the (K, N) int8 / fp8 codes of
 a quantized weight: the same bodies stream the codes at 1 byte, turn them
 into bf16 exactly and multiply the f32 sum by the step before the
@@ -35,7 +41,7 @@ import torch
 
 from repro_torch import hardware
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemv import check_codes, vector_ok, weight_layout
+from repro_torch.kernels.gemv import kn_tail, launch_layout
 
 BLOCK_M = 64                       # token rows per split block (8 n8 tiles)
 BK_CHOICES = (32, 64, 128)         # the split body's K tiles
@@ -180,6 +186,7 @@ def wgmma_splits(k: int, n: int, w_bytes: int = 2, *,
 
 
 def gemm_tiles(k: int, n: int, *, w_kn: bool = True, w_bytes: int = 2,
+               tail: bool = False,
                spec: hardware.HardwareSpec = hardware.DEFAULT
                ) -> tuple[str, int, int]:
     """(body, BK, splits) of a flat-GEMM launch (and of oproj_residual's),
@@ -187,11 +194,13 @@ def gemm_tiles(k: int, n: int, *, w_kn: bool = True, w_bytes: int = 2,
     than num_sms blocks of NARROW_BN columns) runs the split body
     ("split") at SPLIT_BN with :func:`pick_bk`'s BK and
     :func:`pick_splits`' count when that splits K; every other launch
-    runs the wgmma body ("wgmma") at WG_BK with :func:`wgmma_splits`."""
-    if -(-n // NARROW_BN) < spec.num_sms:
+    runs the wgmma body ("wgmma") at WG_BK with :func:`wgmma_splits`.
+    ``tail`` (a weight with unaligned rows, :func:`gemv.kn_tail`) always
+    runs the split body, whatever the count."""
+    if tail or -(-n // NARROW_BN) < spec.num_sms:
         bk = pick_bk(k, w_kn=w_kn, w_bytes=w_bytes, spec=spec)
         splits = pick_splits(k, n, SPLIT_BN, bk, spec=spec)
-        if splits > 1:
+        if splits > 1 or tail:
             return "split", bk, splits
     return "wgmma", WG_BK, wgmma_splits(k, n, w_bytes, spec=spec)
 
@@ -225,7 +234,7 @@ def flat_gemm_plain(x: torch.Tensor, w: torch.Tensor, *,
     rounded once to x's dtype."""
     _, bk, splits = gemm_tiles(x.shape[1], w.shape[1],
                                w_kn=w.stride(1) == 1,
-                               w_bytes=w.element_size())
+                               w_bytes=w.element_size(), tail=kn_tail(w))
     return split_acc(x, w, bk, splits, w_scale).to(x.dtype)
 
 
@@ -250,19 +259,9 @@ def flat_gemm(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError("flat_gemm: x and w on different devices")
     if x.stride(1) != 1:
         x = x.contiguous()
-    kn, ldw = weight_layout(w)
-    if w_scale is not None:
-        fp8 = check_codes("flat_gemm", w, w_scale)
-        if not kn or not vector_ok(x, w, kn, ldw):
-            raise ValueError(
-                "quantized flat_gemm kernel needs (K, N) codes with N a "
-                "multiple of 16, K a multiple of 8 and 16-byte aligned rows")
-    elif not vector_ok(x, w, kn, ldw):
-        raise ValueError(
-            "flat_gemm kernel needs K, the weight's leading stride (and N "
-            "for a (K, N) weight) to be multiples of 8 with 16-byte aligned "
-            "rows")
-    body, bk, splits = gemm_tiles(k, n, w_kn=kn, w_bytes=w.element_size())
+    kn, ldw, fp8 = launch_layout("flat_gemm", x, w, w_scale)
+    body, bk, splits = gemm_tiles(k, n, w_kn=kn, w_bytes=w.element_size(),
+                                  tail=kn_tail(w))
     split = int(body == "split")
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("flat_gemm", _SIG)

@@ -28,6 +28,14 @@ byte and multiplies the summed f32 partials by the step before the one
 rounding, and :data:`gemv_quant` counts its launches. Codes come in the
 (K, N) layout only: a quantized (N, K) view raises.
 
+Any N: a bf16 (K, N) weight whose N or leading dimension is not a
+multiple of 8 (hymba's ``w_dt``, 1,600 -> 50) has rows that are not
+16-byte aligned; the kernel then loads each thread's 8 columns element by
+element, those past N as zero, and writes only the live ones, with the
+same products in the same order (no padded copy of the weight). Codes
+keep N a multiple of 16 with aligned rows, and x's rows must be aligned
+(K a multiple of 8): :func:`launch_layout` checks both.
+
 Rows: the kernel holds at most MAX_M token rows. A call with more (a
 plan may route M up to its ``m1`` here) launches the same kernel on
 consecutive slices of at most MAX_M rows (:func:`row_slices`), each
@@ -137,14 +145,57 @@ def weight_layout(w: torch.Tensor) -> tuple[bool, int]:
                      "stride; the kernels read (K, N) or (N, K) rows")
 
 
-def vector_ok(x: torch.Tensor, w: torch.Tensor, kn: bool, ldw: int) -> bool:
-    """True when every row the kernel reads is 16-byte aligned and whole
-    16-byte vectors (8 bf16, 16 codes) cover the contiguous axis."""
+def x_ok(x: torch.Tensor) -> bool:
+    """True when x's rows are 16-byte aligned bf16 vectors: K and the row
+    stride multiples of 8, the base 16-byte aligned."""
+    return (x.shape[1] % 8 == 0 and x.stride(0) % 8 == 0
+            and x.data_ptr() % 16 == 0)
+
+
+def w_aligned(w: torch.Tensor, kn: bool, ldw: int) -> bool:
+    """True when every weight row is 16-byte aligned and whole 16-byte
+    vectors (8 bf16, 16 codes) cover the contiguous axis."""
     inner = w.shape[1] if kn else w.shape[0]
     per = 16 // w.element_size()
-    return (inner % per == 0 and ldw % per == 0 and x.shape[1] % 8 == 0
-            and x.stride(0) % 8 == 0 and w.data_ptr() % 16 == 0
-            and x.data_ptr() % 16 == 0)
+    return inner % per == 0 and ldw % per == 0 and w.data_ptr() % 16 == 0
+
+
+def vector_ok(x: torch.Tensor, w: torch.Tensor, kn: bool, ldw: int) -> bool:
+    """True when every row the kernel reads, x's and the weight's, is
+    16-byte aligned and covered by whole 16-byte vectors."""
+    return x_ok(x) and w_aligned(w, kn, ldw)
+
+
+def kn_tail(w: torch.Tensor) -> bool:
+    """True for a bf16 (K, N) weight whose rows are not 16-byte aligned
+    (N or the leading dimension not a multiple of 8): the GEMM kernels
+    load it element by element (the TAIL loads of ``csrc/gemv.cu`` and
+    ``csrc/flat_stream.cuh``)."""
+    if w.element_size() != 2 or w.stride(1) != 1:
+        return False
+    return not w_aligned(w, True, w.stride(0))
+
+
+def launch_layout(what: str, x: torch.Tensor, w: torch.Tensor,
+                  w_scale: torch.Tensor | None) -> tuple[bool, int, int]:
+    """(``kn``, leading stride, the C entries' ``fp8`` flag) of a GEMV or
+    flat-GEMM launch, after checking what the kernels need: x's rows
+    aligned (K a multiple of 8); codes in the (K, N) layout with N a
+    multiple of 16 and aligned rows; a bf16 (N, K) view with aligned
+    rows. A bf16 (K, N) weight may have any N and leading stride."""
+    kn, ldw = weight_layout(w)
+    if w_scale is not None:
+        fp8 = check_codes(what, w, w_scale)
+        if not kn or not vector_ok(x, w, kn, ldw):
+            raise ValueError(
+                f"quantized {what} kernel needs (K, N) codes with N a "
+                "multiple of 16, K a multiple of 8 and 16-byte aligned rows")
+        return kn, ldw, fp8
+    if not x_ok(x) or not (kn or w_aligned(w, kn, ldw)):
+        raise ValueError(
+            f"{what} kernel needs K a multiple of 8 with 16-byte aligned "
+            "rows of x (and of an (N, K) weight view)")
+    return kn, ldw, 0
 
 
 def gemv(x: torch.Tensor, w: torch.Tensor, *,
@@ -168,17 +219,7 @@ def gemv(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError("gemv: x and w on different devices")
     if x.stride(1) != 1:
         x = x.contiguous()
-    kn, ldw = weight_layout(w)
-    if w_scale is not None:
-        fp8 = check_codes("gemv", w, w_scale)
-        if not kn or not vector_ok(x, w, kn, ldw):
-            raise ValueError(
-                "quantized gemv kernel needs (K, N) codes with N a multiple "
-                "of 16, K a multiple of 8 and 16-byte aligned rows")
-    elif not vector_ok(x, w, kn, ldw):
-        raise ValueError(
-            "gemv kernel needs K (and N for a (K, N) weight) to be a "
-            "multiple of 8 with 16-byte aligned rows")
+    kn, ldw, fp8 = launch_layout("gemv", x, w, w_scale)
     cols, splits = gemv_tiles(k, n, kn)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load("gemv", _SIG)

@@ -4,6 +4,11 @@ for the port, on the dense slot cache or the block-paged pool.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --requests 8 --slots 4 --max-seq 1024 --max-new 32 --prompt-len 128
 
+``--arch`` names any config of ``repro_torch.configs``: the dense and
+MoE families serve on every cache kind; ``rwkv6-1.6b``, ``hymba-1.5b``
+and ``whisper-tiny`` serve on the dense cache with one-shot prefill
+(``--cache-kind paged`` and ``--decode-fusion looped`` raise for them).
+
 Runs on the card by default (``--device cuda``); ``--device cpu`` runs
 the kernels' plain versions on the CPU (use ``--smoke`` there). Weights
 are random, drawn from ``--seed`` with the JAX package's init

@@ -1,9 +1,12 @@
-"""Uniform model API keyed by ``cfg.family``.
+"""Uniform model API over all five families, keyed by ``cfg.family``.
 
-The port has the dense GQA family (and the VLM backbone that shares it)
-and the MoE family, which reuses the dense steps through their block
-hooks; the other families raise ``NotImplementedError`` naming the slice
-of the port that brings them.
+The dense GQA family (and the VLM backbone that shares it) and the MoE
+family, which reuses the dense steps through their block hooks, have the
+paged pool and chunked prefill. The recurrent and encoder-decoder
+families (ssm: RWKV6; hybrid: Hymba; encdec: Whisper) keep caches of
+their own (recurrent state, ring buffers, cross-attention KV), so, as in
+the JAX package, they are dense-only and prefill in one shot: their
+``supports_paged`` is False and their ``prefill_chunk`` None.
 """
 from __future__ import annotations
 
@@ -11,13 +14,10 @@ import dataclasses
 from typing import Callable, Optional
 
 from repro_torch.config import ModelConfig
-from repro_torch.models import moe, transformer
+from repro_torch.models import encdec, hybrid, moe, ssm, transformer
 
-_LATER = {
-    "ssm": "slice 7 (other families: models/ssm.py)",
-    "hybrid": "slice 7 (other families: models/hybrid.py)",
-    "encdec": "slice 7 (other families: models/encdec.py)",
-}
+_MODULES = {"dense": transformer, "vlm": transformer, "moe": moe,
+            "ssm": ssm, "hybrid": hybrid, "encdec": encdec}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,17 +46,9 @@ class ModelApi:
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; it comes with "
-            f"{_LATER[cfg.family]}")
-    if cfg.family not in ("dense", "vlm", "moe"):
+    mod = _MODULES.get(cfg.family)
+    if mod is None:
         raise ValueError(f"unknown family {cfg.family}")
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {cfg.norm!r} comes with slice 7 (encdec); the dense "
-            "and MoE families use rmsnorm")
-    mod = moe if cfg.family == "moe" else transformer
     return ModelApi(
         cfg=cfg,
         init_params=lambda generator=None, device="cuda": mod.init_params(
@@ -66,5 +58,5 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         init_cache=lambda layout, device="cuda": mod.init_cache(
             cfg, layout, device=device),
         supports_paged=mod.PAGED_KV,
-        prefill_chunk=mod.prefill_chunk,
+        prefill_chunk=getattr(mod, "prefill_chunk", None),
     )

@@ -4,7 +4,9 @@
 numpy arrays (``jax.device_get`` of ``init_params``, or of a cache from
 ``init_cache`` and the steps after it) and returns the port's tree leaf
 by leaf under the same names and shapes — both keep layer params and
-cache leaves stacked on a leading L axis. bfloat16 and float8_e4m3fn
+cache leaves stacked on a leading L axis — for every family (the
+encoder-decoder's ``enc_layers``, the recurrent families' f32 decay and
+SSM leaves and their state caches alike). bfloat16 and float8_e4m3fn
 leaves (numpy's ``ml_dtypes`` types, which torch cannot read) are
 reinterpreted bit for bit, so a quantized weight's ``{"codes", "scale"}``
 dict and a quantized pool's int8 / fp8 codes with their f32

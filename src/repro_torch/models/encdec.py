@@ -1,0 +1,217 @@
+"""Whisper-style encoder-decoder backbone (whisper-tiny).
+
+The port of the JAX package's ``models/encdec.py`` for serving. The
+audio frontend is a stub, as there: the encoder takes precomputed frame
+embeddings (B, S_enc, D), ENC_FRAMES_SERVE = 1,500 of them when serving,
+and zeros when none are given. RoPE positions, layernorm and the GELU MLP
+follow the JAX package.
+
+  * ``encode``: non-causal prefill attention (row 7) over the frames.
+  * ``prefill``: the decoder prompt with causal row 7 for self-attention
+    and non-causal row 7 against the encoder's keys for
+    cross-attention (Sq ≠ Sk); the self-attention KV and each layer's
+    cross-attention KV (``_cross_kv``) land in the cache in place.
+  * ``decode_step``: decode attention (rows 3-4) over the self-attention
+    cache, then again over the static cross-attention KV with every
+    row's length the encoder's.
+
+The cache is ``k`` / ``v`` (L, B, max_seq, HK, Dh) and ``xk`` / ``xv``
+(L, B, S_enc, HK, Dh). It has no paged layout.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.device import resolve
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models import stack
+from repro_torch.models import transformer as tfm
+from repro_torch.models.kvlayout import require_dense
+from repro_torch.models.layers import LayerCtx, Params
+
+# the self- and cross-attention caches have no paged layout
+PAGED_KV = False
+
+ENC_FRAMES_SERVE = 1500  # 30 s of audio at 50 Hz, Whisper's standard
+
+
+# ---------------------------------------------------------------------------
+# Params (the JAX package's distributions, stacked over L layers)
+# ---------------------------------------------------------------------------
+
+
+def enc_layer_params(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
+                     device) -> Params:
+    lead = (n_layers,)
+    return {
+        "attn_norm": L.norm_params(cfg, lead, device),
+        "attn": L.attention_params(cfg, gen, n_layers, device),
+        "mlp_norm": L.norm_params(cfg, lead, device),
+        "mlp": L.mlp_params(cfg, gen, n_layers, device),
+    }
+
+
+def dec_layer_params(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
+                     device) -> Params:
+    lead = (n_layers,)
+    return {
+        "attn_norm": L.norm_params(cfg, lead, device),
+        "attn": L.attention_params(cfg, gen, n_layers, device),
+        "cross_norm": L.norm_params(cfg, lead, device),
+        "cross": L.attention_params(cfg, gen, n_layers, device),
+        "mlp_norm": L.norm_params(cfg, lead, device),
+        "mlp": L.mlp_params(cfg, gen, n_layers, device),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device="cuda") -> Params:
+    dev = resolve(device)
+    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    return {
+        **L.embed_params(cfg, gen, dev),
+        "enc_layers": enc_layer_params(
+            cfg, gen, cfg.encoder_layers or cfg.num_layers, dev),
+        "layers": dec_layer_params(cfg, gen, cfg.num_layers, dev),
+        "enc_norm": L.norm_params(cfg, (), dev),
+        "final_norm": L.norm_params(cfg, (), dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None, :].expand(b, s)
+
+
+def encode(ctx: LayerCtx, params: Params,
+           frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, S_enc, D), the stub frontend's embeddings -> the
+    normed encoder output (B, S_enc, D)."""
+    cfg = ctx.cfg
+    x = frames.to(L.adt(cfg))
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+
+    def blk(p_i, xx):
+        h = L.norm(cfg, p_i["attn_norm"], xx)
+        xx = xx + L.attention_block(ctx, p_i["attn"], h, positions,
+                                    causal=False)
+        h = L.norm(cfg, p_i["mlp_norm"], xx)
+        return xx + L.mlp_block(ctx, p_i["mlp"], h)
+
+    x = stack.run_stack(params["enc_layers"], x, blk)
+    return L.norm(cfg, params["enc_norm"], x)
+
+
+def _cross_kv(ctx: LayerCtx, p_cross: Params, enc_out: torch.Tensor):
+    """One decoder layer's cross-attention keys and values from the
+    encoder output: (B, S_enc, HK, Dh) each, no rope."""
+    cfg = ctx.cfg
+    b, se, _ = enc_out.shape
+    k = ctx.matmul(enc_out, p_cross["wk"]).reshape(b, se, cfg.num_kv_heads,
+                                                   cfg.head_dim)
+    v = ctx.matmul(enc_out, p_cross["wv"]).reshape(b, se, cfg.num_kv_heads,
+                                                   cfg.head_dim)
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, layout, dtype=None, device="cuda",
+               enc_len: int = ENC_FRAMES_SERVE) -> dict:
+    layout = require_dense(layout, cfg.family)
+    dev = resolve(device)
+    dtype = dtype or L.adt(cfg)
+    lead = (cfg.num_layers, layout.num_slots)
+    tail = (cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros((*lead, layout.max_seq, *tail), dtype=dtype,
+                         device=dev),
+        "v": torch.zeros((*lead, layout.max_seq, *tail), dtype=dtype,
+                         device=dev),
+        "xk": torch.zeros((*lead, enc_len, *tail), dtype=dtype, device=dev),
+        "xv": torch.zeros((*lead, enc_len, *tail), dtype=dtype, device=dev),
+    }
+
+
+def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict, *,
+            frames: Optional[torch.Tensor] = None, **kw):
+    """Encode the frames (zeros of the cache's encoder length when none
+    are given), run the decoder prompt, fill the self- and the
+    cross-attention caches in place. Returns last-token logits (B, Vp)
+    and the cache."""
+    cfg = ctx.cfg
+    b, s = tokens.shape
+    if frames is None:
+        frames = torch.zeros((b, cache["xk"].shape[2], cfg.d_model),
+                             dtype=L.adt(cfg), device=tokens.device)
+    enc_out = encode(ctx, params, frames)
+    x = L.embed(ctx, params, tokens)
+    positions = _positions(b, s, x.device)
+
+    def blk(p_i, xx, c_i):
+        h = L.norm(cfg, p_i["attn_norm"], xx)
+        q, k, v = L.attention_qkv(ctx, p_i["attn"], h, positions)
+        o = ops.attention_prefill(q, k, v, phi_cfg=ctx.phi_cfg, causal=True,
+                                  plan=ctx.plan).reshape(b, s, cfg.q_dim)
+        xx = xx + ctx.matmul(o, p_i["attn"]["wo"])
+        h = L.norm(cfg, p_i["cross_norm"], xx)
+        xk, xv = _cross_kv(ctx, p_i["cross"], enc_out)
+        xx = xx + L.attention_block(ctx, p_i["cross"], h, positions,
+                                    causal=False, use_rope=False,
+                                    kv_override=(xk, xv))
+        h = L.norm(cfg, p_i["mlp_norm"], xx)
+        xx = xx + L.mlp_block(ctx, p_i["mlp"], h)
+        tfm.write_prompt_kv(c_i, k, v)
+        c_i["xk"].copy_(xk)
+        c_i["xv"].copy_(xv)
+        return xx
+
+    x, cache = stack.run_stack_cached(params["layers"], x, cache, blk)
+    x = L.norm(cfg, params["final_norm"], x)
+    logits = L.lm_logits(ctx, params, tfm._last_rows(x, lengths))[:, 0]
+    return logits, cache
+
+
+def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
+                *, block_tables=None, decode_groups=None, positions=None):
+    """One token a slot: self-attention decode over the growing cache
+    (its KV appended at ``lengths`` in place), cross-attention decode
+    over the static encoder KV, the MLP. The decoder's write position
+    always equals ``lengths``, so ``positions`` (the uniform engine
+    operand) is unused. Returns (logits (B, Vp), cache)."""
+    if block_tables is not None or decode_groups is not None:
+        raise ValueError("the encoder-decoder caches have no paged layout")
+    cfg = ctx.cfg
+    x = L.embed(ctx, params, tokens[:, None])          # (B, 1, D)
+    b = x.shape[0]
+    enc_lengths = torch.full((b,), cache["xk"].shape[2], dtype=torch.int32,
+                             device=x.device)
+
+    def blk(p_i, xx, c_i):
+        h = L.norm(cfg, p_i["attn_norm"], xx)
+        xx = xx + L.attention_decode_block(ctx, p_i["attn"], h, lengths,
+                                           c_i["k"], c_i["v"], lengths)
+        # cross-attention against the static encoder KV
+        h = L.norm(cfg, p_i["cross_norm"], xx)
+        q = ctx.matmul(h, p_i["cross"]["wq"]).reshape(b, cfg.num_heads,
+                                                      cfg.head_dim)
+        o = ops.attention_decode(q, c_i["xk"], c_i["xv"], enc_lengths,
+                                 phi_cfg=ctx.phi_cfg, plan=ctx.plan)
+        xx = xx + ctx.matmul(o.reshape(b, 1, cfg.q_dim), p_i["cross"]["wo"])
+        h = L.norm(cfg, p_i["mlp_norm"], xx)
+        return xx + L.mlp_block(ctx, p_i["mlp"], h)
+
+    x, cache = stack.run_stack_cached(params["layers"], x, cache, blk)
+    x = L.norm(cfg, params["final_norm"], x)
+    return L.lm_logits(ctx, params, x)[:, 0], cache

@@ -1,0 +1,335 @@
+"""Hymba: hybrid layers with parallel attention and SSM heads.
+
+The port of the JAX package's ``models/hybrid.py`` for serving. Each
+layer runs a sliding-window GQA attention path and a Mamba-2 (SSD,
+scalar decay per head) path on the same normed input and sums their
+projections; then the MLP. Attention is O(T·W) with a ring-buffer KV
+cache of W = min(sliding_window, max_seq) entries, the SSM O(T) with an
+O(1) state.
+
+  * Prefill: attention through ``ops.attention_prefill`` with the
+    window (row 7); the SSM in the chunked form (CHUNK-token chunks of
+    dense products, the state carried chunk by chunk as in
+    :func:`repro_torch.models.ssm._chunk_states`). The ring keeps each
+    row's last W valid positions (:func:`_ring_from_prefill`), padding
+    positions have dt = 0 (no decay, no write).
+  * Decode: the token's KV lands at ring slot ``length % W`` in place,
+    and attention over the ring is T1 in torch math
+    (:func:`ring_decode_attention`: ``core/softmax.py``'s unified-max
+    partial, with the synchronized partial as the overflow recompute,
+    selected on the device); the SSM takes one recurrence step.
+
+The cache is ``k`` / ``v`` (L, B, W, HK, Dh) and ``state`` (L, B, HM,
+SSM_HEAD, N) f32, updated in place. It has no paged layout.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.core import softmax as smx
+from repro_torch.device import resolve
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models import stack
+from repro_torch.models import transformer as tfm
+from repro_torch.models.kvlayout import require_dense
+from repro_torch.models.layers import LayerCtx, Params
+from repro_torch.models.ssm import _chunk_states, pad_valid
+
+# ring-buffer KV and SSM state have no paged layout
+PAGED_KV = False
+
+CHUNK = 64
+_CLAMP = 30.0
+SSM_HEAD = 64
+
+
+def _ssm_dims(cfg: ModelConfig) -> tuple[int, int, int]:
+    inner = cfg.ssm.expand * cfg.d_model if cfg.ssm else 2 * cfg.d_model
+    return inner, inner // SSM_HEAD, cfg.ssm.state_size if cfg.ssm else 16
+
+
+# ---------------------------------------------------------------------------
+# Params (the JAX package's distributions, stacked over L layers)
+# ---------------------------------------------------------------------------
+
+
+def layer_params(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
+                 device) -> Params:
+    d, dt = cfg.d_model, L.pdt(cfg)
+    inner, hm, n = _ssm_dims(cfg)
+    lead = (n_layers,)
+
+    def dense(k, nn):
+        return L.dense_init(gen, (*lead, k, nn), dt, device, k)
+
+    return {
+        "norm": L.norm_params(cfg, lead, device),
+        "attn": L.attention_params(cfg, gen, n_layers, device),
+        "ssm": {
+            "w_in": dense(d, inner),
+            "w_gate": dense(d, inner),
+            "w_bc": dense(d, 2 * n),
+            "w_dt": dense(d, hm),
+            "a_log": torch.zeros((*lead, hm), dtype=torch.float32,
+                                 device=device),
+            "d_skip": torch.ones((*lead, hm), dtype=torch.float32,
+                                 device=device),
+            "w_out": dense(inner, d),
+        },
+        "mlp_norm": L.norm_params(cfg, lead, device),
+        "mlp": L.mlp_params(cfg, gen, n_layers, device),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device="cuda") -> Params:
+    return tfm.init_params(cfg, generator, device,
+                           layer_params_fn=layer_params)
+
+
+# ---------------------------------------------------------------------------
+# SSD scalar-decay SSM: chunked (prefill) and one step (decode)
+# ---------------------------------------------------------------------------
+
+
+def ssm_chunked(ctx: LayerCtx, p: Params, x: torch.Tensor,
+                state0: Optional[torch.Tensor] = None, *,
+                return_state: bool = False,
+                valid: Optional[torch.Tensor] = None):
+    """x (B, T, D) -> (B, T, D) (+ the final state (B, HM, P, N) f32 with
+    ``return_state``). ``valid`` (B, T) bool: padding positions get
+    dt = 0, which zeroes both their state write and their decay. T pads
+    internally to a CHUNK multiple."""
+    inner, hm, n = _ssm_dims(ctx.cfg)
+    b, t_in, d = x.shape
+    pad_t = (-t_in) % min(CHUNK, max(t_in, 1))
+    if pad_t:
+        x = F.pad(x, (0, 0, 0, pad_t))
+        if valid is None:
+            valid = (torch.arange(t_in + pad_t, device=x.device)[None, :]
+                     < t_in)
+        else:
+            valid = pad_valid(valid, pad_t)
+    t = x.shape[1]
+    xi = ctx.matmul(x, p["w_in"])
+    z = ctx.matmul(x, p["w_gate"])
+    bc = ctx.matmul(x, p["w_bc"]).float()
+    bmat, cmat = bc[..., :n], bc[..., n:]                      # (B,T,N)
+    dt_ = F.softplus(ctx.matmul(x, p["w_dt"]).float())         # (B,T,HM)
+    if valid is not None:
+        dt_ = torch.where(valid[..., None], dt_, 0.0)
+    a = -torch.exp(p["a_log"])                                 # (HM,) < 0
+    la_step = a * dt_                                          # <= 0
+
+    c = min(CHUNK, t)
+    nc = t // c
+    xh = xi.reshape(b, nc, c, hm, SSM_HEAD).float()
+    bm = bmat.reshape(b, nc, c, n)
+    cm = cmat.reshape(b, nc, c, n)
+    dtc = dt_.reshape(b, nc, c, hm)
+    la = torch.cumsum(la_step.reshape(b, nc, c, hm), dim=2)    # (B,NC,C,HM)
+    la_end = la[:, :, -1:]
+
+    # chunk summaries, then the states across chunks
+    dec = torch.exp(la_end[:, :, 0])                           # (B,NC,HM)
+    w_in = dtc * torch.exp(la_end - la)                        # exps <= 0
+    u_mat = torch.einsum("bcthp,bctn->bchpn", xh * w_in[..., None], bm)
+    if state0 is None:
+        state0 = torch.zeros((b, hm, SSM_HEAD, n), dtype=torch.float32,
+                             device=x.device)
+    s_end = _chunk_states(dec, u_mat, state0)                  # (B,NC,HM,P,N)
+    s_start = torch.cat([state0[:, None], s_end[:, :-1]], dim=1)
+
+    # within each chunk (inclusive decay: y_t reads S_t)
+    inter = torch.einsum("bchpn,bctn->bcthp", s_start, cm) \
+        * torch.exp(la)[..., None]
+    qk = torch.einsum("bctn,bcsn->bcts", cm, bm)               # (B,NC,C,C)
+    decay_ts = torch.exp(torch.clamp(
+        la[:, :, :, None, :] - la[:, :, None, :, :], -_CLAMP, _CLAMP))
+    mask = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    scores = torch.where(mask[:, :, None], qk[..., None] * decay_ts, 0.0)
+    scores = scores * dtc[:, :, None]                          # (B,NC,T,S,HM)
+    intra = torch.einsum("bctsh,bcshp->bcthp", scores, xh)
+    y = inter + intra + p["d_skip"][:, None] * xh
+
+    y = y.reshape(b, t, inner).to(x.dtype) * F.silu(z)
+    out = ctx.matmul(y, p["w_out"])[:, :t_in]
+    if return_state:
+        return out, s_end[:, -1]
+    return out
+
+
+def ssm_step(ctx: LayerCtx, p: Params, x: torch.Tensor, state: torch.Tensor):
+    """One token. x (B, D); state (B, HM, P, N) f32. Returns (out (B, D),
+    new state)."""
+    inner, hm, n = _ssm_dims(ctx.cfg)
+    b = x.shape[0]
+    xi = ctx.matmul(x, p["w_in"]).float().reshape(b, hm, SSM_HEAD)
+    z = ctx.matmul(x, p["w_gate"])
+    bc = ctx.matmul(x, p["w_bc"]).float()
+    bvec, cvec = bc[..., :n], bc[..., n:]
+    dt_ = F.softplus(ctx.matmul(x, p["w_dt"]).float())         # (B,HM)
+    dec = torch.exp(-torch.exp(p["a_log"]) * dt_)
+    upd = (xi * dt_[..., None])[..., None] * bvec[:, None, None, :]
+    new_state = dec[..., None, None] * state + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, cvec)
+    y = y + p["d_skip"][None, :, None] * xi
+    y = y.reshape(b, inner).to(x.dtype) * F.silu(z)
+    return ctx.matmul(y, p["w_out"]), new_state
+
+
+# ---------------------------------------------------------------------------
+# Ring-buffer sliding-window attention (decode)
+# ---------------------------------------------------------------------------
+
+
+def ring_decode_attention(ctx: LayerCtx, qd: torch.Tensor,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          lengths: torch.Tensor) -> torch.Tensor:
+    """T1 over the ring in torch math. qd (B, HQ, Dh); cache (B, W, HK,
+    Dh) ring; ``lengths`` after this step's write. Every slot is valid
+    once a row has W tokens, else the slots below its length. With the
+    unified scheme and ``fallback`` the synchronized result replaces the
+    unified one when max(s − φ) passes the band, selected on the device
+    (the JAX package's ``lax.cond``)."""
+    cfg = ctx.cfg
+    w, hk = cache_k.shape[1], cache_k.shape[2]
+    groups = qd.shape[1] // hk
+    kf = cache_k.repeat_interleave(groups, dim=2).float()
+    vf = cache_v.repeat_interleave(groups, dim=2).float().transpose(1, 2)
+    s = torch.einsum("bhd,bkhd->bhk", qd.float() * cfg.head_dim ** -0.5, kf)
+    slots = torch.arange(w, device=qd.device)[None, None]
+    lens = lengths.to(qd.device)[:, None, None]
+    valid = (lens >= w) | (slots < lens)
+    phi_cfg = ctx.phi_cfg
+    dp = ctx.plan.attention_decode
+
+    def synced():
+        part = smx.sync_partial(s, vf, valid)
+        return part.num / torch.where(part.den == 0, 1.0,
+                                      part.den)[..., None]
+
+    if phi_cfg.active and dp.scheme == "unified_max":
+        part = smx.async_partial(s, vf, phi_cfg.phi, valid)
+        out = part.num / part.den[..., None]
+        if dp.fallback:
+            overflow = (part.max_centered > phi_cfg.band[1]).any()
+            out = torch.where(overflow, synced(), out)
+    else:
+        out = synced()
+    return out.to(qd.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, layout, dtype=None, device="cuda") -> dict:
+    layout = require_dense(layout, cfg.family)
+    inner, hm, n = _ssm_dims(cfg)
+    dev = resolve(device)
+    # the ring's slots: the window, at most max_seq
+    w = min(cfg.sliding_window or 1024, layout.max_seq)
+    kv = (cfg.num_layers, layout.num_slots, w, cfg.num_kv_heads,
+          cfg.head_dim)
+    dtype = dtype or L.adt(cfg)
+    return {
+        "k": torch.zeros(kv, dtype=dtype, device=dev),
+        "v": torch.zeros(kv, dtype=dtype, device=dev),
+        "state": torch.zeros((cfg.num_layers, layout.num_slots, hm,
+                              SSM_HEAD, n), dtype=torch.float32, device=dev),
+    }
+
+
+def _ring_from_prefill(k: torch.Tensor, lengths: torch.Tensor,
+                       w: int) -> torch.Tensor:
+    """Per-row ragged ring fill, k (B, T, H, Dh) -> (B, w, H, Dh): slot s
+    holds position p(s) = (l - 1) - ((l - 1 - s) mod w), the one p in
+    [l - w, l) with p % w == s; slots with p < 0 (a prompt shorter than
+    the ring) are zero."""
+    b, t = k.shape[:2]
+    s = torch.arange(w, device=k.device)[None, :]
+    l_ = lengths.to(k.device).long()[:, None]
+    p = (l_ - 1) - torch.remainder(l_ - 1 - s, w)              # (B, w)
+    rows = torch.arange(b, device=k.device)[:, None]
+    out = k[rows, p.clamp(0, t - 1)]
+    return torch.where((p >= 0)[..., None, None], out, 0)
+
+
+def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict,
+            **kw):
+    """Whole prompts (B, T): the windowed prefill attention (row 7) and
+    the chunked SSM; each row's last W valid positions fill the ring and
+    the final SSM state lands in the cache, in place. Returns last-token
+    logits (B, Vp) and the cache."""
+    cfg = ctx.cfg
+    w = cache["k"].shape[2]
+    x = L.embed(ctx, params, tokens)
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
+    valid = (torch.arange(t, device=x.device)[None, :]
+             < lengths.to(x.device)[:, None])
+
+    def blk(p_i, xx, c_i):
+        h = L.norm(cfg, p_i["norm"], xx)
+        q, k, v = L.attention_qkv(ctx, p_i["attn"], h, positions)
+        o = ops.attention_prefill(q, k, v, phi_cfg=ctx.phi_cfg, causal=True,
+                                  sliding_window=cfg.sliding_window,
+                                  plan=ctx.plan)
+        attn_out = ctx.matmul(o.reshape(b, t, cfg.q_dim), p_i["attn"]["wo"])
+        ssm_out, s_end = ssm_chunked(ctx, p_i["ssm"], h, return_state=True,
+                                     valid=valid)
+        xx = xx + attn_out + ssm_out
+        h2 = L.norm(cfg, p_i["mlp_norm"], xx)
+        xx = xx + L.mlp_block(ctx, p_i["mlp"], h2)
+        c_i["k"].copy_(_ring_from_prefill(k, lengths, w))
+        c_i["v"].copy_(_ring_from_prefill(v, lengths, w))
+        c_i["state"].copy_(s_end)
+        return xx
+
+    x, cache = stack.run_stack_cached(params["layers"], x, cache, blk)
+    x = L.norm(cfg, params["final_norm"], x)
+    logits = L.lm_logits(ctx, params, tfm._last_rows(x, lengths))[:, 0]
+    return logits, cache
+
+
+def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
+                *, block_tables=None, decode_groups=None, positions=None):
+    """One token a slot: its KV into ring slot ``length % W`` and T1 over
+    the ring, beside one SSM step; the cache updates in place. The write
+    position always equals ``lengths`` here, so ``positions`` (the
+    uniform engine operand) is unused. Returns (logits (B, Vp), cache)."""
+    if block_tables is not None or decode_groups is not None:
+        raise ValueError("ring KV and SSM state have no paged layout")
+    cfg = ctx.cfg
+    x = L.embed(ctx, params, tokens[:, None])          # (B, 1, D)
+    b = x.shape[0]
+    w = cache["k"].shape[2]
+    rows = torch.arange(b, device=x.device)
+    slot = torch.remainder(lengths.long(), w)
+
+    def blk(p_i, xx, c_i):
+        h = L.norm(cfg, p_i["norm"], xx)
+        q, k, v = L.attention_qkv(ctx, p_i["attn"], h, lengths[:, None])
+        c_i["k"].index_put_((rows, slot), k[:, 0].to(c_i["k"].dtype))
+        c_i["v"].index_put_((rows, slot), v[:, 0].to(c_i["v"].dtype))
+        o = ring_decode_attention(ctx, q[:, 0], c_i["k"], c_i["v"],
+                                  lengths + 1)
+        attn_out = ctx.matmul(o.reshape(b, 1, cfg.q_dim), p_i["attn"]["wo"])
+        ssm_out, new_state = ssm_step(ctx, p_i["ssm"], h[:, 0],
+                                      c_i["state"])
+        xx = xx + attn_out + ssm_out[:, None]
+        h2 = L.norm(cfg, p_i["mlp_norm"], xx)
+        xx = xx + L.mlp_block(ctx, p_i["mlp"], h2)
+        c_i["state"].copy_(new_state)
+        return xx
+
+    x, cache = stack.run_stack_cached(params["layers"], x, cache, blk)
+    x = L.norm(cfg, params["final_norm"], x)
+    return L.lm_logits(ctx, params, x)[:, 0], cache

@@ -87,3 +87,14 @@ class PagedLayout:
 
 
 KVLayout = Union[DenseLayout, PagedLayout]
+
+
+def require_dense(layout: KVLayout, family: str) -> DenseLayout:
+    """The layout, which must be the dense slot layout: the recurrent and
+    encoder-decoder families' caches (recurrent state, a ring buffer,
+    cross-attention KV) have no paged form."""
+    if layout.is_paged:
+        raise ValueError(f"family {family!r} has no paged-KV path "
+                         "(recurrent/ring state caches); use "
+                         "cache_kind='dense'")
+    return layout

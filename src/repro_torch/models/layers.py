@@ -1,4 +1,4 @@
-"""Shared building blocks for the dense model family.
+"""Shared building blocks of the model families.
 
 Plain functions over params dicts of tensors (layer params stacked on a
 leading L axis by the model constructors). Every GEMM goes through
@@ -106,7 +106,20 @@ class LayerCtx:
 # ---------------------------------------------------------------------------
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """The JAX package's layernorm: mean and (population) variance in f32,
+    ``(x - mu) * rsqrt(var + eps) * scale + bias``, one rounding."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
 def norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["scale"], p["bias"])
     return rmsnorm(x, p["scale"])
 
 
@@ -127,8 +140,11 @@ def dense_init(gen: torch.Generator, shape, dtype, device,
 
 
 def norm_params(cfg: ModelConfig, lead: tuple, device) -> Params:
-    return {"scale": torch.ones((*lead, cfg.d_model), dtype=pdt(cfg),
-                                device=device)}
+    shape = (*lead, cfg.d_model)
+    p = {"scale": torch.ones(shape, dtype=pdt(cfg), device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(shape, dtype=pdt(cfg), device=device)
+    return p
 
 
 def attention_params(cfg: ModelConfig, gen, num_layers: int,
@@ -178,8 +194,9 @@ def embed_params(cfg: ModelConfig, gen, device) -> Params:
 
 
 def attention_qkv(ctx: LayerCtx, p: Params, x: torch.Tensor,
-                  positions: torch.Tensor):
-    """x: (B, S, D) -> q (B,S,HQ,Dh), k/v (B,S,HK,Dh), rope applied."""
+                  positions: torch.Tensor, *, use_rope: bool = True):
+    """x: (B, S, D) -> q (B,S,HQ,Dh), k/v (B,S,HK,Dh), rope applied
+    unless ``use_rope=False``."""
     cfg = ctx.cfg
     b, s, _ = x.shape
     q = ctx.matmul(x, p["wq"])
@@ -190,8 +207,35 @@ def attention_qkv(ctx: LayerCtx, p: Params, x: torch.Tensor,
     q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if not use_rope:
+        return q, k, v
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
+
+
+def attention_block(ctx: LayerCtx, p: Params, x: torch.Tensor,
+                    positions: torch.Tensor, *, causal: bool = True,
+                    use_rope: bool = True, kv_override=None) -> torch.Tensor:
+    """Full-sequence attention (an encoder, or cross-attention with
+    ``kv_override`` = the encoder's (k, v)) through the prefill kernel
+    (``ops.attention_prefill``, row 7), then the output projection.
+    x: (B, S, D) -> (B, S, D)."""
+    cfg = ctx.cfg
+    b, s, _ = x.shape
+    if kv_override is None:
+        q, k, v = attention_qkv(ctx, p, x, positions, use_rope=use_rope)
+    else:
+        q = ctx.matmul(x, p["wq"])
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+        if use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+        k, v = kv_override
+    o = ops.attention_prefill(q, k, v, phi_cfg=ctx.phi_cfg, causal=causal,
+                              sliding_window=cfg.sliding_window,
+                              plan=ctx.plan)
+    return ctx.matmul(o.reshape(b, s, cfg.q_dim), p["wo"])
 
 
 def decode_ingest(ctx: LayerCtx, norm_p: Params, p: Params, x: torch.Tensor,
@@ -300,6 +344,18 @@ def decode_attend(ctx: LayerCtx, q, k, v, cache_k, cache_v, lengths):
     o = ops.attention_decode(q[:, 0], cache_k, cache_v, lengths + 1,
                              phi_cfg=ctx.phi_cfg, plan=ctx.plan)
     return o.reshape(q.shape[0], 1, ctx.cfg.q_dim)
+
+
+def attention_decode_block(ctx: LayerCtx, p: Params, x, position, cache_k,
+                           cache_v, lengths, *, use_rope: bool = True):
+    """One-token decode attention in the split composition, for callers
+    that norm outside and own the residual (the encoder-decoder's
+    self-attention): QKV at ``position`` → the KV appended at each row's
+    length in place → decode attention (rows 3-4) → the output
+    projection. x: (B, 1, D) -> (B, 1, D)."""
+    q, k, v = attention_qkv(ctx, p, x, position[:, None], use_rope=use_rope)
+    o = decode_attend(ctx, q, k, v, cache_k, cache_v, lengths)
+    return ctx.matmul(o, p["wo"])
 
 
 def decode_epilogue(ctx: LayerCtx, p: Params, o, resid):

@@ -33,6 +33,14 @@ def unstack(tree) -> list:
             for i in range(num_layers_of(tree))]
 
 
+def run_stack(layers_params, x, block_fn: Callable):
+    """``block_fn(p_i, x) -> x`` over the depth (an encoder's stack: no
+    cache). Returns x."""
+    for p_i in unstack(layers_params):
+        x = block_fn(p_i, x)
+    return x
+
+
 def run_stack_cached(layers_params, x, cache, block_fn: Callable):
     """``block_fn(p_i, x, cache_i) -> x`` over the depth; ``cache_i`` is
     the layer's view of every cache leaf, updated in place. Returns

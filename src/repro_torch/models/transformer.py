@@ -169,9 +169,17 @@ def prefill_attention_half(ctx: LayerCtx, p: Params, x, positions,
     o = ops.attention_prefill(q, k, v, phi_cfg=ctx.phi_cfg, causal=True,
                               sliding_window=cfg.sliding_window,
                               plan=ctx.plan)
-    cache_i["k"][:, :s] = k.to(cache_i["k"].dtype)
-    cache_i["v"][:, :s] = v.to(cache_i["v"].dtype)
+    write_prompt_kv(cache_i, k, v)
     return x + ctx.matmul(o.reshape(b, s, cfg.q_dim), p["attn"]["wo"])
+
+
+def write_prompt_kv(cache_i: dict, k, v) -> None:
+    """A prompt's KV (B, S, HK, Dh) into positions [0, S) of a layer's
+    dense cache, in place; positions past the cache's width are prompt
+    padding (a prompt fits ``max_seq``) and are dropped."""
+    n = min(k.shape[1], cache_i["k"].shape[1])
+    cache_i["k"][:, :n] = k[:, :n].to(cache_i["k"].dtype)
+    cache_i["v"][:, :n] = v[:, :n].to(cache_i["v"].dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -64,7 +64,13 @@ The port of the JAX package's ``serving/engine.py`` for
     decode), all in one memory pool. A key's first tick runs eagerly and
     the next one captures; ``EngineStats.graph_captures`` /
     ``graph_replays`` count them. On the CPU looped runs the fused path
-    eagerly.
+    eagerly. The recurrent and encoder-decoder families
+    (:data:`NO_GRAPH_FAMILIES`) call no fused seam, so ``"fused"`` serves
+    them as ``"split"`` does, and ``"looped"`` raises for them.
+  * **Other families.** ssm (RWKV6), hybrid (Hymba) and encdec (Whisper)
+    keep caches of their own (recurrent state, a sliding-window ring,
+    cross-attention KV): they serve on the dense layout only and prefill
+    each admission wave in one ``api.prefill`` call.
   * **Quantized weights** (``weight_dtype=`` or the plan's
     ``matmul.weight_dtype``). ``"int8"`` / ``"fp8"`` quantize every layer
     GEMM weight once at load into 1-byte codes with one f32 step per
@@ -183,6 +189,11 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
+# the recurrent and encoder-decoder families: dense-only, one-shot
+# prefill, and no CUDA-graph capture of their decode step
+NO_GRAPH_FAMILIES = ("ssm", "hybrid", "encdec")
+
+
 def request_seed(seed: int, rid: int) -> int:
     """The per-request generator seed derived from ``(seed, rid)``."""
     return int(np.random.SeedSequence([seed, rid]).generate_state(1)[0])
@@ -231,6 +242,14 @@ class Engine:
                 self.plan, decode_fusion=dataclasses.replace(
                     self.plan.decode_fusion, granularity=decode_fusion))
         self.decode_fusion = self.plan.decode_fusion.granularity
+        if self.decode_fusion == "looped" and cfg.family in NO_GRAPH_FAMILIES:
+            # these decode steps have no CUDA-graph capture, and "looped"
+            # never runs eager in its place
+            raise ValueError(
+                f"decode_fusion='looped' is not served for the "
+                f"{cfg.family!r} family: its decode step has no CUDA-graph "
+                "capture (its steps call no fused seam, so 'fused' serves "
+                "it as 'split' does)")
         # GEMM weight precision: the explicit argument wins over the plan's
         # matmul.weight_dtype and lands in the plan; the kernels themselves
         # key off the quantized leaves, not the knob
@@ -311,8 +330,9 @@ class Engine:
             self.slots: SlotManager = SlotManager(num_slots, max_seq)
         elif cache_kind == "paged":
             if not self.api.supports_paged:
-                raise ValueError(f"family {cfg.family!r} has no paged-KV "
-                                 "path; use cache_kind='dense'")
+                raise ValueError(
+                    f"family {cfg.family!r} has no paged-KV path "
+                    "(recurrent/ring state caches); use cache_kind='dense'")
             if not self.prefill_chunk:
                 raise ValueError("cache_kind='paged' requires chunked "
                                  "prefill (prefill_chunk > 0)")
@@ -764,9 +784,11 @@ class Engine:
     def _prefill_batched(
             self, items: list[tuple[int, RequestState]]) -> list[TokenEvent]:
         """One padded ``api.prefill`` call for the whole admission wave
-        (flash prefill attention); each row's KV is then copied into its
-        slot. Prompts pad to a power-of-two bucket (min
-        ``PROMPT_BUCKET``)."""
+        (flash prefill attention) into a scratch cache of the engine's
+        own layout (``max_seq`` wide: a ring's width depends on it); each
+        row's entry of every cache leaf (KV, recurrent state, ring,
+        cross-attention KV) is then copied to its slot on axis 1.
+        Prompts pad to a power-of-two bucket (min ``PROMPT_BUCKET``)."""
         seqs = {idx: state.prefill_tokens() for idx, state in items}
         pmax = max(len(s) for s in seqs.values())
         padded = pow2_bucket(
@@ -777,16 +799,16 @@ class Engine:
         for row, (idx, _state) in enumerate(items):
             toks[row, :len(seqs[idx])] = seqs[idx]
             lens[row] = len(seqs[idx])
-        scratch = self.api.init_cache(DenseLayout(self.num_slots, padded),
-                                      device=self.device)
+        scratch = self.api.init_cache(
+            DenseLayout(self.num_slots, self.max_seq), device=self.device)
         logits, scratch = self.api.prefill(
             self.ctx, self.params, self._i32(toks), self._i32(lens), scratch)
-        span = min(padded, self.max_seq)
-        final_logits = {}
-        for row, (idx, _state) in enumerate(items):
-            for name in ("k", "v"):
-                self.cache[name][:, idx, :span] = scratch[name][:, row, :span]
-            final_logits[idx] = logits[row:row + 1]
+        slots = torch.tensor([idx for idx, _ in items], device=self.device)
+        rows = torch.arange(len(items), device=self.device)
+        for name, leaf in self.cache.items():
+            leaf[:, slots] = scratch[name][:, rows]
+        final_logits = {idx: logits[row:row + 1]
+                        for row, (idx, _state) in enumerate(items)}
         return self._first_tokens(items, final_logits)
 
     def _first_tokens(self, items, final_logits) -> list[TokenEvent]:

@@ -225,7 +225,29 @@ def test_called_shapes_are_the_layers_separate_gemms():
             for s in td.called_gemm_shapes(dbrx)} == {
         ("q_proj", 6144, 6144, 1), ("kv_proj", 6144, 1024, 2),
         ("o_proj", 6144, 6144, 1), ("lm_head", 6144, 100352, 1)}
-    assert td.called_gemm_shapes(tconfigs.get("rwkv6-1.6b")) == []
+    # slice 7b: RWKV6's time and channel mixes (the decay LoRA is a plain
+    # f32 product), Hymba's attention, SSM and MLP projections (w_dt at
+    # N = 50), Whisper's self-, cross-attention and MLP, each untied head
+    # at the padded vocabulary
+    assert {(s.name, s.k, s.n, s.count) for s in td.called_gemm_shapes(
+        tconfigs.get("rwkv6-1.6b"))} == {
+        ("rkvgo_proj", 2048, 2048, 5), ("cm_k", 2048, 7168, 1),
+        ("cm_v", 7168, 2048, 1), ("cm_r", 2048, 2048, 1),
+        ("lm_head", 2048, 65536, 1)}
+    assert {(s.name, s.k, s.n, s.count) for s in td.called_gemm_shapes(
+        tconfigs.get("hymba-1.5b"))} == {
+        ("q_proj", 1600, 1600, 1), ("kv_proj", 1600, 320, 2),
+        ("o_proj", 1600, 1600, 1), ("ssm_in_gate", 1600, 3200, 2),
+        ("ssm_bc", 1600, 32, 1), ("ssm_dt", 1600, 50, 1),
+        ("ssm_out", 3200, 1600, 1), ("gate_up", 1600, 5504, 2),
+        ("down", 5504, 1600, 1), ("lm_head", 1600, 32256, 1)}
+    assert {(s.name, s.k, s.n, s.count) for s in td.called_gemm_shapes(
+        tconfigs.get("whisper-tiny"))} == {
+        ("q_proj", 384, 384, 1), ("kv_proj", 384, 384, 2),
+        ("o_proj", 384, 384, 1), ("cross_q", 384, 384, 1),
+        ("cross_kv", 384, 384, 2), ("cross_o", 384, 384, 1),
+        ("up", 384, 1536, 1), ("down", 1536, 384, 1),
+        ("lm_head", 384, 51968, 1)}
 
 
 # ---------------------------------------------------------------------------

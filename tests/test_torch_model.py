@@ -157,8 +157,15 @@ def test_prefill_logits(dtype, backend):
 
 
 def test_unported_families_and_modes_raise():
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tget_model(tconfigs.smoke(tconfigs.get("rwkv6-1.6b")))
+    """Every family is served now (slice 7b brought ssm, hybrid and
+    encdec); what still raises is the paged layout for the families whose
+    caches have no paged form."""
+    from repro_torch.models.kvlayout import PagedLayout
+    for arch in ("rwkv6-1.6b", "hymba-1.5b", "whisper-tiny"):
+        api = tget_model(tconfigs.smoke(tconfigs.get(arch)))
+        assert not api.supports_paged and api.prefill_chunk is None
+        with pytest.raises(ValueError, match="no paged-KV path"):
+            api.init_cache(PagedLayout(4, 16), device="cpu")
 
 
 def test_init_params_draws_reference_distributions():
