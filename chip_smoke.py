@@ -8,6 +8,8 @@
     python3 chip_smoke.py --plan-only       # build, then only the cost phase
                                             # and the wallclock tune (the
                                             # plan lands in chiprun_out/)
+    python3 chip_smoke.py --slice9a-only    # build, then only phases 7
+                                            # and 8
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -161,7 +163,19 @@
    chose the same experts (rows that chose otherwise are counted); busy
    and wall a tick of X and X′, the MoE tail's share of X's busy
    tick, and the tick's bytes against its bound.
-7. Prints the card's name and power limit, one JSON line describing every
+7. The recurrent and encoder-decoder families at their published widths
+   and depth (``slice7b_phase``): Y (rwkv6-1.6b), Z and Z′ (hymba-1.5b,
+   Z′ with long prompts and the fused FFN-up) and AA (whisper-tiny),
+   each served split and then looped (``looped_family_phase``: one CUDA
+   graph a tick, tokens bit for bit the split run's), busy and wall a
+   tick of each granularity.
+8. The trainer (``train_phase``, the "torch" plan): qwen2-0.5b at its
+   published widths and depth trains TRAIN_STEPS steps (loss finite and
+   falling; ms a step, tokens/s, peak memory); 2 layers on the card
+   against the CPU; a resumed run bit for bit the uninterrupted one;
+   the training CLI under SIGTERM, then resumed; one step of every other
+   family's smoke config against the CPU's loss.
+9. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Exits non-zero, printing no result line, without CUDA, outside the repo,
@@ -5056,6 +5070,42 @@ def family_tick(torch, cfg, params, reqs, max_seq, tag, log, **engine_kw):
             f"{spec.hbm_bw / 1e12:.2f} TB/s; busy {r[0]:.3f} ms ({bound / r[0]:.2f}"
             f" of the bound's rate), unprofiled wall {r[1]:.3f} ms, idle "
             f"{100 * (1 - r[0] / r[1]):.1f}%")
+    return r
+
+
+def looped_family_phase(torch, tag, cfg, params, reqs, max_seq, split, log,
+                        launches, plan=None, split_tick=None):
+    """``reqs`` served on a 4-slot engine under
+    ``decode_fusion="looped"`` (``plan``'s other knobs; launches counted):
+    the tokens must be the split run's ``split`` bit for bit, and the
+    decode step must have been captured and replayed. With
+    ``split_tick`` (the split run's (busy, unprofiled wall) a tick) the
+    looped tick is profiled and printed beside it."""
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(cfg, params, num_slots=4, max_seq=max_seq, device="cuda",
+                 plan=plan, decode_fusion="looped")
+    out, counts = counted_run(torch, eng, reqs, launches)
+    check_finished(f"{tag} looped", out, reqs, cfg.vocab_size)
+    g = eng.ctx.graphs
+    check(ordered(out) == split, f"{tag} looped: tokens differ from the "
+          "split run's")
+    check(g.captures > 0 and g.replays > 0, f"{tag} looped: the decode "
+          "step was never captured and replayed")
+    log(f"looped {tag}: {len(out)} requests, tokens bit for bit the split "
+        f"run's; {g.captures} graphs captured, {g.replays} replays, "
+        f"{g.eager_ticks} eager first ticks; {eng.ticks} decode ticks at "
+        f"{1e3 * eng.stats.decode_seconds / max(eng.ticks, 1):.3f} ms/tick; "
+        f"launches {json.dumps({n: c for n, c in counts.items() if c})}")
+    if split_tick is None:
+        return
+    r = family_tick(torch, cfg, params, reqs, max_seq, f"{tag} looped", log,
+                    decode_fusion="looped", plan=plan)
+    if r is not None:
+        log(f"tick {tag}: looped busy {r[0]:.3f} ms, unprofiled wall "
+            f"{r[1]:.3f} ms a tick against split busy {split_tick[0]:.3f} "
+            f"ms, wall {split_tick[1]:.3f} ms (wall {split_tick[1] / r[1]:.2f}"
+            "x)")
 
 
 def slice7b_phase(torch, seed, lengths, log, launches):
@@ -5064,7 +5114,9 @@ def slice7b_phase(torch, seed, lengths, log, launches):
     1,030-1,600 tokens: the window mask and the ring's wrap) and AA
     (whisper-tiny, 8 prompts of 4-64 tokens, max_seq 448, the engine's
     zero frames): full published widths and depth, random bf16 weights
-    from ``seed``, 32 new tokens, 4 slots, the dense cache. Each family's
+    from ``seed``, 32 new tokens, 4 slots, the dense cache; each run
+    then again under ``decode_fusion="looped"`` (``looped_family_phase``,
+    Y, Z and AA profiled beside their split ticks). Each family's
     weights are freed before the next one's are drawn."""
     import numpy as np
 
@@ -5090,47 +5142,418 @@ def slice7b_phase(torch, seed, lengths, log, launches):
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         if arch == "rwkv6-1.6b":
             reqs = family_requests(np, cfg, seed + 5, lengths)
-            family_serve(torch, "Y rwkv6-1.6b", cfg, params, reqs, max_seq,
-                         ("gemv", "flat_gemm"), log, launches)
+            toks = family_serve(torch, "Y rwkv6-1.6b", cfg, params, reqs,
+                                max_seq, ("gemv", "flat_gemm"), log,
+                                launches)
             family_logits(torch, cfg, params, reqs, max_seq, log)
             chunked_vs_stepwise(torch, cfg, params, reqs[0][0][:64],
                                 max_seq, log)
-            family_tick(torch, cfg, params, reqs, max_seq, "Y rwkv6-1.6b",
-                        log)
+            tick = family_tick(torch, cfg, params, reqs, max_seq,
+                               "Y rwkv6-1.6b", log)
+            looped_family_phase(torch, "Y rwkv6-1.6b", cfg, params, reqs,
+                                max_seq, toks, log, launches,
+                                split_tick=tick)
         elif arch == "hymba-1.5b":
             reqs = family_requests(np, cfg, seed + 6, lengths)
-            family_serve(torch, "Z hymba-1.5b", cfg, params, reqs, max_seq,
-                         ("gemv", "flat_gemm") + flash, log, launches)
+            toks = family_serve(torch, "Z hymba-1.5b", cfg, params, reqs,
+                                max_seq, ("gemv", "flat_gemm") + flash, log,
+                                launches)
             # Z′ also fuses the FFN-up (row 8 on Hymba's MLP)
             long_reqs = family_requests(np, cfg, seed + 7,
                                         (1030, 1600, 1234, 1100))
-            family_serve(torch, "Z' hymba-1.5b long prompts, fused FFN-up",
-                         cfg, params, long_reqs, max_seq,
-                         ("gemv", "flat_gemm", "fused_ffn_up") + flash, log,
-                         launches, plan=make_plan("cuda", fused_ffn=True))
+            fused_ffn = make_plan("cuda", fused_ffn=True)
+            long_toks = family_serve(
+                torch, "Z' hymba-1.5b long prompts, fused FFN-up", cfg,
+                params, long_reqs, max_seq,
+                ("gemv", "flat_gemm", "fused_ffn_up") + flash, log,
+                launches, plan=fused_ffn)
             family_logits(torch, cfg, params, reqs, max_seq, log,
                           forced=True)
             chunked_vs_stepwise(torch, cfg, params, reqs[0][0][:64],
                                 max_seq, log)
-            family_tick(torch, cfg, params, reqs, max_seq, "Z hymba-1.5b",
-                        log)
+            tick = family_tick(torch, cfg, params, reqs, max_seq,
+                               "Z hymba-1.5b", log)
+            looped_family_phase(torch, "Z hymba-1.5b", cfg, params, reqs,
+                                max_seq, toks, log, launches,
+                                split_tick=tick)
+            looped_family_phase(torch, "Z' hymba-1.5b long prompts", cfg,
+                                params, long_reqs, max_seq, long_toks, log,
+                                launches, plan=fused_ffn)
         else:
             rng = np.random.default_rng(seed + 8)
             reqs = family_requests(np, cfg, seed + 9,
                                    rng.integers(4, 65, size=8))
-            family_serve(torch, "AA whisper-tiny", cfg, params, reqs,
-                         max_seq, ("gemv", "flat_gemm") + flash + decode,
-                         log, launches)
+            toks = family_serve(torch, "AA whisper-tiny", cfg, params, reqs,
+                                max_seq, ("gemv", "flat_gemm") + flash
+                                + decode, log, launches)
             frames = (torch.randn((4, 1500, cfg.d_model), generator=gen,
                                   device="cuda") * 0.5).to(torch.bfloat16)
             family_logits(torch, cfg, params, reqs, max_seq, log,
                           frames=frames)
-            family_tick(torch, cfg, params, reqs, max_seq,
-                        "AA whisper-tiny", log)
+            tick = family_tick(torch, cfg, params, reqs, max_seq,
+                               "AA whisper-tiny", log)
+            looped_family_phase(torch, "AA whisper-tiny", cfg, params, reqs,
+                                max_seq, toks, log, launches,
+                                split_tick=tick)
         del params
         gc.collect()
         torch.cuda.empty_cache()
         log(f"slice 7b {arch}: phase {time.perf_counter() - t_phase:.1f}s")
+
+
+TRAIN_STEPS = 20                      # qwen2-0.5b steps at full depth
+TRAIN_SHAPE = (512, 8)                # (seq, batch) of those steps
+CPU_SHAPE = (128, 2)                  # the 2-layer card-vs-CPU cases
+
+
+def checkpoint_paths(tree, prefix=""):
+    """A tree's leaf paths in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in checkpoint_paths(v, f"{prefix}/{k}")]
+    return [prefix]
+
+
+def grads_cosine(torch, a, b):
+    """Cosine of two gradient tensors, in f64."""
+    a, b = a.double().flatten(), b.double().flatten()
+    den = (a.norm() * b.norm()).item()
+    return 1.0 if den == 0 else float((a @ b).item() / den)
+
+
+def train_profile(torch, cfg, plan, seed, wall_s, log):
+    """Where a full-depth train step's time goes: the forward and
+    backward pass and the AdamW update timed apart, then one step (after
+    a warm one) under torch.profiler, its device busy time against
+    ``wall_s`` (the loop's unprofiled median step), the kernels by
+    family and the costliest ones; the table lands in
+    chiprun_out/train_profile.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import RunConfig, ShapeConfig
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import LayerCtx
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.data import SyntheticTokens, device_batch
+    from repro_torch.training.train_state import (TrainState,
+                                                  make_train_step,
+                                                  value_and_grad)
+
+    api = get_model(cfg)
+    step = make_train_step(api, LayerCtx(cfg=cfg, plan=plan),
+                           RunConfig(learning_rate=1e-3, warmup_steps=2))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = TrainState.create(api.init_params(gen, device="cuda"))
+    batch = device_batch(SyntheticTokens(cfg, ShapeConfig(
+        "smoke", *TRAIN_SHAPE, "train"), seed=seed).batch_at(0), "cuda")
+    state, met = step(state, batch)                 # warm
+    float(met["loss"])
+    # the step's two halves apart, host clock around synchronized work:
+    # the forward and backward pass, then the AdamW update
+    ctx = LayerCtx(cfg=cfg, plan=plan)
+    halves = {"forward + backward": [], "AdamW update": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = value_and_grad(
+            lambda p, b: api.train_loss(ctx, p, b, remat=True),
+            state.params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.adamw_update(opt.AdamWConfig(), state.params, grads, state.m,
+                         state.v, state.step)
+        torch.cuda.synchronize()
+        halves["forward + backward"].append(t1 - t0)
+        halves["AdamW update"].append(time.perf_counter() - t1)
+        del grads
+    log("profile train step halves (median of 3, host clock, synchronized): "
+        + ", ".join(f"{k} {1e3 * statistics.median(v):.1f} ms"
+                    for k, v in halves.items()))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, met = step(state, batch)
+        float(met["loss"])
+    del state
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    if busy_ms == 0:
+        log("profile train step: device time not measured (the profiler "
+            "reported none)")
+        return
+    # cuBLAS / cuBLASLt kernels: nvjet_* (Hopper bf16), *xmma_gemm* and
+    # cutlass SIMT sgemm (the f32 attention products)
+    kinds = {"GEMM (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass"),
+             "reduce": ("reduce",), "copy / cast": ("copy",),
+             "index / scatter / gather": ("index", "scatter", "gather")}
+    by_kind = {k: 0.0 for k in kinds}
+    for e in evs:
+        for k, keys in kinds.items():
+            if any(x in e.key for x in keys):
+                by_kind[k] += e.self_device_time_total / 1e3
+                break
+    launches = sum(e.count for e in evs)
+    log(f"profile train step ({ARCH}, {TRAIN_SHAPE[1]} x {TRAIN_SHAPE[0]},"
+        f" one step): device busy {busy_ms:.2f} ms, {launches} kernel "
+        f"launches; unprofiled median step {1e3 * wall_s:.2f} ms, idle "
+        f"{100 * (1 - busy_ms / 1e3 / wall_s):.1f}%; by kind (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in by_kind.items())
+        + f", other {busy_ms - sum(by_kind.values()):.2f}")
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile   {e.self_device_time_total / 1e3:8.3f} ms "
+            f"{e.count:6d} calls  {e.key[:90]}")
+    (OUT_DIR / "train_profile.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=40))
+
+
+# The card against the CPU in the train phase. Both sides run the same
+# torch code, so these catch numerics that differ by device (an f32
+# accumulation dropped to bf16, say). Each limit is about ten times the
+# reading of an H100 80GB HBM3 at 700 W (PERF.md, PR 26): qwen2-0.5b on
+# 2 layers, loss 4.5e-6, grad norm 5.4e-5, min leaf cosine 0.99994 (the
+# cosine's limit ten times its shortfall from 1); the families' smoke
+# losses at most 1.3e-4 (dbrx-132b).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_NORM_RTOL = 1e-3
+TRAIN_MIN_COSINE = 0.9994
+TRAIN_FAMILY_RTOL = 1e-3
+
+
+def train_phase(torch, seed, log):
+    """The trainer on the card (the "torch" plan: library GEMMs and the
+    reference attention, with autograd's backward; no kernel of the
+    table runs, so no launch is counted):
+
+      1. qwen2-0.5b at its published widths and depth (bf16 params from
+         ``seed``, f32 moments, remat on): TRAIN_STEPS steps of
+         ``SyntheticTokens`` through ``train_loop``; every loss finite,
+         the mean of the last 5 below the first; ms a step, tokens/s and
+         ``max_memory_allocated`` printed.
+      2. The same widths on 2 layers, one forward and backward on the
+         card and on the CPU from the same params and batch: the loss
+         within TRAIN_LOSS_RTOL relative, the gradient norm within
+         TRAIN_NORM_RTOL, every leaf's gradient at cosine >=
+         TRAIN_MIN_COSINE.
+      3. 2 layers, 8 steps with a checkpoint every 4: stopped at 4 and
+         resumed, the losses bit for bit the uninterrupted run's.
+      4. ``python -m repro_torch.launch.train --arch qwen2-0.5b --smoke``
+         as a subprocess, SIGTERM after its first logged step: exit 0, a
+         committed step, and a rerun resumes from it.
+      5. One train step of every other family's smoke config, its loss
+         within TRAIN_FAMILY_RTOL relative of the CPU's on the same
+         params and batch."""
+    import dataclasses
+    import math
+    import os
+    import select
+    import shutil
+    import signal
+
+    from repro_torch import configs
+    from repro_torch.config import RunConfig, ShapeConfig
+    from repro_torch.core.plan import DEFAULT_PLAN
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import LayerCtx
+    from repro_torch.models.stack import tree_leaves, tree_map
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.data import SyntheticTokens, device_batch
+    from repro_torch.training.loop import train_loop
+    from repro_torch.training.train_state import (TrainState,
+                                                  make_train_step,
+                                                  value_and_grad)
+
+    plan = DEFAULT_PLAN.with_overrides(backend="torch")
+    root = OUT_DIR / "train"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def setup(cfg, steps, every, tag, seq_batch):
+        api = get_model(cfg)
+        run = RunConfig(learning_rate=1e-3, warmup_steps=2,
+                        total_steps=steps, checkpoint_every=every,
+                        checkpoint_dir=str(root / tag), seed=seed)
+        step = make_train_step(api, LayerCtx(cfg=cfg, plan=plan), run)
+
+        def init():
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            return TrainState.create(api.init_params(gen, device="cuda"))
+
+        return dict(model_cfg=cfg, shape=ShapeConfig("smoke", *seq_batch,
+                                                     "train"),
+                    run=run, train_step=step, init_state=init,
+                    device="cuda", log_every=0, install_signals=False)
+
+    try:
+        # ---- 1. qwen2-0.5b at full width and depth
+        cfg = configs.get(ARCH)
+        seq, batch = TRAIN_SHAPE
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_loop(max_steps=TRAIN_STEPS, **setup(
+            cfg, TRAIN_STEPS, TRAIN_STEPS, "full", TRAIN_SHAPE))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        losses = res.losses
+        med = statistics.median(res.step_times)
+        check(len(losses) == TRAIN_STEPS
+              and all(math.isfinite(x) for x in losses),
+              f"train {ARCH}: a loss is not finite: {losses}")
+        tail = sum(losses[-5:]) / 5
+        check(tail < losses[0], f"train {ARCH}: the loss did not fall "
+              f"({losses[0]:.4f} first, {tail:.4f} the last 5's mean)")
+        log(f"train {ARCH}: {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, vocabulary {cfg.vocab_size}, bf16 params, f32 "
+            f"moments, remat; {TRAIN_STEPS} steps of {batch} x {seq} "
+            f"tokens: median {1e3 * med:.1f} ms a step (first "
+            f"{1e3 * res.step_times[0]:.1f} ms), {batch * seq / med:.0f} "
+            f"tokens/s; loss {losses[0]:.4f} -> {losses[-1]:.4f} (last 5 "
+            f"mean {tail:.4f}); max_memory_allocated {peak / 2**30:.2f} GiB;"
+            f" loop wall {wall:.1f}s with the final checkpoint")
+        log(f"train {ARCH}: losses {[round(x, 4) for x in losses]}")
+        shutil.rmtree(root / "full", ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_profile(torch, cfg, plan, seed, med, log)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 2. the card against the CPU, 2 layers
+        cfg2 = dataclasses.replace(cfg, num_layers=2)
+        api = get_model(cfg2)
+        params = api.init_params(torch.Generator().manual_seed(seed),
+                                 device="cpu")
+        hb = SyntheticTokens(cfg2, ShapeConfig("smoke", *CPU_SHAPE,
+                                               "train"),
+                             seed=seed).batch_at(0)
+        ctx = LayerCtx(cfg=cfg2, plan=plan)
+
+        def loss_fn(p, b):
+            return api.train_loss(ctx, p, b, remat=True)
+
+        t0 = time.perf_counter()
+        cpu_l, cpu_g = value_and_grad(loss_fn, params,
+                                      device_batch(hb, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        gpu_l, gpu_g = value_and_grad(
+            loss_fn, tree_map(lambda t: t.cuda(), params),
+            device_batch(hb, "cuda"))
+        # a second forward and backward on the card: the step must be
+        # deterministic for a resumed run to repeat the uninterrupted one
+        _, again_g = value_and_grad(
+            loss_fn, tree_map(lambda t: t.cuda(), params),
+            device_batch(hb, "cuda"))
+        moved = [p for p, a, b in zip(
+            checkpoint_paths(gpu_g), tree_leaves(gpu_g),
+            tree_leaves(again_g)) if not torch.equal(a, b)]
+        log(f"train 2 layers: a second backward pass on the card gives "
+            f"{'every gradient bit for bit' if not moved else 'other bits in ' + str(moved)}")
+        del again_g
+        cpu_n = float(opt.global_norm(cpu_g))
+        gpu_n = float(opt.global_norm(gpu_g))
+        cos = [grads_cosine(torch, a.cpu(), b)
+               for a, b in zip(tree_leaves(gpu_g), tree_leaves(cpu_g))]
+        rel_l = abs(float(gpu_l) - float(cpu_l)) / abs(float(cpu_l))
+        rel_n = abs(gpu_n - cpu_n) / cpu_n
+        log(f"train 2 layers card vs CPU ({CPU_SHAPE[1]} x {CPU_SHAPE[0]}):"
+            f" loss {float(gpu_l):.5f} vs {float(cpu_l):.5f} (rel "
+            f"{rel_l:.2e}), grad norm {gpu_n:.5f} vs {cpu_n:.5f} (rel "
+            f"{rel_n:.2e}), min leaf cosine {min(cos):.5f} over {len(cos)} "
+            f"leaves; the CPU's step {cpu_s:.1f}s")
+        check(rel_l <= TRAIN_LOSS_RTOL, "train: the card's loss is not "
+              f"within {TRAIN_LOSS_RTOL} of the CPU's")
+        check(rel_n <= TRAIN_NORM_RTOL, "train: the card's gradient norm is "
+              f"not within {TRAIN_NORM_RTOL} of the CPU's")
+        check(min(cos) >= TRAIN_MIN_COSINE, "train: a leaf's gradient on "
+              f"the card is at cosine below {TRAIN_MIN_COSINE} to the CPU's")
+        del params, cpu_g, gpu_g
+
+        # ---- 3. resume equals uninterrupted, 2 layers
+        t0 = time.perf_counter()
+        kw = setup(cfg2, 8, 4, "resume", CPU_SHAPE)
+        r1 = train_loop(max_steps=8, preempt_after=4, **kw)
+        r2 = train_loop(max_steps=8, **kw)
+        r3 = train_loop(max_steps=8, **setup(cfg2, 8, 4, "straight",
+                                             CPU_SHAPE))
+        check(r1.final_step == 4 and r2.restored_from == 4
+              and r2.final_step == 8, "train: the resumed run did not stop "
+              "at 4 and resume from it")
+        same = r1.losses + r2.losses == r3.losses
+        log(f"train resume: 8 steps (2 layers), stopped at 4 and resumed: "
+            f"losses {'bit for bit' if same else 'NOT'} the uninterrupted "
+            f"run's; {[round(x, 5) for x in r3.losses]}; "
+            f"{time.perf_counter() - t0:.1f}s with 5 checkpoints")
+        check(same, f"train: resumed losses {r1.losses + r2.losses} differ "
+              f"from the uninterrupted {r3.losses}")
+        shutil.rmtree(root / "resume", ignore_errors=True)
+        shutil.rmtree(root / "straight", ignore_errors=True)
+
+        # ---- 4. SIGTERM on the CLI, then resume
+        t0 = time.perf_counter()
+        ckpt = root / "cli"
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               ARCH, "--smoke", "--checkpoint-dir", str(ckpt),
+               "--log-every", "1", "--seed", str(seed)]
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        proc = subprocess.Popen(cmd + ["--steps", "100"], env=env,
+                                stdout=subprocess.PIPE, text=True,
+                                cwd=str(ROOT))
+        try:
+            ready, _, _ = select.select([proc.stdout], [], [], 300)
+            first = proc.stdout.readline() if ready else ""
+            proc.send_signal(signal.SIGTERM)
+            out, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        latest = CheckpointManager(str(ckpt)).latest_step()
+        check(first.startswith("step") and proc.returncode == 0
+              and "preempted=True" in out and latest is not None,
+              f"train CLI: SIGTERM gave exit {proc.returncode}, checkpoint "
+              f"{latest}, output {first!r} {out[-300:]!r}")
+        again = subprocess.run(cmd + ["--steps", str(latest + 2)], env=env,
+                               capture_output=True, text=True, timeout=300,
+                               cwd=str(ROOT))
+        resumed = (f"finished at step {latest + 2} (restored_from={latest},"
+                   in again.stdout)
+        log(f"train CLI: SIGTERM after {first.strip()!r}: exit "
+            f"{proc.returncode}, committed step {latest}; rerun exit "
+            f"{again.returncode}: {again.stdout.strip().splitlines()[-1:]};"
+            f" {time.perf_counter() - t0:.1f}s")
+        check(again.returncode == 0 and resumed,
+              f"train CLI: the rerun did not resume from step {latest}: "
+              f"{again.stdout[-300:]!r} {again.stderr[-300:]!r}")
+
+        # ---- 5. one step of every family's smoke config
+        for arch in ("internvl2-76b", "dbrx-132b", "rwkv6-1.6b",
+                     "hymba-1.5b", "whisper-tiny"):
+            fcfg = configs.smoke(configs.get(arch))
+            api = get_model(fcfg)
+            params = api.init_params(torch.Generator().manual_seed(seed),
+                                     device="cpu")
+            hb = SyntheticTokens(fcfg, ShapeConfig("smoke", 32, 2, "train"),
+                                 seed=seed).batch_at(0)
+            ctx = LayerCtx(cfg=fcfg, plan=plan)
+            with torch.no_grad():
+                cpu_l = float(api.train_loss(ctx, params,
+                                             device_batch(hb, "cpu")))
+            step = make_train_step(api, ctx, RunConfig(learning_rate=1e-3))
+            state, met = step(TrainState.create(tree_map(
+                lambda t: t.cuda(), params)), device_batch(hb, "cuda"))
+            gpu_l = float(met["loss"])
+            rel = abs(gpu_l - cpu_l) / abs(cpu_l)
+            finite = all(bool(torch.isfinite(t.float()).all())
+                         for t in tree_leaves(state.params))
+            log(f"train {arch} smoke: one step on the card, loss "
+                f"{gpu_l:.5f} vs the CPU's {cpu_l:.5f} (rel {rel:.2e}); "
+                f"grad norm {float(met['grad_norm']):.4f}; new params "
+                f"{'finite' if finite else 'NOT finite'}")
+            check(rel <= TRAIN_FAMILY_RTOL and finite, f"train {arch}: the "
+                  f"card's loss is not within {TRAIN_FAMILY_RTOL} of the "
+                  "CPU's, or a param is not finite")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -5149,6 +5572,9 @@ def main(argv=None) -> int:
     ap.add_argument("--slice7b-only", action="store_true",
                     help="build, then only the slice 7b kernel lines and "
                     "runs Y, Z, Z′ and AA; prints no result line")
+    ap.add_argument("--slice9a-only", action="store_true",
+                    help="build, then only runs Y, Z, Z′ and AA (split and "
+                    "looped) and the train phase; prints no result line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5187,6 +5613,17 @@ def main(argv=None) -> int:
         + ", ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
 
     rows = {}
+    if args.slice9a_only:
+        a_lengths = np.random.default_rng(args.seed).integers(32, 301, size=8)
+        t0 = time.perf_counter()
+        slice7b_phase(torch, args.seed, [int(n) for n in a_lengths], log, {})
+        log(f"slice 7b and looped phase: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        train_phase(torch, args.seed, log)
+        log(f"train phase: {time.perf_counter() - t0:.1f}s")
+        (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
+        print(smi)
+        return 0
     if not (args.profiles_only or args.plan_only):
         timer = Timer(torch)
         t0 = time.perf_counter()
@@ -5281,7 +5718,9 @@ def main(argv=None) -> int:
     mark("moe")
     slice7b_phase(torch, args.seed, [len(p) for p, _ in requests], log,
                   launches)
-    mark("slice 7b")
+    mark("slice 7b and looped")
+    train_phase(torch, args.seed, log)
+    mark("train")
 
     for name in REPLACES:
         check(launches.get(name, 0) > 0,

@@ -15,6 +15,7 @@ after its launch, and :func:`check` raises on a non-zero code.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -133,6 +134,26 @@ class LaunchCounter:
 
     def __repr__(self) -> str:
         return f"LaunchCounter({self.__name__!r}, launches={self.launches})"
+
+
+def forward_only(fn):
+    """A kernel wrapper that refuses, with a ValueError, any input that
+    requires a gradient while autograd records: its kernel has no
+    backward, and neither the kernel nor the plain version it runs on
+    CPU tensors stands in for one. Under ``no_grad`` (serving) the check
+    costs one flag read."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        import torch
+        if torch.is_grad_enabled() and any(
+                getattr(a, "requires_grad", False)
+                for a in (*args, *kwargs.values())):
+            raise ValueError(
+                f"{fn.__name__}: an input requires a gradient, and the "
+                "hand-written kernel has no backward; train on a plan "
+                "without the 'cuda' backend")
+        return fn(*args, **kwargs)
+    return wrapper
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -249,6 +249,7 @@ def _launch_operands(q, k_pool, v_pool, block_tables, lengths, chunk_lens,
     return bt, lens, cl, nsplit, (acc, den, aux)
 
 
+@_build.forward_only
 def paged_chunk_attention_unified_max(q, k_pool, v_pool, block_tables,
                                       lengths, *, phi: float = 0.0,
                                       scale: float | None = None,
@@ -291,6 +292,7 @@ def paged_chunk_attention_unified_max(q, k_pool, v_pool, block_tables,
     return out, stat
 
 
+@_build.forward_only
 def paged_chunk_attention_sync(q, k_pool, v_pool, block_tables, lengths, *,
                                scale: float | None = None,
                                out: torch.Tensor | None = None,

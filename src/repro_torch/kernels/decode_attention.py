@@ -304,6 +304,7 @@ def _dims(q, k_cache, nsplit):
     return [b, hk, hq // hk, s_max, d, nsplit, sb, ss, sh]
 
 
+@_build.forward_only
 def decode_attention_unified_max(q, k_cache, v_cache, lengths, *,
                                  phi: float = 0.0,
                                  scale: float | None = None,
@@ -335,6 +336,7 @@ def decode_attention_unified_max(q, k_cache, v_cache, lengths, *,
     return out, stat
 
 
+@_build.forward_only
 def decode_attention_sync(q, k_cache, v_cache, lengths, *,
                           scale: float | None = None,
                           block_k: int = DEFAULT_BLOCK_K,
@@ -587,6 +589,7 @@ def _paged_launch(q, k_pool, v_pool, block_tables, lengths, k_scale,
             _paged_dims(q, k_pool, bt, nsplit), scratch)
 
 
+@_build.forward_only
 def paged_decode_attention_unified_max(q, k_pool, v_pool, block_tables,
                                        lengths, *, phi: float = 0.0,
                                        scale: float | None = None,
@@ -626,6 +629,7 @@ def paged_decode_attention_unified_max(q, k_pool, v_pool, block_tables,
     return out, stat
 
 
+@_build.forward_only
 def paged_decode_attention_sync(q, k_pool, v_pool, block_tables, lengths, *,
                                 scale: float | None = None,
                                 out: torch.Tensor | None = None,

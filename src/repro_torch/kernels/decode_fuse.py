@@ -300,6 +300,7 @@ def _check_scale(what: str, x: torch.Tensor, scale: torch.Tensor) -> None:
                          f"aligned ({x.shape[1]},) vector")
 
 
+@_build.forward_only
 def decode_ingest_fused(x, norm_scale, wq, wk, wv, positions, *,
                         num_heads: int, num_kv_heads: int, head_dim: int,
                         rope_theta: float = 1e4, eps: float = 1e-6,
@@ -366,6 +367,7 @@ def decode_ingest_fused(x, norm_scale, wq, wk, wv, positions, *,
     return q, k, v
 
 
+@_build.forward_only
 def oproj_residual_fused(o, wo, resid, *, w_scale=None):
     """o (M, Q), wo (Q, D), resid (M, D) -> resid + o @ wo, (M, D) in
     resid's dtype; with the step ``w_scale`` ``wo`` holds codes."""
@@ -400,6 +402,7 @@ def oproj_residual_fused(o, wo, resid, *, w_scale=None):
     return out
 
 
+@_build.forward_only
 def ffn_norm_fused(x, norm_scale, w_gate, w_up, *,
                    activation: str = "swiglu", eps: float = 1e-6,
                    wg_scale=None, wu_scale=None):

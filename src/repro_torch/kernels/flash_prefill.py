@@ -151,6 +151,7 @@ def _dims(q, k, v, causal, window):
             int(causal), int(window)]
 
 
+@_build.forward_only
 def flash_prefill_unified_max(q, k, v, *, causal=True, phi=0.0, scale=None,
                               sliding_window=0, block_q=DEFAULT_BLOCK_Q,
                               block_k=DEFAULT_BLOCK_K):
@@ -177,6 +178,7 @@ def flash_prefill_unified_max(q, k, v, *, causal=True, phi=0.0, scale=None,
     return out, part.amax(dim=-1)
 
 
+@_build.forward_only
 def flash_prefill_sync(q, k, v, *, causal=True, scale=None,
                        sliding_window=0, block_q=DEFAULT_BLOCK_Q,
                        block_k=DEFAULT_BLOCK_K,

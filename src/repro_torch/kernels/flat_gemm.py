@@ -238,6 +238,7 @@ def flat_gemm_plain(x: torch.Tensor, w: torch.Tensor, *,
     return split_acc(x, w, bk, splits, w_scale).to(x.dtype)
 
 
+@_build.forward_only
 def flat_gemm(x: torch.Tensor, w: torch.Tensor, *,
               w_scale: torch.Tensor | None = None) -> torch.Tensor:
     """x (M, K) @ w (K, N) -> (M, N) in x's dtype, any M >= 1 (rows past

@@ -82,6 +82,7 @@ def fused_ffn_up_plain(x: torch.Tensor, w_gate: torch.Tensor,
     return (ffn_activation(g, activation) * u).to(x.dtype)
 
 
+@_build.forward_only
 def fused_ffn_up(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                  *, activation: str = "swiglu",
                  wg_scale: torch.Tensor | None = None,

@@ -198,6 +198,7 @@ def launch_layout(what: str, x: torch.Tensor, w: torch.Tensor,
     return kn, ldw, 0
 
 
+@_build.forward_only
 def gemv(x: torch.Tensor, w: torch.Tensor, *,
          w_scale: torch.Tensor | None = None) -> torch.Tensor:
     """x (M, K) @ w (K, N) -> (M, N) in x's dtype, any M >= 1 (one launch

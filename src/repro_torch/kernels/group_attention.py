@@ -311,6 +311,7 @@ def _pool_dims(k_pool):
     return num_pages, ps, hk, d, sp, ss, sh
 
 
+@_build.forward_only
 def group_prefix_partials(q, k_pool, v_pool, groups: DecodeGroups, *,
                           phi: float = 0.0, scale: float | None = None,
                           k_scale=None, v_scale=None):
@@ -358,6 +359,7 @@ def group_prefix_partials(q, k_pool, v_pool, groups: DecodeGroups, *,
     return num, den, stat
 
 
+@_build.forward_only
 def group_tail_merge(q, k_pool, v_pool, block_tables, lengths,
                      groups: DecodeGroups, num, den, stat, *,
                      phi: float = 0.0, scale: float | None = None,

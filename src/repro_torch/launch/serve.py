@@ -7,7 +7,8 @@ for the port, on the dense slot cache or the block-paged pool.
 ``--arch`` names any config of ``repro_torch.configs``: the dense and
 MoE families serve on every cache kind; ``rwkv6-1.6b``, ``hymba-1.5b``
 and ``whisper-tiny`` serve on the dense cache with one-shot prefill
-(``--cache-kind paged`` and ``--decode-fusion looped`` raise for them).
+(``--cache-kind paged`` raises for them) under every
+``--decode-fusion``.
 
 Runs on the card by default (``--device cuda``); ``--device cpu`` runs
 the kernels' plain versions on the CPU (use ``--smoke`` there). Weights

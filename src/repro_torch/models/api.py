@@ -6,14 +6,19 @@ paged pool and chunked prefill. The recurrent and encoder-decoder
 families (ssm: RWKV6; hybrid: Hymba; encdec: Whisper) keep caches of
 their own (recurrent state, ring buffers, cross-attention KV), so, as in
 the JAX package, they are dense-only and prefill in one shot: their
-``supports_paged`` is False and their ``prefill_chunk`` None.
+``supports_paged`` is False and their ``prefill_chunk`` None. Every
+family trains through ``train_loss``; :func:`train_input_specs` and
+:func:`make_synthetic_batch` give a cell's train batch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
-from repro_torch.config import ModelConfig
+import torch
+
+from repro_torch.config import ModelConfig, ShapeConfig
+from repro_torch.device import resolve
 from repro_torch.models import encdec, hybrid, moe, ssm, transformer
 
 _MODULES = {"dense": transformer, "vlm": transformer, "moe": moe,
@@ -30,6 +35,7 @@ class ModelApi:
 
     cfg: ModelConfig
     init_params: Callable         # (generator=None, device="cuda")
+    train_loss: Callable          # (ctx, params, batch, *, remat=True)
     prefill: Callable             # (ctx, params, tokens, lengths, cache)
     decode_step: Callable
     #   (ctx, params, tokens, cache, lengths, *, block_tables=None,
@@ -53,6 +59,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         cfg=cfg,
         init_params=lambda generator=None, device="cuda": mod.init_params(
             cfg, generator, device),
+        train_loss=mod.train_loss,
         prefill=mod.prefill,
         decode_step=mod.decode_step,
         init_cache=lambda layout, device="cuda": mod.init_cache(
@@ -60,3 +67,65 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         supports_paged=mod.PAGED_KV,
         prefill_chunk=getattr(mod, "prefill_chunk", None),
     )
+
+
+# ---------------------------------------------------------------------------
+# Train inputs: (shape, dtype) records per (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+N_IMAGE_TOKENS = 256  # vision stub: patch embeddings prepended (internvl2)
+
+
+def n_image_tokens(seq_len: int) -> int:
+    """Vision-prefix length; clamped so reduced smoke shapes stay valid."""
+    return min(N_IMAGE_TOKENS, max(seq_len // 4, 1))
+
+
+class InputSpec(NamedTuple):
+    """One model input's shape and dtype (the JAX package's
+    ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def train_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The train batch of a cell: ``tokens`` / ``labels`` (B, S) int32;
+    the VLM's stub frontend prepends ``prefix_embeds`` (B, P, D) and
+    shrinks the tokens so the backbone still runs S positions; the
+    encoder-decoder's stub frontend gives ``frames`` (B, S, D)."""
+    b, s = shape.global_batch, shape.seq_len
+    tok = InputSpec((b, s), torch.int32)
+    batch = {"tokens": tok, "labels": tok}
+    if cfg.frontend == "vision":
+        npfx = n_image_tokens(s)
+        tok = InputSpec((b, s - npfx), torch.int32)
+        batch = {"tokens": tok, "labels": tok,
+                 "prefix_embeds": InputSpec((b, npfx, cfg.d_model),
+                                            torch.bfloat16)}
+    if cfg.family == "encdec":
+        batch["frames"] = InputSpec((b, s, cfg.d_model), torch.bfloat16)
+    return batch
+
+
+def make_synthetic_batch(cfg: ModelConfig,
+                         shape_or_specs: Union[ShapeConfig, dict],
+                         generator: Optional[torch.Generator] = None,
+                         device="cuda") -> dict:
+    """A random batch matching the specs, drawn on ``device`` from
+    ``generator`` (which must live there; ``None`` seeds one with 0):
+    integer inputs uniform over the vocabulary, float inputs normal *
+    0.02."""
+    specs = (train_input_specs(cfg, shape_or_specs)
+             if isinstance(shape_or_specs, ShapeConfig) else shape_or_specs)
+    dev = resolve(device)
+    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, spec in specs.items():
+        if spec.dtype.is_floating_point:
+            x = torch.randn(spec.shape, generator=gen, device=dev) * 0.02
+            out[name] = x.to(spec.dtype)
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, spec.shape,
+                                      generator=gen, dtype=spec.dtype,
+                                      device=dev)
+    return out

@@ -12,6 +12,10 @@ reinterpreted bit for bit, so a quantized weight's ``{"codes", "scale"}``
 dict and a quantized pool's int8 / fp8 codes with their f32
 ``k_scale`` / ``v_scale`` steps convert through the same recursion with
 every bit unchanged.
+
+:func:`state_from_numpy` / :func:`state_to_numpy` carry a training state
+(step, params and the AdamW moments) across in either direction, leaf
+for leaf and bit for bit.
 """
 from __future__ import annotations
 
@@ -44,3 +48,38 @@ def params_from_numpy(tree, device="cuda"):
         return _leaf(node, dev)
 
     return conv(tree)
+
+
+def state_from_numpy(state, device="cuda"):
+    """The JAX package's ``TrainState`` with numpy leaves (``jax.
+    device_get`` of one) -> the port's, on ``device``."""
+    from repro_torch.training.train_state import TrainState
+    return TrainState(step=_leaf(state.step, resolve(device)),
+                      params=params_from_numpy(state.params, device),
+                      m=params_from_numpy(state.m, device),
+                      v=params_from_numpy(state.v, device))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bf16 / fp8 as numpy's ``ml_dtypes`` types (imported
+    here: only a caller carrying state to the JAX package needs them)."""
+    import ml_dtypes
+    t = t.detach().to("cpu", copy=True)
+    for name, (bits, dtype) in _BITCAST.items():
+        if t.dtype == dtype:
+            wide = torch.int16 if bits == np.uint16 else torch.uint8
+            return t.view(wide).numpy().view(bits).view(
+                getattr(ml_dtypes, name))
+    return t.numpy()
+
+
+def state_to_numpy(state) -> dict:
+    """The port's ``TrainState`` -> ``{"step", "params", "m", "v"}`` with
+    numpy leaves, for the JAX package's ``TrainState(**...)``."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _numpy(node)
+
+    return {name: conv(getattr(state, name))
+            for name in ("step", "params", "m", "v")}

@@ -1,6 +1,8 @@
 """Whisper-style encoder-decoder backbone (whisper-tiny).
 
-The port of the JAX package's ``models/encdec.py`` for serving. The
+The port of the JAX package's ``models/encdec.py`` for serving and
+training (:func:`train_loss`: the frames encoded, the decoder trained on
+the tokens). The
 audio frontend is a stub, as there: the encoder takes precomputed frame
 embeddings (B, S_enc, D), ENC_FRAMES_SERVE = 1,500 of them when serving,
 and zeros when none are given. RoPE positions, layernorm and the GELU MLP
@@ -20,6 +22,7 @@ The cache is ``k`` / ``v`` (L, B, max_seq, HK, Dh) and ``xk`` / ``xv``
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -123,6 +126,43 @@ def _cross_kv(ctx: LayerCtx, p_cross: Params, enc_out: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def dec_block(ctx: LayerCtx, p: Params, x, positions, enc_out):
+    """The decoder's train block: causal self-attention, cross-attention
+    against ``enc_out``'s keys and values (no rope), the MLP, each with
+    its residual. Returns (x, aux = 0)."""
+    cfg = ctx.cfg
+    h = L.norm(cfg, p["attn_norm"], x)
+    x = x + L.attention_block(ctx, p["attn"], h, positions)
+    h = L.norm(cfg, p["cross_norm"], x)
+    ck, cv = _cross_kv(ctx, p["cross"], enc_out)
+    x = x + L.attention_block(ctx, p["cross"], h, positions, causal=False,
+                              use_rope=False, kv_override=(ck, cv))
+    h = L.norm(cfg, p["mlp_norm"], x)
+    x = x + L.mlp_block(ctx, p["mlp"], h)
+    return x, tfm.no_aux(x)
+
+
+def train_loss(ctx: LayerCtx, params: Params, batch: dict, *,
+               remat: bool = True) -> torch.Tensor:
+    """Encode ``batch["frames"]`` (B, S_enc, D), run the decoder blocks
+    (recomputed in the backward pass under ``remat``; the encoder is
+    not) over ``tokens``, and the chunked cross-entropy on ``labels``."""
+    cfg = ctx.cfg
+    enc_out = encode(ctx, params, batch["frames"])
+    x = L.embed(ctx, params, batch["tokens"])
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    blk = tfm._maybe_remat(
+        lambda p_i, xx: dec_block(ctx, p_i, xx, positions, enc_out), remat)
+    x, _ = stack.run_stack_aux(params["layers"], x, blk)
+    x = L.norm(cfg, params["final_norm"], x)
+    return L.cross_entropy_loss(ctx, params, x, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
@@ -189,9 +229,20 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
     (its KV appended at ``lengths`` in place), cross-attention decode
     over the static encoder KV, the MLP. The decoder's write position
     always equals ``lengths``, so ``positions`` (the uniform engine
-    operand) is unused. Returns (logits (B, Vp), cache)."""
+    operand) is unused. Under the ``"looped"`` granularity on the card
+    the step replays one CUDA graph (:func:`stack.run_decode`). Returns
+    (logits (B, Vp), cache)."""
     if block_tables is not None or decode_groups is not None:
         raise ValueError("the encoder-decoder caches have no paged layout")
+    step = functools.partial(_decode_step, ctx, params, cache)
+    return stack.run_decode(ctx.graphs, step, params, cache,
+                            dict(tokens=tokens, lengths=lengths)), cache
+
+
+def _decode_step(ctx: LayerCtx, params: Params, cache: dict, *, tokens,
+                 lengths):
+    """The decode step's work: logits (B, Vp), the cache written in
+    place."""
     cfg = ctx.cfg
     x = L.embed(ctx, params, tokens[:, None])          # (B, 1, D)
     b = x.shape[0]
@@ -214,4 +265,4 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
 
     x, cache = stack.run_stack_cached(params["layers"], x, cache, blk)
     x = L.norm(cfg, params["final_norm"], x)
-    return L.lm_logits(ctx, params, x)[:, 0], cache
+    return L.lm_logits(ctx, params, x)[:, 0]

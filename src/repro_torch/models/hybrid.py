@@ -1,6 +1,7 @@
 """Hymba: hybrid layers with parallel attention and SSM heads.
 
-The port of the JAX package's ``models/hybrid.py`` for serving. Each
+The port of the JAX package's ``models/hybrid.py`` for serving and
+training (:func:`train_loss`). Each
 layer runs a sliding-window GQA attention path and a Mamba-2 (SSD,
 scalar decay per head) path on the same normed input and sums their
 projections; then the MLP. Attention is O(T·W) with a ring-buffer KV
@@ -24,6 +25,7 @@ SSM_HEAD, N) f32, updated in place. It has no paged layout.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -226,6 +228,30 @@ def ring_decode_attention(ctx: LayerCtx, qd: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def block(ctx: LayerCtx, p: Params, x, positions):
+    """The train block: windowed causal attention and the chunked SSM on
+    the same normed input, both added to the residual, then the MLP.
+    Returns (x, aux = 0)."""
+    cfg = ctx.cfg
+    h = L.norm(cfg, p["norm"], x)
+    attn_out = L.attention_block(ctx, p["attn"], h, positions)
+    ssm_out = ssm_chunked(ctx, p["ssm"], h)
+    x = x + attn_out + ssm_out
+    h = L.norm(cfg, p["mlp_norm"], x)
+    x = x + L.mlp_block(ctx, p["mlp"], h)
+    return x, tfm.no_aux(x)
+
+
+def train_loss(ctx: LayerCtx, params: Params, batch: dict, *,
+               remat: bool = True) -> torch.Tensor:
+    return tfm.train_loss(ctx, params, batch, remat=remat, block_fn=block)
+
+
+# ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
@@ -304,9 +330,20 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
     """One token a slot: its KV into ring slot ``length % W`` and T1 over
     the ring, beside one SSM step; the cache updates in place. The write
     position always equals ``lengths`` here, so ``positions`` (the
-    uniform engine operand) is unused. Returns (logits (B, Vp), cache)."""
+    uniform engine operand) is unused. Under the ``"looped"``
+    granularity on the card the step replays one CUDA graph
+    (:func:`stack.run_decode`). Returns (logits (B, Vp), cache)."""
     if block_tables is not None or decode_groups is not None:
         raise ValueError("ring KV and SSM state have no paged layout")
+    step = functools.partial(_decode_step, ctx, params, cache)
+    return stack.run_decode(ctx.graphs, step, params, cache,
+                            dict(tokens=tokens, lengths=lengths)), cache
+
+
+def _decode_step(ctx: LayerCtx, params: Params, cache: dict, *, tokens,
+                 lengths):
+    """The decode step's work: logits (B, Vp), the cache written in
+    place."""
     cfg = ctx.cfg
     x = L.embed(ctx, params, tokens[:, None])          # (B, 1, D)
     b = x.shape[0]
@@ -332,4 +369,4 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
 
     x, cache = stack.run_stack_cached(params["layers"], x, cache, blk)
     x = L.norm(cfg, params["final_norm"], x)
-    return L.lm_logits(ctx, params, x)[:, 0], cache
+    return L.lm_logits(ctx, params, x)[:, 0]

@@ -28,6 +28,9 @@ write (:class:`KVWrite`); a quantized pool (int8 / fp8 codes with
 :class:`~repro_torch.serving.kvquant.QuantWrite` instead, and its scale
 views ride into the attention front doors.
 
+Training adds :func:`cross_entropy_loss`, the next-token loss over
+chunks of the sequence, recomputed chunk by chunk in the backward pass.
+
 A GEMM weight leaf (``wq`` … ``w_down``) is a tensor or, under a quantized
 ``weight_dtype``, the ``{"codes", "scale"}`` dict of ``models/wquant.py``.
 Nothing here reads a weight's shape, dtype or transpose: every GEMM goes
@@ -37,10 +40,12 @@ graph reads the codes and steps in place like any other param.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, SoftmaxPhiConfig
 from repro_torch.core.plan import DEFAULT_PLAN, ExecutionPlan
@@ -474,3 +479,42 @@ def lm_logits(ctx: LayerCtx, p: Params, x: torch.Tensor) -> torch.Tensor:
     if w is None:
         w = p["embedding"].T
     return ctx.matmul(x, w)
+
+
+def cross_entropy_loss(ctx: LayerCtx, p: Params, x: torch.Tensor,
+                       labels: torch.Tensor, *,
+                       seq_chunks: int = 8) -> torch.Tensor:
+    """The mean next-token loss of x (B, S, D) against labels (B, S),
+    over ``seq_chunks`` chunks of the sequence so that the (B, S, V) f32
+    logits never live at once: under autograd each chunk's loss is
+    recomputed in the backward pass (``checkpoint``), so a chunk's logits
+    live only while its own loss or gradient is computed. The padded
+    vocabulary tail is masked to -1e9 before the logsumexp."""
+    b, s, _ = x.shape
+    seq_chunks = min(seq_chunks, s)
+    if s % seq_chunks:
+        raise ValueError(f"sequence {s} is not a multiple of {seq_chunks} "
+                         "chunks")
+    cs = s // seq_chunks
+    nll = functools.partial(_chunk_nll, ctx, p)
+    if torch.is_grad_enabled():
+        nll = functools.partial(checkpoint, nll, use_reentrant=False)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(seq_chunks):
+        sl = slice(i * cs, (i + 1) * cs)
+        total = total + nll(x[:, sl], labels[:, sl])
+    return total / (b * s)
+
+
+def _chunk_nll(ctx: LayerCtx, p: Params, x: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Summed -log p(label) over one chunk, in f32."""
+    cfg = ctx.cfg
+    logits = lm_logits(ctx, p, x).float()
+    vp = logits.shape[-1]
+    if vp != cfg.vocab_size:
+        pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad, -1e9, logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.sum(logz - gold)

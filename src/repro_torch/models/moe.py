@@ -1,6 +1,8 @@
 """Token-choice top-k MoE (the grok-1 / dbrx family).
 
-The port of the JAX package's ``models/moe.py`` for serving. Each block
+The port of the JAX package's ``models/moe.py`` for serving and for
+training on one card (:func:`train_loss`: capacity-bounded routing, the
+load-balance aux in the loss). Each block
 is the dense block's attention half (:mod:`repro_torch.models.transformer`,
 so the same kernels and fused stages run) followed by a routed expert MLP:
 
@@ -258,9 +260,37 @@ def prefill_block(ctx: LayerCtx, p: Params, x, positions, cache_i):
     return _moe_mlp(ctx, p, x, decode=False)
 
 
+def make_block(groups: int = 0, capacity_factor: float = 1.25):
+    """The MoE train block: the dense block's attention half, then the
+    routed MLP at ``capacity_factor`` (pairs past an expert's capacity
+    are dropped) over ``groups`` routing groups (``ctx.moe_groups`` when
+    0). Returns (x, the load-balance aux)."""
+    def block(ctx: LayerCtx, p: Params, x, positions):
+        cfg = ctx.cfg
+        h = L.norm(cfg, p["attn_norm"], x)
+        x = x + L.attention_block(ctx, p["attn"], h, positions)
+        h = L.norm(cfg, p["mlp_norm"], x)
+        y, aux = moe_block(ctx, p["moe"], h, groups=groups or ctx.moe_groups,
+                           capacity_factor=capacity_factor)
+        return x + y, aux
+
+    return block
+
+
 # ---------------------------------------------------------------------------
 # Public API (the signatures of transformer's)
 # ---------------------------------------------------------------------------
+
+
+def train_loss(ctx: LayerCtx, params: Params, batch: dict, *,
+               remat: bool = True, groups: int = 0,
+               capacity_factor: float = 1.25) -> torch.Tensor:
+    """The dense train loss over the MoE blocks, plus the config's
+    ``router_aux_loss_coef`` times the summed load-balance aux."""
+    aux_w = ctx.cfg.moe.router_aux_loss_coef if ctx.cfg.moe else 0.0
+    return tfm.train_loss(ctx, params, batch, remat=remat,
+                          block_fn=make_block(groups, capacity_factor),
+                          aux_weight=aux_w)
 
 
 def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict):

@@ -1,6 +1,7 @@
 """RWKV6 "Finch": the attention-free family with data-dependent decay.
 
-The port of the JAX package's ``models/ssm.py`` for serving. RWKV has no
+The port of the JAX package's ``models/ssm.py`` for serving and
+training (:func:`train_loss`, the chunked form). RWKV has no
 softmax attention, so T1 does not apply; its projections go through
 ``ops.matmul`` (T2 / T3: rows 1 and 2 at decode). Per head (head size N),
 with data-dependent decay w_t ∈ (0, 1)^N and bonus u:
@@ -23,6 +24,7 @@ The steps update it in place. It has no paged layout.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -263,6 +265,28 @@ def channel_mix(ctx: LayerCtx, cm: Params, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def block(ctx: LayerCtx, p: Params, x, positions=None):
+    """The train block: the chunked time mix, then the channel mix, each
+    with its residual (no positions: RWKV has no rope). Returns
+    (x, aux = 0)."""
+    cfg = ctx.cfg
+    h = L.norm(cfg, p["tm_norm"], x)
+    x = x + time_mix_chunked(ctx, p["tm"], h)
+    h = L.norm(cfg, p["cm_norm"], x)
+    x = x + channel_mix(ctx, p["cm"], h)
+    return x, tfm.no_aux(x)
+
+
+def train_loss(ctx: LayerCtx, params: Params, batch: dict, *,
+               remat: bool = True) -> torch.Tensor:
+    return tfm.train_loss(ctx, params, batch, remat=remat, block_fn=block)
+
+
+# ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
@@ -318,11 +342,21 @@ def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict,
 def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
                 *, block_tables=None, decode_groups=None, positions=None):
     """One token a slot through the recurrence; the state and shift
-    features update in place. ``positions`` is accepted for the uniform
-    engine operand (the state has no rope). Returns (logits (B, Vp),
-    cache)."""
+    features update in place. ``lengths`` and ``positions`` are accepted
+    for the uniform engine operands (the state has no rope). Under the
+    ``"looped"`` granularity on the card the step replays one CUDA graph
+    (:func:`stack.run_decode`), its logits in the graph's static output.
+    Returns (logits (B, Vp), cache)."""
     if block_tables is not None or decode_groups is not None:
         raise ValueError("the ssm state cache has no paged layout")
+    step = functools.partial(_decode_step, ctx, params, cache)
+    return stack.run_decode(ctx.graphs, step, params, cache,
+                            dict(tokens=tokens)), cache
+
+
+def _decode_step(ctx: LayerCtx, params: Params, cache: dict, *, tokens):
+    """The decode step's work: logits (B, Vp), the cache written in
+    place."""
     cfg = ctx.cfg
     x = L.embed(ctx, params, tokens)                  # (B, D)
 
@@ -340,4 +374,4 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
 
     x, cache = stack.run_stack_cached(params["layers"], x, cache, blk)
     x = L.norm(cfg, params["final_norm"], x)
-    return L.lm_logits(ctx, params, x[:, None])[:, 0], cache
+    return L.lm_logits(ctx, params, x[:, None])[:, 0]

@@ -4,17 +4,21 @@ port runs a Python loop over per-layer views (``a[i]`` slices — no
 copies, and in-place cache writes land in the stacked tensor). Where the
 JAX package's ``"looped"`` decode granularity runs the whole depth as one
 ``lax.scan`` dispatch, the port replays one CUDA graph of the whole
-decode step (:class:`LoopedDecode`)."""
+decode step (:class:`LoopedDecode`). The train blocks return ``(x, aux)``
+(:func:`run_stack_aux`), as the JAX package's do."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of the
+    trees ``rest``, which share its structure), as a new tree."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -41,6 +45,17 @@ def run_stack(layers_params, x, block_fn: Callable):
     return x
 
 
+def run_stack_aux(layers_params, x, block_fn: Callable):
+    """``block_fn(p_i, x) -> (x, aux)`` over the depth (the train blocks:
+    ``aux`` is MoE's load-balance loss, 0 for the other families).
+    Returns ``(x, the sum of aux)``."""
+    aux = 0.0
+    for p_i in unstack(layers_params):
+        x, a = block_fn(p_i, x)
+        aux = aux + a
+    return x, aux
+
+
 def run_stack_cached(layers_params, x, cache, block_fn: Callable):
     """``block_fn(p_i, x, cache_i) -> x`` over the depth; ``cache_i`` is
     the layer's view of every cache leaf, updated in place. Returns
@@ -48,6 +63,19 @@ def run_stack_cached(layers_params, x, cache, block_fn: Callable):
     for p_i, c_i in zip(unstack(layers_params), unstack(cache)):
         x = block_fn(p_i, x, c_i)
     return x, cache
+
+
+def run_decode(graphs, step: Callable, params, cache, inputs: dict):
+    """``step(**inputs)``, a decode step that reads ``params`` and writes
+    ``cache`` in place: through ``graphs`` (the context's
+    :class:`LoopedDecode`, under ``"looped"``) when the tokens are on the
+    card, keyed on the address of every param and cache leaf; eagerly
+    otherwise, so on CPU tensors looped serves as split does."""
+    if graphs is not None and inputs["tokens"].is_cuda:
+        anchors = tuple(t.data_ptr() for t in tree_leaves(params)
+                        + tree_leaves(cache))
+        return graphs.run(step, inputs, anchors)
+    return step(**inputs)
 
 
 def _signature(inputs: dict) -> tuple:

@@ -1,6 +1,10 @@
 """Dense GQA decoder-only transformer (qwen2 / minitron / deepseek / phi3 /
-llama2 families) plus the VLM backbone (internvl2; the stub vision prefix
-is not ported).
+llama2 families) plus the VLM backbone (internvl2, whose stub vision
+prefix enters training as ``prefix_embeds``).
+
+Training runs :func:`train_loss`: full-sequence blocks (``block``, each
+returning ``(x, aux)``, optionally recomputed in the backward pass) and
+the chunked cross-entropy; the other families pass their own blocks.
 
 Layer params and the KV cache are stacked on a leading L axis; a Python
 loop over per-layer views replaces the JAX package's ``lax.scan``. KV
@@ -25,6 +29,7 @@ import functools
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
@@ -183,6 +188,69 @@ def write_prompt_kv(cache_i: dict, k, v) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Training: full-sequence blocks returning (x, aux), and the loss
+# ---------------------------------------------------------------------------
+
+
+def no_aux(x: torch.Tensor) -> torch.Tensor:
+    """A train block's aux loss where it has none: 0 in f32."""
+    return x.new_zeros((), dtype=torch.float32)
+
+
+def block(ctx: LayerCtx, p: Params, x, positions):
+    """The dense train block: causal attention (``L.attention_block``)
+    and the MLP, each with its residual. Returns (x, aux = 0)."""
+    cfg = ctx.cfg
+    h = L.norm(cfg, p["attn_norm"], x)
+    x = x + L.attention_block(ctx, p["attn"], h, positions)
+    h = L.norm(cfg, p["mlp_norm"], x)
+    x = x + L.mlp_block(ctx, p["mlp"], h)
+    return x, no_aux(x)
+
+
+def _maybe_remat(fn: Callable, remat: bool) -> Callable:
+    """``fn`` whose activations are recomputed in the backward pass
+    (only its inputs are saved): the counterpart of ``jax.checkpoint``
+    under ``nothing_saveable``."""
+    if not remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def forward_hidden(ctx: LayerCtx, params: Params, tokens, *,
+                   prefix_embeds=None, remat: bool = False,
+                   block_fn: Callable = block):
+    """Tokens (B, S) (after an optional embedding prefix (B, P, D), the
+    VLM's stub vision tokens) -> (the final-normed hidden (B, P + S, D),
+    the summed aux loss)."""
+    x = L.embed(ctx, params, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    body = _maybe_remat(lambda p_i, xx: block_fn(ctx, p_i, xx, positions),
+                        remat)
+    x, aux = stack.run_stack_aux(params["layers"], x, body)
+    return L.norm(ctx.cfg, params["final_norm"], x), aux
+
+
+def train_loss(ctx: LayerCtx, params: Params, batch: dict, *,
+               remat: bool = True, block_fn: Callable = block,
+               aux_weight: float = 0.0) -> torch.Tensor:
+    """The mean next-token loss of ``batch`` (``tokens``, ``labels`` and
+    the VLM's optional ``prefix_embeds``, whose positions carry no
+    label), plus ``aux_weight`` times the blocks' aux loss."""
+    prefix = batch.get("prefix_embeds")
+    x, aux = forward_hidden(ctx, params, batch["tokens"],
+                            prefix_embeds=prefix, remat=remat,
+                            block_fn=block_fn)
+    if prefix is not None:
+        x = x[:, prefix.shape[1]:]
+    loss = L.cross_entropy_loss(ctx, params, x, batch["labels"])
+    return loss + aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
 # Serving: prefill + decode with KV cache
 # ---------------------------------------------------------------------------
 
@@ -234,11 +302,7 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
                   decode_groups=decode_groups, positions=positions)
     step = functools.partial(_decode_step, ctx, params, cache,
                              decode_block_fn)
-    if ctx.graphs is not None and tokens.is_cuda:
-        anchors = tuple(t.data_ptr() for t in stack.tree_leaves(params)
-                        + stack.tree_leaves(cache))
-        return ctx.graphs.run(step, inputs, anchors), cache
-    return step(**inputs), cache
+    return stack.run_decode(ctx.graphs, step, params, cache, inputs), cache
 
 
 def _paged_write(cache: dict, block_tables, lengths, chunk_lens, c: int):

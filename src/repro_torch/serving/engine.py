@@ -64,9 +64,9 @@ The port of the JAX package's ``serving/engine.py`` for
     decode), all in one memory pool. A key's first tick runs eagerly and
     the next one captures; ``EngineStats.graph_captures`` /
     ``graph_replays`` count them. On the CPU looped runs the fused path
-    eagerly. The recurrent and encoder-decoder families
-    (:data:`NO_GRAPH_FAMILIES`) call no fused seam, so ``"fused"`` serves
-    them as ``"split"`` does, and ``"looped"`` raises for them.
+    eagerly. The recurrent and encoder-decoder families call no fused
+    seam, so ``"fused"`` serves them as ``"split"`` does, and
+    ``"looped"`` captures their split step in the same graphs.
   * **Other families.** ssm (RWKV6), hybrid (Hymba) and encdec (Whisper)
     keep caches of their own (recurrent state, a sliding-window ring,
     cross-attention KV): they serve on the dense layout only and prefill
@@ -189,11 +189,6 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
-# the recurrent and encoder-decoder families: dense-only, one-shot
-# prefill, and no CUDA-graph capture of their decode step
-NO_GRAPH_FAMILIES = ("ssm", "hybrid", "encdec")
-
-
 def request_seed(seed: int, rid: int) -> int:
     """The per-request generator seed derived from ``(seed, rid)``."""
     return int(np.random.SeedSequence([seed, rid]).generate_state(1)[0])
@@ -242,14 +237,6 @@ class Engine:
                 self.plan, decode_fusion=dataclasses.replace(
                     self.plan.decode_fusion, granularity=decode_fusion))
         self.decode_fusion = self.plan.decode_fusion.granularity
-        if self.decode_fusion == "looped" and cfg.family in NO_GRAPH_FAMILIES:
-            # these decode steps have no CUDA-graph capture, and "looped"
-            # never runs eager in its place
-            raise ValueError(
-                f"decode_fusion='looped' is not served for the "
-                f"{cfg.family!r} family: its decode step has no CUDA-graph "
-                "capture (its steps call no fused seam, so 'fused' serves "
-                "it as 'split' does)")
         # GEMM weight precision: the explicit argument wins over the plan's
         # matmul.weight_dtype and lands in the plan; the kernels themselves
         # key off the quantized leaves, not the knob

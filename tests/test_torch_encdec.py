@@ -31,9 +31,9 @@ from repro_torch.models import encdec
 from repro_torch.models import layers as TL
 from repro_torch.models.api import get_model
 from repro_torch.models.kvlayout import DenseLayout
-from repro_torch.serving.engine import Engine
 from test_torch_ssm import (DTYPES, MODEL_TOL, cache_close, close, ctxs,
-                            decode_pair, engine_pair, inputs, layer0, model,
+                            decode_pair, engine_pair, inputs, layer0,
+                            looped_parity, model,
                             ragged_prompts)
 
 ARCH = "whisper-tiny"
@@ -259,6 +259,7 @@ def test_quantized_logits_within_the_guard(wd):
 
 
 def test_looped_is_refused():
-    _, tcfg, _, tp = model(ARCH, "float32")
-    with pytest.raises(ValueError, match="'encdec' family"):
-        Engine(tcfg, tp, decode_fusion="looped", device="cpu")
+    """No longer refused: ``decode_fusion="looped"`` serves the family,
+    its greedy tokens equal to split's and to the JAX engine's."""
+    looped_parity(ARCH, ragged_prompts(12, (19, 40, 5)), [5, 4, 5],
+                  num_slots=2, max_seq=96)

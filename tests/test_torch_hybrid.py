@@ -35,9 +35,9 @@ from repro_torch.models.api import get_model
 from repro_torch.models.kvlayout import DenseLayout
 from repro_torch.models.layers import LayerCtx
 from repro_torch.models.stack import tree_map
-from repro_torch.serving.engine import Engine
 from test_torch_ssm import (DTYPES, MODEL_TOL, cache_close, close, ctxs,
-                            decode_pair, engine_pair, inputs, layer0, model,
+                            decode_pair, engine_pair, inputs, layer0,
+                            looped_parity, model,
                             np32, prefill_pair, ragged_prompts)
 
 ARCH = "hymba-1.5b"
@@ -272,6 +272,7 @@ def test_quantized_logits_within_the_guard(wd):
 
 
 def test_looped_is_refused():
-    _, tcfg, _, tp = model(ARCH, "float32")
-    with pytest.raises(ValueError, match="'hybrid' family"):
-        Engine(tcfg, tp, decode_fusion="looped", device="cpu")
+    """No longer refused: ``decode_fusion="looped"`` serves the family,
+    its greedy tokens equal to split's and to the JAX engine's."""
+    looped_parity(ARCH, ragged_prompts(12, (19, 90, 70)), [6, 5, 6],
+                  num_slots=2, max_seq=128)

@@ -37,10 +37,29 @@ def test_port_imports_no_jax_and_no_reference():
     assert int(n) == len(list(PKG.rglob("*.py")))    # every module
 
 
+def test_trainer_modules_import_no_jax_and_no_reference():
+    """The trainer (``repro_torch.training.*``, ``launch.train``) is among
+    the modules the probe imports, and alone it pulls in no JAX either."""
+    names = ["repro_torch.training", "repro_torch.training.optimizer",
+             "repro_torch.training.train_state", "repro_torch.training.data",
+             "repro_torch.training.checkpoint", "repro_torch.training.loop",
+             "repro_torch.launch.train"]
+    probe = ("import importlib, sys\n"
+             f"for n in {names!r}: importlib.import_module(n)\n"
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('jax', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, env=env, cwd=str(ROOT), timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
 def test_port_sources_name_no_jax_or_reference():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)\b"
                      r"[.\w]*\s+import)", re.M)
-    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("*_torch.py")))
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in pat.finditer(f.read_text())]
     assert hits == []

@@ -321,7 +321,20 @@ def test_init_params_draws_the_reference_tree():
         0.1 * tcfg.d_ff ** -0.5
 
 
+def looped_parity(arch, prompts, budgets, **kw):
+    """Greedy f32 tokens under ``decode_fusion="looped"``: the port's
+    equal its own ``"split"`` run's and the JAX engine's looped run's
+    (on CPU tensors the port runs the looped step eagerly)."""
+    got, want = engine_pair(arch, prompts, budgets,
+                            decode_fusion="looped", **kw)
+    split, _ = engine_pair(arch, prompts, budgets, decode_fusion="split",
+                           **kw)
+    assert got == want == split
+
+
 def test_paged_layout_and_looped_refused():
+    """The paged layout is refused; ``"looped"`` serves the family (its
+    tokens are split's and the JAX engine's)."""
     _, tcfg, _, tp = model(ARCH, "float32")
     api = get_model(tcfg)
     assert not api.supports_paged and not api.supports_chunked_prefill
@@ -329,8 +342,8 @@ def test_paged_layout_and_looped_refused():
         api.init_cache(PagedLayout(8, 16), device="cpu")
     with pytest.raises(ValueError, match="no paged-KV path"):
         Engine(tcfg, tp, cache_kind="paged", device="cpu")
-    with pytest.raises(ValueError, match="'ssm' family"):
-        Engine(tcfg, tp, decode_fusion="looped", device="cpu")
+    looped_parity(ARCH, ragged_prompts(11, (19, 9, 70)), [6, 5, 6],
+                  num_slots=2, max_seq=128)
 
 
 # ---------------------------------------------------------------------------
@@ -377,3 +390,23 @@ def test_serve_cli_serves_the_family(arch, capsys):
     assert "served 3 requests, 9 tokens" in out and "req 2:" in out
     with pytest.raises(ValueError, match="no paged-KV path"):
         serve.main(args + ["--cache-kind", "paged"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b",
+                                  "whisper-tiny"])
+def test_serve_cli_serves_the_family_looped(arch, capsys):
+    """``--decode-fusion looped`` serves each slice 7b family on the CPU
+    with the ``req N:`` lines of ``--decode-fusion split``."""
+    from repro_torch.launch import serve
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "3",
+            "--slots", "2", "--max-seq", "128", "--max-new", "3",
+            "--prompt-len", "70", "--decode-fusion"]
+
+    def reqs(fusion):
+        assert serve.main(args + [fusion]) == 0
+        out = capsys.readouterr().out
+        assert f"fusion={fusion}" in out
+        return [ln for ln in out.splitlines() if ln.lstrip().startswith("req ")]
+
+    looped = reqs("looped")
+    assert len(looped) == 3 and looped == reqs("split")
