@@ -10,6 +10,8 @@
                                             # plan lands in chiprun_out/)
     python3 chip_smoke.py --slice9a-only    # build, then only phases 7
                                             # and 8
+    python3 chip_smoke.py --decode32k-only  # build, then only phases 9
+                                            # and 10
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -175,7 +177,21 @@
    against the CPU; a resumed run bit for bit the uninterrupted one;
    the training CLI under SIGTERM, then resumed; one step of every other
    family's smoke config against the CPU's loss.
-9. Prints the card's name and power limit, one JSON line describing every
+9. The cell qwen2-0.5b x decode_32k (``decode32k_phase``): its dry run
+   (``repro_torch.launch.dryrun``, in process, on the meta device) must
+   say it fits one card; full-width, full-depth params from --seed and a
+   dense (128, 32,768) cache filled layer by layer from the same
+   generator must come to the dry run's argument bytes exactly; one
+   split decode tick on the "cuda" plan is timed (median of 5
+   CUDA-event walls) and profiled, and fails if busy or wall falls below
+   the floor (argument bytes over the datasheet memory rate) or the
+   card's peak memory exceeds the dry run's per_device_bytes; row 3 at
+   B 128 x S 32,768 on layer 0's cache against its plain version, timed
+   beside SDPA (the kernel table's "s32k" line); the tick's logits
+   against the "torch" plan's.
+10. The examples (``examples/*_torch.py``) at full width in three
+   subprocesses at once; fails if any exits non-zero.
+11. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Exits non-zero, printing no result line, without CUDA, outside the repo,
@@ -357,10 +373,22 @@ class Timer:
 
 
 def bound_ms(nbytes, flops, spec):
-    t_bytes = nbytes / spec.hbm_bw
-    t_ops = flops / spec.peak_flops_bf16
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """The least time, in ms, the card takes to move ``nbytes`` and do
+    ``flops``, and which of the two bounds it: ``roofline.bound``, the
+    dry run's definition of the compute and memory terms."""
+    from repro_torch.analysis import roofline
+    s, by = roofline.bound(nbytes, flops, spec)
+    return 1e3 * s, by
+
+
+def attn_close(got, want):
+    """Per output row (one head's D values): max |error| under ATTN_REL x
+    the row's RMS."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    rms = want.float().pow(2).mean(-1).sqrt()
+    ratio = (err / rms.clamp_min(1e-30)).max().item()
+    return (bool((err <= ATTN_REL * rms).all()),
+            f"tol per row {ATTN_REL} x RMS(row); worst {ratio:.4f} x RMS")
 
 
 # ---------------------------------------------------------------------------
@@ -447,13 +475,6 @@ def kernel_phase(torch, timer, rows, log, slice7b_only=False):
     def gemm_close(got, want):
         return (torch.allclose(got.float(), want.float(), **TOL),
                 f"tol atol={TOL['atol']} rtol={TOL['rtol']}")
-
-    def attn_close(got, want):
-        err = (got.float() - want.float()).abs().amax(-1)
-        rms = want.float().pow(2).mean(-1).sqrt()
-        ratio = (err / rms.clamp_min(1e-30)).max().item()
-        return (bool((err <= ATTN_REL * rms).all()),
-                f"tol per row {ATTN_REL} x RMS(row); worst {ratio:.4f} x RMS")
 
     def record(name, case, got, want, kern, plain, lib, nbytes, flops,
                primary, close, twin=None, slot=None):
@@ -5556,6 +5577,267 @@ def train_phase(torch, seed, log):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: qwen2-0.5b x decode_32k on the card beside its dry run, and the
+# examples
+# ---------------------------------------------------------------------------
+
+D32K = "decode_32k"
+EXAMPLES = ("quickstart_torch", "serve_batch_torch", "streaming_serve_torch")
+
+
+def tick_busy_ms(torch, fn, log):
+    """Device busy (the sum of kernel times) of one call of ``fn`` under
+    torch.profiler, in ms, with the costliest kernels logged; None when
+    the profiler reports none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"profile decode_32k {e.self_device_time_total / 1e3:8.4f} ms "
+            f"{e.count:5d} calls  {e.key[:90]}")
+    (OUT_DIR / "decode_32k_profile.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=25))
+    us = sum(e.self_device_time_total for e in evs)
+    return us / 1e3 if us > 0 else None
+
+
+def decode32k_phase(torch, seed, log, launches, rows):
+    """The cell qwen2-0.5b x decode_32k (128 rows, every row at 32,767 of
+    32,768 positions) on the card beside its dry run (run here, in
+    process, on the meta device): the card's params and cache must come
+    to the dry run's argument bytes exactly; one split decode tick on the
+    "cuda" plan is timed (median of 5 CUDA-event walls after 2 warm-ups)
+    and profiled (device busy); busy must not be below the floor
+    (argument bytes over the card's memory rate) and the card's peak
+    memory not above the dry run's per_device_bytes (the plain program's
+    temporaries bound the kernel path's). Row 3 is held to its plain
+    version on layer 0's cache and timed beside SDPA (the kernel table's
+    "s32k" line); the tick's logits are held to the "torch" plan's."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs, hardware
+    from repro_torch.config import SHAPES
+    from repro_torch.core.plan import make_plan
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import DenseLayout
+    from repro_torch.models.layers import LayerCtx
+    from repro_torch.models.stack import tree_leaves
+
+    spec = hardware.H100_SXM
+    cfg = configs.get(ARCH)
+    shape = SHAPES[D32K]
+    b, s = shape.global_batch, shape.seq_len
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(ARCH, D32K)
+    check(rec["ok"], f"dry run of {ARCH} x {D32K} failed: "
+          f"{rec.get('error', '')[-2000:]}")
+    full, terms = rec["full"], rec["terms"]
+    log(f"decode_32k dry run ({time.perf_counter() - t0:.1f}s on the CPU, "
+        f"meta device, the plain program): arguments "
+        f"{full['argument_size_in_bytes']} B, peak temporaries "
+        f"{full['temp_size_in_bytes']} B, per_device_bytes "
+        f"{full['per_device_bytes']} B, fits {full['fits']} in "
+        f"{full['hbm_bytes']} B; counted {terms['hlo_flops']:.6e} FLOPs, "
+        f"{terms['hlo_bytes']:.6e} bytes; model FLOPs "
+        f"{terms['model_flops']:.6e}")
+    check(full["fits"], f"{ARCH} x {D32K}: the dry run says it does not fit "
+          "one card")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"decode_32k: {torch.cuda.memory_allocated()} B allocated before "
+        "the cell's tensors")
+    api = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = api.init_params(gen, device="cuda")
+    cache = api.init_cache(DenseLayout(b, s), device="cuda")
+    for leaf in cache.values():                # layer by layer, seeded
+        for i in range(leaf.shape[0]):
+            leaf[i] = torch.randn(leaf.shape[1:], generator=gen,
+                                  device="cuda", dtype=leaf.dtype)
+    tokens = torch.randint(1, cfg.vocab_size, (b,), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    lengths = torch.full((b,), s - 1, dtype=torch.int32, device="cuda")
+    arg_bytes = sum(t.nbytes for t in tree_leaves(params)
+                    + tree_leaves(cache) + [tokens, lengths])
+    log(f"decode_32k: the card's params, cache, tokens and lengths "
+        f"{arg_bytes} B; the dry run's argument_size_in_bytes "
+        f"{full['argument_size_in_bytes']} B")
+    check(arg_bytes == full["argument_size_in_bytes"],
+          "decode_32k: the card's argument bytes differ from the dry run's")
+
+    ctx = LayerCtx(cfg, make_plan("cuda"))
+
+    def tick():
+        with torch.no_grad():
+            return api.decode_step(ctx, params, tokens, cache, lengths)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        tick()
+    walls = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tick()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(start.elapsed_time(end))
+    wall = statistics.median(walls)
+    for fn in counters().values():
+        fn.launches = 0
+    busy = tick_busy_ms(torch, tick, log)
+    per_tick = {n: fn.launches for n, fn in counters().items()
+                if fn.launches}
+    for n, c in per_tick.items():
+        launches[n] = launches.get(n, 0) + c
+    peak = torch.cuda.max_memory_allocated()
+    floor = 1e3 * full["argument_size_in_bytes"] / spec.hbm_bw
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    busy_s = "not measured" if busy is None else f"{busy:.3f} ms"
+    log(f"decode_32k tick ({smi}): busy {busy_s}, wall {wall:.3f} ms "
+        f"(median of 5 CUDA-event walls: "
+        f"{', '.join(f'{w:.3f}' for w in walls)}); floor (argument bytes / "
+        f"{spec.hbm_bw / 1e12:.2f} TB/s) {floor:.3f} ms"
+        + ("" if busy is None else f", busy at {floor / busy:.3f} of it"))
+    log(f"decode_32k tick: max_memory_allocated {peak} B against the dry "
+        f"run's per_device_bytes {full['per_device_bytes']} B")
+    log(f"decode_32k dry-run terms (datasheet peaks, the plain program's "
+        f"unfused counts): memory {1e3 * terms['memory_s']:.3f} ms, compute "
+        f"{1e3 * terms['compute_s']:.3f} ms; model FLOPs / peak bf16 "
+        f"{1e3 * terms['model_flops'] / spec.peak_flops_bf16:.4f} ms")
+    log(f"decode_32k tick: kernel launches per tick {json.dumps(per_tick)}")
+    check(busy is None or busy >= floor,
+          f"decode_32k: busy {busy} ms below the floor {floor} ms")
+    check(wall >= floor, f"decode_32k: wall {wall} ms below the floor "
+          f"{floor} ms")
+    check(peak <= full["per_device_bytes"],
+          f"decode_32k: peak memory {peak} B above the dry run's "
+          f"per_device_bytes {full['per_device_bytes']} B")
+    check(per_tick.get("decode_attention_unified_max", 0)
+          == cfg.num_layers, "decode_32k: row 3 did not launch once a layer")
+    logits = tick().clone()
+
+    # row 3 on layer 0's cache against its plain version, beside SDPA
+    timer = Timer(torch)
+    hd, hq, hk = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+    q = (torch.randn((b, hq, hd), generator=gen, device="cuda")).to(
+        torch.bfloat16)
+    kt, vt = cache["k"][0].transpose(1, 2), cache["v"][0].transpose(1, 2)
+    phi = cfg.softmax_phi.phi
+    out, stat = da.decode_attention_unified_max(q, kt, vt, lengths, phi=phi)
+    want, want_stat = da.decode_attention_unified_max_plain(q, kt, vt,
+                                                            lengths, phi=phi)
+    err = (out.float() - want.float()).abs().max().item()
+    serr = (stat - want_stat).abs().max().item()
+    ok, tol = attn_close(out, want)
+    del want, want_stat
+    q4 = q[:, :, None, :]
+    try:
+        lib = lambda: F.scaled_dot_product_attention(q4, kt, vt,
+                                                     enable_gqa=True)
+        lib()
+    except (TypeError, RuntimeError) as e:   # no GQA in this torch's SDPA
+        log(f"decode_32k: SDPA not timed ({e!r:.200})")
+        lib = None
+    n_valid = b * (s - 1)
+    b_ms, b_by = bound_ms(2 * (2 * b * hq * hd + 2 * n_valid * hk * hd)
+                          + 4 * b * hk, 4 * n_valid * hq * hd, spec)
+    k_ms = timer.ms(lambda: da.decode_attention_unified_max(
+        q, kt, vt, lengths, phi=phi))
+    p_ms = timer.ms(lambda: da.decode_attention_unified_max_plain(
+        q, kt, vt, lengths, phi=phi), reps=5)
+    l_ms = timer.ms(lib) if lib is not None else None
+    del timer
+    case = f"B={b} S={s} every row at {s - 1} ({s // 64} splits)"
+    log(f"kernel decode_attention_unified_max {case:34s} max_abs_err="
+        f"{err:.3e} ({tol}) stat max_abs_err={serr:.3e} kernel_ms={k_ms:.4f} "
+        f"plain_ms={p_ms:.4f} library_ms="
+        f"{'n/a' if l_ms is None else f'{l_ms:.4f}'} bound_ms={b_ms:.4f} "
+        f"({b_by}) {'ok' if ok else 'MISMATCH'}")
+    check(ok, f"decode_attention_unified_max {case}: kernel disagrees with "
+          "its plain version")
+    check(serr <= 1e-2 * max(1.0, stat.abs().max().item()),
+          f"decode_attention_unified_max {case}: stat disagrees")
+    row = rows.setdefault("decode_attention_unified_max",
+                          {"max_abs_err": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["s32k"] = dict(case=case, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+
+    # the tick against the "torch" plan on the same inputs
+    tctx = LayerCtx(cfg, make_plan("torch"))
+    with torch.no_grad():
+        want = api.decode_step(tctx, params, tokens, cache, lengths)[0]
+    a = logits[:, :cfg.vocab_size].float()
+    w = want[:, :cfg.vocab_size].float()
+    row_err = (a - w).abs().amax(-1)
+    lerr = row_err.max().item()
+    tok = a.argmax(-1)
+    agree = tok == w.argmax(-1)
+    # where the greedy tokens differ, the "cuda" token's "torch" logit must
+    # lie within twice the row's error of the "torch" maximum: a near tie
+    # that the two roundings break apart, not a wrong token
+    gap = w.amax(-1) - w.gather(1, tok[:, None])[:, 0]
+    near = gap <= 2 * row_err
+    log(f"decode_32k logits: cuda plan vs torch plan max_abs_err={lerr:.4f} "
+        f"(tol {LOGITS_TOL}; logit range {w.abs().max().item():.2f}); greedy "
+        f"tokens agree {int(agree.sum())}/{b}; of the {int((~agree).sum())} "
+        f"that differ, {int((near & ~agree).sum())} are near ties (the "
+        f"token's torch logit within twice the row's error of the row's "
+        f"max; largest gap {gap.max().item():.4f})")
+    check(lerr <= LOGITS_TOL, f"decode_32k: logits differ by {lerr} > "
+          f"{LOGITS_TOL}")
+    check(bool((agree | near).all()),
+          "decode_32k: a greedy token differs from the torch plan's by more "
+          "than a near tie")
+    del params, cache, logits, want, q, out, stat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def examples_phase(log):
+    """The port's examples on the card (qwen2-0.5b's published widths),
+    three subprocesses at once; fails if any exits non-zero."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}.py")], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES}
+    results = {}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            results[name] = (proc.returncode, out, err)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, (rc, out, err) in results.items():
+        for line in out.splitlines():
+            log(f"example {name}: {line}")
+        check(rc == 0, f"example {name} exited {rc}: {err[-2000:]}")
+    log(f"examples: {time.perf_counter() - t0:.1f}s, three at once")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5575,6 +5857,9 @@ def main(argv=None) -> int:
     ap.add_argument("--slice9a-only", action="store_true",
                     help="build, then only runs Y, Z, Z′ and AA (split and "
                     "looped) and the train phase; prints no result line")
+    ap.add_argument("--decode32k-only", action="store_true",
+                    help="build, then only the decode_32k cell beside its "
+                    "dry run and the examples; prints no result line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5613,6 +5898,16 @@ def main(argv=None) -> int:
         + ", ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
 
     rows = {}
+    if args.decode32k_only:
+        t0 = time.perf_counter()
+        decode32k_phase(torch, args.seed, log, {}, rows)
+        log(f"decode_32k phase: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        examples_phase(log)
+        log(f"examples phase: {time.perf_counter() - t0:.1f}s")
+        (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
+        print(smi)
+        return 0
     if args.slice9a_only:
         a_lengths = np.random.default_rng(args.seed).integers(32, 301, size=8)
         t0 = time.perf_counter()
@@ -5721,6 +6016,10 @@ def main(argv=None) -> int:
     mark("slice 7b and looped")
     train_phase(torch, args.seed, log)
     mark("train")
+    decode32k_phase(torch, args.seed, log, launches, rows)
+    mark("decode_32k")
+    examples_phase(log)
+    mark("examples")
 
     for name in REPLACES:
         check(launches.get(name, 0) > 0,

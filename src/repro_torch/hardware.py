@@ -113,3 +113,14 @@ def cluster_slots(spec: HardwareSpec, size: int, per_sm: int) -> int:
 
 
 DEFAULT = H100_SXM
+
+
+def matmul_flops(m: int, n: int, k: int) -> int:
+    return 2 * m * n * k
+
+
+def bytes_of(shape: tuple[int, ...], dtype_bytes: int = 2) -> int:
+    n = dtype_bytes
+    for s in shape:
+        n *= s
+    return n

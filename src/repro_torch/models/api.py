@@ -8,7 +8,10 @@ their own (recurrent state, ring buffers, cross-attention KV), so, as in
 the JAX package, they are dense-only and prefill in one shot: their
 ``supports_paged`` is False and their ``prefill_chunk`` None. Every
 family trains through ``train_loss``; :func:`train_input_specs` and
-:func:`make_synthetic_batch` give a cell's train batch.
+:func:`make_synthetic_batch` give a cell's train batch, and
+:func:`serve_decode_input_specs` / :func:`serve_prefill_input_specs` a
+cell's serving inputs (what the dry run, ``launch/dryrun.py``, builds on
+the meta device).
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import torch
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import resolve
 from repro_torch.models import encdec, hybrid, moe, ssm, transformer
+from repro_torch.models.kvlayout import DenseLayout
+from repro_torch.models.stack import tree_map
 
 _MODULES = {"dense": transformer, "vlm": transformer, "moe": moe,
             "ssm": ssm, "hybrid": hybrid, "encdec": encdec}
@@ -105,6 +110,39 @@ def train_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     if cfg.family == "encdec":
         batch["frames"] = InputSpec((b, s, cfg.d_model), torch.bfloat16)
     return batch
+
+
+def serve_decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The inputs of one decode step of a cell: ``tokens`` and ``lengths``
+    (B,) int32 and the dense (B, S) cache as a tree of specs (the
+    family's ``init_cache`` built on the meta device)."""
+    b, s = shape.global_batch, shape.seq_len
+    cache = get_model(cfg).init_cache(DenseLayout(b, s), device="meta")
+    return {
+        "tokens": InputSpec((b,), torch.int32),
+        "cache": tree_map(lambda t: InputSpec(tuple(t.shape), t.dtype),
+                          cache),
+        "lengths": InputSpec((b,), torch.int32),
+    }
+
+
+def serve_prefill_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The inputs of one prefill of a cell: ``tokens`` (B, S) and
+    ``lengths`` (B,) int32; the VLM's ``prefix_embeds`` (B, P, D), with
+    the tokens shrunk by P, and Whisper's ``frames`` (B,
+    ``encdec.ENC_FRAMES_SERVE``, D)."""
+    b, s = shape.global_batch, shape.seq_len
+    specs = {"tokens": InputSpec((b, s), torch.int32),
+             "lengths": InputSpec((b,), torch.int32)}
+    if cfg.frontend == "vision":
+        npfx = n_image_tokens(s)
+        specs["tokens"] = InputSpec((b, s - npfx), torch.int32)
+        specs["prefix_embeds"] = InputSpec((b, npfx, cfg.d_model),
+                                           torch.bfloat16)
+    if cfg.family == "encdec":
+        specs["frames"] = InputSpec((b, encdec.ENC_FRAMES_SERVE, cfg.d_model),
+                                    torch.bfloat16)
+    return specs
 
 
 def make_synthetic_batch(cfg: ModelConfig,

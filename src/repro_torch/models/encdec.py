@@ -74,7 +74,7 @@ def dec_layer_params(cfg: ModelConfig, gen: torch.Generator, n_layers: int,
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Params:
     dev = resolve(device)
-    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    gen = L.init_generator(generator, dev)
     return {
         **L.embed_params(cfg, gen, dev),
         "enc_layers": enc_layer_params(

@@ -138,7 +138,18 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, shape, dtype, device,
+def init_generator(generator: Optional[torch.Generator],
+                   device: torch.device) -> Optional[torch.Generator]:
+    """The generator an ``init_params`` draws from: ``generator``, or one
+    on ``device`` seeded with 0. On the meta device there is nothing to
+    draw (and torch makes no meta generator): ``None``, and every init
+    call then builds its leaf's shape and dtype only."""
+    if device.type == "meta":
+        return None
+    return generator or torch.Generator(device=device).manual_seed(0)
+
+
+def dense_init(gen: Optional[torch.Generator], shape, dtype, device,
                fan_in: int) -> torch.Tensor:
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
     return (w * fan_in ** -0.5).to(dtype)

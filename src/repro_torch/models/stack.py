@@ -37,10 +37,21 @@ def unstack(tree) -> list:
             for i in range(num_layers_of(tree))]
 
 
+def unbind(tree) -> list:
+    """Stacked-L tree -> list of L per-layer trees of views, as
+    :func:`unstack` gives, through ``torch.unbind``: its backward stacks
+    the L layer gradients once, where each of L ``a[i]`` views scatters
+    its gradient into a zeroed tensor of the whole stack (L² work and
+    memory in a train step)."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda p: p[i], parts)
+            for i in range(num_layers_of(tree))]
+
+
 def run_stack(layers_params, x, block_fn: Callable):
     """``block_fn(p_i, x) -> x`` over the depth (an encoder's stack: no
     cache). Returns x."""
-    for p_i in unstack(layers_params):
+    for p_i in unbind(layers_params):
         x = block_fn(p_i, x)
     return x
 
@@ -50,7 +61,7 @@ def run_stack_aux(layers_params, x, block_fn: Callable):
     ``aux`` is MoE's load-balance loss, 0 for the other families).
     Returns ``(x, the sum of aux)``."""
     aux = 0.0
-    for p_i in unstack(layers_params):
+    for p_i in unbind(layers_params):
         x, a = block_fn(p_i, x)
         aux = aux + a
     return x, aux

@@ -66,10 +66,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random params drawn on ``device`` from the JAX package's init
     distributions (``layers.dense_init``: normal * fan_in^-1/2, zero
     biases, unit norms). ``generator`` must live on ``device``; ``None``
-    seeds one with 0. ``layer_params_fn(cfg, gen, num_layers, device)``
-    builds the stacked layer params (default: the dense block's)."""
+    seeds one with 0. On ``device="meta"`` (the dry run) every leaf gets
+    its shape and dtype and nothing is drawn.
+    ``layer_params_fn(cfg, gen, num_layers, device)`` builds the stacked
+    layer params (default: the dense block's)."""
     dev = resolve(device)
-    gen = generator or torch.Generator(device=dev).manual_seed(0)
+    gen = L.init_generator(generator, dev)
     lp = layer_params_fn or layer_params
     return {
         **L.embed_params(cfg, gen, dev),
@@ -262,11 +264,15 @@ def _last_rows(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
             prefill_block_fn: Callable = prefill_block):
     """Process whole prompts (B, S) in one pass, write their KV into the
     cache's positions [0, S) in place, return last-token logits (B, Vp)
-    and the cache."""
+    and the cache. The VLM's ``prefix_embeds`` (B, P, D) go before the
+    tokens' embeddings, so S counts them and ``lengths`` do too."""
     x = L.embed(ctx, params, tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     x, cache = stack.run_stack_cached(
