@@ -12,6 +12,7 @@
                                             # and 8
     python3 chip_smoke.py --decode32k-only  # build, then only phases 9
                                             # and 10
+    python3 chip_smoke.py --slice8a-only    # build, then only phase 10
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -189,9 +190,22 @@
    B 128 x S 32,768 on layer 0's cache against its plain version, timed
    beside SDPA (the kernel table's "s32k" line); the tick's logits
    against the "torch" plan's.
-10. The examples (``examples/*_torch.py``) at full width in three
+10. Slice 8a, T1's sequence-split decode (``slice8a_phase``): rows 3 and
+   4 as shard partials at qwen2-0.5b's width, B 4 x S 32,768 (lengths
+   31,000 / 16,380 / 9,000 / 40) cut into W = 2 and 4 slices, each
+   slice's partial against its plain version (timed beside SDPA and the
+   slice's bound) and the slices joined by ``core/softmax.py`` against
+   the unsharded kernel; a full-width tick through
+   ``decode_attention_sharded`` on an NCCL group of one rank against the
+   unsharded tick; then two gloo ranks on this card (subprocesses; NCCL
+   refuses two ranks on one card), qwen2-0.5b at full width and depth
+   with the 32k cache split in two, 16 greedy ticks per scheme: logits
+   against the same ticks unsharded, the crossing row's KV on the right
+   rank, 24 / 48 all-reduces a tick (CostCounter), each rank's wall and
+   busy (gloo's host trip included: not a multi-card number).
+11. The examples (``examples/*_torch.py``) at full width in three
    subprocesses at once; fails if any exits non-zero.
-11. Prints the card's name and power limit, one JSON line describing every
+12. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Exits non-zero, printing no result line, without CUDA, outside the repo,
@@ -262,6 +276,10 @@ REPLACES = {
     "grouped_paged_decode_attention_unified_max_quant":
         "src/repro/kernels/group_attention.py:60",
     "grouped_decode_stage2_quant": "src/repro/kernels/group_attention.py:129",
+    # rows 3 and 4 as shard partials (slice 8a's sequence split)
+    "decode_attention_partial_unified_max":
+        "src/repro/kernels/decode_attention.py:91",
+    "decode_attention_partial_sync": "src/repro/kernels/decode_attention.py:487",
 }
 SOURCES = {
     "gemv": "src/repro_torch/csrc/gemv.cu",
@@ -299,6 +317,9 @@ SOURCES = {
     "grouped_paged_decode_attention_unified_max_quant":
         "src/repro_torch/csrc/group_attention.cu",
     "grouped_decode_stage2_quant": "src/repro_torch/csrc/group_attention.cu",
+    "decode_attention_partial_unified_max":
+        "src/repro_torch/csrc/decode_attention.cu",
+    "decode_attention_partial_sync": "src/repro_torch/csrc/decode_attention.cu",
 }
 PAGE = 64                             # page size of every paged run
 # one decode tick's stored GEMM weight stream of qwen2-0.5b, 24 layers of
@@ -5586,10 +5607,11 @@ D32K = "decode_32k"
 EXAMPLES = ("quickstart_torch", "serve_batch_torch", "streaming_serve_torch")
 
 
-def tick_busy_ms(torch, fn, log):
+def tick_busy_ms(torch, fn, log, tag="decode_32k"):
     """Device busy (the sum of kernel times) of one call of ``fn`` under
-    torch.profiler, in ms, with the costliest kernels logged; None when
-    the profiler reports none."""
+    torch.profiler, in ms, with the costliest kernels logged (and the
+    table written to ``chiprun_out/<tag>_profile.txt``); None when the
+    profiler reports none."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -5600,9 +5622,9 @@ def tick_busy_ms(torch, fn, log):
            if e.device_type == torch.autograd.DeviceType.CUDA
            and e.self_device_time_total > 0]
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"profile decode_32k {e.self_device_time_total / 1e3:8.4f} ms "
+        log(f"profile {tag} {e.self_device_time_total / 1e3:8.4f} ms "
             f"{e.count:5d} calls  {e.key[:90]}")
-    (OUT_DIR / "decode_32k_profile.txt").write_text(prof.key_averages().table(
+    (OUT_DIR / f"{tag}_profile.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=25))
     us = sum(e.self_device_time_total for e in evs)
     return us / 1e3 if us > 0 else None
@@ -5810,6 +5832,488 @@ def decode32k_phase(torch, seed, log, launches, rows):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# slice 8a: T1's sequence-split decode over torch.distributed
+# ---------------------------------------------------------------------------
+
+S8A_B, S8A_S = 4, 32768               # qwen2-0.5b, 4 rows of 32k positions
+# some rows have no key on some slices; row 1 crosses the W = 2 boundary
+# (position 16,384) at its fifth tick
+S8A_LENGTHS = (31000, 16380, 9000, 40)
+S8A_TICKS = 16
+S8A_WATCH_ROW = 1
+S8A_SCHEMES = ("unified_max", "sync")
+S8A_PARTIALS = {"unified_max": "decode_attention_partial_unified_max",
+                "sync": "decode_attention_partial_sync"}
+S8A_TIMEOUT = 300                     # seconds, each rank of the gloo run
+
+
+def partial_close(torch, got, want):
+    """A shard partial (num, den, aux) against its plain version: the
+    slice's attention output num / den within ATTN_REL x each row's RMS
+    (attn_close), den within ATTN_REL of itself, aux (a max of f32
+    scores) within 1e-2, and a row with no key on the slice exactly 0, 0
+    and -inf in both. Returns (ok, tolerance text, max |Δ(num / den)|)."""
+    (gn, gd, ga), (wn, wd, wa) = got, want
+    empty = wd == 0
+    one = torch.ones_like(wd)
+    go = gn / torch.where(empty, one, gd)[..., None]
+    wo = wn / torch.where(empty, one, wd)[..., None]
+    live = ~empty
+    ok_out, tol = attn_close(go[live], wo[live])
+    ok = (ok_out
+          and bool(((gd - wd).abs() <= ATTN_REL * wd).all())
+          and bool(((ga - wa).abs()[live] <= 1e-2).all())
+          and bool((gd[empty] == 0).all() and (gn[empty] == 0).all())
+          and bool((ga[empty] == -torch.inf).all()
+                   and (wa[empty] == -torch.inf).all()))
+    err = (go - wo).abs().max().item()
+    return ok, (f"{tol}; den within {ATTN_REL} of itself, aux within "
+                f"1e-2, {int(empty.sum())} empty rows 0 / 0 / -inf"), err
+
+
+def slice8a_kernel_checks(torch, timer, cfg, log, rows):
+    """Rows 3 and 4 as shard partials at qwen2-0.5b's width, B 4 x S
+    32,768 cut into W = 2 and 4 slices: each slice's partial against its
+    plain version, timed beside SDPA (GQA, the slice's length mask) and
+    the bound on the slice's bytes; the slices joined by
+    core.softmax.combine_async / combine_sync against the unsharded row
+    3 / row 4 kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch import hardware
+    from repro_torch.core import softmax as smx
+    from repro_torch.kernels import decode_attention as da
+
+    spec = hardware.H100_SXM
+    hq, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    b, s = S8A_B, S8A_S
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn((b, hq, hd), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, s, hk, hd), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor(S8A_LENGTHS, dtype=torch.int32, device="cuda")
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    phi = cfg.softmax_phi.phi
+    whole = {"unified_max": da.decode_attention_unified_max(
+        q, kt, vt, lengths, phi=phi)[0],
+        "sync": da.decode_attention_sync(q, kt, vt, lengths)}
+    kern = {"unified_max": lambda *a: da.decode_attention_partial_unified_max(
+        *a, phi=phi), "sync": da.decode_attention_partial_sync}
+    plain = {"unified_max": lambda *a: da.decode_attention_partial_plain(
+        *a, unified_max=True, phi=phi),
+        "sync": lambda *a: da.decode_attention_partial_plain(
+            *a, unified_max=False)}
+    q4 = q[:, :, None, :]
+    for w in (2, 4):
+        sl = s // w
+        parts = {sch: [] for sch in S8A_SCHEMES}
+        for i in range(w):
+            args = (q, kt[:, :, i * sl:(i + 1) * sl],
+                    vt[:, :, i * sl:(i + 1) * sl], lengths, i * sl)
+            loc = da.local_lengths(lengths, i * sl, sl)
+            n_valid = int(loc.sum())
+            mask = (torch.arange(sl, device="cuda")[None, :]
+                    < loc[:, None])[:, None, None, :]
+            try:
+                lib = lambda a=args, m=mask: F.scaled_dot_product_attention(
+                    q4, a[1], a[2], attn_mask=m, enable_gqa=True)
+                lib()
+            except (TypeError, RuntimeError) as e:   # no GQA in this SDPA
+                log(f"slice 8a: SDPA not timed ({e!r:.200})")
+                lib = None
+            b_ms, b_by = bound_ms(
+                2 * b * hq * hd + 2 * 2 * n_valid * hk * hd + 4 * b
+                + 4 * b * hq * hd + 2 * 4 * b * hq, 4 * n_valid * hq * hd,
+                spec)
+            for sch in S8A_SCHEMES:
+                got = kern[sch](*args)
+                want = plain[sch](*args)
+                parts[sch].append(got)
+                ok, tol, err = partial_close(torch, got, want)
+                name = S8A_PARTIALS[sch]
+                case = (f"W={w} slice {i} (keys {i * sl}..{(i + 1) * sl - 1}"
+                        f", {n_valid} valid)")
+                k_ms = timer.ms(lambda: kern[sch](*args))
+                p_ms = timer.ms(lambda: plain[sch](*args), reps=3)
+                l_ms = timer.ms(lib) if lib is not None else None
+                log(f"kernel {name:36s} {case:44s} max_abs_err={err:.3e} "
+                    f"({tol}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                    f"library_ms={'n/a' if l_ms is None else f'{l_ms:.4f}'} "
+                    f"bound_ms={b_ms:.4f} ({b_by}) "
+                    f"{'ok' if ok else 'MISMATCH'}")
+                check(ok, f"{name} {case}: kernel disagrees with its plain "
+                      "version")
+                row = rows.setdefault(name, {"max_abs_err": 0.0})
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                entry = dict(case=case, ms=k_ms, plain_ms=p_ms,
+                             library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+                if (w, i) == (2, 0):
+                    row.update(entry)
+                else:
+                    row[f"W{w}_slice{i}"] = entry
+        joined = {"unified_max": smx.combine_async(
+            [smx.AsyncPartial(*p) for p in parts["unified_max"]])[0],
+            "sync": smx.combine_sync(
+                [smx.SyncPartial(*p) for p in parts["sync"]])}
+        for sch in S8A_SCHEMES:
+            ok, tol = attn_close(joined[sch], whole[sch])
+            log(f"slice 8a: W={w} {sch} partials joined by core.softmax vs "
+                f"the unsharded kernel: {tol} {'ok' if ok else 'MISMATCH'}")
+            check(ok, f"slice 8a: W={w} {sch} joined partials disagree with "
+                  "the unsharded kernel")
+    del q, k, v, kt, vt, whole, parts, joined
+
+
+def s8a_model(torch, cfg, seed, w=1, rank=0):
+    """qwen2-0.5b's params from ``seed`` and this rank's slice of the 4 x
+    32,768 cache (every rank draws the whole cache layer by layer from
+    ``seed + 1`` and keeps its slice, so the slices join to the unsharded
+    cache bit for bit); tokens from ``seed``, the S8A_LENGTHS."""
+    import numpy as np
+
+    from repro_torch.models.api import get_model
+    from repro_torch.models.kvlayout import DenseLayout
+
+    api = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = api.init_params(gen, device="cuda")
+    s_loc = S8A_S // w
+    cache = api.init_cache(DenseLayout(S8A_B, s_loc), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    for leaf in cache.values():
+        for i in range(leaf.shape[0]):
+            full = torch.randn((S8A_B, S8A_S) + tuple(leaf.shape[3:]),
+                               generator=gen, device="cuda",
+                               dtype=leaf.dtype)
+            leaf[i] = full[:, rank * s_loc:(rank + 1) * s_loc]
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab_size, size=S8A_B).astype(np.int32)).cuda()
+    lengths = torch.tensor(S8A_LENGTHS, dtype=torch.int32, device="cuda")
+    return api, params, cache, tokens, lengths
+
+
+def slice8a_rank(rank, world, out_dir, seed):
+    """One rank of the gloo run (a process of its own on cuda:0): 16
+    greedy ticks of qwen2-0.5b with its 32k cache split over ``world``
+    ranks, under each scheme; writes ``rank<r>.pt`` into ``out_dir``:
+    logits (rank 0), tokens, each tick's wall, one tick's device busy,
+    the all-reduces of one tick, the kernels' launches and the KV
+    placement of the watched row."""
+    import datetime
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.config import MeshConfig
+    from repro_torch.core.attention import make_decode_attention_fn
+    from repro_torch.core.plan import make_plan
+    from repro_torch.distributed import make_rules
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models.layers import LayerCtx
+
+    out_dir = Path(out_dir)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lines = []
+
+    def log(line):
+        lines.append(line)
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out_dir / "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=S8A_TIMEOUT // 2))
+    try:
+        mesh_cfg = MeshConfig((1, world), ("data", "model"))
+        mesh = make_mesh_from_config(mesh_cfg, backend="gloo")
+        rules = make_rules(mesh_cfg)
+        cfg = configs.get(ARCH)
+        s_loc = S8A_S // world
+        start = rank * s_loc
+        res = {}
+        for scheme in S8A_SCHEMES:
+            api, params, cache, tokens, lengths = s8a_model(
+                torch, cfg, seed, world, rank)
+            fn = make_decode_attention_fn(mesh, rules, cfg.softmax_phi,
+                                          scheme=scheme, backend="cuda")
+            ctx = LayerCtx(cfg, make_plan("cuda", scheme=scheme),
+                           decode_attention_fn=fn)
+            watch = [(leaf, i) for leaf in (cache["k"], cache["v"])
+                     for i in (0, cfg.num_layers - 1)]
+            for c in counters().values():
+                c.launches = 0
+            logits, toks, walls, placement = [], [], [], []
+            busy = n_ar = None
+            for t in range(S8A_TICKS):
+                before = [leaf[i, S8A_WATCH_ROW].clone() for leaf, i in watch]
+                pos = int(lengths[S8A_WATCH_ROW])
+
+                def tick():
+                    with torch.no_grad():
+                        return api.decode_step(ctx, params, tokens, cache,
+                                               lengths)[0]
+
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if t == 1:
+                    with CostCounter() as cc:
+                        lg = tick()
+                    n_ar = cc.collectives.counts.get("all-reduce", 0)
+                elif t == S8A_TICKS - 1:
+                    box = []
+                    busy = tick_busy_ms(torch, lambda: box.append(tick()),
+                                        log, tag=f"slice8a_{scheme}_rank"
+                                        f"{rank}")
+                    lg = box[0]
+                else:
+                    lg = tick()
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+                # which local positions of the watched row this tick wrote
+                wrote = set()
+                for (leaf, i), old in zip(watch, before):
+                    diff = (leaf[i, S8A_WATCH_ROW] != old).flatten(1).any(-1)
+                    wrote |= set(diff.nonzero().flatten().tolist())
+                placement.append((pos, sorted(wrote)))
+                if rank == 0:
+                    logits.append(lg.float().cpu())
+                tokens = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+                toks.append(tokens.cpu())
+                lengths = lengths + 1
+            res[scheme] = dict(
+                logits=logits, tokens=toks, walls=walls, busy=busy,
+                allreduces=n_ar, placement=placement, start=start,
+                launches={n: c.launches for n, c in counters().items()
+                          if c.launches})
+            del params, cache
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    res["log"] = lines
+    torch.save(res, out_dir / f"rank{rank}.pt")
+
+
+def s8a_spawn(seed, out_dir, world=2):
+    """The gloo ranks as subprocesses; each is joined with S8A_TIMEOUT,
+    and a rank that fails or passes it kills the others and fails the
+    phase."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    logs = [open(out_dir / f"rank{r}.out", "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.slice8a_rank("
+         f"{r}, {world}, {str(out_dir)!r}, {seed})"], cwd=ROOT, env=env,
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + S8A_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        out = (out_dir / f"rank{r}.out").read_text()
+        check(p.returncode == 0, f"slice 8a: gloo rank {r} exited "
+              f"{p.returncode}: {out[-3000:]}")
+
+
+def slice8a_phase(torch, seed, log, launches, rows):
+    """Slice 8a on the card. (1) Rows 3 and 4 as shard partials
+    (slice8a_kernel_checks). (2) NCCL at world size 1, in this process:
+    a full-width qwen2-0.5b tick through decode_attention_sharded on a
+    one-rank model group, both schemes, within LOGITS_TOL of the
+    unsharded "cuda" tick. (3) Two gloo ranks on cuda:0 (NCCL refuses two
+    ranks on one card), qwen2-0.5b at its published widths and depth
+    with the 32k cache split into two 16,384-position slices: 16 greedy
+    ticks per scheme; every tick's logits within LOGITS_TOL of the same
+    ticks run unsharded here (fed the ranks' tokens), tokens equal or
+    near ties, the watched row's new KV on the rank that holds its
+    position and nowhere else, 24 all-reduces a tick under unified_max
+    and 48 under sync. The ranks' walls pass through gloo's host copies:
+    not a multi-card number."""
+    import datetime
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.config import MeshConfig
+    from repro_torch.core.attention import make_decode_attention_fn
+    from repro_torch.core.plan import make_plan
+    from repro_torch.distributed import make_rules
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models.layers import LayerCtx
+
+    cfg = configs.get(ARCH)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    timer = Timer(torch)
+    slice8a_kernel_checks(torch, timer, cfg, log, rows)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def diff(a, w):
+        """max |Δ| over the vocabulary, each row's, and the near-tie
+        rule of decode32k_phase for the greedy tokens of ``a``."""
+        a = a[:, :cfg.vocab_size].float()
+        w = w[:, :cfg.vocab_size].float()
+        row_err = (a - w).abs().amax(-1)
+        tok = a.argmax(-1)
+        gap = w.amax(-1) - w.gather(1, tok[:, None])[:, 0]
+        agree = tok == w.argmax(-1)
+        return row_err.max().item(), agree, gap <= 2 * row_err
+
+    # (2) NCCL at world size 1, in this process
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh_cfg = MeshConfig((1, 1), ("data", "model"))
+        mesh = make_mesh_from_config(mesh_cfg)
+        check(mesh.backend == "nccl", "slice 8a: the cuda mesh is not NCCL")
+        rules = make_rules(mesh_cfg)
+        api, params, cache, tokens, lengths = s8a_model(torch, cfg, seed)
+        for scheme in S8A_SCHEMES:
+            fn = make_decode_attention_fn(mesh, rules, cfg.softmax_phi,
+                                          scheme=scheme, backend="cuda")
+            sharded = LayerCtx(cfg, make_plan("cuda", scheme=scheme),
+                               decode_attention_fn=fn)
+            whole = LayerCtx(cfg, make_plan("cuda", scheme=scheme))
+            for c in counters().values():
+                c.launches = 0
+            with torch.no_grad():
+                got = api.decode_step(sharded, params, tokens, cache,
+                                      lengths)[0].clone()
+            torch.cuda.synchronize()
+            per_tick = {n: c.launches for n, c in counters().items()
+                        if c.launches}
+            for n, c in per_tick.items():
+                launches[n] = launches.get(n, 0) + c
+            with torch.no_grad():
+                want = api.decode_step(whole, params, tokens, cache,
+                                       lengths)[0]
+            err, agree, near = diff(got, want)
+            log(f"slice 8a NCCL world size 1 ({scheme}): logits vs the "
+                f"unsharded cuda tick max_abs_err={err:.4f} (tol "
+                f"{LOGITS_TOL}); greedy tokens agree {int(agree.sum())}/"
+                f"{S8A_B}, near ties {int((near & ~agree).sum())}; "
+                f"launches {json.dumps(per_tick)}")
+            check(err <= LOGITS_TOL, f"slice 8a NCCL {scheme}: logits differ "
+                  f"by {err}")
+            check(bool((agree | near).all()), f"slice 8a NCCL {scheme}: a "
+                  "greedy token differs by more than a near tie")
+            check(per_tick.get(S8A_PARTIALS[scheme], 0) == cfg.num_layers,
+                  f"slice 8a NCCL {scheme}: the partial kernel did not "
+                  "launch once a layer")
+    finally:
+        dist.destroy_process_group()
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (3) two gloo ranks on cuda:0, then the same ticks unsharded here
+    out_dir = Path(tempfile.mkdtemp(prefix="slice8a_"))
+    try:
+        t0 = time.perf_counter()
+        s8a_spawn(seed, out_dir)
+        ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        log(f"slice 8a gloo run: 2 ranks on cuda:0, {S8A_TICKS} ticks per "
+            f"scheme, {time.perf_counter() - t0:.1f}s with the ranks' start")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        for line in res["log"]:
+            log(f"slice 8a rank {r}: {line}")
+    api, params, cache, tokens0, lengths0 = s8a_model(torch, cfg, seed)
+    s_loc = S8A_S // 2
+    for scheme in S8A_SCHEMES:
+        if scheme != S8A_SCHEMES[0]:        # the first scheme's ticks wrote
+            del cache
+            api, params, cache, tokens0, lengths0 = s8a_model(torch, cfg,
+                                                              seed)
+        ctx = LayerCtx(cfg, make_plan("cuda", scheme=scheme))
+        r0, r1 = ranks[0][scheme], ranks[1][scheme]
+        tokens, lengths = tokens0, lengths0
+        worst, ties = 0.0, 0
+        for t in range(S8A_TICKS):
+            with torch.no_grad():
+                want = api.decode_step(ctx, params, tokens, cache,
+                                       lengths)[0].float().cpu()
+            err, agree, near = diff(r0["logits"][t], want)
+            worst = max(worst, err)
+            ties += int((near & ~agree).sum())
+            check(err <= LOGITS_TOL, f"slice 8a gloo {scheme} tick {t}: "
+                  f"logits differ by {err}")
+            check(bool((agree | near).all()), f"slice 8a gloo {scheme} tick "
+                  f"{t}: a greedy token differs by more than a near tie")
+            check(torch.equal(r0["tokens"][t], r1["tokens"][t]),
+                  f"slice 8a gloo {scheme} tick {t}: the ranks' tokens "
+                  "differ")
+            # the unsharded run takes the ranks' tokens (teacher forcing)
+            tokens = r0["tokens"][t].cuda()
+            lengths = lengths + 1
+        # the watched row's KV: on the rank that holds each position only
+        for r, res in enumerate((r0, r1)):
+            for pos, wrote in res["placement"]:
+                own = res["start"] <= pos < res["start"] + s_loc
+                check(wrote == ([pos - res["start"]] if own else []),
+                      f"slice 8a gloo {scheme}: rank {r} wrote local "
+                      f"positions {wrote} of row {S8A_WATCH_ROW} for "
+                      f"position {pos}")
+        crossing = [(pos, wrote) for pos, wrote in r1["placement"] if wrote]
+        per_layer = 1 if scheme == "unified_max" else 2
+        for r, res in enumerate((r0, r1)):
+            check(res["allreduces"] == per_layer * cfg.num_layers,
+                  f"slice 8a gloo {scheme}: rank {r} issued "
+                  f"{res['allreduces']} all-reduces in a tick, not "
+                  f"{per_layer * cfg.num_layers}")
+            for n, c in res["launches"].items():
+                launches[n] = launches.get(n, 0) + c
+            check(res["launches"].get(S8A_PARTIALS[scheme], 0)
+                  == S8A_TICKS * cfg.num_layers,
+                  f"slice 8a gloo {scheme}: rank {r}'s partial kernel did "
+                  "not launch once a layer a tick")
+        walls = [statistics.median(res["walls"]) for res in (r0, r1)]
+        busy = ["not measured" if res["busy"] is None
+                else f"{res['busy']:.3f} ms" for res in (r0, r1)]
+        log(f"slice 8a gloo {scheme} ({smi}): {S8A_TICKS} ticks, logits vs "
+            f"unsharded max_abs_err={worst:.4f} (tol {LOGITS_TOL}), near "
+            f"ties {ties}; row {S8A_WATCH_ROW}'s KV on rank 1 at local "
+            f"{[w[0] for _, w in crossing]} for positions "
+            f"{[p for p, _ in crossing]}; all-reduces a tick "
+            f"{r0['allreduces']} / {r1['allreduces']}; per rank wall "
+            f"(median of {S8A_TICKS}) {walls[0]:.3f} / {walls[1]:.3f} ms, "
+            f"busy {busy[0]} / {busy[1]} (one tick, profiled); the walls "
+            "carry gloo's host copies and both ranks share one card: not a "
+            "multi-card number")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def examples_phase(log):
     """The port's examples on the card (qwen2-0.5b's published widths),
     three subprocesses at once; fails if any exits non-zero."""
@@ -5860,6 +6364,10 @@ def main(argv=None) -> int:
     ap.add_argument("--decode32k-only", action="store_true",
                     help="build, then only the decode_32k cell beside its "
                     "dry run and the examples; prints no result line")
+    ap.add_argument("--slice8a-only", action="store_true",
+                    help="build, then only the slice 8a phase (rows 3 and "
+                    "4 as shard partials, NCCL at world size 1, two gloo "
+                    "ranks on one card); prints no result line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -5898,6 +6406,13 @@ def main(argv=None) -> int:
         + ", ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
 
     rows = {}
+    if args.slice8a_only:
+        t0 = time.perf_counter()
+        slice8a_phase(torch, args.seed, log, {}, rows)
+        log(f"slice 8a phase: {time.perf_counter() - t0:.1f}s")
+        (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
+        print(smi)
+        return 0
     if args.decode32k_only:
         t0 = time.perf_counter()
         decode32k_phase(torch, args.seed, log, {}, rows)
@@ -6018,6 +6533,8 @@ def main(argv=None) -> int:
     mark("train")
     decode32k_phase(torch, args.seed, log, launches, rows)
     mark("decode_32k")
+    slice8a_phase(torch, args.seed, log, launches, rows)
+    mark("slice 8a")
     examples_phase(log)
     mark("examples")
 

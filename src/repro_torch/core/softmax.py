@@ -8,9 +8,13 @@ Each partial holds one KV slice's contribution; the combine is
     ``exp(m_local − m_global)``, then add — the synchronized update of
     Eq. 2.
 
-These are the single-process combines over a list of partials. The
-cross-process ones (the JAX package's ``*_collective`` over a mesh axis)
-come with the port's process groups (ROADMAP.md, slice 8).
+The single-process combines take a list of partials; the collective
+ones (:func:`combine_async_collective`, :func:`combine_sync_collective`)
+take this rank's partial and join it with the other ranks' of a
+``torch.distributed`` process group (the mesh's ``model`` axis in
+``core/attention.py``): T1's async combine is one SUM all-reduce of
+``(num, den)`` packed in one f32 buffer, the synchronized baseline a MAX
+all-reduce of ``m``, the rescale, then that SUM.
 
 A row with no valid key has ``den == 0``: both combines return 0 for it
 (the sync combine as the JAX package's does; the JAX package's async
@@ -21,6 +25,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 
 class AsyncPartial(NamedTuple):
@@ -95,5 +100,43 @@ def combine_sync(partials: list[SyncPartial]) -> torch.Tensor:
 
     num = sum(p.num * weight(p)[..., None] for p in partials)
     den = sum(p.den * weight(p) for p in partials)
+    den = torch.where(den == 0.0, 1.0, den)
+    return num / den[..., None]
+
+
+def _packed_sum(num: torch.Tensor, den: torch.Tensor, group):
+    """``(Σ num, Σ den)`` over ``group`` in one SUM all-reduce of one f32
+    buffer (num's last dim, then den)."""
+    buf = torch.cat([num.float(), den.float()[..., None]], dim=-1)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf[..., :-1], buf[..., -1]
+
+
+def combine_async_collective(p: AsyncPartial, group, *, stat: bool = False
+                             ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """T1 cross-rank combine: the partials add, so one SUM all-reduce of
+    the packed ``(num, den)``. Returns ``(out, max_centered)``: the
+    overflow statistic is joined (a MAX all-reduce) only with ``stat``,
+    else None. A row with no valid key on any rank gives 0."""
+    num, den = _packed_sum(p.num, p.den, group)
+    mc = None
+    if stat:
+        mc = p.max_centered.float().clone()
+        dist.all_reduce(mc, op=dist.ReduceOp.MAX, group=group)
+    den = torch.where(den == 0.0, 1.0, den)
+    return num / den[..., None], mc
+
+
+def combine_sync_collective(p: SyncPartial, group) -> torch.Tensor:
+    """Baseline cross-rank combine (Eq. 2): a MAX all-reduce of ``m``,
+    each rank's partial rescaled by ``exp(m_local − m_global)`` (a rank
+    with no valid key, ``m = -inf``, adds nothing), then one SUM
+    all-reduce of the packed ``(num, den)``."""
+    m = p.m.float().clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    safe_m = torch.where(torch.isfinite(m), m, 0.0)
+    scale = torch.exp(torch.where(torch.isfinite(p.m), p.m.float(),
+                                  -torch.inf) - safe_m)
+    num, den = _packed_sum(p.num * scale[..., None], p.den * scale, group)
     den = torch.where(den == 0.0, 1.0, den)
     return num / den[..., None]

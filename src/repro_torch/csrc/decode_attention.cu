@@ -5,7 +5,9 @@
 //   decode_attention_unified_max (_decode_kernel),
 //   decode_attention_sync (_decode_kernel_sync),
 //   paged_decode_attention_unified_max (_paged_decode_kernel) and
-//   paged_decode_attention_sync (_paged_decode_kernel_sync).
+//   paged_decode_attention_sync (_paged_decode_kernel_sync); the dense
+//   pair also as shard partials, the per-shard math of
+//   src/repro/core/attention.py::decode_attention_sharded.
 //
 // Bound on H100: device-memory bytes. One new token per sequence reads
 // every valid K and V row once (2 * len * HK * D * 2 bytes) for only
@@ -100,6 +102,46 @@ REPRO_EXPORT int decode_attention_sync_bf16(
     long long sh, float scale, void* stream) {
   const Launch L{q,   k,   v, lengths, flag, out, nullptr, acc,
                  den, aux, B, HK,      G,    S,   NSPLIT,  scale, 0.f};
+  return dsplit::run<false, __nv_bfloat16>(L, D, DenseSeq{sb, ss, sh},
+                                           NoPrefix{},
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// Shard partials (slice 8a, T1's sequence-split decode): k / v are this
+// rank's slice of the dense cache, key positions start .. start + S - 1;
+// lengths (B,) are global, each row's local length clamp(lengths[b] -
+// start, 0, S) is formed on the device. The same split kernel and fold as
+// the entries above, but the combine writes the un-normalised f32 partial:
+// num (B, HQ, D), den (B, HQ) and aux (B, HQ) = the row's max of s − φ
+// (unified) or its max s (online max; this entry takes no flag and always
+// runs), 0 / 0 / -inf for a row with no key on the slice.
+REPRO_EXPORT int decode_attention_partial_unified_max_bf16(
+    const void* q, const void* k, const void* v, const void* lengths,
+    void* num, void* den_out, void* aux_out, void* acc, void* den, void* aux,
+    int B, int HK, int G, int S, int D, int NSPLIT, long long sb, long long ss,
+    long long sh, int start, float scale, float phi, void* stream) {
+  dsplit::Launch L{q,   k,   v, lengths, nullptr, nullptr, nullptr, acc,
+                   den, aux, B, HK,      G,       S,       NSPLIT,  scale,
+                   phi};
+  L.part = {static_cast<float*>(num), static_cast<float*>(den_out),
+            static_cast<float*>(aux_out)};
+  L.start = start;
+  return dsplit::run<true, __nv_bfloat16>(L, D, DenseSeq{sb, ss, sh},
+                                          NoPrefix{},
+                                          static_cast<cudaStream_t>(stream));
+}
+
+REPRO_EXPORT int decode_attention_partial_sync_bf16(
+    const void* q, const void* k, const void* v, const void* lengths,
+    void* num, void* den_out, void* aux_out, void* acc, void* den, void* aux,
+    int B, int HK, int G, int S, int D, int NSPLIT, long long sb, long long ss,
+    long long sh, int start, float scale, void* stream) {
+  dsplit::Launch L{q,   k,   v, lengths, nullptr, nullptr, nullptr, acc,
+                   den, aux, B, HK,      G,       S,       NSPLIT,  scale,
+                   0.f};
+  L.part = {static_cast<float*>(num), static_cast<float*>(den_out),
+            static_cast<float*>(aux_out)};
+  L.start = start;
   return dsplit::run<false, __nv_bfloat16>(L, D, DenseSeq{sb, ss, sh},
                                            NoPrefix{},
                                            static_cast<cudaStream_t>(stream));

@@ -33,7 +33,15 @@
 //     each row's block raising it by an atomic max from the -inf the split
 //     kernel left there (a max does not depend on the order of updates).
 //   * Both launches of the online-max scheme return at entry unless the
-//     device flag is set (the overflow recompute).
+//     device flag is set (the overflow recompute); with no flag they run.
+//   * Shard partials (PARTIAL): the cache is one rank's slice of the
+//     sequence, keys start .. start + S - 1 of each row, and `lengths`
+//     stay global; both kernels read the row's local length as
+//     clamp(lengths[b] - start, 0, S). The combine folds the row's splits
+//     exactly as above but writes the un-normalised f32 partial instead
+//     of out: num[D], den and aux (unified: the row's max of s − φ;
+//     online max: its max m), a row with no key on the slice giving 0, 0
+//     and -inf. Ranks join these by core/softmax.py's collective combines.
 //
 // A split's partial of a row is a function of its q row and its keys
 // alone: mma.sync computes each output row from its own A row, and every
@@ -220,16 +228,16 @@ split_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
              const int* __restrict__ lengths, float* __restrict__ acc_part,
              float* __restrict__ den_part, float* __restrict__ aux_part,
              float* __restrict__ stat, const bool* __restrict__ flag, int HK,
-             int G, int S, int NSPLIT, float scale, float phi) {
+             int G, int S, int NSPLIT, float scale, float phi, int start) {
   if (!UNIFIED && flag != nullptr && !*flag) return;
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // the combine raises stat[b, h] from here (atomic_max_float)
-  if (UNIFIED && blockIdx.x == 0 && threadIdx.x == 0)
+  if (UNIFIED && stat != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
     stat[b * HK + h] = -INFINITY;
   const int split = blockIdx.x * kWarps + warp, kv0 = split * kSplit;
-  const int len = min(max(lengths[b], 0), S);
+  const int len = min(max(lengths[b] - start, 0), S);
   if (kv0 >= len || split < pre.first(b)) return;
 
   const auto rows = seq.rows(b, h);
@@ -269,20 +277,28 @@ __device__ __forceinline__ void atomic_max_float(float* addr, float v) {
     atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
 }
 
-template <int D, bool UNIFIED, typename Prefix>
+// Where a shard partial goes (PARTIAL): (B, HQ) rows of num[D] f32, den
+// and aux.
+struct PartialOut {
+  float* num;
+  float* den;
+  float* aux;
+};
+
+template <int D, bool UNIFIED, typename Prefix, bool PARTIAL>
 __global__ void __launch_bounds__(kCombineThreads<D>)
 combine_kernel(const float* __restrict__ acc_part,
                const float* __restrict__ den_part,
                const float* __restrict__ aux_part, Prefix pre,
                const int* __restrict__ lengths,
                __nv_bfloat16* __restrict__ out, float* __restrict__ stat,
-               const bool* __restrict__ flag, int HK, int G, int S,
-               int NSPLIT) {
+               PartialOut part, const bool* __restrict__ flag, int HK, int G,
+               int S, int NSPLIT, int start) {
   if (!UNIFIED && flag != nullptr && !*flag) return;
   const int g = blockIdx.x, h = blockIdx.y, b = blockIdx.z, HQ = HK * G;
   const int dp = threadIdx.x * 2;
   if (dp >= D) return;
-  const int len = min(max(lengths[b], 0), S);
+  const int len = min(max(lengths[b] - start, 0), S);
   const int n = (len + kSplit - 1) / kSplit;      // the row's splits
   const int s0 = min(pre.first(b), n);            // ... of them the group's
   const long long own0 = static_cast<long long>(b) * NSPLIT * HQ + h * G + g;
@@ -334,10 +350,18 @@ combine_kernel(const float* __restrict__ acc_part,
       }
     }
   }
+  const long long orow = static_cast<long long>(b) * HQ + h * G + g;
+  if constexpr (PARTIAL) {
+    *reinterpret_cast<float2*>(part.num + orow * D + dp) = acc;
+    if (threadIdx.x == 0) {
+      part.den[orow] = den;
+      part.aux[orow] = UNIFIED ? smax : (any ? m : -INFINITY);
+    }
+    return;
+  }
   const float inv = den > 0.f ? 1.f / den : 0.f;
   *reinterpret_cast<__nv_bfloat162*>(
-      out + (static_cast<long long>(b) * HQ + h * G + g) * D + dp) =
-      __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
+      out + orow * D + dp) = __floats2bfloat162_rn(acc.x * inv, acc.y * inv);
   // unified: stat[b, h], -inf from the split kernel, rises to the max over
   // the G rows and their splits
   if (UNIFIED && threadIdx.x == 0 && n > 0)
@@ -346,13 +370,28 @@ combine_kernel(const float* __restrict__ acc_part,
 
 // One call's operands: scratch (B, NSPLIT, HQ) f32 rows of acc[D], den
 // and aux; out (B, HQ, D) bf16; stat (B, HK) f32 (unified) or null; flag
-// one device bool (online max) or null.
+// one device bool (online max) or null. A shard partial sets `part` (out
+// and stat null) and its slice's first key position `start`.
 struct Launch {
   const void *q, *k, *v, *lengths, *flag;
   void *out, *stat, *acc, *den, *aux;
   int B, HK, G, S, NSPLIT;
   float scale, phi;
+  PartialOut part = {nullptr, nullptr, nullptr};
+  int start = 0;
 };
+
+template <int D, bool UNIFIED, typename Prefix, bool PARTIAL>
+void launch_combine(const Launch& L, const Prefix& pre, cudaStream_t st) {
+  combine_kernel<D, UNIFIED, Prefix, PARTIAL>
+      <<<dim3(L.G, L.HK, L.B), kCombineThreads<D>, 0, st>>>(
+          static_cast<const float*>(L.acc), static_cast<const float*>(L.den),
+          static_cast<const float*>(L.aux), pre,
+          static_cast<const int*>(L.lengths),
+          static_cast<__nv_bfloat16*>(L.out), static_cast<float*>(L.stat),
+          L.part, static_cast<const bool*>(L.flag), L.HK, L.G, L.S, L.NSPLIT,
+          L.start);
+}
 
 template <int D, bool UNIFIED, typename T, typename Seq, typename Prefix>
 int run_d(const Launch& L, const Seq& seq, const Prefix& pre,
@@ -368,16 +407,13 @@ int run_d(const Launch& L, const Seq& seq, const Prefix& pre,
                pre, static_cast<const int*>(L.lengths),
                static_cast<float*>(L.acc), static_cast<float*>(L.den),
                static_cast<float*>(L.aux), static_cast<float*>(L.stat), flag,
-               L.HK, L.G, L.S, L.NSPLIT, L.scale, L.phi);
+               L.HK, L.G, L.S, L.NSPLIT, L.scale, L.phi, L.start);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  combine_kernel<D, UNIFIED, Prefix>
-      <<<dim3(L.G, L.HK, L.B), kCombineThreads<D>, 0, st>>>(
-          static_cast<const float*>(L.acc), static_cast<const float*>(L.den),
-          static_cast<const float*>(L.aux), pre,
-          static_cast<const int*>(L.lengths),
-          static_cast<__nv_bfloat16*>(L.out), static_cast<float*>(L.stat),
-          flag, L.HK, L.G, L.S, L.NSPLIT);
+  if (L.part.num != nullptr)
+    launch_combine<D, UNIFIED, Prefix, true>(L, pre, st);
+  else
+    launch_combine<D, UNIFIED, Prefix, false>(L, pre, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -78,6 +78,12 @@ _SIG = {
     "paged_decode_attention_sync_q8":
         _PTRS + [_build.VP] * 3 + _PDIMS + [_build.F32, _build.I32,
                                             _build.VP],
+    # q, k, v, lengths, num, den, aux, scratch acc, den, aux; + start
+    "decode_attention_partial_unified_max_bf16":
+        [_build.VP] * 10 + _DIMS + [_build.I32, _build.F32, _build.F32,
+                                    _build.VP],
+    "decode_attention_partial_sync_bf16":
+        [_build.VP] * 10 + _DIMS + [_build.I32, _build.F32, _build.VP],
 }
 
 # the quantized bodies' launches, apart from the bf16 kernels'
@@ -183,6 +189,14 @@ def split_combine(parts, n, *, unified_max: bool):
     (:func:`merge.merge_unified`); online-max ones merge by the guarded
     :func:`merge.merge_lse` (an empty split adds nothing). Returns ``(out
     (..., R, D) f32, aux (..., R))``, a row with no split giving zeros."""
+    acc, den, aux = split_accumulate(parts, n, unified_max=unified_max)
+    return merge.finalize(acc, den, guard_zero=True), aux
+
+
+def split_accumulate(parts, n, *, unified_max: bool):
+    """:func:`split_combine`'s fold without the division: ``(acc (..., R,
+    D), den (..., R, 1), aux (..., R))``, a row with no split giving 0, 0
+    and -inf."""
     acc = torch.zeros_like(parts[0][0])
     den = torch.zeros_like(parts[0][1])
     aux = torch.full_like(parts[0][2], float("-inf"))
@@ -198,7 +212,7 @@ def split_combine(parts, n, *, unified_max: bool):
         acc = torch.where(take[..., None], a2, acc)
         den = torch.where(take[..., None], d2, den)
         aux = torch.where(take, x2, aux)
-    return merge.finalize(acc, den, guard_zero=True), aux
+    return acc, den, aux
 
 
 def split_parts(qg, k, v, lens, *, unified_max: bool, phi: float = 0.0):
@@ -378,6 +392,98 @@ def decode_attention_sync(q, k_cache, v_cache, lengths, *,
     _build.check(lib, entry, code)
     decode_attention_sync.launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Shard partials: one rank's slice of a sequence-split cache (slice 8a)
+# ---------------------------------------------------------------------------
+
+
+def local_lengths(lengths, start: int, s_loc: int):
+    """Each row's key count on the slice of positions ``start .. start +
+    s_loc - 1``: ``clamp(lengths - start, 0, s_loc)``."""
+    return (lengths.long() - start).clamp(0, s_loc)
+
+
+def decode_attention_partial_plain(q, k_loc, v_loc, lengths, start: int, *,
+                                   unified_max: bool = True,
+                                   phi: float = 0.0,
+                                   scale: float | None = None):
+    """Plain version of the shard partial: the split kernel's splits over
+    the slice ``k_loc`` / ``v_loc`` ``(B, HK, S_loc, D)`` (key positions
+    ``start`` on; ``lengths (B,)`` global), folded by
+    :func:`split_accumulate` without the division. Returns ``(num (B, HQ,
+    D), den (B, HQ), aux (B, HQ))`` in f32: aux is the row's max of ``s −
+    φ`` (unified max) or of ``s`` (online max, num and den then relative
+    to it); a row with no key on the slice gives 0, 0 and -inf."""
+    b, hq, d = q.shape
+    hk, s_loc = k_loc.shape[1], k_loc.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hk, hq // hk, d).float() * scale
+    lens = local_lengths(lengths.to(q.device), start, s_loc)
+    read = (torch.arange(s_loc, device=q.device)[None, :]
+            < lens[:, None])[:, None, :, None]
+    k, v = (torch.where(read, c.float(), 0.0) for c in (k_loc, v_loc))
+    parts = split_parts(qg, k, v, lens, unified_max=unified_max, phi=phi)
+    acc, den, aux = split_accumulate(parts, split_counts(lens),
+                                     unified_max=unified_max)
+    return acc.reshape(b, hq, d), den.reshape(b, hq), aux.reshape(b, hq)
+
+
+def _partial(entry, counter, q, k_loc, v_loc, lengths, start, scale, *phi):
+    q, lens = _check_inputs(q, k_loc, v_loc, lengths)
+    b, hq, d = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    num = torch.empty((b, hq, d), **f32)
+    den, aux = torch.empty((b, hq), **f32), torch.empty((b, hq), **f32)
+    nsplit, scratch = split_scratch(b, k_loc.shape[2], hq, d, q.device)
+    lib = _build.load("decode_attention", _SIG)
+    code = getattr(lib, entry)(
+        _build.ptr(q), _build.ptr(k_loc), _build.ptr(v_loc),
+        _build.ptr(lens), _build.ptr(num), _build.ptr(den), _build.ptr(aux),
+        *map(_build.ptr, scratch), *_dims(q, k_loc, nsplit), int(start),
+        scale, *phi, _build.stream_of(q))
+    _build.check(lib, entry, code)
+    counter.launches += 1
+    return num, den, aux
+
+
+@_build.forward_only
+def decode_attention_partial_unified_max(q, k_loc, v_loc, lengths,
+                                         start: int, *, phi: float = 0.0,
+                                         scale: float | None = None):
+    """Row 3 as a shard partial: ``(num (B, HQ, D), den (B, HQ),
+    max_centered (B, HQ))`` f32 of this rank's slice ``k_loc`` / ``v_loc``
+    ``(B, HK, S_loc, D)`` (key positions ``start`` on) under the unified
+    max; ``lengths (B,)`` are global, and the kernel forms each row's
+    local length on the device. Partials of the slices add
+    (``core.softmax.combine_async``)."""
+    if not q.is_cuda:
+        return decode_attention_partial_plain(
+            q, k_loc, v_loc, lengths, start, unified_max=True, phi=phi,
+            scale=scale)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _partial("decode_attention_partial_unified_max_bf16",
+                    decode_attention_partial_unified_max, q, k_loc, v_loc,
+                    lengths, start, scale, phi)
+
+
+@_build.forward_only
+def decode_attention_partial_sync(q, k_loc, v_loc, lengths, start: int, *,
+                                  scale: float | None = None):
+    """Row 4 as a shard partial: ``(num (B, HQ, D), den (B, HQ), m (B,
+    HQ))`` f32 of this rank's slice under the online max (num and den
+    relative to the slice's max m), as
+    :func:`decode_attention_partial_unified_max` takes it. It always runs:
+    no overflow flag gates it. Partials join by the synchronized combine
+    (``core.softmax.combine_sync``)."""
+    if not q.is_cuda:
+        return decode_attention_partial_plain(
+            q, k_loc, v_loc, lengths, start, unified_max=False, scale=scale)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _partial("decode_attention_partial_sync_bf16",
+                    decode_attention_partial_sync, q, k_loc, v_loc, lengths,
+                    start, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -679,5 +785,7 @@ def paged_decode_attention_sync(q, k_pool, v_pool, block_tables, lengths, *,
 
 decode_attention_unified_max.launches = 0
 decode_attention_sync.launches = 0
+decode_attention_partial_unified_max.launches = 0
+decode_attention_partial_sync.launches = 0
 paged_decode_attention_unified_max.launches = 0
 paged_decode_attention_sync.launches = 0

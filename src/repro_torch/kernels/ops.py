@@ -42,6 +42,8 @@ from repro_torch.kernels.decode_fuse import (
     oproj_residual_fused_quant,
 )
 from repro_torch.kernels.decode_attention import (
+    decode_attention_partial_sync,
+    decode_attention_partial_unified_max,
     decode_attention_sync,
     decode_attention_unified_max,
     paged_decode_attention_sync,
@@ -80,7 +82,8 @@ LAUNCH_COUNTERS = (
     ffn_norm_fused_quant, paged_decode_attention_unified_max_quant,
     paged_decode_attention_sync_quant, paged_chunk_attention_unified_max_quant,
     paged_chunk_attention_sync_quant, group_prefix_partials_quant,
-    group_tail_merge_quant,
+    group_tail_merge_quant, decode_attention_partial_unified_max,
+    decode_attention_partial_sync,
 )
 
 

@@ -12,8 +12,9 @@ the reference attention math, whose backward passes autograd provides
 
 Fault tolerance is live here: SIGTERM checkpoints and exits 0; rerunning
 the same command resumes from the latest committed step. ``--devices``,
-``--mesh`` and ``--grad-compression int8_ef`` need a device mesh, which
-the port does not have yet (ROADMAP.md, slice 8): they raise.
+``--mesh`` and ``--grad-compression int8_ef`` need the sharded training
+layer, which the port does not have yet (ROADMAP.md, slice 8b): they
+raise.
 """
 import argparse
 import os

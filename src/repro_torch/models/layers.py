@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -84,11 +84,22 @@ class LayerCtx:
     plan: ExecutionPlan = DEFAULT_PLAN
     # MoE routing group count (the data-parallel shard count at scale)
     moe_groups: int = 1
+    # sequence-split decode attention over this rank's slice of the dense
+    # cache, (q, k_loc, v_loc, lengths) -> o, with kv_start(s_loc) the
+    # slice's first position (core.attention.make_decode_attention_fn)
+    decode_attention_fn: Optional[Callable] = dataclasses.field(
+        default=None, compare=False, repr=False)
     graphs: Optional[LoopedDecode] = dataclasses.field(
         default=None, init=False, compare=False, repr=False)
 
     def __post_init__(self):
         if self.plan.decode_fusion.granularity == "looped":
+            if self.decode_attention_fn is not None:
+                raise ValueError(
+                    "decode_fusion='looped' with a sharded decode_attention_"
+                    "fn: a CUDA graph cannot capture the gloo collectives of "
+                    "the sequence split (ROADMAP.md, slice 8b); use 'split' "
+                    "or 'fused'")
             object.__setattr__(self, "graphs", LoopedDecode())
 
     @property
@@ -352,13 +363,38 @@ def paged_chunk_write(pool: torch.Tensor, block_tables: torch.Tensor,
     return KVWrite.build(phys * ps + pos % ps, keep, num_pages * ps)
 
 
+def slice_decode_write(cache: torch.Tensor, lengths: torch.Tensor,
+                       start: int) -> KVWrite:
+    """One new entry a row into a rank's slice (B, S_loc, HK, Dh) of a
+    sequence-split dense cache, positions ``start .. start + S_loc - 1``:
+    row b's entry lands at ``lengths[b] - start`` where the slice holds
+    position ``lengths[b]``, and is dropped on every other rank."""
+    b, s = cache.shape[:2]
+    pos = lengths.long() - start
+    keep = (pos >= 0) & (pos < s)
+    rows = torch.arange(b, device=cache.device) * s + pos.clamp(0, s - 1)
+    return KVWrite.build(rows, keep, b * s)
+
+
 def decode_attend(ctx: LayerCtx, q, k, v, cache_k, cache_v, lengths):
     """Stage B (dense layout): append this token's KV at each row's
-    length, attend over the cache. Returns o (B, 1, HQ*Dh)."""
-    _scatter_kv(cache_k, k[:, 0], lengths)
-    _scatter_kv(cache_v, v[:, 0], lengths)
-    o = ops.attention_decode(q[:, 0], cache_k, cache_v, lengths + 1,
-                             phi_cfg=ctx.phi_cfg, plan=ctx.plan)
+    length, attend over the cache. Returns o (B, 1, HQ*Dh). With a
+    ``ctx.decode_attention_fn`` the caches are this rank's slice of a
+    sequence-split cache: the KV lands only on the rank that holds
+    position ``lengths[b]`` and the function attends across the ranks
+    (``lengths`` stay global)."""
+    fn = ctx.decode_attention_fn
+    if fn is None:
+        _scatter_kv(cache_k, k[:, 0], lengths)
+        _scatter_kv(cache_v, v[:, 0], lengths)
+        o = ops.attention_decode(q[:, 0], cache_k, cache_v, lengths + 1,
+                                 phi_cfg=ctx.phi_cfg, plan=ctx.plan)
+    else:
+        write = slice_decode_write(cache_k, lengths,
+                                   fn.kv_start(cache_k.shape[1]))
+        write.put(cache_k, k)
+        write.put(cache_v, v)
+        o = fn(q[:, 0], cache_k, cache_v, lengths + 1)
     return o.reshape(q.shape[0], 1, ctx.cfg.q_dim)
 
 

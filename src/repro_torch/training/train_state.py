@@ -10,8 +10,9 @@ kernel is a forward kernel only (as in the JAX package, whose kernels
 have no VJP), so a ``"cuda"`` GEMM, prefill-attention or fused-FFN
 backend is refused, and each kernel wrapper refuses inputs that require
 a gradient. The JAX package's int8 error-feedback gradient hop across
-pods needs a device mesh, which the port does not have yet (ROADMAP.md,
-slice 8: distribution); it is refused rather than trained uncompressed.
+pods needs the sharded training layer (TP / FSDP params over the mesh,
+the int8-EF hop), which the port does not have yet (ROADMAP.md, slice
+8b); it is refused rather than trained uncompressed.
 """
 from __future__ import annotations
 
@@ -29,8 +30,9 @@ from repro_torch.training import optimizer as opt
 # the plan entries whose "cuda" backend launches forward-only kernels
 KERNEL_ENTRIES = ("matmul", "attention_prefill", "fused_ffn")
 
-NO_MESH = ("needs a device mesh, which the port does not have yet "
-           "(ROADMAP.md, slice 8: distribution)")
+NO_MESH = ("needs the sharded training layer (TP / FSDP params over the "
+           "mesh, the int8-EF pod hop), which the port does not have yet "
+           "(ROADMAP.md, slice 8b)")
 
 
 @dataclasses.dataclass
