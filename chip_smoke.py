@@ -13,6 +13,7 @@
     python3 chip_smoke.py --decode32k-only  # build, then only phases 9
                                             # and 10
     python3 chip_smoke.py --slice8a-only    # build, then only phase 10
+    python3 chip_smoke.py --slice8b1-only   # build, then only phase 11
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -81,8 +82,8 @@
    bitwise paged) and the GEMM rows 1 and 2 (q / o_proj, k / v, the
    untied 100,352-column head), 12 and 13 are held to their plain
    versions and timed (the kernel table's "dbrx" lines).
-3. Serves full-width qwen2-0.5b (24 layers, random weights from --seed),
-   greedy, with every kernel's launch counter set to 0 just before and
+3. Serves full-width qwen2-0.5b (SERVE_LAYERS = 8 of its 24 layers, in
+   phases 3-5; random weights from --seed), greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
    C ``prefill_chunk=0`` (flash prefill) on the dense cache; on the paged
    pool D (dense gather, tokens equal to A's), E (fused chunk kernel,
@@ -141,7 +142,8 @@
 5. T3 on the card: measures the fixed costs ``hardware.H100_SXM`` carries
    for the cost models (a launch in a CUDA graph and eager, the library
    GEMM's edge, a pinned host copy, a decode KV split step, run E's chunk
-   step and run J's looped tick beyond their device work), printing each
+   step and run J's looped tick beyond their device work, both at the
+   full 24 layers), printing each
    beside its committed value; tunes qwen2-0.5b with the wallclock
    measure (``gemv``, ``flat_gemm`` and ``torch.matmul`` timed on the
    card), printing every entry and the three impls' times at M = 1, 4, 8
@@ -167,7 +169,7 @@
    and wall a tick of X and X′, the MoE tail's share of X's busy
    tick, and the tick's bytes against its bound.
 7. The recurrent and encoder-decoder families at their published widths
-   and depth (``slice7b_phase``): Y (rwkv6-1.6b), Z and Z′ (hymba-1.5b,
+   (``slice7b_phase``; rwkv6 and hymba cut to FAMILY_LAYERS' 8 layers): Y (rwkv6-1.6b), Z and Z′ (hymba-1.5b,
    Z′ with long prompts and the fused FFN-up) and AA (whisper-tiny),
    each served split and then looped (``looped_family_phase``: one CUDA
    graph a tick, tokens bit for bit the split run's), busy and wall a
@@ -203,13 +205,28 @@
    against the same ticks unsharded, the crossing row's KV on the right
    rank, 24 / 48 all-reduces a tick (CostCounter), each rank's wall and
    busy (gloo's host trip included: not a multi-card number).
-11. The examples (``examples/*_torch.py``) at full width in three
+11. Slice 8b-1, the sharded trainer (``slice8b1_phase``, the "torch"
+   plan, set up as ``launch/train.py`` sets it up): a full-width
+   gradient leaf (qwen2-0.5b's stacked w_gate) through the int8-EF
+   quantizer on the card bitwise the CPU's; 3 steps of qwen2-0.5b at
+   full width and depth (8 x 512) through the sharded step on an NCCL
+   world of one rank against the unsharded step; then two gloo ranks on
+   this card (subprocesses) at meshes (1, 2), (2, 1) and, with int8-EF,
+   (2, 1, 1): losses, grad norms and final params against the unsharded
+   run, the collectives of a step (CostCounter) against the count
+   derived from the code, each rank's wall, busy and peak memory (gloo's
+   host trip included: not a multi-card number); then the CLI itself
+   (``python -m repro_torch.launch.train --devices 2 --backend gloo``)
+   preempted by SIGTERM at ``--mesh 1x2`` and resumed from its
+   checkpoint at ``--mesh 2x1``, its losses against the unsharded run.
+12. The examples (``examples/*_torch.py``) at full width in three
    subprocesses at once; fails if any exits non-zero.
-12. Prints the card's name and power limit, one JSON line describing every
+13. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Exits non-zero, printing no result line, without CUDA, outside the repo,
-or when any check fails. Long output goes to ``chiprun_out/``.
+or when any check fails. Long output goes to ``chiprun_out/``; each
+phase's end, with the seconds since the start, also goes to stderr.
 """
 import argparse
 import gc
@@ -221,9 +238,12 @@ import sys
 import time
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT_DIR = ROOT / "chiprun_out"
+# compiled bytecode of what the run imports, in the checkout's build dir
+PYCACHE = SRC / "repro_torch" / "build" / "pycache"
 
 ARCH = "qwen2-0.5b"
 MOE_ARCH = "dbrx-132b"                # runs X to X‴ and the D = 128 lines
@@ -322,15 +342,30 @@ SOURCES = {
     "decode_attention_partial_sync": "src/repro_torch/csrc/decode_attention.cu",
 }
 PAGE = 64                             # page size of every paged run
-# one decode tick's stored GEMM weight stream of qwen2-0.5b, 24 layers of
-# wq, wk, wv, wo, w_gate, w_up, w_down: 357,826,560 weights at 2 bytes
-# (bf16), or at 1 byte plus 12,672 f32 steps per layer (int8, fp8)
-WEIGHT_BYTES_PER_TICK = {"bf16": 715_653_120, "int8": 359_043_072,
-                         "fp8": 359_043_072}
-# one 64-row page's K+V slab of qwen2-0.5b across its 24 layers: 2 x 64 x
-# 2 kv heads x 64 dims per layer at 2 bytes (bf16), or at 1 byte plus 2 x
-# 2 f32 steps per layer (int8, fp8)
-KV_PAGE_BYTES = {"bf16": 786_432, "int8": 393_600, "fp8": 393_600}
+# phases 3-5 serve qwen2-0.5b at its full width and SERVE_LAYERS of its 24
+# layers: the eager tick is host bound, about 2 ms a layer, and at full
+# depth the smoke came too close to its time limit (the trainer, decode_32k
+# and slices 8a / 8b-1 keep the full depth; so do the cost phase's fixed
+# costs and the tune, which the committed constants and plan come from)
+SERVE_LAYERS = 8
+# a layer's stored GEMM weights of qwen2-0.5b, wq, wk, wv, wo, w_gate, w_up,
+# w_down: 14,909,440 weights at 2 bytes (bf16), or at 1 byte plus 12,672 f32
+# steps (int8, fp8); one decode tick reads every layer's once
+WEIGHT_BYTES_PER_LAYER = {"bf16": 29_818_880, "int8": 14_960_128,
+                          "fp8": 14_960_128}
+# a 64-row page's K+V slab of qwen2-0.5b in one layer: 2 x 64 x 2 kv heads x
+# 64 dims at 2 bytes (bf16), or at 1 byte plus 2 x 2 f32 steps (int8, fp8)
+KV_PAGE_BYTES_PER_LAYER = {"bf16": 32_768, "int8": 16_400, "fp8": 16_400}
+# the recurrent families' depth in phase 7 (whisper-tiny keeps its 4 + 4)
+FAMILY_LAYERS = {"rwkv6-1.6b": 8, "hymba-1.5b": 8}
+
+
+def serve_config():
+    """qwen2-0.5b at its published widths and SERVE_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(ARCH), num_layers=SERVE_LAYERS)
 # the attention kernels of the bf16 and of the quantized KV bodies, by
 # counter name: a quantized-KV run must launch none of the first
 BF16_ATTENTION = ("decode_attention_unified_max", "decode_attention_sync",
@@ -3076,7 +3111,7 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
             f"tokens sha256 {digest}; launches {json.dumps(counts)}")
         # the stored weight stream per decode tick, at the launched width
         # (a tick that preemption left with no row reads none)
-        per_tick = WEIGHT_BYTES_PER_TICK[eng.weight_dtype]
+        per_tick = WEIGHT_BYTES_PER_LAYER[eng.weight_dtype] * cfg.num_layers
         read = st.weight_bytes_decode_read
         check(read == eng.ticks * per_tick if not st.preemptions else
               read % per_tick == 0 and read <= eng.ticks * per_tick,
@@ -3099,7 +3134,7 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
                   "times")
         if eng.pool is not None:
             # every decode tick reads each resident page's stored slab
-            page = KV_PAGE_BYTES[eng.kv_dtype]
+            page = KV_PAGE_BYTES_PER_LAYER[eng.kv_dtype] * cfg.num_layers
             check(st.kv_page_bytes == page, f"{tag}: {st.kv_page_bytes} "
                   f"B per page, not {page}")
             check(st.kv_bytes_decode_read == pages_read[0] * page > 0,
@@ -3171,8 +3206,10 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
     plain16 = sum(len(v) for v in outputs["M"].values())
     log(f"serve quantized-weight contracts: O == O′ tokens "
         f"({sum(len(v) for v in outputs['O'].values())}); weight bytes per "
-        f"decode tick {WEIGHT_BYTES_PER_TICK['int8']} (int8, fp8) against "
-        f"{WEIGHT_BYTES_PER_TICK['bf16']} (bf16); M (int8) agrees with A "
+        f"decode tick {WEIGHT_BYTES_PER_LAYER['int8'] * cfg.num_layers} "
+        f"(int8, fp8) against "
+        f"{WEIGHT_BYTES_PER_LAYER['bf16'] * cfg.num_layers} (bf16); M "
+        f"(int8) agrees with A "
         f"on the first 16 tokens of each request at "
         f"{agree16('A', 'M')}/{plain16} positions, O (fp8) with J at "
         f"{agree16('J', 'O')}/{plain16}; P (int8, "
@@ -3187,8 +3224,10 @@ def serve_phase(torch, cfg, params, request_sets, log, launches):
           and engines["S"].stats.grouped_requests > 0,
           "runs R and S grouped no decode")
     log(f"serve quantized-KV contracts: Q == Q′ == R tokens ({total}), "
-        f"S == S′ tokens; KV bytes per page {KV_PAGE_BYTES['int8']} (int8, "
-        f"fp8) against {KV_PAGE_BYTES['bf16']} (bf16); decode KV bytes "
+        f"S == S′ tokens; KV bytes per page "
+        f"{KV_PAGE_BYTES_PER_LAYER['int8'] * cfg.num_layers} (int8, fp8) "
+        f"against {KV_PAGE_BYTES_PER_LAYER['bf16'] * cfg.num_layers} "
+        f"(bf16); decode KV bytes "
         f"read E {engines['E'].stats.kv_bytes_decode_read}, Q "
         f"{engines['Q'].stats.kv_bytes_decode_read}, K "
         f"{engines['K'].stats.kv_bytes_decode_read}, S "
@@ -3790,10 +3829,12 @@ def graph_ms_per_call(torch, fn, n=1000, reps=7):
     return statistics.median(times)
 
 
-def cost_phase(torch, cfg, params, requests, shared, log):
+def cost_phase(torch, seed, requests, shared, log):
     """The fixed costs in ``hardware.H100_SXM`` that T3's cost models add,
     measured here, each printed beside its committed value (a mismatch is
-    printed, not failed: the machine is shared and noisy). Returns
+    printed, not failed: the machine is shared and noisy). The engine runs
+    use qwen2-0.5b at its full depth (params drawn here from ``seed``,
+    freed at the end), as the committed values were measured. Returns
     {field: measured seconds}.
 
     * launch_s: the noop probe kernel (csrc/probe.cu) launched 1,000 times
@@ -3812,13 +3853,17 @@ def cost_phase(torch, cfg, params, requests, shared, log):
     """
     import dataclasses
 
-    from repro_torch import hardware
+    from repro_torch import configs, hardware
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.api import get_model
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.request import SamplingParams
 
     spec = hardware.H100_SXM
+    cfg = configs.get(ARCH)
+    params = get_model(cfg).init_params(
+        torch.Generator(device="cuda").manual_seed(seed), device="cuda")
     got = {}
     lib = _build.load("probe", {"probe_noop": [_build.VP, _build.I32,
                                                _build.VP]})
@@ -3916,6 +3961,9 @@ def cost_phase(torch, cfg, params, requests, shared, log):
         want = getattr(spec, field)
         log(f"cost {field}: measured {v:.3e} s, H100_SXM {want:.3e} s "
             f"(measured / committed {v / want:.2f})")
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
     return got
 
 
@@ -5155,11 +5203,14 @@ def slice7b_phase(torch, seed, lengths, log, launches):
     (hymba-1.5b, A's lengths, max_seq 2,048), Z′ (hymba, 4 prompts of
     1,030-1,600 tokens: the window mask and the ring's wrap) and AA
     (whisper-tiny, 8 prompts of 4-64 tokens, max_seq 448, the engine's
-    zero frames): full published widths and depth, random bf16 weights
+    zero frames): full published widths, FAMILY_LAYERS' depth (the
+    eager tick is host bound a layer), random bf16 weights
     from ``seed``, 32 new tokens, 4 slots, the dense cache; each run
     then again under ``decode_fusion="looped"`` (``looped_family_phase``,
     Y, Z and AA profiled beside their split ticks). Each family's
     weights are freed before the next one's are drawn."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch import configs
@@ -5173,10 +5224,13 @@ def slice7b_phase(torch, seed, lengths, log, launches):
                           ("whisper-tiny", 448)):
         t_phase = time.perf_counter()
         cfg = configs.get(arch)
+        cfg = dataclasses.replace(
+            cfg, num_layers=FAMILY_LAYERS.get(arch, cfg.num_layers))
         gen = torch.Generator(device="cuda").manual_seed(seed)
         params = get_model(cfg).init_params(gen, device="cuda")
         torch.cuda.synchronize()
-        log(f"slice 7b {arch}: {cfg.num_layers} layers"
+        log(f"slice 7b {arch}: {cfg.num_layers} of "
+            f"{configs.get(arch).num_layers} layers"
             f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
             f", d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocabulary "
             f"{cfg.vocab_size}; {sum(t.nbytes for t in tree_leaves(params)) / 1e9:.2f}"
@@ -6314,6 +6368,523 @@ def slice8a_phase(torch, seed, log, launches, rows):
     torch.cuda.empty_cache()
 
 
+# slice 8b-1: the sharded trainer, qwen2-0.5b at full width and depth
+S8B_STEPS = 3
+# the CLI's flags of every slice 8b-1 run (seq 512, batch 8, lr 1e-3;
+# RunConfig from launch/train.py's run_config, warmup 1 step)
+S8B_ARGS = ["--arch", ARCH, "--steps", str(S8B_STEPS), "--batch", "8",
+            "--seq", "512", "--lr", "1e-3"]
+# (mesh, gradient compression) of the two gloo ranks' runs
+S8B_MESHES = (((1, 2), "none"), ((2, 1), "none"), ((2, 1, 1), "int8_ef"))
+S8B_RTOL = 2e-3                       # sharded losses vs the one-rank run
+S8B_EF_FIRST_RTOL = 1e-4              # int8-EF: the first loss, then
+S8B_EF_RTOL = 5e-3                    # the later ones (read: 1.93e-3)
+S8B_NCCL_RTOL = 1e-4                  # mesh (1, 1) on NCCL vs unsharded
+# each step's grad norm, and the params after the last step (the norm of
+# their difference over the norm of the one-rank run's update), against
+# the one-rank run; int8-EF apart (its applied gradient is quantized).
+# Sound readings on the card: norms 5.6e-3 (1, 2), 1.7e-4 (2, 1), 1.3e-2
+# int8-EF; params 0.053, 0.019, 0.61. With FSDP's reduce-scatter left
+# without its sum, (2, 1) read norms 0.39 and params 0.84 while its
+# losses stayed within 4.4e-4.
+S8B_NORM_RTOL = 2e-2
+S8B_PARAM_RTOL = 0.2
+S8B_EF_NORM_RTOL = 3e-2
+S8B_EF_PARAM_RTOL = 0.8
+S8B_LEAF = (24, 896, 4864)            # qwen2-0.5b's stacked w_gate
+S8B_TIMEOUT = 300                     # seconds, each gloo run of two ranks
+
+
+def s8b_names(dims):
+    return ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
+
+
+def s8b_flags(compression="none", seed=0):
+    """S8B_ARGS as the CLI parses them."""
+    from repro_torch.launch import train as cli
+
+    return cli._parse(S8B_ARGS + ["--grad-compression", compression,
+                                  "--seed", str(seed)])
+
+
+def s8b_collectives(cfg, dims, compression, seq):
+    """The collectives of one sharded train step, by kind, derived from
+    the code (``training/train_state.py``, ``models/layers.py``; the
+    "torch" plan, remat on, bf16 params: one dtype group). f: the FSDP
+    group (pod and data; data only under int8-EF), m: model. With f > 1:
+    the FSDP all-gather, its reduce-scatter (an all-reduce), the loss's
+    batch mean and the replicated leaves' batch sum. With m > 1: the
+    embedding's all-reduce; two a layer forward (wo, w_down) and two
+    backward (the copies into the TP region); in the backward pass the
+    remat recompute re-issues each layer's attention all-reduce (it
+    stops at the last saved tensor, which the MLP's all-reduce feeds
+    not); each of the nc loss chunks two forward (max; exponent sum with
+    the label's logit), two again recomputed, one backward (the head's
+    copy); where the heads do not split evenly, three all-gathers a
+    layer. Over more than one rank the global norm; int8-EF across pods:
+    the codes' and the scales' all-gathers and the loss's pod mean, and
+    the leaves' maxima inside a pod of more than one rank."""
+    sizes = dict(zip(s8b_names(dims), dims))
+    m = sizes["model"]
+    ef = compression == "int8_ef" and sizes.get("pod", 1) > 1
+    f = sizes["data"] * (1 if ef else sizes.get("pod", 1))
+    nl, nc = cfg.num_layers, min(8, seq)
+    ar = ag = 0
+    if f > 1:
+        ag += 1
+        ar += 3
+    if m > 1:
+        ar += 1 + 5 * nl + 5 * nc
+        if cfg.num_heads % m or cfg.num_kv_heads % m:
+            ag += 3 * nl
+    world = 1
+    for d in dims:
+        world *= d
+    if world > 1:
+        ar += 1
+    if ef:
+        ag += 2
+        ar += 1
+        if world // sizes["pod"] > 1:
+            ar += 1
+    return {k: v for k, v in (("all-reduce", ar), ("all-gather", ag)) if v}
+
+
+def s8b_train(torch, cfg, seed, mesh=None, compression="none",
+              on_step=None):
+    """S8B_STEPS steps of qwen2-0.5b (params from ``seed``, the batches
+    ``SyntheticTokens`` 0.. from ``seed``: the CLI's) on the "torch"
+    plan, set up as the CLI sets it up (``train_state.mesh_setup``,
+    ``initial_state``): unsharded, or this rank's shards on ``mesh``.
+    ``on_step(i, run)`` runs step i (``run()`` does it). Returns each
+    step's loss and grad norm and the final params (global, on the
+    card; gathered under a mesh)."""
+    from repro_torch.config import ShapeConfig
+    from repro_torch.distributed import gather_tree
+    from repro_torch.models.api import get_model
+    from repro_torch.training.data import SyntheticTokens, device_batch
+    from repro_torch.training.train_state import (initial_state, local_batch,
+                                                  make_train_step, mesh_setup)
+
+    from repro_torch.launch.train import run_config
+
+    api = get_model(cfg)
+    flags = s8b_flags(compression, seed)
+    run = run_config(flags)
+    ctx, rules, specs = mesh_setup(api, mesh, compression)
+    step = make_train_step(api, ctx, run, mesh=mesh)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = initial_state(api.init_params(gen, device="cuda"), run, mesh,
+                          specs)
+    torch.cuda.empty_cache()
+    source = SyntheticTokens(cfg, ShapeConfig("s8b", flags.seq, flags.batch,
+                                              "train"), seed=seed)
+    losses, norms = [], []
+    for i in range(S8B_STEPS):
+        batch = device_batch(source.batch_at(i), "cuda")
+        if mesh is not None:
+            batch = local_batch(batch, rules, mesh)
+        box = {}
+
+        def run_step():
+            box["state"], box["metrics"] = step(state, batch)
+
+        (on_step or (lambda _, f: f()))(i, run_step)
+        state = box["state"]
+        losses.append(float(box["metrics"]["loss"]))
+        norms.append(float(box["metrics"]["grad_norm"]))
+    params = (state.params if mesh is None
+              else gather_tree(state.params, specs.params, mesh))
+    del state
+    return dict(losses=losses, norms=norms, params=params)
+
+
+def s8b_param_err(torch, got, want):
+    """(the L2 norm of got - want, over every leaf, in f32)."""
+    from repro_torch.models.stack import tree_leaves
+
+    sq = 0.0
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        sq += float(torch.sum(torch.square(g.float() - w.to(g.device)
+                                           .float())))
+    return sq ** 0.5
+
+
+def slice8b1_rank(rank, world, out_dir, seed):
+    """One rank of the gloo run (a process of its own on cuda:0): the
+    S8B_MESHES runs in turn over one world of two ranks; writes
+    ``rank<r>.pt``: each run's losses and grad norms, the distance of
+    its final params from the one-rank run's (``ref_params.pt``, rank 0),
+    the collectives of its first step (CostCounter), the wall of its
+    second, the device busy of its third (profiled) and the peak
+    memory."""
+    import datetime
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    out_dir = Path(out_dir)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lines = []
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out_dir / "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=S8B_TIMEOUT // 2))
+    res = {}
+    try:
+        cfg = configs.get(ARCH)
+        ref = (torch.load(out_dir / "ref_params.pt", weights_only=True)
+               if rank == 0 else None)
+        for dims, compression in S8B_MESHES:
+            mesh = make_mesh_from_config(MeshConfig(dims, s8b_names(dims)),
+                                         device="cuda", backend="gloo")
+            tag = "x".join(map(str, dims))
+            rec = {}
+
+            def on_step(i, run_step):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == 0:
+                    with CostCounter() as cc:
+                        run_step()
+                    rec["collectives"] = dict(cc.collectives.counts)
+                elif i == 1:
+                    run_step()
+                else:
+                    rec["busy"] = tick_busy_ms(
+                        torch, run_step, lines.append,
+                        tag=f"slice8b1_{tag}_rank{rank}")
+                torch.cuda.synchronize()
+                rec.setdefault("walls", []).append(
+                    1e3 * (time.perf_counter() - t0))
+
+            if not res:
+                res["tensor_forms"] = s8b_tensor_forms(torch, mesh)
+            torch.cuda.reset_peak_memory_stats()
+            out = s8b_train(torch, cfg, seed, mesh, compression, on_step)
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            rec.update(losses=out["losses"], norms=out["norms"])
+            if ref is not None:
+                rec["param_err"] = s8b_param_err(torch, out["params"], ref)
+            del out
+            res[tag] = rec
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    res["log"] = lines
+    torch.save(res, out_dir / f"rank{rank}.pt")
+
+
+def s8b_tensor_forms(torch, mesh):
+    """Whether gloo takes the tensor forms of all-gather and
+    reduce-scatter on CUDA tensors (which distributed/collectives.py does
+    not use: it composes both from all_gather and all_reduce). A probe
+    for the record, not a check: the error text, or "ok"."""
+    import torch.distributed as dist
+
+    group = mesh.group(mesh.axis_names)
+    n = mesh.axes_size(mesh.axis_names)
+    x = torch.ones(8, device="cuda")
+    out = {}
+    for name, call in (
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                torch.empty(8 * n, device="cuda"), x, group=group)),
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                torch.empty(8 // n, device="cuda"), x, group=group))):
+        try:
+            call()
+            out[name] = "ok"
+        except (RuntimeError, NotImplementedError, ValueError) as e:
+            out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+    return out
+
+
+def s8b_spawn(seed, out_dir, world=2):
+    """The gloo ranks as subprocesses (``launch.mesh.run_ranks``, as the
+    CLI starts its ranks), within S8B_TIMEOUT; a rank that fails or
+    passes it kills the others and fails the phase."""
+    import os
+
+    from repro_torch.launch.mesh import run_ranks
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    logs = [open(out_dir / f"rank{r}.out", "w") for r in range(world)]
+    try:
+        codes = run_ranks(
+            [[sys.executable, "-c", f"import chip_smoke; chip_smoke."
+              f"slice8b1_rank({r}, {world}, {str(out_dir)!r}, {seed})"]
+             for r in range(world)], env=env, cwd=str(ROOT),
+            timeout=S8B_TIMEOUT, outputs=logs)
+    finally:
+        for f in logs:
+            f.close()
+    for r, code in enumerate(codes):
+        out = (out_dir / f"rank{r}.out").read_text()
+        check(code == 0, f"slice 8b-1: gloo rank {r} exited {code}: "
+              f"{out[-3000:]}")
+
+
+def s8b_cli(seed, out_dir):
+    """The CLI's own mesh path: ``python -m repro_torch.launch.train``
+    with S8B_ARGS, ``--devices 2 --backend gloo`` (two ranks sharing the
+    card) at ``--mesh 1x2``, sent SIGTERM once rank 0 has logged its
+    first step (the CLI passes it to its ranks, they agree to stop and
+    checkpoint), then the same command at ``--mesh 2x1``, which restores
+    the checkpoint's shards at its mesh and trains to the end. Returns
+    (exit codes, the committed step, each run's last line, {step: loss}
+    over both runs, seconds)."""
+    import os
+    import select
+    import signal
+
+    from repro_torch.training.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    ckpt = out_dir / "cli_ckpt"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *S8B_ARGS,
+           "--seed", str(seed), "--device", "cuda", "--backend", "gloo",
+           "--devices", "2", "--checkpoint-dir", str(ckpt),
+           "--checkpoint-every", "100", "--log-every", "1"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    outs, codes = [], []
+    with open(out_dir / "cli.err", "w") as err:
+        proc = subprocess.Popen(cmd + ["--mesh", "1x2"], env=env,
+                                stdout=subprocess.PIPE, stderr=err,
+                                text=True, cwd=str(ROOT))
+        try:
+            first, deadline = [], time.monotonic() + S8B_TIMEOUT
+            while time.monotonic() < deadline:
+                ready, _, _ = select.select([proc.stdout], [], [], 5)
+                line = proc.stdout.readline() if ready else ""
+                if ready and not line:
+                    break                          # the CLI has exited
+                first.append(line)
+                if line.startswith("step"):
+                    proc.send_signal(signal.SIGTERM)
+                    break
+            rest, _ = proc.communicate(timeout=S8B_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        outs.append("".join(first) + rest)
+        codes.append(proc.returncode)
+        latest = CheckpointManager(str(ckpt)).latest_step()
+        again = subprocess.run(cmd + ["--mesh", "2x1"], env=env,
+                               stdout=subprocess.PIPE, stderr=err, text=True,
+                               timeout=S8B_TIMEOUT, cwd=str(ROOT))
+        outs.append(again.stdout)
+        codes.append(again.returncode)
+    losses = {}
+    for out in outs:
+        for line in out.splitlines():
+            if line.startswith("step "):
+                losses[int(line.split()[1])] = float(line.split()[3])
+    last = [(out.strip().splitlines() or [""])[-1] for out in outs]
+    if codes != [0, 0]:
+        last.append((out_dir / "cli.err").read_text()[-3000:])
+    return codes, latest, last, losses, time.perf_counter() - t0
+
+
+def s8b_rel(got, want):
+    return [abs(a - w) / abs(w) for a, w in zip(got, want)]
+
+
+def slice8b1_phase(torch, seed, log):
+    """Slice 8b-1 on the card, the sharded trainer (the "torch" plan: no
+    kernel of the table runs), set up as the CLI sets it up. (1) One
+    full-width gradient leaf (S8B_LEAF, bf16, with an f32 residual)
+    through ef_quantize_leaf on the card and on the CPU: codes, scale and
+    residual bitwise. (2) An NCCL world of one rank in this process:
+    qwen2-0.5b at its published widths and depth, S8B_STEPS steps of
+    S8B_ARGS through the sharded step at mesh (1, 1) against the
+    unsharded step, losses within S8B_NCCL_RTOL. (3) Two gloo ranks on
+    cuda:0 (subprocesses; NCCL refuses two ranks on one card) run
+    S8B_MESHES: losses within S8B_RTOL of the unsharded run (int8-EF:
+    the first within S8B_EF_FIRST_RTOL, the later within S8B_EF_RTOL),
+    each step's grad norm within S8B_NORM_RTOL and the final params
+    within S8B_PARAM_RTOL of the unsharded update (int8-EF: the _EF_
+    bounds), the ranks' losses alike, the collectives of a step equal to
+    s8b_collectives; each rank's wall a step, busy and peak memory. The
+    walls carry gloo's host copies and two ranks share one card: not
+    multi-card numbers. (4) The CLI itself (``s8b_cli``): preempted at
+    (1, 2), resumed at (2, 1), every step's loss within S8B_RTOL of the
+    unsharded run. Every reading is logged before any check."""
+    import datetime
+    import shutil
+    import socket
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.config import MeshConfig
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models.api import get_model
+    from repro_torch.models.stack import tree_map
+
+    cfg = configs.get(ARCH)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    checks = []
+
+    # (1) one gradient leaf, on the card and on the CPU
+    gen = torch.Generator().manual_seed(seed)
+    g = (torch.randn(S8B_LEAF, generator=gen) * 1e-3).to(torch.bfloat16)
+    err = torch.randn(S8B_LEAF, generator=gen) * 1e-6
+    want = C.ef_quantize_leaf(g, err)
+    t0 = time.perf_counter()
+    got = [t.cpu() for t in C.ef_quantize_leaf(g.cuda(), err.cuda())]
+    secs = time.perf_counter() - t0
+    same = [torch.equal(got[0], want[0]),
+            got[1].numpy().tobytes() == want[1].numpy().tobytes(),
+            torch.equal(got[2], want[2])]
+    log(f"slice 8b-1 leaf {S8B_LEAF} bf16: codes / scale / residual on the "
+        f"card bitwise the CPU's: {same} (scale {float(want[1]):.6e}, "
+        f"{secs:.3f}s with the copies)")
+    checks.append((all(same), "slice 8b-1: the int8-EF leaf differs on the "
+                   "card"))
+    del g, err, want, got
+
+    # (2) NCCL at world size 1, in this process, against unsharded; the
+    # one-rank run's update (final params - initial) is the scale of the
+    # params' distances
+    one = s8b_train(torch, cfg, seed)
+    p0 = get_model(cfg).init_params(
+        torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    update = s8b_param_err(torch, one["params"], p0)
+    del p0
+    ref_params = tree_map(lambda t: t.cpu(), one.pop("params"))
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh_from_config(MeshConfig((1, 1), ("data", "model")))
+        # the collectives the trainer composes, on NCCL (the step skips a
+        # group of one rank): int8 codes gathered, bf16 summed
+        q = torch.arange(-127, 128, dtype=torch.int8, device="cuda")
+        got_q = C.all_gather_flat([q], mesh, "model")[0][0]
+        x = torch.randn(1024, device="cuda").to(torch.bfloat16)
+        got_x = x.clone()
+        dist.all_reduce(got_x, group=mesh.group("model"))
+        checks.append((mesh.backend == "nccl" and torch.equal(got_q, q)
+                       and torch.equal(got_x, x), "slice 8b-1: the cuda "
+                       "mesh is not NCCL, or NCCL's int8 all_gather or bf16 "
+                       "all_reduce changed its input"))
+        nccl = s8b_train(torch, cfg, seed, mesh)
+    finally:
+        dist.destroy_process_group()
+    nccl_perr = s8b_param_err(torch, nccl.pop("params"), ref_params) / update
+    torch.cuda.empty_cache()
+    rel = max(s8b_rel(nccl["losses"], one["losses"]))
+    nrel = max(s8b_rel(nccl["norms"], one["norms"]))
+    log(f"slice 8b-1 NCCL world size 1, mesh (1, 1): losses "
+        f"{nccl['losses']} vs unsharded {one['losses']}, max rel {rel:.2e} "
+        f"(tol {S8B_NCCL_RTOL}); grad norms {nccl['norms']} vs "
+        f"{one['norms']}, max rel {nrel:.2e}; params {nccl_perr:.3e} of the "
+        f"update ({update:.4f})")
+    checks.append((rel <= S8B_NCCL_RTOL and nrel <= S8B_NORM_RTOL
+                   and nccl_perr <= S8B_PARAM_RTOL,
+                   f"slice 8b-1 NCCL: losses differ by {rel}, grad norms by "
+                   f"{nrel}, params by {nccl_perr}"))
+
+    # (3) two gloo ranks on cuda:0, then (4) the CLI
+    out_dir = Path(tempfile.mkdtemp(prefix="slice8b1_"))
+    try:
+        torch.save(ref_params, out_dir / "ref_params.pt")
+        del ref_params
+        t0 = time.perf_counter()
+        s8b_spawn(seed, out_dir)
+        ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        log(f"slice 8b-1 gloo run: 2 ranks on cuda:0, {len(S8B_MESHES)} "
+            f"meshes x {S8B_STEPS} steps, {time.perf_counter() - t0:.1f}s "
+            "with the ranks' start")
+        cli = s8b_cli(seed, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        for line in res["log"]:
+            log(f"slice 8b-1 rank {r}: {line}")
+    log(f"slice 8b-1 gloo on CUDA tensors, the tensor forms (not used): "
+        f"{ranks[0]['tensor_forms']}")
+    seq, b = s8b_flags().seq, s8b_flags().batch
+    for dims, compression in S8B_MESHES:
+        tag = "x".join(map(str, dims))
+        r0, r1 = ranks[0][tag], ranks[1][tag]
+        rels = s8b_rel(r0["losses"], one["losses"])
+        nrels = s8b_rel(r0["norms"], one["norms"])
+        perr = r0["param_err"] / update
+        if compression == "none":
+            ok = (max(rels) <= S8B_RTOL and max(nrels) <= S8B_NORM_RTOL
+                  and perr <= S8B_PARAM_RTOL)
+        else:
+            ok = (rels[0] <= S8B_EF_FIRST_RTOL and max(rels) <= S8B_EF_RTOL
+                  and max(nrels) <= S8B_EF_NORM_RTOL
+                  and perr <= S8B_EF_PARAM_RTOL)
+        want = s8b_collectives(cfg, dims, compression, seq)
+        busy = ["not measured" if r["busy"] is None else
+                f"{r['busy']:.2f} ms" for r in (r0, r1)]
+        log(f"slice 8b-1 gloo ({tag}, {compression}; {smi}): losses "
+            f"{r0['losses']} vs one rank {one['losses']}, rel "
+            f"{', '.join(f'{x:.2e}' for x in rels)}; grad norms "
+            f"{r0['norms']} vs {one['norms']}, rel "
+            f"{', '.join(f'{x:.2e}' for x in nrels)}; params {perr:.3e} of "
+            f"the one-rank update; collectives a step "
+            f"{r0['collectives']} / {r1['collectives']} (derived {want}); "
+            f"per rank wall a step {r0['walls'][1]:.1f} / "
+            f"{r1['walls'][1]:.1f} ms (second step; first "
+            f"{r0['walls'][0]:.1f} / {r1['walls'][0]:.1f} with the "
+            f"counter), busy {busy[0]} / {busy[1]} (third, profiled), "
+            f"peak {r0['peak'] / 2**30:.2f} / {r1['peak'] / 2**30:.2f} GiB; "
+            f"{b * seq} tokens a step over both ranks; the walls carry "
+            "gloo's host copies and both ranks share one card: not a "
+            "multi-card number")
+        checks.append((ok, f"slice 8b-1 gloo {tag}: losses {r0['losses']}, "
+                       f"norms {r0['norms']}, params {perr} against the "
+                       f"one-rank {one['losses']}, {one['norms']}"))
+        checks.append((r0["losses"] == r1["losses"], f"slice 8b-1 gloo "
+                       f"{tag}: the ranks' losses differ"))
+        for r, res in enumerate((r0, r1)):
+            checks.append((res["collectives"] == want, f"slice 8b-1 gloo "
+                           f"{tag}: rank {r} issued {res['collectives']} "
+                           f"collectives in a step, not {want}"))
+    codes, latest, last, losses, secs = cli
+    crel = {n: abs(x - one["losses"][n - 1]) / abs(one["losses"][n - 1])
+            for n, x in losses.items() if 1 <= n <= S8B_STEPS}
+    log(f"slice 8b-1 CLI ({' '.join(S8B_ARGS)} --devices 2 --backend gloo): "
+        f"--mesh 1x2 sent SIGTERM after its first step, exit {codes[0]}, "
+        f"committed step {latest}; rerun at --mesh 2x1 exit {codes[1]}; "
+        f"last lines {last}; losses by step {losses}, rel to one rank "
+        f"{ {n: f'{x:.2e}' for n, x in crel.items()} }; {secs:.1f}s")
+    checks.append((
+        codes == [0, 0] and latest is not None and "preempted=True" in last[0]
+        and last[1].startswith(f"finished at step {S8B_STEPS} (restored_from"
+                               f"={latest}, preempted=False)")
+        and sorted(losses) == list(range(1, S8B_STEPS + 1))
+        and max(crel.values(), default=1.0) <= S8B_RTOL,
+        f"slice 8b-1 CLI: exits {codes}, committed {latest}, {last}, "
+        f"losses {losses} against the one-rank {one['losses']}"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for ok, msg in checks:
+        check(ok, msg)
+
+
 def examples_phase(log):
     """The port's examples on the card (qwen2-0.5b's published widths),
     three subprocesses at once; fails if any exits non-zero."""
@@ -6342,6 +6913,22 @@ def examples_phase(log):
     log(f"examples: {time.perf_counter() - t0:.1f}s, three at once")
 
 
+def use_bytecode_cache():
+    """Keep the bytecode of every module imported from here on under
+    PYCACHE, for this process and the subprocesses it starts (the rank
+    processes, the CLI runs, the examples). Where the environment turns
+    bytecode writing off, each fresh process otherwise compiles torch's
+    lazily imported modules from source: about 10 s a process, measured
+    on the card's machine."""
+    import os
+
+    PYCACHE.mkdir(parents=True, exist_ok=True)
+    sys.pycache_prefix = str(PYCACHE)
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6368,7 +6955,14 @@ def main(argv=None) -> int:
                     help="build, then only the slice 8a phase (rows 3 and "
                     "4 as shard partials, NCCL at world size 1, two gloo "
                     "ranks on one card); prints no result line")
+    ap.add_argument("--slice8b1-only", action="store_true",
+                    help="build, then only the slice 8b-1 phase (the "
+                    "int8-EF leaf, the sharded trainer on NCCL at world "
+                    "size 1 and on two gloo ranks on one card); prints no "
+                    "result line")
     args = ap.parse_args(argv)
+    if (SRC / "repro_torch" / "csrc").is_dir():
+        use_bytecode_cache()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6406,6 +7000,13 @@ def main(argv=None) -> int:
         + ", ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
 
     rows = {}
+    if args.slice8b1_only:
+        t0 = time.perf_counter()
+        slice8b1_phase(torch, args.seed, log)
+        log(f"slice 8b-1 phase: {time.perf_counter() - t0:.1f}s")
+        (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
+        print(smi)
+        return 0
     if args.slice8a_only:
         t0 = time.perf_counter()
         slice8a_phase(torch, args.seed, log, {}, rows)
@@ -6440,6 +7041,9 @@ def main(argv=None) -> int:
         kernel_phase(torch, timer, rows, log,
                      slice7b_only=args.slice7b_only)
         log(f"kernel phase: {time.perf_counter() - t0:.1f}s")
+        print(f"chip_smoke: kernel phase done at "
+              f"{time.perf_counter() - T_START:.0f}s", file=sys.stderr,
+              flush=True)
         del timer
     if args.slice7b_only:
         a_lengths = np.random.default_rng(args.seed).integers(32, 301, size=8)
@@ -6448,9 +7052,11 @@ def main(argv=None) -> int:
         print(smi)
         return 0
 
-    cfg = configs.get(ARCH)
+    cfg = serve_config()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     params = get_model(cfg).init_params(gen, device="cuda")
+    log(f"serving {ARCH} at {cfg.num_layers} of "
+        f"{configs.get(ARCH).num_layers} layers (phases 3-5)")
     rng = np.random.default_rng(args.seed)
     sp = SamplingParams(max_new_tokens=32)
     requests = [(rng.integers(1, cfg.vocab_size, size=int(n)).astype(
@@ -6466,8 +7072,8 @@ def main(argv=None) -> int:
         print(smi)
         return 0
     if args.plan_only:
-        cost_phase(torch, cfg, params, requests, shared, log)
-        tune_phase(torch, cfg, log, strict=False)
+        cost_phase(torch, args.seed, requests, shared, log)
+        tune_phase(torch, configs.get(ARCH), log, strict=False)
         (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
         print(smi)
         return 0
@@ -6480,9 +7086,12 @@ def main(argv=None) -> int:
     t_mark = [time.perf_counter()]
 
     def mark(what):
-        """Log the seconds since the last mark (the time a phase takes)."""
+        """Log the seconds since the last mark (the time a phase takes),
+        and on stderr the seconds since the start as well."""
         now = time.perf_counter()
         log(f"{what} phase: {now - t_mark[0]:.1f}s")
+        print(f"chip_smoke: {what} phase done at {now - T_START:.0f}s",
+              file=sys.stderr, flush=True)
         t_mark[0] = now
 
     outputs = serve_phase(torch, cfg, params,
@@ -6510,8 +7119,8 @@ def main(argv=None) -> int:
     kv_quant_logits_phase(torch, cfg, params, shared, log, bf16_paged)
     mark("graph and logits")
     # T3 on the card: fixed costs, the wallclock tuner, the tuned route
-    cost_phase(torch, cfg, params, requests, shared, log)
-    tuned = tune_phase(torch, cfg, log)
+    cost_phase(torch, args.seed, requests, shared, log)
+    tuned = tune_phase(torch, configs.get(ARCH), log)
     split_tuned = tuned_serve_phase(torch, cfg, params, requests, tuned,
                                     outputs, launches, log)
     tuned_logits_phase(torch, cfg, params, requests, split_tuned, log)
@@ -6535,6 +7144,8 @@ def main(argv=None) -> int:
     mark("decode_32k")
     slice8a_phase(torch, args.seed, log, launches, rows)
     mark("slice 8a")
+    slice8b1_phase(torch, args.seed, log)
+    mark("slice 8b-1")
     examples_phase(log)
     mark("examples")
 

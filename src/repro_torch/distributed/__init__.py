@@ -1,5 +1,6 @@
 """Distribution layer: named-axis sharding rules over the port's mesh
-(:mod:`repro_torch.launch.mesh`).
+(:mod:`repro_torch.launch.mesh`), and the collectives of the sharded
+trainer (:mod:`repro_torch.distributed.collectives`).
 
 The mesh contract (the JAX package's):
   * single pod:  (data=16, model=16)
@@ -7,14 +8,17 @@ The mesh contract (the JAX package's):
 
 ``pod`` + ``data`` together form the batch/FSDP axes; ``model`` is the
 tensor-parallel axis (and the sequence-split axis for T1 decode attention,
-:mod:`repro_torch.core.attention`). This slice ports the rules and the
-sequence split; the rules' application to TP / FSDP layers
-(``make_shard_fn``), the compressed collectives and the pipeline schedule
-are slice 8b (ROADMAP.md).
+:mod:`repro_torch.core.attention`). The rules, the sequence split, the
+TP / FSDP train layers (``make_shard_fn``, ``shard_tree``,
+``gather_tree``) and the int8-EF pod hop are ported; the pipeline
+schedule is still to come (ROADMAP.md, slice 8b).
 """
 from repro_torch.distributed.sharding import (  # noqa: F401
     P,
     Rules,
+    gather_tree,
     local_shard,
     make_rules,
+    make_shard_fn,
+    shard_tree,
 )

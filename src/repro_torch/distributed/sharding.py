@@ -20,18 +20,22 @@ entry by entry to the JAX ``PartitionSpec`` the reference gives.
     attention into one all-reduce (``core/attention.py``).
 
 Where GSPMD places a ``NamedSharding``, the port cuts the tensor itself:
-:func:`local_shard` is this rank's slice of a global tensor under a spec.
-Applying the rules to a running program (the JAX package's
-``make_shard_fn``, with the TP / FSDP layers it serves) is slice 8b.
+:func:`local_shard` is this rank's slice of a global tensor under a spec,
+:func:`shard_tree` a whole tree's, and :func:`gather_tree` joins the
+slices again. No compiler turns specs into collectives here: the TP /
+FSDP layers issue their own (``distributed/collectives.py``), and
+:func:`make_shard_fn`'s callable checks that an activation's local shard
+has the shape its role's spec gives.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.config import MeshConfig
+from repro_torch.distributed.collectives import all_gather_flat
 
 
 class P(tuple):
@@ -47,6 +51,10 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
+
+    def __getnewargs__(self):
+        # pickled as its entries (to a rank), not as one tuple entry
+        return tuple(self)
 
 
 # ---------------------------------------------------------------------------
@@ -319,3 +327,63 @@ def local_shard(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
         step = x.shape[dim] // n
         x = x.narrow(dim, idx * step, step)
     return x
+
+
+def _local_shape(shape: tuple[int, ...], spec: P, mesh) -> tuple[int, ...]:
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            out[dim] //= mesh.axes_size(entry)
+    return tuple(out)
+
+
+def no_shard(x, role: str, global_shape=None):
+    return x
+
+
+def make_shard_fn(mesh, rules: Optional[Rules]) -> Callable:
+    """Build the ``LayerCtx.shard`` callable, ``shard(x, role,
+    global_shape) -> x``: it raises ``ValueError`` unless ``x`` (this
+    rank's shard of an activation whose global shape is
+    ``global_shape``) has the shape ``rules.act_spec(role, global_shape)``
+    gives on ``mesh``. The identity when ``mesh`` is None."""
+    if mesh is None or rules is None:
+        return no_shard
+
+    def shard(x: torch.Tensor, role: str, global_shape) -> torch.Tensor:
+        spec = rules.act_spec(role, tuple(global_shape))
+        want = _local_shape(tuple(global_shape), spec, mesh)
+        if tuple(x.shape) != want:
+            raise ValueError(f"{role}: the local shard of {tuple(global_shape)}"
+                             f" under {spec} is {want}, not {tuple(x.shape)}")
+        return x
+
+    return shard
+
+
+def shard_tree(tree: Any, spec_tree: Any, mesh) -> Any:
+    """This rank's leaves of a tree of global tensors under a tree of
+    specs (``named`` plus ``device_put`` in the JAX package): each a
+    contiguous copy of :func:`local_shard`."""
+    return _walk(tree, lambda path, leaf: local_shard(
+        leaf, _at(spec_tree, path), mesh).contiguous())
+
+
+def gather_tree(local_tree: Any, spec_tree: Any, mesh) -> Any:
+    """The global tensors again from every rank's ``local_tree``: each
+    named dim all-gathered over its axes (collective: every rank of the
+    mesh calls it, in one order)."""
+    def gather(path, leaf):
+        for dim, entry in enumerate(_at(spec_tree, path)):
+            if entry is not None and mesh.axes_size(entry) > 1:
+                parts = all_gather_flat([leaf.contiguous()], mesh, entry)
+                leaf = torch.cat([p[0] for p in parts], dim=dim)
+        return leaf
+
+    return _walk(local_tree, gather)
+
+
+def _at(tree: Any, path: tuple[str, ...]) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree

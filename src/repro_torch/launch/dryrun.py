@@ -52,7 +52,7 @@ from repro_torch.models import wquant
 from repro_torch.models.kvlayout import DenseLayout
 from repro_torch.models.layers import LayerCtx
 from repro_torch.models.stack import tree_map
-from repro_torch.training.train_state import (NO_MESH, TrainState,
+from repro_torch.training.train_state import (TrainState,
                                               make_train_step)
 
 META = torch.device("meta")
@@ -311,6 +311,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="override the plan's GEMM weight dtype; the "
                     "serving cells count quantized params")
     return ap
+
+
+# the dry run counts one card: its pod meshes and their collective term
+# are still to come
+NO_MESH = ("needs the dry run's mesh (pod meshes, the collective term), "
+           "which the port does not have yet (ROADMAP.md, slice 8b)")
 
 
 def main(argv=None) -> int:

@@ -150,7 +150,8 @@ def train_loss(ctx: LayerCtx, params: Params, batch: dict, *,
                remat: bool = True) -> torch.Tensor:
     """Encode ``batch["frames"]`` (B, S_enc, D), run the decoder blocks
     (recomputed in the backward pass under ``remat``; the encoder is
-    not) over ``tokens``, and the chunked cross-entropy on ``labels``."""
+    not) over ``tokens``, and the chunked cross-entropy on ``labels``
+    (under a mesh, the mean over the global batch)."""
     cfg = ctx.cfg
     enc_out = encode(ctx, params, batch["frames"])
     x = L.embed(ctx, params, batch["tokens"])
@@ -159,7 +160,8 @@ def train_loss(ctx: LayerCtx, params: Params, batch: dict, *,
         lambda p_i, xx: dec_block(ctx, p_i, xx, positions, enc_out), remat)
     x, _ = stack.run_stack_aux(params["layers"], x, blk)
     x = L.norm(cfg, params["final_norm"], x)
-    return L.cross_entropy_loss(ctx, params, x, batch["labels"])
+    return tfm.global_mean(
+        ctx, L.cross_entropy_loss(ctx, params, x, batch["labels"]))
 
 
 # ---------------------------------------------------------------------------

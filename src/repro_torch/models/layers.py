@@ -30,6 +30,17 @@ views ride into the attention front doors.
 
 Training adds :func:`cross_entropy_loss`, the next-token loss over
 chunks of the sequence, recomputed chunk by chunk in the backward pass.
+Under a mesh (``LayerCtx.mesh`` / ``rules``) the train layers compute on
+this rank's tensor-parallel param shards, Megatron's way: column-parallel
+``wq`` / ``wk`` / ``wv`` and ``w_gate`` / ``w_up`` behind
+``collectives.copy_to``, row-parallel ``wo`` / ``w_down`` followed by one
+SUM all-reduce over ``model`` (``collectives.reduce_from``), the
+embedding and the tied head vocabulary-parallel (a masked lookup, then an
+all-reduce; the loss's log-sum-exp reduced over ``model`` by a max and a
+sum, so the (B, S, V) logits are never gathered). A leaf is model-sharded
+where its shape is (``Rules.param_spec``'s divisibility), so the decode
+path, which holds whole params, is unchanged. FSDP is the train step's
+(``training/train_state.py``): the layers see the FSDP dims gathered.
 
 A GEMM weight leaf (``wq`` … ``w_down``) is a tensor or, under a quantized
 ``weight_dtype``, the ``{"codes", "scale"}`` dict of ``models/wquant.py``.
@@ -49,6 +60,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig, SoftmaxPhiConfig
 from repro_torch.core.plan import DEFAULT_PLAN, ExecutionPlan
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import no_shard
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ffn_activation
 from repro_torch.kernels.ref import rmsnorm_ref as rmsnorm
@@ -89,6 +102,15 @@ class LayerCtx:
     # slice's first position (core.attention.make_decode_attention_fn)
     decode_attention_fn: Optional[Callable] = dataclasses.field(
         default=None, compare=False, repr=False)
+    # the sharded train path: shard(x, role, global_shape) checks an
+    # activation's local shard (distributed.make_shard_fn), mesh is this
+    # rank's launch.mesh.Mesh and rules its distributed.Rules; None on
+    # one device
+    shard: Callable = dataclasses.field(default=no_shard, compare=False,
+                                        repr=False)
+    mesh: Optional[object] = dataclasses.field(default=None, compare=False,
+                                               repr=False)
+    rules: Optional[object] = None
     graphs: Optional[LoopedDecode] = dataclasses.field(
         default=None, init=False, compare=False, repr=False)
 
@@ -115,6 +137,25 @@ class LayerCtx:
 
     def matmul(self, x: torch.Tensor, w) -> torch.Tensor:
         return ops.matmul(x, w, plan=self.plan)
+
+    def model_sharded(self, w, dim: int, full: int) -> bool:
+        """Dim ``dim`` of the param ``w`` (``full`` elements whole) is cut
+        over ``model`` here. Never without a mesh (nor is ``w`` read
+        then: a quantized weight is a dict)."""
+        return self.mesh is not None and w.shape[dim] != full
+
+
+def check_shard(ctx: LayerCtx, x: torch.Tensor, role: str,
+                width: int) -> None:
+    """``ctx.shard`` on this rank's ``x`` (B_loc, ..., n) whose global
+    shape is (B_loc x the batch shards, ..., width)."""
+    if ctx.mesh is not None:
+        nb = ctx.mesh.axes_size(ctx.rules.act_batch_axes)
+        ctx.shard(x, role, (x.shape[0] * nb, *x.shape[1:-1], width))
+
+
+def _model(ctx: LayerCtx) -> str:
+    return ctx.rules.model_axis
 
 
 # ---------------------------------------------------------------------------
@@ -223,21 +264,51 @@ def embed_params(cfg: ModelConfig, gen, device) -> Params:
 def attention_qkv(ctx: LayerCtx, p: Params, x: torch.Tensor,
                   positions: torch.Tensor, *, use_rope: bool = True):
     """x: (B, S, D) -> q (B,S,HQ,Dh), k/v (B,S,HK,Dh), rope applied
-    unless ``use_rope=False``."""
+    unless ``use_rope=False``. Under a mesh, model-sharded (column-
+    parallel) projections give this rank's heads when every one of them
+    splits on whole heads (HQ and HK divisible over ``model``); where a
+    split cuts a head (qwen2-0.5b's 14 / 2 heads over ``model`` = 4), the
+    sharded outputs are all-gathered over ``model`` before the heads are
+    formed, and the attention that follows is replicated."""
     cfg = ctx.cfg
     b, s, _ = x.shape
-    q = ctx.matmul(x, p["wq"])
-    k = ctx.matmul(x, p["wk"])
-    v = ctx.matmul(x, p["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q, k, v = _qkv_proj(ctx, p, x)
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
+    v = v.reshape(b, s, -1, cfg.head_dim)
     if not use_rope:
         return q, k, v
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
+
+
+def _qkv_proj(ctx: LayerCtx, p: Params, x: torch.Tensor) -> list:
+    cfg = ctx.cfg
+    parts = (("wq", "bq", cfg.q_dim, "act_qkv"),
+             ("wk", "bk", cfg.kv_dim, "act_kv"),
+             ("wv", "bv", cfg.kv_dim, "act_kv"))
+    sharded = [ctx.model_sharded(p[w], -1, n) for w, _, n, _ in parts]
+    # one copy into the TP region for the sharded projections; a
+    # replicated one reads x itself (its input gradient is already whole)
+    xt = C.copy_to(x, ctx.mesh, _model(ctx)) if any(sharded) else x
+    outs = []
+    for (w, bias, n, role), sh in zip(parts, sharded):
+        y = ctx.matmul(xt if sh else x, p[w])
+        if cfg.qkv_bias:
+            y = y + p[bias]
+        if sh:
+            check_shard(ctx, y, role, n)
+        outs.append(y)
+    if any(sharded):
+        m = ctx.mesh.size(_model(ctx))
+        if not (all(sharded) and cfg.num_heads % m == 0
+                and cfg.num_kv_heads % m == 0):
+            idx = [i for i, sh in enumerate(sharded) if sh]
+            whole = C.gather_from([outs[i] for i in idx], -1, ctx.mesh,
+                                  _model(ctx))
+            for i, y in zip(idx, whole):
+                outs[i] = y
+    return outs
 
 
 def attention_block(ctx: LayerCtx, p: Params, x: torch.Tensor,
@@ -262,7 +333,15 @@ def attention_block(ctx: LayerCtx, p: Params, x: torch.Tensor,
     o = ops.attention_prefill(q, k, v, phi_cfg=ctx.phi_cfg, causal=causal,
                               sliding_window=cfg.sliding_window,
                               plan=ctx.plan)
-    return ctx.matmul(o.reshape(b, s, cfg.q_dim), p["wo"])
+    o = o.reshape(b, s, -1)
+    if not ctx.model_sharded(p["wo"], 0, cfg.q_dim):
+        return ctx.matmul(o, p["wo"])
+    # row-parallel wo: this rank's columns of o (cut here when the heads
+    # were gathered), then one all-reduce before the residual
+    if o.shape[-1] == cfg.q_dim:
+        o = C.split_to(o, -1, ctx.mesh, _model(ctx))
+    check_shard(ctx, o, "act_attn_out", cfg.q_dim)
+    return C.reduce_from(ctx.matmul(o, p["wo"]), ctx.mesh, _model(ctx))
 
 
 def decode_ingest(ctx: LayerCtx, norm_p: Params, p: Params, x: torch.Tensor,
@@ -495,7 +574,13 @@ def decode_attend_paged(ctx: LayerCtx, q, k, v, pool_k, pool_v,
 
 
 def mlp_block(ctx: LayerCtx, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The FFN; under a mesh with a model-sharded hidden width,
+    column-parallel gate / up and row-parallel down with one all-reduce
+    over ``model``."""
     cfg = ctx.cfg
+    tp = ctx.model_sharded(p["w_down"], 0, cfg.d_ff)
+    if tp:
+        x = C.copy_to(x, ctx.mesh, _model(ctx))
     if cfg.activation in ("swiglu", "geglu") and ctx.plan.fused_ffn.fused:
         # one kernel for gate + up + activation: the (M, F) gate and up
         # tensors never reach device memory
@@ -507,7 +592,10 @@ def mlp_block(ctx: LayerCtx, p: Params, x: torch.Tensor) -> torch.Tensor:
         h = ffn_activation(g, cfg.activation) * u
     else:
         h = _gelu(ctx.matmul(x, p["w_up"]))
-    return ctx.matmul(h, p["w_down"])
+    if not tp:
+        return ctx.matmul(h, p["w_down"])
+    check_shard(ctx, h, "act_ffn", cfg.d_ff)
+    return C.reduce_from(ctx.matmul(h, p["w_down"]), ctx.mesh, _model(ctx))
 
 
 # ---------------------------------------------------------------------------
@@ -516,16 +604,33 @@ def mlp_block(ctx: LayerCtx, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed(ctx: LayerCtx, p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens].to(adt(ctx.cfg))
+    """The token rows; a vocabulary-parallel embedding (rows cut over
+    ``model``) looks up the tokens of its own rows, zero for the rest,
+    and the all-reduce over ``model`` adds them (exactly: one rank holds
+    each row)."""
+    e = p["embedding"]
+    if not ctx.model_sharded(e, 0, vocab_padded(ctx.cfg)):
+        return e[tokens].to(adt(ctx.cfg))
+    n = e.shape[0]
+    local = tokens.long() - ctx.mesh.coord(_model(ctx)) * n
+    inside = (local >= 0) & (local < n)
+    x = torch.where(inside[..., None], e[local.clamp(0, n - 1)], 0)
+    x = C.reduce_from(x, ctx.mesh, _model(ctx)).to(adt(ctx.cfg))
+    check_shard(ctx, x, "act_resid", ctx.cfg.d_model)
+    return x
+
+
+def _head(p: Params) -> torch.Tensor:
+    """The LM head (D, V), or the tied ``embedding.T`` view."""
+    w = p.get("lm_head")
+    return p["embedding"].T if w is None else w
 
 
 def lm_logits(ctx: LayerCtx, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Tied heads read ``embedding.T`` as a view: the GEMM kernels take
-    the (N, K) row-major layout in place."""
-    w = p.get("lm_head")
-    if w is None:
-        w = p["embedding"].T
-    return ctx.matmul(x, w)
+    the (N, K) row-major layout in place. A vocabulary-parallel head
+    gives this rank's columns."""
+    return ctx.matmul(x, _head(p))
 
 
 def cross_entropy_loss(ctx: LayerCtx, p: Params, x: torch.Tensor,
@@ -555,13 +660,33 @@ def cross_entropy_loss(ctx: LayerCtx, p: Params, x: torch.Tensor,
 
 def _chunk_nll(ctx: LayerCtx, p: Params, x: torch.Tensor,
                labels: torch.Tensor) -> torch.Tensor:
-    """Summed -log p(label) over one chunk, in f32."""
+    """Summed -log p(label) over one chunk, in f32. With a vocabulary-
+    parallel head each rank holds its columns of the logits: the max
+    (no gradient: the log-sum-exp does not depend on it) meets in a MAX
+    all-reduce, the exponent sum and the label's logit in one SUM
+    all-reduce."""
     cfg = ctx.cfg
+    vp = vocab_padded(cfg)
+    n = _head(p).shape[-1]
+    tp = ctx.model_sharded(_head(p), -1, vp)
+    if tp:
+        x = C.copy_to(x, ctx.mesh, _model(ctx))
     logits = lm_logits(ctx, p, x).float()
-    vp = logits.shape[-1]
+    start = ctx.mesh.coord(_model(ctx)) * n if tp else 0
     if vp != cfg.vocab_size:
-        pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
-        logits = torch.where(pad, -1e9, logits)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return torch.sum(logz - gold)
+        cols = start + torch.arange(n, device=logits.device)
+        logits = torch.where(cols >= cfg.vocab_size, -1e9, logits)
+    if not tp:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        return torch.sum(logz - gold)
+    check_shard(ctx, logits, "act_logits", vp)
+    m = C.max_over(logits.detach().amax(-1), ctx.mesh, _model(ctx))
+    se = torch.exp(logits - m[..., None]).sum(-1)
+    local = labels.long() - start
+    inside = (local >= 0) & (local < n)
+    gold = torch.where(inside, logits.gather(
+        -1, local.clamp(0, n - 1)[..., None])[..., 0], 0.0)
+    se, gold = C.reduce_from(torch.stack([se, gold]), ctx.mesh,
+                             _model(ctx)).unbind(0)
+    return torch.sum(m + torch.log(se) - gold)

@@ -5,6 +5,9 @@ prefix enters training as ``prefix_embeds``).
 Training runs :func:`train_loss`: full-sequence blocks (``block``, each
 returning ``(x, aux)``, optionally recomputed in the backward pass) and
 the chunked cross-entropy; the other families pass their own blocks.
+Under a mesh (``LayerCtx.mesh``) the batch is this rank's slice over the
+batch axes, the blocks run the tensor-parallel layers on this rank's
+param shards, and the loss is the mean over the global batch.
 
 Layer params and the KV cache are stacked on a leading L axis; a Python
 loop over per-layer views replaces the JAX package's ``lax.scan``. KV
@@ -33,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops, quant
 from repro_torch.models import layers as L
 from repro_torch.models import stack
@@ -207,6 +211,7 @@ def block(ctx: LayerCtx, p: Params, x, positions):
     x = x + L.attention_block(ctx, p["attn"], h, positions)
     h = L.norm(cfg, p["mlp_norm"], x)
     x = x + L.mlp_block(ctx, p["mlp"], h)
+    L.check_shard(ctx, x, "act_resid", cfg.d_model)
     return x, no_aux(x)
 
 
@@ -241,7 +246,9 @@ def train_loss(ctx: LayerCtx, params: Params, batch: dict, *,
                aux_weight: float = 0.0) -> torch.Tensor:
     """The mean next-token loss of ``batch`` (``tokens``, ``labels`` and
     the VLM's optional ``prefix_embeds``, whose positions carry no
-    label), plus ``aux_weight`` times the blocks' aux loss."""
+    label), plus ``aux_weight`` times the blocks' aux loss. Under a mesh
+    ``batch`` is this rank's slice and the loss the global batch's
+    mean (:func:`global_mean`)."""
     prefix = batch.get("prefix_embeds")
     x, aux = forward_hidden(ctx, params, batch["tokens"],
                             prefix_embeds=prefix, remat=remat,
@@ -249,7 +256,17 @@ def train_loss(ctx: LayerCtx, params: Params, batch: dict, *,
     if prefix is not None:
         x = x[:, prefix.shape[1]:]
     loss = L.cross_entropy_loss(ctx, params, x, batch["labels"])
-    return loss + aux_weight * aux
+    return global_mean(ctx, loss + aux_weight * aux)
+
+
+def global_mean(ctx: LayerCtx, loss: torch.Tensor) -> torch.Tensor:
+    """A rank's loss over its batch slice -> the mean over the ranks of
+    the batch axes (each slice equal-sized): one all-reduce, whose
+    backward divides each rank's gradient by their number. The identity
+    without a mesh."""
+    if ctx.mesh is None:
+        return loss
+    return C.mean_over(loss, ctx.mesh, ctx.rules.act_batch_axes)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,15 @@ uint bits, so a step written by either package restores in the other.
 A save snapshots the state to host memory at once and writes it on a
 background thread (the loop keeps stepping while the previous checkpoint
 drains to disk); ``load_state`` puts each leaf on a target device.
+
+Under a mesh (``mesh=`` and the state's ``specs``, a ``TrainState`` of
+``P``) every rank takes part in a save: the state is gathered to its
+global leaves (so the files are the one-device layout, ``ef_err`` with
+its leading pod axis), rank 0 writes them, and every rank waits for the
+commit (a barrier in :meth:`CheckpointManager.wait`). A restore reads
+the global leaves and keeps this rank's shards under the specs it is
+given, so a checkpoint written at one mesh restores at another (the JAX
+package's elastic reshard).
 """
 from __future__ import annotations
 
@@ -29,6 +38,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import local_shard
+from repro_torch.training.train_state import gather_state
 
 _SEP = "/"
 SHARD = "shard_h000.npz"   # the JAX layout's host-0 shard
@@ -96,9 +108,12 @@ def _rebuild(tree: Any, leaves: dict, prefix: tuple = ()):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, *, keep: int = 3):
+    def __init__(self, directory: str, *, keep: int = 3, mesh=None,
+                 specs: Any = None):
         self.dir = directory
         self.keep = keep
+        self.mesh = mesh
+        self.specs = specs
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -108,6 +123,12 @@ class CheckpointManager:
     def save(self, step: int, state: Any, *, blocking: bool = False) -> None:
         """Snapshot to host memory now; write to disk on a worker thread."""
         self.wait()  # one in-flight save at a time
+        if self.mesh is not None:
+            state = gather_state(state, self.specs, self.mesh)
+            if not self._writer:
+                if blocking:
+                    self.wait()
+                return
         flat = _flatten(state)  # device -> host copy
 
         def write():
@@ -144,10 +165,21 @@ class CheckpointManager:
         os.replace(tmp, path)
         self._gc()
 
+    @property
+    def _writer(self) -> bool:
+        return self.mesh is None or self.mesh.axes_coord(
+            self.mesh.axis_names) == 0
+
     def wait(self) -> None:
+        """Until the save in flight is committed; under a mesh every rank
+        waits for rank 0's."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.mesh is not None and self.mesh.axes_size(
+                self.mesh.axis_names) > 1:
+            torch.distributed.barrier(
+                group=self.mesh.group(self.mesh.axis_names))
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -165,17 +197,22 @@ class CheckpointManager:
 
     def load_state(self, step: int, like: Any, device=None) -> Any:
         """Restore into the structure and dtypes of ``like``, each leaf
-        on ``device`` (``None``: the device of ``like``'s leaf)."""
+        on ``device`` (``None``: the device of ``like``'s leaf); under a
+        mesh, this rank's shard of each leaf."""
         path = self._step_dir(step)
         with np.load(os.path.join(path, SHARD),
                      allow_pickle=False) as z:
             flat = {k: z[k] for k in z.files}
+        specs = {} if self.mesh is None else {
+            _SEP.join(p): spec for p, spec in _items(self.specs)}
         leaves = {}
         for parts, leaf in _items(like):
             key = _SEP.join(parts)
-            leaves[key] = _from_numpy(flat[key], leaf,
-                                      device if device is not None
-                                      else leaf.device)
+            t = _from_numpy(flat[key], leaf, device if device is not None
+                            else leaf.device)
+            if key in specs:
+                t = local_shard(t, specs[key], self.mesh).contiguous()
+            leaves[key] = t
         return _rebuild(like, leaves)
 
     # -- internals -------------------------------------------------------------

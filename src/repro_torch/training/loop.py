@@ -1,4 +1,4 @@
-"""Fault-tolerant training loop on one device.
+"""Fault-tolerant training loop, on one device or one rank of a mesh.
 
   * **checkpoint/restart**: async checkpoints every ``checkpoint_every``
     steps; on start the loop resumes from the latest committed
@@ -11,6 +11,11 @@
   * **stragglers**: input comes from a prefetch thread (never on the
     step's critical path); a step-time watchdog counts slow steps (over
     ``watchdog_factor`` x the median of the last 64).
+  * **a mesh** (``mesh`` / ``rules`` / ``specs``): every rank draws the
+    global batch and keeps its rows (``train_state.local_batch``), the
+    checkpoints gather and shard (``CheckpointManager``), and the ranks
+    agree on the preemption flag (a MAX all-reduce a step), so that no
+    rank leaves the others waiting in a collective. Rank 0 logs.
 """
 from __future__ import annotations
 
@@ -20,10 +25,14 @@ import statistics
 import time
 from typing import Any, Callable, Optional
 
+import torch
+import torch.distributed as dist
+
 from repro_torch.config import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.device import resolve
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.data import Prefetcher, SyntheticTokens, device_batch
+from repro_torch.training.train_state import local_batch
 
 
 @dataclasses.dataclass
@@ -65,6 +74,9 @@ def train_loop(
     train_step: Callable,
     init_state: Callable[[], Any],
     device="cuda",
+    mesh=None,
+    rules=None,
+    specs: Any = None,
     max_steps: Optional[int] = None,
     log_every: int = 10,
     watchdog_factor: float = 3.0,
@@ -72,11 +84,22 @@ def train_loop(
     preempt_after: Optional[int] = None,   # test hook: simulate preemption
 ) -> LoopResult:
     """Run (or resume) training until ``max_steps`` or preemption; the
-    state and batches live on ``device``."""
+    state and batches live on ``device``. Under a mesh, ``init_state``
+    gives this rank's shards, ``specs`` their ``TrainState`` of specs."""
     dev = resolve(device)
     total = max_steps if max_steps is not None else run.total_steps
-    ckpt = CheckpointManager(run.checkpoint_dir, keep=run.keep_checkpoints)
+    ckpt = CheckpointManager(run.checkpoint_dir, keep=run.keep_checkpoints,
+                             mesh=mesh, specs=specs)
     guard = PreemptionGuard(install=install_signals)
+    main = mesh is None or mesh.axes_coord(mesh.axis_names) == 0
+
+    def stop_requested() -> bool:
+        if mesh is None:
+            return guard.requested
+        flag = torch.tensor([int(guard.requested)], device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX,
+                        group=mesh.group(mesh.axis_names))
+        return bool(flag.item())
 
     # ---- restore or init ----
     restored_from = None
@@ -94,11 +117,14 @@ def train_loop(
     slow = 0
     step = start_step
     try:
-        while step < total and not guard.requested:
+        stop = stop_requested()
+        while step < total and not stop:
             step_idx, host_batch = prefetch.next()
             if step_idx != step:
                 raise RuntimeError(f"prefetched step {step_idx}, at {step}")
             batch = device_batch(host_batch, dev)
+            if mesh is not None:
+                batch = local_batch(batch, rules, mesh)
             t0 = time.perf_counter()
             state, metrics = train_step(state, batch)
             loss = float(metrics["loss"])
@@ -112,12 +138,13 @@ def train_loop(
             step += 1
             if step % run.checkpoint_every == 0:
                 ckpt.save(step, state)          # async
-            if log_every and step % log_every == 0:
+            if main and log_every and step % log_every == 0:
                 print(f"step {step:>6}  loss {loss:.4f}  {dt*1e3:.1f} ms",
                       flush=True)
             if preempt_after is not None and step - start_step >= preempt_after:
                 guard.requested = True
-        preempted = guard.requested and step < total
+            stop = stop_requested()
+        preempted = stop and step < total
         if preempted or step % run.checkpoint_every != 0:
             ckpt.save(step, state, blocking=True)   # final/preemption save
         ckpt.wait()

@@ -3,7 +3,9 @@
 Moments are f32 whatever the params' dtype; the update is computed in
 f32 and cast back (bf16 params with f32 optimizer state, the standard
 mixed setup). The update runs under ``torch.no_grad()`` and returns new
-trees, as the JAX package's pure function does.
+trees, as the JAX package's pure function does. Under a mesh each rank
+updates its own shards; only the global norm needs the others
+(``specs`` / ``mesh``: one all-reduce over every rank).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models.stack import tree_leaves, tree_map
 
@@ -52,29 +55,54 @@ def adamw_init(params: Any) -> tuple[Any, Any]:
     return tree_map(zeros, params), tree_map(zeros, params)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, specs: Any = None, mesh=None) -> torch.Tensor:
+    """The L2 norm over every element of ``tree``. Under a mesh, ``tree``
+    holds this rank's shards under ``specs`` (a tree of ``P``): each
+    element is counted once, a leaf held alike by R ranks (replicated
+    over the axes its spec does not name) at 1 / R on each of them, in
+    one SUM all-reduce over the whole mesh."""
     leaves = [torch.sum(torch.square(g.float())) for g in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    if mesh is None:
+        return torch.sqrt(torch.sum(torch.stack(leaves)))
+    world = mesh.axes_size(mesh.axis_names)
+    weights = [mesh.axes_size(_named_axes(spec)) / world
+               for spec in tree_leaves(tree_map(lambda _, s: s, tree,
+                                                specs))]
+    total = torch.sum(torch.stack([s * w for s, w in zip(leaves, weights)]))
+    if world > 1:
+        dist.all_reduce(total, group=mesh.group(mesh.axis_names))
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float):
+def _named_axes(spec) -> tuple[str, ...]:
+    out = []
+    for entry in spec:
+        if entry is not None:
+            out.extend((entry,) if isinstance(entry, str) else entry)
+    return tuple(out)
+
+
+def clip_by_global_norm(grads: Any, max_norm: float, specs: Any = None,
+                        mesh=None):
     """(grads scaled so that their global norm is at most ``max_norm``,
     each leaf in its own dtype; the norm before clipping)."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, specs, mesh)
     scale = torch.clamp(max_norm / (gn + 1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, m: Any, v: Any,
-                 step: torch.Tensor):
+                 step: torch.Tensor, *, specs: Any = None, mesh=None):
     """One AdamW step at ``step`` (the count of steps taken). Returns
     (params, m, v, metrics), new trees; decoupled weight decay applies to
-    matrices (ndim >= 2) only."""
+    matrices (ndim >= 2) only. Under a mesh the trees are this rank's
+    shards under ``specs``."""
     if cfg.clip_norm > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, specs,
+                                           mesh)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, specs, mesh)
     lr = lr_schedule(cfg, step)
     t = step.float() + 1.0
     bc1 = 1.0 - cfg.beta1 ** t

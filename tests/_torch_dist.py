@@ -1,11 +1,13 @@
 """Runs a task of ``tests/test_torch_distributed.py`` on W gloo ranks of the
 port, each in a process of its own (``python -c``, a ``FileStore`` in the
-test's ``tmp_path``), and returns each rank's result.
+test's ``tmp_path``, started by ``launch.mesh.run_ranks``), and returns
+each rank's result.
 
 The ranks import neither JAX nor the JAX package: the test computes the
 reference in its own process and hands the ranks numpy inputs. Each rank
-joins a world of ``W`` on the CPU, builds the (data=1, model=W) mesh and
-runs one task of :data:`TASKS`. The parent polls the ranks: a rank that
+joins a world of ``W`` on the CPU, builds the mesh (``mesh=(shape,
+names)``; by default (data=1, model=W)) and runs one task of
+:data:`TASKS`. The parent polls the ranks: a rank that
 fails, or a run that passes its ``timeout``, kills every rank and fails
 the test; the process group's own timeout is shorter than the test's, so
 a rank left waiting in a collective raises instead of hanging.
@@ -15,46 +17,37 @@ from __future__ import annotations
 import datetime
 import os
 import pickle
-import subprocess
 import sys
-import time
 from pathlib import Path
+
+from repro_torch.launch.mesh import run_ranks
 
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def run(task: str, world: int, tmp_path, payload, timeout: float = 120.0):
-    """``TASKS[task](mesh, payload)`` on ranks 0 .. world - 1; returns
-    their results in rank order."""
-    tmp = Path(tmp_path) / f"{task}_w{world}"
+def run(task: str, world: int, tmp_path, payload, timeout: float = 120.0,
+        mesh=None):
+    """``TASKS[task](mesh, payload)`` on ranks 0 .. world - 1 of the mesh
+    ``mesh = (shape, axis names)`` (default ((1, world), ("data",
+    "model"))); returns their results in rank order."""
+    shape, names = mesh or ((1, world), ("data", "model"))
+    tag = "x".join(map(str, shape))
+    tmp = Path(tmp_path) / f"{task}_w{world}_{tag}"
     tmp.mkdir(parents=True)
     (tmp / "payload.pkl").write_bytes(pickle.dumps(payload))
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT / "tests")]))
-    procs, logs = [], []
+    logs = [open(tmp / f"rank{r}.log", "w") for r in range(world)]
     try:
-        for r in range(world):
-            log = open(tmp / f"rank{r}.log", "w")
-            logs.append(log)
-            code = (f"import _torch_dist as d; d.child({task!r}, {r}, "
-                    f"{world}, {str(tmp)!r})")
-            procs.append(subprocess.Popen([sys.executable, "-c", code],
-                                          env=env, cwd=str(ROOT),
-                                          stdout=log, stderr=log))
-        deadline = time.monotonic() + timeout
-        while any(p.poll() is None for p in procs):
-            bad = [p for p in procs if p.poll() not in (None, 0)]
-            if bad or time.monotonic() > deadline:
-                break
-            time.sleep(0.05)
+        codes = run_ranks(
+            [[sys.executable, "-c",
+              f"import _torch_dist as d; d.child({task!r}, {r}, {world}, "
+              f"{str(tmp)!r}, {tuple(shape)!r}, {tuple(names)!r})"]
+             for r in range(world)],
+            env=env, cwd=str(ROOT), timeout=timeout, outputs=logs)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
         for log in logs:
             log.close()
-    codes = [p.returncode for p in procs]
     if codes != [0] * world:
         tails = "\n".join(
             f"--- rank {r} (exit {c}):\n"
@@ -66,7 +59,8 @@ def run(task: str, world: int, tmp_path, payload, timeout: float = 120.0):
             for r in range(world)]
 
 
-def child(task: str, rank: int, world: int, tmp: str) -> None:
+def child(task: str, rank: int, world: int, tmp: str, shape=None,
+          names=("data", "model")) -> None:
     import torch
     import torch.distributed as dist
 
@@ -80,8 +74,7 @@ def child(task: str, rank: int, world: int, tmp: str) -> None:
         "gloo", store=dist.FileStore(str(tmp / "store"), world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=60))
     try:
-        mesh = make_mesh_from_config(MeshConfig((1, world),
-                                                ("data", "model")),
+        mesh = make_mesh_from_config(MeshConfig(shape or (1, world), names),
                                      device="cpu")
         out = TASKS[task](mesh, payload)
     finally:
@@ -191,5 +184,235 @@ def task_decode(mesh, p):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The sharded trainer (tests/test_torch_sharded_train.py)
+# ---------------------------------------------------------------------------
+
+
+def _train_setup(mesh, p):
+    """(api, ctx, rules, specs) of the model ``p["cfg"]`` on ``mesh``,
+    as the CLI builds them (``train_state.mesh_setup``, with
+    ``p["compression"]``)."""
+    from repro_torch.models.api import get_model
+    from repro_torch.training.train_state import mesh_setup
+
+    api = get_model(p["cfg"])
+    return (api, *mesh_setup(api, mesh, p.get("compression", "none")))
+
+
+def _numpy(tree):
+    from repro_torch.models.stack import tree_map
+    return tree_map(lambda t: t.detach().float().numpy(), tree)
+
+
+def task_train(mesh, p):
+    """``p["steps"]`` sharded train steps from the global params on this
+    rank's batch rows: the losses and grad norms, the collectives of the
+    second step, the gathered params after (rank 0), and with int8-EF
+    the first step's pod gradients, the cross-pod mean and the residuals
+    (gathered inside the pod) and the gathered ef_err after."""
+    import torch
+
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.config import RunConfig
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import gather_tree
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.stack import tree_map
+    from repro_torch.training.data import device_batch
+    from repro_torch.training.train_state import (gather_state,
+                                                  initial_state, local_batch,
+                                                  make_grad_fn,
+                                                  make_train_step)
+
+    api, ctx, rules, specs = _train_setup(mesh, p)
+    run = RunConfig(grad_compression=p.get("compression", "none"),
+                    **p["run"])
+    state = initial_state(params_from_numpy(p["params"], device="cpu"), run,
+                          mesh, specs)
+    batches = [local_batch(device_batch(b, "cpu"), rules, mesh)
+               for b in p["batches"]]
+    out = {}
+    if specs.ef_err is not None:
+        grads_fn = make_grad_fn(api, ctx, run, mesh=mesh)
+        loss, g = grads_fn(state.params, batches[0])
+        err = tree_map(lambda e: e[0], state.ef_err)
+        mean, new_err = C.crosspod_psum_int8(g, err, mesh)
+        out["int8"] = dict(
+            loss=float(loss), grads=_numpy(gather_tree(g, specs.params, mesh)),
+            mean=_numpy(gather_tree(mean, specs.params, mesh)),
+            err=_numpy(gather_tree(new_err, specs.params, mesh)))
+    step = make_train_step(api, ctx, run, mesh=mesh)
+    losses, norms = [], []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            with CostCounter() as cc:
+                state, met = step(state, batch)
+            out["collectives"] = cc.collectives.counts
+        else:
+            state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    whole = gather_state(state, specs, mesh)
+    out.update(losses=losses, norms=norms)
+    if mesh.axes_coord(mesh.axis_names) == 0:
+        out["params"] = _numpy(whole.params)
+        if whole.ef_err is not None:
+            out["ef_err"] = _numpy(whole.ef_err)
+    return out
+
+
+def layer_fn(name: str):
+    """``fn(ctx, params, inputs) -> output`` of one train layer, on the
+    params of the whole smoke model (layer 0's where it is a block's)."""
+    from repro_torch.models import layers as L
+
+    def first(params, part):
+        return {k: v[0] for k, v in params["layers"][part].items()}
+
+    return {
+        "attention": lambda ctx, p, i: L.attention_block(
+            ctx, first(p, "attn"), i["x"], i["positions"]),
+        "mlp": lambda ctx, p, i: L.mlp_block(ctx, first(p, "mlp"), i["x"]),
+        "embed": lambda ctx, p, i: L.embed(ctx, p, i["tokens"]),
+        "loss": lambda ctx, p, i: L.cross_entropy_loss(
+            ctx, p, i["x"], i["labels"]),
+    }[name]
+
+
+def task_layer(mesh, p):
+    """Each train layer of ``p["layers"]`` on this rank's param shards
+    (the FSDP dims gathered on use) and batch rows: its output, and the
+    input and param gradients of ``sum(output * p["ct"])`` (the loss: of
+    the loss), each gathered to its global shape (rank 0)."""
+    import torch
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import gather_tree, local_shard, shard_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.stack import tree_map
+    from repro_torch.training.train_state import _fsdp_dim
+
+    api, ctx, rules, specs = _train_setup(mesh, p)
+    axes = rules.act_batch_axes
+    rows_spec = P_rows(axes)
+    out = {}
+    for name in p["layers"]:
+        params = shard_tree(params_from_numpy(p["params"], device="cpu"),
+                            specs.params, mesh)
+        params = tree_map(lambda t: t.requires_grad_(True), params)
+        rows = {k: local_shard(torch.from_numpy(v), rows_spec, mesh)
+                for k, v in p["inputs"].items()}
+        rows["x"] = rows["x"].clone().requires_grad_(True)
+        whole = tree_map(
+            lambda t, s: t if _fsdp_dim(s, "model") is None
+            else C.fsdp_gather([t], [_fsdp_dim(s, "model")], mesh,
+                               rules.fsdp_axes)[0], params, specs.params)
+        y = layer_fn(name)(ctx, whole, rows)
+        if name == "loss":
+            y = T.global_mean(ctx, y)
+            y.backward()
+        else:
+            ct = local_shard(torch.from_numpy(p["ct"]), rows_spec, mesh)
+            (y * ct).sum().backward()
+        grads = tree_map(lambda t: torch.zeros_like(t) if t.grad is None
+                         else t.grad, params)
+        # leaves no FSDP axis cuts: each rank holds its rows' part
+        grads = tree_map(
+            lambda g, s: C.all_reduce_flat([g], mesh, axes)[0]
+            if _fsdp_dim(s, "model") is None else g, grads, specs.params)
+        dx = rows["x"].grad
+        out[name] = dict(
+            grads=_numpy(gather_tree(grads, specs.params, mesh)),
+            out=(y.detach().numpy() if y.dim() == 0 else gather_tree(
+                y.detach(), rows_spec, mesh).numpy()),
+            dx=None if dx is None else gather_tree(dx, rows_spec,
+                                                   mesh).numpy())
+    return out if mesh.axes_coord(mesh.axis_names) == 0 else None
+
+
+def P_rows(axes):
+    """Dim 0 over the batch axes."""
+    from repro_torch.distributed import P
+    return P(axes)
+
+
+def task_int8(mesh, p):
+    """``crosspod_psum_int8`` on this rank's shards (``p["specs"]``) of
+    its pod's gradient and residual leaves: the mean and the new
+    residuals, gathered inside the pod; and whether the boxed form
+    (``crosspod_allreduce_int8``, a leading pod axis of size 1) gives
+    the same bits."""
+    import torch
+
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import gather_tree, shard_tree
+
+    pod = mesh.coord("pod")
+    grads, errs = (shard_tree({k: torch.from_numpy(v) for k, v in
+                               p[name][pod].items()}, p["specs"], mesh)
+                   for name in ("grads", "errs"))
+    mean, err = C.crosspod_psum_int8(grads, errs, mesh)
+    box = {k: v[None] for k, v in grads.items()}
+    bmean, berr = C.crosspod_allreduce_int8(
+        mesh, box, {k: v[None] for k, v in errs.items()})
+    boxed = all(torch.equal(bmean[k][0], mean[k])
+                and torch.equal(berr[k][0], err[k]) for k in grads)
+    return dict(mean=_numpy(gather_tree(mean, p["specs"], mesh)),
+                err=_numpy(gather_tree(err, p["specs"], mesh)), boxed=boxed)
+
+
+def task_ckpt(mesh, p):
+    """The training loop under a mesh with checkpoints in ``p["dir"]``:
+    ``"run"`` trains to ``p["steps"]`` (preempted after
+    ``p["preempt_after"]`` steps, when given, then resumed in a second
+    loop); ``"restore"`` only loads the latest step. Returns the global
+    state (rank 0) and the loops' results."""
+    from repro_torch.config import RunConfig, ShapeConfig
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.training.checkpoint import CheckpointManager
+    from repro_torch.training.loop import train_loop
+    from repro_torch.training.train_state import (gather_state,
+                                                  initial_state,
+                                                  make_train_step)
+
+    api, ctx, rules, specs = _train_setup(mesh, p)
+    run = RunConfig(checkpoint_dir=p["dir"], checkpoint_every=2,
+                    total_steps=p["steps"], **p["run"])
+
+    def init_state():
+        return initial_state(params_from_numpy(p["params"], device="cpu"),
+                             run, mesh, specs)
+
+    results = []
+    if p["mode"] == "restore":
+        ckpt = CheckpointManager(p["dir"], mesh=mesh, specs=specs)
+        state = ckpt.load_state(ckpt.latest_step(), init_state())
+    else:
+        step = make_train_step(api, ctx, run, mesh=mesh)
+        kw = dict(model_cfg=p["cfg"], shape=ShapeConfig("t", 32, 8, "train"),
+                  run=run, train_step=step, device="cpu", mesh=mesh,
+                  rules=rules, specs=specs, install_signals=False,
+                  log_every=0)
+        res = train_loop(init_state=init_state,
+                         preempt_after=p.get("preempt_after"), **kw)
+        results.append((res.final_step, res.preempted, res.restored_from,
+                        res.losses))
+        if res.preempted:
+            res = train_loop(init_state=init_state, **kw)
+            results.append((res.final_step, res.preempted,
+                            res.restored_from, res.losses))
+        ckpt = CheckpointManager(p["dir"], mesh=mesh, specs=specs)
+        state = ckpt.load_state(ckpt.latest_step(), init_state())
+    whole = gather_state(state, specs, mesh)
+    if mesh.axes_coord(mesh.axis_names) != 0:
+        return None
+    return dict(results=results, step=int(whole.step),
+                state={f: _numpy(getattr(whole, f))
+                       for f in ("params", "m", "v")})
+
+
 TASKS = {"combine": task_combine, "attention": task_attention,
-         "decode": task_decode}
+         "decode": task_decode, "train": task_train, "layer": task_layer,
+         "ckpt": task_ckpt, "int8": task_int8}

@@ -1,7 +1,9 @@
 """The port's training CLI (``python -m repro_torch.launch.train``) and
 ``examples/train_tiny_lm_torch.py`` on the CPU: the CLI trains and prints
 the JAX CLI's final line; SIGTERM checkpoints and exits 0, and a rerun
-resumes; the mesh flags raise; the example's loss falls.
+resumes; the mesh flags raise for a family the sharded trainer does not
+cover (the dense family trains on a mesh:
+``tests/test_torch_sharded_train.py``); the example's loss falls.
 """
 import os
 import select
@@ -50,20 +52,27 @@ def test_cli_trains_and_prints_the_final_line(capsys):
 @pytest.mark.parametrize("flags", [["--devices", "4"], ["--mesh", "2x2"],
                                    ["--grad-compression", "int8_ef"]])
 def test_cli_mesh_flags_raise(flags):
+    """The mesh flags run the dense family now; for RWKV6 (TP and the pod
+    hop cover the dense family only) they raise before any rank starts,
+    naming the slice that ports them."""
     from repro_torch.launch import train
-    with pytest.raises(ValueError, match="slice 8"):
-        train.main(["--smoke", "--device", "cpu"] + flags)
+    if flags[0] == "--grad-compression":
+        flags = flags + ["--mesh", "2x1x1"]   # int8-EF hops across pods
+    with pytest.raises(ValueError, match="slice 8b"):
+        train.main(["--smoke", "--device", "cpu", "--arch", "rwkv6-1.6b"]
+                   + flags)
 
 
-def test_cli_sigterm_checkpoints_exits_0_and_resumes():
-    """The CLI as a subprocess: SIGTERM after its first logged step; it
-    exits 0 with a committed step, and a rerun resumes from it."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+def _sigterm_then_resume(flags, rerun_flags, env=None):
+    """The CLI as a subprocess with ``flags``: SIGTERM after its first
+    logged step; it exits 0 with a committed step, and a rerun with
+    ``rerun_flags`` resumes from it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env or {}))
     with tempfile.TemporaryDirectory() as d:
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
                "--device", "cpu", "--batch", "2", "--seq", "32",
                "--checkpoint-dir", d, "--log-every", "1"]
-        proc = subprocess.Popen(cmd + ["--steps", "1000"], env=env,
+        proc = subprocess.Popen(cmd + flags + ["--steps", "1000"], env=env,
                                 stdout=subprocess.PIPE, text=True,
                                 cwd=str(ROOT))
         try:
@@ -81,12 +90,26 @@ def test_cli_sigterm_checkpoints_exits_0_and_resumes():
         assert "preempted=True" in out
         step = CheckpointManager(d).latest_step()
         assert step is not None and 1 <= step < 1000
-        res = subprocess.run(cmd + ["--steps", str(step + 2)], env=env,
-                             capture_output=True, text=True, timeout=120,
-                             cwd=str(ROOT))
+        res = subprocess.run(cmd + rerun_flags + ["--steps", str(step + 2)],
+                             env=env, capture_output=True, text=True,
+                             timeout=120, cwd=str(ROOT))
         assert res.returncode == 0, res.stderr
         assert (f"finished at step {step + 2} (restored_from={step}, "
                 "preempted=False)") in res.stdout
+
+
+def test_cli_sigterm_checkpoints_exits_0_and_resumes():
+    """The CLI as a subprocess: SIGTERM after its first logged step; it
+    exits 0 with a committed step, and a rerun resumes from it."""
+    _sigterm_then_resume([], [])
+
+
+def test_cli_sigterm_on_a_mesh_resumes_at_another_mesh():
+    """The same on two gloo ranks: the CLI passes SIGTERM to its ranks,
+    they agree to stop and checkpoint the gathered state at (1, 2), and
+    the rerun restores its shards at (2, 1)."""
+    _sigterm_then_resume(["--mesh", "1x2"], ["--mesh", "2x1"],
+                         env={"OMP_NUM_THREADS": "1"})
 
 
 def test_example_trains_and_the_loss_falls():

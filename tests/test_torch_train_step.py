@@ -257,14 +257,25 @@ def test_make_train_step_refuses_the_cuda_plan(plan):
 
 
 def test_make_train_step_refuses_mesh_and_compression():
-    _, tcfg, _, _ = qwen_f32()
+    """A mesh needs the context of that mesh (its rules and shard check):
+    a context without one is refused. int8-EF without a ``pod`` axis is
+    the plain step, as in the JAX package (the sharded and compressed
+    steps: ``tests/test_torch_sharded_train.py``)."""
+    _, tcfg, _, tp = qwen_f32()
     ctx = LayerCtx(cfg=tcfg, plan=TORCH_PLAN)
-    with pytest.raises(ValueError, match="slice 8"):
+    with pytest.raises(ValueError, match="LayerCtx\\(mesh=mesh"):
         make_train_step(get_model(tcfg), ctx, RunConfig(),
                         mesh=object())
-    with pytest.raises(ValueError, match="slice 8"):
-        make_train_step(get_model(tcfg), ctx,
-                        RunConfig(grad_compression="int8_ef"))
+    hb = device_batch(SyntheticTokens(
+        tcfg, ShapeConfig("t", 16, 2, "train")).batch_at(0), "cpu")
+    out = [make_train_step(get_model(tcfg), ctx, RunConfig(
+        grad_compression=c, warmup_steps=0))(TrainState.create(tp), hb)
+        for c in ("int8_ef", "none")]
+    assert float(out[0][1]["loss"]) == float(out[1][1]["loss"])
+    assert out[0][0].ef_err is None
+    for a, b in zip(tree_leaves(out[0][0].params),
+                    tree_leaves(out[1][0].params)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("kernel", ["gemv", "flat_gemm", "flash_prefill",
