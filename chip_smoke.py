@@ -14,6 +14,7 @@
                                             # and 10
     python3 chip_smoke.py --slice8a-only    # build, then only phase 10
     python3 chip_smoke.py --slice8b1-only   # build, then only phase 11
+    python3 chip_smoke.py --slice8b2-only   # build, then only phase 12
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -82,7 +83,7 @@
    bitwise paged) and the GEMM rows 1 and 2 (q / o_proj, k / v, the
    untied 100,352-column head), 12 and 13 are held to their plain
    versions and timed (the kernel table's "dbrx" lines).
-3. Serves full-width qwen2-0.5b (SERVE_LAYERS = 8 of its 24 layers, in
+3. Serves full-width qwen2-0.5b (SERVE_LAYERS = 4 of its 24 layers, in
    phases 3-5; random weights from --seed), greedy, with every kernel's launch counter set to 0 just before and
    read just after each run: A 4 slots with chunked prefill, B 1 slot,
    C ``prefill_chunk=0`` (flash prefill) on the dense cache; on the paged
@@ -169,7 +170,7 @@
    and wall a tick of X and X′, the MoE tail's share of X's busy
    tick, and the tick's bytes against its bound.
 7. The recurrent and encoder-decoder families at their published widths
-   (``slice7b_phase``; rwkv6 and hymba cut to FAMILY_LAYERS' 8 layers): Y (rwkv6-1.6b), Z and Z′ (hymba-1.5b,
+   (``slice7b_phase``; rwkv6 and hymba cut to FAMILY_LAYERS' 4 layers): Y (rwkv6-1.6b), Z and Z′ (hymba-1.5b,
    Z′ with long prompts and the fused FFN-up) and AA (whisper-tiny),
    each served split and then looped (``looped_family_phase``: one CUDA
    graph a tick, tokens bit for bit the split run's), busy and wall a
@@ -219,9 +220,23 @@
    (``python -m repro_torch.launch.train --devices 2 --backend gloo``)
    preempted by SIGTERM at ``--mesh 1x2`` and resumed from its
    checkpoint at ``--mesh 2x1``, its losses against the unsharded run.
-12. The examples (``examples/*_torch.py``) at full width in three
+12. Slice 8b-2 (``slice8b2_phase``, the "torch" plan): AM, GPipe over
+   ``pod`` (``distributed/pipeline.py``) with qwen2-0.5b's 24 layers as
+   two stages of 12 on two gloo ranks sharing this card, 4 microbatches of
+   2 x 512, the LM loss's backward pass: outputs, loss and every
+   gradient leaf bit for bit the unpipelined stack's; AN / AN′ / AO,
+   one dbrx-132b layer at its published widths at (data, model) = (2, 1)
+   with each rank routing its own group (the JAX package's
+   ``_moe_block_manual``) and one group over both ranks (its fallback),
+   and (1, 2) with the experts' F over ``model``: loss and each leaf's
+   gradient against the one-rank run, the routing choices that differ
+   counted; AP / AQ, whisper-tiny's 3 steps at (1, 2) and (2, 1, 1) with
+   int8-EF against the one-rank run; the collectives of each run
+   (CostCounter) against the count derived from the code, each rank's
+   wall, busy and peak memory.
+13. The examples (``examples/*_torch.py``) at full width in three
    subprocesses at once; fails if any exits non-zero.
-13. Prints the card's name and power limit, one JSON line describing every
+14. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Exits non-zero, printing no result line, without CUDA, outside the repo,
@@ -344,10 +359,12 @@ SOURCES = {
 PAGE = 64                             # page size of every paged run
 # phases 3-5 serve qwen2-0.5b at its full width and SERVE_LAYERS of its 24
 # layers: the eager tick is host bound, about 2 ms a layer, and at full
-# depth the smoke came too close to its time limit (the trainer, decode_32k
-# and slices 8a / 8b-1 keep the full depth; so do the cost phase's fixed
-# costs and the tune, which the committed constants and plan come from)
-SERVE_LAYERS = 8
+# depth the smoke came too close to its time limit (8 layers once slice
+# 8b-1's phase 11 came, 4 once slice 8b-2's phase 12 came; the trainer,
+# decode_32k, slices 8a and 8b-1 and the pipeline keep the full depth; so
+# do the cost phase's fixed costs and the tune, which the committed
+# constants and plan come from)
+SERVE_LAYERS = 4
 # a layer's stored GEMM weights of qwen2-0.5b, wq, wk, wv, wo, w_gate, w_up,
 # w_down: 14,909,440 weights at 2 bytes (bf16), or at 1 byte plus 12,672 f32
 # steps (int8, fp8); one decode tick reads every layer's once
@@ -357,7 +374,7 @@ WEIGHT_BYTES_PER_LAYER = {"bf16": 29_818_880, "int8": 14_960_128,
 # 64 dims at 2 bytes (bf16), or at 1 byte plus 2 x 2 f32 steps (int8, fp8)
 KV_PAGE_BYTES_PER_LAYER = {"bf16": 32_768, "int8": 16_400, "fp8": 16_400}
 # the recurrent families' depth in phase 7 (whisper-tiny keeps its 4 + 4)
-FAMILY_LAYERS = {"rwkv6-1.6b": 8, "hymba-1.5b": 8}
+FAMILY_LAYERS = {"rwkv6-1.6b": 4, "hymba-1.5b": 4}
 
 
 def serve_config():
@@ -5661,15 +5678,24 @@ D32K = "decode_32k"
 EXAMPLES = ("quickstart_torch", "serve_batch_torch", "streaming_serve_torch")
 
 
-def tick_busy_ms(torch, fn, log, tag="decode_32k"):
+# profiler rows of host <-> device traffic: the copies, and gloo's
+# annotations, which repeat the time of the copies they span
+HOST_COPY_ROWS = ("Memcpy DtoH", "Memcpy HtoD", "gloo:")
+
+
+def tick_busy_ms(torch, fn, log, tag="decode_32k", cpu=True,
+                 host_copies=True):
     """Device busy (the sum of kernel times) of one call of ``fn`` under
     torch.profiler, in ms, with the costliest kernels logged (and the
     table written to ``chiprun_out/<tag>_profile.txt``); None when the
-    profiler reports none."""
+    profiler reports none. ``cpu=False`` traces the device only (a long
+    call's host events take the profiler many seconds to summarise);
+    ``host_copies=False`` leaves the HOST_COPY_ROWS out of the sum and
+    logs the copies' own ms."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages()
@@ -5680,6 +5706,13 @@ def tick_busy_ms(torch, fn, log, tag="decode_32k"):
             f"{e.count:5d} calls  {e.key[:90]}")
     (OUT_DIR / f"{tag}_profile.txt").write_text(prof.key_averages().table(
         sort_by="self_device_time_total", row_limit=25))
+    if not host_copies:
+        moved = sum(e.self_device_time_total for e in evs
+                    if e.key.startswith("Memcpy")
+                    and e.key.startswith(HOST_COPY_ROWS))
+        log(f"profile {tag} host copies (left out of busy) "
+            f"{moved / 1e3:.4f} ms")
+        evs = [e for e in evs if not e.key.startswith(HOST_COPY_ROWS)]
     us = sum(e.self_device_time_total for e in evs)
     return us / 1e3 if us > 0 else None
 
@@ -6399,12 +6432,13 @@ def s8b_names(dims):
     return ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
 
 
-def s8b_flags(compression="none", seed=0):
-    """S8B_ARGS as the CLI parses them."""
+def s8b_flags(compression="none", seed=0, args=None):
+    """``args`` (S8B_ARGS by default) as the CLI parses them."""
     from repro_torch.launch import train as cli
 
-    return cli._parse(S8B_ARGS + ["--grad-compression", compression,
-                                  "--seed", str(seed)])
+    return cli._parse((args or S8B_ARGS) + ["--grad-compression",
+                                            compression, "--seed",
+                                            str(seed)])
 
 
 def s8b_collectives(cfg, dims, compression, seq):
@@ -6451,9 +6485,10 @@ def s8b_collectives(cfg, dims, compression, seq):
 
 
 def s8b_train(torch, cfg, seed, mesh=None, compression="none",
-              on_step=None):
-    """S8B_STEPS steps of qwen2-0.5b (params from ``seed``, the batches
-    ``SyntheticTokens`` 0.. from ``seed``: the CLI's) on the "torch"
+              on_step=None, args=None):
+    """S8B_STEPS steps of ``cfg`` (params from ``seed``, the batches
+    ``SyntheticTokens`` 0.. from ``seed``: the CLI's on ``args``,
+    S8B_ARGS by default: qwen2-0.5b) on the "torch"
     plan, set up as the CLI sets it up (``train_state.mesh_setup``,
     ``initial_state``): unsharded, or this rank's shards on ``mesh``.
     ``on_step(i, run)`` runs step i (``run()`` does it). Returns each
@@ -6469,7 +6504,7 @@ def s8b_train(torch, cfg, seed, mesh=None, compression="none",
     from repro_torch.launch.train import run_config
 
     api = get_model(cfg)
-    flags = s8b_flags(compression, seed)
+    flags = s8b_flags(compression, seed, args)
     run = run_config(flags)
     ctx, rules, specs = mesh_setup(api, mesh, compression)
     step = make_train_step(api, ctx, run, mesh=mesh)
@@ -6584,8 +6619,9 @@ def slice8b1_rank(rank, world, out_dir, seed):
 
 def s8b_tensor_forms(torch, mesh):
     """Whether gloo takes the tensor forms of all-gather and
-    reduce-scatter on CUDA tensors (which distributed/collectives.py does
-    not use: it composes both from all_gather and all_reduce). A probe
+    reduce-scatter on CUDA tensors (distributed/collectives.py gathers
+    with all_gather_into_tensor on a host copy under gloo, and composes
+    the reduce-scatter from an all_reduce). A probe
     for the record, not a check: the error text, or "ok"."""
     import torch.distributed as dist
 
@@ -6820,7 +6856,8 @@ def slice8b1_phase(torch, seed, log):
     for r, res in enumerate(ranks):
         for line in res["log"]:
             log(f"slice 8b-1 rank {r}: {line}")
-    log(f"slice 8b-1 gloo on CUDA tensors, the tensor forms (not used): "
+    log(f"slice 8b-1 gloo on CUDA tensors, the tensor forms (the port "
+        f"gathers into a tensor): "
         f"{ranks[0]['tensor_forms']}")
     seq, b = s8b_flags().seq, s8b_flags().batch
     for dims, compression in S8B_MESHES:
@@ -6879,6 +6916,758 @@ def slice8b1_phase(torch, seed, log):
         and max(crel.values(), default=1.0) <= S8B_RTOL,
         f"slice 8b-1 CLI: exits {codes}, committed {latest}, {last}, "
         f"losses {losses} against the one-rank {one['losses']}"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for ok, msg in checks:
+        check(ok, msg)
+
+
+# slice 8b-2: the GPipe pipeline over pod, MoE on a data mesh and under TP,
+# whisper-tiny under TP and with the int8-EF pod hop (two gloo ranks on
+# the card, the "torch" plan)
+S8B2_PIPE = (4, 2, 512)               # AM: M microbatches of mb x seq tokens
+S8B2_STAGES = 2                       # qwen2-0.5b's 24 layers, 12 a stage
+S8B2_MOE_LAYERS = 1                   # dbrx-132b at its published widths
+S8B2_MOE_BATCH = (4, 64)              # (batch, seq): the JAX test's
+# (cell, (data, model), moe_groups): AN the manual path (each rank routes
+# its own group), AN′ the fallback (one group over both ranks' rows), AO
+# the experts' F over model
+S8B2_MOE_RUNS = (("AN", (2, 1), 2), ("AN′", (2, 1), 1), ("AO", (1, 2), 1))
+S8B2_WHISPER_ARGS = ["--arch", "whisper-tiny", "--steps", str(S8B_STEPS),
+                     "--batch", "8", "--seq", "512", "--lr", "1e-3"]
+S8B2_WHISPER_RUNS = (("AP", (1, 2), "none"), ("AQ", (2, 1, 1), "int8_ef"))
+# AN-AO: the loss (the JAX package's bound for its manual dispatch), each
+# leaf's gradient: the norm's relative error and the projection onto a
+# seeded rank-1 direction, its error over the norm times the direction's
+# norm, against the one-rank run
+# at the same moe_groups; AN's aux is the mean of the ranks' own (the JAX
+# package's pmean), not the one-rank aux
+S8B2_MOE_LOSS_RTOL = 2e-3
+S8B2_MOE_GRAD_RTOL = 5e-2
+S8B2_TIMEOUT = 420                    # seconds, the gloo run of two ranks
+PDM = ("pod", "data", "model")
+
+
+def s8b2_dbrx():
+    """dbrx-132b at its published widths, 40 -> S8B2_MOE_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get(MOE_ARCH),
+                               num_layers=S8B2_MOE_LAYERS)
+
+
+def s8b2_batch(cfg, seed, b, s, step=0):
+    from repro_torch.config import ShapeConfig
+    from repro_torch.training.data import SyntheticTokens, device_batch
+
+    return device_batch(SyntheticTokens(cfg, ShapeConfig("s8b2", s, b,
+                                                         "train"),
+                                        seed=seed).batch_at(step), "cuda")
+
+
+def s8b2_summary(torch, tree, tag, mesh=None, specs=None):
+    """Per leaf (its path): the sum of squares and the projection onto a
+    rank-1 direction (one seeded normal vector a dim, from the path and
+    ``tag``) of the global tensor, this rank's part of them under
+    ``specs`` on ``mesh``: a rank counts a leaf's shard when its
+    coordinate is 0 on every axis the spec does not name (so the ranks'
+    parts add up to the global values). Also each direction's norm."""
+    from repro_torch.distributed import P, local_shard
+    from repro_torch.models.stack import tree_leaves
+
+    out = {}
+    for path, g in zip(checkpoint_paths(tree), tree_leaves(tree)):
+        spec = (tuple(_at_path(specs, path)) if specs is not None
+                else (None,) * g.dim())
+        named = {a for e in spec if e is not None
+                 for a in (e if isinstance(e, tuple) else (e,))}
+        mine = mesh is None or all(mesh.coord(a) == 0 for a in
+                                   mesh.axis_names if a not in named)
+        gen = torch.Generator().manual_seed(int(hashlib.sha256(
+            f"{path}/{tag}".encode()).hexdigest()[:8], 16))
+        shape = [g.shape[d] * (1 if spec[d] is None or mesh is None
+                               else mesh.axes_size(spec[d]))
+                 for d in range(g.dim())]
+        whole = [torch.randn(n, generator=gen) for n in shape]
+        vnorm = 1.0
+        for v in whole:
+            vnorm *= float(v.norm())
+        vecs = [(v if mesh is None or spec[d] is None
+                 else local_shard(v, P(spec[d]), mesh)).to(g.device)
+                for d, v in enumerate(whole)]
+        sq = proj = 0.0
+        if mine:
+            # rows of the leaf as (every index but the last, the last):
+            # the leading directions' outer product weights each row
+            lead = torch.ones(1, device=g.device)
+            for v in vecs[:-1]:
+                lead = (lead[:, None] * v[None, :]).reshape(-1)
+            rows = g.reshape(-1, g.shape[-1])
+            step = max(1, (1 << 26) // rows.shape[1])
+            for i in range(0, rows.shape[0], step):
+                x = rows[i:i + step].float()
+                sq += float(torch.sum(x * x))
+                proj += float(torch.dot(x @ vecs[-1], lead[i:i + step]))
+        out[path] = (sq, proj, vnorm)
+    return out
+
+
+def _at_path(tree, path):
+    for k in path.strip("/").split("/"):
+        tree = tree[k]
+    return tree
+
+
+def s8b2_add(parts):
+    """The ranks' summaries added leaf by leaf."""
+    out = {}
+    for part in parts:
+        for k, (sq, proj, vn) in part.items():
+            a = out.get(k, (0.0, 0.0, vn))
+            out[k] = (a[0] + sq, a[1] + proj, vn)
+    return out
+
+
+def s8b2_grad_errs(got, want):
+    """Per leaf: (the norm's relative error, the projection's error over
+    the reference norm times the direction's norm); and the worst of
+    each."""
+    errs = {}
+    for k, (sq, proj, vn) in want.items():
+        g = got[k]
+        n_ref = sq ** 0.5
+        scale = max(n_ref, 1e-30)
+        errs[k] = (abs(g[0] ** 0.5 - n_ref) / scale,
+                   abs(g[1] - proj) / (scale * vn))
+    worst = (max(e[0] for e in errs.values()),
+             max(e[1] for e in errs.values()))
+    return errs, worst
+
+
+def s8b2_pipe_setup(torch, seed):
+    """qwen2-0.5b at its published widths and depth from ``seed``, its
+    "torch"-plan context, and AM's batch as (M, mb, S) tokens and
+    labels."""
+    from repro_torch import configs
+    from repro_torch.core.plan import DEFAULT_PLAN
+    from repro_torch.models.api import get_model
+    from repro_torch.models.layers import LayerCtx
+
+    cfg = configs.get(ARCH)
+    m, mb, s = S8B2_PIPE
+    params = get_model(cfg).init_params(
+        torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    batch = s8b2_batch(cfg, seed, m * mb, s)
+    ctx = LayerCtx(cfg, DEFAULT_PLAN.with_overrides(backend="torch"))
+    return cfg, ctx, params, {k: v.reshape(m, mb, s)
+                              for k, v in batch.items()}
+
+
+def s8b2_lm_loss(ctx, params, outs, labels):
+    """The LM loss on (M, mb, S, D) stack outputs: the final norm, then
+    the chunked cross-entropy, averaged over the microbatches."""
+    from repro_torch.models import layers as L
+
+    losses = [L.cross_entropy_loss(ctx, params, L.norm(
+        ctx.cfg, params["final_norm"], outs[i]), labels[i])
+        for i in range(outs.shape[0])]
+    return sum(losses) / len(losses)
+
+
+def s8b2_stage_fn(torch, ctx, mb, s):
+    from repro_torch.models import stack
+    from repro_torch.models import transformer as T
+
+    positions = torch.arange(s, device="cuda")[None].expand(mb, s)
+    return lambda sp, x: stack.run_stack(sp, x, lambda p_i, xx: T.block(
+        ctx, p_i, xx, positions)[0])
+
+
+def s8b2_digests(torch, tree):
+    """Per leaf (its path): the sha256 of its bytes."""
+    from repro_torch.models.stack import tree_leaves
+
+    return {path: hashlib.sha256(t.detach().contiguous().reshape(-1).view(
+        torch.uint8).cpu().numpy()).hexdigest()
+        for path, t in zip(checkpoint_paths(tree), tree_leaves(tree))}
+
+
+def s8b2_pipe_reference(torch, seed):
+    """AM's reference: the unpipelined stack applied microbatch by
+    microbatch; (outputs on the host, the loss, each stage's layer
+    gradients' and the other leaves' digests)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.stack import tree_map
+
+    cfg, ctx, params, batch = s8b2_pipe_setup(torch, seed)
+    m, mb, s = S8B2_PIPE
+    params = tree_map(lambda t: t.requires_grad_(True), params)
+    x = L.embed(ctx, params, batch["tokens"].reshape(m * mb, s)).reshape(
+        m, mb, s, -1)
+    stage = s8b2_stage_fn(torch, ctx, mb, s)
+    outs = torch.stack([stage(params["layers"], x[i]) for i in range(m)])
+    loss = s8b2_lm_loss(ctx, params, outs, batch["labels"])
+    loss.backward()
+    n = cfg.num_layers // S8B2_STAGES
+    grads = tree_map(lambda t: t.grad, params)
+    digests = {f"stage{r}": s8b2_digests(torch, tree_map(
+        lambda g: g[r * n:(r + 1) * n], grads["layers"]))
+        for r in range(S8B2_STAGES)}
+    digests["other"] = s8b2_digests(torch, {k: v for k, v in grads.items()
+                                            if k != "layers"})
+    out = outs.detach().cpu()
+    del params, grads, outs, x
+    return out, float(loss.detach()), digests
+
+
+def s8b2_pipe_rank(torch, seed, mesh, rec):
+    """AM on this rank: its stage of the split stack, the pipeline
+    forward of the microbatches' embeddings, the LM loss on the
+    pipelined outputs and its backward pass (``s8b2_measured``, timed
+    again alone). Fills ``rec``."""
+    from repro_torch.distributed import P, shard_tree
+    from repro_torch.distributed import pipeline as PP
+    from repro_torch.models import layers as L
+    from repro_torch.models.stack import tree_map
+
+    cfg, ctx, params, batch = s8b2_pipe_setup(torch, seed)
+    m, mb, s = S8B2_PIPE
+    staged = PP.split_stages(params.pop("layers"), S8B2_STAGES)
+    local = shard_tree(staged, tree_map(lambda _: P("pod"), staged), mesh)
+    del staged
+    torch.cuda.empty_cache()
+    stage = s8b2_stage_fn(torch, ctx, mb, s)
+    r = mesh.coord("pod")
+
+    def run():
+        sp = tree_map(lambda t: t.detach().requires_grad_(True), local)
+        other = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        x = L.embed(ctx, other, batch["tokens"].reshape(m * mb, s))
+        outs = PP.pipeline_forward(mesh, sp, x.reshape(m, mb, s, -1), stage)
+        loss = s8b2_lm_loss(ctx, other, outs, batch["labels"])
+        loss.backward()
+        return outs.detach(), float(loss.detach()), sp, other
+
+    torch.cuda.reset_peak_memory_stats()
+    print(f"AM set up, host {host_peak_gib():.1f} GiB", flush=True)
+    outs, loss, sp, other = s8b2_measured(torch, run, rec,
+                                          f"slice8b2_AM_rank{r}", again=True)
+    rec["out"] = outs.cpu()
+    rec["loss"] = loss
+    rec["digests"] = {
+        f"stage{r}": s8b2_digests(torch, tree_map(lambda t: t.grad[0], sp)),
+        "other": s8b2_digests(torch, tree_map(lambda t: t.grad, other))}
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["host_peak"] = host_peak_gib()
+
+
+def s8b2_measured(torch, fn, rec, tag, again=False):
+    """``fn()`` under the collective counter and the profiler (the first
+    call of its shapes in the process), then with ``again`` a second
+    time alone: returns the last call's result. ``rec`` gets the
+    collectives by kind and the device busy of the first call (its
+    kernels: the host copies left out), and the wall in ms of the last,
+    with ``profiled`` whether that call ran under both. The dbrx cells
+    on a data mesh run once: each call moves 9 GB through the host each
+    way."""
+    from repro_torch.analysis.cost import CostCounter
+
+    box = {}
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box["out"] = fn()
+        torch.cuda.synchronize()
+        rec["wall"] = 1e3 * (time.perf_counter() - t0)
+
+    with CostCounter() as cc:
+        rec["busy"] = tick_busy_ms(torch, timed,
+                                   rec.setdefault("log", []).append, tag=tag,
+                                   cpu=False, host_copies=False)
+    rec["collectives"] = dict(cc.collectives.counts)
+    rec["profiled"] = not again
+    if again:
+        box.clear()
+        timed()
+    return box["out"]
+
+
+def host_peak_gib():
+    """This process's peak resident host memory so far, in GiB."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def s8b2_moe_grads(torch, seed, groups, mesh=None):
+    """One loss of dbrx-132b (S8B2_MOE_LAYERS layers, published widths,
+    params from ``seed``) on S8B2_MOE_BATCH and its gradients through
+    the train step's ``make_grad_fn`` ("torch" plan, remat), at
+    ``moe_groups`` = ``groups``: unsharded, or this rank's shards on
+    ``mesh``. Returns (run(), the specs or None) where run() -> (loss,
+    grads, the forward's routing choices layer by layer)."""
+    import dataclasses
+
+    from repro_torch.config import RunConfig
+    from repro_torch.distributed import shard_tree
+    from repro_torch.models import moe
+    from repro_torch.models.api import get_model
+    from repro_torch.training.train_state import (local_batch, make_grad_fn,
+                                                  mesh_setup)
+
+    cfg = s8b2_dbrx()
+    api = get_model(cfg)
+    ctx, rules, specs = mesh_setup(api, mesh)
+    ctx = dataclasses.replace(ctx, moe_groups=groups)
+    grads_fn = make_grad_fn(api, ctx, RunConfig(learning_rate=1e-3),
+                            mesh=mesh)
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    if mesh is not None:
+        params = shard_tree(params, specs.params, mesh)
+    torch.cuda.empty_cache()
+    b, s = S8B2_MOE_BATCH
+    batch = s8b2_batch(cfg, seed, b, s)
+    if mesh is not None:
+        batch = local_batch(batch, rules, mesh)
+
+    def run():
+        routes, route = [], moe.route
+
+        def recording(*a, **kw):
+            res = route(*a, **kw)
+            routes.append(res[2].cpu())
+            return res
+
+        moe.route = recording
+        try:
+            loss, grads = grads_fn(params, batch)
+        finally:
+            moe.route = route
+        return float(loss), grads, routes[:cfg.num_layers]
+
+    return run, (None if specs is None else specs.params)
+
+
+def s8b2_moe_collectives(dims, groups, nc):
+    """The collectives of one loss and its gradients of the dbrx layer
+    (``make_grad_fn``, remat on), by kind, derived from the code: with
+    data f > 1 one FSDP all-gather a dtype of the FSDP-cut leaves and
+    their reduce-scatter (an all-reduce), the loss's batch mean, one
+    batch sum a dtype of the other leaves (bf16 norms, the f32 router);
+    where the groups do not divide over f, each layer's activation
+    gather (forward, again in the remat recompute) and its
+    reduce-scatter. With model m > 1: the embedding's all-reduce; a
+    layer's wo and combine all-reduces forward, the attention's, the
+    slots' and the routing weights' copies backward, wo's again in the
+    recompute (which stops at the aux, the last tensor saved, before the
+    combine's all-reduce); each loss chunk two forward, two recomputed,
+    one backward (the head's copy)."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.distributed import make_rules
+    from repro_torch.models.api import get_model
+    from repro_torch.models.stack import tree_leaves
+    from repro_torch.training.train_state import _fsdp_dim
+
+    cfg = s8b2_dbrx()
+    rules = make_rules(MeshConfig(dims, ("data", "model")))
+    meta = get_model(cfg).init_params(device="meta")
+    specs = tree_leaves(rules.param_spec_tree(meta))
+    cut = {t.dtype for t, sp in zip(tree_leaves(meta), specs)
+           if _fsdp_dim(sp, "model") is not None}
+    rest = {t.dtype for t, sp in zip(tree_leaves(meta), specs)
+            if _fsdp_dim(sp, "model") is None}
+    f, m = dims
+    nl = cfg.num_layers
+    ar = ag = 0
+    if f > 1:
+        ag += len(cut)
+        ar += len(cut) + 1 + len(rest)
+        if groups % f:
+            ag += 2 * nl
+            ar += nl
+    if m > 1:
+        ar += 1 + 6 * nl + 5 * nc
+    return {k: v for k, v in (("all-reduce", ar), ("all-gather", ag)) if v}
+
+
+def s8b2_whisper_collectives(cfg, dims, compression, seq):
+    """A whisper-tiny train step's collectives: at (1, 2) the embedding's
+    all-reduce, each encoder layer's four (wo, w_down forward, two
+    copies backward; no remat), each decoder layer's nine (the dense
+    block's five, cross-attention's wo forward and again in the
+    recompute, the copies of its queries' and of the encoder output's
+    inputs backward), each of the nc loss chunks five, the global norm;
+    the int8-EF pod hop as ``s8b_collectives`` counts it."""
+    if dims == (1, 2):
+        nc = min(8, seq)
+        return {"all-reduce": 1 + 4 * cfg.encoder_layers
+                + 9 * cfg.num_layers + 5 * nc + 1}
+    return s8b_collectives(cfg, dims, compression, seq)
+
+
+def slice8b2_rank(rank, world, out_dir, seed):
+    """One rank of the slice 8b-2 gloo run (a process of its own on
+    cuda:0): AM, then AN, AN′, AO, then AP and AQ, each on a mesh of its
+    own over one world of two ranks; writes ``rank<r>.pt``."""
+    import datetime
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    out_dir = Path(out_dir)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out_dir / "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=S8B2_TIMEOUT // 2))
+
+    def mesh_of(dims):
+        names = s8b_names(dims)
+        return make_mesh_from_config(MeshConfig(dims, names), device="cuda",
+                                     backend="gloo")
+
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        rec = res["AM"] = {}
+        s8b2_pipe_rank(torch, seed, mesh_of((S8B2_STAGES, 1, 1)), rec)
+        rec["secs"] = time.perf_counter() - t0
+        print(f"AM {rec['secs']:.1f}s host {rec['host_peak']:.1f} GiB",
+              flush=True)
+        torch.cuda.empty_cache()
+        for cell, dims, groups in S8B2_MOE_RUNS:
+            t0 = time.perf_counter()
+            rec = res[cell] = {}
+            mesh = mesh_of(dims)
+            torch.cuda.reset_peak_memory_stats()
+            run, specs = s8b2_moe_grads(torch, seed, groups, mesh)
+            print(f"{cell} set up, host {host_peak_gib():.1f} GiB",
+                  flush=True)
+            # without the data mesh's 9 GB gather (AO) the cell runs
+            # again, timed alone
+            loss, grads, routes = s8b2_measured(
+                torch, run, rec, f"slice8b2_{cell}_rank{rank}",
+                again=dims[0] == 1)
+            rec.update(loss=loss, routes=routes,
+                       summary=s8b2_summary(torch, grads, "moe", mesh,
+                                            specs))
+            del grads
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            rec["host_peak"] = host_peak_gib()
+            del run
+            torch.cuda.empty_cache()
+            rec["secs"] = time.perf_counter() - t0
+            print(f"{cell} {rec['secs']:.1f}s host {rec['host_peak']:.1f} "
+                  "GiB", flush=True)
+        wcfg = configs.get("whisper-tiny")
+        ref = (torch.load(out_dir / "whisper_ref.pt", weights_only=True)
+               if rank == 0 else None)
+        for cell, dims, compression in S8B2_WHISPER_RUNS:
+            t0 = time.perf_counter()
+            rec = res[cell] = {}
+            mesh = mesh_of(dims)
+
+            def on_step(i, run_step):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if i == 0:
+                    with CostCounter() as cc:
+                        run_step()
+                    rec["collectives"] = dict(cc.collectives.counts)
+                elif i == 1:
+                    run_step()
+                else:
+                    rec["busy"] = tick_busy_ms(
+                        torch, run_step, rec.setdefault("log", []).append,
+                        tag=f"slice8b2_{cell}_rank{rank}", host_copies=False)
+                torch.cuda.synchronize()
+                rec.setdefault("walls", []).append(
+                    1e3 * (time.perf_counter() - t1))
+
+            torch.cuda.reset_peak_memory_stats()
+            out = s8b_train(torch, wcfg, seed, mesh, compression, on_step,
+                            args=S8B2_WHISPER_ARGS)
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            rec["host_peak"] = host_peak_gib()
+            rec.update(losses=out["losses"], norms=out["norms"])
+            if ref is not None:
+                rec["param_err"] = s8b_param_err(torch, out["params"], ref)
+            del out
+            torch.cuda.empty_cache()
+            rec["secs"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, out_dir / f"rank{rank}.pt")
+
+
+def s8b2_spawn(seed, out_dir, world=2):
+    """The slice 8b-2 gloo ranks as subprocesses, within S8B2_TIMEOUT."""
+    import os
+
+    from repro_torch.launch.mesh import run_ranks
+
+    # two ranks' dbrx-132b layers (a whole FSDP gather, its gradients
+    # and their all-reduce each) share the card: segments that grow keep
+    # freed blocks usable for the next, larger request
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    logs = [open(out_dir / f"rank{r}.out", "w") for r in range(world)]
+    try:
+        codes = run_ranks(
+            [[sys.executable, "-c", f"import chip_smoke; chip_smoke."
+              f"slice8b2_rank({r}, {world}, {str(out_dir)!r}, {seed})"]
+             for r in range(world)], env=env, cwd=str(ROOT),
+            timeout=S8B2_TIMEOUT, outputs=logs)
+    finally:
+        for f in logs:
+            f.close()
+    check(codes == [0] * world, "slice 8b-2: gloo ranks exited "
+          f"{codes}: " + " ".join(
+              f"--- rank {r}: {(out_dir / f'rank{r}.out').read_text()[-2000:]}"
+              for r in range(world)) + f" (cgroup memory: {cgroup_memory()})")
+
+
+def cgroup_memory():
+    """This machine's cgroup memory peak and current use, in GiB, where
+    the files are there to read."""
+    out = {}
+    for name in ("memory.peak", "memory.current"):
+        try:
+            out[name] = round(int(Path("/sys/fs/cgroup", name).read_text())
+                              / 2**30, 2)
+        except (OSError, ValueError):
+            pass
+    return out
+
+
+def s8b2_flips(got, want):
+    """(routing choices that differ, all of them) over the layers."""
+    flips = sum(int((g != w).sum()) for g, w in zip(got, want))
+    return flips, sum(w.numel() for w in want)
+
+
+def slice8b2_phase(torch, seed, log):
+    """Slice 8b-2 on the card (the "torch" plan: no kernel of the table
+    runs). The references first, on one card in this process: AM's
+    unpipelined stack (qwen2-0.5b, 24 layers, S8B2_PIPE), the dbrx layer's
+    loss and gradients at moe_groups 2 and 1 (about 18 GB: freed before
+    the ranks start), whisper-tiny's S8B_STEPS steps. Then two gloo ranks
+    on cuda:0 (subprocesses, spawned once): AM, the pipeline over pod
+    (outputs, the loss and every gradient leaf bit for bit the
+    reference's, the leaves by sha256); AN / AN′ / AO, the dbrx layer at
+    (data, model) = (2, 1) manual and fallback and (1, 2) TP (loss within
+    S8B2_MOE_LOSS_RTOL, each leaf's gradient within S8B2_MOE_GRAD_RTOL,
+    the routing choices that differ counted); AP / AQ, whisper-tiny's
+    steps at (1, 2) and (2, 1, 1) int8-EF (phase 11's bounds). Each run's
+    collectives (CostCounter) against the count derived from the code,
+    each rank's wall (AM and AO: a second call alone; AN / AN′: their one
+    call, profiled and counted), busy (the profiled call's kernels, the
+    host copies left out) and peak memory beside the card's name and
+    power limit; the walls carry gloo's host copies and both ranks share
+    one card: not multi-card numbers. Every reading is logged before any
+    check."""
+    import shutil
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.models.api import get_model
+    from repro_torch.models.stack import tree_map
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    checks = []
+    t0 = time.perf_counter()
+    pipe_out, pipe_loss, pipe_digests = s8b2_pipe_reference(torch, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_ref = {}
+    for groups in sorted({g for _, _, g in S8B2_MOE_RUNS}):
+        run, _ = s8b2_moe_grads(torch, seed, groups)
+        loss, grads, routes = run()
+        moe_ref[groups] = (loss, s8b2_summary(torch, grads, "moe"), routes)
+        del run, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    wcfg = configs.get("whisper-tiny")
+    wone = s8b_train(torch, wcfg, seed, args=S8B2_WHISPER_ARGS)
+    w0 = get_model(wcfg).init_params(
+        torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    wupdate = s8b_param_err(torch, wone["params"], w0)
+    wref = tree_map(lambda t: t.cpu(), wone.pop("params"))
+    del w0
+    torch.cuda.empty_cache()
+    log(f"slice 8b-2 references on one card: {time.perf_counter() - t0:.1f}s"
+        f"; cgroup memory {cgroup_memory()}")
+    out_dir = Path(tempfile.mkdtemp(prefix="slice8b2_"))
+    try:
+        torch.save(wref, out_dir / "whisper_ref.pt")
+        t0 = time.perf_counter()
+        s8b2_spawn(seed, out_dir)
+        ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        log(f"slice 8b-2 gloo run: 2 ranks on cuda:0, "
+            f"{time.perf_counter() - t0:.1f}s with the ranks' start; "
+            "cells (seconds; each rank's peak host memory so far, GiB) "
+            + ", ".join(
+                f"{c} {ranks[0][c]['secs']:.1f}s "
+                f"{ranks[0][c]['host_peak']:.1f} / "
+                f"{ranks[1][c]['host_peak']:.1f}" for c in
+                ["AM", *[c for c, _, _ in S8B2_MOE_RUNS],
+                 *[c for c, _, _ in S8B2_WHISPER_RUNS]])
+            + f"; this process {host_peak_gib():.1f}; cgroup memory "
+            f"{cgroup_memory()}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        for cell, rec in res.items():
+            for line in rec.get("log", []):
+                log(f"slice 8b-2 rank {r}: {line}")
+
+    def per_rank(key, fmt):
+        return " / ".join(fmt(res[cell][key]) for res in ranks)
+
+    def busy_text(x):
+        return "not measured" if x is None else f"{x:.2f}"
+
+    def wall_text(rec):
+        return (f"{rec['wall']:.1f} ms ("
+                + ("one call, profiled and counted" if rec["profiled"] else
+                   "a second call alone") + ")")
+
+    # AM, the pipeline
+    cell = "AM"
+    m, mb, s = S8B2_PIPE
+    same = [torch.equal(res[cell]["out"], pipe_out) for res in ranks]
+    differ = [f"rank {r} {part}{path}" for r, res in enumerate(ranks)
+              for part, got in res[cell]["digests"].items()
+              for path, h in got.items()
+              if pipe_digests.get(part, {}).get(path) != h]
+    nleaves = sum(len(d) for res in ranks
+                  for d in res[cell]["digests"].values())
+    want = {"collective-permute": 2 * (m + S8B2_STAGES - 1),
+            "collective-broadcast": 2}
+    lrel = [abs(res[cell]["loss"] - pipe_loss) / abs(pipe_loss)
+            for res in ranks]
+    log(f"slice 8b-2 AM ({ARCH}, 24 layers as {S8B2_STAGES} stages over "
+        f"pod, M = {m} microbatches of {mb} x {s}; {smi}): outputs bit for "
+        f"bit the unpipelined stack's {same}; loss {ranks[0][cell]['loss']!r}"
+        f" vs {pipe_loss!r} (rel {max(lrel):.2e}); gradient leaves bit for "
+        f"bit the unpipelined stack's: {nleaves - len(differ)} of {nleaves}"
+        f" (sha256); collectives {per_rank('collectives', str)} (derived "
+        f"{want}); per rank wall "
+        + " / ".join(wall_text(res[cell]) for res in ranks)
+        + f", busy {per_rank('busy', busy_text)} ms (kernels of the "
+        f"profiled call, host copies left out), peak "
+        f"{per_rank('peak', lambda x: f'{x / 2**30:.2f}')} GiB; the "
+        f"permutes are send / recv of host copies (gloo on CUDA tensors)")
+    checks.append((all(same), "slice 8b-2 AM: the pipelined outputs differ "
+                   "from the unpipelined stack's"))
+    # each rank holds its own stage's leaves and every other leaf
+    complete = all(
+        set(res[cell]["digests"]) == {f"stage{r}", "other"}
+        and all(set(got) == set(pipe_digests[part])
+                for part, got in res[cell]["digests"].items())
+        for r, res in enumerate(ranks))
+    checks.append((max(lrel) == 0.0 and not differ and complete,
+                   f"slice 8b-2 AM: loss rel {lrel}, gradient leaves that "
+                   f"differ {differ} of {nleaves}, every leaf present "
+                   f"{complete}"))
+    for r, res in enumerate(ranks):
+        checks.append((res[cell]["collectives"] == want,
+                       f"slice 8b-2 AM: rank {r} issued "
+                       f"{res[cell]['collectives']}, not {want}"))
+
+    # AN, AN′, AO: the dbrx layer
+    b, s = S8B2_MOE_BATCH
+    for cell, dims, groups in S8B2_MOE_RUNS:
+        loss, summ, routes = moe_ref[groups]
+        r0, r1 = ranks[0][cell], ranks[1][cell]
+        got = s8b2_add([r0["summary"], r1["summary"]])
+        _, worst = s8b2_grad_errs(got, summ)
+        lrel = abs(r0["loss"] - loss) / abs(loss)
+        mine = (r0["routes"] if groups % dims[0] or dims[0] == 1 else
+                [torch.cat([a, c]) for a, c in zip(r0["routes"],
+                                                   r1["routes"])])
+        flips, total = s8b2_flips(mine, routes)
+        want = s8b2_moe_collectives(dims, groups, min(8, s))
+        path = ("manual" if dims[0] > 1 and groups % dims[0] == 0 else
+                "fallback" if dims[0] > 1 else "TP")
+        log(f"slice 8b-2 {cell} ({MOE_ARCH}, {S8B2_MOE_LAYERS} layer, "
+            f"(data, model) = {dims}, moe_groups {groups}, {path}; "
+            f"{b} x {s}; {smi}): loss {r0['loss']!r} / {r1['loss']!r} vs "
+            f"one rank {loss!r} (rel {lrel:.2e}, tol {S8B2_MOE_LOSS_RTOL}); "
+            f"gradients (norm, projection) worst {worst[0]:.2e}, "
+            f"{worst[1]:.2e} (tol {S8B2_MOE_GRAD_RTOL}); routing choices "
+            f"that differ from one rank: {flips} of {total}; collectives "
+            f"{r0['collectives']} / {r1['collectives']} (derived {want}); "
+            f"per rank wall {wall_text(r0)} / {wall_text(r1)}, busy "
+            + " / ".join("not measured" if x["busy"] is None else
+                         f"{x['busy']:.2f}" for x in (r0, r1))
+            + " ms (kernels of the profiled call, host copies left out), "
+            f"peak {r0['peak'] / 2**30:.2f} / "
+            f"{r1['peak'] / 2**30:.2f} GiB; the walls carry gloo's host "
+            "copies and both ranks share one card: not a multi-card number")
+        checks.append((r0["loss"] == r1["loss"] and lrel <= S8B2_MOE_LOSS_RTOL
+                       and max(worst) <= S8B2_MOE_GRAD_RTOL,
+                       f"slice 8b-2 {cell}: losses {r0['loss']}, "
+                       f"{r1['loss']} against {loss}, gradients {worst}"))
+        for r, res in enumerate((r0, r1)):
+            checks.append((res["collectives"] == want, f"slice 8b-2 {cell}: "
+                           f"rank {r} issued {res['collectives']}, not "
+                           f"{want}"))
+
+    # AP, AQ: whisper-tiny
+    flags = s8b_flags(args=S8B2_WHISPER_ARGS)
+    for cell, dims, compression in S8B2_WHISPER_RUNS:
+        r0, r1 = ranks[0][cell], ranks[1][cell]
+        rels = s8b_rel(r0["losses"], wone["losses"])
+        nrels = s8b_rel(r0["norms"], wone["norms"])
+        perr = r0["param_err"] / wupdate
+        if compression == "none":
+            ok = (max(rels) <= S8B_RTOL and max(nrels) <= S8B_NORM_RTOL
+                  and perr <= S8B_PARAM_RTOL)
+        else:
+            ok = (rels[0] <= S8B_EF_FIRST_RTOL and max(rels) <= S8B_EF_RTOL
+                  and max(nrels) <= S8B_EF_NORM_RTOL
+                  and perr <= S8B_EF_PARAM_RTOL)
+        want = s8b2_whisper_collectives(wcfg, dims, compression, flags.seq)
+        busy = ["not measured" if r["busy"] is None else
+                f"{r['busy']:.2f} ms" for r in (r0, r1)]
+        log(f"slice 8b-2 {cell} (whisper-tiny, {dims}, {compression}; "
+            f"{smi}): losses {r0['losses']} vs one rank {wone['losses']}, "
+            f"rel {', '.join(f'{x:.2e}' for x in rels)}; grad norms "
+            f"{r0['norms']} vs {wone['norms']}, rel "
+            f"{', '.join(f'{x:.2e}' for x in nrels)}; params {perr:.3e} of "
+            f"the one-rank update ({wupdate:.4f}); collectives a step "
+            f"{r0['collectives']} / {r1['collectives']} (derived {want}); "
+            f"per rank wall a step {r0['walls'][1]:.1f} / "
+            f"{r1['walls'][1]:.1f} ms (second step), busy {busy[0]} / "
+            f"{busy[1]} (third, profiled: kernels, host copies left out), "
+            f"peak {r0['peak'] / 2**30:.2f} / "
+            f"{r1['peak'] / 2**30:.2f} GiB; {flags.batch} x {flags.seq} "
+            "tokens a step over both ranks")
+        checks.append((ok and r0["losses"] == r1["losses"],
+                       f"slice 8b-2 {cell}: losses {r0['losses']} / "
+                       f"{r1['losses']}, norms {r0['norms']}, params {perr} "
+                       f"against the one-rank {wone['losses']}, "
+                       f"{wone['norms']}"))
+        for r, res in enumerate((r0, r1)):
+            checks.append((res["collectives"] == want, f"slice 8b-2 {cell}: "
+                           f"rank {r} issued {res['collectives']} in a "
+                           f"step, not {want}"))
     gc.collect()
     torch.cuda.empty_cache()
     for ok, msg in checks:
@@ -6960,6 +7749,11 @@ def main(argv=None) -> int:
                     "int8-EF leaf, the sharded trainer on NCCL at world "
                     "size 1 and on two gloo ranks on one card); prints no "
                     "result line")
+    ap.add_argument("--slice8b2-only", action="store_true",
+                    help="build, then only the slice 8b-2 phase (the "
+                    "pipeline over pod, MoE on a data mesh and under TP, "
+                    "whisper-tiny under TP and int8-EF, on two gloo ranks "
+                    "on one card); prints no result line")
     args = ap.parse_args(argv)
     if (SRC / "repro_torch" / "csrc").is_dir():
         use_bytecode_cache()
@@ -7000,6 +7794,13 @@ def main(argv=None) -> int:
         + ", ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
 
     rows = {}
+    if args.slice8b2_only:
+        t0 = time.perf_counter()
+        slice8b2_phase(torch, args.seed, log)
+        log(f"slice 8b-2 phase: {time.perf_counter() - t0:.1f}s")
+        (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
+        print(smi)
+        return 0
     if args.slice8b1_only:
         t0 = time.perf_counter()
         slice8b1_phase(torch, args.seed, log)
@@ -7146,6 +7947,8 @@ def main(argv=None) -> int:
     mark("slice 8a")
     slice8b1_phase(torch, args.seed, log)
     mark("slice 8b-1")
+    slice8b2_phase(torch, args.seed, log)
+    mark("slice 8b-2")
     examples_phase(log)
     mark("examples")
 

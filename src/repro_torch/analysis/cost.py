@@ -54,6 +54,7 @@ _C10D_KINDS = {
     "alltoall_": "all-to-all",
     "alltoall_base_": "all-to-all",
     "recv_": "collective-permute",
+    "broadcast_": "collective-broadcast",
 }
 
 
@@ -167,7 +168,10 @@ class CostCounter(TorchDispatchMode):
         if func.namespace == "c10d":
             kind = _C10D_KINDS.get(func._schema.name.split("::")[-1])
             if kind is not None:
-                self._coll[self._scope][kind] += _nbytes(out[0])
+                # recv_ returns only its Work: its bytes are the buffer
+                # it receives into
+                moved = out[0] if isinstance(out, (tuple, list)) else args[0]
+                self._coll[self._scope][kind] += _nbytes(moved)
                 self._coll_counts[kind] += 1
             return out
         if func.is_view:

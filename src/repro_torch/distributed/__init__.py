@@ -10,8 +10,8 @@ The mesh contract (the JAX package's):
 tensor-parallel axis (and the sequence-split axis for T1 decode attention,
 :mod:`repro_torch.core.attention`). The rules, the sequence split, the
 TP / FSDP train layers (``make_shard_fn``, ``shard_tree``,
-``gather_tree``) and the int8-EF pod hop are ported; the pipeline
-schedule is still to come (ROADMAP.md, slice 8b).
+``gather_tree``), the int8-EF pod hop and the GPipe schedule over
+``pod`` (:mod:`repro_torch.distributed.pipeline`) are ported.
 """
 from repro_torch.distributed.sharding import (  # noqa: F401
     P,

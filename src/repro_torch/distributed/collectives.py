@@ -27,14 +27,18 @@ functions over one of the mesh's groups; a group of one rank is skipped):
     over the FSDP axes, backward reduce-scatter (SUM) of the gradients;
   * :func:`mean_over` — the loss's mean over the batch axes.
 
-All-gathers are ``dist.all_gather`` into a list, and a reduce-scatter is
-a SUM ``all_reduce`` of which each rank keeps its slice, on every
-backend: gloo (on CPU tensors, and on CUDA tensors for ranks that share
+All-gathers are ``dist.all_gather_into_tensor`` into one buffer, and a
+reduce-scatter is a SUM ``all_reduce`` of which each rank keeps its
+slice, on every backend: gloo (on CPU tensors, and for ranks that share
 one card, which NCCL refuses) and NCCL run both, so one composition
-serves them all with the same bits, and no code picks by backend. The
-tensor forms (``all_gather_into_tensor``, ``reduce_scatter_tensor``) are
-not used. Every call packs its tensors into one buffer: one collective
-a call.
+serves them all with the same bits. Every call packs its tensors into
+one buffer: one collective a call. gloo runs a collective of CUDA
+tensors on a host copy that the port makes (:func:`on_host`; an
+all-reduce copies the result back in place, :func:`all_reduce_`), freed
+after the call: gloo's own staging would keep pinned buffers the size of
+the largest call cached, tens of GB a rank for a dbrx-132b layer's 9 GB
+FSDP gather. (A gather into a list would cost another copy of the whole
+output.)
 """
 from __future__ import annotations
 
@@ -111,7 +115,7 @@ def crosspod_psum_int8(grads: Any, err: Any, mesh, axis: str = "pod"):
     amax = torch.stack([torch.amax(torch.abs(c)) for c in corrected])
     inpod = _others(mesh, axis)
     if mesh.axes_size(inpod) > 1:
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=mesh.group(inpod))
+        all_reduce_(amax, mesh, inpod, op=dist.ReduceOp.MAX)
     scales = _scale_of(amax)
     codes = [_codes(c, scales[i]) for i, c in enumerate(corrected)]
     new_err = [c - dequantize_int8(q, scales[i])
@@ -148,6 +152,20 @@ def crosspod_allreduce_int8(mesh, grads: Any, err: Any, *,
 # ---------------------------------------------------------------------------
 
 
+def on_host(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The tensor a collective of ``mesh`` runs on for ``x``: a host copy
+    where the backend is gloo and ``x`` lies on the card, else ``x``."""
+    return x.cpu() if mesh.backend == "gloo" and x.is_cuda else x
+
+
+def all_reduce_(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM) -> None:
+    """``x`` reduced with ``op`` over the group of ``axes``, in place."""
+    buf = on_host(mesh, x)
+    dist.all_reduce(buf, op=op, group=mesh.group(axes))
+    if buf is not x:
+        x.copy_(buf)
+
+
 def all_gather_flat(xs: Sequence[torch.Tensor], mesh, axes) -> list:
     """Every rank's ``xs`` (one dtype) over the group of ``axes``, in
     group-rank order: a list (one entry a rank) of lists shaped like
@@ -157,8 +175,10 @@ def all_gather_flat(xs: Sequence[torch.Tensor], mesh, axes) -> list:
     if n == 1:
         bufs = [flat]
     else:
-        bufs = [torch.empty_like(flat) for _ in range(n)]
-        dist.all_gather(bufs, flat, group=mesh.group(axes))
+        src = on_host(mesh, flat)
+        out = src.new_empty(n * src.numel())
+        dist.all_gather_into_tensor(out, src, group=mesh.group(axes))
+        bufs = out.to(flat.device).view(n, -1).unbind(0)
     out = []
     for buf in bufs:
         parts, off = [], 0
@@ -175,7 +195,7 @@ def all_reduce_flat(xs: Sequence[torch.Tensor], mesh, axes) -> list:
     if mesh.axes_size(axes) == 1:
         return [x.clone() for x in xs]
     flat = torch.cat([x.reshape(-1) for x in xs])
-    dist.all_reduce(flat, group=mesh.group(axes))
+    all_reduce_(flat, mesh, axes)
     out, off = [], 0
     for x in xs:
         out.append(flat[off:off + x.numel()].view(x.shape))
@@ -296,7 +316,7 @@ def max_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     tensor (no gradient)."""
     out = x.detach().clone()
     if mesh.axes_size(axes) > 1:
-        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group(axes))
+        all_reduce_(out, mesh, axes, op=dist.ReduceOp.MAX)
     return out
 
 

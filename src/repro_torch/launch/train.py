@@ -24,8 +24,10 @@ gradients across pods as int8 codes with error feedback. The process
 groups follow ``--device``: NCCL on ``cuda`` (one card a rank, rank r on
 ``cuda:r``), gloo on ``cpu``; ``--backend gloo`` with ``--device cuda``
 puts ranks that share a card on it (rank r on ``cuda:r % cards``).
-Nothing falls back to another backend by itself. Families other than the
-dense one refuse a mesh whose ``model`` or ``pod`` size is above 1.
+Nothing falls back to another backend by itself. The recurrent families
+(``ssm``, ``hybrid``) refuse a mesh whose ``model`` or ``pod`` size is
+above 1; MoE routes over ``data``-size groups (``moe_groups``), each rank
+its own where they divide.
 
 Fault tolerance is live here: SIGTERM checkpoints and exits 0 (on a
 mesh, the command passes it to every rank, and the ranks agree to stop);

@@ -12,7 +12,8 @@ follow the JAX package.
   * ``prefill``: the decoder prompt with causal row 7 for self-attention
     and non-causal row 7 against the encoder's keys for
     cross-attention (Sq ≠ Sk); the self-attention KV and each layer's
-    cross-attention KV (``_cross_kv``) land in the cache in place.
+    cross-attention KV (``attention_qkv`` with ``kv_x``, no bias) land
+    in the cache in place.
   * ``decode_step``: decode attention (rows 3-4) over the self-attention
     cache, then again over the static cross-attention KV with every
     row's length the encoder's.
@@ -113,18 +114,6 @@ def encode(ctx: LayerCtx, params: Params,
     return L.norm(cfg, params["enc_norm"], x)
 
 
-def _cross_kv(ctx: LayerCtx, p_cross: Params, enc_out: torch.Tensor):
-    """One decoder layer's cross-attention keys and values from the
-    encoder output: (B, S_enc, HK, Dh) each, no rope."""
-    cfg = ctx.cfg
-    b, se, _ = enc_out.shape
-    k = ctx.matmul(enc_out, p_cross["wk"]).reshape(b, se, cfg.num_kv_heads,
-                                                   cfg.head_dim)
-    v = ctx.matmul(enc_out, p_cross["wv"]).reshape(b, se, cfg.num_kv_heads,
-                                                   cfg.head_dim)
-    return k, v
-
-
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
@@ -133,14 +122,14 @@ def _cross_kv(ctx: LayerCtx, p_cross: Params, enc_out: torch.Tensor):
 def dec_block(ctx: LayerCtx, p: Params, x, positions, enc_out):
     """The decoder's train block: causal self-attention, cross-attention
     against ``enc_out``'s keys and values (no rope), the MLP, each with
-    its residual. Returns (x, aux = 0)."""
+    its residual; under a mesh each tensor-parallel over ``model`` (the
+    embeddings and the norms replicated). Returns (x, aux = 0)."""
     cfg = ctx.cfg
     h = L.norm(cfg, p["attn_norm"], x)
     x = x + L.attention_block(ctx, p["attn"], h, positions)
     h = L.norm(cfg, p["cross_norm"], x)
-    ck, cv = _cross_kv(ctx, p["cross"], enc_out)
     x = x + L.attention_block(ctx, p["cross"], h, positions, causal=False,
-                              use_rope=False, kv_override=(ck, cv))
+                              use_rope=False, kv_x=enc_out)
     h = L.norm(cfg, p["mlp_norm"], x)
     x = x + L.mlp_block(ctx, p["mlp"], h)
     return x, tfm.no_aux(x)
@@ -204,14 +193,11 @@ def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict, *,
     def blk(p_i, xx, c_i):
         h = L.norm(cfg, p_i["attn_norm"], xx)
         q, k, v = L.attention_qkv(ctx, p_i["attn"], h, positions)
-        o = ops.attention_prefill(q, k, v, phi_cfg=ctx.phi_cfg, causal=True,
-                                  plan=ctx.plan).reshape(b, s, cfg.q_dim)
-        xx = xx + ctx.matmul(o, p_i["attn"]["wo"])
+        xx = xx + L.attention_out(ctx, p_i["attn"], q, k, v)
         h = L.norm(cfg, p_i["cross_norm"], xx)
-        xk, xv = _cross_kv(ctx, p_i["cross"], enc_out)
-        xx = xx + L.attention_block(ctx, p_i["cross"], h, positions,
-                                    causal=False, use_rope=False,
-                                    kv_override=(xk, xv))
+        q, xk, xv = L.attention_qkv(ctx, p_i["cross"], h, positions,
+                                    use_rope=False, kv_x=enc_out)
+        xx = xx + L.attention_out(ctx, p_i["cross"], q, xk, xv, causal=False)
         h = L.norm(cfg, p_i["mlp_norm"], xx)
         xx = xx + L.mlp_block(ctx, p_i["mlp"], h)
         tfm.write_prompt_kv(c_i, k, v)

@@ -120,7 +120,7 @@ class LayerCtx:
                 raise ValueError(
                     "decode_fusion='looped' with a sharded decode_attention_"
                     "fn: a CUDA graph cannot capture the gloo collectives of "
-                    "the sequence split (ROADMAP.md, slice 8b); use 'split' "
+                    "the sequence split (ROADMAP.md, slice 8b-3); use 'split' "
                     "or 'fused'")
             object.__setattr__(self, "graphs", LoopedDecode())
 
@@ -262,39 +262,50 @@ def embed_params(cfg: ModelConfig, gen, device) -> Params:
 
 
 def attention_qkv(ctx: LayerCtx, p: Params, x: torch.Tensor,
-                  positions: torch.Tensor, *, use_rope: bool = True):
+                  positions: torch.Tensor, *, use_rope: bool = True,
+                  kv_x: Optional[torch.Tensor] = None):
     """x: (B, S, D) -> q (B,S,HQ,Dh), k/v (B,S,HK,Dh), rope applied
-    unless ``use_rope=False``. Under a mesh, model-sharded (column-
-    parallel) projections give this rank's heads when every one of them
-    splits on whole heads (HQ and HK divisible over ``model``); where a
-    split cuts a head (qwen2-0.5b's 14 / 2 heads over ``model`` = 4), the
-    sharded outputs are all-gathered over ``model`` before the heads are
-    formed, and the attention that follows is replicated."""
+    unless ``use_rope=False``; with ``kv_x`` (B, Sk, D) the keys and
+    values are projected from it, without bias (cross-attention). Under a
+    mesh, model-sharded (column-parallel) projections give this rank's
+    heads when every one of them splits on whole heads (HQ and HK
+    divisible over ``model``); where a split cuts a head (qwen2-0.5b's
+    14 / 2 heads over ``model`` = 4), the sharded outputs are
+    all-gathered over ``model`` before the heads are formed, and the
+    attention that follows is replicated."""
     cfg = ctx.cfg
     b, s, _ = x.shape
-    q, k, v = _qkv_proj(ctx, p, x)
+    q, k, v = _qkv_proj(ctx, p, x, kv_x)
+    sk = s if kv_x is None else kv_x.shape[1]
     q = q.reshape(b, s, -1, cfg.head_dim)
-    k = k.reshape(b, s, -1, cfg.head_dim)
-    v = v.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, sk, -1, cfg.head_dim)
+    v = v.reshape(b, sk, -1, cfg.head_dim)
     if not use_rope:
         return q, k, v
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
 
-def _qkv_proj(ctx: LayerCtx, p: Params, x: torch.Tensor) -> list:
+def _qkv_proj(ctx: LayerCtx, p: Params, x: torch.Tensor,
+              kv_x: Optional[torch.Tensor] = None) -> list:
     cfg = ctx.cfg
+    cross = kv_x is not None
+    src = (x, x, x) if not cross else (x, kv_x, kv_x)
     parts = (("wq", "bq", cfg.q_dim, "act_qkv"),
              ("wk", "bk", cfg.kv_dim, "act_kv"),
              ("wv", "bv", cfg.kv_dim, "act_kv"))
     sharded = [ctx.model_sharded(p[w], -1, n) for w, _, n, _ in parts]
-    # one copy into the TP region for the sharded projections; a
-    # replicated one reads x itself (its input gradient is already whole)
-    xt = C.copy_to(x, ctx.mesh, _model(ctx)) if any(sharded) else x
+    # one copy into the TP region per input the sharded projections
+    # read; a replicated one reads its input itself (its gradient is
+    # already whole)
+    tp_in = {}
+    for inp, sh in zip(src, sharded):
+        if sh and id(inp) not in tp_in:
+            tp_in[id(inp)] = C.copy_to(inp, ctx.mesh, _model(ctx))
     outs = []
-    for (w, bias, n, role), sh in zip(parts, sharded):
-        y = ctx.matmul(xt if sh else x, p[w])
-        if cfg.qkv_bias:
+    for (w, bias, n, role), inp, sh in zip(parts, src, sharded):
+        y = ctx.matmul(tp_in[id(inp)] if sh else inp, p[w])
+        if cfg.qkv_bias and (w == "wq" or not cross):
             y = y + p[bias]
         if sh:
             check_shard(ctx, y, role, n)
@@ -313,23 +324,24 @@ def _qkv_proj(ctx: LayerCtx, p: Params, x: torch.Tensor) -> list:
 
 def attention_block(ctx: LayerCtx, p: Params, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
-                    use_rope: bool = True, kv_override=None) -> torch.Tensor:
-    """Full-sequence attention (an encoder, or cross-attention with
-    ``kv_override`` = the encoder's (k, v)) through the prefill kernel
-    (``ops.attention_prefill``, row 7), then the output projection.
-    x: (B, S, D) -> (B, S, D)."""
+                    use_rope: bool = True,
+                    kv_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (an encoder; cross-attention with
+    ``kv_x``, the encoder's output, whose keys and values
+    :func:`attention_qkv` projects) and its output projection
+    (:func:`attention_out`). x: (B, S, D) -> (B, S, D)."""
+    q, k, v = attention_qkv(ctx, p, x, positions, use_rope=use_rope,
+                            kv_x=kv_x)
+    return attention_out(ctx, p, q, k, v, causal=causal)
+
+
+def attention_out(ctx: LayerCtx, p: Params, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, *, causal: bool = True) -> torch.Tensor:
+    """q (B, S, H, Dh) against k / v (B, Sk, HK, Dh) through the prefill
+    kernel (``ops.attention_prefill``, row 7), then the output projection
+    (row-parallel under a mesh): (B, S, D)."""
     cfg = ctx.cfg
-    b, s, _ = x.shape
-    if kv_override is None:
-        q, k, v = attention_qkv(ctx, p, x, positions, use_rope=use_rope)
-    else:
-        q = ctx.matmul(x, p["wq"])
-        if cfg.qkv_bias:
-            q = q + p["bq"]
-        q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-        if use_rope:
-            q = rope(q, positions, cfg.rope_theta)
-        k, v = kv_override
+    b, s = q.shape[:2]
     o = ops.attention_prefill(q, k, v, phi_cfg=ctx.phi_cfg, causal=causal,
                               sliding_window=cfg.sliding_window,
                               plan=ctx.plan)

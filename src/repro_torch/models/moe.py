@@ -1,8 +1,12 @@
 """Token-choice top-k MoE (the grok-1 / dbrx family).
 
 The port of the JAX package's ``models/moe.py`` for serving and for
-training on one card (:func:`train_loss`: capacity-bounded routing, the
-load-balance aux in the loss). Each block
+training (:func:`train_loss`: capacity-bounded routing, the
+load-balance aux in the loss), on one card or on a mesh: routing local
+to each data rank where the groups divide over the data axes (the JAX
+package's ``_moe_block_manual``), across the global batch where they do
+not, and the experts tensor-parallel over ``model`` (:func:`moe_block`).
+Each block
 is the dense block's attention half (:mod:`repro_torch.models.transformer`,
 so the same kernels and fused stages run) followed by a routed expert MLP:
 
@@ -45,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import LayerCtx, Params
@@ -124,20 +129,64 @@ def capacity(tg: int, k: int, e: int, capacity_factor: float,
 
 def moe_block(ctx: LayerCtx, p: Params, x: torch.Tensor, *, groups: int = 1,
               capacity_factor: float = 1.25, zero_drop: bool = False):
-    """x (B, S, D) -> (out (B, S, D), the GShard load-balance aux)."""
+    """x (B, S, D) -> (out (B, S, D), the GShard load-balance aux).
+
+    Under a mesh (``ctx.mesh`` and ``ctx.rules``) x is this rank's rows
+    and ``groups`` counts the global batch's routing groups, as in the
+    JAX package. Where the data axes' ranks divide the groups, each rank
+    routes, slots, runs the experts and combines its own ``groups /
+    nshards`` groups of its own tokens (the JAX package's
+    ``_moe_block_manual``): no token crosses ranks, and the aux is this
+    rank's, whose mean over the data axes (the JAX package's ``pmean``)
+    is the loss's own mean over the batch axes
+    (``transformer.global_mean``). Otherwise the routing groups span the
+    global batch (the JAX package's GSPMD path): the rows are gathered
+    over the data axes (the backward pass sums each rank's part of the
+    gradient, then keeps this rank's rows), dispatched as on one card,
+    and this rank's rows kept. The experts' F over ``model`` runs
+    tensor-parallel (:func:`_dispatch_ffn_combine`)."""
     cfg = ctx.cfg
     assert cfg.moe is not None
     e, k = cfg.moe.num_experts, cfg.moe.num_experts_per_tok
     b, s, d = x.shape
-    t = b * s
+    data = _data_axes(ctx)
+    nshards = ctx.mesh.axes_size(data) if data else 1
+    t = b * s * nshards
     g = groups
     while t % g:
         g //= 2
     tg = t // g
     cap = capacity(tg, k, e, capacity_factor, zero_drop)
-    out, aux = _dispatch_ffn_combine(cfg, p, x.reshape(g, tg, d), e=e, k=k,
-                                     cap=cap)
-    return out.reshape(b, s, d), aux
+    tp = _expert_tp(ctx, p)
+    if g % nshards == 0:
+        out, aux = _dispatch_ffn_combine(
+            cfg, p, x.reshape(g // nshards, tg, d), e=e, k=k, cap=cap, tp=tp)
+        return out.reshape(b, s, d), aux
+    # the aux reads every rank's rows, so each rank's gradient of them is
+    # a part: summed over the ranks, then cut (FSDP's gather and backward)
+    whole = C.fsdp_gather([x], [0], ctx.mesh, data)[0]
+    out, aux = _dispatch_ffn_combine(cfg, p, whole.reshape(g, tg, d), e=e,
+                                     k=k, cap=cap, tp=tp)
+    rows = ctx.mesh.axes_coord(data) * b
+    return out.reshape(b * nshards, s, d)[rows:rows + b], aux
+
+
+def _data_axes(ctx: LayerCtx) -> tuple:
+    """The mesh axes the routing groups are cut over: the rules' batch
+    axes of the activations (no ``pod`` under int8-EF); () without a
+    mesh."""
+    if ctx.mesh is None or ctx.rules is None:
+        return ()
+    return tuple(a for a in ctx.rules.act_batch_axes
+                 if a in ctx.mesh.axis_names)
+
+
+def _expert_tp(ctx: LayerCtx, p: Params):
+    """(mesh, model axis) where this rank holds a slice of the experts'
+    F, else None."""
+    if ctx.model_sharded(p["w_down"], -2, ctx.cfg.d_ff):
+        return ctx.mesh, ctx.rules.model_axis
+    return None
 
 
 def route(router: torch.Tensor, xg: torch.Tensor, k: int):
@@ -154,8 +203,17 @@ def route(router: torch.Tensor, xg: torch.Tensor, k: int):
 
 
 def _dispatch_ffn_combine(cfg: ModelConfig, p: Params, xg: torch.Tensor, *,
-                          e: int, k: int, cap: int):
-    """Routing -> slotting -> expert FFN -> combine on (G, Tg, D) groups."""
+                          e: int, k: int, cap: int, tp=None):
+    """Routing -> slotting -> expert FFN -> combine on (G, Tg, D) groups.
+    With ``tp`` (mesh, axis) the expert matrices are this rank's slices
+    of F: the slots enter the products through ``copy_to``, and the
+    combined (G, Tg, D) rows, partial sums over F, leave through one
+    ``reduce_from``. The reduction commutes with the linear combine, so
+    it runs on the tokens, not on the k-times-capacity slots (the JAX
+    package's note on the down projection). The routing weights multiply
+    those partial rows: they too pass ``copy_to``, whose backward sums
+    their partial gradients over the axis. The router stays
+    replicated."""
     g, tg, d = xg.shape
     dev = xg.device
     probs, weights, idx = route(p["router"], xg, k)
@@ -191,6 +249,9 @@ def _dispatch_ffn_combine(cfg: ModelConfig, p: Params, xg: torch.Tensor, *,
     xs = xs.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
 
     # ---- expert FFN as batched products over the experts
+    if tp is not None:
+        xs = C.copy_to(xs, *tp)
+        slot_w = C.copy_to(slot_w, *tp)
     if "w_gate" in p:
         gate = torch.bmm(xs, p["w_gate"])
         up = torch.bmm(xs, p["w_up"])
@@ -218,6 +279,10 @@ def _dispatch_ffn_combine(cfg: ModelConfig, p: Params, xg: torch.Tensor, *,
     frac_tokens = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac_tokens * frac_probs)
+    if tp is not None:
+        # last: a remat recompute stops at the last tensor saved for the
+        # backward pass (the aux's), so it does not issue this again
+        out = C.reduce_from(out, *tp)
     return out, aux
 
 

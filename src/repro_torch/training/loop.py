@@ -30,6 +30,7 @@ import torch.distributed as dist
 
 from repro_torch.config import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives as C
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.data import Prefetcher, SyntheticTokens, device_batch
 from repro_torch.training.train_state import local_batch
@@ -97,8 +98,7 @@ def train_loop(
         if mesh is None:
             return guard.requested
         flag = torch.tensor([int(guard.requested)], device=dev)
-        dist.all_reduce(flag, op=dist.ReduceOp.MAX,
-                        group=mesh.group(mesh.axis_names))
+        C.all_reduce_(flag, mesh, mesh.axis_names, op=dist.ReduceOp.MAX)
         return bool(flag.item())
 
     # ---- restore or init ----

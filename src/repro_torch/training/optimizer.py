@@ -14,8 +14,8 @@ import math
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.distributed import collectives as C
 from repro_torch.models.stack import tree_leaves, tree_map
 
 
@@ -70,7 +70,7 @@ def global_norm(tree: Any, specs: Any = None, mesh=None) -> torch.Tensor:
                                                 specs))]
     total = torch.sum(torch.stack([s * w for s, w in zip(leaves, weights)]))
     if world > 1:
-        dist.all_reduce(total, group=mesh.group(mesh.axis_names))
+        C.all_reduce_(total, mesh, mesh.axis_names)
     return torch.sqrt(total)
 
 

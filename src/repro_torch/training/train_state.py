@@ -98,21 +98,17 @@ def check_trainable_plan(plan) -> None:
 
 
 def check_mesh_family(cfg, sizes: dict) -> None:
-    """The sharded trainer covers the dense family (``sizes``: the
-    mesh's axis sizes). Other families train on a data-only mesh (FSDP),
-    except MoE, whose routing groups and load-balance aux span the
-    global batch."""
-    if cfg.family != "dense" and (sizes.get("model", 1) > 1
-                                  or sizes.get("pod", 1) > 1):
+    """The sharded trainer covers the dense, MoE, encoder-decoder and VLM
+    families on any mesh (``sizes``: the mesh's axis sizes); the
+    recurrent ones (``ssm``, ``hybrid``) train on a data-only mesh
+    (FSDP)."""
+    if cfg.family in ("ssm", "hybrid") and (sizes.get("model", 1) > 1
+                                            or sizes.get("pod", 1) > 1):
         raise ValueError(
             f"family {cfg.family!r} on a mesh with model or pod above 1: "
-            "tensor parallelism and the int8-EF pod hop cover the dense "
-            "family only (ROADMAP.md, slice 8b: TP for the non-dense "
-            "families)")
-    if cfg.family == "moe" and sizes.get("data", 1) > 1:
-        raise ValueError(
-            "family 'moe' on a mesh with data above 1 needs the manual "
-            "dispatch (ROADMAP.md, slice 8b: MoE's _moe_block_manual)")
+            "tensor parallelism and the int8-EF pod hop do not cover the "
+            "recurrent families yet (ROADMAP.md, slice 8b-3: TP for ssm "
+            "and hybrid)")
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,7 @@ a rank left waiting in a collective raises instead of hanging.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
@@ -413,6 +414,132 @@ def task_ckpt(mesh, p):
                        for f in ("params", "m", "v")})
 
 
+# ---------------------------------------------------------------------------
+# The pipeline and the MoE / encoder-decoder meshes (tests/test_torch_
+# pipeline.py, tests/test_torch_moe_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def task_pipeline(mesh, p):
+    """``pipeline_forward`` over ``pod``: JAX's toy stack (4 layers adding
+    their weight) and the smoke model's dense blocks, each rank holding
+    its stage's slice of the :func:`split_stages` tree; the outputs,
+    this rank's stage gradients of ``sum(out * ct)`` and the gradient of
+    the microbatches, and the collectives of the call (forward and
+    backward)."""
+    import torch
+
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.core.plan import DEFAULT_PLAN
+    from repro_torch.distributed import P, shard_tree
+    from repro_torch.distributed import pipeline as PP
+    from repro_torch.models import stack
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.layers import LayerCtx
+    from repro_torch.models.stack import tree_map
+
+    def run(layers, xs, stage_fn, ct):
+        staged = PP.split_stages(layers, mesh.size("pod"))
+        local = shard_tree(staged, tree_map(lambda _: P("pod"), staged),
+                           mesh)
+        local = tree_map(lambda t: t.requires_grad_(True), local)
+        xs = xs.clone().requires_grad_(True)
+        with CostCounter() as cc:
+            out = PP.pipeline_forward(mesh, local, xs, stage_fn)
+            (out * ct).sum().backward()
+        return dict(out=out.detach().numpy(), xs_grad=xs.grad.numpy(),
+                    grads=_numpy(tree_map(lambda t: t.grad[0], local)),
+                    collectives=cc.collectives.counts)
+
+    def toy_stage(sp, x):
+        for i in range(sp["w"].shape[0]):
+            x = x + sp["w"][i]
+        return x
+
+    toy = {"w": torch.arange(4, dtype=torch.float32).reshape(4, 1) + 1.0}
+    out = {"toy": run(toy, torch.zeros(4, 2, 1), toy_stage,
+                      torch.ones(4, 2, 1))}
+    ctx = LayerCtx(p["cfg"], DEFAULT_PLAN.with_overrides(backend="torch"))
+    params = params_from_numpy(p["params"], device="cpu")
+    xs = torch.from_numpy(p["xs"])
+    positions = torch.arange(xs.shape[2])[None].expand(xs.shape[1], -1)
+
+    def dense_stage(sp, x):
+        return stack.run_stack(sp, x, lambda p_i, xx: T.block(
+            ctx, p_i, xx, positions)[0])
+
+    out["dense"] = run(params["layers"], xs, dense_stage,
+                       torch.from_numpy(p["ct"]))
+    return out
+
+
+@contextlib.contextmanager
+def routes_recorded():
+    """The MoE routing choices (each ``moe.route`` call's experts, as
+    numpy) made inside, in call order."""
+    from repro_torch.models import moe
+
+    routes, route = [], moe.route
+
+    def recording(*a, **kw):
+        res = route(*a, **kw)
+        routes.append(res[2].numpy().copy())
+        return res
+
+    moe.route = recording
+    try:
+        yield routes
+    finally:
+        moe.route = route
+
+
+def task_jobs(mesh, p):
+    """Each job of ``p["jobs"]`` on a mesh of its own over this world:
+    ``"grads"``, one loss and its gradients through the sharded train
+    step's ``make_grad_fn`` (the gradients gathered, rank 0), the MoE
+    routing choices of the forward pass (each rank's, layer by layer) and
+    the collectives (CostCounter); ``"train"``, :func:`task_train`."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.config import MeshConfig, RunConfig
+    from repro_torch.distributed import gather_tree, shard_tree
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.training.data import device_batch
+    from repro_torch.training.train_state import local_batch, make_grad_fn
+
+    out = []
+    for job in p["jobs"]:
+        shape, names = job["mesh"]
+        jmesh = make_mesh_from_config(MeshConfig(shape, names),
+                                      device="cpu")
+        if job["kind"] == "train":
+            out.append(task_train(jmesh, job))
+            continue
+        api, ctx, rules, specs = _train_setup(jmesh, job)
+        if job.get("moe_groups"):
+            ctx = dataclasses.replace(ctx, moe_groups=job["moe_groups"])
+        grads_fn = make_grad_fn(api, ctx, RunConfig(**job["run"]),
+                                mesh=jmesh)
+        params = shard_tree(params_from_numpy(job["params"], device="cpu"),
+                            specs.params, jmesh)
+        batch = local_batch(device_batch(job["batch"], "cpu"), rules, jmesh)
+        with routes_recorded() as routes, CostCounter() as cc:
+            loss, grads = grads_fn(params, batch)
+        whole = gather_tree(grads, specs.params, jmesh)
+        n = api.cfg.num_layers
+        first = mesh.axes_coord(mesh.axis_names) == 0
+        out.append(dict(loss=float(loss), routes=routes[:n],
+                        collectives=cc.collectives.counts,
+                        grads=_numpy(whole) if first else None))
+    return out
+
+
 TASKS = {"combine": task_combine, "attention": task_attention,
          "decode": task_decode, "train": task_train, "layer": task_layer,
-         "ckpt": task_ckpt, "int8": task_int8}
+         "ckpt": task_ckpt, "int8": task_int8,
+         "pipeline": task_pipeline, "jobs": task_jobs}

@@ -1,6 +1,6 @@
 """The port's Whisper family (repro_torch.models.encdec) and the layer
 pieces it brought (layernorm, the ungated GELU MLP, ``attention_block``
-with ``causal`` / ``use_rope`` / ``kv_override``, ``attention_decode_block``)
+with ``causal`` / ``use_rope`` / ``kv_x``, ``attention_decode_block``)
 against the JAX package's, on the CPU, at the smoke config (2 + 2 layers,
 d 128, 4 / 2 heads of 32, layernorm, GELU), with params carried across
 from the JAX package's ``init_params`` by ``params_from_numpy`` and
@@ -8,7 +8,8 @@ inputs made from a seed with numpy.
 
   * Module by module: the norm, the MLP, the encoder's non-causal
     attention block, cross-attention (Sq ≠ Sk, no rope), the one-token
-    decode block, ``encode`` and ``_cross_kv``.
+    decode block, ``encode`` and the cross keys and values
+    (``attention_qkv`` with ``kv_x``, against the JAX ``_cross_kv``).
   * ``prefill`` (with frames and with the engine's zero frames; logits
     and every cache leaf) and ``decode_step``.
   * The engine end to end: greedy tokens equal to the JAX engine's (f32,
@@ -85,7 +86,7 @@ def test_layernorm_and_gelu_mlp_match_reference(dtype):
 def test_attention_block_matches_reference(dtype, kind):
     """The encoder's non-causal self-attention (rope), and
     cross-attention: 24 decoder rows against 96 encoder rows, no rope,
-    the keys and values given."""
+    the keys and values projected from the encoder rows."""
     jcfg, tcfg, jp, tp, jctx, tctx = _setup(dtype)
     jl, tl = layer0(jp, tp)
     jx, tx = inputs((2, 24, tcfg.d_model), dtype, 2)
@@ -98,7 +99,9 @@ def test_attention_block_matches_reference(dtype, kind):
     else:
         je, te = inputs((2, ENC, tcfg.d_model), dtype, 3)
         jkv = jencdec._cross_kv(jctx, jl["cross"], je)
-        tkv = encdec._cross_kv(tctx, tl["cross"], te)
+        tkv = TL.attention_qkv(tctx, tl["cross"], tx,
+                               torch.from_numpy(pos.copy()), use_rope=False,
+                               kv_x=te)[1:]
         for a, b in zip(tkv, jkv):
             close(a, b, dtype)
         want = JL.attention_block(jctx, jl["cross"], jx, jnp.asarray(pos),
@@ -106,7 +109,7 @@ def test_attention_block_matches_reference(dtype, kind):
                                   kv_override=jkv)
         got = TL.attention_block(tctx, tl["cross"], tx,
                                  torch.from_numpy(pos.copy()), causal=False,
-                                 use_rope=False, kv_override=tkv)
+                                 use_rope=False, kv_x=te)
     close(got, want, dtype)
 
 

@@ -499,13 +499,14 @@ def test_cli_trains_on_a_mesh(flags, tmp_path):
 
 @pytest.mark.parametrize("arch,flags", [
     ("rwkv6-1.6b", ["--mesh", "1x2"]),
-    ("whisper-tiny", ["--devices", "2"]),
-    ("dbrx-132b", ["--mesh", "2x1"]),
+    ("hymba-1.5b", ["--devices", "2"]),
+    ("rwkv6-1.6b", ["--mesh", "2x1x1"]),
     ("hymba-1.5b", ["--mesh", "2x1x1", "--grad-compression", "int8_ef"])])
 def test_cli_refuses_other_families_on_model_or_pod(arch, flags):
-    """A family other than the dense one raises before any rank starts
-    when ``model`` or ``pod`` is above 1 (MoE on data too), naming the
-    slice that ports it."""
+    """A recurrent family (ssm, hybrid) raises before any rank starts
+    when ``model`` or ``pod`` is above 1, naming the slice that ports it
+    (the MoE and encoder-decoder families train there:
+    ``tests/test_torch_moe_mesh.py``)."""
     with pytest.raises(ValueError, match="slice 8b"):
         cli.main(["--smoke", "--device", "cpu", "--arch", arch, *flags])
 
