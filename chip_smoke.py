@@ -15,6 +15,7 @@
     python3 chip_smoke.py --slice8a-only    # build, then only phase 10
     python3 chip_smoke.py --slice8b1-only   # build, then only phase 11
     python3 chip_smoke.py --slice8b2-only   # build, then only phase 12
+    python3 chip_smoke.py --slice8b3-only   # build, then only phase 13
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -234,9 +235,20 @@
    int8-EF against the one-rank run; the collectives of each run
    (CostCounter) against the count derived from the code, each rank's
    wall, busy and peak memory.
-13. The examples (``examples/*_torch.py``) at full width in three
+13. Slice 8b-3a (``slice8b3_phase``, the "torch" plan): the recurrent
+   families on a mesh, rwkv6-1.6b and hymba-1.5b at their published
+   widths and FAMILY_LAYERS' depth in f32, 2 steps of 8 x 512 on two
+   gloo ranks sharing this card: AR / AT at (data, model) = (1, 2), tensor-parallel
+   (RWKV6's WKV heads, Hymba's SSM heads each rank's own; Hymba's 25 / 5
+   attention heads gathered), AS / AU at (pod, data, model) = (2, 1, 1)
+   with int8-EF: losses, grad norms and final params against the
+   one-card run under phase 11's bounds, AR / AT's first gradients of
+   the replicated leaves each rank cuts to its heads (and Hymba's w_bc)
+   against the one-card run's, the collectives of a step against the
+   count derived from the code, each rank's wall, busy and peak memory.
+14. The examples (``examples/*_torch.py``) at full width in three
    subprocesses at once; fails if any exits non-zero.
-14. Prints the card's name and power limit, one JSON line describing every
+15. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Exits non-zero, printing no result line, without CUDA, outside the repo,
@@ -6441,23 +6453,76 @@ def s8b_flags(compression="none", seed=0, args=None):
                                             str(seed)])
 
 
+def s8b_layer_collectives(cfg, m):
+    """(all-reduces, all-gathers) of one layer of a train step at model
+    m > 1 (remat on), derived from the code (``models/layers.py``,
+    ``ssm.py``, ``hybrid.py``). Forward, a row-parallel product's
+    all-reduce; backward, one all-reduce a copy into the TP region; the
+    remat recompute re-issues the forward's collectives up to the last
+    saved tensor (not the MLP's: it feeds none). Attention: wo, the copy,
+    wo again; where the heads do not split evenly, the projections'
+    all-gather (forward, again in the recompute) and the cut before wo's
+    (backward). MLP: w_down, the copy. RWKV6 on whole heads a rank: w_o,
+    the channel mix's w_v and its receptance's all-gather (each again
+    in the recompute); backward the copies of the time mix's x, its mus
+    and the decay LoRA's hidden, the channel mix's x and mus, and the
+    cut of the replicated leaves (an all-gather); where a head is cut,
+    the projections' all-gather (and again) and the cut before w_o
+    instead of the hidden's copy and the leaves' cut. Hymba's SSM on
+    whole heads: w_out (and again), w_bc's all-gather (and again) and
+    its reduce-scatter (an all-reduce; a whole w_bc: its output's copy),
+    the copy of x, the cut of a_log / d_skip; where a head is cut, the
+    projections' all-gather (and again) and the cut before w_out instead
+    of w_bc's sum and the leaves' cut."""
+    def attention():
+        return 3, 3 if cfg.num_heads % m or cfg.num_kv_heads % m else 0
+
+    if cfg.family == "ssm":
+        return (9, 3) if (cfg.d_model // cfg.ssm.head_dim) % m == 0 \
+            else (8, 5)
+    ar, ag = attention()
+    if cfg.family == "hybrid":
+        hm = cfg.ssm.expand * cfg.d_model // 64     # hybrid.SSM_HEAD
+        bc_cut = (2 * cfg.ssm.state_size) % m == 0
+        sr, sg = (4, 1 + 2 * bc_cut) if hm % m == 0 else (3, 3)
+        return ar + 2 + sr, ag + sg
+    return ar + 2, ag
+
+
+def s8b_dtype_groups(cfg, dims, compression):
+    """The dtypes of the leaves some FSDP axis cuts, and of the others
+    (each group one FSDP gather / one batch sum), under the rules the
+    train step keeps on ``dims``."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.distributed import make_rules
+    from repro_torch.models.api import get_model
+    from repro_torch.models.stack import tree_leaves
+    from repro_torch.training.train_state import _fsdp_dim
+
+    plain = compression == "none"
+    rules = make_rules(MeshConfig(dims, s8b_names(dims)),
+                       fsdp_over_pod=plain, act_over_pod=plain)
+    meta = get_model(cfg).init_params(device="meta")
+    pairs = list(zip(tree_leaves(meta),
+                     tree_leaves(rules.param_spec_tree(meta))))
+    return ({t.dtype for t, sp in pairs if _fsdp_dim(sp, "model") is not None},
+            {t.dtype for t, sp in pairs if _fsdp_dim(sp, "model") is None})
+
+
 def s8b_collectives(cfg, dims, compression, seq):
     """The collectives of one sharded train step, by kind, derived from
     the code (``training/train_state.py``, ``models/layers.py``; the
-    "torch" plan, remat on, bf16 params: one dtype group). f: the FSDP
-    group (pod and data; data only under int8-EF), m: model. With f > 1:
-    the FSDP all-gather, its reduce-scatter (an all-reduce), the loss's
-    batch mean and the replicated leaves' batch sum. With m > 1: the
-    embedding's all-reduce; two a layer forward (wo, w_down) and two
-    backward (the copies into the TP region); in the backward pass the
-    remat recompute re-issues each layer's attention all-reduce (it
-    stops at the last saved tensor, which the MLP's all-reduce feeds
-    not); each of the nc loss chunks two forward (max; exponent sum with
-    the label's logit), two again recomputed, one backward (the head's
-    copy); where the heads do not split evenly, three all-gathers a
-    layer. Over more than one rank the global norm; int8-EF across pods:
-    the codes' and the scales' all-gathers and the loss's pod mean, and
-    the leaves' maxima inside a pod of more than one rank."""
+    "torch" plan, remat on). f: the FSDP group (pod and data; data only
+    under int8-EF), m: model. With f > 1: an FSDP all-gather and its
+    reduce-scatter (an all-reduce) a dtype of the FSDP-cut leaves, the
+    loss's batch mean and one batch sum a dtype of the other leaves.
+    With m > 1: the embedding's all-reduce, each layer's
+    (``s8b_layer_collectives``), each of the nc loss chunks two forward
+    (max; exponent sum with the label's logit), two again recomputed,
+    one backward (the head's copy). Over more than one rank the global
+    norm; int8-EF across pods: the codes' and the scales' all-gathers
+    and the loss's pod mean, and the leaves' maxima inside a pod of more
+    than one rank."""
     sizes = dict(zip(s8b_names(dims), dims))
     m = sizes["model"]
     ef = compression == "int8_ef" and sizes.get("pod", 1) > 1
@@ -6465,12 +6530,13 @@ def s8b_collectives(cfg, dims, compression, seq):
     nl, nc = cfg.num_layers, min(8, seq)
     ar = ag = 0
     if f > 1:
-        ag += 1
-        ar += 3
+        cut, rest = s8b_dtype_groups(cfg, dims, compression)
+        ag += len(cut)
+        ar += len(cut) + 1 + len(rest)
     if m > 1:
-        ar += 1 + 5 * nl + 5 * nc
-        if cfg.num_heads % m or cfg.num_kv_heads % m:
-            ag += 3 * nl
+        lar, lag = s8b_layer_collectives(cfg, m)
+        ar += 1 + lar * nl + 5 * nc
+        ag += lag * nl
     world = 1
     for d in dims:
         world *= d
@@ -6486,7 +6552,7 @@ def s8b_collectives(cfg, dims, compression, seq):
 
 def s8b_train(torch, cfg, seed, mesh=None, compression="none",
               on_step=None, args=None):
-    """S8B_STEPS steps of ``cfg`` (params from ``seed``, the batches
+    """``flags.steps`` steps of ``cfg`` (params from ``seed``, the batches
     ``SyntheticTokens`` 0.. from ``seed``: the CLI's on ``args``,
     S8B_ARGS by default: qwen2-0.5b) on the "torch"
     plan, set up as the CLI sets it up (``train_state.mesh_setup``,
@@ -6515,7 +6581,7 @@ def s8b_train(torch, cfg, seed, mesh=None, compression="none",
     source = SyntheticTokens(cfg, ShapeConfig("s8b", flags.seq, flags.batch,
                                               "train"), seed=seed)
     losses, norms = [], []
-    for i in range(S8B_STEPS):
+    for i in range(flags.steps):
         batch = device_batch(source.batch_at(i), "cuda")
         if mesh is not None:
             batch = local_batch(batch, rules, mesh)
@@ -7266,20 +7332,8 @@ def s8b2_moe_collectives(dims, groups, nc):
     recompute (which stops at the aux, the last tensor saved, before the
     combine's all-reduce); each loss chunk two forward, two recomputed,
     one backward (the head's copy)."""
-    from repro_torch.config import MeshConfig
-    from repro_torch.distributed import make_rules
-    from repro_torch.models.api import get_model
-    from repro_torch.models.stack import tree_leaves
-    from repro_torch.training.train_state import _fsdp_dim
-
     cfg = s8b2_dbrx()
-    rules = make_rules(MeshConfig(dims, ("data", "model")))
-    meta = get_model(cfg).init_params(device="meta")
-    specs = tree_leaves(rules.param_spec_tree(meta))
-    cut = {t.dtype for t, sp in zip(tree_leaves(meta), specs)
-           if _fsdp_dim(sp, "model") is not None}
-    rest = {t.dtype for t, sp in zip(tree_leaves(meta), specs)
-            if _fsdp_dim(sp, "model") is None}
+    cut, rest = s8b_dtype_groups(cfg, dims, "none")
     f, m = dims
     nl = cfg.num_layers
     ar = ag = 0
@@ -7674,6 +7728,318 @@ def slice8b2_phase(torch, seed, log):
         check(ok, msg)
 
 
+# slice 8b-3a: tensor parallelism and the int8-EF pod hop for the recurrent
+# families (two gloo ranks on the card, the "torch" plan), at their
+# published widths and FAMILY_LAYERS' depth, phase 11's batch (8 x 512, lr
+# 1e-3, remat) and bounds, S8B3_STEPS steps: the phase took 102 s with
+# phase 11's 3 (limit 100 s), and at the third step the one-card rwkv6-1.6b
+# run diverges (loss 11.6 -> 23.7) and the grad norms of AR, AS and AU
+# with it (8.2e-2, 3.8e-2, 0.104 from the one-card run's; PERF.md
+# section 6, PR 33)
+S8B3_STEPS = 2
+# (cell, arch, mesh, gradient compression)
+S8B3_RUNS = (("AR", "rwkv6-1.6b", (1, 2), "none"),
+             ("AS", "rwkv6-1.6b", (2, 1, 1), "int8_ef"),
+             ("AT", "hymba-1.5b", (1, 2), "none"),
+             ("AU", "hymba-1.5b", (2, 1, 1), "int8_ef"))
+# the replicated leaves each model rank cuts to its own heads (their
+# gradients summed over model by the cut's backward), and Hymba's w_bc,
+# shared by every head: their first gradients at model 2 against the
+# one-card run's, the norm's relative error and the projection's error
+# (s8b2_grad_errs), within phase 12's bound for AN-AO
+S8B3_LEAVES = {"rwkv6-1.6b": ("tm", ("decay_A", "decay_B", "decay_base",
+                                     "bonus_u", "ln_out", "mu_w")),
+               "hymba-1.5b": ("ssm", ("a_log", "d_skip", "w_bc"))}
+S8B3_GRAD_RTOL = S8B2_MOE_GRAD_RTOL
+# the cells train in f32: in bf16 the RWKV6 gradient is mostly rounding
+# (the phase logs the one-card bf16 run's first leaf gradients against the
+# f32 ones), and with S8B3_DTYPE = "bfloat16" the sharded run's first grad
+# norm read 0.35 from the one-card run's (bonus_u's 0.36) on the card;
+# in f32 the same TP gradients agree to 4.9e-4 (bonus_u; PERF.md section
+# 6, PR 33)
+S8B3_DTYPE = "float32"
+S8B3_TIMEOUT = 300                    # seconds, the gloo run of two ranks
+
+
+def s8b3_config(arch, dtype=S8B3_DTYPE):
+    """``arch`` at its published widths and FAMILY_LAYERS' depth, in
+    ``dtype``."""
+    import dataclasses
+
+    from repro_torch import configs
+
+    return dataclasses.replace(configs.get(arch),
+                               num_layers=FAMILY_LAYERS[arch],
+                               param_dtype=dtype, activation_dtype=dtype)
+
+
+def s8b3_args(arch):
+    return ["--arch", arch, "--steps", str(S8B3_STEPS), *S8B_ARGS[4:]]
+
+
+def s8b3_leaf_grads(torch, arch, seed, mesh=None, dtype=S8B3_DTYPE):
+    """The first train step's gradients (``make_grad_fn``, the CLI's
+    setup on S8B_ARGS' batch 0, params from ``seed`` in ``dtype``) of
+    the leaves of S8B3_LEAVES, summarised as ``s8b2_summary`` does (this
+    rank's part under ``mesh``)."""
+    from repro_torch.distributed import shard_tree
+    from repro_torch.launch.train import run_config
+    from repro_torch.models.api import get_model
+    from repro_torch.training.train_state import (local_batch, make_grad_fn,
+                                                  mesh_setup)
+
+    cfg = s8b3_config(arch, dtype)
+    api = get_model(cfg)
+    flags = s8b_flags(args=s8b3_args(arch), seed=seed)
+    ctx, rules, specs = mesh_setup(api, mesh)
+    grads_fn = make_grad_fn(api, ctx, run_config(flags), mesh=mesh)
+    params = api.init_params(torch.Generator(device="cuda").manual_seed(
+        seed), device="cuda")
+    if mesh is not None:
+        params = shard_tree(params, specs.params, mesh)
+    batch = s8b2_batch(cfg, seed, flags.batch, flags.seq)
+    if mesh is not None:
+        batch = local_batch(batch, rules, mesh)
+    _, grads = grads_fn(params, batch)
+    part, names = S8B3_LEAVES[arch]
+
+    def pick(tree):
+        return {"layers": {part: {k: tree["layers"][part][k]
+                                  for k in names}}}
+
+    return s8b2_summary(torch, pick(grads), "s8b3", mesh,
+                        None if specs is None else pick(specs.params))
+
+
+def slice8b3_rank(rank, world, out_dir, seed):
+    """One rank of the slice 8b-3a gloo run (a process of its own on
+    cuda:0): AR, AS, AT, AU, each on a mesh of its own over one world of
+    two ranks; writes ``rank<r>.pt``: each cell's leaf gradients (at
+    model 2), losses, grad norms, the distance of its final params from
+    the one-card run's (rank 0), the collectives and the device busy of
+    its first step (counted and profiled: kernels, host copies left
+    out), the wall of its second, the peak memory and the cell's
+    seconds."""
+    import datetime
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.mesh import make_mesh_from_config
+
+    out_dir = Path(out_dir)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out_dir / "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=S8B3_TIMEOUT // 2))
+    res = {}
+    try:
+        for cell, arch, dims, compression in S8B3_RUNS:
+            t0 = time.perf_counter()
+            rec = res[cell] = {}
+            mesh = make_mesh_from_config(
+                MeshConfig(dims, s8b_names(dims)), device="cuda",
+                backend="gloo")
+            if dict(zip(s8b_names(dims), dims))["model"] > 1:
+                rec["grads"] = s8b3_leaf_grads(torch, arch, seed, mesh)
+                torch.cuda.empty_cache()
+
+            def on_step(i, run_step):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if i == 0:
+                    with CostCounter() as cc:
+                        rec["busy"] = tick_busy_ms(
+                            torch, run_step,
+                            rec.setdefault("log", []).append,
+                            tag=f"slice8b3_{cell}_rank{rank}", cpu=False,
+                            host_copies=False)
+                    rec["collectives"] = dict(cc.collectives.counts)
+                else:
+                    run_step()
+                torch.cuda.synchronize()
+                rec.setdefault("walls", []).append(
+                    1e3 * (time.perf_counter() - t1))
+
+            torch.cuda.reset_peak_memory_stats()
+            out = s8b_train(torch, s8b3_config(arch), seed, mesh,
+                            compression, on_step, args=s8b3_args(arch))
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            rec.update(losses=out["losses"], norms=out["norms"])
+            if rank == 0:
+                ref = torch.load(out_dir / f"ref_{arch}.pt",
+                                 weights_only=True)
+                rec["param_err"] = s8b_param_err(torch, out["params"], ref)
+                del ref
+            del out
+            torch.cuda.empty_cache()
+            rec["secs"] = time.perf_counter() - t0
+            print(f"{cell} {rec['secs']:.1f}s", flush=True)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, out_dir / f"rank{rank}.pt")
+
+
+def s8b3_spawn(seed, out_dir, world=2):
+    """The slice 8b-3a gloo ranks as subprocesses, within S8B3_TIMEOUT."""
+    import os
+
+    from repro_torch.launch.mesh import run_ranks
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    logs = [open(out_dir / f"rank{r}.out", "w") for r in range(world)]
+    try:
+        codes = run_ranks(
+            [[sys.executable, "-c", f"import chip_smoke; chip_smoke."
+              f"slice8b3_rank({r}, {world}, {str(out_dir)!r}, {seed})"]
+             for r in range(world)], env=env, cwd=str(ROOT),
+            timeout=S8B3_TIMEOUT, outputs=logs)
+    finally:
+        for f in logs:
+            f.close()
+    check(codes == [0] * world, "slice 8b-3a: gloo ranks exited "
+          f"{codes}: " + " ".join(
+              f"--- rank {r}: {(out_dir / f'rank{r}.out').read_text()[-2000:]}"
+              for r in range(world)))
+
+
+def slice8b3_phase(torch, seed, log):
+    """Slice 8b-3a on the card (the "torch" plan: no kernel of the table
+    runs): the recurrent families on a mesh. The references first, on
+    one card in this process: S8B3_STEPS steps of rwkv6-1.6b and of
+    hymba-1.5b (published widths, FAMILY_LAYERS' depth, f32, 8 x 512)
+    and their first gradients of S8B3_LEAVES, logged beside the same
+    gradients in bf16. Then two gloo ranks on cuda:0
+    (subprocesses, spawned once) run S8B3_RUNS: AR / AT at (data, model)
+    = (1, 2), AS / AU at (pod, data, model) = (2, 1, 1) with int8-EF.
+    Losses, grad norms and final params against the one-card run under
+    phase 11's bounds (S8B_RTOL, S8B_NORM_RTOL, S8B_PARAM_RTOL; int8-EF
+    the S8B_EF_ ones), the ranks' losses alike; at model 2 the leaf
+    gradients within S8B3_GRAD_RTOL; the collectives of a step against
+    ``s8b_collectives``; each rank's wall (second step), busy (first,
+    profiled: kernels, host copies left out) and peak memory beside the
+    card's name and power limit. The walls carry gloo's host copies and
+    both ranks share one card: not multi-card numbers. Every reading is
+    logged before any check."""
+    import shutil
+    import tempfile
+
+    from repro_torch.models.api import get_model
+    from repro_torch.models.stack import tree_map
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    checks = []
+    out_dir = Path(tempfile.mkdtemp(prefix="slice8b3_"))
+    try:
+        t0 = time.perf_counter()
+        one, update, grads, bf16 = {}, {}, {}, {}
+        for arch in S8B3_LEAVES:
+            cfg = s8b3_config(arch)
+            one[arch] = s8b_train(torch, cfg, seed, args=s8b3_args(arch))
+            p0 = get_model(cfg).init_params(
+                torch.Generator(device="cuda").manual_seed(seed),
+                device="cuda")
+            update[arch] = s8b_param_err(torch, one[arch]["params"], p0)
+            del p0
+            torch.save(tree_map(lambda t: t.cpu(),
+                                one[arch].pop("params")),
+                       out_dir / f"ref_{arch}.pt")
+            grads[arch] = s8b3_leaf_grads(torch, arch, seed)
+            # the yardstick of bf16 rounding: the same first gradients
+            # on one card in bf16 (params the f32 ones rounded)
+            bf16[arch] = s8b2_grad_errs(s8b3_leaf_grads(
+                torch, arch, seed, dtype="bfloat16"), grads[arch])[0]
+            gc.collect()
+            torch.cuda.empty_cache()
+        log(f"slice 8b-3a references on one card: "
+            f"{time.perf_counter() - t0:.1f}s")
+        for arch, errs in bf16.items():
+            log(f"slice 8b-3a {arch} one card, the first gradients in bf16 "
+                f"against {S8B3_DTYPE} (norm, projection; {smi}): "
+                + ", ".join(f"{k.rsplit('/', 1)[-1]} {e[0]:.2e} {e[1]:.2e}"
+                            for k, e in errs.items()))
+        t0 = time.perf_counter()
+        s8b3_spawn(seed, out_dir)
+        ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        log(f"slice 8b-3a gloo run: 2 ranks on cuda:0, "
+            f"{time.perf_counter() - t0:.1f}s with the ranks' start; cells "
+            + ", ".join(f"{c} {ranks[0][c]['secs']:.1f}s"
+                        for c, _, _, _ in S8B3_RUNS))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        for cell, rec in res.items():
+            for line in rec.get("log", []):
+                log(f"slice 8b-3a rank {r}: {line}")
+    flags = s8b_flags(args=S8B_ARGS)
+    for cell, arch, dims, compression in S8B3_RUNS:
+        cfg = s8b3_config(arch)
+        r0, r1 = ranks[0][cell], ranks[1][cell]
+        rels = s8b_rel(r0["losses"], one[arch]["losses"])
+        nrels = s8b_rel(r0["norms"], one[arch]["norms"])
+        perr = r0["param_err"] / update[arch]
+        if compression == "none":
+            ok = (max(rels) <= S8B_RTOL and max(nrels) <= S8B_NORM_RTOL
+                  and perr <= S8B_PARAM_RTOL)
+        else:
+            ok = (rels[0] <= S8B_EF_FIRST_RTOL and max(rels) <= S8B_EF_RTOL
+                  and max(nrels) <= S8B_EF_NORM_RTOL
+                  and perr <= S8B_EF_PARAM_RTOL)
+        want = s8b_collectives(cfg, dims, compression, flags.seq)
+        busy = ["not measured" if r["busy"] is None else
+                f"{r['busy']:.2f} ms" for r in (r0, r1)]
+        leaves = ""
+        if "grads" in r0:
+            errs, worst = s8b2_grad_errs(
+                s8b2_add([r0["grads"], r1["grads"]]), grads[arch])
+            leaves = (
+                "; first gradients of the leaves cut to each rank's heads "
+                "(norm, projection) " + ", ".join(
+                    f"{k.rsplit('/', 1)[-1]} {e[0]:.2e} {e[1]:.2e}"
+                    for k, e in errs.items())
+                + f" (tol {S8B3_GRAD_RTOL})")
+            checks.append((max(worst) <= S8B3_GRAD_RTOL,
+                           f"slice 8b-3a {cell}: leaf gradients {errs}"))
+        log(f"slice 8b-3a {cell} ({arch}, {cfg.num_layers} layers, "
+            f"{cfg.param_dtype}, {dims}, {compression}; {smi}): losses {r0['losses']} vs one card "
+            f"{one[arch]['losses']}, rel {', '.join(f'{x:.2e}' for x in rels)}"
+            f"; grad norms {r0['norms']} vs {one[arch]['norms']}, rel "
+            f"{', '.join(f'{x:.2e}' for x in nrels)}; params {perr:.3e} of "
+            f"the one-card update ({update[arch]:.4f}){leaves}; collectives "
+            f"a step {r0['collectives']} / {r1['collectives']} (derived "
+            f"{want}); per rank wall a step {r0['walls'][1]:.1f} / "
+            f"{r1['walls'][1]:.1f} ms (second step; first "
+            f"{r0['walls'][0]:.1f} / {r1['walls'][0]:.1f} counted and "
+            f"profiled), busy {busy[0]} / {busy[1]} (first, profiled: "
+            f"kernels, host copies left out), peak "
+            f"{r0['peak'] / 2**30:.2f} / {r1['peak'] / 2**30:.2f} GiB; "
+            f"{flags.batch} x {flags.seq} tokens a step over both ranks; the "
+            "walls carry gloo's host copies and both ranks share one card: "
+            "not a multi-card number")
+        checks.append((ok and r0["losses"] == r1["losses"],
+                       f"slice 8b-3a {cell}: losses {r0['losses']} / "
+                       f"{r1['losses']}, norms {r0['norms']}, params {perr} "
+                       f"against the one-card {one[arch]['losses']}, "
+                       f"{one[arch]['norms']}"))
+        for r, res in enumerate((r0, r1)):
+            checks.append((res["collectives"] == want, f"slice 8b-3a {cell}:"
+                           f" rank {r} issued {res['collectives']} in a "
+                           f"step, not {want}"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for ok, msg in checks:
+        check(ok, msg)
+
+
 def examples_phase(log):
     """The port's examples on the card (qwen2-0.5b's published widths),
     three subprocesses at once; fails if any exits non-zero."""
@@ -7749,6 +8115,10 @@ def main(argv=None) -> int:
                     "int8-EF leaf, the sharded trainer on NCCL at world "
                     "size 1 and on two gloo ranks on one card); prints no "
                     "result line")
+    ap.add_argument("--slice8b3-only", action="store_true",
+                    help="build, then only the slice 8b-3a phase (rwkv6 "
+                    "and hymba under TP and int8-EF, on two gloo ranks on "
+                    "one card); prints no result line")
     ap.add_argument("--slice8b2-only", action="store_true",
                     help="build, then only the slice 8b-2 phase (the "
                     "pipeline over pod, MoE on a data mesh and under TP, "
@@ -7794,6 +8164,13 @@ def main(argv=None) -> int:
         + ", ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
 
     rows = {}
+    if args.slice8b3_only:
+        t0 = time.perf_counter()
+        slice8b3_phase(torch, args.seed, log)
+        log(f"slice 8b-3a phase: {time.perf_counter() - t0:.1f}s")
+        (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
+        print(smi)
+        return 0
     if args.slice8b2_only:
         t0 = time.perf_counter()
         slice8b2_phase(torch, args.seed, log)
@@ -7949,6 +8326,8 @@ def main(argv=None) -> int:
     mark("slice 8b-1")
     slice8b2_phase(torch, args.seed, log)
     mark("slice 8b-2")
+    slice8b3_phase(torch, args.seed, log)
+    mark("slice 8b-3a")
     examples_phase(log)
     mark("examples")
 

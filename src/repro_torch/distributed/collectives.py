@@ -22,9 +22,13 @@ functions over one of the mesh's groups; a group of one rank is skipped):
     all-reduce, backward identity;
   * :func:`gather_from` / :func:`split_to` — a model-sharded activation
     made whole for replicated work (backward: this rank's slice), and its
-    adjoint;
+    adjoint (also the cut of a replicated param that each rank uses on
+    its own heads only: the backward gathers the ranks' slices of its
+    gradient, each rank's own);
   * :func:`fsdp_gather` — parameters gathered on use: forward all-gather
-    over the FSDP axes, backward reduce-scatter (SUM) of the gradients;
+    over the FSDP axes, backward reduce-scatter (SUM) of the gradients
+    (also a model-sharded activation made whole for work that each rank
+    does on its own share, whose gradient is a partial sum on each);
   * :func:`mean_over` — the loss's mean over the batch axes.
 
 All-gathers are ``dist.all_gather_into_tensor`` into one buffer, and a

@@ -316,7 +316,7 @@ def _parser() -> argparse.ArgumentParser:
 # the dry run counts one card: its pod meshes and their collective term
 # are still to come
 NO_MESH = ("needs the dry run's mesh (pod meshes, the collective term), "
-           "which the port does not have yet (ROADMAP.md, slice 8b-3)")
+           "which the port does not have yet (ROADMAP.md, slice 8b-3b)")
 
 
 def main(argv=None) -> int:

@@ -24,10 +24,9 @@ gradients across pods as int8 codes with error feedback. The process
 groups follow ``--device``: NCCL on ``cuda`` (one card a rank, rank r on
 ``cuda:r``), gloo on ``cpu``; ``--backend gloo`` with ``--device cuda``
 puts ranks that share a card on it (rank r on ``cuda:r % cards``).
-Nothing falls back to another backend by itself. The recurrent families
-(``ssm``, ``hybrid``) refuse a mesh whose ``model`` or ``pod`` size is
-above 1; MoE routes over ``data``-size groups (``moe_groups``), each rank
-its own where they divide.
+Nothing falls back to another backend by itself. Every family trains on
+every mesh; MoE routes over ``data``-size groups (``moe_groups``), each
+rank its own where they divide.
 
 Fault tolerance is live here: SIGTERM checkpoints and exits 0 (on a
 mesh, the command passes it to every rank, and the ranks agree to stop);
@@ -96,15 +95,12 @@ def mesh_dims(args) -> list:
 def main(argv=None) -> int:
     args = _parse(sys.argv[1:] if argv is None else argv)
     from repro_torch import configs
-    from repro_torch.training.train_state import check_mesh_family
 
     cfg = configs.get(args.arch)
     if args.smoke:
         cfg = configs.smoke(cfg)
     dims = mesh_dims(args)
     names = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
-    if dims:
-        check_mesh_family(cfg, dict(zip(names, dims)))
     world = 1
     for d in dims:
         world *= d

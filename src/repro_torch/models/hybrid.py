@@ -22,6 +22,21 @@ O(1) state.
 
 The cache is ``k`` / ``v`` (L, B, W, HK, Dh) and ``state`` (L, B, HM,
 SSM_HEAD, N) f32, updated in place. It has no paged layout.
+
+**Under a mesh** (the sharded trainer) the attention and the MLP shard
+as the dense family's do (``layers.attention_block`` gathers the heads
+where they do not divide over ``model``, hymba-1.5b's 25 / 5 at model
+2). The SSM runs tensor-parallel on the cuts ``Rules.param_spec`` gives:
+``w_in``, ``w_gate``, ``w_dt`` and ``w_bc`` column-parallel, reading x
+copied into the TP region, and ``w_out`` row-parallel, followed by one
+all-reduce. Where ``w_dt`` is cut (whole SSM heads a rank), each rank
+scans its own heads, with ``a_log`` / ``d_skip`` cut to them in one
+``split_to``; ``w_bc`` is shared by every head, so its cut (B on one
+rank, C on another at model 2) is gathered whole and its gradient summed
+over ``model`` before this rank's slice is kept (a whole ``w_bc``, where
+2 N does not divide over ``model``, has its output's gradient summed).
+Where a cut splits an SSM head, the projections are gathered whole and
+the scan is replicated.
 """
 from __future__ import annotations
 
@@ -34,6 +49,7 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.core import softmax as smx
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import stack
@@ -99,6 +115,44 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # ---------------------------------------------------------------------------
 
 
+def _ssm_cut(ctx: LayerCtx, p: Params) -> list:
+    """Whether w_in, w_gate, w_bc and w_dt are cut over ``model`` here."""
+    inner, hm, n = _ssm_dims(ctx.cfg)
+    return [ctx.model_sharded(p[w], -1, full) for w, full in (
+        ("w_in", inner), ("w_gate", inner), ("w_bc", 2 * n), ("w_dt", hm))]
+
+
+def state_heads(ctx: LayerCtx, p: Params) -> tuple[int, int]:
+    """(first, count) of the SSM heads whose state this rank holds: its
+    own where w_in, w_gate and w_dt are cut (w_dt's cut is on whole
+    heads), else all of them. ``p`` is a layer's ``ssm`` params."""
+    cut = _ssm_cut(ctx, p)
+    return L.own_heads(ctx, cut[:2] + cut[3:], _ssm_dims(ctx.cfg)[1])
+
+
+def _ssm_inputs(ctx: LayerCtx, p: Params, x: torch.Tensor):
+    """xi, z, bc (whole), dt and a_log / d_skip over the SSM heads this
+    rank holds (hm whole, or ``hm / model`` under TP on whole heads),
+    and that head count."""
+    inner, hm, _ = _ssm_dims(ctx.cfg)
+    cut = _ssm_cut(ctx, p)
+    xt = L.into_tp(ctx, x)[0] if any(cut) else x
+    ys = [ctx.matmul(xt if c else x, p[w])
+          for w, c in zip(("w_in", "w_gate", "w_bc", "w_dt"), cut)]
+    _, nh = state_heads(ctx, p)
+    if nh == hm:
+        # whole heads on every rank: the cut projections gathered
+        return (*L.gather_cut(ctx, ys, cut), p["a_log"], p["d_skip"], hm)
+    L.check_shard(ctx, ys[0], "act_ffn", inner)
+    # every head reads all of B and C: their gradients are partial sums
+    # (summed as the cut is gathered, or by a copy where w_bc is whole)
+    ys[2] = (L.gather_cut(ctx, ys[2:3], [True], summed=True) if cut[2]
+             else L.into_tp(ctx, ys[2]))[0]
+    a_log, d_skip = C.split_to(torch.stack([p["a_log"], p["d_skip"]]), -1,
+                               ctx.mesh, ctx.rules.model_axis).unbind(0)
+    return (*ys, a_log, d_skip, nh)
+
+
 def ssm_chunked(ctx: LayerCtx, p: Params, x: torch.Tensor,
                 state0: Optional[torch.Tensor] = None, *,
                 return_state: bool = False,
@@ -106,8 +160,9 @@ def ssm_chunked(ctx: LayerCtx, p: Params, x: torch.Tensor,
     """x (B, T, D) -> (B, T, D) (+ the final state (B, HM, P, N) f32 with
     ``return_state``). ``valid`` (B, T) bool: padding positions get
     dt = 0, which zeroes both their state write and their decay. T pads
-    internally to a CHUNK multiple."""
-    inner, hm, n = _ssm_dims(ctx.cfg)
+    internally to a CHUNK multiple. Under TP on whole heads ``state0``
+    and the state returned hold this rank's heads."""
+    inner, _, n = _ssm_dims(ctx.cfg)
     b, t_in, d = x.shape
     pad_t = (-t_in) % min(CHUNK, max(t_in, 1))
     if pad_t:
@@ -118,14 +173,13 @@ def ssm_chunked(ctx: LayerCtx, p: Params, x: torch.Tensor,
         else:
             valid = pad_valid(valid, pad_t)
     t = x.shape[1]
-    xi = ctx.matmul(x, p["w_in"])
-    z = ctx.matmul(x, p["w_gate"])
-    bc = ctx.matmul(x, p["w_bc"]).float()
+    xi, z, bc, dt_, a_log, d_skip, hm = _ssm_inputs(ctx, p, x)
+    bc = bc.float()
     bmat, cmat = bc[..., :n], bc[..., n:]                      # (B,T,N)
-    dt_ = F.softplus(ctx.matmul(x, p["w_dt"]).float())         # (B,T,HM)
+    dt_ = F.softplus(dt_.float())                              # (B,T,HM)
     if valid is not None:
         dt_ = torch.where(valid[..., None], dt_, 0.0)
-    a = -torch.exp(p["a_log"])                                 # (HM,) < 0
+    a = -torch.exp(a_log)                                      # (HM,) < 0
     la_step = a * dt_                                          # <= 0
 
     c = min(CHUNK, t)
@@ -157,32 +211,32 @@ def ssm_chunked(ctx: LayerCtx, p: Params, x: torch.Tensor,
     scores = torch.where(mask[:, :, None], qk[..., None] * decay_ts, 0.0)
     scores = scores * dtc[:, :, None]                          # (B,NC,T,S,HM)
     intra = torch.einsum("bctsh,bcshp->bcthp", scores, xh)
-    y = inter + intra + p["d_skip"][:, None] * xh
+    y = inter + intra + d_skip[:, None] * xh
 
-    y = y.reshape(b, t, inner).to(x.dtype) * F.silu(z)
-    out = ctx.matmul(y, p["w_out"])[:, :t_in]
+    y = y.reshape(b, t, hm * SSM_HEAD).to(x.dtype) * F.silu(z)
+    out = L.row_parallel(ctx, y, p["w_out"], inner, "act_ffn")[:, :t_in]
     if return_state:
         return out, s_end[:, -1]
     return out
 
 
 def ssm_step(ctx: LayerCtx, p: Params, x: torch.Tensor, state: torch.Tensor):
-    """One token. x (B, D); state (B, HM, P, N) f32. Returns (out (B, D),
-    new state)."""
-    inner, hm, n = _ssm_dims(ctx.cfg)
+    """One token. x (B, D); state (B, HM, P, N) f32 (this rank's heads
+    under TP on whole heads). Returns (out (B, D), new state)."""
+    inner, _, n = _ssm_dims(ctx.cfg)
     b = x.shape[0]
-    xi = ctx.matmul(x, p["w_in"]).float().reshape(b, hm, SSM_HEAD)
-    z = ctx.matmul(x, p["w_gate"])
-    bc = ctx.matmul(x, p["w_bc"]).float()
+    xi, z, bc, dt_, a_log, d_skip, hm = _ssm_inputs(ctx, p, x)
+    xi = xi.float().reshape(b, hm, SSM_HEAD)
+    bc = bc.float()
     bvec, cvec = bc[..., :n], bc[..., n:]
-    dt_ = F.softplus(ctx.matmul(x, p["w_dt"]).float())         # (B,HM)
-    dec = torch.exp(-torch.exp(p["a_log"]) * dt_)
+    dt_ = F.softplus(dt_.float())                              # (B,HM)
+    dec = torch.exp(-torch.exp(a_log) * dt_)
     upd = (xi * dt_[..., None])[..., None] * bvec[:, None, None, :]
     new_state = dec[..., None, None] * state + upd
     y = torch.einsum("bhpn,bn->bhp", new_state, cvec)
-    y = y + p["d_skip"][None, :, None] * xi
-    y = y.reshape(b, inner).to(x.dtype) * F.silu(z)
-    return ctx.matmul(y, p["w_out"]), new_state
+    y = y + d_skip[None, :, None] * xi
+    y = y.reshape(b, hm * SSM_HEAD).to(x.dtype) * F.silu(z)
+    return L.row_parallel(ctx, y, p["w_out"], inner, "act_ffn"), new_state
 
 
 # ---------------------------------------------------------------------------

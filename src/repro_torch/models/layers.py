@@ -120,8 +120,8 @@ class LayerCtx:
                 raise ValueError(
                     "decode_fusion='looped' with a sharded decode_attention_"
                     "fn: a CUDA graph cannot capture the gloo collectives of "
-                    "the sequence split (ROADMAP.md, slice 8b-3); use 'split' "
-                    "or 'fused'")
+                    "the sequence split (ROADMAP.md, slice 8b-3c); use "
+                    "'split' or 'fused'")
             object.__setattr__(self, "graphs", LoopedDecode())
 
     @property
@@ -156,6 +156,60 @@ def check_shard(ctx: LayerCtx, x: torch.Tensor, role: str,
 
 def _model(ctx: LayerCtx) -> str:
     return ctx.rules.model_axis
+
+
+def own_heads(ctx: LayerCtx, cut: list, h: int) -> tuple[int, int]:
+    """(first, count) of the ``h`` heads this rank computes: its own
+    ``h / model`` where every weight that forms them is ``cut`` on whole
+    heads, else all of them (the cut outputs are gathered)."""
+    m = 1 if ctx.mesh is None else ctx.mesh.size(_model(ctx))
+    if all(cut) and m > 1 and h % m == 0:
+        return ctx.mesh.coord(_model(ctx)) * (h // m), h // m
+    return 0, h
+
+
+def into_tp(ctx: LayerCtx, *xs):
+    """Each of ``xs`` copied into the tensor-parallel region
+    (``collectives.copy_to`` over ``model``: its gradient there is a
+    partial sum on each rank, summed by one all-reduce in the backward
+    pass); None stays None."""
+    return [None if x is None else C.copy_to(x, ctx.mesh, _model(ctx))
+            for x in xs]
+
+
+def gather_cut(ctx: LayerCtx, ys: list, cut: list, *,
+               summed: bool = False) -> list:
+    """``ys`` with each one whose ``cut`` is set gathered whole over
+    ``model`` (one all-gather). The backward pass keeps this rank's slice
+    of each gradient, summed over ``model`` first with ``summed`` (where
+    each rank uses the whole tensor on its own share of the work)."""
+    idx = [i for i, c in enumerate(cut) if c]
+    if not idx:
+        return list(ys)
+    cuts = [ys[i] for i in idx]
+    whole = (C.fsdp_gather(cuts, [-1] * len(cuts), ctx.mesh, _model(ctx))
+             if summed else C.gather_from(cuts, -1, ctx.mesh, _model(ctx)))
+    out = list(ys)
+    for i, y in zip(idx, whole):
+        out[i] = y
+    return out
+
+
+def row_parallel(ctx: LayerCtx, y: torch.Tensor, w, full: int,
+                 role: str) -> torch.Tensor:
+    """y (..., ``full`` features, or this rank's cut of them) through w
+    (``full``, N): row-parallel where w's input dim is cut over ``model``
+    (y cut here if it came whole, checked as the activation ``role``,
+    then one all-reduce after the product), else whole (y gathered if it
+    came cut)."""
+    if not ctx.model_sharded(w, 0, full):
+        if y.shape[-1] != full:
+            y = C.gather_from([y], -1, ctx.mesh, _model(ctx))[0]
+        return ctx.matmul(y, w)
+    if y.shape[-1] == full:
+        y = C.split_to(y, -1, ctx.mesh, _model(ctx))
+    check_shard(ctx, y, role, full)
+    return C.reduce_from(ctx.matmul(y, w), ctx.mesh, _model(ctx))
 
 
 # ---------------------------------------------------------------------------
@@ -314,11 +368,7 @@ def _qkv_proj(ctx: LayerCtx, p: Params, x: torch.Tensor,
         m = ctx.mesh.size(_model(ctx))
         if not (all(sharded) and cfg.num_heads % m == 0
                 and cfg.num_kv_heads % m == 0):
-            idx = [i for i, sh in enumerate(sharded) if sh]
-            whole = C.gather_from([outs[i] for i in idx], -1, ctx.mesh,
-                                  _model(ctx))
-            for i, y in zip(idx, whole):
-                outs[i] = y
+            outs = gather_cut(ctx, outs, sharded)
     return outs
 
 
@@ -345,15 +395,10 @@ def attention_out(ctx: LayerCtx, p: Params, q: torch.Tensor, k: torch.Tensor,
     o = ops.attention_prefill(q, k, v, phi_cfg=ctx.phi_cfg, causal=causal,
                               sliding_window=cfg.sliding_window,
                               plan=ctx.plan)
-    o = o.reshape(b, s, -1)
-    if not ctx.model_sharded(p["wo"], 0, cfg.q_dim):
-        return ctx.matmul(o, p["wo"])
-    # row-parallel wo: this rank's columns of o (cut here when the heads
-    # were gathered), then one all-reduce before the residual
-    if o.shape[-1] == cfg.q_dim:
-        o = C.split_to(o, -1, ctx.mesh, _model(ctx))
-    check_shard(ctx, o, "act_attn_out", cfg.q_dim)
-    return C.reduce_from(ctx.matmul(o, p["wo"]), ctx.mesh, _model(ctx))
+    # row-parallel wo under TP: this rank's columns of o (cut there when
+    # the heads were gathered), then one all-reduce before the residual
+    return row_parallel(ctx, o.reshape(b, s, -1), p["wo"], cfg.q_dim,
+                        "act_attn_out")
 
 
 def decode_ingest(ctx: LayerCtx, norm_p: Params, p: Params, x: torch.Tensor,
@@ -604,10 +649,7 @@ def mlp_block(ctx: LayerCtx, p: Params, x: torch.Tensor) -> torch.Tensor:
         h = ffn_activation(g, cfg.activation) * u
     else:
         h = _gelu(ctx.matmul(x, p["w_up"]))
-    if not tp:
-        return ctx.matmul(h, p["w_down"])
-    check_shard(ctx, h, "act_ffn", cfg.d_ff)
-    return C.reduce_from(ctx.matmul(h, p["w_down"]), ctx.mesh, _model(ctx))
+    return row_parallel(ctx, h, p["w_down"], cfg.d_ff, "act_ffn")
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,23 @@ it, so ragged prompts give exact per-row states.
 The cache is the recurrent state (O(1) in the sequence): ``state`` (L, B,
 H, N, N) f32 and the token-shift features ``tm_x`` / ``cm_x`` (L, B, D).
 The steps update it in place. It has no paged layout.
+
+**Under a mesh** (the sharded trainer) the mixes run tensor-parallel
+over ``model`` on the cuts ``Rules.param_spec`` gives, Megatron's way:
+the time mix's ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` and the channel
+mix's ``w_k`` / ``w_r`` column-parallel, reading x, its predecessor
+features and their mus copied into the TP region; ``w_o`` and the
+channel mix's ``w_v`` row-parallel, followed by one all-reduce. Where
+every column-parallel weight is cut on whole heads, each rank runs the
+WKV recurrence of its own heads, and the replicated ``decay_B``,
+``decay_base``, ``bonus_u`` and ``ln_out`` are cut to them in one
+``split_to`` (whose backward gathers each rank's slice of their
+gradients); the decay LoRA's first product reads the whole residual, its
+hidden copied into the TP region before ``decay_B``'s cut. Where a cut
+splits a head, the projections are gathered whole and the recurrence is
+replicated. The channel mix's receptance, column-parallel by the JAX
+rule, is gathered whole before its sigmoid multiplies the reduced
+output. One device, or a leaf that is whole, computes as before.
 """
 from __future__ import annotations
 
@@ -32,6 +49,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
+from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models import stack
 from repro_torch.models import transformer as tfm
@@ -116,10 +134,16 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor] = None):
     return torch.cat([first.to(x.dtype), x[:, :-1]], dim=1)
 
 
-def _decay_logw(tm: Params, xw: torch.Tensor) -> torch.Tensor:
-    """log w_t ∈ (-inf, 0) in f32: the data-dependent per-channel decay."""
-    lo = torch.tanh(xw.float() @ tm["decay_A"]) @ tm["decay_B"]
-    return -torch.exp(tm["decay_base"] + lo)
+def _decay_logw(ctx: LayerCtx, tm: Params, xw: torch.Tensor,
+                decay_b: torch.Tensor,
+                decay_base: torch.Tensor) -> torch.Tensor:
+    """log w_t ∈ (-inf, 0) in f32: the data-dependent per-channel decay,
+    over the channels of ``decay_b`` / ``decay_base`` (this rank's heads'
+    cut under TP: the LoRA's hidden then enters the TP region)."""
+    hid = torch.tanh(xw.float() @ tm["decay_A"])
+    if decay_b.shape[-1] != tm["decay_B"].shape[-1]:
+        hid = L.into_tp(ctx, hid)[0]
+    return -torch.exp(decay_base + hid @ decay_b)
 
 
 def _headnorm(x: torch.Tensor, scale: torch.Tensor, h: int, n: int):
@@ -147,6 +171,78 @@ def _chunk_states(dec: torch.Tensor, u: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
+def _step_shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """One token's predecessor features: ``last`` itself."""
+    return last
+
+
+def _lerps(ctx: LayerCtx, x: torch.Tensor, last_x, shift, mus: list,
+           cut: list) -> list:
+    """x's lerp with its predecessor features ``shift(x, last_x)`` by
+    each of ``mus``. A lerp whose ``cut`` is set feeds a column-parallel
+    weight: it reads x, ``last_x`` and its mu copied into the TP region
+    (one copy of each, the mus stacked), where their gradients are
+    partial sums."""
+    xx = shift(x, last_x)
+    if any(cut):
+        xt, lt = L.into_tp(ctx, x, last_x)
+        xxt = shift(xt, lt)
+        tp_mus = iter(L.into_tp(ctx, torch.stack(
+            [mu for mu, c in zip(mus, cut) if c]))[0].unbind(0))
+    out = []
+    for mu, c in zip(mus, cut):
+        a, b = (xt, xxt) if c else (x, xx)
+        out.append(a + (b - a) * (next(tp_mus) if c else mu))
+    return out
+
+
+_TM = ("r", "k", "v", "g")
+
+
+def _tm_cut(ctx: LayerCtx, tm: Params) -> list:
+    d = ctx.cfg.d_model
+    return [ctx.model_sharded(tm[f"w_{c}"], -1, d) for c in _TM]
+
+
+def state_heads(ctx: LayerCtx, tm: Params) -> tuple[int, int]:
+    """(first, count) of the heads whose WKV state this rank holds (its
+    own under TP on whole heads, else all of them)."""
+    return L.own_heads(ctx, _tm_cut(ctx, tm), _heads(ctx.cfg)[0])
+
+
+def _tm_inputs(ctx: LayerCtx, tm: Params, x: torch.Tensor, last_x, shift):
+    """The time mix's r, k, v, g (over this rank's heads under TP, else
+    whole), the decay's lerp (of the whole residual), and the heads they
+    hold (``h`` whole, or this rank's ``h / model``)."""
+    h, _ = _heads(ctx.cfg)
+    cut = _tm_cut(ctx, tm)
+    *xs, xw = _lerps(ctx, x, last_x, shift,
+                     [tm[f"mu_{c}"] for c in (*_TM, "w")], cut + [False])
+    ys = [ctx.matmul(xc, tm[f"w_{c}"]) for xc, c in zip(xs, _TM)]
+    _, nh = L.own_heads(ctx, cut, h)
+    if nh == h:
+        return L.gather_cut(ctx, ys, cut), xw, h
+    for y in ys:
+        L.check_shard(ctx, y, "act_qkv", ctx.cfg.d_model)
+    return ys, xw, nh
+
+
+def _tm_leaves(ctx: LayerCtx, tm: Params, nh: int):
+    """decay_B, decay_base, bonus_u and ln_out over ``nh`` heads: the
+    leaves themselves when they are all the heads, else this rank's cut
+    of them, f32, in one ``split_to`` (backward: each rank's slice of
+    their gradients, gathered)."""
+    h, n = _heads(ctx.cfg)
+    leaves = (tm["decay_B"], tm["decay_base"], tm["bonus_u"], tm["ln_out"])
+    if nh == h:
+        return leaves
+    d = h * n
+    cut = C.split_to(torch.cat([
+        tm["decay_B"], tm["decay_base"][None], tm["bonus_u"].reshape(1, d),
+        tm["ln_out"].float()[None]]), -1, ctx.mesh, ctx.rules.model_axis)
+    return cut[:-3], cut[-3], cut[-2].reshape(nh, n), cut[-1]
+
+
 def time_mix_chunked(ctx: LayerCtx, tm: Params, x: torch.Tensor,
                      state0: Optional[torch.Tensor] = None,
                      last_x: Optional[torch.Tensor] = None, *,
@@ -155,9 +251,10 @@ def time_mix_chunked(ctx: LayerCtx, tm: Params, x: torch.Tensor,
     """x (B, T, D) -> out (B, T, D) (+ the final state (B, H, N, N) f32
     and x's last row, with ``return_state``). ``valid`` (B, T) bool:
     padding positions neither decay nor write the state. T pads
-    internally to a CHUNK multiple."""
+    internally to a CHUNK multiple. Under TP on whole heads ``state0``
+    and the state returned hold this rank's heads."""
     cfg = ctx.cfg
-    h, n = _heads(cfg)
+    _, n = _heads(cfg)
     b, t_in, d = x.shape
     pad_t = (-t_in) % min(CHUNK, max(t_in, 1))
     if pad_t:
@@ -168,16 +265,10 @@ def time_mix_chunked(ctx: LayerCtx, tm: Params, x: torch.Tensor,
         else:
             valid = pad_valid(valid, pad_t)
     t = x.shape[1]
-    xx = _shift(x, last_x)
-
-    def lerp(mu):
-        return x + (xx - x) * mu
-
-    r = ctx.matmul(lerp(tm["mu_r"]), tm["w_r"])
-    k = ctx.matmul(lerp(tm["mu_k"]), tm["w_k"])
-    v = ctx.matmul(lerp(tm["mu_v"]), tm["w_v"])
-    gate = F.silu(ctx.matmul(lerp(tm["mu_g"]), tm["w_g"]))
-    logw = _decay_logw(tm, lerp(tm["mu_w"]))                  # (B,T,D) f32
+    (r, k, v, g), xw, h = _tm_inputs(ctx, tm, x, last_x, _shift)
+    decay_b, decay_base, bonus_u, ln_out = _tm_leaves(ctx, tm, h)
+    gate = F.silu(g)
+    logw = _decay_logw(ctx, tm, xw, decay_b, decay_base)   # (B,T,HN) f32
     if valid is not None:
         vm = valid[..., None]
         k = torch.where(vm, k, 0)        # no state write at padding
@@ -212,11 +303,11 @@ def time_mix_chunked(ctx: LayerCtx, tm: Params, x: torch.Tensor,
                                  device=x.device), diagonal=-1)
     scores = torch.where(mask, scores, 0.0)
     intra = torch.einsum("bchts,bcshn->bcthn", scores, vv)
-    diag = (rr * tm["bonus_u"] * kk).sum(-1, keepdim=True) * vv
-    out = (inter + intra + diag).reshape(b, t, d)
+    diag = (rr * bonus_u * kk).sum(-1, keepdim=True) * vv
+    out = (inter + intra + diag).reshape(b, t, h * n)
 
-    out = _headnorm(out, tm["ln_out"], h, n).to(x.dtype) * gate
-    out = ctx.matmul(out, tm["w_o"])[:, :t_in]
+    out = _headnorm(out, ln_out, h, n).to(x.dtype) * gate
+    out = L.row_parallel(ctx, out, tm["w_o"], d, "act_attn_out")[:, :t_in]
     if return_state:
         return out, s_end[:, -1], x[:, t_in - 1]
     return out
@@ -224,27 +315,26 @@ def time_mix_chunked(ctx: LayerCtx, tm: Params, x: torch.Tensor,
 
 def time_mix_step(ctx: LayerCtx, tm: Params, x: torch.Tensor,
                   state: torch.Tensor, last_x: torch.Tensor):
-    """One token. x (B, D); state (B, H, N, N) f32; last_x (B, D).
-    Returns (out (B, D), new state, x)."""
-    h, n = _heads(ctx.cfg)
+    """One token. x (B, D); state (B, H, N, N) f32 (this rank's heads
+    under TP on whole heads); last_x (B, D). Returns (out (B, D), new
+    state, x)."""
+    _, n = _heads(ctx.cfg)
     b, d = x.shape
-
-    def lerp(mu):
-        return x + (last_x - x) * mu
-
-    r = ctx.matmul(lerp(tm["mu_r"]), tm["w_r"]).float()
-    k = ctx.matmul(lerp(tm["mu_k"]), tm["w_k"]).float()
-    v = ctx.matmul(lerp(tm["mu_v"]), tm["w_v"]).float()
-    gate = F.silu(ctx.matmul(lerp(tm["mu_g"]), tm["w_g"]))
-    w = torch.exp(_decay_logw(tm, lerp(tm["mu_w"]))).reshape(b, h, n)
+    (r, k, v, g), xw, h = _tm_inputs(ctx, tm, x, last_x, _step_shift)
+    decay_b, decay_base, bonus_u, ln_out = _tm_leaves(ctx, tm, h)
+    r, k, v = r.float(), k.float(), v.float()
+    gate = F.silu(g)
+    w = torch.exp(_decay_logw(ctx, tm, xw, decay_b,
+                              decay_base)).reshape(b, h, n)
     rr, kk, vv = (a.reshape(b, h, n) for a in (r, k, v))
 
     kv = kk[..., :, None] * vv[..., None, :]                   # (B,H,N,N)
-    att = state + tm["bonus_u"][None, :, :, None] * kv
-    o = torch.einsum("bhn,bhnm->bhm", rr, att).reshape(b, d)
+    att = state + bonus_u[None, :, :, None] * kv
+    o = torch.einsum("bhn,bhnm->bhm", rr, att).reshape(b, h * n)
     new_state = w[..., None] * state + kv
-    o = _headnorm(o[:, None], tm["ln_out"], h, n)[:, 0].to(x.dtype) * gate
-    return ctx.matmul(o, tm["w_o"]), new_state, x
+    o = _headnorm(o[:, None], ln_out, h, n)[:, 0].to(x.dtype) * gate
+    return (L.row_parallel(ctx, o, tm["w_o"], d, "act_attn_out"),
+            new_state, x)
 
 
 # ---------------------------------------------------------------------------
@@ -256,12 +346,16 @@ def channel_mix(ctx: LayerCtx, cm: Params, x: torch.Tensor,
                 last_x: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (B, T, D) with the shift inside, or one token x (B, D) with
     ``last_x`` its predecessor's features."""
-    xx = _shift(x, last_x) if x.dim() == 3 else last_x
-    xk = x + (xx - x) * cm["mu_k"]
-    xr = x + (xx - x) * cm["mu_r"]
+    cfg = ctx.cfg
+    cut = [ctx.model_sharded(cm["w_k"], -1, cfg.d_ff),
+           ctx.model_sharded(cm["w_r"], -1, cfg.d_model)]
+    xk, xr = _lerps(ctx, x, last_x, _shift if x.dim() == 3 else _step_shift,
+                    [cm["mu_k"], cm["mu_r"]], cut)
     k = torch.square(torch.relu(ctx.matmul(xk, cm["w_k"])))
-    out = ctx.matmul(k, cm["w_v"])
-    return out * torch.sigmoid(ctx.matmul(xr, cm["w_r"]))
+    out = L.row_parallel(ctx, k, cm["w_v"], cfg.d_ff, "act_ffn")
+    # the receptance multiplies the whole reduced output
+    r = L.gather_cut(ctx, [ctx.matmul(xr, cm["w_r"])], cut[1:])[0]
+    return out * torch.sigmoid(r)
 
 
 # ---------------------------------------------------------------------------

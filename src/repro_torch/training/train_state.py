@@ -97,20 +97,6 @@ def check_trainable_plan(plan) -> None:
             "backward; use plan.with_overrides(backend='torch')")
 
 
-def check_mesh_family(cfg, sizes: dict) -> None:
-    """The sharded trainer covers the dense, MoE, encoder-decoder and VLM
-    families on any mesh (``sizes``: the mesh's axis sizes); the
-    recurrent ones (``ssm``, ``hybrid``) train on a data-only mesh
-    (FSDP)."""
-    if cfg.family in ("ssm", "hybrid") and (sizes.get("model", 1) > 1
-                                            or sizes.get("pod", 1) > 1):
-        raise ValueError(
-            f"family {cfg.family!r} on a mesh with model or pod above 1: "
-            "tensor parallelism and the int8-EF pod hop do not cover the "
-            "recurrent families yet (ROADMAP.md, slice 8b-3: TP for ssm "
-            "and hybrid)")
-
-
 # ---------------------------------------------------------------------------
 # The sharded state and batch
 # ---------------------------------------------------------------------------
@@ -232,7 +218,6 @@ def make_grad_fn(api: ModelApi, ctx: LayerCtx, run: RunConfig, *,
         if ctx.mesh is not mesh or ctx.rules is None:
             raise ValueError("a sharded train step needs LayerCtx(mesh=mesh, "
                              "rules=..., shard=make_shard_fn(mesh, rules))")
-        check_mesh_family(api.cfg, mesh.axis_sizes)
         rules = ctx.rules
         specs = rules.param_spec_tree(api.init_params(device="meta"))
 

@@ -265,11 +265,66 @@ def task_train(mesh, p):
 
 def layer_fn(name: str):
     """``fn(ctx, params, inputs) -> output`` of one train layer, on the
-    params of the whole smoke model (layer 0's where it is a block's)."""
+    params of the whole smoke model (layer 0's where it is a block's).
+    The recurrent layers take the rows' whole-head states (``state`` /
+    ``ssm_state``), run on the heads this rank holds, and return (B, -1):
+    the output and each row's final state per head against a fixed
+    probe, gathered over the heads."""
+    import torch
+
+    from repro_torch.models import hybrid, ssm
     from repro_torch.models import layers as L
+    from repro_torch.models.stack import tree_map
 
     def first(params, part):
         return {k: v[0] for k, v in params["layers"][part].items()}
+
+    def layer0(params):
+        return tree_map(lambda t: t[0], params["layers"])
+
+    def probe(ctx, state, h):
+        w = torch.linspace(-1.0, 1.0, state[0, 0].numel()).reshape(
+            state.shape[2:])
+        z = (state * w).flatten(2).sum(-1)
+        if z.shape[1] != h:
+            z = L.gather_cut(ctx, [z], [True])[0]
+        return z
+
+    def rows(*ys):
+        return torch.cat([y.flatten(1) for y in ys], 1)
+
+    def own(state, heads):
+        lo, n = heads
+        return state[:, lo:lo + n]
+
+    def time_mix(ctx, p, i):
+        tm = first(p, "tm")
+        out, s_end, _ = ssm.time_mix_chunked(
+            ctx, tm, i["x"], own(i["state"], ssm.state_heads(ctx, tm)),
+            return_state=True, valid=i["valid"])
+        return rows(out, probe(ctx, s_end, i["state"].shape[1]))
+
+    def time_mix_step(ctx, p, i):
+        tm = first(p, "tm")
+        out, new, _ = ssm.time_mix_step(
+            ctx, tm, i["x"][:, 0],
+            own(i["state"], ssm.state_heads(ctx, tm)), i["x"][:, 1])
+        return rows(out, probe(ctx, new, i["state"].shape[1]))
+
+    def ssm_chunked(ctx, p, i):
+        sp = first(p, "ssm")
+        out, s_end = hybrid.ssm_chunked(
+            ctx, sp, i["x"],
+            own(i["ssm_state"], hybrid.state_heads(ctx, sp)),
+            return_state=True, valid=i["valid"])
+        return rows(out, probe(ctx, s_end, i["ssm_state"].shape[1]))
+
+    def ssm_step(ctx, p, i):
+        sp = first(p, "ssm")
+        out, new = hybrid.ssm_step(
+            ctx, sp, i["x"][:, 0],
+            own(i["ssm_state"], hybrid.state_heads(ctx, sp)))
+        return rows(out, probe(ctx, new, i["ssm_state"].shape[1]))
 
     return {
         "attention": lambda ctx, p, i: L.attention_block(
@@ -278,6 +333,18 @@ def layer_fn(name: str):
         "embed": lambda ctx, p, i: L.embed(ctx, p, i["tokens"]),
         "loss": lambda ctx, p, i: L.cross_entropy_loss(
             ctx, p, i["x"], i["labels"]),
+        "time_mix": time_mix,
+        "time_mix_step": time_mix_step,
+        "channel_mix": lambda ctx, p, i: rows(ssm.channel_mix(
+            ctx, first(p, "cm"), i["x"])),
+        "channel_mix_step": lambda ctx, p, i: ssm.channel_mix(
+            ctx, first(p, "cm"), i["x"][:, 0], last_x=i["x"][:, 1]),
+        "rwkv_block": lambda ctx, p, i: rows(ssm.block(
+            ctx, layer0(p), i["x"])[0]),
+        "ssm_chunked": ssm_chunked,
+        "ssm_step": ssm_step,
+        "hybrid_block": lambda ctx, p, i: rows(hybrid.block(
+            ctx, layer0(p), i["x"], i["positions"])[0]),
     }[name]
 
 
@@ -315,7 +382,8 @@ def task_layer(mesh, p):
             y = T.global_mean(ctx, y)
             y.backward()
         else:
-            ct = local_shard(torch.from_numpy(p["ct"]), rows_spec, mesh)
+            ct = p["ct"][name] if isinstance(p["ct"], dict) else p["ct"]
+            ct = local_shard(torch.from_numpy(ct), rows_spec, mesh)
             (y * ct).sum().backward()
         grads = tree_map(lambda t: torch.zeros_like(t) if t.grad is None
                          else t.grad, params)
@@ -499,7 +567,8 @@ def task_jobs(mesh, p):
     ``"grads"``, one loss and its gradients through the sharded train
     step's ``make_grad_fn`` (the gradients gathered, rank 0), the MoE
     routing choices of the forward pass (each rank's, layer by layer) and
-    the collectives (CostCounter); ``"train"``, :func:`task_train`."""
+    the collectives (CostCounter); ``"train"``, :func:`task_train`;
+    ``"layer"``, :func:`task_layer`."""
     import dataclasses
 
     import torch
@@ -517,8 +586,8 @@ def task_jobs(mesh, p):
         shape, names = job["mesh"]
         jmesh = make_mesh_from_config(MeshConfig(shape, names),
                                       device="cpu")
-        if job["kind"] == "train":
-            out.append(task_train(jmesh, job))
+        if job["kind"] in ("train", "layer"):
+            out.append(TASKS[job["kind"]](jmesh, job))
             continue
         api, ctx, rules, specs = _train_setup(jmesh, job)
         if job.get("moe_groups"):

@@ -55,7 +55,6 @@ from repro.models.layers import LayerCtx as JLayerCtx
 from repro_torch import configs
 from repro_torch.config import RunConfig
 from repro_torch.core.plan import DEFAULT_PLAN
-from repro_torch.launch import train as cli
 from repro_torch.models.api import get_model
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.layers import LayerCtx
@@ -398,17 +397,36 @@ def test_cli_trains_moe_on_a_data_mesh(tmp_path):
         "finished at step 3 (restored_from=None, preempted=False)")
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
-def test_recurrent_families_still_refuse_model_and_pod(arch):
-    """The refusal now names only the recurrent families, and the slice
-    that ports them."""
-    for flags in (["--mesh", "1x2"], ["--mesh", "2x1x1",
-                                      "--grad-compression", "int8_ef"]):
-        with pytest.raises(ValueError, match="slice 8b-3"):
-            cli.main(["--smoke", "--device", "cpu", "--arch", arch, *flags])
-    # a data-only mesh is accepted: check_mesh_family raises nothing
-    from repro_torch.training.train_state import check_mesh_family
-    check_mesh_family(configs.get(arch), {"data": 2, "model": 1})
-    for family_arch in ("dbrx-132b", "whisper-tiny", "internvl2-76b"):
-        check_mesh_family(configs.get(family_arch),
-                          {"pod": 2, "data": 2, "model": 2})
+@pytest.mark.parametrize("compression", ["none", "int8_ef"])
+def test_every_family_passes_the_mesh_setup(compression):
+    """At (pod, data, model) = (2, 2, 2) every family's train step is set
+    up as the CLI sets it up (``mesh_setup``, ``make_train_step``; a
+    rank's mesh record, no process group: nothing is collective before
+    the first step), with specs for every param leaf; no family is
+    refused on a mesh any more. The dry run's mesh is still to come, and
+    its refusal names the slice that ports it."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.stack import tree_leaves
+    from repro_torch.training.train_state import mesh_setup
+
+    mesh = Mesh((2, 2, 2), PDM, (0, 1, 0), groups={}, backend="gloo")
+    families = {}
+    for arch in configs.REGISTRY:
+        cfg = configs.smoke(configs.get(arch))
+        if cfg.family in families:
+            continue
+        families[cfg.family] = arch
+        api = get_model(cfg)
+        ctx, rules, specs = mesh_setup(api, mesh, compression)
+        make_train_step(api, ctx, RunConfig(grad_compression=compression),
+                        mesh=mesh)
+        meta = api.init_params(device="meta")
+        assert len(tree_leaves(specs.params)) == len(tree_leaves(meta))
+        assert (specs.ef_err is not None) == (compression == "int8_ef")
+    assert set(families) == {"dense", "moe", "encdec", "vlm", "ssm",
+                             "hybrid"}, families
+    flag = (["--mesh", "single"] if compression == "none" else
+            ["--grad-compression", compression])
+    with pytest.raises(ValueError, match="slice 8b-3"):
+        dryrun.main(["--arch", "rwkv6-1.6b", *flag])

@@ -502,13 +502,26 @@ def test_cli_trains_on_a_mesh(flags, tmp_path):
     ("hymba-1.5b", ["--devices", "2"]),
     ("rwkv6-1.6b", ["--mesh", "2x1x1"]),
     ("hymba-1.5b", ["--mesh", "2x1x1", "--grad-compression", "int8_ef"])])
-def test_cli_refuses_other_families_on_model_or_pod(arch, flags):
-    """A recurrent family (ssm, hybrid) raises before any rank starts
-    when ``model`` or ``pod`` is above 1, naming the slice that ports it
-    (the MoE and encoder-decoder families train there:
-    ``tests/test_torch_moe_mesh.py``)."""
-    with pytest.raises(ValueError, match="slice 8b"):
-        cli.main(["--smoke", "--device", "cpu", "--arch", arch, *flags])
+def test_cli_trains_recurrent_families_on_a_mesh(arch, flags, tmp_path):
+    """A recurrent family (ssm, hybrid) trains through the CLI where
+    ``model`` or ``pod`` is above 1 (tensor-parallel mixes, FSDP over
+    pod, the int8-EF pod hop; ``tests/test_torch_recurrent_mesh.py``
+    holds them to the JAX package): 3 finite losses and the final line.
+    With int8-EF the checkpoint's ef_err is the JAX package's layout:
+    its CheckpointManager restores it into its TrainState.create(
+    npods=2, compression="int8_ef"), every leaf (2, *the param's)."""
+    step_dir = _cli(tmp_path, "--arch", arch, *flags)
+    if "int8_ef" in flags:
+        jcfg = jconfigs.smoke(jconfigs.get(arch))
+        like = JTrainState.create(
+            jget_model(jcfg).init_params(jax.random.PRNGKey(0)), npods=2,
+            compression="int8_ef")
+        got = JCheckpointManager(str(step_dir.parent)).load_state(3, like)
+        assert int(got.step) == 3
+        errs, params = (jax.tree.leaves(t) for t in (got.ef_err, got.params))
+        assert len(errs) == len(params)
+        for e, p in zip(errs, params):
+            assert e.shape == (2, *p.shape)
 
 
 def test_cli_mesh_shapes():

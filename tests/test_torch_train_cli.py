@@ -1,9 +1,8 @@
 """The port's training CLI (``python -m repro_torch.launch.train``) and
 ``examples/train_tiny_lm_torch.py`` on the CPU: the CLI trains and prints
 the JAX CLI's final line; SIGTERM checkpoints and exits 0, and a rerun
-resumes; the mesh flags raise for a family the sharded trainer does not
-cover (the dense family trains on a mesh:
-``tests/test_torch_sharded_train.py``); the example's loss falls.
+resumes; the mesh flags train RWKV6 as they train the dense family
+(``tests/test_torch_sharded_train.py``); the example's loss falls.
 """
 import os
 import select
@@ -51,16 +50,20 @@ def test_cli_trains_and_prints_the_final_line(capsys):
 
 @pytest.mark.parametrize("flags", [["--devices", "4"], ["--mesh", "2x2"],
                                    ["--grad-compression", "int8_ef"]])
-def test_cli_mesh_flags_raise(flags):
-    """The mesh flags run the dense family now; for RWKV6 (TP and the pod
-    hop cover the dense family only) they raise before any rank starts,
-    naming the slice that ports them."""
+def test_cli_mesh_flags_train_rwkv6(flags):
+    """The mesh flags train RWKV6 as they train the dense family (TP and
+    the pod hop cover every family): ``--devices 4`` and ``--mesh 2x2``
+    (data 2 x model 2: FSDP and TP at once), int8-EF across two pods;
+    every rank exits 0 and the last step is committed."""
     from repro_torch.launch import train
     if flags[0] == "--grad-compression":
         flags = flags + ["--mesh", "2x1x1"]   # int8-EF hops across pods
-    with pytest.raises(ValueError, match="slice 8b"):
-        train.main(["--smoke", "--device", "cpu", "--arch", "rwkv6-1.6b"]
-                   + flags)
+    with tempfile.TemporaryDirectory() as d:
+        assert train.main(["--smoke", "--device", "cpu", "--arch",
+                           "rwkv6-1.6b", "--steps", "2", "--batch", "4",
+                           "--seq", "16", "--checkpoint-dir", d]
+                          + flags) == 0
+        assert CheckpointManager(d).latest_step() == 2
 
 
 def _sigterm_then_resume(flags, rerun_flags, env=None):
