@@ -16,6 +16,7 @@
     python3 chip_smoke.py --slice8b1-only   # build, then only phase 11
     python3 chip_smoke.py --slice8b2-only   # build, then only phase 12
     python3 chip_smoke.py --slice8b3-only   # build, then only phase 13
+    python3 chip_smoke.py --slice8b3b-only  # build, then only phase 14
 
 1. Builds every kernel under ``src/repro_torch/csrc`` with nvcc (sm_90a).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -246,9 +247,21 @@
    the replicated leaves each rank cuts to its heads (and Hymba's w_bc)
    against the one-card run's, the collectives of a step against the
    count derived from the code, each rank's wall, busy and peak memory.
-14. The examples (``examples/*_torch.py``) at full width in three
+14. Slice 8b-3b (``slice8b3b_phase``): the mesh dry run's CLI in process
+   (``--mesh single``, qwen2-0.5b x decode_32k on the CPU: this torch has
+   the fake process group); then tensor parallelism in the decode tick,
+   two gloo ranks sharing this card at (data, model) = (1, 2) through
+   ``serving/sharded.py`` on the "cuda" plan: AV qwen2-0.5b (published
+   widths, 4 layers) and AW dbrx-132b (1 of 40 layers, the experts' F
+   cut), AH's 4 rows of a 32,768-position cache, 16 greedy ticks a
+   scheme: rows 3-4's shard partials and rows 1-2 on the cut weights;
+   logits against the same ticks unsharded (AW with rank 0's expert
+   choices forced), tokens equal or near ties, the collectives of a tick
+   against the count derived from the code, each rank's wall, busy and
+   peak memory.
+15. The examples (``examples/*_torch.py``) at full width in three
    subprocesses at once; fails if any exits non-zero.
-15. Prints the card's name and power limit, one JSON line describing every
+16. Prints the card's name and power limit, one JSON line describing every
    kernel, and as its last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Exits non-zero, printing no result line, without CUDA, outside the repo,
@@ -6497,7 +6510,7 @@ def s8b_dtype_groups(cfg, dims, compression):
     from repro_torch.distributed import make_rules
     from repro_torch.models.api import get_model
     from repro_torch.models.stack import tree_leaves
-    from repro_torch.training.train_state import _fsdp_dim
+    from repro_torch.distributed.sharding import fsdp_dim as _fsdp_dim
 
     plain = compression == "none"
     rules = make_rules(MeshConfig(dims, s8b_names(dims)),
@@ -8040,6 +8053,390 @@ def slice8b3_phase(torch, seed, log):
         check(ok, msg)
 
 
+# slice 8b-3b: tensor parallelism in the decode tick, two gloo ranks at
+# (data, model) = (1, 2) sharing this card, AH's rows and ticks (S8A_*):
+# (cell, arch, layers); AV at FAMILY_LAYERS' serving depth, AW one of
+# dbrx-132b's 40 layers (9.0 GB of bf16 params, as AN-AO: the reference
+# and both ranks' halves share the card)
+S8B3B_RUNS = (("AV", ARCH, 4), ("AW", MOE_ARCH, 1))
+S8B3B_TIMEOUT = 300                   # seconds, the gloo run of two ranks
+S8B3B_FLIPS = 3     # AW's expert sets (of 64 a scheme) the free router may
+                    # choose otherwise than rank 0: near-tied router logits
+
+
+def s8b3b_config(arch, layers):
+    """``arch`` at its published widths and ``layers`` of its depth."""
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(arch), num_layers=layers)
+
+
+def s8b3b_collectives(cfg, scheme):
+    """A TP decode tick's collectives at (1, 2), derived from the code
+    (``models/layers.py``, ``transformer.decode_step``): the embedding's
+    all-reduce; a layer's q / k / v gathered whole (one all-gather), its
+    sequence-split attention (one all-reduce under unified_max, a MAX
+    then a SUM under sync), wo's all-reduce and the FFN's (w_down's, or
+    the MoE experts' partial sums); the logits gathered whole."""
+    per = 1 if scheme == "unified_max" else 2
+    n = cfg.num_layers
+    return {"all-reduce": 1 + n * (per + 2), "all-gather": n + 1}
+
+
+def s8b3b_routes():
+    """The context that records the MoE routing choices made inside, in
+    call order, as the device's tensors (no copy to the host inside a
+    timed tick), replacing each call's choices with ``force``'s where
+    given (weights renormalised from the call's own probs)."""
+    import contextlib
+
+    from repro_torch.models import moe
+
+    @contextlib.contextmanager
+    def recorded(force=None):
+        calls, route = [], moe.route
+
+        def routed(router, xg, k):
+            probs, w, idx = route(router, xg, k)
+            if force is not None:
+                idx = force[len(calls)].to(idx.device)
+                w = probs.gather(-1, idx)
+                w = w / w.sum(-1, keepdim=True)
+            calls.append(idx)
+            return probs, w, idx
+
+        moe.route = routed
+        try:
+            yield calls
+        finally:
+            moe.route = route
+
+    return recorded
+
+
+def s8b3b_flipped(torch, got, want, rows):
+    """(the (token, layer) expert sets of the route calls ``got`` that
+    differ from ``want``'s, the ``rows`` whose own token's set differs in
+    some layer), a decode tick's calls holding one token a row."""
+    flipped = torch.zeros(rows, dtype=torch.bool)
+    n = 0
+    for g, w in zip(got, want):
+        g, w = (c.cpu().reshape(rows, -1, c.shape[-1]).sort(-1).values
+                for c in (g, w))
+        differ = (g != w).any(-1)
+        n += int(differ.sum())
+        flipped |= differ.any(-1)
+    return n, flipped
+
+
+def slice8b3b_rank(rank, world, out_dir, seed):
+    """One rank of the slice 8b-3b gloo run (a process of its own on
+    cuda:0): AV and AW under each scheme, ``serving/sharded.py`` on the
+    "cuda" plan with this rank's TP cut of the params and its slice of
+    the 4 x 32,768 cache; writes ``rank<r>.pt``: logits (rank 0), tokens,
+    each tick's wall, one tick's device busy (profiled, host copies left
+    out), the collectives of one tick, the kernels' launches, the MoE
+    routing choices (rank 0) and the peak memory."""
+    import datetime
+
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.config import MeshConfig
+    from repro_torch.core.plan import make_plan
+    from repro_torch.distributed import shard_tree
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.serving.sharded import serve_rules, sharded_serve
+
+    out_dir = Path(out_dir)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(out_dir / "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=S8B3B_TIMEOUT // 2))
+    res = {"log": []}
+    recorded = s8b3b_routes()
+    try:
+        mesh = make_mesh_from_config(MeshConfig((1, world), ("data", "model")),
+                                     backend="gloo")
+        rules = serve_rules(mesh)
+        for cell, arch, layers in S8B3B_RUNS:
+            cfg = s8b3b_config(arch, layers)
+            for scheme in S8A_SCHEMES:
+                t0 = time.perf_counter()
+                api, params, cache, tokens, lengths = s8a_model(
+                    torch, cfg, seed, world, rank)
+                srv = sharded_serve(api, make_plan("cuda", scheme=scheme),
+                                    mesh, rules)
+                params = shard_tree(params, srv.param_specs, mesh)
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                for c in counters().values():
+                    c.launches = 0
+                logits, toks, walls, routes = [], [], [], []
+                busy = coll = None
+                for t in range(S8A_TICKS):
+                    made = []     # the tick's routes, copied after its wall
+
+                    def tick():
+                        with torch.no_grad(), recorded() as calls:
+                            lg = srv.decode_step(params, tokens, cache,
+                                                 lengths)[0]
+                        made.extend(calls)
+                        return lg
+
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    if t == 1:
+                        with CostCounter() as cc:
+                            lg = tick()
+                        coll = dict(cc.collectives.counts)
+                    elif t == S8A_TICKS - 1:
+                        box = []
+                        busy = tick_busy_ms(
+                            torch, lambda: box.append(tick()),
+                            res["log"].append,
+                            tag=f"slice8b3b_{cell}_{scheme}_rank{rank}",
+                            cpu=False, host_copies=False)
+                        lg = box[0]
+                    else:
+                        lg = tick()
+                    torch.cuda.synchronize()
+                    walls.append(1e3 * (time.perf_counter() - t1))
+                    routes.extend(c.cpu() for c in made)
+                    if rank == 0:
+                        logits.append(lg.float().cpu())
+                    tokens = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+                    toks.append(tokens.cpu())
+                    lengths = lengths + 1
+                res[cell, scheme] = dict(
+                    logits=logits, tokens=toks, walls=walls, busy=busy,
+                    collectives=coll, routes=routes if rank == 0 else None,
+                    peak=torch.cuda.max_memory_allocated(),
+                    launches={n: c.launches for n, c in counters().items()
+                              if c.launches},
+                    secs=time.perf_counter() - t0)
+                del params, cache, srv
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, out_dir / f"rank{rank}.pt")
+
+
+def s8b3b_spawn(seed, out_dir, world=2):
+    """The slice 8b-3b gloo ranks as subprocesses, within S8B3B_TIMEOUT."""
+    import os
+
+    from repro_torch.launch.mesh import run_ranks
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    logs = [open(out_dir / f"rank{r}.out", "w") for r in range(world)]
+    try:
+        codes = run_ranks(
+            [[sys.executable, "-c", f"import chip_smoke; chip_smoke."
+              f"slice8b3b_rank({r}, {world}, {str(out_dir)!r}, {seed})"]
+             for r in range(world)], env=env, cwd=str(ROOT),
+            timeout=S8B3B_TIMEOUT, outputs=logs)
+    finally:
+        for f in logs:
+            f.close()
+    check(codes == [0] * world, "slice 8b-3b: gloo ranks exited "
+          f"{codes}: " + " ".join(
+              f"--- rank {r}: {(out_dir / f'rank{r}.out').read_text()[-2000:]}"
+              for r in range(world)))
+
+
+def s8b3b_dryrun(log):
+    """The mesh dry run's CLI in this process (the CPU, the meta device):
+    qwen2-0.5b x decode_32k as rank 0 of the single pod under torch's fake
+    process group, which this machine's torch must have."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    out = Path(tempfile.mkdtemp(prefix="dryrun_mesh_"))
+    try:
+        t0 = time.perf_counter()
+        rc = dryrun.main(["--mesh", "single", "--arch", ARCH, "--shape",
+                          "decode_32k", "--no-probes", "--out", str(out)])
+        rec = json.loads((out / f"{ARCH}__decode_32k__16x16.json")
+                         .read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    full = rec.get("full", {})
+    log(f"slice 8b-3b dry run --mesh single {ARCH} decode_32k on the CPU: "
+        f"rc {rc}, {time.perf_counter() - t0:.1f}s, chips {rec['chips']}, "
+        f"fsdp_params {rec.get('fsdp_params')}, rank 0's argument bytes "
+        f"{full.get('argument_size_in_bytes')}, per_device_bytes "
+        f"{full.get('per_device_bytes')}, collectives "
+        f"{full.get('collective_counts')} "
+        f"({full.get('collective_bytes')} B)")
+    check(rc == 0 and rec["ok"] and rec["chips"] == 256
+          and full.get("collective_bytes", 0) > 0,
+          f"slice 8b-3b: the mesh dry run failed: {rec.get('error', rec)}")
+    check(not dist.is_initialized(), "slice 8b-3b: the dry run left a "
+          "process group behind")
+
+
+def slice8b3b_phase(torch, seed, log, launches):
+    """Slice 8b-3b on the card: the mesh dry run's CLI in this process
+    (``s8b3b_dryrun``), then two gloo ranks on cuda:0 (subprocesses,
+    spawned once) run S8B3B_RUNS through ``serving/sharded.py`` on the
+    "cuda" plan, each rank with its TP cut of the params (column-parallel
+    q / k / v gathered whole, row-parallel wo, the MLP or the experts'
+    F) and its slice of AH's 4 x 32,768 cache: 16 greedy ticks a scheme,
+    rows 3-4's shard partials and rows 1-2 on the cut weights. Then the
+    same ticks unsharded here on the "cuda" plan, fed the ranks' tokens
+    (AW's twice: its router free, then with rank 0's expert choices
+    forced): every tick's logits within LOGITS_TOL, free too on the rows
+    whose experts agree with rank 0's, at most S8B3B_FLIPS expert sets
+    chosen otherwise, tokens equal or near ties, the ranks' tokens alike, the collectives of a tick as
+    ``s8b3b_collectives`` derives them, each partial kernel once a layer
+    a tick, rows 1 and 2 launched; each rank's wall (median tick), busy
+    (one profiled tick, host copies left out) and peak memory beside the
+    card's name and power limit. The walls carry gloo's host copies and
+    both ranks share one card: not multi-card numbers."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.plan import make_plan
+    from repro_torch.models.layers import LayerCtx
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    s8b3b_dryrun(log)
+    out_dir = Path(tempfile.mkdtemp(prefix="slice8b3b_"))
+    try:
+        t0 = time.perf_counter()
+        s8b3b_spawn(seed, out_dir)
+        ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+        log(f"slice 8b-3b gloo run: 2 ranks on cuda:0, "
+            f"{time.perf_counter() - t0:.1f}s with the ranks' start; "
+            + ", ".join(f"{c} {s} {ranks[0][c, s]['secs']:.1f}s"
+                        for c, _, _ in S8B3B_RUNS for s in S8A_SCHEMES))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        for line in res["log"]:
+            log(f"slice 8b-3b rank {r}: {line}")
+    recorded = s8b3b_routes()
+    checks = []
+    for cell, arch, layers in S8B3B_RUNS:
+        cfg = s8b3b_config(arch, layers)
+        for scheme in S8A_SCHEMES:
+            r0, r1 = ranks[0][cell, scheme], ranks[1][cell, scheme]
+            api, params, cache, tokens, lengths = s8a_model(torch, cfg, seed)
+            ctx = LayerCtx(cfg, make_plan("cuda", scheme=scheme))
+            worst, free_worst, ties, flips = 0.0, 0.0, 0, 0
+            force = r0["routes"] if cfg.moe is not None else None
+            forced_calls = 0
+            for t in range(S8A_TICKS):
+                a = r0["logits"][t][:, :cfg.vocab_size]
+                if force is not None:
+                    # the router free first; the forced tick then rewrites
+                    # the cache at the same positions
+                    with torch.no_grad(), recorded() as free:
+                        got = api.decode_step(ctx, params, tokens, cache,
+                                              lengths)[0].float().cpu()
+                    n, flipped = s8b3b_flipped(
+                        torch, force[forced_calls:forced_calls + len(free)],
+                        free, a.shape[0])
+                    flips += n
+                    err = (a - got[:, :cfg.vocab_size]).abs().amax(-1)
+                    err = err[~flipped].max().item() if (~flipped).any() \
+                        else 0.0
+                    free_worst = max(free_worst, err)
+                    checks.append((err <= LOGITS_TOL,
+                                   f"slice 8b-3b {cell} {scheme} tick {t}: "
+                                   "logits of rows whose experts agree "
+                                   f"differ by {err} with the router free"))
+                with torch.no_grad(), recorded(
+                        None if force is None
+                        else force[forced_calls:]) as calls:
+                    want = api.decode_step(ctx, params, tokens, cache,
+                                           lengths)[0].float().cpu()
+                forced_calls += len(calls)
+                w = want[:, :cfg.vocab_size]
+                row_err = (a - w).abs().amax(-1)
+                tok = a.argmax(-1)
+                near = (w.amax(-1) - w.gather(1, tok[:, None])[:, 0]
+                        <= 2 * row_err)
+                agree = tok == w.argmax(-1)
+                worst = max(worst, row_err.max().item())
+                ties += int((near & ~agree).sum())
+                checks.append((row_err.max().item() <= LOGITS_TOL,
+                               f"slice 8b-3b {cell} {scheme} tick {t}: "
+                               f"logits differ by {row_err.max().item()}"))
+                checks.append((bool((agree | near).all()),
+                               f"slice 8b-3b {cell} {scheme} tick {t}: a "
+                               "greedy token differs by more than a near "
+                               "tie"))
+                checks.append((torch.equal(r0["tokens"][t], r1["tokens"][t]),
+                               f"slice 8b-3b {cell} {scheme} tick {t}: the "
+                               "ranks' tokens differ"))
+                tokens = r0["tokens"][t].cuda()
+                lengths = lengths + 1
+            del params, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+            if force is not None:
+                checks.append((flips <= S8B3B_FLIPS,
+                               f"slice 8b-3b {cell} {scheme}: the free "
+                               f"router chose otherwise {flips} expert "
+                               f"sets, past {S8B3B_FLIPS}"))
+            want_coll = s8b3b_collectives(cfg, scheme)
+            partial = S8A_PARTIALS[scheme]
+            for r, res in enumerate((r0, r1)):
+                for n, c in res["launches"].items():
+                    launches[n] = launches.get(n, 0) + c
+                checks.append((res["collectives"] == want_coll,
+                               f"slice 8b-3b {cell} {scheme}: rank {r} "
+                               f"issued {res['collectives']} in a tick, not "
+                               f"{want_coll}"))
+                checks.append((res["launches"].get(partial, 0)
+                               == S8A_TICKS * cfg.num_layers,
+                               f"slice 8b-3b {cell} {scheme}: rank {r}'s "
+                               f"{partial} launched "
+                               f"{res['launches'].get(partial, 0)} times"))
+                checks.append((res["launches"].get("gemv", 0)
+                               + res["launches"].get("flat_gemm", 0) > 0,
+                               f"slice 8b-3b {cell} {scheme}: rank {r} "
+                               "launched no GEMM kernel"))
+            walls = [statistics.median(res["walls"]) for res in (r0, r1)]
+            busy = ["not measured" if res["busy"] is None
+                    else f"{res['busy']:.3f} ms" for res in (r0, r1)]
+            moe = (f"; expert sets of rank 0's tokens that the free "
+                   f"unsharded router chose otherwise {flips} (bound "
+                   f"{S8B3B_FLIPS}), its logits on the rows that agree "
+                   f"within {free_worst:.4f}; the max_abs_err above with "
+                   "rank 0's choices forced" if force is not None else "")
+            log(f"slice 8b-3b {cell} ({arch}, {cfg.num_layers} layers, "
+                f"(1, 2) TP, {scheme}; {smi}): {S8A_TICKS} ticks, logits vs "
+                f"unsharded max_abs_err={worst:.4f} (tol {LOGITS_TOL}), near "
+                f"ties {ties}{moe}; collectives a tick {r0['collectives']} / "
+                f"{r1['collectives']} (derived {want_coll}); launches a rank "
+                f"{r0['launches']}; per rank wall (median of {S8A_TICKS}) "
+                f"{walls[0]:.3f} / {walls[1]:.3f} ms, busy {busy[0]} / "
+                f"{busy[1]} (one tick, profiled, host copies left out), peak "
+                f"{r0['peak'] / 2**30:.2f} / {r1['peak'] / 2**30:.2f} GiB; the "
+                "walls carry gloo's host copies and both ranks share one "
+                "card: not a multi-card number")
+    for ok, msg in checks:
+        check(ok, msg)
+
+
 def examples_phase(log):
     """The port's examples on the card (qwen2-0.5b's published widths),
     three subprocesses at once; fails if any exits non-zero."""
@@ -8119,6 +8516,11 @@ def main(argv=None) -> int:
                     help="build, then only the slice 8b-3a phase (rwkv6 "
                     "and hymba under TP and int8-EF, on two gloo ranks on "
                     "one card); prints no result line")
+    ap.add_argument("--slice8b3b-only", action="store_true",
+                    help="build, then only the slice 8b-3b phase (the mesh "
+                    "dry run in process; qwen2-0.5b and dbrx-132b decoding "
+                    "under TP on two gloo ranks on one card); prints no "
+                    "result line")
     ap.add_argument("--slice8b2-only", action="store_true",
                     help="build, then only the slice 8b-2 phase (the "
                     "pipeline over pod, MoE on a data mesh and under TP, "
@@ -8164,6 +8566,13 @@ def main(argv=None) -> int:
         + ", ".join(f"{k}={v:.1f}s" for k, v in secs.items()))
 
     rows = {}
+    if args.slice8b3b_only:
+        t0 = time.perf_counter()
+        slice8b3b_phase(torch, args.seed, log, {})
+        log(f"slice 8b-3b phase: {time.perf_counter() - t0:.1f}s")
+        (OUT_DIR / "chip_smoke.log").write_text("\n".join(log_lines) + "\n")
+        print(smi)
+        return 0
     if args.slice8b3_only:
         t0 = time.perf_counter()
         slice8b3_phase(torch, args.seed, log)
@@ -8328,6 +8737,8 @@ def main(argv=None) -> int:
     mark("slice 8b-2")
     slice8b3_phase(torch, args.seed, log)
     mark("slice 8b-3a")
+    slice8b3b_phase(torch, args.seed, log, launches)
+    mark("slice 8b-3b")
     examples_phase(log)
     mark("examples")
 

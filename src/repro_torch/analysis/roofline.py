@@ -4,6 +4,10 @@
   memory     = bytes            / (chips x HBM bandwidth)
   collective = collective bytes / (chips x NVLINK_BW)
 
+On a mesh the collective bytes are a rank's counted bytes times the chips
+(the dry run's records keep the rank's), so the term is a rank's bytes
+over one card's NVLink rate.
+
 The port of the JAX package's ``repro.analysis.roofline``. FLOPs, bytes
 and collective bytes come from :mod:`repro_torch.analysis.cost`, counted
 by the dry run (``repro_torch.launch.dryrun``) over two probes of one and
@@ -27,7 +31,11 @@ from repro_torch.config import ModelConfig, ShapeConfig
 
 # NVLink 4 on the H100 SXM: 900 GB/s a card over its 18 links, 450 GB/s a
 # direction (NVIDIA H100 data sheet). Kept here, not in HardwareSpec: the
-# spec's fields hash into every tuned plan's provenance.
+# spec's fields hash into every tuned plan's provenance. It is taken for
+# every hop: on the pod meshes (16 x 16, 2 x 16 x 16) a 16-rank ``model``
+# group spans two 8-card NVLink nodes and the batch groups span many, whose
+# hops between nodes run at the network's rate, far below NVLink's, so
+# the collective term is a lower bound there.
 NVLINK_BW = 450e9
 
 

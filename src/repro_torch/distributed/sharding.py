@@ -35,7 +35,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.config import MeshConfig
-from repro_torch.distributed.collectives import all_gather_flat
+from repro_torch.distributed.collectives import all_gather_flat, fsdp_gather
+from repro_torch.models.stack import tree_leaves, tree_map
 
 
 class P(tuple):
@@ -329,7 +330,7 @@ def local_shard(x: torch.Tensor, spec: P, mesh) -> torch.Tensor:
     return x
 
 
-def _local_shape(shape: tuple[int, ...], spec: P, mesh) -> tuple[int, ...]:
+def local_shape(shape: tuple[int, ...], spec: P, mesh) -> tuple[int, ...]:
     out = list(shape)
     for dim, entry in enumerate(spec):
         if entry is not None:
@@ -352,13 +353,51 @@ def make_shard_fn(mesh, rules: Optional[Rules]) -> Callable:
 
     def shard(x: torch.Tensor, role: str, global_shape) -> torch.Tensor:
         spec = rules.act_spec(role, tuple(global_shape))
-        want = _local_shape(tuple(global_shape), spec, mesh)
+        want = local_shape(tuple(global_shape), spec, mesh)
         if tuple(x.shape) != want:
             raise ValueError(f"{role}: the local shard of {tuple(global_shape)}"
                              f" under {spec} is {want}, not {tuple(x.shape)}")
         return x
 
     return shard
+
+
+def fsdp_dim(spec: P, model_axis: str) -> Optional[int]:
+    """The dim of a param's spec that an FSDP (batch) axis cuts, or
+    None."""
+    dims = [i for i, e in enumerate(spec) if e is not None
+            and e != model_axis]
+    return dims[0] if dims else None
+
+
+def regroup(tree: Any, specs: Any, model_axis: str, pick, fn) -> Any:
+    """``tree`` with ``fn(leaves, fsdp dims)`` applied to the leaves whose
+    FSDP dim (:func:`fsdp_dim` of their spec in ``specs``) ``pick`` takes,
+    one call a dtype (one packed collective each); ``fn`` returns the new
+    leaves in order."""
+    leaves = tree_leaves(tree)
+    dims = tree_leaves(tree_map(lambda _, s: fsdp_dim(s, model_axis),
+                                tree, specs))
+    groups: dict = {}
+    for i, t in enumerate(leaves):
+        if pick(dims[i]):
+            groups.setdefault(t.dtype, []).append(i)
+    for idx in groups.values():
+        for i, t in zip(idx, fn([leaves[i] for i in idx],
+                                [dims[i] for i in idx])):
+            leaves[i] = t
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def gather_fsdp(params: Any, specs: Any, mesh, rules: "Rules") -> Any:
+    """This rank's params with every FSDP-cut dim gathered over the FSDP
+    axes (one all-gather a dtype; backward: the gradients
+    reduce-scattered): what the tensor-parallel layers compute on. The
+    whole tree at once, as the JAX package's train step gathers it."""
+    return regroup(params, specs, rules.model_axis, lambda d: d is not None,
+                   lambda ts, dims: fsdp_gather(ts, dims, mesh,
+                                                rules.fsdp_axes))
 
 
 def shard_tree(tree: Any, spec_tree: Any, mesh) -> Any:

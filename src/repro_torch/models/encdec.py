@@ -20,6 +20,17 @@ follow the JAX package.
 
 The cache is ``k`` / ``v`` (L, B, max_seq, HK, Dh) and ``xk`` / ``xv``
 (L, B, S_enc, HK, Dh). It has no paged layout.
+
+**Serving on a mesh** (a context with ``decode_attention_fn``: every
+rank holds a slice of the sequence-split caches, ``Rules.cache_spec``'s
+cut) runs the layers tensor-parallel as the trainer does; the decode
+tick's q / k / v are gathered whole, both attentions run the sequence
+split where their cache is cut, and ``wo`` is row-parallel. The
+cross-attention cache is cut over ``model`` only where the encoder
+length divides it (1,500 frames over 16 ranks do not): a rank holds its
+slice of ``xk`` / ``xv`` or all of them, which its local length alone
+does not tell, so on a mesh the steps take the serving cache's global
+length, ENC_FRAMES_SERVE, and check the cache against it.
 """
 from __future__ import annotations
 
@@ -179,12 +190,13 @@ def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict, *,
             frames: Optional[torch.Tensor] = None, **kw):
     """Encode the frames (zeros of the cache's encoder length when none
     are given), run the decoder prompt, fill the self- and the
-    cross-attention caches in place. Returns last-token logits (B, Vp)
-    and the cache."""
+    cross-attention caches in place (this rank's slices of them on a
+    sequence-split context). Returns last-token logits (B, Vp) and the
+    cache."""
     cfg = ctx.cfg
     b, s = tokens.shape
     if frames is None:
-        frames = torch.zeros((b, cache["xk"].shape[2], cfg.d_model),
+        frames = torch.zeros((b, _enc_len(ctx, cache), cfg.d_model),
                              dtype=L.adt(cfg), device=tokens.device)
     enc_out = encode(ctx, params, frames)
     x = L.embed(ctx, params, tokens)
@@ -200,15 +212,54 @@ def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict, *,
         xx = xx + L.attention_out(ctx, p_i["cross"], q, xk, xv, causal=False)
         h = L.norm(cfg, p_i["mlp_norm"], xx)
         xx = xx + L.mlp_block(ctx, p_i["mlp"], h)
-        tfm.write_prompt_kv(c_i, k, v)
-        c_i["xk"].copy_(xk)
-        c_i["xv"].copy_(xv)
+        L.write_prompt_kv(ctx, c_i, k, v)
+        _write_cross_kv(ctx, c_i, xk, xv)
         return xx
 
     x, cache = stack.run_stack_cached(params["layers"], x, cache, blk)
     x = L.norm(cfg, params["final_norm"], x)
     logits = L.lm_logits(ctx, params, tfm._last_rows(x, lengths))[:, 0]
     return logits, cache
+
+
+def _enc_len(ctx: LayerCtx, cache: dict) -> int:
+    """The global encoder length of the cross-attention cache: its own
+    length on one device; on a sequence-split context ENC_FRAMES_SERVE,
+    checked against the local cache."""
+    local = cache["xk"].shape[2]
+    fn = ctx.decode_attention_fn
+    if fn is None:
+        return local
+    total = ENC_FRAMES_SERVE
+    m = fn.mesh.size(fn.model_axis)
+    if local != (total // m if _cross_cut(ctx, total) else total):
+        raise ValueError(f"the cross-attention cache holds {local} "
+                         f"positions, not this rank's part of the "
+                         f"{total} encoder frames")
+    return total
+
+
+def _cross_cut(ctx: LayerCtx, total: int) -> bool:
+    """The cross-attention cache's sequence of ``total`` positions is
+    cut over ``model`` here: on a sequence-split context, where the
+    axis divides it (``Rules.cache_spec``'s rule)."""
+    fn = ctx.decode_attention_fn
+    if fn is None:
+        return False
+    m = fn.mesh.size(fn.model_axis)
+    return total % m == 0 and total >= m
+
+
+def _write_cross_kv(ctx: LayerCtx, c_i: dict, xk, xv) -> None:
+    """Each layer's cross-attention KV (B, S_enc, HK, Dh) into the cache:
+    all of it, or this rank's slice where the cache is cut."""
+    xk, xv = L.whole_heads(ctx, xk, xv)
+    if _cross_cut(ctx, xk.shape[1]):
+        n = c_i["xk"].shape[1]
+        start = ctx.kv_start(n)
+        xk, xv = xk[:, start:start + n], xv[:, start:start + n]
+    c_i["xk"].copy_(xk)
+    c_i["xv"].copy_(xv)
 
 
 def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
@@ -222,32 +273,38 @@ def decode_step(ctx: LayerCtx, params: Params, tokens, cache: dict, lengths,
     (logits (B, Vp), cache)."""
     if block_tables is not None or decode_groups is not None:
         raise ValueError("the encoder-decoder caches have no paged layout")
-    step = functools.partial(_decode_step, ctx, params, cache)
+    step = functools.partial(_decode_step, ctx, params, cache,
+                             _enc_len(ctx, cache))
     return stack.run_decode(ctx.graphs, step, params, cache,
                             dict(tokens=tokens, lengths=lengths)), cache
 
 
-def _decode_step(ctx: LayerCtx, params: Params, cache: dict, *, tokens,
-                 lengths):
+def _decode_step(ctx: LayerCtx, params: Params, cache: dict, enc_len: int,
+                 *, tokens, lengths):
     """The decode step's work: logits (B, Vp), the cache written in
     place."""
     cfg = ctx.cfg
     x = L.embed(ctx, params, tokens[:, None])          # (B, 1, D)
     b = x.shape[0]
-    enc_lengths = torch.full((b,), cache["xk"].shape[2], dtype=torch.int32,
+    enc_lengths = torch.full((b,), enc_len, dtype=torch.int32,
                              device=x.device)
+    cross = (ctx.decode_attention_fn if _cross_cut(ctx, enc_len) else
+             functools.partial(ops.attention_decode, phi_cfg=ctx.phi_cfg,
+                               plan=ctx.plan))
 
     def blk(p_i, xx, c_i):
         h = L.norm(cfg, p_i["attn_norm"], xx)
         xx = xx + L.attention_decode_block(ctx, p_i["attn"], h, lengths,
                                            c_i["k"], c_i["v"], lengths)
-        # cross-attention against the static encoder KV
+        # cross-attention against the static encoder KV (q whole)
         h = L.norm(cfg, p_i["cross_norm"], xx)
-        q = ctx.matmul(h, p_i["cross"]["wq"]).reshape(b, cfg.num_heads,
-                                                      cfg.head_dim)
-        o = ops.attention_decode(q, c_i["xk"], c_i["xv"], enc_lengths,
-                                 phi_cfg=ctx.phi_cfg, plan=ctx.plan)
-        xx = xx + ctx.matmul(o.reshape(b, 1, cfg.q_dim), p_i["cross"]["wo"])
+        wq = p_i["cross"]["wq"]
+        q = L.gather_cut(ctx, [ctx.matmul(h, wq)], [ctx.model_sharded(
+            wq, -1, cfg.q_dim)])[0].reshape(b, cfg.num_heads, cfg.head_dim)
+        o = cross(q, c_i["xk"], c_i["xv"], enc_lengths)
+        xx = xx + L.row_parallel(ctx, o.reshape(b, 1, cfg.q_dim),
+                                 p_i["cross"]["wo"], cfg.q_dim,
+                                 "act_attn_out")
         h = L.norm(cfg, p_i["mlp_norm"], xx)
         return xx + L.mlp_block(ctx, p_i["mlp"], h)
 

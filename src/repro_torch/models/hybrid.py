@@ -37,6 +37,15 @@ over ``model`` before this rank's slice is kept (a whole ``w_bc``, where
 2 N does not divide over ``model``, has its output's gradient summed).
 Where a cut splits an SSM head, the projections are gathered whole and
 the scan is replicated.
+
+**Serving on a mesh** (a context with ``decode_attention_fn``) keeps the
+JAX package's cache layout: the ring's W slots cut over ``model`` (each
+rank holds slots [start, start + W / model)), the SSM state over the
+heads this rank scans. The decode tick gathers q / k / v whole, writes
+the new entry on the rank that holds its slot and joins the ranks' T1
+partials over the ring in one SUM all-reduce (sync: a MAX, then the SUM;
+as on the sequence-split cache, no overflow recompute), then ``wo`` runs
+row-parallel beside the TP SSM step.
 """
 from __future__ import annotations
 
@@ -50,7 +59,6 @@ from repro_torch.config import ModelConfig
 from repro_torch.core import softmax as smx
 from repro_torch.device import resolve
 from repro_torch.distributed import collectives as C
-from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import stack
 from repro_torch.models import transformer as tfm
@@ -244,26 +252,49 @@ def ssm_step(ctx: LayerCtx, p: Params, x: torch.Tensor, state: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+def _ring(ctx: LayerCtx, w_loc: int) -> tuple[int, int]:
+    """(first slot, W) of this rank's ``w_loc`` ring slots: (0, w_loc) on
+    one device, (its slice's start, w_loc x model) on a sequence-split
+    context."""
+    fn = ctx.decode_attention_fn
+    if fn is None:
+        return 0, w_loc
+    return fn.kv_start(w_loc), w_loc * fn.mesh.size(fn.model_axis)
+
+
 def ring_decode_attention(ctx: LayerCtx, qd: torch.Tensor,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
                           lengths: torch.Tensor) -> torch.Tensor:
     """T1 over the ring in torch math. qd (B, HQ, Dh); cache (B, W, HK,
-    Dh) ring; ``lengths`` after this step's write. Every slot is valid
-    once a row has W tokens, else the slots below its length. With the
-    unified scheme and ``fallback`` the synchronized result replaces the
-    unified one when max(s − φ) passes the band, selected on the device
-    (the JAX package's ``lax.cond``)."""
+    Dh) ring (this rank's slots on a sequence-split context, whose
+    partials meet over ``model``); ``lengths`` after this step's write.
+    Every slot is valid once a row has W tokens, else the slots below its
+    length. With the unified scheme and ``fallback`` the synchronized
+    result replaces the unified one when max(s − φ) passes the band,
+    selected on the device (the JAX package's ``lax.cond``; one device
+    only)."""
     cfg = ctx.cfg
-    w, hk = cache_k.shape[1], cache_k.shape[2]
+    w_loc, hk = cache_k.shape[1], cache_k.shape[2]
+    start, w = _ring(ctx, w_loc)
     groups = qd.shape[1] // hk
     kf = cache_k.repeat_interleave(groups, dim=2).float()
     vf = cache_v.repeat_interleave(groups, dim=2).float().transpose(1, 2)
     s = torch.einsum("bhd,bkhd->bhk", qd.float() * cfg.head_dim ** -0.5, kf)
-    slots = torch.arange(w, device=qd.device)[None, None]
+    slots = torch.arange(start, start + w_loc, device=qd.device)[None, None]
     lens = lengths.to(qd.device)[:, None, None]
     valid = (lens >= w) | (slots < lens)
     phi_cfg = ctx.phi_cfg
     dp = ctx.plan.attention_decode
+    fn = ctx.decode_attention_fn
+    if fn is not None:
+        group = fn.mesh.group(fn.model_axis)
+        if phi_cfg.active and dp.scheme == "unified_max":
+            out, _ = smx.combine_async_collective(
+                smx.async_partial(s, vf, phi_cfg.phi, valid), group)
+        else:
+            out = smx.combine_sync_collective(smx.sync_partial(s, vf, valid),
+                                              group)
+        return out.to(qd.dtype)
 
     def synced():
         part = smx.sync_partial(s, vf, valid)
@@ -327,14 +358,17 @@ def init_cache(cfg: ModelConfig, layout, dtype=None, device="cuda") -> dict:
     }
 
 
-def _ring_from_prefill(k: torch.Tensor, lengths: torch.Tensor,
-                       w: int) -> torch.Tensor:
+def _ring_from_prefill(k: torch.Tensor, lengths: torch.Tensor, w: int, *,
+                       start: int = 0,
+                       w_loc: Optional[int] = None) -> torch.Tensor:
     """Per-row ragged ring fill, k (B, T, H, Dh) -> (B, w, H, Dh): slot s
     holds position p(s) = (l - 1) - ((l - 1 - s) mod w), the one p in
     [l - w, l) with p % w == s; slots with p < 0 (a prompt shorter than
-    the ring) are zero."""
+    the ring) are zero. With ``w_loc`` only slots [start, start + w_loc)
+    (a rank's slice of a sequence-split ring)."""
     b, t = k.shape[:2]
-    s = torch.arange(w, device=k.device)[None, :]
+    s = torch.arange(start, start + (w if w_loc is None else w_loc),
+                     device=k.device)[None, :]
     l_ = lengths.to(k.device).long()[:, None]
     p = (l_ - 1) - torch.remainder(l_ - 1 - s, w)              # (B, w)
     rows = torch.arange(b, device=k.device)[:, None]
@@ -349,7 +383,8 @@ def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict,
     the final SSM state lands in the cache, in place. Returns last-token
     logits (B, Vp) and the cache."""
     cfg = ctx.cfg
-    w = cache["k"].shape[2]
+    w_loc = cache["k"].shape[2]
+    start, w = _ring(ctx, w_loc)
     x = L.embed(ctx, params, tokens)
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
@@ -359,17 +394,15 @@ def prefill(ctx: LayerCtx, params: Params, tokens, lengths, cache: dict,
     def blk(p_i, xx, c_i):
         h = L.norm(cfg, p_i["norm"], xx)
         q, k, v = L.attention_qkv(ctx, p_i["attn"], h, positions)
-        o = ops.attention_prefill(q, k, v, phi_cfg=ctx.phi_cfg, causal=True,
-                                  sliding_window=cfg.sliding_window,
-                                  plan=ctx.plan)
-        attn_out = ctx.matmul(o.reshape(b, t, cfg.q_dim), p_i["attn"]["wo"])
+        attn_out = L.attention_out(ctx, p_i["attn"], q, k, v)
         ssm_out, s_end = ssm_chunked(ctx, p_i["ssm"], h, return_state=True,
                                      valid=valid)
         xx = xx + attn_out + ssm_out
         h2 = L.norm(cfg, p_i["mlp_norm"], xx)
         xx = xx + L.mlp_block(ctx, p_i["mlp"], h2)
-        c_i["k"].copy_(_ring_from_prefill(k, lengths, w))
-        c_i["v"].copy_(_ring_from_prefill(v, lengths, w))
+        for name, kv in zip(("k", "v"), L.whole_heads(ctx, k, v)):
+            c_i[name].copy_(_ring_from_prefill(kv, lengths, w, start=start,
+                                               w_loc=w_loc))
         c_i["state"].copy_(s_end)
         return xx
 
@@ -401,18 +434,29 @@ def _decode_step(ctx: LayerCtx, params: Params, cache: dict, *, tokens,
     cfg = ctx.cfg
     x = L.embed(ctx, params, tokens[:, None])          # (B, 1, D)
     b = x.shape[0]
-    w = cache["k"].shape[2]
+    w_loc = cache["k"].shape[2]
+    start, w = _ring(ctx, w_loc)
     rows = torch.arange(b, device=x.device)
     slot = torch.remainder(lengths.long(), w)
+    # on a mesh the new entry lands on the rank that holds its slot
+    write = (None if ctx.decode_attention_fn is None
+             else L.slice_decode_write(cache["k"][0], slot, start))
 
     def blk(p_i, xx, c_i):
         h = L.norm(cfg, p_i["norm"], xx)
-        q, k, v = L.attention_qkv(ctx, p_i["attn"], h, lengths[:, None])
-        c_i["k"].index_put_((rows, slot), k[:, 0].to(c_i["k"].dtype))
-        c_i["v"].index_put_((rows, slot), v[:, 0].to(c_i["v"].dtype))
+        q, k, v = L.attention_qkv(ctx, p_i["attn"], h, lengths[:, None],
+                                  whole=True)
+        for name, new in (("k", k), ("v", v)):
+            if write is None:
+                c_i[name].index_put_((rows, slot),
+                                     new[:, 0].to(c_i[name].dtype))
+            else:
+                write.put(c_i[name], new)
         o = ring_decode_attention(ctx, q[:, 0], c_i["k"], c_i["v"],
                                   lengths + 1)
-        attn_out = ctx.matmul(o.reshape(b, 1, cfg.q_dim), p_i["attn"]["wo"])
+        attn_out = L.row_parallel(ctx, o.reshape(b, 1, cfg.q_dim),
+                                  p_i["attn"]["wo"], cfg.q_dim,
+                                  "act_attn_out")
         ssm_out, new_state = ssm_step(ctx, p_i["ssm"], h[:, 0],
                                       c_i["state"])
         xx = xx + attn_out + ssm_out[:, None]

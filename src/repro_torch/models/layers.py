@@ -38,9 +38,17 @@ SUM all-reduce over ``model`` (``collectives.reduce_from``), the
 embedding and the tied head vocabulary-parallel (a masked lookup, then an
 all-reduce; the loss's log-sum-exp reduced over ``model`` by a max and a
 sum, so the (B, S, V) logits are never gathered). A leaf is model-sharded
-where its shape is (``Rules.param_spec``'s divisibility), so the decode
-path, which holds whole params, is unchanged. FSDP is the train step's
-(``training/train_state.py``): the layers see the FSDP dims gathered.
+where its shape is (``Rules.param_spec``'s divisibility); whole params
+compute as on one card. FSDP is the caller's (the train step, or
+``serving/sharded.py``): the layers see the FSDP dims gathered.
+
+Serving on a mesh keeps the JAX package's layout: the decode tick's
+q / k / v gathered whole on every rank (:func:`attention_qkv` with
+``whole``), attention over this rank's slice of the sequence-split cache
+(``LayerCtx.decode_attention_fn``), ``wo`` row-parallel, the MLP column-
+then row-parallel, the embedding vocabulary-parallel and the logits
+gathered whole (:func:`lm_logits`); prefill writes this rank's slice of
+each cache (:func:`write_prompt_kv`).
 
 A GEMM weight leaf (``wq`` … ``w_down``) is a tensor or, under a quantized
 ``weight_dtype``, the ``{"codes", "scale"}`` dict of ``models/wquant.py``.
@@ -141,8 +149,19 @@ class LayerCtx:
     def model_sharded(self, w, dim: int, full: int) -> bool:
         """Dim ``dim`` of the param ``w`` (``full`` elements whole) is cut
         over ``model`` here. Never without a mesh (nor is ``w`` read
-        then: a quantized weight is a dict)."""
-        return self.mesh is not None and w.shape[dim] != full
+        then); a quantized weight is read through its codes."""
+        if self.mesh is None:
+            return False
+        if isinstance(w, dict):
+            w = w["codes"]
+        return w.shape[dim] != full
+
+    def kv_start(self, s_loc: int) -> int:
+        """The first position of this rank's ``s_loc``-wide slice of a
+        sequence-split cache: 0 unless ``decode_attention_fn`` splits the
+        cache (every rank of a sharded serving context holds a slice)."""
+        fn = self.decode_attention_fn
+        return 0 if fn is None else fn.kv_start(s_loc)
 
 
 def check_shard(ctx: LayerCtx, x: torch.Tensor, role: str,
@@ -317,7 +336,7 @@ def embed_params(cfg: ModelConfig, gen, device) -> Params:
 
 def attention_qkv(ctx: LayerCtx, p: Params, x: torch.Tensor,
                   positions: torch.Tensor, *, use_rope: bool = True,
-                  kv_x: Optional[torch.Tensor] = None):
+                  kv_x: Optional[torch.Tensor] = None, whole: bool = False):
     """x: (B, S, D) -> q (B,S,HQ,Dh), k/v (B,S,HK,Dh), rope applied
     unless ``use_rope=False``; with ``kv_x`` (B, Sk, D) the keys and
     values are projected from it, without bias (cross-attention). Under a
@@ -326,10 +345,13 @@ def attention_qkv(ctx: LayerCtx, p: Params, x: torch.Tensor,
     divisible over ``model``); where a split cuts a head (qwen2-0.5b's
     14 / 2 heads over ``model`` = 4), the sharded outputs are
     all-gathered over ``model`` before the heads are formed, and the
-    attention that follows is replicated."""
+    attention that follows is replicated. With ``whole`` they are
+    gathered whatever the head count: the decode tick's layout, in which
+    the new token's q / k / v are whole on every rank (the JAX package's
+    ``act_decode_rep``) and the cache holds whole heads."""
     cfg = ctx.cfg
     b, s, _ = x.shape
-    q, k, v = _qkv_proj(ctx, p, x, kv_x)
+    q, k, v = _qkv_proj(ctx, p, x, kv_x, whole)
     sk = s if kv_x is None else kv_x.shape[1]
     q = q.reshape(b, s, -1, cfg.head_dim)
     k = k.reshape(b, sk, -1, cfg.head_dim)
@@ -341,7 +363,8 @@ def attention_qkv(ctx: LayerCtx, p: Params, x: torch.Tensor,
 
 
 def _qkv_proj(ctx: LayerCtx, p: Params, x: torch.Tensor,
-              kv_x: Optional[torch.Tensor] = None) -> list:
+              kv_x: Optional[torch.Tensor] = None,
+              whole: bool = False) -> list:
     cfg = ctx.cfg
     cross = kv_x is not None
     src = (x, x, x) if not cross else (x, kv_x, kv_x)
@@ -366,8 +389,8 @@ def _qkv_proj(ctx: LayerCtx, p: Params, x: torch.Tensor,
         outs.append(y)
     if any(sharded):
         m = ctx.mesh.size(_model(ctx))
-        if not (all(sharded) and cfg.num_heads % m == 0
-                and cfg.num_kv_heads % m == 0):
+        if whole or not (all(sharded) and cfg.num_heads % m == 0
+                         and cfg.num_kv_heads % m == 0):
             outs = gather_cut(ctx, outs, sharded)
     return outs
 
@@ -404,17 +427,46 @@ def attention_out(ctx: LayerCtx, p: Params, q: torch.Tensor, k: torch.Tensor,
 def decode_ingest(ctx: LayerCtx, norm_p: Params, p: Params, x: torch.Tensor,
                   position: torch.Tensor):
     """Stage A: norm → QKV → bias → rope. x: (B, 1, D); position (B,).
-    Returns q (B, 1, HQ, Dh), k / v (B, 1, HK, Dh). The fused seam
-    claims rmsnorm models only; others keep the split composition."""
+    Returns q (B, 1, HQ, Dh), k / v (B, 1, HK, Dh), whole on every rank
+    under a mesh. The fused seam claims rmsnorm models with whole
+    weights only; others, and model-cut weights, keep the split
+    composition (column-parallel, then gathered): on the ``"torch"``
+    backend the seam's oracle is that composition (the JAX package's
+    layers.py:217-222), and the seam's kernel takes whole weights."""
     cfg = ctx.cfg
-    if ctx.fused and cfg.norm == "rmsnorm":
+    if (ctx.fused and cfg.norm == "rmsnorm"
+            and not ctx.model_sharded(p["wq"], -1, cfg.q_dim)):
         return ops.decode_ingest(
             x, norm_p["scale"], p["wq"], p["wk"], p["wv"], position,
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
             bq=p.get("bq"), bk=p.get("bk"), bv=p.get("bv"), plan=ctx.plan)
     h = norm(cfg, norm_p, x)
-    return attention_qkv(ctx, p, h, position[:, None])
+    return attention_qkv(ctx, p, h, position[:, None], whole=True)
+
+
+def whole_heads(ctx: LayerCtx, *ts) -> list:
+    """k / v (B, S, HK_loc, Dh) with their heads gathered whole over
+    ``model`` where the column-parallel projection left them cut (one
+    all-gather): what a cache of whole heads stores."""
+    if ctx.mesh is None or ts[0].shape[-2] == ctx.cfg.num_kv_heads:
+        return list(ts)
+    return C.gather_from(list(ts), -2, ctx.mesh, _model(ctx))
+
+
+def write_prompt_kv(ctx: LayerCtx, cache_i: dict, k, v) -> None:
+    """A prompt's KV (B, S, HK, Dh) into positions [0, S) of a layer's
+    dense cache, in place; positions past the cache's width are prompt
+    padding (a prompt fits ``max_seq``) and are dropped. On a
+    sequence-split context this rank's slice takes positions [start,
+    start + S_loc) (``ctx.kv_start``), the heads gathered whole first."""
+    k, v = whole_heads(ctx, k, v)
+    ck, cv = cache_i["k"], cache_i["v"]
+    s_loc = ck.shape[1]
+    start = ctx.kv_start(s_loc)
+    n = max(0, min(k.shape[1] - start, s_loc))
+    ck[:, :n] = k[:, start:start + n].to(ck.dtype)
+    cv[:, :n] = v[:, start:start + n].to(cv.dtype)
 
 
 def _scatter_kv(cache: torch.Tensor, new: torch.Tensor,
@@ -540,28 +592,34 @@ def attention_decode_block(ctx: LayerCtx, p: Params, x, position, cache_k,
     that norm outside and own the residual (the encoder-decoder's
     self-attention): QKV at ``position`` → the KV appended at each row's
     length in place → decode attention (rows 3-4) → the output
-    projection. x: (B, 1, D) -> (B, 1, D)."""
-    q, k, v = attention_qkv(ctx, p, x, position[:, None], use_rope=use_rope)
+    projection (row-parallel under a mesh). x: (B, 1, D) -> (B, 1, D)."""
+    q, k, v = attention_qkv(ctx, p, x, position[:, None], use_rope=use_rope,
+                            whole=True)
     o = decode_attend(ctx, q, k, v, cache_k, cache_v, lengths)
-    return ctx.matmul(o, p["wo"])
+    return row_parallel(ctx, o, p["wo"], ctx.cfg.q_dim, "act_attn_out")
 
 
 def decode_epilogue(ctx: LayerCtx, p: Params, o, resid):
-    """Stage C: ``resid + o @ wo``, one fused launch when claimed."""
-    if ctx.fused:
+    """Stage C: ``resid + o @ wo``, one fused launch when claimed and
+    ``wo`` is whole; a model-cut ``wo`` is row-parallel (the split
+    composition, which the seam's oracle equals on ``"torch"``)."""
+    if ctx.fused and not ctx.model_sharded(p["wo"], 0, ctx.cfg.q_dim):
         return ops.oproj_residual(o, p["wo"], resid, plan=ctx.plan)
-    return resid + ctx.matmul(o, p["wo"])
+    return resid + row_parallel(ctx, o, p["wo"], ctx.cfg.q_dim,
+                                "act_attn_out")
 
 
 def decode_mlp(ctx: LayerCtx, norm_p: Params, p: Params, x):
     """Stage D: norm → gate/up → act → down → residual. When claimed, two
     fused launches: ``ops.ffn_norm`` (the norm inside the gate/up pair)
     and ``ops.oproj_residual`` reused for ``x + h @ w_down``. The seam
-    claims rmsnorm models with a gated (swiglu / geglu) FFN only; others
-    keep the split composition."""
+    claims rmsnorm models with a gated (swiglu / geglu) FFN and whole
+    weights only; others keep the split composition (column- then
+    row-parallel under a mesh, as the trainer's)."""
     cfg = ctx.cfg
     if (ctx.fused and cfg.norm == "rmsnorm"
-            and cfg.activation in ("swiglu", "geglu")):
+            and cfg.activation in ("swiglu", "geglu")
+            and not ctx.model_sharded(p["w_down"], 0, cfg.d_ff)):
         h = ops.ffn_norm(x, norm_p["scale"], p["w_gate"], p["w_up"],
                          activation=cfg.activation, plan=ctx.plan)
         return ops.oproj_residual(h, p["w_down"], x, plan=ctx.plan)
@@ -681,10 +739,14 @@ def _head(p: Params) -> torch.Tensor:
 
 
 def lm_logits(ctx: LayerCtx, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Tied heads read ``embedding.T`` as a view: the GEMM kernels take
-    the (N, K) row-major layout in place. A vocabulary-parallel head
-    gives this rank's columns."""
-    return ctx.matmul(x, _head(p))
+    """The serving logits (..., Vp). Tied heads read ``embedding.T`` as a
+    view: the GEMM kernels take the (N, K) row-major layout in place. A
+    vocabulary-parallel head's columns are gathered whole (one
+    all-gather): the JAX package replicates the logits."""
+    head = _head(p)
+    y = ctx.matmul(x, head)
+    return gather_cut(ctx, [y], [ctx.model_sharded(
+        head, -1, vocab_padded(ctx.cfg))])[0]
 
 
 def cross_entropy_loss(ctx: LayerCtx, p: Params, x: torch.Tensor,
@@ -725,7 +787,7 @@ def _chunk_nll(ctx: LayerCtx, p: Params, x: torch.Tensor,
     tp = ctx.model_sharded(_head(p), -1, vp)
     if tp:
         x = C.copy_to(x, ctx.mesh, _model(ctx))
-    logits = lm_logits(ctx, p, x).float()
+    logits = ctx.matmul(x, _head(p)).float()     # this rank's columns
     start = ctx.mesh.coord(_model(ctx)) * n if tp else 0
     if vp != cfg.vocab_size:
         cols = start + torch.arange(n, device=logits.device)

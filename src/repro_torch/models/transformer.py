@@ -37,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.device import resolve
 from repro_torch.distributed import collectives as C
-from repro_torch.kernels import ops, quant
+from repro_torch.kernels import quant
 from repro_torch.models import layers as L
 from repro_torch.models import stack
 from repro_torch.models.kvlayout import KVLayout
@@ -172,25 +172,15 @@ def prefill_block(ctx: LayerCtx, p: Params, x, positions, cache_i: dict):
 def prefill_attention_half(ctx: LayerCtx, p: Params, x, positions,
                            cache_i: dict):
     """A full-prompt block's attention half: x plus flash prefill
-    attention, this layer's KV written into positions [0, S)."""
-    cfg = ctx.cfg
-    b, s, _ = x.shape
-    h = L.norm(cfg, p["attn_norm"], x)
+    attention (``layers.attention_out``: each rank's own heads where they
+    divide over ``model``, then ``wo`` row-parallel), this layer's KV
+    written into positions [0, S) (this rank's slice of them on a
+    sequence-split context)."""
+    h = L.norm(ctx.cfg, p["attn_norm"], x)
     q, k, v = L.attention_qkv(ctx, p["attn"], h, positions)
-    o = ops.attention_prefill(q, k, v, phi_cfg=ctx.phi_cfg, causal=True,
-                              sliding_window=cfg.sliding_window,
-                              plan=ctx.plan)
-    write_prompt_kv(cache_i, k, v)
-    return x + ctx.matmul(o.reshape(b, s, cfg.q_dim), p["attn"]["wo"])
-
-
-def write_prompt_kv(cache_i: dict, k, v) -> None:
-    """A prompt's KV (B, S, HK, Dh) into positions [0, S) of a layer's
-    dense cache, in place; positions past the cache's width are prompt
-    padding (a prompt fits ``max_seq``) and are dropped."""
-    n = min(k.shape[1], cache_i["k"].shape[1])
-    cache_i["k"][:, :n] = k[:, :n].to(cache_i["k"].dtype)
-    cache_i["v"][:, :n] = v[:, :n].to(cache_i["v"].dtype)
+    o = L.attention_out(ctx, p["attn"], q, k, v)
+    L.write_prompt_kv(ctx, cache_i, k, v)
+    return x + o
 
 
 # ---------------------------------------------------------------------------

@@ -43,8 +43,9 @@ import torch
 from repro_torch.config import MeshConfig, RunConfig
 from repro_torch.core.plan import DEFAULT_PLAN
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import (P, gather_tree, local_shard,
-                                              make_rules, make_shard_fn,
+from repro_torch.distributed.sharding import (P, gather_fsdp, gather_tree,
+                                              local_shard, make_rules,
+                                              make_shard_fn, regroup,
                                               shard_tree)
 from repro_torch.models.api import ModelApi
 from repro_torch.models.layers import LayerCtx
@@ -193,19 +194,6 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: dict):
     return loss.detach(), tree_map(lambda p: p.grad, leaves)
 
 
-def _fsdp_dim(spec: P, model_axis: str) -> Optional[int]:
-    dims = [i for i, e in enumerate(spec) if e is not None
-            and e != model_axis]
-    return dims[0] if dims else None
-
-
-def _by_dtype(pairs: list) -> dict:
-    groups: dict = {}
-    for i, t in pairs:
-        groups.setdefault(t.dtype, []).append((i, t))
-    return groups
-
-
 def make_grad_fn(api: ModelApi, ctx: LayerCtx, run: RunConfig, *,
                  mesh=None) -> Callable:
     """Build grads(params, batch) -> (loss, grads): the train step's
@@ -221,30 +209,11 @@ def make_grad_fn(api: ModelApi, ctx: LayerCtx, run: RunConfig, *,
         rules = ctx.rules
         specs = rules.param_spec_tree(api.init_params(device="meta"))
 
-    def regroup(tree, pick, fn):
-        """``fn(leaves, fsdp dims)`` over the leaves of ``tree`` whose
-        FSDP dim (None if no FSDP axis cuts it) ``pick`` takes, one call
-        a dtype."""
-        leaves = tree_leaves(tree)
-        dims = tree_leaves(tree_map(
-            lambda _, s: _fsdp_dim(s, rules.model_axis), tree, specs))
-        for group in _by_dtype([(i, t) for i, t in enumerate(leaves)
-                                if pick(dims[i])]).values():
-            idx = [i for i, _ in group]
-            for i, t in zip(idx, fn([t for _, t in group],
-                                    [dims[i] for i in idx])):
-                leaves[i] = t
-        it = iter(leaves)
-        return tree_map(lambda _: next(it), tree)
-
     def loss_fn(params, batch):
         if mesh is not None:
             # the FSDP dims gathered (one all-gather a dtype); the
             # backward pass reduce-scatters their gradients
-            params = regroup(
-                params, lambda d: d is not None,
-                lambda ts, dims: C.fsdp_gather(ts, dims, mesh,
-                                               rules.fsdp_axes))
+            params = gather_fsdp(params, specs, mesh, rules)
         return api.train_loss(ctx, params, batch, remat=remat)
 
     def compute_grads(params, batch):
@@ -273,7 +242,8 @@ def make_grad_fn(api: ModelApi, ctx: LayerCtx, run: RunConfig, *,
         if mesh is not None:
             # leaves no FSDP axis cuts: their gradients summed over the
             # batch axes (one all-reduce a dtype)
-            grads = regroup(grads, lambda d: d is None,
+            grads = regroup(grads, specs, rules.model_axis,
+                            lambda d: d is None,
                             lambda ts, _: C.all_reduce_flat(
                                 ts, mesh, rules.act_batch_axes))
         return loss, grads

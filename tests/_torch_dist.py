@@ -26,6 +26,24 @@ from repro_torch.launch.mesh import run_ranks
 ROOT = Path(__file__).resolve().parents[1]
 
 
+# The sharded train step's collectives, derived from the code (the smoke
+# qwen2-0.5b, remat on, 2 layers, 8 loss chunks): forward: the FSDP
+# all-gather, the embedding's all-reduce, two a layer (wo, w_down), two a
+# loss chunk (max; exponent sum with the label's logit), the loss's batch
+# mean; recomputed in the backward pass: each layer's attention
+# all-reduce (the recompute stops at the last saved tensor: the MLP's
+# all-reduce feeds none), each chunk's two; backward: two a layer (the
+# copies into the TP region), one a chunk (the head's copy), the FSDP
+# reduce-scatter; then the replicated leaves' batch sum and the global
+# norm. Without model: the FSDP pair, the loss mean, the batch sum and the
+# norm. Held against the gloo runs (tests/test_torch_sharded_train.py) and
+# against the dry run's meta count of one rank
+# (tests/test_torch_mesh_dryrun.py).
+TRAIN_COLLECTIVES = {(2, 2): {"all-reduce": 55, "all-gather": 1},
+                     (1, 2): {"all-reduce": 52},
+                     (2, 1): {"all-reduce": 4, "all-gather": 1}}
+
+
 def run(task: str, world: int, tmp_path, payload, timeout: float = 120.0,
         mesh=None):
     """``TASKS[task](mesh, payload)`` on ranks 0 .. world - 1 of the mesh
@@ -360,7 +378,7 @@ def task_layer(mesh, p):
     from repro_torch.models import transformer as T
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.models.stack import tree_map
-    from repro_torch.training.train_state import _fsdp_dim
+    from repro_torch.distributed.sharding import fsdp_dim as _fsdp_dim
 
     api, ctx, rules, specs = _train_setup(mesh, p)
     axes = rules.act_batch_axes
@@ -608,7 +626,78 @@ def task_jobs(mesh, p):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Serving on a mesh (tests/test_torch_mesh_dryrun.py)
+# ---------------------------------------------------------------------------
+
+
+def task_serve(mesh, p):
+    """Each job of ``p["jobs"]``: the smoke model on a mesh of its own over
+    this world, ``serving/sharded.py``'s prefill of this rank's rows into
+    its slice of a zero cache, then teacher-forced decode ticks (the
+    job's ``decode_tokens``); returns (rank 0) every step's logits and
+    the cache after the last, gathered whole, and (every rank) the
+    collectives of the prefill and of each tick."""
+    import torch
+
+    from repro_torch.analysis.cost import CostCounter
+    from repro_torch.config import MeshConfig
+    from repro_torch.core.plan import make_plan
+    from repro_torch.distributed import P, gather_tree, local_shard, shard_tree
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models.api import get_model
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.models.kvlayout import DenseLayout
+    from repro_torch.serving.sharded import (cache_specs, local_zeros,
+                                             serve_rules, sharded_serve)
+
+    out = []
+    for job in p["jobs"]:
+        shape, names = job["mesh"]
+        jmesh = make_mesh_from_config(MeshConfig(shape, names), device="cpu")
+        api = get_model(job["cfg"])
+        rules = serve_rules(jmesh, fsdp_params=job.get("fsdp", False))
+        srv = sharded_serve(api, make_plan("torch", fused_ffn=False,
+                                           decode_fusion=job["fusion"]),
+                            jmesh, rules)
+        params = shard_tree(params_from_numpy(job["params"], device="cpu"),
+                            srv.param_specs, jmesh)
+        b = job["tokens"].shape[0]
+        whole = api.init_cache(DenseLayout(b, job["max_seq"]), device="meta")
+        cspecs = cache_specs(whole, rules)
+        cache = local_zeros(whole, cspecs, jmesh, device="cpu")
+        rows = P(rules.batch_axes)
+
+        def mine(x):
+            return local_shard(torch.from_numpy(x), rows, jmesh).contiguous()
+
+        def gathered(x):
+            return gather_tree(x, rows, jmesh).numpy()
+
+        lengths = mine(job["lengths"])
+        counts, logits = [], []
+        with torch.no_grad():
+            with CostCounter() as cc:
+                lg, cache = srv.prefill(params, mine(job["tokens"]), lengths,
+                                        cache, **{k: mine(v) for k, v in
+                                                  job["extra"].items()})
+            counts.append(cc.collectives.counts)
+            logits.append(gathered(lg))
+            for toks in job["decode_tokens"]:
+                with CostCounter() as cc:
+                    lg, cache = srv.decode_step(params, mine(toks), cache,
+                                                lengths)
+                counts.append(cc.collectives.counts)
+                logits.append(gathered(lg))
+                lengths = lengths + 1
+        glob = gather_tree(cache, cspecs, jmesh)
+        first = jmesh.axes_coord(jmesh.axis_names) == 0
+        out.append(dict(counts=counts, logits=logits if first else None,
+                        cache=_numpy(glob) if first else None))
+    return out
+
+
 TASKS = {"combine": task_combine, "attention": task_attention,
          "decode": task_decode, "train": task_train, "layer": task_layer,
          "ckpt": task_ckpt, "int8": task_int8,
-         "pipeline": task_pipeline, "jobs": task_jobs}
+         "pipeline": task_pipeline, "jobs": task_jobs, "serve": task_serve}

@@ -18,8 +18,10 @@ the JAX package, on the CPU.
   the measured ratios lie in 0.96-1.06.
 * Exact linearity: the count at five layers equals ``extrapolate`` of
   one and three to five (relative 1e-9), FLOPs and bytes.
-* The CLI: ``main`` writes a record with the JAX keys, ``--mesh`` raises,
-  and a cell runs with JAX not importable.
+* The CLI: ``main`` writes a record with the JAX keys, on one card and
+  as rank 0 of the pod meshes (``--mesh single``, ``--mesh multi``,
+  int8-EF; no process group left behind), ``--grad-compression`` without
+  a mesh raises, and cells run with JAX not importable.
 
 ``repro.launch.dryrun`` is not imported: it sets ``XLA_FLAGS`` to 512
 host devices when imported.
@@ -296,11 +298,46 @@ def test_cli_writes_a_record_with_the_jax_keys(tmp_path, capsys):
     assert "whisper-tiny" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--mesh", "single"], ["--mesh", "multi"],
-                                  ["--grad-compression", "int8_ef"]])
-def test_cli_refuses_what_needs_a_mesh(argv, tmp_path):
-    with pytest.raises(ValueError, match="slice 8"):
-        dryrun.main(argv + ["--out", str(tmp_path)])
+@pytest.mark.parametrize("argv,mesh,chips", [
+    (["--mesh", "single"], "16x16", 256),
+    (["--mesh", "multi", "--no-probes"], "2x16x16", 512),
+    (["--mesh", "multi", "--grad-compression", "int8_ef", "--no-probes"],
+     "2x16x16", 512)], ids=["single", "multi", "multi-int8_ef"])
+def test_cli_runs_the_pod_meshes(argv, mesh, chips, tmp_path):
+    """whisper-tiny x decode_32k as rank 0 of each pod mesh: a record
+    with the JAX keys, the mesh's name and chips, the rank's collectives
+    (nonzero), the one-card global counts beside its own; probes and the
+    roofline terms (a nonzero collective term) on the single pod only;
+    no default process group left."""
+    rc = dryrun.main(argv + ["--arch", "whisper-tiny", "--shape",
+                             "decode_32k", "--out", str(tmp_path)])
+    assert rc == 0
+    rec = json.loads((tmp_path / f"whisper-tiny__decode_32k__{mesh}.json")
+                     .read_text())
+    assert JKEYS <= set(rec)
+    assert (rec["mesh"], rec["chips"], rec["ok"]) == (mesh, chips, True)
+    full = rec["full"]
+    for key in ("argument_size_in_bytes", "temp_size_in_bytes",
+                "output_size_in_bytes", "per_device_bytes",
+                "flops_per_device", "bytes_per_device", "flops_global",
+                "bytes_global", "collective_counts", "collective_by_kind"):
+        assert key in full, key
+    assert full["collective_bytes"] > 0
+    assert full["flops_per_device"] < full["flops_global"]
+    assert rec["fsdp_params"] is False
+    if mesh == "16x16":
+        assert [p["num_layers"] for p in rec["probes"]] == [1, 3]
+        assert rec["terms"]["chips"] == 256
+        assert rec["terms"]["collective_s"] > 0
+    else:
+        assert rec["probes"] == [] and "terms" not in rec
+    assert not torch.distributed.is_initialized()
+
+
+def test_cli_refuses_grad_compression_without_a_mesh(tmp_path):
+    with pytest.raises(ValueError, match="--mesh multi"):
+        dryrun.main(["--grad-compression", "int8_ef", "--out",
+                     str(tmp_path)])
 
 
 def test_weight_dtype_counts_quantized_serving_params():
@@ -327,8 +364,8 @@ class Block:
             raise ImportError(f"blocked: {name}")
 sys.meta_path.insert(0, Block())
 from repro_torch.launch import dryrun
-sys.exit(dryrun.main(["--arch", "rwkv6-1.6b", "--shape", "long_500k",
-                      "--out", sys.argv[1]]))
+cell = ["--arch", "rwkv6-1.6b", "--shape", "long_500k", "--out", sys.argv[1]]
+sys.exit(dryrun.main(cell) or dryrun.main(cell + ["--mesh", "single"]))
 """
 
 
@@ -338,5 +375,6 @@ def test_cli_runs_without_jax(tmp_path):
                          capture_output=True, text=True, env=env,
                          cwd=str(ROOT), timeout=300)
     assert res.returncode == 0, res.stderr
-    assert "failures=0" in res.stdout
+    assert res.stdout.count("failures=0") == 2
     assert (tmp_path / "rwkv6-1.6b__long_500k__1.json").exists()
+    assert (tmp_path / "rwkv6-1.6b__long_500k__16x16.json").exists()

@@ -398,13 +398,14 @@ def test_cli_trains_moe_on_a_data_mesh(tmp_path):
 
 
 @pytest.mark.parametrize("compression", ["none", "int8_ef"])
-def test_every_family_passes_the_mesh_setup(compression):
+def test_every_family_passes_the_mesh_setup(compression, tmp_path):
     """At (pod, data, model) = (2, 2, 2) every family's train step is set
     up as the CLI sets it up (``mesh_setup``, ``make_train_step``; a
     rank's mesh record, no process group: nothing is collective before
     the first step), with specs for every param leaf; no family is
-    refused on a mesh any more. The dry run's mesh is still to come, and
-    its refusal names the slice that ports it."""
+    refused on a mesh any more. The dry run counts a cell on the pod
+    meshes with either compression; int8-EF without a mesh is refused,
+    naming the mesh it needs."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.stack import tree_leaves
@@ -426,7 +427,12 @@ def test_every_family_passes_the_mesh_setup(compression):
         assert (specs.ef_err is not None) == (compression == "int8_ef")
     assert set(families) == {"dense", "moe", "encdec", "vlm", "ssm",
                              "hybrid"}, families
-    flag = (["--mesh", "single"] if compression == "none" else
-            ["--grad-compression", compression])
-    with pytest.raises(ValueError, match="slice 8b-3"):
-        dryrun.main(["--arch", "rwkv6-1.6b", *flag])
+    cell = ["--arch", "rwkv6-1.6b", "--shape", "long_500k", "--no-probes",
+            "--out", str(tmp_path)]
+    if compression == "none":
+        assert dryrun.main(cell + ["--mesh", "single"]) == 0
+    else:
+        with pytest.raises(ValueError, match="--mesh multi"):
+            dryrun.main(cell + ["--grad-compression", compression])
+        assert dryrun.main(cell + ["--mesh", "multi", "--grad-compression",
+                                   compression]) == 0

@@ -300,19 +300,9 @@ def _train(shape, names, tmp_path, compression="none"):
         compression=compression), mesh=(shape, names))
 
 
-# collectives a step, derived from the code (remat on, 2 layers, 8 loss
-# chunks): forward: the FSDP all-gather, the embedding's all-reduce, two
-# a layer (wo, w_down), two a loss chunk (max; exponent sum with the
-# label's logit), the loss's batch mean; recomputed in the backward pass:
-# each layer's attention all-reduce (the recompute stops at the last
-# saved tensor: the MLP's all-reduce feeds none), each chunk's two;
-# backward: two a layer (the copies into the TP region), one a chunk
-# (the head's copy), the FSDP reduce-scatter; then the replicated
-# leaves' batch sum and the global norm. Without model: the FSDP pair,
-# the loss mean, the batch sum and the norm.
-COLLECTIVES = {(2, 2): {"all-reduce": 55, "all-gather": 1},
-               (1, 2): {"all-reduce": 52},
-               (2, 1): {"all-reduce": 4, "all-gather": 1}}
+# collectives a step: _torch_dist.TRAIN_COLLECTIVES (derived there; the
+# mesh dry run's meta count of one rank is held to the same numbers)
+COLLECTIVES = _torch_dist.TRAIN_COLLECTIVES
 
 
 @pytest.mark.parametrize("shape", [(2, 2), (1, 2), (2, 1)])
